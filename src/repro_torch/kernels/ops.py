@@ -1,0 +1,45 @@
+"""Dispatch between the CUDA kernels and their plain PyTorch versions.
+
+``force`` selects a path: ``None`` takes the kernel for CUDA tensors and the
+plain version for CPU tensors; ``'kernel'`` takes the kernel and raises for
+tensors that are not on a CUDA device; ``'ref'`` takes the plain version
+(tests and ``chip_smoke.py`` use it to hold the kernels to it). A CUDA
+tensor never falls back to the plain version: a kernel that does not build
+or launch raises.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import ref
+
+FORCES = (None, "kernel", "ref")
+
+
+def _use_kernel(x, force) -> bool:
+    if force not in FORCES:
+        raise ValueError(f"force={force!r}; expected one of {FORCES}")
+    if force == "ref":
+        return False
+    if x.device.type == "cuda":
+        return True
+    if force == "kernel":
+        raise RuntimeError(f"force='kernel' needs CUDA tensors; got {x.device}")
+    if x.device.type != "cpu":
+        raise RuntimeError(f"no attention path for device {x.device}")
+    return False
+
+
+def flash_attention(q, k, v, *, window=None, force=None):
+    """Causal attention. q: [B,H,S,D]; k,v: [B,K,S,D]."""
+    if _use_kernel(q, force):
+        return _flash.flash_attention(q, k, v, window=window)
+    return ref.naive_attention(q, k, v, window=window)
+
+
+def decode_attention(q, k, v, length, *, window=None, force=None):
+    """One-token attention. q: [B,H,D]; k,v: [B,S,K,D]; positions < length."""
+    if _use_kernel(q, force):
+        return _decode.decode_attention(q, k, v, length, window=window)
+    return ref.naive_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
+                                      length, window=window)

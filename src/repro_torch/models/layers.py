@@ -1,0 +1,119 @@
+"""Core layers: RMSNorm, RoPE, SwiGLU MLP and full-attention GQA in prefill
+and decode mode. Functions on tensors; params are dict trees matching the
+``*_specs`` functions, with ``[in, out]`` weights as in the JAX package.
+
+Attention runs through :mod:`repro_torch.kernels.ops`: the CUDA kernels
+for tensors on the card, their plain versions for tensors on the CPU.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.params import ParamSpec
+
+
+def rmsnorm(x, w, eps=1e-5):
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+def rope(x, positions, theta):
+    """x: [..., S, H, D] (or [..., H, D] with per-row positions). Rotates the
+    two halves of each head; angles in float32."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].float() * freqs         # [..., S, half]
+    cos = torch.cos(ang).unsqueeze(-2)                 # broadcast over heads
+    sin = torch.sin(ang).unsqueeze(-2)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def attn_specs(cfg):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    sp = {
+        "wq": ParamSpec((d, H * hd), ("embed", "heads")),
+        "wk": ParamSpec((d, K * hd), ("embed", "kv")),
+        "wv": ParamSpec((d, K * hd), ("embed", "kv")),
+        "wo": ParamSpec((H * hd, d), ("heads", "embed")),
+    }
+    if cfg.qkv_bias:
+        sp["bq"] = ParamSpec((H * hd,), ("heads",), init="zeros")
+        sp["bk"] = ParamSpec((K * hd,), ("kv",), init="zeros")
+        sp["bv"] = ParamSpec((K * hd,), ("kv",), init="zeros")
+    return sp
+
+
+def _qkv(cfg, p, x):
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return q, k, v
+
+
+def attn_apply(cfg, p, x, *, mode, cache, window=None, pos=None, force=None):
+    """Full-attention GQA block.
+
+    prefill: x [B,S,d]; the K/V rows of positions ``0..S-1`` are written into
+    ``cache`` ({'k','v'}: [B,S_max,K*hd], S_max >= S).
+    decode: x [B,d]; ``pos`` (int) is the index of the incoming token. Its
+    K/V row is written into ``cache`` at ``pos`` in place, before attention,
+    which then covers positions ``< pos + 1``.
+    Returns (out, cache).
+    """
+    hd = cfg.resolved_head_dim
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    theta = cfg.rope_theta
+    kc, vc = cache["k"], cache["v"]
+
+    if mode == "prefill":
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)
+        q, k, v = _qkv(cfg, p, x)
+        q = rope(q.view(B, S, H, hd), positions, theta)
+        k = rope(k.view(B, S, K, hd), positions, theta)
+        v = v.view(B, S, K, hd)
+        # [B,S,H,D] -> [B,H,S,D] as views: the kernel takes strides
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), window=window, force=force)
+        out = o.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
+        kc[:, :S] = k.reshape(B, S, K * hd)
+        vc[:, :S] = v.reshape(B, S, K * hd)
+        return out, cache
+
+    if mode != "decode":
+        raise ValueError(f"mode {mode!r}; expected 'prefill' or 'decode'")
+    B, _ = x.shape
+    q, k, v = _qkv(cfg, p, x)
+    posv = torch.full((B,), pos, device=x.device)
+    q = rope(q.view(B, H, hd), posv, theta)
+    k = rope(k.view(B, K, hd), posv, theta).reshape(B, K * hd)
+    # in place, where the JAX package returns an updated copy of the cache
+    kc[:, pos] = k
+    vc[:, pos] = v
+    S_max = kc.shape[1]
+    o = ops.decode_attention(q, kc.view(B, S_max, K, hd), vc.view(B, S_max, K, hd),
+                             pos + 1, window=window, force=force)
+    out = o.reshape(B, H * hd) @ p["wo"]
+    return out, cache
+
+
+def mlp_specs(cfg, d_ff=None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "wi": ParamSpec((d, f), ("embed", "mlp")),
+        "wg": ParamSpec((d, f), ("embed", "mlp")),
+        "wo": ParamSpec((f, d), ("mlp", "embed")),
+    }
+
+
+def mlp_apply(p, x):
+    h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+    return h @ p["wo"]

@@ -1,0 +1,50 @@
+"""Model facade: build once from a ModelConfig, expose init/prefill/decode."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import rmsnorm
+from repro_torch.models.params import init_params
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: object
+    #: attention path for every layer: None | 'kernel' | 'ref' (kernels/ops.py)
+    force: Optional[str] = None
+
+    def specs(self):
+        return T.model_specs(self.cfg)
+
+    def init(self, seed: int, device):
+        return init_params(self.specs(), getattr(torch, self.cfg.param_dtype),
+                           seed=seed, device=device)
+
+    def alloc_caches(self, batch_size: int, max_len: int, device):
+        return T.alloc_caches(self.cfg, batch_size, max_len, device)
+
+    def prefill(self, params, tokens, *, max_len: Optional[int] = None):
+        """tokens: [B,S] int64. -> (last-position logits [B, Vp] float32,
+        caches allocated at ``max_len`` (default S) holding rows 0..S-1)."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        caches = self.alloc_caches(B, max_len or S, tokens.device)
+        h = T.embed_tokens(cfg, params, tokens)
+        h, caches = T.run_segments(cfg, params, h, mode="prefill",
+                                   caches=caches, force=self.force)
+        h_last = rmsnorm(h[:, -1], params["final_norm"], cfg.norm_eps)
+        return T.lm_head(cfg, params, h_last), caches
+
+    def decode_step(self, params, token, pos: int, caches):
+        """token: [B] int64; pos: index of the token. Updates ``caches`` in
+        place. -> (logits [B, Vp] float32, caches)."""
+        cfg = self.cfg
+        h = T.embed_tokens(cfg, params, token)
+        h, caches = T.run_segments(cfg, params, h, mode="decode", caches=caches,
+                                   pos=pos, force=self.force)
+        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        return T.lm_head(cfg, params, h), caches

@@ -1,0 +1,16 @@
+"""Step functions: what the serving engine calls per request."""
+from __future__ import annotations
+
+from repro_torch.models import Model
+
+
+def make_prefill_step(model: Model):
+    def prefill_step(params, tokens, max_len=None):
+        return model.prefill(params, tokens, max_len=max_len)
+    return prefill_step
+
+
+def make_decode_step(model: Model):
+    def decode_step(params, token, pos, caches):
+        return model.decode_step(params, token, pos, caches)
+    return decode_step

@@ -11,6 +11,10 @@ def pytest_configure(config):
         "markers",
         "slow: restart-matrix / chaos-adjacent tests — CI runs them in a "
         "separate tier-1 step (select with -m slow, skip with -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device and nvcc (the port's hand-written kernels); "
+        "skips without one — run with -m gpu on the card")
 
 
 @pytest.fixture(scope="session")
