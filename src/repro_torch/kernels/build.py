@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library. The libraries go to
 ``_build/<hash>/`` inside the package (listed in ``.gitignore``), where the
 hash covers the source and the command, so an edited source is rebuilt
-and an unchanged one is loaded as it is. :func:`build_all` starts one
-``nvcc`` per source, all at once.
+and an unchanged one is loaded as it is (the hash also covers the shared
+``csrc/*.cuh`` headers). :func:`build_all` starts one ``nvcc`` per source,
+all at once.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("flash_attention", "decode_attention")
+SOURCES = ("flash_attention", "decode_attention", "paged_decode_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -48,7 +49,8 @@ def nvcc_command(name: str, out: Path, nvcc: str = "nvcc") -> list[str]:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
 

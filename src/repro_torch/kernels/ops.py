@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import ref
 
 FORCES = (None, "kernel", "ref")
@@ -43,3 +44,24 @@ def decode_attention(q, k, v, length, *, window=None, force=None):
         return _decode.decode_attention(q, k, v, length, window=window)
     return ref.naive_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
                                       length, window=window)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *, window=None,
+                           force=None):
+    """One-token attention over a page pool. q: [B,H,D]; k/v pages: [P, page,
+    K, D]; page_table: [B, n] int32; lengths: [B] int32."""
+    if _use_kernel(q, force):
+        return _paged.paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
+                                             window=window)
+    return ref.naive_paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
+                                            window=window)
+
+
+def paged_attention_pool_view(q, view, *, window=None, force=None):
+    """:func:`paged_decode_attention` straight off a serving-pool view:
+    ``view`` is the ``(k_pages, v_pages, page_table, lengths)`` tuple of
+    :meth:`repro_torch.serving.kv_pool.PagePool.kernel_view`, the pool's
+    stores seen as ``[P, page, K, D]`` with no gather and no copy."""
+    k_pages, v_pages, page_table, lengths = view
+    return paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
+                                  window=window, force=force)

@@ -66,6 +66,12 @@ def attn_apply(cfg, p, x, *, mode, cache, window=None, pos=None, force=None):
     decode: x [B,d]; ``pos`` (int) is the index of the incoming token. Its
     K/V row is written into ``cache`` at ``pos`` in place, before attention,
     which then covers positions ``< pos + 1``.
+    paged_decode: one lane, x [1,d], over a page pool: ``cache`` holds this
+    layer's pages ``'k'``, ``'v'`` ([P, page, K, hd], the pool's strided
+    view), the lane's ``'table'`` [1, n] and ``'lengths'`` [1] (``pos + 1``)
+    int32 tensors, and ``'slot'``, the (page, offset) of ``pos``. The new
+    K/V row goes straight into that slot, then attention reads the pages
+    through the table: no dense copy of the cache is made.
     Returns (out, cache).
     """
     hd = cfg.resolved_head_dim
@@ -88,19 +94,30 @@ def attn_apply(cfg, p, x, *, mode, cache, window=None, pos=None, force=None):
         vc[:, :S] = v.reshape(B, S, K * hd)
         return out, cache
 
-    if mode != "decode":
-        raise ValueError(f"mode {mode!r}; expected 'prefill' or 'decode'")
+    if mode not in ("decode", "paged_decode"):
+        raise ValueError(f"mode {mode!r}; expected 'prefill', 'decode' or "
+                         "'paged_decode'")
     B, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
     posv = torch.full((B,), pos, device=x.device)
     q = rope(q.view(B, H, hd), posv, theta)
     k = rope(k.view(B, K, hd), posv, theta).reshape(B, K * hd)
     # in place, where the JAX package returns an updated copy of the cache
-    kc[:, pos] = k
-    vc[:, pos] = v
-    S_max = kc.shape[1]
-    o = ops.decode_attention(q, kc.view(B, S_max, K, hd), vc.view(B, S_max, K, hd),
-                             pos + 1, window=window, force=force)
+    if mode == "paged_decode":
+        if B != 1:
+            raise ValueError(f"paged_decode takes one lane; got {B} rows")
+        page, off = cache["slot"]
+        kc[page, off] = k.view(K, hd)
+        vc[page, off] = v.view(K, hd)
+        o = ops.paged_decode_attention(q, kc, vc, cache["table"], cache["lengths"],
+                                       window=window, force=force)
+    else:
+        kc[:, pos] = k
+        vc[:, pos] = v
+        S_max = kc.shape[1]
+        o = ops.decode_attention(q, kc.view(B, S_max, K, hd),
+                                 vc.view(B, S_max, K, hd), pos + 1, window=window,
+                                 force=force)
     out = o.reshape(B, H * hd) @ p["wo"]
     return out, cache
 

@@ -91,15 +91,24 @@ def alloc_caches(cfg, batch_size, max_len, device):
             for seg in plan_segments(cfg)]
 
 
-def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None):
+def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None, lane=None):
     """Runs all segments; a Python loop over a segment's stacked layer
     leaves takes the place of ``lax.scan``. Layer ``i`` reads and writes
-    ``caches[si]`` at index ``i`` in place. Returns (h, caches)."""
+    ``caches[si]`` at index ``i`` in place. Returns (h, caches).
+
+    ``mode='paged_decode'``: ``caches[si]`` is ``{"attn": {"k", "v"}}`` of
+    the page pool's ``[P, page, n_layers, K, hd]`` views and ``lane`` the
+    lane's ``table`` / ``lengths`` / ``slot`` (see ``layers.attn_apply``);
+    layer ``i`` takes the strided view ``[:, :, i]``, nothing is copied."""
     for si, seg in enumerate(plan_segments(cfg)):
         p, c = params["segments"][si], caches[si]
         for i in range(seg.n):
+            if mode == "paged_decode":
+                ci = {"attn": {"k": c["attn"]["k"][:, :, i],
+                               "v": c["attn"]["v"][:, :, i], **lane}}
+            else:
+                ci = tree_map(lambda t: t[i], c)
             h, _ = block_apply(cfg, seg.kind, tree_map(lambda t: t[i], p), h,
-                               mode=mode, window=seg.window,
-                               cache=tree_map(lambda t: t[i], c), pos=pos,
+                               mode=mode, window=seg.window, cache=ci, pos=pos,
                                force=force)
     return h, caches

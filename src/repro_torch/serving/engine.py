@@ -1,9 +1,10 @@
-"""The single-stream ``Server``: one batched sequence, prefilled once and
-decoded greedily token by token.
+"""Serving engines: the single-stream ``Server`` and the continuous-batching
+``ServeEngine`` fleet.
 
-The counterpart of the JAX package's ``serving/engine.Server`` without its
-checkpoint/restart plane (cluster, runtime-state registry, snapshots),
-which comes with a later slice of the port.
+The counterparts of the JAX package's ``serving/engine.Server`` and
+``ServeEngine`` without their checkpoint/restart plane (cluster, runtime-state
+registry, snapshots, recovery, the migration transport), which comes with a
+later slice of the port.
 """
 from __future__ import annotations
 
@@ -13,20 +14,15 @@ import numpy as np
 import torch
 
 from repro_torch import steps as ST
+from repro_torch.device import resolve_device, sync
 from repro_torch.models import Model
+from repro_torch.models import transformer as T
+from repro_torch.models.params import tree_leaves, tree_unflatten
+from repro_torch.serving import scheduler as SCHED
+from repro_torch.serving.kv_pool import PagePool, PoolOOMError
+from repro_torch.serving.scheduler import ContinuousBatchScheduler
 
-
-def resolve_device(device=None) -> torch.device:
-    """The card unless the caller names another device; no silent CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    return dev
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+__all__ = ["FleetSession", "ServeEngine", "Server", "resolve_device"]
 
 
 class Server:
@@ -81,8 +77,355 @@ class Server:
     def decode(self, n_tokens, first_token):
         """Greedy decode of ``n_tokens``; returns (tokens, seconds)."""
         self.start_decode(first_token)
-        _sync(self.device)
+        sync(self.device)
         t0 = time.perf_counter()
         out = [self.step_once() for _ in range(n_tokens)]
-        _sync(self.device)
+        sync(self.device)
         return out, time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# the continuous-batching fleet engine
+# ---------------------------------------------------------------------------
+
+class FleetSession:
+    """One client sequence: prompt, output stream and decode cursor. Its
+    cache lives only in the pool's pages."""
+
+    __slots__ = ("sid", "prompt", "max_new", "priority", "first_token",
+                 "generated", "pos", "last_tok")
+
+    def __init__(self, sid, prompt, *, max_new=8, priority=0, first_token=0):
+        self.sid = sid
+        self.prompt = [int(t) for t in prompt]
+        self.max_new = int(max_new)
+        self.priority = int(priority)
+        self.first_token = int(first_token)
+        self.generated: list[int] = []
+        self.pos = 0
+        self.last_tok: int | None = None
+
+    @property
+    def done(self) -> bool:
+        return len(self.generated) >= self.max_new
+
+    def cursor(self) -> dict:
+        return {"prompt": list(self.prompt), "max_new": self.max_new,
+                "priority": self.priority, "first_token": self.first_token,
+                "generated": list(self.generated), "pos": int(self.pos),
+                "last_tok": self.last_tok}
+
+    @classmethod
+    def from_cursor(cls, sid: str, st: dict) -> "FleetSession":
+        s = cls(sid, st.get("prompt", []), max_new=st.get("max_new", 8),
+                priority=st.get("priority", 0),
+                first_token=st.get("first_token", 0))
+        s.generated = [int(t) for t in st.get("generated", [])]
+        s.pos = int(st.get("pos", 0))
+        lt = st.get("last_tok")
+        s.last_tok = None if lt is None else int(lt)
+        return s
+
+
+class ServeEngine:
+    """Continuous-batching multi-session serving over one model instance.
+
+    Sessions decode at independent positions as B=1 lanes in scheduler
+    order, join the running set the tick they are admitted and retire the
+    tick they finish; admission, preemption and self-parking follow the JAX
+    package's engine decision for decision. The page pool lives on the
+    device and is the only cache: a prefill scatters the prompt's K/V rows
+    into fresh pages, and each decode writes its row into the page slot of
+    its position and attends through the page table (the paged decode
+    kernel on the card). There is no dense working copy, so nothing is
+    regathered after a swap-in or an import.
+
+    Capacity comes before compute: the page for ``pos`` is reserved (with
+    the reference's preempt / self-park policy on OOM) before the forward
+    pass writes into it. The reference decides from pool state alone, never
+    from the logits, so the decisions, tickets and streams are the same.
+
+    Not ported yet: checkpoint / restore / recover and the migration
+    transport, which need the checkpoint/restart plane.
+    ``export_session_state`` / ``import_session_state`` speak the JAX
+    package's payload format, so a session moves between the two engines.
+    """
+
+    def __init__(self, cfg, *, seed=0, params=None, device=None, max_len=48,
+                 page_size=8, n_pages=64, max_running=4):
+        if cfg.n_codebooks > 1:
+            raise NotImplementedError("ServeEngine supports single-codebook "
+                                      "models; use Server for codebook archs")
+        self.cfg = cfg
+        self.max_len = int(max_len)
+        self.device = resolve_device(device)
+        self.model = Model(cfg)
+        self.params = params if params is not None \
+            else self.model.init(seed, self.device)
+        self.prefill_fn = ST.make_prefill_step(self.model)
+        self.decode_fn = ST.make_paged_decode_step(self.model)
+        self.pool = PagePool(n_pages, page_size, device=self.device)
+        self.sched = ContinuousBatchScheduler(max_running=max_running)
+        self.sessions: dict[str, FleetSession] = {}
+        self.tick = 0
+        self._sid_counter = 0
+        # cache leaf geometry: shapes at max_len (on the meta device: nothing
+        # is allocated), leaf keys in the JAX package's flatten order
+        caches = T.alloc_caches(cfg, 1, self.max_len, "meta")
+        leaves = tree_leaves(caches)
+        self._leaf_specs = [(f"leaf{i:03d}", tuple(l.shape), l.dtype)
+                            for i, l in enumerate(leaves)]
+        self._keys = tree_unflatten(caches, [k for k, _, _ in self._leaf_specs])
+        self._axis_cache: dict[int, list] = {}
+        # the pool's stores, allocated once at the pool's full size
+        self._pageable = {}
+        probe = max(1, min(4, self.max_len - 1))
+        for (key, axis), (_, shape, dtype) in zip(self._seq_axes(probe),
+                                                  self._leaf_specs):
+            if axis is not None:
+                self._pageable[key] = (int(np.prod(shape)) // shape[axis], dtype)
+                self.pool.store(key, *self._pageable[key])
+
+    # -- cache leaf geometry -------------------------------------------------
+    def _seq_axes(self, S: int) -> list:
+        """Per-leaf ``(key, seq_axis | None)`` for a prompt of length ``S``:
+        the axis where the cache shape at S differs from the max_len shape is
+        the sequence axis; leaves with identical shapes are block state."""
+        axes = self._axis_cache.get(S)
+        if axes is not None:
+            return axes
+        at_s = [tuple(t.shape) for t in
+                tree_leaves(T.alloc_caches(self.cfg, 1, S, "meta"))] \
+            if S else [None] * len(self._leaf_specs)
+        axes = []
+        for (key, shape, _), ls in zip(self._leaf_specs, at_s):
+            if ls is None or ls == shape:
+                axes.append((key, None))
+                continue
+            diff = [a for a, (x, y) in enumerate(zip(ls, shape)) if x != y]
+            if len(diff) != 1 or ls[diff[0]] != S \
+                    or shape[diff[0]] != self.max_len:
+                raise NotImplementedError(
+                    f"cache leaf {key} varies with prompt length in a "
+                    f"non-sequence way ({ls} vs {shape}); "
+                    "windowed/ring caches need the single-stream Server")
+            axes.append((key, diff[0]))
+        self._axis_cache[S] = axes
+        return axes
+
+    def _pool_views(self) -> list:
+        """Per segment ``{"attn": {"k", "v"}}``: the pool's stores seen as
+        ``[P, page, n_layers, K, hd]`` (views; layer ``i`` is ``[:, :, i]``)."""
+        cfg = self.cfg
+        K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        views = []
+        for seg, keys in zip(T.plan_segments(cfg), self._keys):
+            seg_views = {}
+            for name, key in keys["attn"].items():
+                self.pool.store(key, *self._pageable[key])   # after import_state
+                seg_views[name] = self.pool.layer_view(key, seg.n, K, hd)
+            views.append({"attn": seg_views})
+        return views
+
+    # -- session lifecycle ---------------------------------------------------
+    def submit(self, prompt, *, sid=None, priority=0, max_new_tokens=8,
+               first_token=0) -> str:
+        """Queue a new session; it joins the running batch at the next
+        ``step_once`` with a free lane and pool capacity."""
+        if sid is None:
+            self._sid_counter += 1
+            sid = f"s{self._sid_counter:04d}"
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        if prompt.size and prompt.size >= self.max_len:
+            raise ValueError(f"prompt of {prompt.size} tokens >= max_len "
+                             f"{self.max_len}")
+        if prompt.size and (prompt.min() < 0 or prompt.max() >= self.cfg.padded_vocab):
+            raise ValueError(f"token ids must lie in [0, {self.cfg.padded_vocab})")
+        if max_new_tokens > 0:
+            # prefill emits the first generated token, so a non-empty prompt
+            # decodes max_new-1 times (a zero-length one max_new times); the
+            # last decode writes its cache row at max(S, 1) + max_new - 2,
+            # which must stay inside max_len
+            last_pos = max(int(prompt.size), 1) + int(max_new_tokens) - 2
+            if last_pos >= self.max_len:
+                raise ValueError(
+                    f"prompt of {prompt.size} tokens + {max_new_tokens} "
+                    f"new tokens overruns max_len {self.max_len}")
+        self.sessions[sid] = FleetSession(
+            sid, prompt.tolist(), max_new=max_new_tokens, priority=priority,
+            first_token=first_token)
+        self.sched.submit(sid, priority=priority)
+        return sid
+
+    def stream(self, sid: str) -> list:
+        """The client-visible token stream (gap- and duplicate-free across
+        preemption and migration)."""
+        return list(self.sessions[sid].generated)
+
+    # -- admission / prefill -------------------------------------------------
+    def _prefill(self, sess: FleetSession) -> None:
+        """First admission: run the prompt (B=1), then scatter its cache rows
+        into freshly-allocated pages, one device index op per leaf."""
+        S = len(sess.prompt)
+        self.pool.admit(sess.sid, S, priority=sess.priority)
+        if S == 0:
+            # zero-length prompt: no prefill; the request's first_token seeds
+            # decode at position 0
+            sess.pos = 0
+            sess.last_tok = sess.first_token
+            return
+        tokens = torch.tensor([sess.prompt], dtype=torch.int64, device=self.device)
+        logits, caches = self.prefill_fn(self.params, tokens)
+        toks, blocks = {}, {}
+        for (key, axis), leaf in zip(self._seq_axes(S), tree_leaves(caches)):
+            if axis is None:
+                blocks[key] = leaf.cpu().numpy()
+            else:
+                toks[key] = leaf.movedim(axis, 0)[:S].reshape(S, -1)
+        self.pool.write_tokens(sess.sid, 0, toks)
+        self.pool.write_blocks(sess.sid, blocks)
+        sess.pos = S
+        tok0 = int(torch.argmax(logits[0, : self.cfg.vocab_size]))
+        sess.generated.append(tok0)
+        sess.last_tok = tok0
+
+    def _try_admit(self, sid: str) -> bool:
+        """Admit one queued session (prefill, swap-in if parked, or lane grant
+        if already pool-resident), preempting strictly-lower-priority victims
+        on OOM. Returns False when the pool cannot make room at this
+        priority."""
+        sess = self.sessions[sid]
+        if sid in self.pool.sessions:
+            # migrated in while every lane was busy: its pages are resident
+            return True
+        while True:
+            try:
+                if sid in self.pool.parked:
+                    self.pool.unpark(sid)
+                else:
+                    self._prefill(sess)
+                return True
+            except PoolOOMError:
+                victim = self.pool.preempt_victim(
+                    below_priority=sess.priority, exclude={sid})
+                if victim is None:
+                    return False
+                self._preempt(victim)
+
+    def _preempt(self, sid: str) -> None:
+        """Swap a session out: its bytes move to the pool's parked store, its
+        pages free, its lane releases; it re-queues at its original arrival
+        position."""
+        self.pool.park(sid)
+        if self.sched.state(sid) == SCHED.RUNNING:
+            self.sched.preempted(sid)
+
+    def _retire(self, sid: str) -> None:
+        self.pool.drop(sid)
+        self.sched.retired(sid)
+
+    # -- the engine tick -----------------------------------------------------
+    def step_once(self):
+        """One continuous-batching tick: retire finished sessions, admit from
+        the queue (prefill interleaved with decode), decode one token on
+        every running lane, one B=1 lane at a time in scheduler order."""
+        for sid in self.sched.running:
+            if self.sessions[sid].done:
+                self._retire(sid)
+        while True:
+            cand = self.sched.next_admission()
+            if cand is None:
+                break
+            if self.sessions[cand].done:      # zero-token request
+                self.sched.retired(cand)
+                continue
+            if not self._try_admit(cand):
+                break                          # head-of-line waits (fairness)
+            self.sched.admitted(cand)
+        for sid in self.sched.running:
+            if self.sched.state(sid) != SCHED.RUNNING:
+                continue      # parked by a growing lane's eviction this tick
+            self._decode_one(self.sessions[sid])
+        self.tick += 1
+
+    def _reserve(self, sess: FleetSession) -> bool:
+        """Make the page for ``sess.pos`` exist before the forward pass writes
+        into it, with the reference's decode-growth policy: evict an equal-
+        or lower-priority session (newest first) and retry; when every other
+        resident outranks this one, park it and decode nothing this tick
+        (returns False); when nobody else holds pages, raise
+        :class:`PoolOOMError` (parking would free nothing: a livelock)."""
+        while True:
+            try:
+                self.pool.ensure_capacity(sess.sid, sess.pos + 1)
+                return True
+            except PoolOOMError:
+                # admission readmits only by evicting strictly lower, so a
+                # grower and its victim cannot evict each other forever
+                victim = self.pool.preempt_victim(
+                    below_priority=sess.priority + 1, exclude={sess.sid})
+                if victim is not None:
+                    self._preempt(victim)
+                    continue
+                if any(s != sess.sid for s in self.pool.sessions):
+                    self._preempt(sess.sid)
+                    return False
+                raise PoolOOMError(self.pool.pages_for(sess.pos + 1),
+                                   self.pool.free_pages)
+
+    def _decode_one(self, sess: FleetSession) -> None:
+        if not self._reserve(sess):
+            return
+        alloc = self.pool.sessions[sess.sid]
+        tok = torch.tensor([sess.last_tok], dtype=torch.int64, device=self.device)
+        logits = self.decode_fn(self.params, tok, sess.pos, self._pool_views(),
+                                alloc.pages)
+        alloc.length = max(alloc.length, sess.pos + 1)
+        nxt = int(torch.argmax(logits[0, : self.cfg.vocab_size]))
+        sess.pos += 1
+        sess.generated.append(nxt)
+        sess.last_tok = nxt
+
+    def run_until_drained(self, *, max_ticks=10_000) -> int:
+        """Drive ticks until no session is queued or running; returns the
+        tick count."""
+        t0 = self.tick
+        while self.sched.live() and self.tick - t0 < max_ticks:
+            self.step_once()
+        return self.tick - t0
+
+    # -- migration support (the JAX package's payload format) ----------------
+    def export_session_state(self, sid: str) -> dict:
+        """Cursor + host pool payload for one session, ready to ship."""
+        if sid in self.pool.parked:
+            payload, parked = self.pool.parked[sid], True
+        else:
+            payload, parked = self.pool.export_session(sid), False
+        return {"cursor": self.sessions[sid].cursor(),
+                "sched_state": self.sched.state(sid),
+                "parked": parked, "pool": payload}
+
+    def import_session_state(self, sid: str, state: dict) -> None:
+        """Accept a migrated-in session: pool bytes land first (parked on OOM
+        rather than evicting residents), then the cursor and a scheduler
+        ticket; it decodes from its next tick here."""
+        if sid in self.sessions:
+            raise ValueError(f"session {sid!r} already lives here")
+        sess = FleetSession.from_cursor(sid, state["cursor"])
+        self.sessions[sid] = sess
+        self.sched.submit(sid, priority=sess.priority)
+        try:
+            if not state.get("parked"):
+                self.pool.import_session(sid, state["pool"])
+                if self.sched.lanes_free() > 0:
+                    self.sched.admitted(sid)
+                return
+        except PoolOOMError:
+            pass
+        self.pool.park_payload(sid, state["pool"])
+
+    def release_session(self, sid: str) -> None:
+        """Drop a session that migrated away (its stream lives on at the
+        destination)."""
+        self.pool.drop(sid)
+        self.sched.migrated(sid)

@@ -14,3 +14,9 @@ def make_decode_step(model: Model):
     def decode_step(params, token, pos, caches):
         return model.decode_step(params, token, pos, caches)
     return decode_step
+
+
+def make_paged_decode_step(model: Model):
+    def paged_decode_step(params, token, pos, pool_views, pages):
+        return model.decode_step_paged(params, token, pos, pool_views, pages)
+    return paged_decode_step

@@ -17,8 +17,9 @@ from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import paged_decode_attention as PA  # noqa: E402
 from repro_torch.models.params import tree_map  # noqa: E402
-from repro_torch.serving.engine import Server  # noqa: E402
+from repro_torch.serving.engine import ServeEngine, Server  # noqa: E402
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -67,6 +68,73 @@ def test_decode_kernel_matches_plain(cuda, length, window, dtype, H, K):
     assert torch.equal(out, ops.decode_attention(q, k, v, length, window=window))
 
 
+def _paged_inputs(cuda, B, H, K, D, n_layers, layer, lengths, page, dtype, seed,
+                  shuffle=True):
+    """A stacked pool store [P, page, n_layers*K*D] seen as layer ``layer``'s
+    strided [P, page, K, D] view, a table of distinct pages (shuffled or in
+    order) with the entries past each length set to 0, and int32 lengths."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n = max(-(-max(lengths) // page), 1)
+    P = B * n + 3
+    q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
+    stores = [torch.randn(P, page, n_layers * K * D, generator=g, device=cuda).to(dtype)
+              for _ in range(2)]
+    kp, vp = (st.view(P, page, n_layers, K, D)[:, :, layer] for st in stores)
+    order = torch.randperm(P, generator=torch.Generator().manual_seed(seed)) if shuffle \
+        else torch.arange(P)
+    table = order[: B * n].view(B, n).to(torch.int32)
+    for b, L in enumerate(lengths):
+        table[b, -(-L // page):] = 0
+    return q, kp, vp, table.to(cuda), torch.tensor(lengths, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lengths,window", [([1, 16], None), ([DA.SPLIT, 300], None),
+                                            ([300, DA.SPLIT + 1], 50), ([0, 17], None)])
+@pytest.mark.parametrize("H,K,D", [(8, 2, 64), (DA.MAX_G, 1, 32), (4, 4, 64)])
+def test_paged_decode_kernel_matches_plain(cuda, lengths, window, dtype, H, K, D):
+    q, kp, vp, table, lens = _paged_inputs(cuda, 2, H, K, D, 3, 1, lengths, 16, dtype,
+                                           seed=sum(lengths) + H)
+    assert not kp.is_contiguous()                 # the strided per-layer view
+    n0 = PA.launches
+    out = ops.paged_decode_attention(q, kp, vp, table, lens, window=window)
+    assert PA.launches == n0 + 1
+    _close(out, ref.naive_paged_decode_attention(q, kp, vp, table, lens, window=window),
+           dtype)
+    assert torch.equal(out, ops.paged_decode_attention(q, kp, vp, table, lens,
+                                                       window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("length,window", [(1, None), (DA.SPLIT, None), (300, None),
+                                           (300, 50)])
+def test_paged_kernel_over_in_order_pages_equals_contiguous_kernel(cuda, length, window,
+                                                                   dtype):
+    B, H, K, D, page, S = 2, 8, 2, 64, 16, 320
+    g = torch.Generator(device=cuda).manual_seed(length)
+    q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, S, K, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    n = S // page
+    table = torch.arange(B * n, dtype=torch.int32, device=cuda).view(B, n)
+    lens = torch.full((B,), length, dtype=torch.int32, device=cuda)
+    paged = PA.paged_decode_attention(q, k.view(B * n, page, K, D), v.view(B * n, page, K, D),
+                                      table, lens, window=window)
+    assert torch.equal(paged, DA.decode_attention(q, k, v, length, window=window))
+
+
+def test_paged_decode_kernel_refuses_what_it_does_not_take(cuda):
+    q, kp, vp, table, lens = _paged_inputs(cuda, 1, 4, 2, 64, 2, 0, [5], 16,
+                                           torch.float32, seed=0)
+    with pytest.raises(TypeError, match="int32"):
+        PA.paged_decode_attention(q, kp, vp, table.long(), lens)
+    with pytest.raises(ValueError, match="head dim"):
+        PA.paged_decode_attention(q[..., :48].contiguous(), kp[..., :48], vp[..., :48],
+                                  table, lens)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        PA.paged_decode_attention(torch.randn(1, 2 * DA.MAX_G, 64, device=cuda),
+                                  kp[:, :, :1], vp[:, :, :1], table, lens)
+
+
 def test_decode_kernel_refuses_more_query_heads_per_kv_head(cuda):
     q = torch.randn(1, 2 * DA.MAX_G, 64, device=cuda)
     k = torch.randn(1, 8, 1, 64, device=cuda)
@@ -76,10 +144,14 @@ def test_decode_kernel_refuses_more_query_heads_per_kv_head(cuda):
 
 def test_force_ref_on_cuda_launches_nothing(cuda):
     q = torch.randn(1, 2, 8, 32, device=cuda)
-    n0 = (FA.launches, DA.launches)
+    n0 = (FA.launches, DA.launches, PA.launches)
     ops.flash_attention(q, q, q, force="ref")
     ops.decode_attention(q[:, :, 0], q.transpose(1, 2), q.transpose(1, 2), 3, force="ref")
-    assert (FA.launches, DA.launches) == n0
+    table = torch.zeros(1, 1, dtype=torch.int32, device=cuda)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    ops.paged_decode_attention(q[:, :, 0], q.view(2, 8, 1, 32), q.view(2, 8, 1, 32), table,
+                               lens, force="ref")
+    assert (FA.launches, DA.launches, PA.launches) == n0
 
 
 def test_smoke_server_on_card_matches_cpu(cuda):
@@ -94,3 +166,30 @@ def test_smoke_server_on_card_matches_cpu(cuda):
     (tg, _), (tc, _) = gpu.decode(6, first), cpu.decode(6, first)
     np.testing.assert_array_equal(np.stack(tg), np.stack(tc))
 
+
+
+def test_smoke_fleet_on_card_matches_server_streams(cuda):
+    """A short fleet run on the card (float32 smoke config, a pool small
+    enough to force a swap): every stream equals the port Server's B=1
+    greedy stream, and the decode went through the paged kernel only."""
+    cfg = smoke_config("granite-3-2b")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 9, 14)]
+    eng = ServeEngine(cfg, device=cuda, seed=0, max_len=40, page_size=4, n_pages=10,
+                      max_running=3)
+    n0 = (FA.launches, DA.launches, PA.launches)
+    sids = [eng.submit(p, max_new_tokens=8) for p in prompts[:2]]
+    for _ in range(2):
+        eng.step_once()
+    sids.append(eng.submit(prompts[2], max_new_tokens=8, priority=5))
+    eng.run_until_drained(max_ticks=200)
+    assert sum(eng.sched.tickets[s].preemptions for s in sids) >= 1
+    decoded = sum(len(eng.stream(s)) - 1 for s in sids)
+    assert (FA.launches - n0[0], DA.launches - n0[1], PA.launches - n0[2]) == (
+        3 * cfg.n_layers, 0, decoded * cfg.n_layers)
+    for p, sid in zip(prompts, sids):
+        srv = Server(cfg, device=cuda, params=eng.params)
+        logits = srv.prefill(p[None, :], pad_to=len(p) + 8)
+        first = torch.argmax(logits[:, : cfg.vocab_size], -1).cpu().numpy()
+        toks, _ = srv.decode(7, first)
+        assert eng.stream(sid) == [int(first[0])] + [int(t[0]) for t in toks]

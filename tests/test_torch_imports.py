@@ -32,9 +32,12 @@ def test_package_has_the_slice_modules():
     names = {str(p.relative_to(PKG)) for p in MODULES}
     assert {"configs/base.py", "models/params.py", "kernels/ops.py",
             "kernels/flash_attention.py", "kernels/decode_attention.py",
-            "serving/engine.py", "launch/serve.py", "steps.py"} <= names
-    assert {p.name for p in (PKG / "csrc").iterdir()} >= {"flash_attention.cu",
-                                                          "decode_attention.cu"}
+            "kernels/paged_decode_attention.py", "serving/engine.py",
+            "serving/kv_pool.py", "serving/scheduler.py", "launch/serve.py",
+            "steps.py", "device.py"} <= names
+    assert {p.name for p in (PKG / "csrc").iterdir()} >= {
+        "flash_attention.cu", "decode_attention.cu", "paged_decode_attention.cu",
+        "decode_split.cuh"}
 
 
 @pytest.mark.parametrize("path", MODULES + [ROOT / "chip_smoke.py"],
@@ -68,7 +71,7 @@ def test_no_library_attention_on_the_path():
 
 
 @pytest.mark.parametrize("name", ["ops.py", "flash_attention.py",
-                                  "decode_attention.py"])
+                                  "decode_attention.py", "paged_decode_attention.py"])
 def test_kernel_wrappers_have_no_fallback(name):
     tree = ast.parse((PKG / "kernels" / name).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]

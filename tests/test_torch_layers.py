@@ -81,6 +81,42 @@ def test_attn_apply_prefill_and_decode_match_jax():
             assert_close(cache[k], jc[k])       # row written at pos, in place
 
 
+def test_attn_apply_paged_decode_matches_jax_dense_decode():
+    """One lane over a shuffled page pool, the layer's pages a strided view of
+    a stacked store (3 layers, this one the middle): each decode writes its
+    row into the page slot of ``pos`` and equals the JAX dense decode."""
+    jp, tp = _params(JL.attn_specs, 5)
+    rng = np.random.default_rng(5)
+    K, hd, page, n_layers, S, S_max = CFG.n_kv_heads, CFG.resolved_head_dim, 4, 3, 5, 11
+    x = rng.standard_normal((1, S, CFG.d_model), dtype=np.float32)
+    _, jcache = JL.attn_apply(CTX, JCFG, jp, jnp.asarray(x), mode="prefill")
+    jc = {k: jnp.pad(v, ((0, 0), (0, S_max - S), (0, 0))) for k, v in jcache.items()}
+    pages = [5, 1, 3]                          # covers S_max = 11 positions
+    stores = {k: torch.zeros(7, page, n_layers * K * hd) for k in "kv"}
+    views = {k: st.view(7, page, n_layers, K, hd)[:, :, 1] for k, st in stores.items()}
+    for k in "kv":
+        rows = np.asarray(jcache[k])[0].reshape(S, K, hd)
+        for t in range(S):
+            views[k][pages[t // page], t % page] = _t(rows[t])
+    for pos in range(S, S_max):
+        xd = rng.standard_normal((1, CFG.d_model), dtype=np.float32)
+        want, jc = JL.attn_apply(CTX, JCFG, jp, jnp.asarray(xd), mode="decode",
+                                 cache=jc, pos=jnp.int32(pos))
+        lane = {"table": torch.tensor([pages], dtype=torch.int32),
+                "lengths": torch.tensor([pos + 1], dtype=torch.int32),
+                "slot": (pages[pos // page], pos % page)}
+        got, _ = L.attn_apply(CFG, tp, _t(xd), mode="paged_decode",
+                              cache={**views, **lane}, pos=pos)
+        assert_close(got, want)
+        for k in "kv":
+            assert_close(views[k][lane["slot"]], np.asarray(jc[k])[0, pos].reshape(K, hd))
+    for k in "kv":                              # the other layers stay untouched
+        assert not stores[k].view(7, page, n_layers, K, hd)[:, :, [0, 2]].any()
+    with pytest.raises(ValueError, match="one lane"):
+        L.attn_apply(CFG, tp, torch.zeros(2, CFG.d_model), mode="paged_decode",
+                     cache={**views, **lane}, pos=S)
+
+
 def test_attn_apply_rejects_unknown_mode():
     _, tp = _params(JL.attn_specs, 4)
     cache = {k: torch.zeros(1, 4, CFG.kv_cache_width) for k in ("k", "v")}
