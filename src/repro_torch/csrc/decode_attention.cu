@@ -9,9 +9,10 @@
 // out: [B,H,D]; one length for every row. The split and combine kernels, the
 // bound and the design notes are in decode_split.cuh, which the paged decode
 // (paged_decode_attention.cu) shares: only the addressing (ContigKV here)
-// differs.
+// differs. A second entry reads a sliding-window layer's ring-buffer cache
+// (RingKV), where the reference runs layers.window_decode_attention in XLA.
 //
-// The entry point launches both kernels on the caller's stream and returns
+// Each entry point launches both kernels on the caller's stream and returns
 // cudaGetLastError().
 
 #include "decode_split.cuh"
@@ -29,4 +30,21 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
   return decode_split::dispatch(dtype, D, q, k, v, o, part_o, part_ml, kv, B, H,
                                 K, (S + split - 1) / split, window, split,
                                 stream);
+}
+
+// The same kernels over a ring-buffer window cache k, v: [B,W,K,D], where
+// position p lies in slot p % W (the layout of the reference's
+// layers.window_decode_attention). The decode at position pos attends to
+// the last n = min(window, W, pos + 1) positions; part_o and part_ml are
+// sized for n_splits = ceil(n / split). Returns a cudaError_t.
+extern "C" int repro_ring_decode_attention(const void* q, const void* k,
+                                           const void* v, void* o, void* part_o,
+                                           void* part_ml, int B, int H, int K,
+                                           int W, int D, int pos, int window,
+                                           int dtype, int split, void* stream) {
+  if (W < 1 || pos < 0 || window < 1 || split < 1) return (int)cudaErrorInvalidValue;
+  const int n = min(min(window, W), pos + 1);
+  const decode_split::RingKV kv{W, K, D, n, pos + 1 - n};
+  return decode_split::dispatch(dtype, D, q, k, v, o, part_o, part_ml, kv, B, H,
+                                K, (n + split - 1) / split, 0, split, stream);
 }

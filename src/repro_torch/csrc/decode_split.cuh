@@ -1,15 +1,15 @@
 // Split-KV flash-decoding kernels shared by the contiguous-cache decode
-// (decode_attention.cu, kernel 2) and the paged-pool decode
-// (paged_decode_attention.cu, kernel 3). Included by both; not compiled on
-// its own.
+// (decode_attention.cu, kernel 2, also over a ring-buffer window cache) and
+// the paged-pool decode (paged_decode_attention.cu, kernel 3). Included by
+// both; not compiled on its own.
 //
 // Computes, for each row b and query head h, softmax(q k^T / sqrt(D)) v over
 // cache positions [max(length_b - window, 0), length_b), with query head h
 // reading KV head h / (H / K). q: [B,H,D]; out: [B,H,D]. Where the K/V row of
 // (row b, position j, KV head kh) lies is the one thing the two callers
-// differ in: an addressing functor (ContigKV, PagedKV) gives its element
-// offset and each row's length. Scores, softmax and sums are float32; the
-// output is cast to the input type.
+// differ in: an addressing functor (ContigKV, RingKV, PagedKV) gives its
+// element offset and each row's length. Scores, softmax and sums are
+// float32; the output is cast to the input type.
 //
 // Bound: each cache position's K and V rows (2*D elements) serve the G = H/K
 // query heads of their KV head at 4*D FLOP per head, so the work is G FLOP
@@ -93,6 +93,20 @@ struct PagedKV {
     const long long page = table[(long long)b * n_tab + j / page_size];
     return page * page_stride + (long long)(j % page_size) * row_stride +
            (long long)kh * head_stride;
+  }
+};
+
+// A ring-buffer window cache [B, W, K, D] (contiguous): position p lies in
+// slot p % W, and the decode at position pos attends to [lo, pos + 1) with
+// lo = pos + 1 - n, n = min(window, W, pos + 1): the positions the ring
+// still holds and the window admits. The kernel's index j reads position
+// lo + j, so its splits cover exactly that range (the caller passes window
+// 0 and n_splits = ceil(n / split)) and none lies wholly below it.
+struct RingKV {
+  int W, K, D, n, lo;
+  __device__ __forceinline__ int length(int) const { return n; }
+  __device__ __forceinline__ long long row(int b, int j, int kh) const {
+    return (((long long)b * W + (lo + j) % W) * K + kh) * D;
   }
 };
 

@@ -11,6 +11,11 @@ Layout: q ``[B,H,D]``; k/v ``[B,S,K,D]``, which is the decode cache
 rows once for the KV head's ``G = H/K`` query heads (at most ``MAX_G``) and
 writes an unnormalised partial to a scratch buffer, and a second kernel
 combines the partials in a fixed order, so the result is deterministic.
+
+:func:`ring_decode_attention` runs the same kernels over a sliding-window
+layer's ring-buffer cache ``[B, W, K, D]`` (position ``p`` in slot
+``p % W``); its plain version is
+:func:`repro_torch.kernels.ref.naive_ring_decode_attention`.
 """
 from __future__ import annotations
 
@@ -21,8 +26,11 @@ import torch
 
 from repro_torch.kernels import build
 
-#: launches of the CUDA kernel pair since the count was last set to 0
+#: launches of the CUDA kernel pair over a contiguous cache since the count
+#: was last set to 0
 launches = 0
+#: launches of the kernel pair over a ring-buffer cache, likewise
+ring_launches = 0
 
 HEAD_DIMS = (32, 64)
 SPLIT = 128          # cache positions per split block (one per thread)
@@ -31,9 +39,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.cache
-def _bind():
-    lib = build.load("decode_attention")
-    fn = lib.repro_decode_attention
+def _bind(entry):
+    fn = getattr(build.load("decode_attention"), entry)
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -44,48 +51,82 @@ def n_splits(S: int) -> int:
     return -(-S // SPLIT)
 
 
+def _check(q, k, v, what):
+    """Device, dtype, shape and layout checks shared by both entries;
+    returns (B, H, K, S, D)."""
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"{what} kernel: q, k, v must lie on one CUDA device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what} kernel: dtypes {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}; needs all float32 or all bfloat16")
+    B, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    if k.shape != (B, S, K, D) or v.shape != k.shape or H % K:
+        raise ValueError(f"{what} kernel: shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{what} kernel: head dim {D} not in {HEAD_DIMS}")
+    if H // K > MAX_G:
+        raise ValueError(f"{what} kernel: {H // K} query heads per KV "
+                         f"head; at most {MAX_G}")
+    for x, n in ((q, "q"), (k, "k"), (v, "v")):
+        if not x.is_contiguous():
+            raise ValueError(f"{what} kernel: {n} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what} kernel: {n} must be 16-byte aligned")
+    return B, H, K, S, D
+
+
+def _launch(entry, q, k, v, ns, *ints):
+    """Allocate the output and the partials for ``ns`` splits and launch
+    ``entry`` with the C entry's int arguments ``ints``."""
+    B, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    o = torch.empty_like(q)
+    part_o = torch.empty((B, K, ns, G, D), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((2, B, K, ns, G), dtype=torch.float32, device=q.device)
+    fn = _bind(entry)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                part_o.data_ptr(), part_ml.data_ptr(), *ints, _DTYPES[q.dtype],
+                SPLIT, stream)
+    build.check(rc, entry)
+    return o
+
+
 def decode_attention(q, k, v, length, *, window=None):
     """Launch the kernels. q: [B,H,D]; k,v: [B,S,K,D] contiguous on one CUDA
     device, all float32 or all bfloat16, D in ``HEAD_DIMS``, H/K at most
     ``MAX_G``; attend to cache positions ``< length`` (and
     ``>= length - window``)."""
     global launches
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("decode_attention kernel: q, k, v must lie on one CUDA device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"decode_attention kernel: dtypes {q.dtype}/{k.dtype}/"
-                        f"{v.dtype}; needs all float32 or all bfloat16")
-    B, H, D = q.shape
-    S, K = k.shape[1], k.shape[2]
-    if k.shape != (B, S, K, D) or v.shape != k.shape or H % K:
-        raise ValueError(f"decode_attention kernel: shapes q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"decode_attention kernel: head dim {D} not in {HEAD_DIMS}")
-    if H // K > MAX_G:
-        raise ValueError(f"decode_attention kernel: {H // K} query heads per KV "
-                         f"head; at most {MAX_G}")
+    B, H, K, S, D = _check(q, k, v, "decode_attention")
     length = int(length)
     if not 1 <= length <= S:
         raise ValueError(f"decode_attention kernel: length {length} not in [1, {S}]")
     if window is not None and window < 1:
         raise ValueError(f"decode_attention kernel: window {window} < 1")
-    for x, n in ((q, "q"), (k, "k"), (v, "v")):
-        if not x.is_contiguous():
-            raise ValueError(f"decode_attention kernel: {n} must be contiguous")
-        if x.data_ptr() % 16:
-            raise ValueError(f"decode_attention kernel: {n} must be 16-byte aligned")
-    G = H // K
-    ns = n_splits(S)
-    o = torch.empty_like(q)
-    part_o = torch.empty((B, K, ns, G, D), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((2, B, K, ns, G), dtype=torch.float32, device=q.device)
-    fn = _bind()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                part_o.data_ptr(), part_ml.data_ptr(), B, H, K, S, D, length,
-                window or 0, _DTYPES[q.dtype], SPLIT, stream)
-    build.check(rc, "decode_attention")
+    o = _launch("repro_decode_attention", q, k, v, n_splits(S),
+                B, H, K, S, D, length, window or 0)
     launches += 1
+    return o
+
+
+def ring_decode_attention(q, k, v, pos, *, window):
+    """Launch the kernels over a ring-buffer cache. q: [B,H,D]; k,v:
+    [B,W,K,D] as :func:`decode_attention` takes them, position ``p`` in slot
+    ``p % W``; ``pos`` is the index of the newest token, whose row is
+    written. Attends to the last ``min(window, W, pos + 1)`` positions, as
+    the reference's ``layers.window_decode_attention`` does."""
+    global ring_launches
+    B, H, K, W, D = _check(q, k, v, "ring_decode_attention")
+    pos = int(pos)
+    if pos < 0 or window is None or window < 1:
+        raise ValueError(f"ring_decode_attention kernel: pos {pos}, window {window}")
+    n = min(window, W, pos + 1)
+    o = _launch("repro_ring_decode_attention", q, k, v, n_splits(n),
+                B, H, K, W, D, pos, window)
+    ring_launches += 1
     return o

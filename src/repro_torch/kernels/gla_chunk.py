@@ -1,0 +1,202 @@
+"""Chunked gated linear attention (GLA) as hand-written CUDA: both schedules.
+
+The Hopper twins of the JAX package's Pallas kernels in
+``kernels/mlstm_chunk.py``; the kernels and their design notes are in
+``csrc/gla_chunk.cu``.
+
+* :func:`gla_chunk` (K4, the twin of ``_kernel``): one block per (row,
+  head) walks the chunks in order with the ``[N,P]`` state in shared
+  memory, and also writes the final state, which the model's prefill cache
+  needs. Its plain version is :func:`repro_torch.kernels.ref.chunked_gla`.
+* :func:`gla_chunk_parallel` (K5, the twins of ``_phase_a_kernel`` and
+  ``_phase_b_kernel``): :func:`gla_phase_a` and :func:`gla_phase_b`, one
+  block per (row, head, chunk) each, with the scan over chunks between
+  them in plain torch (:func:`scan_chunks`, chunk order). The plain
+  versions of the phases and the scan are ``ref.gla_phase_a``,
+  ``ref.gla_phase_b`` and ``ref.gla_scan``.
+
+Layout: q, k ``[B,S,H,N]`` and v ``[B,S,H,P]`` with any strides whose last
+dim is contiguous (the model passes its head-broadcast q and k as
+``expand`` views with head stride 0; nothing is copied), lg ``[B,S,H]`` log
+decays (<= 0, cast to float32). y comes back ``[B,S,H,P]`` contiguous in
+v's dtype; states are float32. The chunk follows the JAX rule
+(:func:`chunk_len`).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+#: launches of K4 since the count was last set to 0
+launches = 0
+#: launches of K5's phase A, likewise
+launches_a = 0
+#: launches of K5's phase B, likewise
+launches_b = 0
+
+#: the (N, P) pairs built: hymba-1.5b's SSD heads at full width and smoke size
+SHAPES = ((16, 64), (8, 32))
+MAX_SMEM = 232448        # a block's shared memory on sm_90, bytes
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P = ctypes.c_void_p
+#: pointer arguments of each C entry (csrc/gla_chunk.cu)
+_N_PTRS = {"repro_gla_chunk": 6, "repro_gla_phase_a": 7, "repro_gla_phase_b": 5}
+
+
+@functools.cache
+def _bind(entry):
+    fn = getattr(build.load("gla_chunk"), entry)
+    fn.argtypes = ([_P] * _N_PTRS[entry] + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, _P])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def chunk_len(S: int, chunk: int) -> int:
+    """The reference's chunk rule: ``min(chunk, S)``, halved until it
+    divides S."""
+    c = min(chunk, S)
+    while S % c:
+        c //= 2
+    return c
+
+
+def scan_chunks(g, d):
+    """K5's scan between the phases, in chunk order: state_j = g_j *
+    state_{j-1} + d_j. g: [B,H,nc]; d: [B,H,nc,N,P] float32. Returns (each
+    chunk's start state [B,H,nc,N,P], zeros for chunk 0; the final state
+    [B,H,N,P])."""
+    start = torch.empty_like(d)
+    state = torch.zeros_like(d[:, :, 0])
+    for j in range(d.shape[2]):
+        start[:, :, j] = state
+        state = state * g[:, :, j, None, None] + d[:, :, j]
+    return start, state
+
+
+def smem_bytes(c: int, N: int, P: int, phase_b: bool = False) -> int:
+    """Dynamic shared memory of one block (csrc/gla_chunk.cu)."""
+    return 4 * ((c + N * P) if phase_b else (c * (N + P + 2) + N * P))
+
+
+def _check(q, k, v, lg, chunk, what):
+    """Device, dtype, shape and layout checks; returns the dims and the
+    chunk length."""
+    tensors = [t for t in (q, k, v, lg) if t is not None]
+    if not (q.is_cuda and all(t.device == q.device for t in tensors)):
+        raise ValueError(f"{what} kernel: all tensors must lie on one CUDA device")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v) if t is not None):
+        raise TypeError(f"{what} kernel: q/k/v dtypes must be all float32 or all "
+                        f"bfloat16; got {[str(t.dtype) for t in (q, k, v) if t is not None]}")
+    B, S, H, N = q.shape
+    P = v.shape[-1] if v is not None else None
+    if lg.shape != (B, S, H) or (k is not None and k.shape != q.shape) \
+            or (v is not None and v.shape[:3] != (B, S, H)):
+        raise ValueError(f"{what} kernel: shapes q{tuple(q.shape)} lg{tuple(lg.shape)}"
+                         + "".join(f" {n}{tuple(t.shape)}" for n, t in (("k", k), ("v", v))
+                                   if t is not None))
+    if S < 1:
+        raise ValueError(f"{what} kernel: no positions")
+    for t, n in ((q, "q"), (k, "k"), (v, "v")):
+        if t is not None and t.stride(-1) != 1:
+            raise ValueError(f"{what} kernel: {n}'s last dim must be contiguous")
+    return B, S, H, N, P, chunk_len(S, chunk)
+
+
+def _check_np(N, P, c, what, phase_b=False):
+    if (N, P) not in SHAPES:
+        raise ValueError(f"{what} kernel: (N, P) = ({N}, {P}) not in {SHAPES}")
+    if smem_bytes(c, N, P, phase_b) > MAX_SMEM:
+        raise ValueError(f"{what} kernel: chunk {c} needs "
+                         f"{smem_bytes(c, N, P, phase_b)} bytes of shared memory")
+
+
+def _strides(*ts):
+    """(batch, position, head) element strides of each [B,S,H,...] tensor."""
+    vals = [s for t in ts for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _call(entry, ptrs, dims, strides, dtype, device):
+    fn = _bind(entry)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*ptrs, *dims, strides, _DTYPES[dtype], stream)
+    build.check(rc, entry)
+
+
+def gla_chunk(q, k, v, lg, *, chunk):
+    """K4. q,k: [B,S,H,N]; v: [B,S,H,P]; lg: [B,S,H]. Returns (y
+    [B,S,H,P] in v's dtype, final state [B,H,N,P] float32)."""
+    global launches
+    B, S, H, N, P, c = _check(q, k, v, lg, chunk, "gla_chunk")
+    _check_np(N, P, c, "gla_chunk")
+    lgf = lg.float()
+    y = torch.empty((B, S, H, P), dtype=v.dtype, device=q.device)
+    state = torch.empty((B, H, N, P), dtype=torch.float32, device=q.device)
+    _call("repro_gla_chunk",
+          (q.data_ptr(), k.data_ptr(), v.data_ptr(), lgf.data_ptr(), y.data_ptr(),
+           state.data_ptr()),
+          (B, S, H, N, P, c), _strides(q, k, v, lgf), q.dtype, q.device)
+    launches += 1
+    return y, state
+
+
+def gla_phase_a(q, k, v, lg, *, chunk):
+    """K5 phase A. Returns (y_intra [B,S,H,P] in v's dtype, g = exp(total)
+    [B,H,nc] float32, state delta [B,H,nc,N,P] float32), per chunk."""
+    global launches_a
+    B, S, H, N, P, c = _check(q, k, v, lg, chunk, "gla_phase_a")
+    _check_np(N, P, c, "gla_phase_a")
+    nc = S // c
+    lgf = lg.float()
+    y = torch.empty((B, S, H, P), dtype=v.dtype, device=q.device)
+    g = torch.empty((B, H, nc), dtype=torch.float32, device=q.device)
+    d = torch.empty((B, H, nc, N, P), dtype=torch.float32, device=q.device)
+    _call("repro_gla_phase_a",
+          (q.data_ptr(), k.data_ptr(), v.data_ptr(), lgf.data_ptr(), y.data_ptr(),
+           g.data_ptr(), d.data_ptr()),
+          (B, S, H, N, P, c), _strides(q, k, v, lgf), q.dtype, q.device)
+    launches_a += 1
+    return y, g, d
+
+
+def gla_phase_b(q, lg, start, y_intra, *, chunk):
+    """K5 phase B: y = y_intra + (q exp(cum)) . start per chunk. start:
+    [B,H,nc,N,P] float32, each chunk's start state; y_intra: [B,S,H,P] in
+    q's dtype. Returns y [B,S,H,P]."""
+    global launches_b
+    B, S, H, N, _, c = _check(q, None, None, lg, chunk, "gla_phase_b")
+    P = y_intra.shape[-1]
+    _check_np(N, P, c, "gla_phase_b", phase_b=True)
+    nc = S // c
+    if start.shape != (B, H, nc, N, P) or start.dtype != torch.float32 \
+            or not start.is_contiguous() or start.device != q.device:
+        raise ValueError(f"gla_phase_b kernel: start {tuple(start.shape)} "
+                         f"{start.dtype}; needs ({B}, {H}, {nc}, {N}, {P}) float32, "
+                         "contiguous")
+    if y_intra.shape != (B, S, H, P) or y_intra.dtype != q.dtype \
+            or not y_intra.is_contiguous() or y_intra.device != q.device:
+        raise ValueError(f"gla_phase_b kernel: y_intra {tuple(y_intra.shape)} "
+                         f"{y_intra.dtype}; needs ({B}, {S}, {H}, {P}) {q.dtype}, contiguous")
+    lgf = lg.float()
+    y = torch.empty_like(y_intra)
+    # the entry reads only q's and lg's strides; k's and v's slots repeat q's
+    _call("repro_gla_phase_b",
+          (q.data_ptr(), lgf.data_ptr(), start.data_ptr(), y_intra.data_ptr(),
+           y.data_ptr()),
+          (B, S, H, N, P, c), _strides(q, q, q, lgf), q.dtype, q.device)
+    launches_b += 1
+    return y
+
+
+def gla_chunk_parallel(q, k, v, lg, *, chunk):
+    """K5: phase A, the plain scan over chunks in order, phase B. Returns
+    (y [B,S,H,P] in v's dtype, final state [B,H,N,P] float32)."""
+    y_intra, g, d = gla_phase_a(q, k, v, lg, chunk=chunk)
+    start, final = scan_chunks(g, d)
+    return gla_phase_b(q, lg, start, y_intra, chunk=chunk), final

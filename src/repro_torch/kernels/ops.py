@@ -11,10 +11,14 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import gla_chunk as _gla
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import ref
 
 FORCES = (None, "kernel", "ref")
+#: GLA schedules: 'chunk' (K4, the reference's ``ops.gla`` target) or
+#: 'parallel' (K5, the chunk-parallel phases)
+GLA_SCHEDULES = ("chunk", "parallel")
 
 
 def _use_kernel(x, force) -> bool:
@@ -27,7 +31,7 @@ def _use_kernel(x, force) -> bool:
     if force == "kernel":
         raise RuntimeError(f"force='kernel' needs CUDA tensors; got {x.device}")
     if x.device.type != "cpu":
-        raise RuntimeError(f"no attention path for device {x.device}")
+        raise RuntimeError(f"no kernel path for device {x.device}")
     return False
 
 
@@ -44,6 +48,27 @@ def decode_attention(q, k, v, length, *, window=None, force=None):
         return _decode.decode_attention(q, k, v, length, window=window)
     return ref.naive_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
                                       length, window=window)
+
+
+def window_decode_attention(q, k_ring, v_ring, pos, *, window, force=None):
+    """One-token attention over a sliding-window layer's ring-buffer cache.
+    q: [B,H,D]; k_ring, v_ring: [B,W,K,D] with position ``p`` in slot
+    ``p % W``; ``pos``: index of the newest token (its row written)."""
+    if _use_kernel(q, force):
+        return _decode.ring_decode_attention(q, k_ring, v_ring, pos, window=window)
+    return ref.naive_ring_decode_attention(q, k_ring, v_ring, pos, window=window)
+
+
+def gla(q, k, v, lg, *, chunk, schedule="chunk", force=None):
+    """Chunked gated linear attention. q,k: [B,S,H,N]; v: [B,S,H,P]; lg:
+    [B,S,H]. Returns (y [B,S,H,P], final state [B,H,N,P] float32)."""
+    if schedule not in GLA_SCHEDULES:
+        raise ValueError(f"schedule={schedule!r}; expected one of {GLA_SCHEDULES}")
+    if _use_kernel(q, force):
+        fn = _gla.gla_chunk if schedule == "chunk" else _gla.gla_chunk_parallel
+        return fn(q, k, v, lg, chunk=chunk)
+    fn = ref.chunked_gla if schedule == "chunk" else ref.gla_chunk_parallel
+    return fn(q, k, v, lg, chunk=chunk)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *, window=None,

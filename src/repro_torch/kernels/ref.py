@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the attention kernels: deliberately naive (full
-materialization, repeated KV heads), the ground truth the CUDA kernels are
-held against and the path taken for tensors on the CPU."""
+"""Plain PyTorch versions of the kernels: deliberately naive (full
+materialization, repeated KV heads, step-by-step recurrences), the ground
+truth the CUDA kernels are held against and the path taken for tensors on
+the CPU."""
 from __future__ import annotations
 
 import math
@@ -60,3 +61,136 @@ def naive_paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         o = naive_decode_attention(q[b : b + 1], kc, vc, length, window=window)
         out.append(torch.where(length > 0, o, torch.zeros_like(o)))
     return torch.cat(out)
+
+
+def naive_ring_decode_attention(q, k, v, pos, *, window):
+    """One-token attention over a ring-buffer window cache, a copy of the
+    reference's ``layers.window_decode_attention``. q: [B,H,D]; k,v:
+    [B,W,K,D] with position ``p`` in slot ``p % W``; ``pos`` is the index of
+    the newest token. Attends to the slots whose position is >= 0 and
+    within ``window`` of ``pos``."""
+    B, H, D = q.shape
+    W, K = k.shape[1], k.shape[2]
+    slots = torch.arange(W, device=q.device)
+    kpos = pos - torch.remainder(pos - slots, W)       # position held by each slot
+    valid = (kpos >= 0) & (kpos >= pos + 1 - window)
+    G = H // K
+    kr = k.transpose(1, 2).repeat_interleave(G, dim=1)
+    vr = v.transpose(1, 2).repeat_interleave(G, dim=1)
+    s = torch.einsum("bhd,bhkd->bhk", q.float(), kr.float()) / math.sqrt(D)
+    s = s.masked_fill(~valid, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhk,bhkd->bhd", p, vr.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# gated linear attention: h_t = exp(lg_t) h_{t-1} + k_t v_t^T ; y_t = q_t . h_t
+# q, k: [B,S,H,N]; v: [B,S,H,P]; lg: [B,S,H] log decays (<= 0). Sums float32.
+# ---------------------------------------------------------------------------
+
+def chunk_len(S: int, chunk: int) -> int:
+    """The reference's chunk rule: ``min(chunk, S)``, halved until it
+    divides S."""
+    c = min(chunk, S)
+    while S % c:
+        c //= 2
+    return c
+
+
+def naive_gla(q, k, v, lg):
+    """The step-by-step recurrence (the reference's ``ref.naive_gla``).
+    Returns (y [B,S,H,P] in v's dtype, final state [B,H,N,P] float32)."""
+    B, S, H, N = q.shape
+    h = torch.zeros((B, H, N, v.shape[-1]), dtype=torch.float32, device=q.device)
+    ys = []
+    for t in range(S):
+        h = h * torch.exp(lg[:, t].float())[..., None, None]
+        h = h + torch.einsum("bhn,bhp->bhnp", k[:, t].float(), v[:, t].float())
+        ys.append(torch.einsum("bhn,bhnp->bhp", q[:, t].float(), h))
+    return torch.stack(ys, dim=1).to(v.dtype), h
+
+
+def _by_chunk(q, k, v, lg, chunk):
+    """float32 [B,nc,c,H,*] views of q, k, v and the within-chunk inclusive
+    cumsum of lg [B,nc,c,H]."""
+    B, S, H, N = q.shape
+    c = chunk_len(S, chunk)
+    nc = S // c
+    cum = lg.float().reshape(B, nc, c, H).cumsum(2)
+    return tuple(None if x is None else x.float().reshape(B, nc, c, H, x.shape[-1])
+                 for x in (q, k, v)) + (cum,)
+
+
+def _intra_and_delta(qf, kf, vf, cum):
+    """The per-chunk math both schedules share (the reference's
+    ``mlstm_chunk._intra_and_delta``), over every chunk at once. Returns
+    (y_intra [B,nc,c,H,P], state delta [B,H,nc,N,P], total [B,nc,H])."""
+    c = cum.shape[2]
+    s = torch.einsum("bzihn,bzjhn->bzhij", qf, kf)
+    ch = cum.transpose(2, 3)                                   # [B,nc,H,c]
+    mask = torch.ones((c, c), dtype=torch.bool, device=cum.device).tril()
+    w = torch.where(mask, torch.exp(ch[..., :, None] - ch[..., None, :]), 0.0)
+    y = torch.einsum("bzhij,bzjhp->bzihp", s * w, vf)
+    total = cum[:, :, -1]
+    kdec = torch.exp(total[:, :, None] - cum)                  # [B,nc,c,H]
+    d = torch.einsum("bzjhn,bzjhp->bhznp", kf * kdec[..., None], vf)
+    return y, d, total
+
+
+def chunked_gla(q, k, v, lg, chunk=256):
+    """A copy of the reference's ``ssm.chunked_gla`` (the plain version of
+    K4): the chunks in order, carrying the state. Returns (y [B,S,H,P] in
+    q's dtype, final state [B,H,N,P] float32)."""
+    B, S, H, _ = q.shape
+    qf, kf, vf, cum = _by_chunk(q, k, v, lg, chunk)
+    y_intra, d, total = _intra_and_delta(qf, kf, vf, cum)
+    state = torch.zeros_like(d[:, :, 0])
+    ys = []
+    for z in range(cum.shape[1]):
+        qdec = qf[:, z] * torch.exp(cum[:, z])[..., None]
+        ys.append(y_intra[:, z] + torch.einsum("bihn,bhnp->bihp", qdec, state))
+        state = state * torch.exp(total[:, z])[..., None, None] + d[:, :, z]
+    return torch.stack(ys, dim=1).reshape(B, S, H, -1).to(q.dtype), state
+
+
+def gla_phase_a(q, k, v, lg, *, chunk):
+    """Phase A of the chunk-parallel schedule (the plain version of K5's
+    first kernel): per chunk, the intra output, g = exp(total) and the
+    state delta. Returns (y_intra [B,S,H,P] in v's dtype, g [B,H,nc],
+    delta [B,H,nc,N,P]), both float32."""
+    B, S, H, _ = q.shape
+    y, d, total = _intra_and_delta(*_by_chunk(q, k, v, lg, chunk))
+    return (y.reshape(B, S, H, -1).to(v.dtype), torch.exp(total).transpose(1, 2).contiguous(),
+            d)
+
+
+def gla_scan(g, d):
+    """The scan between the phases, in chunk order: state_j = g_j *
+    state_{j-1} + d_j. g: [B,H,nc]; d: [B,H,nc,N,P]. Returns (each chunk's
+    start state [B,H,nc,N,P], zeros for chunk 0; the final state
+    [B,H,N,P])."""
+    start = torch.empty_like(d)
+    state = torch.zeros_like(d[:, :, 0])
+    for j in range(d.shape[2]):
+        start[:, :, j] = state
+        state = state * g[:, :, j, None, None] + d[:, :, j]
+    return start, state
+
+
+def gla_phase_b(q, lg, start, y_intra, *, chunk):
+    """Phase B (the plain version of K5's second kernel): y = y_intra +
+    (q exp(cum)) . start, per chunk. Returns y [B,S,H,P] in y_intra's
+    dtype."""
+    B, S, H, _ = q.shape
+    qf, _, _, cum = _by_chunk(q, None, None, lg, chunk)
+    inter = torch.einsum("bzihn,bhznp->bzihp", qf * torch.exp(cum)[..., None], start)
+    y = y_intra.float().reshape(inter.shape) + inter
+    return y.reshape(B, S, H, -1).to(y_intra.dtype)
+
+
+def gla_chunk_parallel(q, k, v, lg, *, chunk):
+    """The chunk-parallel schedule (plain version of K5): phase A, the scan,
+    phase B. Returns (y [B,S,H,P] in v's dtype, final state)."""
+    y_intra, g, d = gla_phase_a(q, k, v, lg, chunk=chunk)
+    start, final = gla_scan(g, d)
+    return gla_phase_b(q, lg, start, y_intra, chunk=chunk), final

@@ -1,6 +1,8 @@
-"""Core layers: RMSNorm, RoPE, SwiGLU MLP and full-attention GQA in prefill
-and decode mode. Functions on tensors; params are dict trees matching the
-``*_specs`` functions, with ``[in, out]`` weights as in the JAX package.
+"""Core layers: RMSNorm (and its per-head form), RoPE, the depthwise causal
+conv, SwiGLU MLP and GQA attention (full, or sliding-window over a
+ring-buffer cache) in prefill and decode mode. Functions on tensors;
+params are dict trees matching the ``*_specs`` functions, with
+``[in, out]`` weights as in the JAX package.
 
 Attention runs through :mod:`repro_torch.kernels.ops`: the CUDA kernels
 for tensors on the card, their plain versions for tensors on the CPU.
@@ -20,6 +22,38 @@ def rmsnorm(x, w, eps=1e-5):
     xf = x.float()
     y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
     return (y * w.float()).to(x.dtype)
+
+
+def rms_groupnorm(x, w, groups, eps=1e-5):
+    """Per-head RMS norm over the trailing dim split into ``groups`` heads."""
+    *lead, d = x.shape
+    xf = x.float().reshape(*lead, groups, d // groups)
+    y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+    return (y.reshape(*lead, d) * w.float()).to(x.dtype)
+
+
+def causal_conv1d(x, w):
+    """Depthwise causal conv via shifted adds. x: [B,S,C]; w: [W,C]."""
+    W, S = w.shape[0], x.shape[1]
+    out = x * w[W - 1]
+    for i in range(W - 1):
+        shift = W - 1 - i
+        out = out + F.pad(x, (0, 0, shift, 0))[:, :S] * w[i]
+    return out
+
+
+def causal_conv1d_step(x, state, w):
+    """Single decode step. x: [B,C]; state: [B,W-1,C] (oldest first).
+    Returns (out [B,C], new state [B,W-1,C])."""
+    W = w.shape[0]
+    out = x * w[W - 1] + torch.einsum("bwc,wc->bc", state, w[: W - 1])
+    return out, torch.cat([state[:, 1:], x[:, None]], dim=1)
+
+
+def ring_slot_positions(pos, W):
+    """Global positions held by each ring-buffer slot after writing token
+    ``pos`` (negative: the slot holds no token yet)."""
+    return pos - torch.remainder(pos - torch.arange(W), W)
 
 
 def rope(x, positions, theta):
@@ -59,13 +93,18 @@ def _qkv(cfg, p, x):
 
 
 def attn_apply(cfg, p, x, *, mode, cache, window=None, pos=None, force=None):
-    """Full-attention GQA block.
+    """GQA attention block; ``window`` (sliding-window attention) keeps the
+    layer's K/V in a ring-buffer cache, as the reference does.
 
-    prefill: x [B,S,d]; the K/V rows of positions ``0..S-1`` are written into
-    ``cache`` ({'k','v'}: [B,S_max,K*hd], S_max >= S).
+    prefill: x [B,S,d]. Full attention writes the K/V rows of positions
+    ``0..S-1`` into ``cache`` ({'k','v'}: [B,S_max,K*hd], S_max >= S). A
+    window layer's cache is a ring [B,W_ring,K*hd]: the last
+    ``min(S, W_ring)`` rows go to slots ``pos % W_ring``.
     decode: x [B,d]; ``pos`` (int) is the index of the incoming token. Its
-    K/V row is written into ``cache`` at ``pos`` in place, before attention,
-    which then covers positions ``< pos + 1``.
+    K/V row is written into ``cache`` at ``pos`` (a ring: slot
+    ``pos % W_ring``) in place, before attention, which then covers
+    positions ``< pos + 1`` (a window: the last ``min(window, W_ring,
+    pos + 1)`` of them).
     paged_decode: one lane, x [1,d], over a page pool: ``cache`` holds this
     layer's pages ``'k'``, ``'v'`` ([P, page, K, hd], the pool's strided
     view), the lane's ``'table'`` [1, n] and ``'lengths'`` [1] (``pos + 1``)
@@ -78,6 +117,7 @@ def attn_apply(cfg, p, x, *, mode, cache, window=None, pos=None, force=None):
     H, K = cfg.n_heads, cfg.n_kv_heads
     theta = cfg.rope_theta
     kc, vc = cache["k"], cache["v"]
+    ring = window is not None and mode != "paged_decode"
 
     if mode == "prefill":
         B, S, _ = x.shape
@@ -90,8 +130,18 @@ def attn_apply(cfg, p, x, *, mode, cache, window=None, pos=None, force=None):
         o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), window=window, force=force)
         out = o.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
-        kc[:, :S] = k.reshape(B, S, K * hd)
-        vc[:, :S] = v.reshape(B, S, K * hd)
+        if ring:
+            # each slot takes the position it holds after the prompt (on
+            # the host: no device sync)
+            kpos = ring_slot_positions(S - 1, kc.shape[1])
+            slots = torch.nonzero(kpos >= 0).flatten()
+            rows = kpos[slots].to(x.device)
+            slots = slots.to(x.device)
+            kc[:, slots] = k.reshape(B, S, K * hd)[:, rows]
+            vc[:, slots] = v.reshape(B, S, K * hd)[:, rows]
+        else:
+            kc[:, :S] = k.reshape(B, S, K * hd)
+            vc[:, :S] = v.reshape(B, S, K * hd)
         return out, cache
 
     if mode not in ("decode", "paged_decode"):
@@ -111,6 +161,13 @@ def attn_apply(cfg, p, x, *, mode, cache, window=None, pos=None, force=None):
         vc[page, off] = v.view(K, hd)
         o = ops.paged_decode_attention(q, kc, vc, cache["table"], cache["lengths"],
                                        window=window, force=force)
+    elif ring:
+        W_ring = kc.shape[1]
+        kc[:, pos % W_ring] = k
+        vc[:, pos % W_ring] = v
+        o = ops.window_decode_attention(q, kc.view(B, W_ring, K, hd),
+                                        vc.view(B, W_ring, K, hd), pos, window=window,
+                                        force=force)
     else:
         kc[:, pos] = k
         vc[:, pos] = v

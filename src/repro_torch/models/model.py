@@ -14,8 +14,10 @@ from repro_torch.models.params import init_params
 @dataclass(frozen=True)
 class Model:
     cfg: object
-    #: attention path for every layer: None | 'kernel' | 'ref' (kernels/ops.py)
+    #: kernel path for every layer: None | 'kernel' | 'ref' (kernels/ops.py)
     force: Optional[str] = None
+    #: the SSD prefill's GLA schedule: 'chunk' | 'parallel' (kernels/ops.py)
+    gla_schedule: str = "chunk"
 
     def specs(self):
         return T.model_specs(self.cfg)
@@ -24,18 +26,19 @@ class Model:
         return init_params(self.specs(), getattr(torch, self.cfg.param_dtype),
                            seed=seed, device=device)
 
-    def alloc_caches(self, batch_size: int, max_len: int, device):
-        return T.alloc_caches(self.cfg, batch_size, max_len, device)
+    def alloc_caches(self, batch_size: int, max_len: int, device, prompt_len=None):
+        return T.alloc_caches(self.cfg, batch_size, max_len, device, prompt_len)
 
     def prefill(self, params, tokens, *, max_len: Optional[int] = None):
         """tokens: [B,S] int64. -> (last-position logits [B, Vp] float32,
-        caches allocated at ``max_len`` (default S) holding rows 0..S-1)."""
+        caches allocated at ``max_len`` (default S) holding the prompt's
+        rows; a window layer's ring is ``T.ring_width`` rows)."""
         cfg = self.cfg
         B, S = tokens.shape
-        caches = self.alloc_caches(B, max_len or S, tokens.device)
+        caches = self.alloc_caches(B, max_len or S, tokens.device, prompt_len=S)
         h = T.embed_tokens(cfg, params, tokens)
-        h, caches = T.run_segments(cfg, params, h, mode="prefill",
-                                   caches=caches, force=self.force)
+        h, caches = T.run_segments(cfg, params, h, mode="prefill", caches=caches,
+                                   force=self.force, schedule=self.gla_schedule)
         h_last = rmsnorm(h[:, -1], params["final_norm"], cfg.norm_eps)
         return T.lm_head(cfg, params, h_last), caches
 

@@ -1,0 +1,115 @@
+"""The SSD mixer (Mamba-2 scalar-decay form): Hymba's parallel SSM heads.
+
+A copy of the SSD half of the JAX package's ``models/ssm.py`` (the mLSTM
+half comes with xLSTM). The prefill's chunked gated linear attention runs
+through :func:`repro_torch.kernels.ops.gla`: the CUDA kernels (K4, or K5
+under ``schedule='parallel'``) for tensors on the card, their plain
+versions on the CPU. The decode's one-token update, :func:`gla_step`, is
+plain torch, as the reference leaves it to XLA.
+
+The cache is ``{'state': [B,H,N,P] float32, 'conv': [B,W-1,C]}`` in the
+compute dtype, ``W = d_conv`` and ``C = H*P + 2N``: the recurrent state and
+the last ``W - 1`` pre-conv rows. It is written in place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import causal_conv1d, causal_conv1d_step, rms_groupnorm
+from repro_torch.models.params import ParamSpec
+
+
+def gla_step(q, k, v, lg, state):
+    """Single-token GLA update. q,k: [B,H,N]; v: [B,H,P]; lg: [B,H]; state:
+    [B,H,N,P] float32. Returns (y [B,H,P] in v's dtype, new state)."""
+    sf = state * torch.exp(lg.float())[..., None, None]
+    sf = sf + torch.einsum("bhn,bhp->bhnp", k.float(), v.float())
+    y = torch.einsum("bhn,bhnp->bhp", q.float(), sf)
+    return y.to(v.dtype), sf
+
+
+def ssd_specs(cfg):
+    s = cfg.ssm
+    d = cfg.d_model
+    dss = s.n_ssm_heads * s.head_dim
+    return {
+        "w_in": ParamSpec((d, 2 * dss + 2 * s.d_state), ("embed", "inner")),
+        "conv": ParamSpec((s.d_conv, dss + 2 * s.d_state), ("conv", "inner"), init="normal",
+                          scale=0.5),
+        "w_dt": ParamSpec((d, s.n_ssm_heads), ("embed", None)),
+        "dt_bias": ParamSpec((s.n_ssm_heads,), (None,), init="zeros"),
+        "a_log": ParamSpec((s.n_ssm_heads,), (None,), init="zeros"),
+        "d_skip": ParamSpec((s.n_ssm_heads,), (None,), init="ones"),
+        "norm": ParamSpec((dss,), ("inner",), init="ones"),
+        "wo": ParamSpec((dss, d), ("inner", "embed")),
+    }
+
+
+def cache_shapes(cfg):
+    """(shape of one row, dtype name) of each SSD cache leaf."""
+    s = cfg.ssm
+    C = s.n_ssm_heads * s.head_dim + 2 * s.d_state
+    return {"state": ((s.n_ssm_heads, s.d_state, s.head_dim), "float32"),
+            "conv": ((s.d_conv - 1, C), cfg.compute_dtype)}
+
+
+def _gates(p, x):
+    """dt = softplus(x w_dt + dt_bias) and the log decay lg = -exp(a_log) dt."""
+    dt = F.softplus(x @ p["w_dt"] + p["dt_bias"])
+    return dt, -torch.exp(p["a_log"]) * dt
+
+
+def ssd_apply(cfg, p, x, *, mode, cache, force=None, schedule="chunk"):
+    """x: [B,S,d] (prefill) or [B,d] (decode); ``cache`` is updated in place.
+    Returns (out, cache). ``schedule`` picks the prefill's GLA kernel
+    (:data:`repro_torch.kernels.ops.GLA_SCHEDULES`)."""
+    s = cfg.ssm
+    Hs, Pd, N, W = s.n_ssm_heads, s.head_dim, s.d_state, s.d_conv
+    dss = Hs * Pd
+
+    if mode == "prefill":
+        B, S, _ = x.shape
+        if S < W - 1:
+            # the reference keeps pre_conv[:, S - (W - 1):], which is short
+            # of W - 1 rows here, and its next decode step fails
+            raise ValueError(f"SSD prefill of {S} positions: needs at least "
+                             f"d_conv - 1 = {W - 1}")
+        proj = x @ p["w_in"]
+        pre_conv, z = proj[..., : dss + 2 * N], proj[..., dss + 2 * N:]
+        u_bc = F.silu(causal_conv1d(pre_conv, p["conv"]))
+        u, Bt, Ct = u_bc[..., :dss], u_bc[..., dss:dss + N], u_bc[..., dss + N:]
+        dt, lg = _gates(p, x)                                   # [B,S,H]
+        uh = u.reshape(B, S, Hs, Pd)
+        v = uh * dt[..., None]
+        # the heads share C_t and B_t: head-stride-0 views, nothing copied
+        q = Ct[:, :, None].expand(B, S, Hs, N)
+        k = Bt[:, :, None].expand(B, S, Hs, N)
+        y, state = ops.gla(q, k, v, lg, chunk=s.chunk, schedule=schedule, force=force)
+        y = y + uh * p["d_skip"][None, None, :, None]
+        y = rms_groupnorm(y.reshape(B, S, dss), p["norm"], Hs)
+        out = (y * F.silu(z)) @ p["wo"]
+        cache["state"].copy_(state)
+        cache["conv"].copy_(pre_conv[:, S - (W - 1):])
+        return out, cache
+
+    if mode != "decode":
+        raise ValueError(f"mode {mode!r}; the SSD mixer takes 'prefill' or 'decode'")
+    B, _ = x.shape
+    proj = x @ p["w_in"]
+    pre_conv, z = proj[..., : dss + 2 * N], proj[..., dss + 2 * N:]
+    u_bc, conv_state = causal_conv1d_step(pre_conv, cache["conv"], p["conv"])
+    u_bc = F.silu(u_bc)
+    u, Bt, Ct = u_bc[..., :dss], u_bc[..., dss:dss + N], u_bc[..., dss + N:]
+    dt, lg = _gates(p, x)                                   # [B,H]
+    uh = u.reshape(B, Hs, Pd)
+    v = uh * dt[..., None]
+    q = Ct[:, None].expand(B, Hs, N)
+    k = Bt[:, None].expand(B, Hs, N)
+    y, state = gla_step(q, k, v, lg, cache["state"])
+    y = y + uh * p["d_skip"][None, :, None]
+    y = rms_groupnorm(y.reshape(B, dss), p["norm"], Hs)
+    cache["state"].copy_(state)
+    cache["conv"].copy_(conv_state)
+    return (y * F.silu(z)) @ p["wo"], cache

@@ -1,10 +1,17 @@
-"""Decoder-stack assembly for the dense attention family: segment planning,
-block specs/apply, embeddings, head, and the loop over stacked layers.
+"""Decoder-stack assembly: segment planning (stacked homogeneous runs and
+unstacked exceptional layers), block specs/apply, embeddings, head, and
+the loop over a segment's layers.
 
-Only the ``attn`` block with full attention is here; ring/window caches,
-MLA, MoE, hymba and xLSTM come with their own slices and raise until then.
-Caches keep the JAX package's layout: a list with one entry per segment,
-``{"attn": {"k", "v"}}`` with ``[n_layers, B, S_max, K*hd]`` leaves.
+Two blocks are here: ``attn`` (GQA attention and a SwiGLU MLP, full or
+sliding-window attention) and ``hymba`` (attention and the SSD mixer in
+parallel on the same normed input, then the MLP). MLA, MoE, xLSTM and the
+multi-codebook/vision frontends come with their own slices and raise until
+then. Params and caches keep the JAX package's layout: a list with one
+entry per segment; a stacked (scanned) segment's leaves carry a leading
+``[n_layers]`` axis, an unstacked one's (hymba's global-attention layers)
+do not. Cache leaves: attention ``{"k", "v"}`` ``[B, S_max, K*hd]`` (a
+window layer's ring ``[B, W_ring, K*hd]``) in ``cache_dtype``; hymba's
+``"ssd"`` ``{"state", "conv"}`` (``models/ssm.py``).
 """
 from __future__ import annotations
 
@@ -14,52 +21,69 @@ from typing import Optional
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.params import ParamSpec, stack_spec, tree_map
 
 
 @dataclass(frozen=True)
 class Segment:
-    kind: str            # 'attn'
-    n: int               # number of stacked block repetitions in this segment
+    kind: str            # 'attn' | 'hymba'
+    n: int               # number of block repetitions in this segment
+    scanned: bool        # leaves stacked [n, ...] (the reference's lax.scan)
     window: Optional[int]  # None = full attention
 
 
 def _check_supported(cfg):
-    if cfg.block != "attn" or cfg.window is not None or cfg.mla is not None \
-            or cfg.moe is not None or cfg.n_codebooks > 1 or cfg.img_tokens:
+    if cfg.block not in ("attn", "hymba") or cfg.mla is not None \
+            or cfg.moe is not None or cfg.n_codebooks > 1 or cfg.img_tokens \
+            or (cfg.block == "hymba" and cfg.ssm is None):
         raise NotImplementedError(
-            f"{cfg.name}: only dense full-attention decoders are ported so far")
+            f"{cfg.name}: only dense attention and hymba decoders are ported so far")
 
 
 def plan_segments(cfg):
     _check_supported(cfg)
-    return [Segment("attn", cfg.n_layers, cfg.window)]
+    if cfg.block == "hymba":
+        segs, prev = [], 0
+        for g in sorted(cfg.global_layers):
+            if g > prev:
+                segs.append(Segment("hymba", g - prev, True, cfg.window))
+            segs.append(Segment("hymba", 1, False, None))   # global-attention layer
+            prev = g + 1
+        if prev < cfg.n_layers:
+            segs.append(Segment("hymba", cfg.n_layers - prev, True, cfg.window))
+        return segs
+    return [Segment("attn", cfg.n_layers, True, cfg.window)]
 
 
 def block_specs(cfg, kind):
-    if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     d = cfg.d_model
     sp = {"ln1": ParamSpec((d,), ("embed",), init="ones"),
           "attn": L.attn_specs(cfg)}
+    if kind == "hymba":
+        sp["ssd"] = SSM.ssd_specs(cfg)
     if cfg.d_ff:
         sp["ln2"] = ParamSpec((d,), ("embed",), init="ones")
         sp["ffn"] = L.mlp_specs(cfg)
     return sp
 
 
-def block_apply(cfg, kind, p, x, *, mode, window, cache, pos=None, force=None):
+def block_apply(cfg, kind, p, x, *, mode, window, cache, pos=None, force=None,
+                schedule="chunk"):
     """Returns (x_out, cache). Block norms use rmsnorm's default eps, as the
     JAX package does; only the final norm takes ``cfg.norm_eps``."""
-    if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    a_out, a_cache = L.attn_apply(cfg, p["attn"], L.rmsnorm(x, p["ln1"]),
-                                  mode=mode, cache=cache["attn"], window=window,
-                                  pos=pos, force=force)
-    x = x + a_out
+    xn = L.rmsnorm(x, p["ln1"])
+    a_out, _ = L.attn_apply(cfg, p["attn"], xn, mode=mode, cache=cache["attn"],
+                            window=window, pos=pos, force=force)
+    if kind == "hymba":
+        s_out, _ = SSM.ssd_apply(cfg, p["ssd"], xn, mode=mode, cache=cache["ssd"],
+                                 force=force, schedule=schedule)
+        x = x + 0.5 * (a_out + s_out)
+    else:
+        x = x + a_out
     if "ffn" in p:
         x = x + L.mlp_apply(p["ffn"], L.rmsnorm(x, p["ln2"]))
-    return x, {"attn": a_cache}
+    return x, cache
 
 
 def model_specs(cfg):
@@ -67,7 +91,8 @@ def model_specs(cfg):
     sp = {"embed": ParamSpec((Vp, d), ("vocab", "embed"), init="embed"),
           "segments": []}
     for seg in plan_segments(cfg):
-        sp["segments"].append(stack_spec(block_specs(cfg, seg.kind), seg.n))
+        bs = block_specs(cfg, seg.kind)
+        sp["segments"].append(stack_spec(bs, seg.n) if seg.scanned else bs)
     sp["final_norm"] = ParamSpec((d,), ("embed",), init="ones")
     sp["head"] = ParamSpec((d, Vp), ("embed", "vocab"))
     return sp
@@ -82,19 +107,41 @@ def lm_head(cfg, params, h):
     return (h @ params["head"]).float()
 
 
-def alloc_caches(cfg, batch_size, max_len, device):
-    """Zeroed decode caches at ``max_len`` (the prefill writes its rows)."""
-    shape = (batch_size, max_len, cfg.kv_cache_width)
-    dtype = getattr(torch, cfg.cache_dtype)
-    return [{"attn": {k: torch.zeros((seg.n, *shape), dtype=dtype, device=device)
+def ring_width(window, prompt_len, max_len):
+    """A window layer's ring after a prefill of ``prompt_len`` into caches
+    at ``max_len``, as the JAX ``Server`` leaves it: the window when the
+    prompt is longer, else the prompt's rows grown to ``max_len``."""
+    return window if prompt_len > window else max_len
+
+
+def alloc_caches(cfg, batch_size, max_len, device, prompt_len=None):
+    """Zeroed decode caches at ``max_len`` for a prompt of ``prompt_len``
+    (default ``max_len``) positions, which the prefill writes."""
+    prompt_len = max_len if prompt_len is None else prompt_len
+    kv_dtype = getattr(torch, cfg.cache_dtype)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    caches = []
+    for seg in plan_segments(cfg):
+        lead = (seg.n, batch_size) if seg.scanned else (batch_size,)
+        rows = max_len if seg.window is None else ring_width(seg.window, prompt_len, max_len)
+        c = {"attn": {k: zeros((*lead, rows, cfg.kv_cache_width), kv_dtype)
                       for k in ("k", "v")}}
-            for seg in plan_segments(cfg)]
+        if seg.kind == "hymba":
+            c["ssd"] = {k: zeros((*lead, *shape), getattr(torch, dt))
+                        for k, (shape, dt) in SSM.cache_shapes(cfg).items()}
+        caches.append(c)
+    return caches
 
 
-def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None, lane=None):
-    """Runs all segments; a Python loop over a segment's stacked layer
+def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None, lane=None,
+                 schedule="chunk"):
+    """Runs all segments; a Python loop over a stacked segment's layer
     leaves takes the place of ``lax.scan``. Layer ``i`` reads and writes
-    ``caches[si]`` at index ``i`` in place. Returns (h, caches).
+    its cache (``caches[si]`` at index ``i``, or the whole entry of an
+    unstacked segment) in place. Returns (h, caches).
 
     ``mode='paged_decode'``: ``caches[si]`` is ``{"attn": {"k", "v"}}`` of
     the page pool's ``[P, page, n_layers, K, hd]`` views and ``lane`` the
@@ -107,8 +154,8 @@ def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None, lane=Non
                 ci = {"attn": {"k": c["attn"]["k"][:, :, i],
                                "v": c["attn"]["v"][:, :, i], **lane}}
             else:
-                ci = tree_map(lambda t: t[i], c)
-            h, _ = block_apply(cfg, seg.kind, tree_map(lambda t: t[i], p), h,
-                               mode=mode, window=seg.window, cache=ci, pos=pos,
-                               force=force)
+                ci = tree_map(lambda t: t[i], c) if seg.scanned else c
+            pi = tree_map(lambda t: t[i], p) if seg.scanned else p
+            h, _ = block_apply(cfg, seg.kind, pi, h, mode=mode, window=seg.window,
+                               cache=ci, pos=pos, force=force, schedule=schedule)
     return h, caches

@@ -30,17 +30,20 @@ class Server:
 
     ``params`` defaults to the seeded init on ``device``; tests hand in the
     JAX package's params through ``models.params.from_jax_params``.
+    ``gla_schedule`` picks hymba's prefill GLA kernel ('chunk' or
+    'parallel', ``kernels/ops.py``).
     """
 
-    def __init__(self, cfg, *, seed=0, params=None, device=None):
+    def __init__(self, cfg, *, seed=0, params=None, device=None, gla_schedule="chunk"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = Model(cfg)
+        self.model = Model(cfg, gla_schedule=gla_schedule)
         self.params = params if params is not None \
             else self.model.init(seed, self.device)
         self.prefill_fn = ST.make_prefill_step(self.model)
         self.decode_fn = ST.make_decode_step(self.model)
         self.caches = None
+        self.max_len = 0
         self.pos = 0
         self._tok = None
 
@@ -52,11 +55,13 @@ class Server:
 
     def prefill(self, tokens, pad_to=None):
         """tokens: [B,S]. Caches are allocated at ``max(pad_to, S)`` and hold
-        the prompt's rows. Returns the last position's logits [B, Vp]."""
+        the prompt's rows, each leaf by its kind (a window layer's ring is
+        ``T.ring_width`` rows, as the JAX ``Server`` leaves it). Returns the
+        last position's logits [B, Vp]."""
         t = self._tokens(tokens)
         S = t.shape[-1]
-        logits, self.caches = self.prefill_fn(self.params, t,
-                                              max_len=max(pad_to or S, S))
+        self.max_len = max(pad_to or S, S)
+        logits, self.caches = self.prefill_fn(self.params, t, max_len=self.max_len)
         self.pos = S
         return logits
 
@@ -66,7 +71,7 @@ class Server:
 
     def step_once(self):
         """Decode ONE token from the internal seed; returns it as numpy [B]."""
-        if self.pos >= self.caches[0]["attn"]["k"].shape[2]:
+        if self.pos >= self.max_len:
             raise RuntimeError(f"cache full at {self.pos} positions")
         logits, self.caches = self.decode_fn(self.params, self._tok, self.pos,
                                              self.caches)
@@ -156,6 +161,10 @@ class ServeEngine:
         if cfg.n_codebooks > 1:
             raise NotImplementedError("ServeEngine supports single-codebook "
                                       "models; use Server for codebook archs")
+        if cfg.block != "attn":
+            raise NotImplementedError(f"ServeEngine pages attention caches only; "
+                                      f"{cfg.name}'s {cfg.block} blocks need the "
+                                      "single-stream Server")
         self.cfg = cfg
         self.max_len = int(max_len)
         self.device = resolve_device(device)

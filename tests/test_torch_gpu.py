@@ -7,6 +7,10 @@ JAX, so it runs on a machine without it:
 
 Tolerances: bf16 2e-2 (8 significant bits; one rounding of an output near
 1 is 2^-8), float32 2e-5 (summation order only), as tests/test_kernels.py.
+The GLA kernels take tests/test_kernels.py's GLA sweep tolerances, 5e-2 in
+bf16 and 5e-4 in float32 (absolute and relative): they are held against
+the step-by-step recurrence, whose float32 sums run in another order over
+hundreds of decayed terms, and their outputs are not bounded by 1.
 """
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import gla_chunk as GC  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as PA  # noqa: E402
 from repro_torch.models.params import tree_map  # noqa: E402
@@ -24,6 +29,7 @@ from repro_torch.serving.engine import ServeEngine, Server  # noqa: E402
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+GLA_TOL = {torch.bfloat16: 5e-2, torch.float32: 5e-4}
 
 
 @pytest.fixture
@@ -193,3 +199,138 @@ def test_smoke_fleet_on_card_matches_server_streams(cuda):
         first = torch.argmax(logits[:, : cfg.vocab_size], -1).cpu().numpy()
         toks, _ = srv.decode(7, first)
         assert eng.stream(sid) == [int(first[0])] + [int(t[0]) for t in toks]
+
+
+def _gla_inputs(cuda, B, H, S, N, P, dtype, seed, broadcast=False):
+    """tests/test_kernels.py's GLA inputs. ``broadcast``: q and k are the
+    model's head-broadcast views (one row per position, head stride 0,
+    sliced out of a wider projection row)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    if broadcast:
+        row = randn(B, S, 2 * N + 8).to(dtype)
+        q = row[..., 8:8 + N, None].transpose(-1, -2).expand(B, S, H, N)
+        k = (row[..., 8 + N:, None] * 0.3).to(dtype).transpose(-1, -2).expand(B, S, H, N)
+        assert q.stride(2) == 0 and k.stride(2) == 0
+    else:
+        q, k = randn(B, S, H, N).to(dtype), (randn(B, S, H, N) * 0.3).to(dtype)
+    v = randn(B, S, H, P).to(dtype)
+    lg = -torch.nn.functional.softplus(randn(B, S, H)) * 0.3
+    return q, k, v, lg
+
+
+def _gla_close(a, b, dtype):
+    torch.testing.assert_close(a.float(), b.float(), rtol=GLA_TOL[dtype],
+                               atol=GLA_TOL[dtype])
+
+
+GLA_CASES = [(2, 3, 64, 8, 32, 16, False), (1, 2, 96, 16, 64, 64, False),   # 96: chunk 32
+             (1, 2, 40, 8, 32, 16, True), (2, 2, 512, 16, 64, 256, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,S,N,P,chunk,broadcast", GLA_CASES)
+def test_gla_chunk_kernel_matches_plain(cuda, B, H, S, N, P, chunk, broadcast, dtype):
+    q, k, v, lg = _gla_inputs(cuda, B, H, S, N, P, dtype, S + N, broadcast)
+    n0 = GC.launches
+    y, state = ops.gla(q, k, v, lg, chunk=chunk)
+    assert GC.launches == n0 + 1
+    want, h = ref.naive_gla(q, k, v, lg)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    _gla_close(y, want, dtype)
+    _gla_close(state, h, dtype)
+    y2, s2 = ref.chunked_gla(q, k, v, lg, chunk=chunk)
+    _gla_close(y, y2, dtype)
+    _gla_close(state, s2, dtype)
+    assert torch.equal(y, GC.gla_chunk(q, k, v, lg, chunk=chunk)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,S,N,P,chunk,broadcast", GLA_CASES)
+def test_gla_parallel_kernels_match_plain_phases(cuda, B, H, S, N, P, chunk, broadcast,
+                                                  dtype):
+    q, k, v, lg = _gla_inputs(cuda, B, H, S, N, P, dtype, S + N + 1, broadcast)
+    n0 = (GC.launches_a, GC.launches_b)
+    y, final = ops.gla(q, k, v, lg, chunk=chunk, schedule="parallel")
+    assert (GC.launches_a, GC.launches_b) == (n0[0] + 1, n0[1] + 1)
+    want, h = ref.naive_gla(q, k, v, lg)
+    _gla_close(y, want, dtype)
+    _gla_close(final, h, dtype)
+    # each phase against its plain version on the same inputs
+    ya, g, d = GC.gla_phase_a(q, k, v, lg, chunk=chunk)
+    pa, pg, pd = ref.gla_phase_a(q, k, v, lg, chunk=chunk)
+    _gla_close(ya, pa, dtype)
+    _gla_close(g, pg, dtype)
+    _gla_close(d, pd, dtype)
+    start, _ = ref.gla_scan(pg, pd)
+    _gla_close(GC.gla_phase_b(q, lg, start, pa, chunk=chunk),
+               ref.gla_phase_b(q, lg, start, pa, chunk=chunk), dtype)
+    # the two schedules against each other
+    _gla_close(y, GC.gla_chunk(q, k, v, lg, chunk=chunk)[0], dtype)
+
+
+def test_gla_kernels_refuse_unbuilt_shapes(cuda):
+    q, k, v, lg = _gla_inputs(cuda, 1, 2, 32, 32, 64, torch.float32, 0)
+    with pytest.raises(ValueError, match="not in"):
+        GC.gla_chunk(q, k, v, lg, chunk=16)
+    with pytest.raises(ValueError, match="not in"):
+        GC.gla_phase_a(q, k, v, lg, chunk=16)
+    q, k, v, lg = _gla_inputs(cuda, 1, 2, 32, 16, 64, torch.float32, 0)
+    with pytest.raises(TypeError, match="dtypes"):
+        GC.gla_chunk(q, k, v.bfloat16(), lg, chunk=16)
+    q, k, v, lg = _gla_inputs(cuda, 1, 1, 4096, 16, 64, torch.float32, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        GC.gla_chunk(q, k, v, lg, chunk=4096)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("W,window,pos", [
+    (64, 64, 10),       # pos < W: the ring is not full yet
+    (64, 64, 63),       # pos = W - 1: full, not wrapped
+    (64, 64, 1000),     # pos >> W: wrapped many times
+    (300, 256, 290),    # W_ring > window (a prompt grown by pad_to): the window bites
+    (300, 256, 700),    # ... and wrapped
+    (48, 256, 200),     # W_ring < window: the ring bounds the range
+])
+def test_ring_decode_kernel_matches_plain(cuda, W, window, pos, dtype):
+    B, H, K, D = 2, 8, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(pos + W)
+    q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, W, K, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    n0 = DA.ring_launches
+    out = ops.window_decode_attention(q, k, v, pos, window=window)
+    assert DA.ring_launches == n0 + 1
+    _close(out, ref.naive_ring_decode_attention(q, k, v, pos, window=window), dtype)
+    assert torch.equal(out, ops.window_decode_attention(q, k, v, pos, window=window))
+
+
+def test_force_ref_on_cuda_launches_no_new_kernel(cuda):
+    q, k, v, lg = _gla_inputs(cuda, 1, 2, 32, 8, 32, torch.float32, 0)
+    n0 = (GC.launches, GC.launches_a, GC.launches_b, DA.ring_launches)
+    ops.gla(q, k, v, lg, chunk=16, force="ref")
+    ops.gla(q, k, v, lg, chunk=16, schedule="parallel", force="ref")
+    kr = torch.randn(1, 16, 1, 32, device=cuda)
+    ops.window_decode_attention(torch.randn(1, 2, 32, device=cuda), kr, kr, 20, window=8,
+                                force="ref")
+    assert (GC.launches, GC.launches_a, GC.launches_b, DA.ring_launches) == n0
+
+
+@pytest.mark.parametrize("schedule", ["chunk", "parallel"])
+def test_smoke_hymba_server_on_card_matches_cpu(cuda, schedule):
+    cfg = smoke_config("hymba-1.5b")
+    gpu = Server(cfg, device=cuda, seed=0, gla_schedule=schedule)
+    cpu = Server(cfg, device="cpu", params=tree_map(lambda t: t.cpu(), gpu.params),
+                 gla_schedule=schedule)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+    n = (GC.launches, GC.launches_a, DA.launches, DA.ring_launches)
+    lg, lc = gpu.prefill(prompt, pad_to=48), cpu.prefill(prompt, pad_to=48)
+    # float32 through 3 layers, card vs CPU matmul order (conftest assert_close)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    first = np.argmax(lc[:, : cfg.vocab_size].numpy(), -1)
+    (tg, _), (tc, _) = gpu.decode(6, first), cpu.decode(6, first)
+    np.testing.assert_array_equal(np.stack(tg), np.stack(tc))
+    gla = GC.launches - n[0] if schedule == "chunk" else GC.launches_a - n[1]
+    # 3 layers: 2 windowed (ring) and 1 global, each with SSD heads
+    assert (gla, DA.launches - n[2], DA.ring_launches - n[3]) == (3, 6, 12)

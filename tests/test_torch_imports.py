@@ -34,10 +34,11 @@ def test_package_has_the_slice_modules():
             "kernels/flash_attention.py", "kernels/decode_attention.py",
             "kernels/paged_decode_attention.py", "serving/engine.py",
             "serving/kv_pool.py", "serving/scheduler.py", "launch/serve.py",
-            "steps.py", "device.py"} <= names
+            "steps.py", "device.py", "models/ssm.py", "kernels/gla_chunk.py",
+            "configs/hymba_1_5b.py"} <= names
     assert {p.name for p in (PKG / "csrc").iterdir()} >= {
         "flash_attention.cu", "decode_attention.cu", "paged_decode_attention.cu",
-        "decode_split.cuh"}
+        "decode_split.cuh", "gla_chunk.cu"}
 
 
 @pytest.mark.parametrize("path", MODULES + [ROOT / "chip_smoke.py"],
@@ -71,7 +72,8 @@ def test_no_library_attention_on_the_path():
 
 
 @pytest.mark.parametrize("name", ["ops.py", "flash_attention.py",
-                                  "decode_attention.py", "paged_decode_attention.py"])
+                                  "decode_attention.py", "paged_decode_attention.py",
+                                  "gla_chunk.py"])
 def test_kernel_wrappers_have_no_fallback(name):
     tree = ast.parse((PKG / "kernels" / name).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]

@@ -46,8 +46,14 @@ def test_model_specs_match_jax():
 
 
 def test_unported_blocks_raise():
+    # hymba and sliding-window attention are ported; xLSTM, MoE, MLA and the
+    # multi-codebook frontend are not yet
     cfg = configs.smoke_config(ARCH)
-    for change in ({"block": "hymba"}, {"window": 32}, {"n_codebooks": 2}):
+    for change in ({"block": "xlstm"},
+                   {"moe": configs.MoEConfig(n_experts=4, top_k=2, expert_d_ff=64)},
+                   {"mla": configs.MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16,
+                                             qk_rope_dim=8, v_head_dim=16)},
+                   {"n_codebooks": 2}):
         with pytest.raises(NotImplementedError):
             T.plan_segments(dataclasses.replace(cfg, **change))
 
@@ -116,5 +122,31 @@ def test_prefill_and_decode_match_jax_model():
         logits, caches = m.decode_step(tp, torch.from_numpy(tok).long(), S + i, caches)
         assert_close(logits, jlogits, msg=f"decode step {i}")
         tok = np.argmax(np.asarray(jlogits)[:, : cfg.vocab_size], -1).astype(np.int32)
+    for k in ("k", "v"):
+        assert_close(caches[0]["attn"][k], jcaches[0]["attn"][k])
+
+
+def test_sliding_window_dense_model_matches_jax_ring_cache():
+    """granite's smoke config with a 16-token window: every layer keeps a
+    ring-buffer cache, as the reference's ``use_ring`` path does; a 24-token
+    prompt rolls the ring by 8 and the decode wraps it."""
+    jcfg = dataclasses.replace(jconfigs.smoke_config(ARCH), window=16)
+    cfg = dataclasses.replace(configs.smoke_config(ARCH), window=16)
+    jm = JaxModel(jcfg)
+    jp = jm.init(jax.random.key(2))
+    tp = from_jax_params(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    ctx = ShardingCtx(None, rules_for(jcfg, "decode"))
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 24), dtype=np.int32)
+    jlogits, jcaches = jm.prefill(ctx, jp, {"tokens": jnp.asarray(tokens)})
+    m = Model(cfg)
+    logits, caches = m.prefill(tp, torch.from_numpy(tokens).long(), max_len=40)
+    assert_close(logits, jlogits)
+    assert caches[0]["attn"]["k"].shape == jcaches[0]["attn"]["k"].shape == (3, 2, 16, 64)
+    for i in range(10):
+        tok = np.argmax(np.asarray(jlogits)[:, : cfg.vocab_size], -1).astype(np.int32)
+        jlogits, jcaches = jm.decode_step(ctx, jp, jnp.asarray(tok), jnp.int32(24 + i),
+                                          jcaches)
+        logits, caches = m.decode_step(tp, torch.from_numpy(tok).long(), 24 + i, caches)
+        assert_close(logits, jlogits, msg=f"decode step {i}")
     for k in ("k", "v"):
         assert_close(caches[0]["attn"][k], jcaches[0]["attn"][k])
