@@ -13,9 +13,9 @@ not 0:
      error beside its tolerance, the paged decode over a strided 40-layer
      pool view with a shuffled page table, and over in-order pages against
      the contiguous decode bit for bit; then the kernel's, the plain
-     version's and the library call's times beside the kernel's bound, and
-     the profiler's device times of the decode kernels' split and combine
-     kernels apart;
+     version's and the library call's times beside the kernel's bound (K1
+     at granite's and at hymba's two prefill shapes), and the profiler's
+     device time per call of the decode kernels (one kernel each);
   4. serve: full-width granite-3-2b (bf16, seeded random weights) prefills
      4 prompts x 1024 tokens and decodes 32 tokens through the kernels;
      the launch counts are checked, and the logits are held against the
@@ -33,7 +33,9 @@ not 0:
      counts are checked (flash and K4 per layer per prefill, K5's phases
      per layer under the parallel schedule, ring decode per windowed layer
      and contiguous decode per global layer per step), the two schedules'
-     logits and first tokens are held to each other, the logits to the
+     logits and first tokens (on every row whose top two logits are more
+     than a bf16 ulp apart, at least half the rows) are held to each other,
+     the logits to the
      plain path and a float32 copy, and, since bf16 rounding moves this
      random-weight model's logits by tens of percent, a float32 copy's
      kernel path (both schedules) to its plain path with equal first
@@ -75,6 +77,11 @@ F32_DIST_RATIO = 2.0
 # the bf16 path sits to float32; this share of that distance leaves room
 # for sums over thousands of terms (hold_to_plain, noisy models)
 F32_NOISE_SHARE = 1e-2
+# two bf16 logits this many ulps apart or closer are a tie: the two GLA
+# schedules' first tokens are held equal on every other row, and at least
+# this share of the rows must be held
+TIE_ULPS = 1
+MIN_HELD_SHARE = 0.5
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # the serving paths' shapes, whose largest errors go into the JSON record:
@@ -116,35 +123,6 @@ def bound_ms(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
-def cuda_ms(fn, sets, iters=20, reps=3):
-    """Mean device ms of one ``fn(*s)`` call. ``iters`` calls cycling through
-    the input ``sets`` (together larger than the 50 MB L2, so each call finds
-    its inputs cold, as a layer of the model does) are captured in one CUDA
-    graph, which is replayed ``reps`` times between two events: the host's
-    cost per call, which exceeds a small kernel's device time, stays out."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):     # warm-up off the capture: handles, workspaces
-        for s in sets:
-            fn(*s)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(iters):
-            fn(*sets[i % len(sets)])
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / (iters * reps)
-
-
 def kernel_us(fn, sets, iters=40):
     """Device microseconds per call of each CUDA kernel ``fn`` launches, by
     name, from the profiler over ``iters`` calls cycling through ``sets``
@@ -166,6 +144,16 @@ def kernel_us(fn, sets, iters=40):
 def rel(a, b):
     """max |a - b| over max |b|."""
     return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def bf16_ties(logits):
+    """Rows whose top two logits lie within TIE_ULPS bf16 ulps (at the top
+    logit's magnitude) of each other: there two bf16 paths that differ only
+    in rounding may pick either token."""
+    import torch
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    ulp = torch.exp2(torch.floor(torch.log2(top2[:, 0].abs().clamp_min(1e-30))) - 7)
+    return ((top2[:, 0] - top2[:, 1]) <= TIE_ULPS * ulp).cpu().numpy()
 
 
 def hold_to_plain(tag, cfg, model, params, tokens, feed, dev, *, noisy=False):
@@ -295,6 +283,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gla_chunk as GC
     from repro_torch.kernels import paged_decode_attention as PA
+    from repro_torch.kernels.timing import cuda_ms
     from repro_torch.models.params import tree_map
     from repro_torch.serving.engine import ServeEngine, Server
 
@@ -507,6 +496,31 @@ def main() -> int:
     print(f"[kernels] flash_attention bf16 B{B} H{H} K{K} S{S} D{D}: {f_ms * 1e3:.1f} us, "
           f"plain {f_plain * 1e3:.1f} us, sdpa {f_lib * 1e3:.1f} us, "
           f"bound {f_bound * 1e3:.2f} us ({f_by})")
+    # K1 at hymba's prefill, windowed and global layers; SDPA's yardstick
+    # takes the window as a boolean mask (causal and within the window)
+    hB, hH, hK, hS = 4, 25, 5, 1536
+    hsets = [flash_inputs(hB, hH, hK, hS, D, bf) for _ in range(4)]
+    pos = torch.arange(hS, device=dev)
+    for w in (1024, None):
+        h_ms = cuda_ms(lambda q, k, v: FA.flash_attention(q, k, v, window=w), hsets)
+        h_plain = cuda_ms(lambda q, k, v: ref.naive_attention(q, k, v, window=w), hsets,
+                          iters=5)
+        if w:
+            mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < w)
+            h_lib = cuda_ms(lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), hsets)
+            pairs = w * (w + 1) / 2 + (hS - w) * w
+        else:
+            h_lib = cuda_ms(lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), hsets)
+            pairs = hS * hS / 2
+        # the (query, key) pairs the mask admits, 4D FLOP each
+        h_bound, h_by = bound_ms(4 * hB * hH * pairs * D,
+                                 2 * (2 * hB * hH * hS * D + 2 * hB * hK * hS * D))
+        print(f"[kernels] flash_attention bf16 B{hB} H{hH} K{hK} S{hS} D{D} window={w}: "
+              f"{h_ms * 1e3:.1f} us, plain {h_plain * 1e3:.1f} us, sdpa {h_lib * 1e3:.1f} us, "
+              f"bound {h_bound * 1e3:.2f} us ({h_by})", flush=True)
+    del hsets
     print(f"[kernels] decode_attention bf16 B{B} H{H} K{K} S{Smax} len{length} D{D}: "
           f"{d_ms * 1e3:.1f} us, plain {d_plain * 1e3:.1f} us, sdpa {d_lib * 1e3:.1f} us, "
           f"bound {d_bound * 1e3:.2f} us ({d_by})", flush=True)
@@ -605,18 +619,18 @@ def main() -> int:
           f"({r_by})", flush=True)
     del rsets, rgsets
 
-    # where the decode kernels' time goes: split and combine apart
-    split_us = {}
+    # the decode kernels' device time per call, from the profiler: one
+    # kernel each (the last split block of a row and KV head combines)
     for name, fn, sets in (
             ("decode_attention", lambda q, k, v: DA.decode_attention(q, k, v, length), dsets),
             ("paged_decode_attention",
              lambda q, kp, vp, t, ln: PA.paged_decode_attention(q, kp, vp, t, ln), psets)):
         us = kernel_us(fn, sets)
-        split_us[name] = us
-        print(f"[kernels] {name} profiler device time per call: "
-              + "; ".join(f"{k[:72]} {v:.2f} us" for k, v in
-                          sorted(us.items(), key=lambda kv: -kv[1]))
-              + f" (sum {sum(us.values()):.2f} us)", flush=True)
+        if len(us) != 1:
+            raise AssertionError(f"{name}: the profiler saw {len(us)} kernels per call: {us}")
+        (kname, kus), = us.items()
+        print(f"[kernels] {name} profiler device time per call: {kus:.2f} us "
+              f"({kname[:72]}, one kernel)", flush=True)
     del fsets, dsets, psets, gsets, stores
 
     # -- 4. full-width granite-3-2b Server ------------------------------------
@@ -852,12 +866,21 @@ def main() -> int:
     # the schedules differ only in where the SSD output is rounded to bf16
     # (K5 also rounds its intra-chunk part), so they are held to each other
     # as the kernel path is held to float32: within F32_DIST_RATIO times
-    # the plain bf16 path's distance from the float32 copy
+    # the plain bf16 path's distance from the float32 copy; and with equal
+    # first tokens on every row that is not a bf16 tie in either schedule
+    # (on a tie the argmax follows rounding noise), at least MIN_HELD_SHARE
+    # of the rows held (hold_to_plain also holds both schedules' float32
+    # first tokens to the float32 plain path's on every row)
     sched_tol = F32_DIST_RATIO * plain_f32[0]
-    sched_ok = r_sched <= sched_tol and np.array_equal(p_first, h_first)
+    ties = bf16_ties(h_logits[:, : hcfg.vocab_size]) | bf16_ties(p_logits[:, : hcfg.vocab_size])
+    held = ~ties
+    sched_ok = (r_sched <= sched_tol and held.mean() >= MIN_HELD_SHARE
+                and np.array_equal(p_first[held], h_first[held]))
     print(f"[hymba] parallel vs chunk schedule: last-position logits max|a-b|/max|b| "
           f"{r_sched:.3e} (tol {F32_DIST_RATIO:g} x plain-f32 = {sched_tol:.3e}); first "
-          f"tokens {p_first.tolist()} vs {h_first.tolist()} "
+          f"tokens {p_first.tolist()} vs {h_first.tolist()}, held at rows "
+          f"{np.nonzero(held)[0].tolist()} (at least {MIN_HELD_SHARE:.0%} of the rows), "
+          f"bf16 ties (top-2 within {TIE_ULPS} ulp) at rows {np.nonzero(ties)[0].tolist()} "
           f"{'ok' if sched_ok else 'FAIL'}", flush=True)
     if not held_plain:
         raise AssertionError("hymba: kernel path disagrees with the plain path")

@@ -1,41 +1,68 @@
-// Split-KV flash-decoding kernels shared by the contiguous-cache decode
+// Split-KV flash-decoding shared by the contiguous-cache decode
 // (decode_attention.cu, kernel 2, also over a ring-buffer window cache) and
 // the paged-pool decode (paged_decode_attention.cu, kernel 3). Included by
 // both; not compiled on its own.
 //
+// Replaces the split/page loops of src/repro/kernels/decode_attention.py
+// (_kernel and _paged_kernel), which carry (m, l, acc) across a sequential
+// split (or page) axis of one TPU core.
+//
 // Computes, for each row b and query head h, softmax(q k^T / sqrt(D)) v over
 // cache positions [max(length_b - window, 0), length_b), with query head h
 // reading KV head h / (H / K). q: [B,H,D]; out: [B,H,D]. Where the K/V row of
-// (row b, position j, KV head kh) lies is the one thing the two callers
-// differ in: an addressing functor (ContigKV, RingKV, PagedKV) gives its
-// element offset and each row's length. Scores, softmax and sums are
-// float32; the output is cast to the input type.
+// (row b, position j, KV head kh) lies is the one thing the callers differ
+// in: an addressing functor (ContigKV, RingKV, PagedKV) gives its element
+// offset and each row's length. Scores, softmax and sums are float32; the
+// output is cast to the input type.
 //
 // Bound: each cache position's K and V rows (2*D elements) serve the G = H/K
 // query heads of their KV head at 4*D FLOP per head, so the work is G FLOP
-// per cache byte in bf16 (4 for granite-3-2b), far below the H100's ~295
-// FLOP/byte ridge: device-memory bytes bound it, the 2*length*K*D cache
-// elements below each row's length at 3.35 TB/s.
+// per cache byte in bf16, far fewer operations per byte than the card's
+// compute rate over its memory rate: device-memory bytes bound it, the
+// 2*length*K*D cache elements below each row's length. At decode sizes
+// those bytes are few, so what a kernel has to avoid is waiting: on one
+// round trip to device memory per block with nothing else in flight, on
+// __syncthreads between phases, and on a second launch.
 // Design against that bound:
-//  * The TPU kernels carry (m, l, acc) across a sequential split (or page)
-//    axis. On Hopper the splits are parallel blocks: one block per (row, KV
-//    head, split of SPLIT logical positions), enough blocks to keep the SMs'
-//    loads in flight. A block reads each of its K and V rows from device
-//    memory once for all G query heads of its KV head: one thread per
-//    position issues all the 16-byte loads of its K row (kept in registers
-//    for the scores) and its V row (staged in shared memory) at once, so the
-//    block waits on device memory once. For P.V one warp takes a position at
-//    a time and adds its V row into all G heads' accumulators, kept in
-//    registers.
-//  * Each block writes an unnormalised partial (m, l, o) to scratch; a second
-//    small kernel combines the splits in a fixed order. No atomics, so the
-//    result is deterministic.
+//  * One launch. The splits are parallel blocks: one block of 4 warps per
+//    (row, KV head, split of SPLIT = 128 logical positions). Each block
+//    writes an unnormalised partial (m, l, o) for the KV head's G query
+//    heads, then takes a ticket from a per-(row, KV head) counter (after
+//    __syncthreads, one atomicAdd with release and acquire semantics, which
+//    also does a __threadfence's work); the block that draws the last
+//    ticket combines the splits in split-index order, as a separate
+//    combine kernel did, and sets the counter back to 0. The atomic only
+//    elects the block: every sum runs in a fixed order, so the result is
+//    deterministic and the same whichever block combines. The combine's
+//    loads are batched (up to 16 splits' (m, l, o) per batch, the largest
+//    m taken from the registers when one batch holds every split), so the
+//    tail after the last ticket is one or two round trips to L2. With a
+//    single split the block writes the output.
+//  * Streaming. Each warp takes 32 positions; D * sizeof(T) / 16 lanes read
+//    one K or V row (8 lanes for a bf16 row of 64), 16 bytes each, so a
+//    warp's load covers several whole rows. Every K and V load of a thread
+//    is issued before any is used, and nothing waits on another warp before
+//    the merge, so one warp's math overlaps the other warps' (and blocks')
+//    loads. 128-position splits rather than 64 halve the partials the
+//    combine reads, while each warp keeps twice the loads in flight, so the
+//    card holds as many bytes in flight.
+//  * Per query head of the KV head, a warp computes its positions' scores
+//    (a lane's slice of q from shared memory against its slice of the K
+//    row, summed over the row's lanes by shuffles), its online-softmax
+//    (m, l) by shuffles across the row groups, and its P V sum in
+//    registers; the 4 warps' partials are merged through shared memory in
+//    warp order. Scores are in the log2 domain (q scaled by
+//    log2(e) / sqrt(D)) and exponentiated with ex2.approx.
 //  * A split wholly outside [lo, length) writes the empty partial
 //    (m = -1e30, l = 0, o = 0) without reading the cache; the combine weighs
-//    it by exp(-1e30 - m) = 0, so it adds exactly nothing and no NaN. The
+//    it by exp2(-1e30 - m) = 0, so it adds exactly nothing and no NaN. The
 //    splits cover the same logical positions whatever the addressing, so a
 //    paged pool whose pages lie in order gives the contiguous kernel's
 //    result bit for bit.
+//  * The counters (int32, one per (row, KV head)) belong to the caller,
+//    zeroed once when allocated; every launch leaves them at zero, so a
+//    CUDA graph that captured a launch replays correctly. Two launches that
+//    may run at once (on two streams) must not share a counter buffer.
 
 #pragma once
 
@@ -48,7 +75,24 @@ namespace decode_split {
 using bf16 = __nv_bfloat16;
 
 constexpr float NEG_INF = -1e30f;
-constexpr int GMAX = 16;  // query heads per KV head the accumulators hold
+constexpr int GMAX = 16;      // query heads per KV head a launch takes
+constexpr int WARPS = 4;      // warps per split block
+constexpr int WARP_POS = 32;  // positions per warp
+constexpr int SPLIT = WARPS * WARP_POS;
+constexpr int MIN_BLOCKS = 3;  // resident blocks per SM the registers allow
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// atomicAdd(counter, 1) with acquire-release semantics at device scope.
+__device__ __forceinline__ int ticket(int* counter) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.add.s32 %0, [%1], 1;\n" : "=r"(old) : "l"(counter) : "memory");
+  return old;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -58,15 +102,6 @@ template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o /= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o /= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // The dense decode cache [B, S, K, D], one length for every row.
 struct ContigKV {
@@ -101,7 +136,7 @@ struct PagedKV {
 // lo = pos + 1 - n, n = min(window, W, pos + 1): the positions the ring
 // still holds and the window admits. The kernel's index j reads position
 // lo + j, so its splits cover exactly that range (the caller passes window
-// 0 and n_splits = ceil(n / split)) and none lies wholly below it.
+// 0 and n_splits = ceil(n / SPLIT)) and none lies wholly below it.
 struct RingKV {
   int W, K, D, n, lo;
   __device__ __forceinline__ int length(int) const { return n; }
@@ -110,212 +145,253 @@ struct RingKV {
   }
 };
 
-// Grid (n_splits, K, B); blockDim.x = split positions, one per thread.
-// G <= GMAX. Partials: part_o [B,K,n_splits,G,D]; part_m, part_l
-// [B,K,n_splits,G]. Dynamic shared memory: see smem_bytes().
+// Grid (n_splits, K, B); WARPS * 32 threads. G <= GMAX. Partials: part_o
+// [B,K,n_splits,G,D]; part_m, part_l [B,K,n_splits,G] (unused with one
+// split); counters [B*K], zero between launches. Dynamic shared memory:
+// smem_bytes<D>(G).
 template <typename T, int D, typename KV>
-__global__ void __launch_bounds__(256) decode_split_kernel(
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS) decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    float* __restrict__ part_o, float* __restrict__ part_m,
-    float* __restrict__ part_l, KV kv, int H, int K, int window, float scale) {
-  constexpr int L16 = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int VP = D + L16;          // v_s row pitch (16-byte pad: no bank conflicts)
-  constexpr int VEC = D / 32;          // elements of a V row per lane in P.V
+    T* __restrict__ out, float* __restrict__ part_o, float* __restrict__ part_m,
+    float* __restrict__ part_l, int* __restrict__ counters, KV kv, int H, int K,
+    int window, float scale) {
+  constexpr int E = 16 / sizeof(T);        // elements per 16-byte load
+  constexpr int LPR = D / E;               // lanes per K or V row
+  constexpr int RPW = 32 / LPR;            // rows one warp load covers
+  constexpr int NIT = WARP_POS / RPW;      // K (and V) loads per lane
+  constexpr int THREADS = WARPS * 32;
   extern __shared__ __align__(16) float sm[];
+  __shared__ int last;
+  __shared__ float mg_s[GMAX];
   const int G = H / K;
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const int n_splits = gridDim.x, span = blockDim.x;
-  const int start = split * span;
+  const int n_splits = gridDim.x;
+  const int start = split * SPLIT;
   const int length = kv.length(b);
   const int lo = window > 0 ? max(length - window, 0) : 0;
-  const int j0 = max(start, lo), j1 = min(start + span, length);
-  const long long pidx = ((long long)(b * K + kh) * n_splits + split) * G;
-  float* o_out = part_o + pidx * D;
-
-  if (j0 >= j1) {  // nothing of [lo, length) in this split: empty partial
-    for (int i = threadIdx.x; i < G * D; i += blockDim.x) o_out[i] = 0.f;
-    for (int g = threadIdx.x; g < G; g += blockDim.x) {
-      part_m[pidx + g] = NEG_INF;
-      part_l[pidx + g] = 0.f;
-    }
-    return;
-  }
-
-  float* q_s = sm;                                    // [G][D], scaled
-  float* p_s = q_s + G * D;                           // [G][span]: scores, then p
-  T* v_s = reinterpret_cast<T*>(p_s + G * span);      // [span][VP]: the V rows
-  const T* qb = q + ((long long)b * H + kh * G) * D;
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) q_s[i] = to_f(qb[i]) * scale;
-
-  // Thread jl reads cache position start + jl: its K row into registers and
-  // its V row into v_s, every 16-byte load of the block issued before any
-  // is used, so the block waits on device memory once.
-  const int jl = threadIdx.x, j = start + jl;
-  const bool live = j >= j0 && j < j1;
-  float kf[D];
-  if (live) {
-    const long long row = kv.row(b, j, kh);
-    const uint4* kr = reinterpret_cast<const uint4*>(k + row);
-    const uint4* vr = reinterpret_cast<const uint4*>(v + row);
-    uint4 ku[D / L16], vu[D / L16];
-#pragma unroll
-    for (int c = 0; c < D / L16; ++c) {
-      ku[c] = kr[c];
-      vu[c] = vr[c];
-    }
-#pragma unroll
-    for (int c = 0; c < D / L16; ++c) {
-      *reinterpret_cast<uint4*>(v_s + jl * VP + c * L16) = vu[c];
-      const T* e = reinterpret_cast<const T*>(&ku[c]);
-#pragma unroll
-      for (int t = 0; t < L16; ++t) kf[c * L16 + t] = to_f(e[t]);
-    }
-  }
-  __syncthreads();  // q_s and v_s are filled
-
-  if (live) {
-    for (int g = 0; g < G; ++g) {
-      float sc = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) sc += q_s[g * D + d] * kf[d];
-      p_s[g * span + jl] = sc;
-    }
-  }
-  __syncthreads();
-
+  const int j0 = max(start, lo), j1 = min(start + SPLIT, length);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  for (int g = warp; g < G; g += n_warps) {
-    float* ps = p_s + g * span;
-    float mx = NEG_INF;
-    for (int i = j0 - start + lane; i < j1 - start; i += 32) mx = fmaxf(mx, ps[i]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int i = j0 - start + lane; i < j1 - start; i += 32) {
-      const float pr = expf(ps[i] - mx);
-      ps[i] = pr;
-      sum += pr;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      part_m[pidx + g] = mx;
-      part_l[pidx + g] = sum;
-    }
-  }
-  __syncthreads();
+  const int rg = lane / LPR, cl = lane % LPR;  // row group, slice of the row
+  const long long pidx = ((long long)(b * K + kh) * n_splits + split) * G;
+  T* o = out + ((long long)b * H + kh * G) * D;
 
-  // P.V from shared memory: warp w takes positions j0 + w, j0 + w + n_warps,
-  // ...; the lane adds its VEC elements of each V row into all G heads'
-  // accumulators, kept in registers
-  float acc[GMAX][VEC];
+  float* q_s = sm;                       // [G][D], scaled
+  float* red_o = q_s + G * D;            // [WARPS][G][D]: each warp's P V
+  float* red_m = red_o + WARPS * G * D;  // [WARPS][G]
+  float* red_l = red_m + WARPS * G;      // [WARPS][G]
+
+  // this lane's positions: start + warp * WARP_POS + it * RPW + rg
+  const bool empty = j0 >= j1;
+  uint4 kr[NIT], vr[NIT];
+  bool live[NIT];
 #pragma unroll
-  for (int g = 0; g < GMAX; ++g)
+  for (int it = 0; it < NIT; ++it) {
+    const int j = start + warp * WARP_POS + it * RPW + rg;
+    live[it] = j >= j0 && j < j1;
+  }
+  if (!empty) {
 #pragma unroll
-    for (int t = 0; t < VEC; ++t) acc[g][t] = 0.f;
-  for (int i = j0 - start + warp; i < j1 - start; i += n_warps) {
-    float vf[VEC];
-#pragma unroll
-    for (int t = 0; t < VEC; ++t) vf[t] = to_f(v_s[i * VP + lane * VEC + t]);
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      if (g < G) {
-        const float pr = p_s[g * span + i];
-#pragma unroll
-        for (int t = 0; t < VEC; ++t) acc[g][t] += pr * vf[t];
+    for (int it = 0; it < NIT; ++it) {
+      kr[it] = vr[it] = make_uint4(0, 0, 0, 0);
+      if (live[it]) {
+        const int j = start + warp * WARP_POS + it * RPW + rg;
+        const long long row = kv.row(b, j, kh) + cl * E;
+        kr[it] = __ldg(reinterpret_cast<const uint4*>(k + row));
+        vr[it] = __ldg(reinterpret_cast<const uint4*>(v + row));
       }
     }
   }
-  __syncthreads();  // every warp is done with v_s, which now takes the sums
+  const T* qb = q + ((long long)b * H + kh * G) * D;
+  // scores in the log2 domain: q scaled by log2(e) / sqrt(D), exp2 below
+  for (int i = threadIdx.x; i < G * D; i += THREADS) q_s[i] = to_f(qb[i]) * scale;
+  __syncthreads();
 
-  // sum the warps' accumulators in warp order (deterministic)
-  float* red = reinterpret_cast<float*>(v_s);  // [n_warps][G][D]
+  if (!empty) {
+    for (int g = 0; g < G; ++g) {
+      float qv[E];
 #pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g < G) {
+      for (int e = 0; e < E; e += 4) {
+        const float4 f = *reinterpret_cast<const float4*>(q_s + g * D + cl * E + e);
+        qv[e] = f.x;
+        qv[e + 1] = f.y;
+        qv[e + 2] = f.z;
+        qv[e + 3] = f.w;
+      }
+      float s[NIT];
+      float mx = NEG_INF;
 #pragma unroll
-      for (int t = 0; t < VEC; ++t) red[(warp * G + g) * D + lane * VEC + t] = acc[g][t];
+      for (int it = 0; it < NIT; ++it) {
+        const T* kt = reinterpret_cast<const T*>(&kr[it]);
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) dot += qv[e] * to_f(kt[e]);
+#pragma unroll
+        for (int off = LPR / 2; off > 0; off /= 2)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        s[it] = live[it] ? dot : NEG_INF;
+        mx = fmaxf(mx, s[it]);
+      }
+#pragma unroll
+      for (int off = 16; off >= LPR; off /= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      float sum = 0.f, acc[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] = 0.f;
+#pragma unroll
+      for (int it = 0; it < NIT; ++it) {
+        const float p = live[it] ? ex2(s[it] - mx) : 0.f;
+        const T* vt = reinterpret_cast<const T*>(&vr[it]);
+        sum += p;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] += p * to_f(vt[e]);
+      }
+#pragma unroll
+      for (int off = 16; off >= LPR; off /= 2) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+      }
+      if (rg == 0) {
+#pragma unroll
+        for (int e = 0; e < E; e += 4)
+          *reinterpret_cast<float4*>(red_o + (warp * G + g) * D + cl * E + e) =
+              make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+      }
+      if (lane == 0) {
+        red_m[warp * G + g] = mx;
+        red_l[warp * G + g] = sum;
+      }
     }
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < G * D; e += blockDim.x) {
-    float sum = 0.f;
-    for (int w = 0; w < n_warps; ++w) sum += red[w * G * D + e];
-    o_out[e] = sum;
+
+  // this split's partial: the warps' sums merged in warp order
+  for (int e = threadIdx.x; e < G * D; e += THREADS) {
+    const int g = e / D;
+    float m = NEG_INF, l = 0.f, acc = 0.f;
+    if (!empty) {
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) m = fmaxf(m, red_m[w * G + g]);
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        const float wt = ex2(red_m[w * G + g] - m);
+        l += wt * red_l[w * G + g];
+        acc += wt * red_o[w * G * D + e];
+      }
+    }
+    if (n_splits == 1) {
+      o[e] = from_f<T>(acc / fmaxf(l, 1e-30f));
+    } else {
+      part_o[pidx * D + e] = acc;
+      if (e % D == 0) {
+        part_m[pidx + g] = m;
+        part_l[pidx + g] = l;
+      }
+    }
   }
-}
+  if (n_splits == 1) return;
 
-// Bytes of dynamic shared memory decode_split_kernel<T, D> needs: q and the
-// scores, then the V rows, whose space later holds the per-warp P.V sums.
-template <typename T, int D>
-size_t smem_bytes(int G, int split) {
-  const size_t v_rows = (size_t)split * (D + 16 / sizeof(T)) * sizeof(T);
-  const size_t sums = (size_t)(split / 32) * G * D * sizeof(float);
-  return (size_t)(G * D + G * split) * sizeof(float) + (v_rows > sums ? v_rows : sums);
-}
-
-// Grid (H, B); blockDim.x = D. Combines the splits in index order.
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ part_o,
-                                      const float* __restrict__ part_m,
-                                      const float* __restrict__ part_l,
-                                      T* __restrict__ out, int H, int K,
-                                      int n_splits) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x, D = blockDim.x;
-  const int G = H / K, kh = h / G, g = h % G;
-  const long long base = (long long)(b * K + kh) * n_splits * G + g;
-  float mg = NEG_INF;
-  for (int s = 0; s < n_splits; ++s) mg = fmaxf(mg, part_m[base + (long long)s * G]);
-  float num = 0.f, den = 0.f;
-  for (int s = 0; s < n_splits; ++s) {
-    const long long i = base + (long long)s * G;
-    const float w = expf(part_m[i] - mg);
-    den += w * part_l[i];
-    num += w * part_o[i * D + d];
+  // the last of the (row, KV head)'s splits to finish combines them: the
+  // ticket is drawn with release (the block's partial, ordered before it by
+  // the barrier, is visible device-wide first) and acquire (the last block
+  // then sees every other block's partial)
+  __syncthreads();
+  if (threadIdx.x == 0) last = ticket(&counters[b * K + kh]) == n_splits - 1;
+  __syncthreads();
+  if (!last) return;
+  const long long base = (long long)(b * K + kh) * n_splits * G;
+  constexpr int U = 16;  // splits whose loads are in flight at once
+  if (n_splits > U) {
+    // each head's largest m over the splits: warp w takes heads w,
+    // w + WARPS, ..., its lanes the splits
+    for (int g = warp; g < G; g += WARPS) {
+      float mx = NEG_INF;
+      for (int sp = lane; sp < n_splits; sp += 32)
+        mx = fmaxf(mx, __ldcg(part_m + base + (long long)sp * G + g));
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      if (lane == 0) mg_s[g] = mx;
+    }
+    __syncthreads();
   }
-  out[((long long)b * H + h) * D + d] = from_f<T>(num / fmaxf(den, 1e-30f));
+  for (int e = threadIdx.x; e < G * D; e += THREADS) {
+    const int g = e / D;
+    const float* pm = part_m + base + g;
+    const float* pl = part_l + base + g;
+    const float* po = part_o + base * D + e;
+    float mg = n_splits > U ? mg_s[g] : NEG_INF;
+    float num = 0.f, den = 0.f;
+    for (int s0 = 0; s0 < n_splits; s0 += U) {
+      float mm[U], ll[U], oo[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const long long i = (long long)(s0 + u) * G;
+        const bool in = s0 + u < n_splits;
+        mm[u] = in ? __ldcg(pm + i) : NEG_INF;
+        ll[u] = in ? __ldcg(pl + i) : 0.f;
+        oo[u] = in ? __ldcg(po + i * D) : 0.f;
+      }
+      if (n_splits <= U) {  // one batch: the largest m from the registers
+#pragma unroll
+        for (int u = 0; u < U; ++u) mg = fmaxf(mg, mm[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {  // in split order
+        const float w = ex2(mm[u] - mg);
+        den += w * ll[u];
+        num += w * oo[u];
+      }
+    }
+    o[e] = from_f<T>(num / fmaxf(den, 1e-30f));
+  }
+  if (threadIdx.x == 0) counters[b * K + kh] = 0;
 }
 
-// Launches the split kernel and the combine on the caller's stream; returns
-// a cudaError_t. part_o: [B,K,n_splits,G,D] float32; part_ml:
-// [2,B,K,n_splits,G] float32 (m then l).
+// Bytes of dynamic shared memory decode_kernel<T, D> needs: q, then each
+// warp's P V sums and (m, l).
+template <int D>
+size_t smem_bytes(int G) {
+  return (size_t)(G * D + WARPS * G * D + 2 * WARPS * G) * sizeof(float);
+}
+
+// Launches the kernel on the caller's stream; returns a cudaError_t.
+// part_o: [B,K,n_splits,G,D] float32; part_ml: [2,B,K,n_splits,G] float32
+// (m then l); counters: [B*K] int32, zero.
 template <typename T, int D, typename KV>
 int launch(const void* q, const void* k, const void* v, void* o, float* part_o,
-           float* part_ml, const KV& kv, int B, int H, int K, int n_splits,
-           int window, int split, cudaStream_t st) {
+           float* part_ml, int* counters, const KV& kv, int B, int H, int K,
+           int n_splits, int window, cudaStream_t st) {
   const int G = H / K;
   const long long n_part = (long long)B * K * n_splits * G;
-  const size_t smem = smem_bytes<T, D>(G, split);
-  if (G > GMAX || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  decode_split_kernel<T, D, KV><<<dim3(n_splits, K, B), split, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), part_o, part_ml, part_ml + n_part, kv, H, K,
-      window, 1.0f / sqrtf((float)D));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  decode_combine_kernel<T><<<dim3(H, B), D, 0, st>>>(
-      part_o, part_ml, part_ml + n_part, static_cast<T*>(o), H, K, n_splits);
+  if (G > GMAX) return (int)cudaErrorInvalidValue;
+  decode_kernel<T, D, KV><<<dim3(n_splits, K, B), WARPS * 32, smem_bytes<D>(G), st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), part_o, part_ml, part_ml + n_part, counters, kv, H, K,
+      window, 1.4426950408889634f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 // The four built instantiations: dtype 0 = float32, 1 = bfloat16; D 32, 64.
+// `split` must be SPLIT (the callers size the partials by it).
 template <typename KV>
 int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
-             void* o, void* part_o, void* part_ml, const KV& kv, int B, int H,
-             int K, int n_splits, int window, int split, void* stream) {
-  if (B < 1 || K < 1 || H % K != 0 || n_splits < 1 || split < 32 ||
-      split > 256 || split % 32 != 0)
+             void* o, void* part_o, void* part_ml, void* counters, const KV& kv,
+             int B, int H, int K, int n_splits, int window, int split,
+             void* stream) {
+  if (B < 1 || K < 1 || H % K != 0 || n_splits < 1 || split != SPLIT)
     return (int)cudaErrorInvalidValue;
   float* po = static_cast<float*>(part_o);
   float* pml = static_cast<float*>(part_ml);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 64)
-    return launch<bf16, 64>(q, k, v, o, po, pml, kv, B, H, K, n_splits, window, split, st);
+    return launch<bf16, 64>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
   if (dtype == 1 && D == 32)
-    return launch<bf16, 32>(q, k, v, o, po, pml, kv, B, H, K, n_splits, window, split, st);
+    return launch<bf16, 32>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
   if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, po, pml, kv, B, H, K, n_splits, window, split, st);
+    return launch<float, 64>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
   if (dtype == 0 && D == 32)
-    return launch<float, 32>(q, k, v, o, po, pml, kv, B, H, K, n_splits, window, split, st);
+    return launch<float, 32>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
   return (int)cudaErrorInvalidValue;
 }
 

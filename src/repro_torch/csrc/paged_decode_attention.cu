@@ -14,25 +14,25 @@
 // On the TPU the table drives the BlockSpec index maps and the grid walks a
 // row's pages in order, carrying (m, l, acc). Here a block loads its own
 // page indices: the splits are the contiguous decode's (decode_split.cuh),
-// each a parallel block over SPLIT logical positions, and each thread reads
+// each a parallel block over SPLIT logical positions, and each lane reads
 // the page of its position from the table (table[b, pos / page_size]) and
-// then its K/V row through the strides. Splits past a row's length read
-// nothing, so the table entries past the length (0 by contract) are never
-// read. Bound and design notes: decode_split.cuh.
+// then its slice of the K/V row through the strides. Splits past a row's
+// length read nothing, so the table entries past the length (0 by
+// contract) are never read. Bound and design notes: decode_split.cuh.
 //
-// The entry point launches both kernels on the caller's stream and returns
+// The entry point launches one kernel on the caller's stream and returns
 // cudaGetLastError().
 
 #include "decode_split.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. part_o: [B,K,n_splits,G,D] float32;
 // part_ml: [2,B,K,n_splits,G] float32 (m then l), with n_splits =
-// ceil(n_tab * page_size / split). Strides are in elements. Returns a
-// cudaError_t.
+// ceil(n_tab * page_size / split); counters: [B*K] int32, zero (left
+// zero). Strides are in elements. Returns a cudaError_t.
 extern "C" int repro_paged_decode_attention(
     const void* q, const void* k, const void* v, void* o, void* part_o,
-    void* part_ml, const void* page_table, const void* lengths, int B, int H,
-    int K, int D, int n_tab, int page_size, long long page_stride,
+    void* part_ml, void* counters, const void* page_table, const void* lengths,
+    int B, int H, int K, int D, int n_tab, int page_size, long long page_stride,
     long long row_stride, long long head_stride, int window, int dtype,
     int split, void* stream) {
   if (n_tab < 1 || page_size < 1 || split < 1) return (int)cudaErrorInvalidValue;
@@ -44,7 +44,7 @@ extern "C" int repro_paged_decode_attention(
                                  row_stride,
                                  head_stride};
   const long long positions = (long long)n_tab * page_size;
-  return decode_split::dispatch(dtype, D, q, k, v, o, part_o, part_ml, kv, B, H,
-                                K, (int)((positions + split - 1) / split),
+  return decode_split::dispatch(dtype, D, q, k, v, o, part_o, part_ml, counters, kv,
+                                B, H, K, (int)((positions + split - 1) / split),
                                 window, split, stream);
 }

@@ -6,13 +6,15 @@ for Hopper (``sm_90a``) into its own shared library. The libraries go to
 hash covers the source and the command, so an edited source is rebuilt
 and an unchanged one is loaded as it is (the hash also covers the shared
 ``csrc/*.cuh`` headers). :func:`build_all` starts one ``nvcc`` per source,
-all at once.
+all at once. ``python3 -m repro_torch.kernels.build`` builds them and prints
+ptxas's registers, shared memory and spills for every kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -108,3 +110,33 @@ def check(rc: int, what: str) -> None:
     """Raise if a C entry returned a CUDA error (``cudaGetLastError()``)."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def ptxas_report() -> str:
+    """ptxas's resource lines for every kernel of every source: each source
+    compiled once more with ``-Xptxas -v`` into ``_build/ptxas/``, the
+    sources in parallel."""
+    out = BUILD_ROOT / "ptxas"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {n: subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                                  str(out / f"lib{n}.so"), str(CSRC / f"{n}.cu")],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for n in SOURCES}
+    lines = []
+    for n, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {n}.cu:\n{log}")
+        kernel = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kernel = m.group(1)
+            elif kernel and ("spill" in line or "Used" in line):
+                lines.append(f"{n}.cu {kernel[-60:]}: {line.strip()}")
+    return "\n".join(lines)
+
+
+if __name__ == "__main__":
+    print(f"built in {build_all():.1f}s")
+    print(ptxas_report())

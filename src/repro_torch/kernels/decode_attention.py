@@ -1,18 +1,26 @@
 """Split-KV flash-decoding (one query token per row) as hand-written CUDA.
 
 The Hopper twin of the JAX package's Pallas ``decode_attention._kernel``;
-the kernels and their design notes are in ``csrc/decode_attention.cu``.
-Its plain version is :func:`repro_torch.kernels.ref.naive_decode_attention`
-(which takes k/v as ``[B,K,S,D]``).
+the kernel and its design notes are in ``csrc/decode_split.cuh`` (entry
+points in ``csrc/decode_attention.cu``). Its plain version is
+:func:`repro_torch.kernels.ref.naive_decode_attention` (which takes k/v as
+``[B,K,S,D]``).
 
 Layout: q ``[B,H,D]``; k/v ``[B,S,K,D]``, which is the decode cache
 ``[B, S_max, K*D]`` viewed without a copy. The cache is cut into splits of
 ``SPLIT`` positions; one block per (row, KV head, split) reads its K/V
 rows once for the KV head's ``G = H/K`` query heads (at most ``MAX_G``) and
-writes an unnormalised partial to a scratch buffer, and a second kernel
-combines the partials in a fixed order, so the result is deterministic.
+writes an unnormalised partial to a scratch buffer. In the same launch the
+last block of each (row, KV head) to finish, elected by a ticket counter,
+combines the partials in split order, so the result is deterministic. The
+counters are this module's, one zeroed int32 buffer per device that every
+launch leaves at zero (so a captured CUDA graph replays correctly); two
+launches that may run at once on different streams must not share it. A
+buffer is never freed, since a captured graph keeps its address, and none is
+allocated during a capture: launch once at the largest size, outside the
+capture, first.
 
-:func:`ring_decode_attention` runs the same kernels over a sliding-window
+:func:`ring_decode_attention` runs the same kernel over a sliding-window
 layer's ring-buffer cache ``[B, W, K, D]`` (position ``p`` in slot
 ``p % W``); its plain version is
 :func:`repro_torch.kernels.ref.naive_ring_decode_attention`.
@@ -26,25 +34,48 @@ import torch
 
 from repro_torch.kernels import build
 
-#: launches of the CUDA kernel pair over a contiguous cache since the count
-#: was last set to 0
+#: launches of the CUDA kernel over a contiguous cache since the count was
+#: last set to 0
 launches = 0
-#: launches of the kernel pair over a ring-buffer cache, likewise
+#: launches of the kernel over a ring-buffer cache, likewise
 ring_launches = 0
 
 HEAD_DIMS = (32, 64)
-SPLIT = 128          # cache positions per split block (one per thread)
+SPLIT = 128          # cache positions per split block (SPLIT in the source)
 MAX_G = 16           # query heads per KV head (GMAX in the source)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_counter_bufs: dict[torch.device, torch.Tensor] = {}
+# buffers a larger launch outgrew, kept alive: a graph that captured a
+# launch with one of them goes on counting in it on every replay
+_outgrown: list[torch.Tensor] = []
 
 
 @functools.cache
 def _bind(entry):
     fn = getattr(build.load("decode_attention"), entry)
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def counters(device, n: int) -> torch.Tensor:
+    """The device's ticket counters, at least ``n`` int32 (one per row and
+    KV head), zeroed when allocated; the kernels leave them at zero."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    buf = _counter_bufs.get(device)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            # a buffer made here would be zeroed only when the graph replays
+            raise RuntimeError(f"decode kernels: {n} ticket counters are needed during a "
+                               "CUDA graph capture; launch once at this size before it")
+        if buf is not None:
+            _outgrown.append(buf)
+        size = max(n, 2 * buf.numel() if buf is not None else 4096)
+        buf = _counter_bufs[device] = torch.zeros(size, dtype=torch.int32, device=device)
+    return buf
 
 
 def n_splits(S: int) -> int:
@@ -86,18 +117,19 @@ def _launch(entry, q, k, v, ns, *ints):
     o = torch.empty_like(q)
     part_o = torch.empty((B, K, ns, G, D), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((2, B, K, ns, G), dtype=torch.float32, device=q.device)
+    cnt = counters(q.device, B * K)
     fn = _bind(entry)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                part_o.data_ptr(), part_ml.data_ptr(), *ints, _DTYPES[q.dtype],
-                SPLIT, stream)
+                part_o.data_ptr(), part_ml.data_ptr(), cnt.data_ptr(), *ints,
+                _DTYPES[q.dtype], SPLIT, stream)
     build.check(rc, entry)
     return o
 
 
 def decode_attention(q, k, v, length, *, window=None):
-    """Launch the kernels. q: [B,H,D]; k,v: [B,S,K,D] contiguous on one CUDA
+    """Launch the kernel. q: [B,H,D]; k,v: [B,S,K,D] contiguous on one CUDA
     device, all float32 or all bfloat16, D in ``HEAD_DIMS``, H/K at most
     ``MAX_G``; attend to cache positions ``< length`` (and
     ``>= length - window``)."""
@@ -115,7 +147,7 @@ def decode_attention(q, k, v, length, *, window=None):
 
 
 def ring_decode_attention(q, k, v, pos, *, window):
-    """Launch the kernels over a ring-buffer cache. q: [B,H,D]; k,v:
+    """Launch the kernel over a ring-buffer cache. q: [B,H,D]; k,v:
     [B,W,K,D] as :func:`decode_attention` takes them, position ``p`` in slot
     ``p % W``; ``pos`` is the index of the newest token, whose row is
     written. Attends to the last ``min(window, W, pos + 1)`` positions, as

@@ -20,6 +20,11 @@ from repro_torch.kernels import build
 
 #: launches of the CUDA kernel since the count was last set to 0
 launches = 0
+#: the shared library whose C entry ``repro_flash_attention`` the wrapper
+#: launches: None for the one built from ``csrc/flash_attention.cu``; the
+#: path of another build of a source with the same C entry compares an
+#: earlier or altered version on the same calls (``tools/k1_witness.py``)
+library = None
 
 HEAD_DIMS = (32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -27,8 +32,8 @@ _I64 = ctypes.c_longlong
 
 
 @functools.cache
-def _bind():
-    lib = build.load("flash_attention")
+def _bind(path):
+    lib = build.load("flash_attention") if path is None else ctypes.CDLL(str(path))
     fn = lib.repro_flash_attention
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [_I64] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -68,7 +73,7 @@ def flash_attention(q, k, v, *, window=None):
     o = torch.empty_like(q)
     if S == 0 or B == 0:
         return o
-    fn = _bind()
+    fn = _bind(library)
     strides = [s for x in (q, k, v, o) for s in x.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -1,9 +1,11 @@
 """Split-KV flash-decoding over a paged KV pool as hand-written CUDA.
 
 The Hopper twin of the JAX package's Pallas ``decode_attention._paged_kernel``;
-the kernel is in ``csrc/paged_decode_attention.cu`` and shares its split and
-combine kernels with the contiguous decode (``csrc/decode_split.cuh``). Its
-plain version is :func:`repro_torch.kernels.ref.naive_paged_decode_attention`.
+the entry point is in ``csrc/paged_decode_attention.cu`` and shares its
+one-launch split-KV kernel (the last split block of each row and KV head
+combines the splits) and the ticket counters with the contiguous decode
+(``csrc/decode_split.cuh``, :func:`decode_attention.counters`). Its plain
+version is :func:`repro_torch.kernels.ref.naive_paged_decode_attention`.
 
 Layout: q ``[B,H,D]``; k/v pages ``[n_pool_pages, page_size, K, D]`` with any
 strides whose last dim is contiguous, so the serving pool's per-layer
@@ -21,9 +23,9 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import HEAD_DIMS, MAX_G, SPLIT
+from repro_torch.kernels.decode_attention import HEAD_DIMS, MAX_G, SPLIT, counters
 
-#: launches of the CUDA kernel pair since the count was last set to 0
+#: launches of the CUDA kernel since the count was last set to 0
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -34,7 +36,7 @@ _I64 = ctypes.c_longlong
 def _bind():
     lib = build.load("paged_decode_attention")
     fn = lib.repro_paged_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [_I64] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [_I64] * 3
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -45,7 +47,7 @@ def n_splits(n_table: int, page_size: int) -> int:
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *, window=None):
-    """Launch the kernels. q: [B,H,D] contiguous; k_pages, v_pages: [P, page,
+    """Launch the kernel. q: [B,H,D] contiguous; k_pages, v_pages: [P, page,
     K, D] with equal strides and a contiguous last dim; page_table: [B, n]
     int32; lengths: [B] int32; all on one CUDA device; q and the pages all
     float32 or all bfloat16, D in ``HEAD_DIMS``, H/K at most ``MAX_G``."""
@@ -95,12 +97,14 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *, window=N
     o = torch.empty_like(q)
     part_o = torch.empty((B, K, ns, G, D), dtype=torch.float32, device=dev)
     part_ml = torch.empty((2, B, K, ns, G), dtype=torch.float32, device=dev)
+    cnt = counters(dev, B * K)
     fn = _bind()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
-                part_o.data_ptr(), part_ml.data_ptr(), page_table.data_ptr(),
-                lengths.data_ptr(), B, H, K, D, n_tab, page, *strides[:3],
+                part_o.data_ptr(), part_ml.data_ptr(), cnt.data_ptr(),
+                page_table.data_ptr(), lengths.data_ptr(), B, H, K, D, n_tab, page,
+                *strides[:3],
                 window or 0, _DTYPES[q.dtype], SPLIT, stream)
     build.check(rc, "paged_decode_attention")
     launches += 1

@@ -57,6 +57,154 @@ def test_flash_kernel_matches_plain(cuda, B, H, K, S, D, window, dtype):
     _close(out, ref.naive_attention(q, k, v, window=window), dtype)
 
 
+def _flash_views(cuda, B, H, K, S, D, dtype, seed):
+    """q, k, v as the model passes them (``layers.py`` prefill): [B,S,n,D]
+    projections seen as [B,n,S,D] views; v is a slice of a wider row, as a
+    fused projection's would be."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k = (torch.randn(B, S, n, D, generator=g, device=cuda).to(dtype) for n in (H, K))
+    row = torch.randn(B, S, (K + 2) * D, generator=g, device=cuda).to(dtype)
+    v = row[..., 2 * D:].view(B, S, K, D)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _flash_held(q, k, v, window, dtype):
+    n0 = FA.launches
+    out = ops.flash_attention(q, k, v, window=window)
+    assert FA.launches == n0 + 1
+    assert out.stride() == q.stride()
+    _close(out, ref.naive_attention(q, k, v, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [24, 63, 64, 65, 127, 129, 1000, 1536])
+def test_flash_kernel_sequence_lengths(cuda, S, dtype):
+    q, k, v = _flash_views(cuda, 2, 4, 2, S, 64, dtype, seed=S)
+    _flash_held(q, k, v, None, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [1, 63, 64, 65, 1024])
+def test_flash_kernel_windows(cuda, window, dtype):
+    q, k, v = _flash_views(cuda, 2, 4, 1, 1536, 64, dtype, seed=window)
+    _flash_held(q, k, v, window, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("G", [1, 4, 5, 16])
+def test_flash_kernel_group_sizes_and_head_dims(cuda, G, D, dtype):
+    q, k, v = _flash_views(cuda, 2, 2 * G, 2, 300, D, dtype, seed=G * D)
+    _flash_held(q, k, v, None, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_on_model_views_equals_contiguous_copy(cuda, dtype):
+    """The strided views and contiguous [B,H,S,D] copies of the same data
+    give the same output bit for bit (the tensor maps follow the strides)."""
+    q, k, v = _flash_views(cuda, 2, 8, 2, 200, 64, dtype, seed=7)
+    assert not (q.is_contiguous() or v.is_contiguous())
+    a = FA.flash_attention(q, k, v, window=50)
+    b = FA.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=50)
+    assert torch.equal(a, b)
+
+
+def _decode_calls(cuda, dtype):
+    """One call each of K2, K2 over a ring and K3 at small shapes, as
+    closures over fixed inputs; with their launch counters."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, H, K, D, S = 2, 8, 2, 64, 300
+    q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, S, K, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    kr, vr = (torch.randn(B, 64, K, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    qp, kp, vp, table, lens = _paged_inputs(cuda, 2, H, K, D, 3, 1, [300, 129], 16, dtype,
+                                            seed=5)
+    return {
+        "decode": (lambda L=S: DA.decode_attention(q, k, v, L), "launches", DA),
+        "ring": (lambda L=S: DA.ring_decode_attention(q, kr, vr, 200 + L, window=64),
+                 "ring_launches", DA),
+        "paged": (lambda L=S: PA.paged_decode_attention(qp, kp, vp, table,
+                                                        torch.clamp(lens, max=L)),
+                  "launches", PA),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["decode", "ring", "paged"])
+def test_decode_kernels_are_deterministic_across_launches(cuda, kind, dtype):
+    fn, _, _ = _decode_calls(cuda, dtype)[kind]
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["decode", "ring", "paged"])
+def test_decode_kernels_replay_in_a_cuda_graph(cuda, kind):
+    """Three calls captured in one graph and replayed three times equal the
+    eager calls bit for bit: each launch leaves its ticket counters at 0."""
+    fn, _, _ = _decode_calls(cuda, torch.bfloat16)[kind]
+    lengths = (300, 129, 1)
+    eager = [fn(L) for L in lengths]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(L) for L in lengths]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, eager):
+            assert torch.equal(got, want)
+    assert torch.equal(fn(300), eager[0])
+
+
+def test_decode_graph_replays_after_the_counters_grow(cuda):
+    """A graph captured before a larger launch grows the ticket counters
+    still replays equal to the eager call (the outgrown buffer stays
+    allocated), and a capture that would need more counters raises."""
+    fn, _, _ = _decode_calls(cuda, torch.bfloat16)["decode"]
+    want = fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    K, D, S = 2, 32, 16
+    dev = torch.device("cuda", torch.cuda.current_device())
+    assert DA.counters(cuda, 1) is DA.counters(dev, 1)
+    rows = DA.counters(dev, 1).numel() // K + 1
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(rows, 4, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(rows, S, K, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    big = DA.decode_attention(q, k, v, S)
+    _close(big, ref.naive_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2), S),
+           torch.bfloat16)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(DA.decode_attention(q, k, v, S), big)
+    more = DA.counters(dev, 1).numel() // K + 1
+    q2 = torch.zeros(more, 4, D, device=cuda).bfloat16()
+    k2 = torch.zeros(more, S, K, D, device=cuda).bfloat16()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            DA.decode_attention(q2, k2, k2, S)
+
+
+@pytest.mark.parametrize("kind", ["decode", "ring", "paged"])
+def test_decode_kernels_are_one_launch_per_call(cuda, kind):
+    fn, counter, mod = _decode_calls(cuda, torch.bfloat16)[kind]
+    fn()
+    torch.cuda.synchronize()
+    n0 = getattr(mod, counter)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    assert getattr(mod, counter) == n0 + 3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0
+               and "decode_kernel" in e.key]
+    assert len(kernels) == 1 and kernels[0].count == 3, [(e.key, e.count) for e in kernels]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("length,window", [(1, None), (DA.SPLIT, None),
                                            (DA.SPLIT + 1, None), (300, None), (300, 50)])
@@ -69,6 +217,23 @@ def test_decode_kernel_matches_plain(cuda, length, window, dtype, H, K):
     n0 = DA.launches
     out = ops.decode_attention(q, k, v, length, window=window)
     assert DA.launches == n0 + 1
+    _close(out, ref.naive_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
+                                           length, window=window), dtype)
+    assert torch.equal(out, ops.decode_attention(q, k, v, length, window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("length,window", [(16 * DA.SPLIT, None), (16 * DA.SPLIT + 1, None),
+                                           (40 * DA.SPLIT, None), (40 * DA.SPLIT, 1000)])
+def test_decode_kernel_long_cache(cuda, length, window, dtype):
+    """More splits than the combine's one load batch (16): its largest-m
+    pass runs first."""
+    B, H, K, D = 2, 8, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(length)
+    q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, length, K, D, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    out = ops.decode_attention(q, k, v, length, window=window)
     _close(out, ref.naive_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
                                            length, window=window), dtype)
     assert torch.equal(out, ops.decode_attention(q, k, v, length, window=window))
