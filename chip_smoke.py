@@ -15,7 +15,8 @@ not 0:
      the contiguous decode bit for bit; then the kernel's, the plain
      version's and the library call's times beside the kernel's bound (K1
      at granite's and at hymba's two prefill shapes), and the profiler's
-     device time per call of the decode kernels (one kernel each);
+     device time per call of the decode kernels (one kernel each) and of
+     the GLA kernels (one K4, or one of each K5 phase, per call);
   4. serve: full-width granite-3-2b (bf16, seeded random weights) prefills
      4 prompts x 1024 tokens and decodes 32 tokens through the kernels;
      the launch counts are checked, and the logits are held against the
@@ -44,9 +45,11 @@ not 0:
      and hymba (both GLA schedules).
 Phase 3 also holds the GLA kernels (K4; K5's phases apart and together)
 and the ring-window decode to their plain versions: the GLA at the
-serving shape with the mixer's head-broadcast q/k, a smoke shape, lengths
-the chunk does not divide and head-stride-0 views; the ring below,
-at and far past its width, wider and narrower than the window.
+serving shape with the mixer's head-broadcast q/k (in bf16 also under
+steep decays), a smoke shape, one 16-row tile a chunk, lengths the chunk
+does not divide and head-stride-0 views; the ring below, at and far past
+its width, wider and narrower than the window. Phase 6 prints the GLA
+kernels' share of each hymba prefill.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -127,15 +130,22 @@ def kernel_us(fn, sets, iters=40):
     """Device microseconds per call of each CUDA kernel ``fn`` launches, by
     name, from the profiler over ``iters`` calls cycling through ``sets``
     (the profiler reads each kernel's device time, so the host's pace does
-    not enter)."""
+    not enter). A warm-up step comes first: the tracer may drop the records
+    of the first launches after it starts."""
     import torch
     for s in sets:
         fn(*s)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                                 active=1, repeat=1)) as prof:
+        fn(*sets[0])
+        torch.cuda.synchronize()
+        prof.step()
         for i in range(iters):
             fn(*sets[i % len(sets)])
         torch.cuda.synchronize()
+        prof.step()
     return {e.key: e.self_device_time_total / iters for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0}
@@ -334,12 +344,16 @@ def main() -> int:
         return (randn(B, H, D, dtype=dtype), kp, vp, table.to(dev),
                 torch.tensor(lengths, dtype=torch.int32, device=dev))
 
-    def gla_inputs(B, S, H, N, P, dtype, bcast):
+    def gla_inputs(B, S, H, N, P, dtype, bcast, steep=False):
         """tests/test_kernels.py's GLA distributions. ``bcast``: q and k as
         the SSD mixer passes them, head-broadcast views (head stride 0) of
-        the C and B columns of a projection row [B, S, H*P + 2N]."""
+        the C and B columns of a projection row [B, S, H*P + 2N]. ``steep``:
+        log decays uniform in [-20, 0] a step (hymba's -exp(a_log) dt can
+        reach them), so a chunk's cum falls to about -2500."""
         v = randn(B, S, H, P, dtype=dtype)
         lg = -F.softplus(randn(B, S, H, dtype=torch.float32)) * 0.3
+        if steep:
+            lg = -20 * torch.rand(B, S, H, generator=gen, device=dev)
         if not bcast:
             return (randn(B, S, H, N, dtype=dtype),
                     (randn(B, S, H, N, dtype=torch.float32) * 0.3).to(dtype), v, lg)
@@ -424,16 +438,23 @@ def main() -> int:
                      f"NOT bit-equal, max |diff| {(a.float() - b.float()).abs().max().item():.3e}"),
                   flush=True)
         # K4 and K5: hymba's serving shape with the mixer's head-broadcast
-        # q/k, a smoke shape with and without them, and lengths the chunk
-        # does not divide (96 with chunk 64 runs chunks of 32; 1000 with
-        # 256 halves down to 8)
-        for B, S, H, N, P, chunk, bcast in (G_SHAPE + (True,), (2, 40, 2, 8, 32, 8, False),
-                                            (2, 40, 2, 8, 32, 8, True),
-                                            (1, 96, 2, 16, 64, 64, False),
-                                            (2, 1000, 4, 16, 64, 256, True)):
-            q, k, v, lg = gla_inputs(B, S, H, N, P, dtype, bcast)
+        # q/k (in bf16 also under steep decays), a smoke shape with and
+        # without them, one 16-row tile a chunk, and lengths the chunk does
+        # not divide (96 with chunk 64 runs chunks of 32; 1000 with 256
+        # halves down to 8). The float32 kernels, exact scalar products, are
+        # not held under steep decays: there the float32 cum reaches -2500
+        # and each exp(cum_i - cum_j), in the plain version as in the
+        # kernel, carries |cum| 2^-24 of rounding, beyond GLA_TOL
+        for B, S, H, N, P, chunk, bcast, steep in (
+                G_SHAPE + (True, False), G_SHAPE + (True, True),
+                (2, 40, 2, 8, 32, 8, False, False), (2, 40, 2, 8, 32, 8, True, False),
+                (2, 48, 2, 16, 64, 16, True, False), (1, 96, 2, 16, 64, 64, False, False),
+                (2, 1000, 4, 16, 64, 256, True, False)):
+            if steep and dtype != torch.bfloat16:
+                continue
+            q, k, v, lg = gla_inputs(B, S, H, N, P, dtype, bcast, steep)
             lab = (f"{dn} B{B} S{S} H{H} N{N} P{P} chunk={chunk}"
-                   + (" head-stride-0 q/k" if bcast else ""))
+                   + (" head-stride-0 q/k" if bcast else "") + (" steep" if steep else ""))
             yn, hn = ref.naive_gla(q, k, v, lg)
             yc, hc = ref.chunked_gla(q, k, v, lg, chunk=chunk)
             y4, s4 = GC.gla_chunk(q, k, v, lg, chunk=chunk)
@@ -446,7 +467,7 @@ def main() -> int:
             held("gla_phase_a", lab, ya, pa, dtype, gla=True)
             held("gla_phase_a", lab + " g", g, pg, dtype, gla=True)
             held("gla_phase_a", lab + " state delta", d, pd, dtype, gla=True)
-            start, _ = ref.gla_scan(pg, pd)
+            start = ref.gla_scan(pg, pd)[0].contiguous()
             held("gla_phase_b", lab, GC.gla_phase_b(q, lg, start, pa, chunk=chunk),
                  ref.gla_phase_b(q, lg, start, pa, chunk=chunk), dtype, gla=True)
             y5, s5 = GC.gla_chunk_parallel(q, k, v, lg, chunk=chunk)
@@ -588,11 +609,27 @@ def main() -> int:
     ka_bound, ka_by = bound_ms(intra_ops + np_ops,
                                qk_bytes + 2 * v_bytes + lg_bytes + st_bytes + 4 * B * H * nc)
     kb_bound, kb_by = bound_ms(np_ops, qk_bytes // 2 + 2 * v_bytes + lg_bytes + st_bytes)
-    gla_line = (f"K4 gla_chunk {k4_ms * 1e3:.1f} us (plain {k4_plain * 1e3:.1f} us, bound "
-                f"{k4_bound * 1e3:.2f} us {k4_by}); K5 phase A {ka_ms * 1e3:.1f} us (plain "
-                f"{ka_plain * 1e3:.1f} us, bound {ka_bound * 1e3:.2f} us {ka_by}), phase B "
-                f"{kb_ms * 1e3:.1f} us (plain {kb_plain * 1e3:.1f} us, bound "
-                f"{kb_bound * 1e3:.2f} us {kb_by}), A + scan + B {k5_ms * 1e3:.1f} us")
+    # the profiler's device time per call of each GLA kernel: one K4 per
+    # chunk-schedule call, one of each phase per parallel-schedule call
+    # (the scan between them is plain torch)
+    gla_us = {}
+    for name, fn, kernels in (
+            ("K4", lambda q, k, v, lg: GC.gla_chunk(q, k, v, lg, chunk=C), ("gla_chunk",)),
+            ("K5", lambda q, k, v, lg: GC.gla_chunk_parallel(q, k, v, lg, chunk=C),
+             ("gla_phase_a", "gla_phase_b"))):
+        us = {key: t for key, t in kernel_us(fn, glsets, iters=20).items() if "gla_" in key}
+        for kname in kernels:
+            hits = [t for key, t in us.items() if kname + "_kernel" in key]
+            if len(hits) != 1 or len(us) != len(kernels):
+                raise AssertionError(f"{name}: the profiler saw GLA kernels {list(us)}")
+            gla_us[kname] = hits[0]
+    gla_line = (f"K4 gla_chunk {k4_ms * 1e3:.1f} us (profiler {gla_us['gla_chunk']:.1f} us; "
+                f"plain {k4_plain * 1e3:.1f} us, bound {k4_bound * 1e3:.2f} us {k4_by}); "
+                f"K5 phase A {ka_ms * 1e3:.1f} us (profiler {gla_us['gla_phase_a']:.1f} us; "
+                f"plain {ka_plain * 1e3:.1f} us, bound {ka_bound * 1e3:.2f} us {ka_by}), "
+                f"phase B {kb_ms * 1e3:.1f} us (profiler {gla_us['gla_phase_b']:.1f} us; plain "
+                f"{kb_plain * 1e3:.1f} us, bound {kb_bound * 1e3:.2f} us {kb_by}), A + scan + "
+                f"B {k5_ms * 1e3:.1f} us")
     print(f"[kernels] bf16 B{B} S{S} H{H} N{N} P{P} chunk {C}, head-stride-0 q/k: "
           f"{gla_line}; no PyTorch call computes GLA", flush=True)
     del glsets, blsets, y_intra, g, d
@@ -855,6 +892,12 @@ def main() -> int:
     print(f"[hymba] launches: chunk prefill {h_prefill}; {n_gen} decode steps {h_decode}; "
           f"parallel prefill {h_parallel}", flush=True)
     print(f"[hymba] CUDA-graph times at this shape (phase 3): {gla_line}", flush=True)
+    # the GLA kernels' share of each prefill, at their phase-3 times
+    k4_total, k5_total = hcfg.n_layers * k4_ms, hcfg.n_layers * k5_ms
+    print(f"[hymba] GLA share of the prefill: chunk schedule {hcfg.n_layers} x K4 = "
+          f"{k4_total:.2f} ms of {h_prefill_ms:.1f} ms ({k4_total / h_prefill_ms:.1%}); "
+          f"parallel schedule {hcfg.n_layers} x (A + scan + B) = {k5_total:.2f} ms of "
+          f"{p_prefill_ms:.1f} ms ({k5_total / p_prefill_ms:.1%})", flush=True)
     stream = np.stack(h_toks, axis=1)
     if stream.shape != (batch, n_gen) or stream.min() < 0 or stream.max() >= hcfg.vocab_size:
         raise AssertionError(f"hymba: bad token stream {stream.shape}")

@@ -4,16 +4,18 @@ The Hopper twins of the JAX package's Pallas kernels in
 ``kernels/mlstm_chunk.py``; the kernels and their design notes are in
 ``csrc/gla_chunk.cu``.
 
-* :func:`gla_chunk` (K4, the twin of ``_kernel``): one block per (row,
-  head) walks the chunks in order with the ``[N,P]`` state in shared
-  memory, and also writes the final state, which the model's prefill cache
-  needs. Its plain version is :func:`repro_torch.kernels.ref.chunked_gla`.
+* :func:`gla_chunk` (K4, the twin of ``_kernel``): walks the chunks in
+  order carrying the ``[N,P]`` state, and also writes the final state,
+  which the model's prefill cache needs. In bf16 one block per (row, head,
+  32-column slice of P) runs the intra-chunk products on the tensor cores;
+  in float32 one block per (row, head) keeps exact scalar products. Its
+  plain version is :func:`repro_torch.kernels.ref.chunked_gla`.
 * :func:`gla_chunk_parallel` (K5, the twins of ``_phase_a_kernel`` and
-  ``_phase_b_kernel``): :func:`gla_phase_a` and :func:`gla_phase_b`, one
-  block per (row, head, chunk) each, with the scan over chunks between
-  them in plain torch (:func:`scan_chunks`, chunk order). The plain
-  versions of the phases and the scan are ``ref.gla_phase_a``,
-  ``ref.gla_phase_b`` and ``ref.gla_scan``.
+  ``_phase_b_kernel``): :func:`gla_phase_a` and :func:`gla_phase_b` (in
+  bf16 persistent blocks walking (row, head, chunk, slice) items; in
+  float32 one block per (row, head, chunk)), with the scan over chunks
+  between them in plain torch (:func:`scan_chunks`, chunk order). The plain versions of the phases and the scan are
+  ``ref.gla_phase_a``, ``ref.gla_phase_b`` and ``ref.gla_scan``.
 
 Layout: q, k ``[B,S,H,N]`` and v ``[B,S,H,P]`` with any strides whose last
 dim is contiguous (the model passes its head-broadcast q and k as
@@ -37,10 +39,17 @@ launches = 0
 launches_a = 0
 #: launches of K5's phase B, likewise
 launches_b = 0
+#: the shared library whose C entries (``repro_gla_*``) the wrappers launch:
+#: None for the one built from ``csrc/gla_chunk.cu``; the path of another
+#: build of a source with the same entries (a diagnostic build of
+#: ``tools/gla_breakdown.py``) runs that build on the same calls
+library = None
 
 #: the (N, P) pairs built: hymba-1.5b's SSD heads at full width and smoke size
 SHAPES = ((16, 64), (8, 32))
 MAX_SMEM = 232448        # a block's shared memory on sm_90, bytes
+#: the kernels as ``repro_gla_smem_bytes`` numbers them
+KERNELS = ("chunk", "phase_a", "phase_b")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 #: pointer arguments of each C entry (csrc/gla_chunk.cu)
@@ -48,8 +57,13 @@ _N_PTRS = {"repro_gla_chunk": 6, "repro_gla_phase_a": 7, "repro_gla_phase_b": 5}
 
 
 @functools.cache
-def _bind(entry):
-    fn = getattr(build.load("gla_chunk"), entry)
+def _bind(entry, path=None):
+    lib = build.load("gla_chunk") if path is None else ctypes.CDLL(str(path))
+    fn = getattr(lib, entry)
+    if entry == "repro_gla_smem_bytes":
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_longlong
+        return fn
     fn.argtypes = ([_P] * _N_PTRS[entry] + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, _P])
     fn.restype = ctypes.c_int
@@ -78,9 +92,14 @@ def scan_chunks(g, d):
     return start, state
 
 
-def smem_bytes(c: int, N: int, P: int, phase_b: bool = False) -> int:
-    """Dynamic shared memory of one block (csrc/gla_chunk.cu)."""
-    return 4 * ((c + N * P) if phase_b else (c * (N + P + 2) + N * P))
+def smem_bytes(c: int, N: int, P: int, kernel: str = "chunk",
+               dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory of one block of ``kernel`` (one of
+    :data:`KERNELS`) at chunk ``c``, as the library computes it for its
+    launch (csrc/gla_chunk.cu: float32 stages the chunk as float32, bf16
+    two chunks' rows at a time)."""
+    return _bind("repro_gla_smem_bytes", library)(KERNELS.index(kernel), c, N, P,
+                                                  _DTYPES[dtype])
 
 
 def _check(q, k, v, lg, chunk, what):
@@ -107,12 +126,22 @@ def _check(q, k, v, lg, chunk, what):
     return B, S, H, N, P, chunk_len(S, chunk)
 
 
-def _check_np(N, P, c, what, phase_b=False):
+def _check_np(N, P, c, what, kernel, dtype):
     if (N, P) not in SHAPES:
         raise ValueError(f"{what} kernel: (N, P) = ({N}, {P}) not in {SHAPES}")
-    if smem_bytes(c, N, P, phase_b) > MAX_SMEM:
-        raise ValueError(f"{what} kernel: chunk {c} needs "
-                         f"{smem_bytes(c, N, P, phase_b)} bytes of shared memory")
+    need = smem_bytes(c, N, P, kernel, dtype)
+    if need > MAX_SMEM:
+        raise ValueError(f"{what} kernel: chunk {c} needs {need} bytes of shared memory")
+
+
+def _check_rows(what, *ts):
+    """bf16: each [B,S,H,*] row must start on 16 bytes (the kernels copy
+    rows 16 bytes at a time)."""
+    for t in ts:
+        if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(
+                st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)):
+            raise ValueError(f"{what} kernel: bf16 rows must start on 16 bytes; got data "
+                             f"pointer % 16 = {t.data_ptr() % 16}, strides {t.stride()}")
 
 
 def _strides(*ts):
@@ -122,7 +151,7 @@ def _strides(*ts):
 
 
 def _call(entry, ptrs, dims, strides, dtype, device):
-    fn = _bind(entry)
+    fn = _bind(entry, library)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*ptrs, *dims, strides, _DTYPES[dtype], stream)
@@ -134,7 +163,8 @@ def gla_chunk(q, k, v, lg, *, chunk):
     [B,S,H,P] in v's dtype, final state [B,H,N,P] float32)."""
     global launches
     B, S, H, N, P, c = _check(q, k, v, lg, chunk, "gla_chunk")
-    _check_np(N, P, c, "gla_chunk")
+    _check_np(N, P, c, "gla_chunk", "chunk", q.dtype)
+    _check_rows("gla_chunk", q, k, v)
     lgf = lg.float()
     y = torch.empty((B, S, H, P), dtype=v.dtype, device=q.device)
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=q.device)
@@ -151,7 +181,8 @@ def gla_phase_a(q, k, v, lg, *, chunk):
     [B,H,nc] float32, state delta [B,H,nc,N,P] float32), per chunk."""
     global launches_a
     B, S, H, N, P, c = _check(q, k, v, lg, chunk, "gla_phase_a")
-    _check_np(N, P, c, "gla_phase_a")
+    _check_np(N, P, c, "gla_phase_a", "phase_a", q.dtype)
+    _check_rows("gla_phase_a", q, k, v)
     nc = S // c
     lgf = lg.float()
     y = torch.empty((B, S, H, P), dtype=v.dtype, device=q.device)
@@ -172,13 +203,17 @@ def gla_phase_b(q, lg, start, y_intra, *, chunk):
     global launches_b
     B, S, H, N, _, c = _check(q, None, None, lg, chunk, "gla_phase_b")
     P = y_intra.shape[-1]
-    _check_np(N, P, c, "gla_phase_b", phase_b=True)
+    _check_np(N, P, c, "gla_phase_b", "phase_b", q.dtype)
+    _check_rows("gla_phase_b", q, y_intra)
     nc = S // c
     if start.shape != (B, H, nc, N, P) or start.dtype != torch.float32 \
             or not start.is_contiguous() or start.device != q.device:
         raise ValueError(f"gla_phase_b kernel: start {tuple(start.shape)} "
                          f"{start.dtype}; needs ({B}, {H}, {nc}, {N}, {P}) float32, "
                          "contiguous")
+    if q.dtype == torch.bfloat16 and start.data_ptr() % 16:
+        raise ValueError("gla_phase_b kernel: bf16 start must start on 16 bytes (copied 16 "
+                         f"bytes at a time); got data pointer % 16 = {start.data_ptr() % 16}")
     if y_intra.shape != (B, S, H, P) or y_intra.dtype != q.dtype \
             or not y_intra.is_contiguous() or y_intra.device != q.device:
         raise ValueError(f"gla_phase_b kernel: y_intra {tuple(y_intra.shape)} "

@@ -366,10 +366,11 @@ def test_smoke_fleet_on_card_matches_server_streams(cuda):
         assert eng.stream(sid) == [int(first[0])] + [int(t[0]) for t in toks]
 
 
-def _gla_inputs(cuda, B, H, S, N, P, dtype, seed, broadcast=False):
+def _gla_inputs(cuda, B, H, S, N, P, dtype, seed, broadcast=False, steep=False):
     """tests/test_kernels.py's GLA inputs. ``broadcast``: q and k are the
     model's head-broadcast views (one row per position, head stride 0,
-    sliced out of a wider projection row)."""
+    sliced out of a wider projection row). ``steep``: log decays uniform in
+    [-20, 0] a step, so a chunk's cum falls far below float32's exp range."""
     g = torch.Generator(device=cuda).manual_seed(seed)
 
     def randn(*shape):
@@ -383,6 +384,8 @@ def _gla_inputs(cuda, B, H, S, N, P, dtype, seed, broadcast=False):
         q, k = randn(B, S, H, N).to(dtype), (randn(B, S, H, N) * 0.3).to(dtype)
     v = randn(B, S, H, P).to(dtype)
     lg = -torch.nn.functional.softplus(randn(B, S, H)) * 0.3
+    if steep:
+        lg = -20 * torch.rand(B, S, H, generator=g, device=cuda)
     return q, k, v, lg
 
 
@@ -436,6 +439,124 @@ def test_gla_parallel_kernels_match_plain_phases(cuda, B, H, S, N, P, chunk, bro
     _gla_close(y, GC.gla_chunk(q, k, v, lg, chunk=chunk)[0], dtype)
 
 
+def _gla_all(q, k, v, lg, chunk):
+    """Every GLA kernel on one input: K4's (y, state), phase A's (y_intra,
+    g, delta), phase B's y on the plain phase A's outputs and scan."""
+    pa, pg, pd = ref.gla_phase_a(q, k, v, lg, chunk=chunk)
+    start = GC.scan_chunks(pg, pd)[0].contiguous()
+    return (GC.gla_chunk(q, k, v, lg, chunk=chunk) + GC.gla_phase_a(q, k, v, lg, chunk=chunk)
+            + (GC.gla_phase_b(q, lg, start, pa, chunk=chunk),))
+
+
+def _gla_plain(q, k, v, lg, chunk):
+    """_gla_all's plain versions, in the same order."""
+    pa, pg, pd = ref.gla_phase_a(q, k, v, lg, chunk=chunk)
+    start = GC.scan_chunks(pg, pd)[0].contiguous()
+    return (ref.chunked_gla(q, k, v, lg, chunk=chunk) + (pa, pg, pd)
+            + (ref.gla_phase_b(q, lg, start, pa, chunk=chunk),))
+
+
+@pytest.mark.parametrize("N,P", [(8, 32), (16, 64)])
+@pytest.mark.parametrize("c", [1, 8, 16, 24, 64, 256])
+def test_gla_bf16_kernels_at_every_chunk_length(cuda, c, N, P):
+    """The tensor-core kernels take any chunk: 16-row tiles with a ragged
+    last one (1, 8, 24), one tile, several, the serving chunk 256; q/k as
+    the mixer's head-stride-0 views."""
+    S = 3 * c
+    q, k, v, lg = _gla_inputs(cuda, 2, 3, S, N, P, torch.bfloat16, 7 * c + N, broadcast=True)
+    assert GC.chunk_len(S, c) == c
+    for got, want in zip(_gla_all(q, k, v, lg, c), _gla_plain(q, k, v, lg, c)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        _gla_close(got, want, torch.bfloat16)
+    y, final = GC.gla_chunk_parallel(q, k, v, lg, chunk=c)
+    want, h = ref.gla_chunk_parallel(q, k, v, lg, chunk=c)
+    _gla_close(y, want, torch.bfloat16)
+    _gla_close(final, h, torch.bfloat16)
+
+
+@pytest.mark.parametrize("S,N,P,chunk", [(512, 16, 64, 256), (192, 8, 32, 64),
+                                         (72, 16, 64, 24)])
+def test_gla_bf16_kernels_under_steep_decays(cuda, S, N, P, chunk):
+    """Log decays down to -20 a step drive a chunk's cum to -2500: the bf16
+    kernels' off-diagonal decay factors underflow to 0 exactly where the
+    true product does, and nothing overflows. (The float32 kernels are not
+    held here: at cum -2500 each exp(cum_i - cum_j) carries |cum| 2^-24 of
+    rounding in the plain version as in the kernel, about GLA_TOL.)"""
+    dtype = torch.bfloat16
+    q, k, v, lg = _gla_inputs(cuda, 2, 3, S, N, P, dtype, S + 3, broadcast=True, steep=True)
+    assert lg.min().item() < -19
+    for got, want in zip(_gla_all(q, k, v, lg, chunk), _gla_plain(q, k, v, lg, chunk)):
+        assert torch.isfinite(got).all()
+        _gla_close(got, want, dtype)
+    want, h = ref.naive_gla(q, k, v, lg)
+    y, final = GC.gla_chunk(q, k, v, lg, chunk=chunk)
+    _gla_close(y, want, dtype)
+    _gla_close(final, h, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gla_kernels_are_deterministic_across_launches(cuda, dtype):
+    q, k, v, lg = _gla_inputs(cuda, 2, 3, 512, 16, 64, dtype, 3, broadcast=True)
+    first, second = _gla_all(q, k, v, lg, 256), _gla_all(q, k, v, lg, 256)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_gla_kernels_replay_in_a_cuda_graph(cuda):
+    """K4, phase A and phase B captured in one graph and replayed three
+    times equal the eager calls bit for bit."""
+    q, k, v, lg = _gla_inputs(cuda, 2, 3, 512, 16, 64, torch.bfloat16, 4, broadcast=True)
+    pa, pg, pd = ref.gla_phase_a(q, k, v, lg, chunk=256)
+    start = GC.scan_chunks(pg, pd)[0].contiguous()
+
+    def calls():
+        return (GC.gla_chunk(q, k, v, lg, chunk=256) + GC.gla_phase_a(q, k, v, lg, chunk=256)
+                + (GC.gla_phase_b(q, lg, start, pa, chunk=256),))
+    eager = calls()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, eager):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("schedule,names", [("chunk", ("gla_chunk_kernel",)),
+                                            ("parallel", ("gla_phase_a_kernel",
+                                                          "gla_phase_b_kernel"))])
+def test_gla_kernels_are_one_launch_per_call(cuda, schedule, names):
+    """The profiler sees one K4 kernel per chunk-schedule call, one of each
+    phase per parallel-schedule call, and no other GLA kernel, over 6 calls
+    back to back (as ``chip_smoke.kernel_us`` profiles them: after a
+    warm-up step, since the tracer may drop the records of the first
+    launches after it starts). The wrappers count 6 launches each."""
+    q, k, v, lg = _gla_inputs(cuda, 2, 3, 512, 16, 64, torch.bfloat16, 5, broadcast=True)
+    ops.gla(q, k, v, lg, chunk=256, schedule=schedule)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                                 active=1, repeat=1)) as prof:
+        ops.gla(q, k, v, lg, chunk=256, schedule=schedule)
+        torch.cuda.synchronize()
+        prof.step()
+        n0 = (GC.launches, GC.launches_a, GC.launches_b)
+        for _ in range(6):
+            ops.gla(q, k, v, lg, chunk=256, schedule=schedule)
+        torch.cuda.synchronize()
+        prof.step()
+    per = (6, 0, 0) if schedule == "chunk" else (0, 6, 6)
+    assert (GC.launches, GC.launches_a, GC.launches_b) == tuple(a + b for a, b in zip(n0, per))
+    seen = {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0
+            and "gla_" in e.key}
+    assert len(seen) == len(names), seen
+    for n in names:
+        assert any(n in key and cnt == 6 for key, cnt in seen.items()), seen
+
+
 def test_gla_kernels_refuse_unbuilt_shapes(cuda):
     q, k, v, lg = _gla_inputs(cuda, 1, 2, 32, 32, 64, torch.float32, 0)
     with pytest.raises(ValueError, match="not in"):
@@ -448,6 +569,26 @@ def test_gla_kernels_refuse_unbuilt_shapes(cuda):
     q, k, v, lg = _gla_inputs(cuda, 1, 1, 4096, 16, 64, torch.float32, 0)
     with pytest.raises(ValueError, match="shared memory"):
         GC.gla_chunk(q, k, v, lg, chunk=4096)
+
+
+def test_gla_bf16_kernels_refuse_misaligned_rows(cuda):
+    """The bf16 kernels copy rows, and phase B's start, 16 bytes at a time:
+    a view whose data does not start on 16 bytes raises, and the CUDA
+    context stays usable."""
+    q, k, v, lg = _gla_inputs(cuda, 1, 2, 32, 16, 64, torch.bfloat16, 0)
+    qs = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    qs.copy_(q)
+    with pytest.raises(ValueError, match="16 bytes"):
+        GC.gla_chunk(qs, k, v, lg, chunk=16)
+    ya, g, d = GC.gla_phase_a(q, k, v, lg, chunk=16)
+    start, _ = GC.scan_chunks(g, d)
+    shifted = torch.empty(start.numel() + 1, device=cuda)[1:].view(start.shape)
+    shifted.copy_(start)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16 bytes"):
+        GC.gla_phase_b(q, lg, shifted, ya, chunk=16)
+    assert torch.equal(GC.gla_phase_b(q, lg, start, ya, chunk=16),
+                       GC.gla_phase_b(q, lg, start.clone(), ya, chunk=16))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -3,15 +3,20 @@ on the same numpy inputs (hymba's smoke config, float32), and the no-fallback
 rule of the new dispatchers.
 
 Tolerances, float32 on both sides:
-- 1e-5 between the port's plain GLA and the reference's ``chunked_gla`` or
-  ``gla_chunk`` (interpret mode): the same chunked math, only the einsum
-  order differs, on outputs of magnitude ~10;
+- 1e-5 between the port's plain GLA and the reference's ``chunked_gla``,
+  ``gla_chunk`` or ``gla_chunk_parallel`` (interpret mode): the same chunked
+  math, only the einsum and scan order differ, on outputs of magnitude ~10;
+- in bf16, one bf16 ulp at the output's largest magnitude between the two
+  chunk-parallel schedules: both round the intra part and the output to
+  bf16 at the same points, so float32 noise can move a rounding by one ulp;
 - 5e-4 against the step-by-step ``naive_gla``, tests/test_kernels.py's GLA
   tolerance: the chunked form sums exp(cum_i - cum_j)-weighted terms where
   the recurrence multiplies decays step by step;
 - 1e-4 (tests/conftest.py assert_close) for the layers and the mixer,
   whose matmuls run in another order.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -22,6 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 from conftest import assert_close  # noqa: E402
 from repro.configs import smoke_config as jax_smoke_config  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import mlstm_chunk  # noqa: E402
 from repro.kernels.mlstm_chunk import gla_chunk as pallas_gla  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models import ssm as JS  # noqa: E402
@@ -96,6 +102,76 @@ def test_plain_gla_matches_jax(B, H, S, N, P, chunk, broadcast, schedule):
     oy, oh = ref.naive_gla(tq, tk, _t(v), _t(lg))
     _close(oy, ny, TOL_CHUNKED)
     _close(oh, nh, TOL_CHUNKED)
+
+
+@pytest.fixture
+def pallas_parallel(monkeypatch):
+    """The reference's ``gla_chunk_parallel`` in interpret mode. It names
+    ``pltpu.TPUCompilerParams``, which this jax calls ``CompilerParams``;
+    the alias lives for this test only."""
+    from jax.experimental.pallas import tpu as pltpu
+    if not hasattr(pltpu, "TPUCompilerParams"):
+        monkeypatch.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams, raising=False)
+    return functools.partial(mlstm_chunk.gla_chunk_parallel, interpret=True)
+
+
+PARALLEL_SHAPES = [
+    (2, 3, 64, 8, 32, 16, False),
+    (1, 2, 40, 8, 32, 16, False),      # chunk halved to 8
+    (1, 2, 96, 16, 64, 64, True),      # chunk halved to 32; head-broadcast q/k
+    (2, 2, 64, 16, 64, 32, False),
+]
+
+
+def _both(q, k, v, lg, broadcast, dtype):
+    """The same numpy inputs as torch tensors (q/k as head-stride-0 views
+    when ``broadcast``) and as jax arrays, q, k, v in ``dtype``."""
+    B, S, H, N = q.shape
+    if broadcast:
+        tq, tk = (torch.from_numpy(np.array(x[:, :, :1])).expand(B, S, H, N) for x in (q, k))
+    else:
+        tq, tk = (torch.from_numpy(x) for x in (q, k))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    return ((tq.to(dtype), tk.to(dtype), _t(v).to(dtype), _t(lg)),
+            tuple(jnp.asarray(x).astype(jdt) for x in (q, k, v)) + (jnp.asarray(lg),))
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at the largest magnitude of ``x`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.abs(np.asarray(x, np.float32)).max())) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,N,P,chunk,broadcast", PARALLEL_SHAPES)
+def test_plain_parallel_schedule_matches_the_reference_one(pallas_parallel, B, H, S, N, P,
+                                                           chunk, broadcast, dtype):
+    """The port's plain K5 schedule (phase A, the scan in chunk order,
+    phase B) against the reference's Pallas phases around its associative
+    scan: float32 within TOL_CHUNKED; bf16, where both round the intra part
+    and the output, within one bf16 ulp of the output's magnitude."""
+    t, j = _both(*_gla_inputs(B, H, S, N, P, S + N + 2, broadcast), broadcast, dtype)
+    y, final = ref.gla_chunk_parallel(*t, chunk=chunk)
+    assert y.dtype == dtype and y.shape == (B, S, H, P) and final.shape == (B, H, N, P)
+    want = np.asarray(pallas_parallel(*j, chunk=chunk).astype(jnp.float32))
+    got = y.float().numpy()
+    if dtype == torch.float32:
+        _close(got, want, TOL_CHUNKED)
+    else:
+        assert np.abs(got - want).max() <= _bf16_ulp(want)
+
+
+@pytest.mark.parametrize("B,H,S,N,P,chunk,broadcast", [PARALLEL_SHAPES[0], PARALLEL_SHAPES[2]])
+def test_bf16_schedule_gap_is_the_references(pallas_parallel, B, H, S, N, P, chunk, broadcast):
+    """Witness: in bf16 the port's two plain schedules sit no farther apart
+    than twice the reference's own two Pallas schedules on the same inputs
+    (the schedules differ in where they round to bf16, in both packages)."""
+    t, j = _both(*_gla_inputs(B, H, S, N, P, S + N + 3, broadcast), broadcast, torch.bfloat16)
+    port_gap = (ref.chunked_gla(*t, chunk=chunk)[0].float()
+                - ref.gla_chunk_parallel(*t, chunk=chunk)[0].float()).abs().max().item()
+    ref_gap = float(jnp.abs(pallas_gla(*j, chunk=chunk, interpret=True).astype(jnp.float32)
+                            - pallas_parallel(*j, chunk=chunk).astype(jnp.float32)).max())
+    print(f"bf16 chunk-vs-parallel gap: port {port_gap:.3e}, reference {ref_gap:.3e}")
+    assert ref_gap > 0 and port_gap <= 2 * ref_gap
 
 
 @pytest.mark.parametrize("S,chunk", [(64, 16), (40, 16), (96, 64), (24, 256), (1536, 256),
