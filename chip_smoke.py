@@ -21,6 +21,18 @@ not 0:
      4 prompts x 1024 tokens and decodes 32 tokens through the kernels;
      the launch counts are checked, and the logits are held against the
      plain attention path;
+  ckpt: the checkpoint-restart plane on phase 4's weights: the Server
+     prefills the same 4 x 1024 prompts, decodes 16 steps and snapshots
+     them mid-decode (the caches copied off the card on a side stream into
+     pinned memory, then written to a temporary directory, codec none),
+     decodes 16 more (tail A), and a fresh Server restores the snapshot
+     under another MPI flavor with no prefill and decodes 16 (tail B);
+     tail B must equal tail A byte for byte, the restored caches' digests
+     the snapshotted ones, and the restored decode must launch 40 x 16
+     decode and no flash kernels.  The blocking window's breakdown (of
+     that first snapshot, and of two later ones on a grown arena), the
+     persist and restart times and the copy rate beside one pinned
+     ``copy_`` of the same bytes are printed;
   5. fleet: the continuous-batching ServeEngine on the same weights, 7
      sessions (prompts of 0 to 1024 tokens, 32 new tokens each, a later
      high-priority arrival) over a device page pool small enough to force
@@ -276,6 +288,123 @@ def decode_idle(tag, model, params, tokens, first, step_ms, dev):
     else:
         print(f"[{tag}] one decode step: device busy time not measured "
               "(the profiler saw no CUDA kernels)", flush=True)
+
+
+def ckpt_phase(cfg, params, prompts, n_gen, card, dev, DA, FA):
+    """Snapshot full-width granite mid-decode, restore it into a fresh Server
+    under another flavor, and hold tail B to tail A (see the docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ckpt_io
+    from repro_torch.core.ckpt_pipeline import host_dtype
+    from repro_torch.core.restore import load_arrays
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.engine import Server
+
+    def digest(t):
+        bits = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        return ckpt_io.shard_digest(bits.cpu().numpy().view(host_dtype(t)))
+
+    n_prompt = prompts.shape[1]
+    srv_dev = params["embed"].device
+    with tempfile.TemporaryDirectory(prefix="ckpt_phase") as ckdir:
+        srv = Server(cfg, params=params, device=dev, backend="mpich",
+                     ckpt_dir=ckdir)
+        logits = srv.prefill(prompts, pad_to=n_prompt + 2 * n_gen)
+        first = torch.argmax(logits[:, : cfg.vocab_size], dim=-1).cpu().numpy()
+        toks, _ = srv.decode(n_gen, first)
+        ref = [t.clone() for t in tree_leaves(srv.caches)]
+        n_da = DA.launches
+        # the writer's first snapshot: its pinned arena grows inside the window
+        req = srv.checkpoint()
+        if DA.launches != n_da:
+            raise AssertionError("the snapshot launched a decode kernel")
+        step = req.directory
+        # tail A writes into the caches at once, while the write persists
+        tail_a, _ = srv.decode(n_gen, toks[-1])
+        req.wait()
+        key_a = srv.rng_key.copy()
+        # a second snapshot, on the arena the first one grew
+        warm = srv.checkpoint()
+        warm.wait()
+        snap_bytes = sum(t.numel() * t.element_size() for t in ref)
+        want = [digest(t) for t in ref]
+        t0 = time.perf_counter()
+        on_disk = tree_leaves(load_arrays(step, {"runtime": {"kv_caches": [
+            {"attn": {"k": None, "v": None}}], "rng": None}})["runtime"]["kv_caches"])
+        read_ms = (time.perf_counter() - t0) * 1e3
+        if [ckpt_io.shard_digest(a) for a in on_disk] != want:
+            raise AssertionError("the snapshot on disk differs from the caches at the snapshot")
+        del srv, ref, on_disk
+        torch.cuda.empty_cache()
+
+        fresh = Server(cfg, params=params, device=dev, backend="mpich",
+                       ckpt_dir=ckdir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.restore(step, new_backend="exampi", rebuild=True)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        got = [digest(t) for t in tree_leaves(fresh.caches)]
+        if got != want:
+            raise AssertionError("restored caches' digests differ from the snapshot's")
+        if fresh.pos != n_prompt + n_gen or fresh.max_len != n_prompt + 2 * n_gen \
+                or fresh.caches[0]["attn"]["k"].device != srv_dev:
+            raise AssertionError(f"restored cursor pos {fresh.pos} max_len {fresh.max_len}")
+        FA.launches = DA.launches = 0
+        tail_b, _ = fresh.decode(n_gen, fresh.resume_tok)
+        launches = (FA.launches, DA.launches)
+        if launches != (0, cfg.n_layers * n_gen):
+            raise AssertionError(f"restored decode launches (flash, decode) {launches}")
+        a, b = np.stack(tail_a, axis=1), np.stack(tail_b, axis=1)
+        if a.tobytes() != b.tobytes() or a.shape != (prompts.shape[0], n_gen):
+            raise AssertionError(f"tail B differs from tail A:\n{a}\n{b}")
+        if fresh.rng_key.tobytes() != key_a.tobytes():
+            raise AssertionError("restored RNG key stream differs")
+        rt = fresh.cluster.restart_timings
+        backend = fresh.cluster.backend_name
+        # the restored server's first snapshot, on the arena the restore grew
+        after = fresh.checkpoint()
+        after.wait()
+        del fresh
+        torch.cuda.empty_cache()
+
+    # the yardstick: one pinned copy_ of the same bytes off the card
+    host = torch.empty(snap_bytes, dtype=torch.uint8, pin_memory=True)
+    devbuf = torch.empty(snap_bytes, dtype=torch.uint8, device=dev)
+    host.copy_(devbuf)
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    host.copy_(devbuf, non_blocking=True)
+    ev1.record()
+    ev1.synchronize()
+    copy_ms = ev0.elapsed_time(ev1)
+    del host, devbuf
+    tm, tw, tr = req.timings, warm.timings, after.timings
+    print(f"[ckpt] snapshot of {snap_bytes / 1e6:.1f} MB of caches at pos "
+          f"{n_prompt + n_gen}, the writer's first ({card}): blocking "
+          f"{tm['blocking_ms']} ms = drain {tm['drain_ms']} ms, snapshot "
+          f"{tm['snapshot_ms']} ms, enqueue {tm['enqueue_ms']} ms and the pinned "
+          f"arena's growth; persist {tm['persist_ms']} ms", flush=True)
+    print(f"[ckpt] later snapshots, on a grown arena ({card}): the second, at pos "
+          f"{n_prompt + 2 * n_gen}: blocking {tw['blocking_ms']} ms (snapshot "
+          f"{tw['snapshot_ms']} ms), persist {tw['persist_ms']} ms; the restored "
+          f"Server's first, on the arena its restore grew: blocking "
+          f"{tr['blocking_ms']} ms (snapshot {tr['snapshot_ms']} ms)", flush=True)
+    print(f"[ckpt] restart mpich -> {backend} into a fresh Server ({card}): "
+          f"{rt}; restore on the host clock {restore_ms:.1f} ms; the container "
+          f"read to host arrays alone (load_arrays, no placement) {read_ms:.1f} ms",
+          flush=True)
+    print(f"[ckpt] device-to-host {snap_bytes / tm['snapshot_ms'] / 1e6:.2f} GB/s "
+          f"(the first snapshot's copies), {snap_bytes / tw['snapshot_ms'] / 1e6:.2f} "
+          f"GB/s (the second's) vs {snap_bytes / copy_ms / 1e6:.2f} GB/s for one pinned "
+          f"copy_ of {snap_bytes / 1e6:.1f} MB ({copy_ms:.3f} ms) ({card})", flush=True)
+    print(f"[ckpt] tail B ({n_gen} tokens x {a.shape[0]} after the restore) equals "
+          f"tail A byte for byte; caches' digests equal; RNG key equal; restored "
+          f"decode launches flash {launches[0]}, decode {launches[1]}", flush=True)
 
 
 def main() -> int:
@@ -714,6 +843,9 @@ def main() -> int:
     params = srv.params
     del srv, tokens
     torch.cuda.empty_cache()
+
+    # -- ckpt. snapshot mid-decode, restore under another flavor --------------
+    ckpt_phase(cfg, params, prompts, 16, card, dev, DA, FA)
 
     # -- 5. the continuous-batching fleet on a device page pool -----------------
     all_prompts = FLEET_PROMPTS + (FLEET_LATE,)

@@ -1,5 +1,6 @@
 from repro_torch.configs.base import (
     ARCH_IDS,
+    CkptIOConfig,
     MLAConfig,
     MoEConfig,
     ModelConfig,
@@ -10,6 +11,6 @@ from repro_torch.configs.base import (
 )
 
 __all__ = [
-    "ARCH_IDS", "MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig",
+    "ARCH_IDS", "CkptIOConfig", "MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig",
     "XLSTMConfig", "get_config", "smoke_config",
 ]

@@ -171,6 +171,24 @@ ARCH_IDS = ["granite-3-2b", "hymba-1.5b"]
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
 
+@dataclass(frozen=True)
+class CkptIOConfig:
+    """Checkpoint I/O engine knobs (the JAX package's ``CkptIOConfig``).
+
+    Conservative defaults (lossless, non-incremental) keep raw Cluster
+    behavior bit-stable.  ``io_workers=0`` -> min(world_size, cpu).  The
+    snapshot is always the pipelined one (``core.ckpt_pipeline``)."""
+    codec: str = "none"               # none | zlib | lz4 | int8 (lossy)
+    incremental: bool = False         # delta checkpoints (full every keep-th)
+    io_workers: int = 0               # writer/reader pool size (0 = auto)
+    keep: int = 3                     # completed checkpoints retained by GC
+    chunk_bytes: int = 4 << 20        # raw bytes per streamed chunk
+    snapshot_batch_mb: float = 8.0    # raw MB per batch of copies
+    drain_backoff: float = 5e-5       # first quiesce poll sleep (s); doubles
+    drain_timeout: float = 10.0       # shared quiesce deadline (s); a blown
+                                      # slice raises DrainStallError
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in _MOD:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")

@@ -2,9 +2,15 @@
 ``ServeEngine`` fleet.
 
 The counterparts of the JAX package's ``serving/engine.Server`` and
-``ServeEngine`` without their checkpoint/restart plane (cluster, runtime-state
-registry, snapshots, recovery, the migration transport), which comes with a
-later slice of the port.
+``ServeEngine``.  The ``Server`` carries the whole checkpoint/restart plane:
+a ``Cluster`` of logical ranks (each an interposed lower half of one MPI
+flavor), a runtime-state registry (caches, RNG key stream, decode cursor),
+transparent snapshots mid-decode, and restores under another flavor or
+world size, into a fresh ``Server`` with no prefill.  Its snapshots are the
+JAX package's container byte for byte, so a sequence moves mid-decode
+between the two packages either way.  The fleet's C/R (a paged-cache
+provider, its checkpoint/restore/recover) and the migration transport come
+with a later slice.
 """
 from __future__ import annotations
 
@@ -14,10 +20,13 @@ import numpy as np
 import torch
 
 from repro_torch import steps as ST
+from repro_torch.core import Cluster
+from repro_torch.core import runtime_state as RS
+from repro_torch.core.restore import as_source, load_arrays, translation_plan
 from repro_torch.device import resolve_device, sync
 from repro_torch.models import Model
 from repro_torch.models import transformer as T
-from repro_torch.models.params import tree_leaves, tree_unflatten
+from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
 from repro_torch.serving import scheduler as SCHED
 from repro_torch.serving.kv_pool import PagePool, PoolOOMError
 from repro_torch.serving.scheduler import ContinuousBatchScheduler
@@ -26,18 +35,23 @@ __all__ = ["FleetSession", "ServeEngine", "Server", "resolve_device"]
 
 
 class Server:
-    """Single-stream serving (one batched sequence).
+    """Single-stream preemptible serving (one batched sequence),
+    checkpointable between decode steps and resumable mid-sequence under
+    another backend flavor or world size.
 
     ``params`` defaults to the seeded init on ``device``; tests hand in the
     JAX package's params through ``models.params.from_jax_params``.
     ``gla_schedule`` picks hymba's prefill GLA kernel ('chunk' or
-    'parallel', ``kernels/ops.py``).
+    'parallel', ``kernels/ops.py``).  ``world_size`` / ``backend`` /
+    ``ckpt_dir`` configure the ``Cluster`` that takes the snapshots.
     """
 
-    def __init__(self, cfg, *, seed=0, params=None, device=None, gla_schedule="chunk"):
+    def __init__(self, cfg, *, world_size=2, backend="mpich", ckpt_dir=None,
+                 seed=0, params=None, device=None, gla_schedule="chunk"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = Model(cfg, gla_schedule=gla_schedule)
+        self.cluster = Cluster(world_size, backend, ckpt_dir=ckpt_dir)
         self.params = params if params is not None \
             else self.model.init(seed, self.device)
         self.prefill_fn = ST.make_prefill_step(self.model)
@@ -45,7 +59,60 @@ class Server:
         self.caches = None
         self.max_len = 0
         self.pos = 0
+        self.generated = []
+        # the next decode seed token, owned by the decode_cursor provider
         self._tok = None
+        # sampling key stream (raw threefry2x32 data, as the JAX package's
+        # ``jax.random.key(seed + 1)``): advanced once per decode step.
+        # Greedy decode never consumes it, but a restored server must hold
+        # the SAME key a sampling decode would
+        self.rng_key = RS.threefry_key(seed + 1)
+        self.last_runtime_restore = None
+        # runtime-state providers: the cache tree (with its skeleton), the
+        # key stream and the decode cursor — the upper-half serving state
+        self.runtime = RS.RuntimeStateRegistry()
+        self.runtime.register(RS.PyTreeProvider(
+            "kv_caches", lambda: self.caches, self._set_caches))
+        self.runtime.register(RS.RngStateProvider(
+            "rng", lambda: self.rng_key, self._set_rng))
+        self.runtime.register(RS.JsonStateProvider(
+            "decode_cursor", self._cursor_state, self._apply_cursor))
+
+    # -- runtime provider hooks ---------------------------------------------
+    def _set_caches(self, tree):
+        """Install a cache tree; its full-attention leaves' rows are the
+        capacity (``max_len``), so a restored server needs no prefill."""
+        self.caches = tree
+        if tree is not None:
+            self.max_len = max(c["attn"]["k"].shape[-2] for c in tree)
+
+    def _set_rng(self, key):
+        self.rng_key = key
+
+    @property
+    def resume_tok(self):
+        """The next decode seed as numpy int32 [B] (None before decode)."""
+        return None if self._tok is None \
+            else self._tok.to(torch.int32).cpu().numpy()
+
+    def _cursor_state(self) -> dict:
+        st = {"pos": int(self.pos),
+              "prefill_pos": int(self.pos - len(self.generated))}
+        if self.generated:
+            # the token that seeds the next decode step after a resume
+            st["last_tok"] = np.asarray(self.generated[-1]).tolist()
+        return st
+
+    def _apply_cursor(self, st: dict) -> None:
+        # rewinding pos must also rewind the generated stream, or the
+        # tokens decoded between snapshot and failure appear TWICE
+        prefill_pos = self.pos - len(self.generated)
+        self.pos = int(st["pos"])
+        keep = max(0, self.pos - prefill_pos)
+        if len(self.generated) > keep:
+            del self.generated[keep:]
+        tok = st.get("last_tok")
+        self._tok = None if tok is None else self._tokens(np.asarray(tok, np.int64))
 
     def _tokens(self, tokens) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(tokens), dtype=torch.int64)
@@ -65,6 +132,11 @@ class Server:
         self.pos = S
         return logits
 
+    # -- supervisor workload protocol ---------------------------------------
+    @property
+    def step(self) -> int:
+        return self.pos
+
     def start_decode(self, first_token):
         """Seed the decode loop (``step_once`` consumes it)."""
         self._tok = self._tokens(first_token)
@@ -76,8 +148,13 @@ class Server:
         logits, self.caches = self.decode_fn(self.params, self._tok, self.pos,
                                              self.caches)
         self._tok = torch.argmax(logits[..., : self.cfg.vocab_size], dim=-1)
+        self.rng_key = RS.threefry_split(self.rng_key)[0]
+        out = self._tok.to(torch.int32).cpu().numpy()
+        self.generated.append(out)
         self.pos += 1
-        return self._tok.to(torch.int32).cpu().numpy()
+        for r in range(len(self.cluster.ranks)):
+            self.cluster.heartbeat(r)
+        return out
 
     def decode(self, n_tokens, first_token):
         """Greedy decode of ``n_tokens``; returns (tokens, seconds)."""
@@ -87,6 +164,96 @@ class Server:
         out = [self.step_once() for _ in range(n_tokens)]
         sync(self.device)
         return out, time.perf_counter() - t0
+
+    # -- transparent serving snapshot ---------------------------------------
+    def checkpoint(self, tag=None):
+        """Drain every rank, snapshot the runtime state (caches copied off
+        the device inside the blocking window) and write it in the
+        background.  Returns the request; ``req.timings`` holds the
+        blocking window's breakdown, ``persist_ms`` once it commits."""
+        if tag is None:
+            tag = self.pos
+        rt_arrays, rt_meta = self.runtime.snapshot()
+        arrays = {"runtime": rt_arrays}
+        # pos/last_tok ride alongside the runtime section, as in the JAX
+        # package's rank state
+        extra = {"pos": int(self.pos), "runtime": rt_meta}
+        if self.generated:
+            extra["last_tok"] = np.asarray(self.generated[-1]).tolist()
+        return self.cluster.checkpoint(tag, arrays, None,
+                                       extra_rank_state=lambda r: dict(extra))
+
+    def _on_device(self, tree):
+        return tree_map(lambda _: self.device, tree)
+
+    def restore(self, ckpt, *, new_backend=None, new_world_size=None,
+                rebuild=False):
+        """Resume mid-sequence from a serving snapshot (a committed step dir
+        or any checkpoint source). ``new_backend`` / ``new_world_size`` /
+        ``rebuild`` go through ``Cluster.restart``: fresh lower halves
+        (possibly another flavor or world size) with the cache reads
+        overlapping the descriptor re-bind; the restart's phase timings land
+        in ``self.cluster.restart_timings``.
+
+        Snapshots carry a runtime-state section (tree skeletons + StateLeaf
+        descriptors), so a FRESH server restores the whole decode state —
+        the caches land on its device — without running a prefill.  Both
+        packages' ``checkpoint`` write that section; a snapshot without one
+        is refused."""
+        src = as_source(ckpt)
+        manifest = src.manifest()
+        rt_meta = src.rank_state(0).get("runtime")
+        if rt_meta is None:
+            raise ValueError(f"{ckpt}: not a serving snapshot (no runtime "
+                             "section)")
+        # placements rebuilt from snapshot metadata alone: the caches go to
+        # the device, the key stays a host array
+        sh = {"runtime": self.runtime.shardings(rt_meta)}
+        if "kv_caches" in sh["runtime"]:
+            sh["runtime"]["kv_caches"] = self._on_device(sh["runtime"]["kv_caches"])
+        if new_backend is not None or new_world_size is not None or rebuild:
+            self.cluster = self.cluster.restart(src,
+                                                new_backend=new_backend,
+                                                new_world_size=new_world_size,
+                                                shardings=sh)
+            arrays = self.cluster.restored_arrays
+        else:
+            writer = self.cluster.writer
+            arrays = load_arrays(src, sh,
+                                 arenas=writer.arenas if writer else ())
+        plan = translation_plan(
+            manifest.get("backend", self.cluster.backend_name),
+            self.cluster.backend_name, self.cluster.mana(0).backend)
+        self.last_runtime_restore = self.runtime.restore(
+            arrays.get("runtime", {}), rt_meta, plan=plan)
+        RS.warn_skipped(self.last_runtime_restore, "serve")
+
+    def recover(self, ckpt_dir, *, new_world_size=None):
+        """Supervisor entry point: rebuild the lower halves on the surviving
+        world and rewind decode to the snapshot position."""
+        self.restore(ckpt_dir, new_world_size=new_world_size, rebuild=True)
+
+    # -- live rescale (zero-downtime elasticity) -----------------------
+    def prepare_leave(self, rank):  # noqa: ARG002 — workload hook shape
+        """Supervisor hook before a live shrink: decode state (caches, pos,
+        seed token) lives in the upper half and is untouched by it."""
+        return None
+
+    def rescale(self, report):  # noqa: ARG002 — workload hook shape
+        """Supervisor hook after a live rescale: decode continues at the
+        SAME position with the SAME caches."""
+        return None
+
+    def resume_latest(self, *, new_backend=None):
+        """Resume the newest snapshot whose delta chain resolves; returns the
+        checkpoint dir or ``None`` when nothing restorable exists."""
+        if self.cluster.writer is None:
+            return None
+        ck = self.cluster.writer.resumable()
+        if ck is None:
+            return None
+        self.restore(ck, new_backend=new_backend)
+        return ck
 
 
 # ---------------------------------------------------------------------------

@@ -640,3 +640,109 @@ def test_smoke_hymba_server_on_card_matches_cpu(cuda, schedule):
     gla = GC.launches - n[0] if schedule == "chunk" else GC.launches_a - n[1]
     # 3 layers: 2 windowed (ring) and 1 global, each with SSD heads
     assert (gla, DA.launches - n[2], DA.ring_launches - n[3]) == (3, 6, 12)
+
+
+# -- the checkpoint-restart plane on the card -----------------------------------
+
+def _bf16_granite():
+    import dataclasses
+    return dataclasses.replace(smoke_config("granite-3-2b"), param_dtype="bfloat16",
+                               compute_dtype="bfloat16", cache_dtype="bfloat16")
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _served(cuda, tmp_path, n=3):
+    cfg = _bf16_granite()
+    srv = Server(cfg, device=cuda, seed=1, ckpt_dir=tmp_path / "ck")
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 12))
+    logits = srv.prefill(prompt, pad_to=24)
+    toks, _ = srv.decode(n, torch.argmax(logits[:, : cfg.vocab_size], -1).cpu().numpy())
+    return srv, toks
+
+
+def test_cache_writes_after_checkpoint_leave_the_snapshot(cuda, tmp_path):
+    from repro_torch.core.restore import load_arrays
+    from repro_torch.models.params import tree_leaves
+    srv, _ = _served(cuda, tmp_path)
+    before = [t.clone() for t in tree_leaves(srv.caches)]
+    req = srv.checkpoint()
+    for t in tree_leaves(srv.caches):     # at once, on the current stream
+        t.fill_(7.0)
+    req.wait()
+    meta = srv.runtime.snapshot()[1]
+    got = load_arrays(srv.cluster.writer.latest(),
+                      {"runtime": {"kv_caches": tree_map(
+                          lambda _: cuda, srv.runtime.shardings(meta)["kv_caches"]),
+                          "rng": None}})["runtime"]["kv_caches"]
+    for a, b in zip(tree_leaves(got), before):
+        assert a.dtype == torch.bfloat16 and torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("codec", ["none", "zlib"])
+def test_bf16_leaves_survive_d2h_disk_h2d_bit_for_bit(cuda, tmp_path, codec):
+    from repro_torch.configs import CkptIOConfig
+    from repro_torch.core import Cluster
+    from repro_torch.core.restore import load_arrays
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(3, 67, 33, generator=g, device=cuda).to(torch.bfloat16)
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"),
+                            1e-40, -3e-39, 65504.0], device=cuda).to(torch.bfloat16)
+    arrays = {"a": x, "b": [special, torch.tensor(2.5, device=cuda).to(torch.bfloat16)],
+              "c": torch.zeros(0, 4, device=cuda, dtype=torch.bfloat16)}
+    c = Cluster(2, "mpich", ckpt_dir=tmp_path / "ck", ckpt_io=CkptIOConfig(codec=codec))
+    c.checkpoint(1, arrays, None).wait()
+    got = load_arrays(c.writer.latest(), tree_map(lambda _: cuda, arrays))
+    for a, b in zip([got["a"], *got["b"], got["c"]], [x, special, arrays["b"][1], arrays["c"]]):
+        assert a.device == b.device and a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert torch.equal(_bits(a), _bits(b))
+    c.writer.close()
+
+
+def test_restored_server_lives_on_the_card_and_continues(cuda, tmp_path):
+    from repro_torch.models.params import tree_leaves
+    srv, _ = _served(cuda, tmp_path)
+    srv.checkpoint().wait()
+    tail, _ = srv.decode(4, srv.resume_tok)
+    fresh = Server(srv.cfg, device=cuda, params=srv.params, ckpt_dir=tmp_path / "ck")
+    fresh.restore(srv.cluster.writer.latest(), new_backend="openmpi", rebuild=True)
+    leaves = tree_leaves(fresh.caches)
+    assert leaves and all(t.device.type == cuda.type for t in leaves)
+    assert fresh.max_len == 24 and fresh.pos == srv.pos - 4
+    again, _ = fresh.decode(4, fresh.resume_tok)
+    np.testing.assert_array_equal(np.stack(again), np.stack(tail))
+    assert fresh.rng_key.tobytes() == srv.rng_key.tobytes()
+
+
+def test_snapshot_launches_no_decode_kernel(cuda, tmp_path):
+    srv, _ = _served(cuda, tmp_path)
+    n = (DA.launches, DA.ring_launches, PA.launches, FA.launches)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        req = srv.checkpoint()
+        torch.cuda.synchronize()
+    req.wait()
+    assert (DA.launches, DA.ring_launches, PA.launches, FA.launches) == n
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not [nm for nm in names if "decode" in nm or "flash" in nm], names
+
+
+def test_restore_stages_through_the_writers_pinned_arena(cuda, tmp_path):
+    from repro_torch.models.params import tree_leaves
+    srv, _ = _served(cuda, tmp_path)
+    srv.checkpoint().wait()
+    fresh = Server(srv.cfg, device=cuda, params=srv.params, ckpt_dir=tmp_path / "ck")
+    arenas = fresh.cluster.writer.arenas
+    fresh.restore(srv.cluster.writer.latest(), new_backend="exampi", rebuild=True)
+    assert fresh.cluster.writer.arenas is arenas
+    staged = sum(t.numel() * t.element_size() for t in tree_leaves(fresh.caches))
+    buf = arenas[0]._buf
+    assert buf.is_pinned() and buf.numel() >= staged
+    assert all(a.try_acquire() for a in arenas)
+    for a in arenas:
+        a.release()
+    fresh.checkpoint().wait()                     # the snapshot reuses it
+    assert arenas[0]._buf is buf

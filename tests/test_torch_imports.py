@@ -1,6 +1,6 @@
 """The port stands alone: no module of src/repro_torch, and not chip_smoke.py,
-imports JAX or the JAX package, and importing the port leaves neither in
-sys.modules. No library attention or compiler is on its path, and the
+imports JAX, ml_dtypes or the JAX package, and importing the port leaves
+none of them in sys.modules. No library attention or compiler is on its path, and the
 kernel wrappers hold no try/except that could fall back."""
 import ast
 import os
@@ -16,7 +16,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 MODULES = sorted(PKG.rglob("*.py"))
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imports(path):
@@ -35,7 +35,14 @@ def test_package_has_the_slice_modules():
             "kernels/paged_decode_attention.py", "serving/engine.py",
             "serving/kv_pool.py", "serving/scheduler.py", "launch/serve.py",
             "steps.py", "device.py", "models/ssm.py", "kernels/gla_chunk.py",
-            "configs/hymba_1_5b.py"} <= names
+            "configs/hymba_1_5b.py", "core/__init__.py", "core/descriptors.py",
+            "core/vid.py", "core/legacy_vid.py", "core/faults.py", "core/callspec.py",
+            "core/interpose.py", "core/drain.py", "core/ckpt_io.py",
+            "core/ckpt_pipeline.py", "core/ckpt.py", "core/restore.py",
+            "core/coordinator.py", "core/runtime_state.py"} <= names
+    assert {f"core/backends/{n}.py" for n in (
+        "__init__", "base", "fabric", "mpich", "craympi", "openmpi", "exampi",
+        "fabricdirect")} <= names
     assert {p.name for p in (PKG / "csrc").iterdir()} >= {
         "flash_attention.cu", "decode_attention.cu", "paged_decode_attention.cu",
         "decode_split.cuh", "gla_chunk.cu"}
