@@ -40,6 +40,25 @@ not 0:
      non-empty prefill, paged decode per decoded token, no contiguous
      decode), each first token is held to the Server's B=1 one, and a
      float32 copy's streams are held to the float32 Server's exactly;
+  recover: the supervised recovery plane on phase 5's weights and traffic
+     (the high-priority arrival comes with tick 4, so a rewind past it
+     sees it arrive again): (a) the fleet snapshotted after tick 6 under
+     mpich (the rows gathered on the card, copied off it on the side
+     stream), resumed under exampi in a fresh engine and drained, its
+     streams equal to phase 5's, with the blocking window and its parts
+     (the resident rows' copies timed on the side stream beside one
+     pinned ``copy_`` of the same bytes, the parked rows' host copy), the
+     restart's phases and the
+     resumed run's flash and paged-decode launch counts; (b) the fleet
+     under the supervisor with rank 1 killed at tick 5 and a snapshot
+     every 3 ticks, re-homed from the RAM tier (world 2 -> 1) and then
+     again from disk (no RAM tier), each with its MTTR and parts and
+     streams equal to phase 5's; (c) two running sessions of the
+     snapshotted engine live-migrated to a fabric engine and drained
+     there, their streams equal to phase 5's, with the stall, chunks and
+     bytes; and phase 4's
+     Server under the supervisor with a preemption notice, resolved on
+     the rescale rung with no rewind and phase 4's tokens;
   6. hymba: full-width hymba-1.5b (bf16, seeded random weights) prefills
      4 prompts x 1536 tokens (longer than its 1024 window, so the ring
      rolls) under each GLA schedule and decodes 32 tokens; the launch
@@ -373,16 +392,7 @@ def ckpt_phase(cfg, params, prompts, n_gen, card, dev, DA, FA):
         torch.cuda.empty_cache()
 
     # the yardstick: one pinned copy_ of the same bytes off the card
-    host = torch.empty(snap_bytes, dtype=torch.uint8, pin_memory=True)
-    devbuf = torch.empty(snap_bytes, dtype=torch.uint8, device=dev)
-    host.copy_(devbuf)
-    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    ev0.record()
-    host.copy_(devbuf, non_blocking=True)
-    ev1.record()
-    ev1.synchronize()
-    copy_ms = ev0.elapsed_time(ev1)
-    del host, devbuf
+    copy_ms = pinned_copy_ms(snap_bytes, dev)
     tm, tw, tr = req.timings, warm.timings, after.timings
     print(f"[ckpt] snapshot of {snap_bytes / 1e6:.1f} MB of caches at pos "
           f"{n_prompt + n_gen}, the writer's first ({card}): blocking "
@@ -405,6 +415,250 @@ def ckpt_phase(cfg, params, prompts, n_gen, card, dev, DA, FA):
     print(f"[ckpt] tail B ({n_gen} tokens x {a.shape[0]} after the restore) equals "
           f"tail A byte for byte; caches' digests equal; RNG key equal; restored "
           f"decode launches flash {launches[0]}, decode {launches[1]}", flush=True)
+
+
+def pinned_copy_ms(nbytes, dev):
+    """Device ms of one pinned, non-blocking ``copy_`` of ``nbytes`` off the
+    card: the yardstick of a snapshot's copies."""
+    import torch
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    devbuf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    host.copy_(devbuf)
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    host.copy_(devbuf, non_blocking=True)
+    ev1.record()
+    ev1.synchronize()
+    return ev0.elapsed_time(ev1)
+
+
+def recover_phase(cfg, params, fleet_prompts, max_len, base, prompts, serve_stream,
+                  card, dev, FA, DA, PA):
+    """The supervised recovery plane on phase 5's fleet and phase 4's Server
+    (see the docstring). ``base`` maps each fleet session to its phase-5
+    stream, ``serve_stream`` is phase 4's [B, n] token stream."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.ckpt_tiers import ReplicaTier
+    from repro_torch.core.faults import FaultInjector, FaultPlan, FaultSpec
+    from repro_torch.core.supervisor import Supervisor, SupervisorConfig
+    from repro_torch.serving import ServeEngine, Server, migrate_sessions
+    from repro_torch.serving.scheduler import RUNNING
+
+    late_sid = f"s{len(fleet_prompts):04d}"
+
+    class Traffic(ServeEngine):
+        """Phase 5's traffic: the late high-priority session arrives with
+        tick FLEET_LATE_AT."""
+
+        def step_once(self):
+            if self.tick == FLEET_LATE_AT and late_sid not in self.sessions:
+                self.submit(fleet_prompts[-1], sid=late_sid, max_new_tokens=FLEET_NEW,
+                            priority=5)
+            return super().step_once()
+
+    def engine(backend, ckpt_dir, submit=True, cls=Traffic):
+        eng = cls(cfg, params=params, device="cuda", backend=backend, ckpt_dir=ckpt_dir,
+                  max_len=max_len, page_size=FLEET_PAGE, n_pages=FLEET_PAGES,
+                  max_running=FLEET_LANES)
+        if submit:
+            for i, p in enumerate(fleet_prompts[:-1]):
+                eng.submit(p, sid=f"s{i + 1:04d}", max_new_tokens=FLEET_NEW)
+        return eng
+
+    def streams(*engines):
+        return {s: e.stream(s) for e in engines for s in e.sessions
+                if e.sched.state(s) != "MIGRATED"}
+
+    def resident_bytes(eng):
+        per_row = sum(st.shape[2] * st.element_size() for st in eng.pool.stores.values())
+        return sum(a.length for a in eng.pool.sessions.values()) * per_row
+
+    def parked_bytes(eng):
+        return sum(a.nbytes for pay in eng.pool.parked.values()
+                   for part in ("tokens", "blocks") for a in pay[part].values())
+
+    t_phase = time.perf_counter()
+    n_layers = cfg.n_layers
+    # -- (a) snapshot after tick 6 under mpich, resume under exampi -----------
+    with tempfile.TemporaryDirectory(prefix="recover_a") as ckdir:
+        eng = engine("mpich", ckdir)
+        for _ in range(6):
+            eng.step_once()
+        torch.cuda.synchronize()
+        snap_bytes, host_bytes = resident_bytes(eng), parked_bytes(eng)
+        n_da = (DA.launches, PA.launches, FA.launches)
+        t0 = time.perf_counter()
+        req = eng.checkpoint()
+        call_ms = (time.perf_counter() - t0) * 1e3
+        req.wait()
+        if (DA.launches, PA.launches, FA.launches) != n_da:
+            raise AssertionError("the fleet snapshot launched a decode or flash kernel")
+        t0 = time.perf_counter()
+        warm = eng.checkpoint()            # the same state, on the grown arena
+        warm_call_ms = (time.perf_counter() - t0) * 1e3
+        warm.wait()
+        at_snap = {s: len(eng.stream(s)) for s in eng.sessions}
+        parked = sorted(eng.pool.parked)
+        copy_ms = pinned_copy_ms(snap_bytes, dev)
+
+        # -- (c) two running sessions of this engine move to a fabric engine --
+        dst = engine("fabric", None, submit=False, cls=ServeEngine)
+        moving = [s for s in eng.sched.running if eng.sched.state(s) == RUNNING][:2]
+        if len(moving) != 2:
+            raise AssertionError(f"fewer than two running sessions at tick 6: {moving}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = migrate_sessions(eng, dst, moving)
+        stall_ms = (time.perf_counter() - t0) * 1e3
+        # the source's other sessions are not decoded on: (a)'s resume below
+        # runs every session on from the same tick-6 state
+        if any(eng.sched.state(s) != "MIGRATED" for s in moving):
+            raise AssertionError(f"the source did not release {moving}")
+        dst.run_until_drained()
+        torch.cuda.synchronize()
+        got = streams(dst)
+        if sorted(dst.sessions) != sorted(moving) or got != {s: base[s] for s in moving}:
+            raise AssertionError(f"migrated streams differ from phase 5's: {moving}")
+        print(f"[recover] (c) live migration at tick 6, mpich -> fabric: sessions "
+              f"{rep.sessions}, stall {stall_ms:.1f} ms (host clock, both sessions), "
+              f"{rep.chunks} chunks, {rep.bytes / 1e6:.1f} MB, "
+              f"{rep.reencoded_leaves} leaves re-encoded; every stream equals phase 5's "
+              f"({card})", flush=True)
+        del eng, dst
+        torch.cuda.empty_cache()
+
+        fresh = engine("mpich", ckdir, submit=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if fresh.resume_latest(new_backend="exampi") is None:
+            raise AssertionError("no resumable fleet snapshot")
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        rt = fresh.cluster.restart_timings
+        if fresh.cluster.backend_name != "exampi" or fresh.tick != 6 \
+                or any(t.device.type != dev.type for t in fresh.pool.stores.values()):
+            raise AssertionError("the fleet did not resume on the card under exampi at tick 6")
+        FA.launches = DA.launches = PA.launches = 0
+        t0 = time.perf_counter()
+        fresh.run_until_drained()
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        resumed = (FA.launches, DA.launches, PA.launches)
+        if streams(fresh) != base:
+            raise AssertionError("resumed fleet streams differ from phase 5's")
+        prefills = sum(1 for s, n in at_snap.items()
+                       if n == 0 and len(fresh.sessions[s].prompt))
+        decoded = sum(len(base[s]) - n for s, n in at_snap.items()) - prefills
+        want = (n_layers * prefills, 0, n_layers * decoded)
+        if resumed != want:
+            raise AssertionError(f"resumed fleet launches {resumed} != {want}")
+        del fresh
+        torch.cuda.empty_cache()
+    tm, tw = req.timings, warm.timings
+    print(f"[recover] (a) fleet snapshot after tick 6 ({len(at_snap)} sessions), "
+          f"{snap_bytes / 1e6:.1f} MB of resident rows copied off the card and "
+          f"{host_bytes / 1e6:.1f} MB of parked rows {parked} copied on the host, both "
+          f"inside the window's snapshot part ({card}): the writer's "
+          f"first: checkpoint() {call_ms:.1f} ms on the host clock, of it the blocking "
+          f"window {tm['blocking_ms']} ms = drain {tm['drain_ms']} ms, snapshot "
+          f"{tm['snapshot_ms']} ms, enqueue {tm['enqueue_ms']} ms and the pinned arena's "
+          f"growth; persist {tm['persist_ms']} ms; the second on the grown arena: "
+          f"checkpoint() {warm_call_ms:.1f} ms, blocking {tw['blocking_ms']} ms (snapshot "
+          f"{tw['snapshot_ms']} ms), persist {tw['persist_ms']} ms", flush=True)
+    for name, t in (("first", tm), ("second", tw)):
+        # the two parts overlap: the side stream copies while the host does
+        print(f"[recover] (a) the {name} snapshot part {t['snapshot_ms']} ms (host "
+              f"clock) holds the parked rows' host copy {t['host_copy_ms']} ms "
+              f"({host_bytes / 1e6:.1f} MB at "
+              f"{host_bytes / max(t['host_copy_ms'], 1e-9) / 1e6:.2f} GB/s) and, "
+              f"overlapping it, the resident rows' copies on the side stream "
+              f"{t['device_copy_ms']} ms (CUDA events, {snap_bytes / 1e6:.1f} MB at "
+              f"{snap_bytes / max(t['device_copy_ms'], 1e-9) / 1e6:.2f} GB/s); one "
+              f"pinned copy_ of the {snap_bytes / 1e6:.1f} MB of resident rows takes "
+              f"{copy_ms:.3f} ms ({snap_bytes / copy_ms / 1e6:.2f} GB/s) ({card})",
+              flush=True)
+    print(f"[recover] (a) resume mpich -> exampi into a fresh engine: {rt}; restore on "
+          f"the host clock {restore_ms:.1f} ms; the resumed run {resumed_s:.2f} s launched "
+          f"flash {resumed[0]} (expected {want[0]}: {prefills} prefills), paged decode "
+          f"{resumed[2]} (expected {want[2]}: {decoded} tokens), contiguous decode "
+          f"{resumed[1]}; every stream equals phase 5's ({card})", flush=True)
+
+    # -- (b) a rank death re-homed by the supervisor, RAM tier then disk ------
+    for tier in ("ram", "disk"):
+        with tempfile.TemporaryDirectory(prefix=f"recover_b_{tier}") as ckdir:
+            eng = engine("mpich", ckdir)
+            ram = ReplicaTier() if tier == "ram" else None
+            t0 = time.perf_counter()
+            plan = FaultPlan([FaultSpec("kill_rank", at_step=5, rank=1)])
+            with FaultInjector(plan) as inj:
+                sup = Supervisor(eng, injector=inj, lease_s=1.0, tier=ram,
+                                 config=SupervisorConfig(backoff_floor_s=0.0))
+                incidents = sup.run(10, ckpt_every=3)
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if len(incidents) != 1:
+                raise AssertionError(f"{tier}: {len(incidents)} incidents")
+            inc = incidents[0]
+            if (inc.kind, inc.tier, inc.world_before, inc.world_after) != \
+                    ("rank_dead", tier, 2, 1) or not inc.rehomed or inc.rehomed < 1:
+                raise AssertionError(f"{tier}: incident {inc.to_dict()}")
+            if streams(eng) != base:
+                raise AssertionError(f"{tier}: re-homed streams differ from phase 5's")
+            t = inc.timings
+            extra = ""
+            if ram is not None:
+                st = ram.stats
+                extra = (f"; RAM tier: {st['replicated_steps']} snapshots replicated, "
+                         f"{st['push_ms_total'] / max(st['replicated_steps'], 1):.1f} ms "
+                         f"and {st['pushed_bytes'] / max(st['replicated_steps'], 1) / 1e6:.1f}"
+                         f" MB each")
+            print(f"[recover] (b) kill_rank rank 1 at tick 5, served by {inc.tier} "
+                  f"({inc.ckpt}), world {inc.world_before}->{inc.world_after}, "
+                  f"{inc.rehomed} sessions re-homed, tick {inc.step}->{inc.resumed_step}: "
+                  f"MTTR {t['total_ms']} ms = detect {t['detect_ms']} + classify "
+                  f"{t['classify_ms']} + restore {t['restore_ms']} + resume "
+                  f"{t['resume_ms']} ms{extra}; streams equal phase 5's; {secs:.1f} s "
+                  f"({card})", flush=True)
+            eng.cluster.writer.close()
+            del eng
+            torch.cuda.empty_cache()
+
+    # -- phase 4's Server under a preemption notice: the rescale rung ---------
+    n_gen = serve_stream.shape[1]
+    srv = Server(cfg, params=params, device="cuda")
+    logits = srv.prefill(prompts, pad_to=prompts.shape[1] + n_gen)
+    srv.start_decode(torch.argmax(logits[:, : cfg.vocab_size], dim=-1).cpu().numpy())
+    del logits
+    torch.cuda.synchronize()
+    DA.launches = 0
+    with FaultInjector(FaultPlan([FaultSpec("preempt_notice", at_step=12, rank=1)])) as inj:
+        sup = Supervisor(srv, injector=inj, config=SupervisorConfig(backoff_floor_s=0.0))
+        incidents = sup.run(n_gen)
+    if len(incidents) != 1:
+        raise AssertionError(f"server: {len(incidents)} incidents")
+    inc = incidents[0]
+    if (inc.kind, inc.tier, inc.ckpt, inc.world_after) != ("preempt_notice", "rescale",
+                                                           None, 1) \
+            or inc.resumed_step != inc.step:
+        raise AssertionError(f"server: incident {inc.to_dict()}")
+    got = np.stack(srv.generated, axis=1)
+    if got.tobytes() != serve_stream.tobytes() or DA.launches != n_layers * n_gen:
+        raise AssertionError(f"server: supervised tokens differ from phase 4's "
+                             f"(decode launches {DA.launches})")
+    print(f"[recover] Server under a preemption notice at pos {inc.step}: tier "
+          f"{inc.tier}, world {inc.world_before}->{inc.world_after}, no rewind (pos "
+          f"{inc.step}->{inc.resumed_step}), no image read; downtime "
+          f"{inc.timings['restore_ms']} ms, total {inc.timings['total_ms']} ms; {n_gen} "
+          f"tokens x {got.shape[0]} equal phase 4's; decode launches {DA.launches} "
+          f"({card})", flush=True)
+    del srv
+    torch.cuda.empty_cache()
+    print(f"[recover] phase time {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -906,6 +1160,7 @@ def main() -> int:
         return swapped
 
     eng, sids, fleet_launches, secs = fleet(cfg, params)
+    base = {s: eng.stream(s) for s in sids}
     n_tok = sum(len(eng.stream(s)) for s in sids)
     fleet_ticks = eng.tick
     print(f"[fleet] granite-3-2b bf16, {cfg.n_layers} layers; {len(sids)} sessions, "
@@ -961,7 +1216,13 @@ def main() -> int:
           flush=True)
     if not all(same):
         raise AssertionError(f"float32 fleet streams differ from the Server's: {same}")
-    del eng, srv, p32, params
+    del eng, srv, p32
+    torch.cuda.empty_cache()
+
+    # -- recover. the supervised recovery plane on phase 5's fleet -------------
+    recover_phase(cfg, params, fleet_prompts, max_len, base, prompts, stream, card, dev,
+                  FA, DA, PA)
+    del params
     torch.cuda.empty_cache()
 
     # -- 6. full-width hymba-1.5b Server ---------------------------------------

@@ -55,8 +55,9 @@ class CheckpointRequest:
     """Async handle for an in-flight checkpoint (a REQUEST-kind object: the
     drain protocol completes it before the next snapshot).  ``timings``
     carries the stop-the-world breakdown in milliseconds — drain_ms /
-    snapshot_ms / enqueue_ms / blocking_ms filled at call time, persist_ms
-    once the background write commits."""
+    snapshot_ms / enqueue_ms / blocking_ms filled at call time (with
+    device_copy_ms and host_copy_ms, which overlap within snapshot_ms),
+    persist_ms once the background write commits."""
 
     def __init__(self, directory: Path):
         self.directory = directory
@@ -115,6 +116,12 @@ class CheckpointWriter:
         # a failed write can never poison delta decisions.
         self._digest_table: dict[str, dict] = {}
         self._since_full = 0
+        #: optional hook ``cb(committed_step_dir)`` invoked right after an
+        #: image commits (rename + GC done) — the RAM replica tier latches
+        #: onto this to learn which dirs to push.  Runs on the finalize
+        #: thread; exceptions are swallowed (tier bookkeeping must never
+        #: fail a committed checkpoint).
+        self.on_commit = None
 
     def _get_pool(self) -> ckpt_io.IOPool:
         if self._pool is None:
@@ -231,6 +238,10 @@ class CheckpointWriter:
             raise
         req.timings["snapshot_ms"] = res["snapshot_ms"]
         req.timings["enqueue_ms"] = res["enqueue_ms"]
+        # within snapshot_ms, overlapping: the device leaves' copies on the
+        # side stream (CUDA events) and the host leaves' copies into the arena
+        req.timings["device_copy_ms"] = res["device_copy_ms"]
+        req.timings["host_copy_ms"] = res["host_copy_ms"]
         req.write_stats["device_to_host_s"] = round(
             res["snapshot_ms"] / 1e3, 4)
         req.write_stats["snapshot_batches"] = res["batches"]
@@ -345,6 +356,12 @@ class CheckpointWriter:
             write_s=round(persist_s, 4),
             per_rank_write_s=per_rank_s)
         self._gc()
+        cb = self.on_commit
+        if cb is not None:
+            try:
+                cb(fdir)
+            except Exception:  # noqa: BLE001
+                pass
 
     # -- directory scanning / GC -------------------------------------------
     def _completed_steps(self) -> list[Path]:

@@ -12,10 +12,14 @@ blocking half and keeps it short:
   * items are grouped into RANK-ALIGNED batches of ``batch_bytes`` raw
     bytes (``snapshot_batch_mb`` knob);
   * on the card, a side stream first waits on the current stream, then
-    issues one ``non_blocking`` copy per leaf into pinned host memory and
-    records a CUDA event per batch; every copy is in flight before the
-    first batch is waited on.  CPU tensors and numpy leaves are copied
-    synchronously into the same arena;
+    issues one ``non_blocking`` copy per device leaf into pinned host
+    memory, bracketed by two timed CUDA events per batch; every copy is in
+    flight before the first batch is waited on.  CPU tensors and numpy
+    leaves are copied synchronously into the same arena after the batch's
+    device copies are issued.  The run reports the device copies' summed
+    span on the side stream (``device_copy_ms``) and the host copies'
+    time (``host_copy_ms``), both within ``snapshot_ms``, where they
+    overlap;
   * each batch, once its event has completed, is handed STRAIGHT to the
     ``ckpt_io`` writer pool, which digests/compresses/writes it from the
     arena after the window closes;
@@ -273,8 +277,8 @@ class SnapshotPipeline:
                 arena.release()
 
         side = _side_stream(dev) if dev is not None else None
-        futures, events = [], []
-        t_get = t_submit = 0.0
+        futures, events, starts = [], [], []
+        t_get = t_submit = t_host = 0.0
         try:
             t0 = time.perf_counter()
             if side is not None:
@@ -287,12 +291,25 @@ class SnapshotPipeline:
                     # chaos-harness injection site: a raise here fails the
                     # checkpoint INSIDE its blocking window, mid-batch
                     failpoint("ckpt.snapshot_batch", rank=rank, batch=bi)
-                    for it in its:
-                        _copy_in(buf, off_of[id(it)], it)
+                    # the batch's device copies are issued first and
+                    # bracketed by two events, so their span on the side
+                    # stream is read apart from the host copies after them
                     if side is not None:
-                        ev = torch.cuda.Event()
-                        ev.record(side)
-                        events.append(ev)
+                        starts.append(torch.cuda.Event(enable_timing=True))
+                        starts[-1].record(side)
+                    host = []
+                    for it in its:
+                        if isinstance(it.data, torch.Tensor) and it.data.is_cuda:
+                            _copy_in(buf, off_of[id(it)], it)
+                        else:
+                            host.append(it)
+                    if side is not None:
+                        events.append(torch.cuda.Event(enable_timing=True))
+                        events[-1].record(side)
+                    th = time.perf_counter()
+                    for it in host:
+                        _copy_in(buf, off_of[id(it)], it)
+                    t_host += time.perf_counter() - th
             t_get += time.perf_counter() - t0
             for bi, (rank, its) in enumerate(batches):
                 t0 = time.perf_counter()
@@ -334,4 +351,7 @@ class SnapshotPipeline:
                 "bytes": sum(it.nbytes for it in ordered),
                 "counters": counters,
                 "snapshot_ms": round(t_get * 1e3, 3),
+                "device_copy_ms": round(sum(a.elapsed_time(b)
+                                            for a, b in zip(starts, events)), 3),
+                "host_copy_ms": round(t_host * 1e3, 3),
                 "enqueue_ms": round(t_submit * 1e3, 3)}

@@ -9,10 +9,21 @@ transparent snapshots mid-decode and resume under another MPI flavor.
         --gen 10 --ckpt-dir /tmp/svk --snapshot-at 4
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --gen 10 --ckpt-dir /tmp/svk --resume --restore-backend fabric
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --batch 1 --prompt-len 4 --gen 10 --ckpt-dir /tmp/ssk \
+        --fault-plan '[{"kind": "kill_rank", "at_step": 6}]'
+
+``--supervise`` decodes under the auto-recovery supervisor
+(``core/supervisor.py``): a snapshot every ``--snapshot-every`` steps,
+peer-replicated to a partner's RAM unless ``--no-ram-tier``, and each
+failure detected, classified and recovered over the escalation ladder.
+A fault plan's ``at_step`` is the decode position (the prompt length
+after the prefill), not the count of decoded tokens.
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 
@@ -44,7 +55,32 @@ def main(argv=None):
                          "--ckpt-dir instead of prefilling from scratch")
     ap.add_argument("--restore-backend", default=None, choices=sorted(BACKENDS),
                     help="backend flavor to restart under on --resume")
+    ap.add_argument("--supervise", action="store_true",
+                    help="decode under the auto-recovery supervisor "
+                         "(requires --ckpt-dir)")
+    ap.add_argument("--fault-plan", default=None,
+                    help="chaos testing: inline JSON or a path to a JSON "
+                         "fault plan; implies --supervise")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="supervised mode: snapshot every N decode steps "
+                         "(default gen/2)")
+    ap.add_argument("--backoff-floor", type=float, default=0.05,
+                    help="supervisor backoff floor in seconds (0 disables)")
+    ap.add_argument("--backoff-ceiling", type=float, default=2.0,
+                    help="supervisor backoff ceiling in seconds")
+    ap.add_argument("--rescale", default="preempt",
+                    choices=["off", "preempt", "all"],
+                    help="rescale-rung policy: never, graceful leaves only, "
+                         "or any membership failure")
+    ap.add_argument("--ram-tier", action="store_true", default=True,
+                    help="peer-replicate snapshots to partner RAM and try "
+                         "that tier first on recovery (default)")
+    ap.add_argument("--no-ram-tier", dest="ram_tier", action="store_false",
+                    help="disk-only recovery (skip peer replication)")
     args = ap.parse_args(argv)
+    supervised = args.supervise or args.fault_plan
+    if supervised and not args.ckpt_dir:
+        raise SystemExit("--supervise requires --ckpt-dir")
     cfg = smoke_config(args.arch)
     srv = Server(cfg, backend=args.backend, ckpt_dir=args.ckpt_dir,
                  device=args.device, gla_schedule=args.gla_schedule)
@@ -52,7 +88,8 @@ def main(argv=None):
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            dtype=np.int32)
     gen, first, done = args.gen, None, []
-    # a snapshot carries the cache tree, so a resume skips the prefill
+    # resume runs first, supervised or not: a snapshot carries the cache
+    # tree, so a resume skips the prefill
     if args.resume and args.ckpt_dir:
         ck = srv.resume_latest(new_backend=args.restore_backend)
         if ck is not None:
@@ -65,17 +102,49 @@ def main(argv=None):
         logits = srv.prefill(prompts, pad_to=args.prompt_len + args.gen)
         first = np.argmax(logits[..., : cfg.vocab_size].cpu().numpy(), axis=-1)
         first = first.astype(np.int32)
-        if args.ckpt_dir and args.snapshot_at:
+        if args.ckpt_dir and args.snapshot_at and not supervised:
             done, _ = srv.decode(min(args.snapshot_at, gen), first)
             srv.checkpoint(tag=srv.pos).wait()
             print(f"serving snapshot at pos {srv.pos} -> "
                   f"{srv.cluster.writer.latest().name}")
             gen -= len(done)
             first = done[-1]
+    if supervised:
+        return _supervised(srv, args, gen, first)
     toks, dt = srv.decode(gen, first)
     print(f"{args.arch}: generated {gen} tokens x batch {args.batch} on {srv.device} "
           f"in {dt:.2f}s ({gen * args.batch / max(dt, 1e-9):.1f} tok/s)")
     return done + toks
+
+
+def _supervised(srv, args, gen, first):
+    """Decode ``gen`` tokens under the supervisor; returns the tokens the
+    run decoded (recoveries rewind the stream, so none repeats)."""
+    from repro_torch.core.ckpt_tiers import ReplicaTier
+    from repro_torch.core.faults import FaultInjector, FaultPlan
+    from repro_torch.core.supervisor import Supervisor, SupervisorConfig
+    plan = FaultPlan.parse(args.fault_plan) if args.fault_plan else FaultPlan()
+    srv.start_decode(first)
+    n_before = len(srv.generated)
+    t0 = time.time()
+    sup_cfg = SupervisorConfig(backoff_floor_s=args.backoff_floor,
+                               backoff_ceiling_s=args.backoff_ceiling,
+                               rescale=args.rescale)
+    with FaultInjector(plan) as injector:
+        sup = Supervisor(srv, injector=injector, config=sup_cfg,
+                         tier=ReplicaTier() if args.ram_tier else None)
+        incidents = sup.run(gen, ckpt_every=args.snapshot_every
+                            or max(gen // 2, 1))
+    dt = time.time() - t0
+    for inc in incidents:
+        t = inc.timings
+        print(f"incident: {inc.kind} rank={inc.rank} "
+              f"pos={inc.step}->{inc.resumed_step} tier={inc.tier} "
+              f"ckpt={inc.ckpt} "
+              f"restore={t['restore_ms']:.1f}ms", flush=True)
+    print(f"supervised decode: {gen} tokens x batch {args.batch} in "
+          f"{dt:.2f}s, {len(incidents)} incident(s)")
+    return srv.generated[n_before:]
 
 
 if __name__ == "__main__":

@@ -8,9 +8,15 @@ flavor), a runtime-state registry (caches, RNG key stream, decode cursor),
 transparent snapshots mid-decode, and restores under another flavor or
 world size, into a fresh ``Server`` with no prefill.  Its snapshots are the
 JAX package's container byte for byte, so a sequence moves mid-decode
-between the two packages either way.  The fleet's C/R (a paged-cache
-provider, its checkpoint/restore/recover) and the migration transport come
-with a later slice.
+between the two packages either way.  The ``ServeEngine`` fleet carries the
+same plane over its page pool (``kind="runtime"`` leaves through
+``runtime_state.PagedCacheProvider``, copied off the card on the
+checkpoint's side stream), so its in-flight sessions survive a rank death
+(the supervisor re-homes them onto the surviving world) and live-migrate
+across MPI flavors (``serving/migrate.py``).  Both classes speak the
+supervisor's workload protocol (``step`` / ``step_once`` / ``checkpoint`` /
+``recover`` and the rescale hooks), so one
+:class:`~repro_torch.core.supervisor.Supervisor` drives either.
 """
 from __future__ import annotations
 
@@ -317,14 +323,20 @@ class ServeEngine:
     pass writes into it. The reference decides from pool state alone, never
     from the logits, so the decisions, tickets and streams are the same.
 
-    Not ported yet: checkpoint / restore / recover and the migration
-    transport, which need the checkpoint/restart plane.
-    ``export_session_state`` / ``import_session_state`` speak the JAX
-    package's payload format, so a session moves between the two engines.
+    Speaks the supervisor workload protocol: ``step`` is the engine tick,
+    ``checkpoint`` snapshots the pool, the cursors and the RNG key through
+    the runtime-state registry (the container is the JAX engine's: the same
+    entries, digests and JSON page table), and ``recover`` re-homes every
+    in-flight session onto the surviving world (count in ``last_rehomed``,
+    surfaced on the incident). ``export_session_state`` /
+    ``import_session_state`` speak the JAX package's payload format, so a
+    session moves between the two engines, and ``serving/migrate.py``
+    moves one between two engines of different MPI flavors.
     """
 
-    def __init__(self, cfg, *, seed=0, params=None, device=None, max_len=48,
-                 page_size=8, n_pages=64, max_running=4):
+    def __init__(self, cfg, *, world_size=2, backend="mpich", ckpt_dir=None,
+                 seed=0, params=None, device=None, max_len=48, page_size=8,
+                 n_pages=64, max_running=4):
         if cfg.n_codebooks > 1:
             raise NotImplementedError("ServeEngine supports single-codebook "
                                       "models; use Server for codebook archs")
@@ -336,6 +348,7 @@ class ServeEngine:
         self.max_len = int(max_len)
         self.device = resolve_device(device)
         self.model = Model(cfg)
+        self.cluster = Cluster(world_size, backend, ckpt_dir=ckpt_dir)
         self.params = params if params is not None \
             else self.model.init(seed, self.device)
         self.prefill_fn = ST.make_prefill_step(self.model)
@@ -344,6 +357,10 @@ class ServeEngine:
         self.sched = ContinuousBatchScheduler(max_running=max_running)
         self.sessions: dict[str, FleetSession] = {}
         self.tick = 0
+        # the JAX engine's ``jax.random.key(seed + 1)``, split once per tick
+        self.rng_key = RS.threefry_key(seed + 1)
+        self.last_runtime_restore = None
+        self.last_rehomed = None
         self._sid_counter = 0
         # cache leaf geometry: shapes at max_len (on the meta device: nothing
         # is allocated), leaf keys in the JAX package's flatten order
@@ -361,6 +378,33 @@ class ServeEngine:
             if axis is not None:
                 self._pageable[key] = (int(np.prod(shape)) // shape[axis], dtype)
                 self.pool.store(key, *self._pageable[key])
+        # runtime-state providers: page tables + pages, the RNG stream, and
+        # the fleet cursor (per-session decode cursors + the scheduler
+        # snapshot) — the complete upper-half fleet state
+        self.runtime = RS.RuntimeStateRegistry()
+        self.runtime.register(RS.PagedCacheProvider(
+            "kv_pages", lambda: self.pool))
+        self.runtime.register(RS.RngStateProvider(
+            "rng", lambda: self.rng_key, self._set_rng))
+        self.runtime.register(RS.JsonStateProvider(
+            "fleet_cursor", self._fleet_state, self._apply_fleet))
+
+    # -- runtime provider hooks ---------------------------------------------
+    def _set_rng(self, key):
+        self.rng_key = key
+
+    def _fleet_state(self) -> dict:
+        return {"tick": int(self.tick),
+                "scheduler": self.sched.snapshot(),
+                "sessions": {sid: s.cursor()
+                             for sid, s in self.sessions.items()}}
+
+    def _apply_fleet(self, st: dict) -> None:
+        st = st or {}
+        self.tick = int(st.get("tick", 0))
+        self.sched.restore(st.get("scheduler") or {})
+        self.sessions = {sid: FleetSession.from_cursor(sid, cur)
+                         for sid, cur in (st.get("sessions") or {}).items()}
 
     # -- cache leaf geometry -------------------------------------------------
     def _seq_axes(self, S: int) -> list:
@@ -501,6 +545,10 @@ class ServeEngine:
         self.sched.retired(sid)
 
     # -- the engine tick -----------------------------------------------------
+    @property
+    def step(self) -> int:
+        return self.tick
+
     def step_once(self):
         """One continuous-batching tick: retire finished sessions, admit from
         the queue (prefill interleaved with decode), decode one token on
@@ -522,7 +570,10 @@ class ServeEngine:
             if self.sched.state(sid) != SCHED.RUNNING:
                 continue      # parked by a growing lane's eviction this tick
             self._decode_one(self.sessions[sid])
+        self.rng_key = RS.threefry_split(self.rng_key)[0]
         self.tick += 1
+        for r in range(len(self.cluster.ranks)):
+            self.cluster.heartbeat(r)
 
     def _reserve(self, sess: FleetSession) -> bool:
         """Make the page for ``sess.pos`` exist before the forward pass writes
@@ -570,16 +621,90 @@ class ServeEngine:
             self.step_once()
         return self.tick - t0
 
+    # -- checkpoint / recover ------------------------------------------------
+    def checkpoint(self, tag=None):
+        """Drain every rank and snapshot the fleet: the pool's rows are
+        gathered on the card and copied off it on the checkpoint's side
+        stream inside the blocking window, then written in the background.
+        Returns the request (``req.timings``: the window's breakdown)."""
+        if tag is None:
+            tag = self.tick
+        rt_arrays, rt_meta = self.runtime.snapshot()
+        extra = {"tick": int(self.tick), "runtime": rt_meta}
+        return self.cluster.checkpoint(tag, {"runtime": rt_arrays}, None,
+                                       extra_rank_state=lambda r: dict(extra))
+
+    def restore(self, ckpt, *, new_backend=None, new_world_size=None,
+                rebuild=False):
+        """Resume the whole fleet mid-flight: pool pages, page table,
+        per-session cursors, scheduler state, RNG — possibly under another
+        flavor or world size (``Cluster.restart``, whose phase timings land
+        in ``self.cluster.restart_timings``). A resident session's rows go
+        to the device through the writer's pinned arena; parked sessions
+        stay host arrays."""
+        src = as_source(ckpt)
+        manifest = src.manifest()
+        rt_meta = src.rank_state(0).get("runtime")
+        if rt_meta is None:
+            raise ValueError("not a fleet snapshot: no runtime section")
+        sh = {"runtime": self.runtime.shardings(rt_meta)}
+        for sid, ent in (sh["runtime"].get("kv_pages") or {}).items():
+            if not sid.startswith("parked:") and "tokens" in ent:
+                ent["tokens"] = {k: self.device for k in ent["tokens"]}
+        if new_backend is not None or new_world_size is not None or rebuild:
+            self.cluster = self.cluster.restart(src,
+                                                new_backend=new_backend,
+                                                new_world_size=new_world_size,
+                                                shardings=sh)
+            arrays = self.cluster.restored_arrays
+        else:
+            writer = self.cluster.writer
+            arrays = load_arrays(src, sh,
+                                 arenas=writer.arenas if writer else ())
+        plan = translation_plan(
+            manifest.get("backend", self.cluster.backend_name),
+            self.cluster.backend_name, self.cluster.mana(0).backend)
+        self.last_runtime_restore = self.runtime.restore(
+            arrays.get("runtime", {}), rt_meta, plan=plan)
+        RS.warn_skipped(self.last_runtime_restore, "serve-fleet")
+
+    def recover(self, ckpt, *, new_world_size=None):
+        """Supervisor entry point: restore the fleet image onto the
+        surviving world — every in-flight session is RE-HOMED (their pages
+        and cursors come back exactly as snapshotted; replayed ticks
+        re-decode the same tokens, so streams stay duplicate-free)."""
+        self.restore(ckpt, new_world_size=new_world_size, rebuild=True)
+        self.last_rehomed = len(self.sched.live())
+
+    # -- rescale hooks (same contract as Server) -----------------------------
+    def prepare_leave(self, rank):  # noqa: ARG002 — workload hook shape
+        """Supervisor hook before a live shrink: the pool's pages stay
+        where they are, on the card."""
+        return None
+
+    def rescale(self, report):  # noqa: ARG002 — workload hook shape
+        """Supervisor hook after a live rescale: every session continues at
+        the same position over the same pages."""
+        return None
+
+    def resume_latest(self, *, new_backend=None):
+        """Resume the newest snapshot whose delta chain resolves; returns the
+        checkpoint dir or ``None`` when nothing restorable exists."""
+        if self.cluster.writer is None:
+            return None
+        ck = self.cluster.writer.resumable()
+        if ck is None:
+            return None
+        self.restore(ck, new_backend=new_backend)
+        return ck
+
     # -- migration support (the JAX package's payload format) ----------------
     def export_session_state(self, sid: str) -> dict:
         """Cursor + host pool payload for one session, ready to ship."""
-        if sid in self.pool.parked:
-            payload, parked = self.pool.parked[sid], True
-        else:
-            payload, parked = self.pool.export_session(sid), False
         return {"cursor": self.sessions[sid].cursor(),
                 "sched_state": self.sched.state(sid),
-                "parked": parked, "pool": payload}
+                "parked": sid in self.pool.parked,
+                "pool": self.pool.export_session(sid)}
 
     def import_session_state(self, sid: str, state: dict) -> None:
         """Accept a migrated-in session: pool bytes land first (parked on OOM

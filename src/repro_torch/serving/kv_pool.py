@@ -18,12 +18,21 @@ of a one-layer store, ``layer_view`` the per-layer strided view of a
 stacked one). ``write_tokens`` / ``read_tokens`` are one batched device
 index op per leaf.
 
-Swap and migration payloads are host-side and in the reference's format,
-``{"table": {length, priority, seq}, "tokens": {key: [L, numel]},
-"blocks": {...}}`` with numpy arrays, so a session or a whole pool moves
-between the two packages. numpy has no bfloat16 without ``ml_dtypes``, so
-a bfloat16 leaf travels as its ``uint16`` bits and the table records
-``"dtypes": {key: "bfloat16"}``; float32 payloads carry no such entry.
+Host payloads are in the reference's format, ``{"table": {length,
+priority, seq}, "tokens": {key: [L, numel]}, "blocks": {...}}`` with numpy
+arrays. numpy has no bfloat16 without ``ml_dtypes``, so the pool holds a
+bfloat16 leaf on the host (a parked session) as its ``uint16`` bits under
+``ckpt_io.BFLOAT16``, as the checkpoint container does. Only the migration
+boundary speaks another form: ``export_session`` gives plain ``uint16``
+bits and records ``"dtypes": {key: "bfloat16"}`` in the table (float32
+payloads carry no such entry), and ``import_session`` / ``park_payload``
+read it, so a session moves between the two packages.
+
+The whole-pool snapshot (``export_state``, which a fleet checkpoint takes)
+is the reference's tree with the rows left on the device: each session's
+rows are gathered on the card, and the checkpoint's side stream copies
+them into its pinned arena. Parked sessions pass through as they are held,
+so the JSON page table equals the reference's.
 """
 from __future__ import annotations
 
@@ -32,36 +41,47 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.core import ckpt_io
 from repro_torch.device import resolve_device
 
-#: torch dtypes numpy cannot hold: exported as their bits, name recorded
+#: torch dtypes numpy cannot hold: held as their bits under a tagged dtype
 _BITS_DTYPES = {"bfloat16": torch.bfloat16}
 
 
-def to_host(t: torch.Tensor) -> tuple:
-    """(numpy copy, dtype name or None): a bfloat16 tensor comes back as its
-    ``uint16`` bits with the name ``"bfloat16"``."""
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy; a bfloat16 tensor comes back as its bits under
+    ``ckpt_io.BFLOAT16``."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
-    return t.numpy(), None
+        return t.view(torch.int16).numpy().view(ckpt_io.BFLOAT16)
+    return t.numpy()
+
+
+def host_bits(arr, dtype_name=None) -> np.ndarray:
+    """A host payload array in the pool's own form. bfloat16 in any of the
+    forms it arrives in (plain bits that ``dtype_name`` names, an
+    ``ml_dtypes`` array as the JAX package exports, or bits already under
+    ``ckpt_io.BFLOAT16``) becomes bits under ``ckpt_io.BFLOAT16``."""
+    a = np.asarray(arr)
+    if ckpt_io.dtype_name(a.dtype) == "bfloat16":
+        dtype_name = "bfloat16"
+    if dtype_name is None:
+        return a
+    if dtype_name not in _BITS_DTYPES or a.dtype.itemsize != 2:
+        raise ValueError(f"cannot read {a.dtype} bits as {dtype_name!r}")
+    return a.view(np.uint16).view(ckpt_io.resolve_dtype(dtype_name))
 
 
 def to_device(arr, device, dtype_name=None) -> torch.Tensor:
     """A payload array (numpy, or a tensor) as a tensor on ``device``;
-    ``dtype_name`` reinterprets ``uint16`` bits as that dtype. A numpy
-    bfloat16 array (``ml_dtypes``, as the JAX package exports) is taken by
-    its bits too."""
+    bfloat16 host arrays are read as :func:`host_bits` reads them."""
     if isinstance(arr, torch.Tensor):
         return arr.to(device)
-    a = np.asarray(arr)
-    if a.dtype.name == "bfloat16":
-        a, dtype_name = a.view(np.uint16), "bfloat16"
-    if dtype_name is not None:
-        if dtype_name not in _BITS_DTYPES or a.dtype.itemsize != 2:
-            raise ValueError(f"cannot read {a.dtype} bits as {dtype_name!r}")
+    a = host_bits(arr, dtype_name)
+    name = ckpt_io.dtype_name(a.dtype)
+    if name in _BITS_DTYPES:
         t = torch.from_numpy(np.array(a.view(np.int16)))
-        return t.view(_BITS_DTYPES[dtype_name]).to(device)
+        return t.view(_BITS_DTYPES[name]).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 
 
@@ -238,26 +258,30 @@ class PagePool:
         self._free.sort()
 
     # -- swap / migration payloads ------------------------------------------
-    def _host_tokens(self, rows: dict) -> tuple:
-        tokens, dtypes = {}, {}
-        for key, t in rows.items():
-            tokens[key], name = to_host(t)
-            if name is not None:
-                dtypes[key] = name
-        return tokens, dtypes
+    def _gather(self, sid: str) -> dict:
+        """A resident session's host payload in the pool's own form."""
+        alloc = self.sessions[sid]
+        return {"table": {"length": alloc.length, "priority": alloc.priority,
+                          "seq": alloc.seq},
+                "tokens": {k: to_host(t) for k, t in self.read_tokens(sid).items()},
+                "blocks": self.read_blocks(sid)}
 
     def export_session(self, sid: str) -> dict:
-        """Self-contained byte-exact host payload: page-table row + gathered
-        token rows (numpy) + recurrent blocks. The unit of swap-preemption
-        and of migration."""
-        alloc = self.sessions[sid]
-        tokens, dtypes = self._host_tokens(self.read_tokens(sid))
-        table = {"length": alloc.length, "priority": alloc.priority,
-                 "seq": alloc.seq}
+        """Self-contained byte-exact host payload of a resident or parked
+        session: page-table row + gathered token rows (numpy) + recurrent
+        blocks, the unit of migration, in the JAX package's form (bfloat16
+        rows as plain ``uint16`` bits, named in the table's ``"dtypes"``)."""
+        payload = self.parked[sid] if sid in self.parked else self._gather(sid)
+        tokens, dtypes = {}, {}
+        for key, a in payload["tokens"].items():
+            if ckpt_io.dtype_name(a.dtype) in _BITS_DTYPES:
+                dtypes[key] = ckpt_io.dtype_name(a.dtype)
+                a = a.view(np.uint16)
+            tokens[key] = a
+        table = dict(payload["table"])
         if dtypes:
             table["dtypes"] = dtypes
-        return {"table": table, "tokens": tokens,
-                "blocks": self.read_blocks(sid)}
+        return {"table": table, "tokens": tokens, "blocks": payload["blocks"]}
 
     def import_session(self, sid: str, payload: dict, *,
                        priority: int | None = None) -> SessionAlloc:
@@ -293,16 +317,23 @@ class PagePool:
     def park(self, sid: str) -> dict:
         """Swap a session out: gather its bytes to the host, free its pages,
         keep the payload in the parked store. Returns the payload."""
-        payload = self.export_session(sid)
+        payload = self._gather(sid)
         self.release(sid)
         self.parked[sid] = payload
         return payload
 
     def park_payload(self, sid: str, payload: dict) -> None:
-        """Park an externally-produced payload (migration-in under OOM)."""
+        """Park an exported payload (migration-in under OOM), held in the
+        pool's own form."""
         if sid in self.sessions:
             raise ValueError(f"session {sid!r} is admitted; park() it")
-        self.parked[sid] = payload
+        table = dict(payload["table"])
+        dtypes = table.pop("dtypes", None) or {}
+        self.parked[sid] = {
+            "table": table,
+            "tokens": {k: host_bits(v, dtypes.get(k))
+                       for k, v in payload["tokens"].items()},
+            "blocks": dict(payload["blocks"])}
 
     def unpark(self, sid: str) -> SessionAlloc:
         """Swap a parked session back in. Raises :class:`PoolOOMError` with
@@ -382,22 +413,22 @@ class PagePool:
     # -- whole-pool snapshot ------------------------------------------------
     def export_state(self) -> tuple:
         """Whole-pool snapshot ``(arrays, table)`` in the JAX package's form:
-        ``arrays`` holds one subtree per session (token rows + blocks, numpy;
-        free pages are not serialized) and ``table`` is the JSON page table
-        (plus ``"dtypes"`` when a store is bfloat16)."""
+        ``arrays`` holds one subtree per session (free pages are not
+        serialized) and ``table`` is the JSON page table. A resident
+        session's token rows are gathered into fresh tensors on the pool's
+        device (one index op per leaf, no copy to the host: the checkpoint
+        copies them off the card); blocks and parked sessions are host
+        arrays, parked ones as the pool holds them."""
         arrays: dict = {}
         table = {"n_pages": self.n_pages, "page_size": self.page_size,
                  "seq": self._seq, "sessions": {}, "parked": {}}
-        all_dtypes = {}
         for sid in sorted(self.sessions):
             alloc = self.sessions[sid]
             table["sessions"][sid] = {
                 "pages": list(alloc.pages), "length": alloc.length,
                 "priority": alloc.priority, "seq": alloc.seq}
             ent = {}
-            toks, dtypes = self._host_tokens(
-                {k: v for k, v in self.read_tokens(sid).items() if v.shape[0]})
-            all_dtypes.update(dtypes)
+            toks = {k: v for k, v in self.read_tokens(sid).items() if v.shape[0]}
             if toks:
                 ent["tokens"] = toks
             blocks = self.read_blocks(sid)
@@ -405,8 +436,6 @@ class PagePool:
                 ent["blocks"] = blocks
             if ent:
                 arrays[sid] = ent
-        if all_dtypes:
-            table["dtypes"] = all_dtypes
         for sid in sorted(self.parked):
             payload = self.parked[sid]
             table["parked"][sid] = dict(payload["table"])
@@ -423,9 +452,11 @@ class PagePool:
 
     def import_state(self, arrays: dict, table: dict | None) -> None:
         """Rebuild the pool from a snapshot: sessions land on their exact
-        original page ids, the free list is everything else."""
+        original page ids, the free list is everything else. Rows may be
+        tensors (already on the pool's device when the restore placed them
+        there) or host arrays; a parked session comes back in the pool's
+        own host form."""
         table = table or {}
-        dtypes = table.get("dtypes") or {}
         self.stores.clear()
         self.sessions.clear()
         self.parked.clear()
@@ -438,7 +469,7 @@ class PagePool:
             ent = (arrays or {}).get(sid) or {}
             toks = ent.get("tokens") or {}
             if toks:
-                self.write_tokens(sid, 0, {k: to_device(v, self.device, dtypes.get(k))
+                self.write_tokens(sid, 0, {k: to_device(v, self.device)
                                            for k, v in toks.items()})
             alloc.length = int(row.get("length", 0))
             blocks = ent.get("blocks") or {}
@@ -448,9 +479,10 @@ class PagePool:
             ent = (arrays or {}).get(f"parked:{sid}") or {}
             self.parked[sid] = {
                 "table": dict(row),
-                "tokens": {k: np.asarray(v)
+                "tokens": {k: host_bits(v)
                            for k, v in (ent.get("tokens") or {}).items()},
                 "blocks": {k: np.asarray(v)
                            for k, v in (ent.get("blocks") or {}).items()}}
         self._seq = max([self._seq] + [a.seq
                                        for a in self.sessions.values()])
+

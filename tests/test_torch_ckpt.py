@@ -205,6 +205,21 @@ def test_snapshot_copies_inside_the_blocking_window(tmp_path):
     c.writer.close()
 
 
+def test_snapshot_reports_its_copy_parts(tmp_path):
+    """``snapshot_ms`` splits into the device leaves' copies (timed on the
+    side stream; none here) and the host leaves' copies into the arena."""
+    c = Cluster(1, "mpich", ckpt_dir=tmp_path / "ck",
+                ckpt_io=CkptIOConfig(snapshot_batch_mb=0.0625))
+    req = c.checkpoint(1, {"a": torch.randn(300, 100), "b": np.ones((64, 64), np.float32)},
+                       None)
+    req.wait()
+    tm = req.timings
+    assert tm["device_copy_ms"] == 0.0
+    assert 0 < tm["host_copy_ms"] <= tm["snapshot_ms"] <= tm["blocking_ms"]
+    assert req.write_stats["snapshot_batches"] > 1
+    c.writer.close()
+
+
 def test_pipeline_arena_is_reused_and_locked(tmp_path):
     from repro_torch.core import ckpt_pipeline as CP
     c = Cluster(1, "mpich", ckpt_dir=tmp_path / "ck",

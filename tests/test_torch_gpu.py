@@ -746,3 +746,76 @@ def test_restore_stages_through_the_writers_pinned_arena(cuda, tmp_path):
         a.release()
     fresh.checkpoint().wait()                     # the snapshot reuses it
     assert arenas[0]._buf is buf
+
+
+# -- the fleet's C/R and the supervised recovery loop on the card --------------
+
+class _LateTraffic(ServeEngine):
+    """A fleet whose late high-priority session arrives with tick 2, so a
+    recovery that rewinds past tick 2 sees it arrive again."""
+    late = None
+
+    def step_once(self):
+        if self.late is not None and self.tick == 2 and "late" not in self.sessions:
+            self.submit(self.late, sid="late", max_new_tokens=8, priority=5)
+        return super().step_once()
+
+
+def _bf16_fleet(cuda, tmp_path, late=False):
+    """A bf16 smoke fleet on the card, a pool small enough to park a session."""
+    eng = _LateTraffic(_bf16_granite(), device=cuda, seed=1, ckpt_dir=tmp_path / "ck",
+                       max_len=40, page_size=4, n_pages=10, max_running=3)
+    rng = np.random.default_rng(1)
+    for n in (20, 9):
+        eng.submit(rng.integers(0, eng.cfg.vocab_size, n), max_new_tokens=8)
+    if late:
+        eng.late = rng.integers(0, eng.cfg.vocab_size, 14)
+    return eng
+
+
+def test_fleet_snapshot_launches_no_decode_kernel(cuda, tmp_path):
+    eng = _bf16_fleet(cuda, tmp_path)
+    for _ in range(3):
+        eng.step_once()
+    n = (DA.launches, DA.ring_launches, PA.launches, FA.launches)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        req = eng.checkpoint()
+        torch.cuda.synchronize()
+    req.wait()
+    assert (DA.launches, DA.ring_launches, PA.launches, FA.launches) == n
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not [nm for nm in names if "decode" in nm or "flash" in nm], names
+    # the rows went off the card through the writer's pinned arena, timed
+    # on the side stream apart from the host copies
+    assert eng.cluster.writer.arenas[0]._buf.is_pinned()
+    tm = req.timings
+    assert 0 < tm["device_copy_ms"] and 0 <= tm["host_copy_ms"] <= tm["snapshot_ms"]
+    eng.cluster.writer.close()
+
+
+@pytest.mark.parametrize("tier", ["ram", "disk"])
+def test_supervised_fleet_kill_rank_rehomes_on_the_card(cuda, tmp_path, tier):
+    from repro_torch.core.ckpt_tiers import ReplicaTier
+    from repro_torch.core.faults import FaultInjector, FaultPlan, FaultSpec
+    from repro_torch.core.supervisor import Supervisor, SupervisorConfig
+    ref = _bf16_fleet(cuda, tmp_path / "ref", late=True)
+    ref.run_until_drained(max_ticks=200)
+    eng = _bf16_fleet(cuda, tmp_path / "sup", late=True)
+    plan = FaultPlan([FaultSpec("kill_rank", at_step=5, rank=1)])
+    with FaultInjector(plan) as inj:
+        sup = Supervisor(eng, injector=inj, lease_s=1.0, verbose=False,
+                         tier=ReplicaTier() if tier == "ram" else None,
+                         config=SupervisorConfig(backoff_floor_s=0.0))
+        incidents = sup.run(10, ckpt_every=3)
+    inc, = incidents
+    assert (inc.kind, inc.tier, inc.world_before, inc.world_after, inc.resumed_step) == \
+        ("rank_dead", tier, 2, 1, 3)
+    assert inc.rehomed >= 1
+    assert all(t.device.type == cuda.type for t in eng.pool.stores.values())
+    eng.run_until_drained(max_ticks=200)
+    assert sorted(eng.sessions) == sorted(ref.sessions)
+    assert {s: eng.stream(s) for s in eng.sessions} == {s: ref.stream(s) for s in ref.sessions}
+    for e in (ref, eng):
+        e.cluster.writer.close()

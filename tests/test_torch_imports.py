@@ -39,7 +39,8 @@ def test_package_has_the_slice_modules():
             "core/vid.py", "core/legacy_vid.py", "core/faults.py", "core/callspec.py",
             "core/interpose.py", "core/drain.py", "core/ckpt_io.py",
             "core/ckpt_pipeline.py", "core/ckpt.py", "core/restore.py",
-            "core/coordinator.py", "core/runtime_state.py"} <= names
+            "core/coordinator.py", "core/runtime_state.py", "core/ckpt_tiers.py",
+            "core/elastic.py", "core/supervisor.py", "serving/migrate.py"} <= names
     assert {f"core/backends/{n}.py" for n in (
         "__init__", "base", "fabric", "mpich", "craympi", "openmpi", "exampi",
         "fabricdirect")} <= names

@@ -2,8 +2,10 @@
 package's: the same scripted operations on both give the same page tables,
 free lists, victims and exported bytes, exactly (float32 rows made with
 numpy from a seed). Also the host payload format: bfloat16 travels as its
-uint16 bits with the dtype recorded, and the pool's device is the card
-unless the caller names another."""
+uint16 bits with the dtype recorded; the whole-pool snapshot keeps resident
+rows as tensors on the pool's device and types host bfloat16 as the
+checkpoint container does (``ckpt_io.BFLOAT16``), with no dtype table; and
+the pool's device is the card unless the caller names another."""
 import numpy as np
 import pytest
 
@@ -12,6 +14,7 @@ torch = pytest.importorskip("torch")
 from repro.serving.kv_pool import PagePool as JaxPool  # noqa: E402
 from repro.serving.kv_pool import PoolOOMError as JaxOOM  # noqa: E402
 from repro.serving.scheduler import ContinuousBatchScheduler as JaxSched  # noqa: E402
+from repro_torch.core import ckpt_io  # noqa: E402
 from repro_torch.serving import scheduler as S  # noqa: E402
 from repro_torch.serving.kv_pool import PagePool, PoolOOMError  # noqa: E402
 
@@ -34,6 +37,12 @@ def _same_state(jp, tp):
             assert ta[sid][part].keys() == ja[sid][part].keys()
             for key, want in ja[sid][part].items():
                 got = ta[sid][part][key]
+                # resident rows stay tensors on the pool's device; parked
+                # payloads and blocks are host arrays
+                if isinstance(got, torch.Tensor):
+                    assert part == "tokens" and not sid.startswith("parked:")
+                    assert got.device == tp.device
+                    got = got.numpy()
                 assert isinstance(got, np.ndarray) and got.dtype == want.dtype
                 np.testing.assert_array_equal(got, want)
     assert tp.free_pages == jp.free_pages and tp._free == jp._free
@@ -152,20 +161,36 @@ def test_bfloat16_payload_travels_as_uint16_bits():
     dst.import_session("a", pay)
     assert dst.stores["k"].dtype == torch.bfloat16
     assert torch.equal(dst.read_tokens("a")["k"], rows)
-    # parked and whole-pool snapshots keep the dtype too
+    # parked and whole-pool snapshots keep the dtype too: a parked payload
+    # as bits typed like the container's, a resident one as its tensor
     src.park("a")
     arrays, table = src.export_state()
-    assert table["parked"]["a"]["dtypes"] == {"k": "bfloat16"}
+    assert "dtypes" not in table["parked"]["a"]
+    parked = arrays["parked:a"]["tokens"]["k"]
+    assert ckpt_io.dtype_name(parked.dtype) == "bfloat16"
+    np.testing.assert_array_equal(parked.view(np.uint16), pay["tokens"]["k"])
     dst2 = PagePool(6, 4, device="cpu")
     dst2.import_state(arrays, table)
+    assert "dtypes" not in dst2.parked["a"]["table"]
+    assert ckpt_io.dtype_name(dst2.parked["a"]["tokens"]["k"].dtype) == "bfloat16"
+    # a parked session exports in the migration form, as a resident one does
+    back = dst2.export_session("a")
+    assert back["table"] == pay["table"] and back["tokens"]["k"].dtype.metadata is None
+    np.testing.assert_array_equal(back["tokens"]["k"], pay["tokens"]["k"])
     dst2.unpark("a")
     assert torch.equal(dst2.read_tokens("a")["k"], rows)
     src.unpark("a")
     arrays, table = src.export_state()
-    assert table["dtypes"] == {"k": "bfloat16"}
+    assert "dtypes" not in table
+    assert arrays["a"]["tokens"]["k"].dtype == torch.bfloat16
     dst3 = PagePool(6, 4, device="cpu")
     dst3.import_state(arrays, table)
     assert torch.equal(dst3.read_tokens("a")["k"], rows)
+    # host bits typed bfloat16 (as a checkpoint restores them) land as bf16
+    dst4 = PagePool(6, 4, device="cpu")
+    dst4.import_state({"a": {"tokens": {"k": pay["tokens"]["k"].view(ckpt_io.BFLOAT16)}}},
+                      table)
+    assert torch.equal(dst4.read_tokens("a")["k"], rows)
     bad = dict(pay, table=dict(pay["table"], dtypes={"k": "float8"}))
     with pytest.raises(ValueError, match="float8"):
         PagePool(6, 4, device="cpu").import_session("a", bad)

@@ -68,3 +68,62 @@ def test_server_rejects_bad_tokens_and_full_cache():
     srv.decode(1, np.array([1]))
     with pytest.raises(RuntimeError, match="cache full"):
         srv.step_once()
+
+
+SUPERVISED = ["--device", "cpu", "--batch", "1", "--prompt-len", "4", "--gen", "10"]
+
+
+@pytest.mark.parametrize("tier", ["ram", "disk"])
+def test_cli_supervised_kill_rank_recovers_the_same_tokens(tmp_path, capsys, tier):
+    # the fault plan implies --supervise; at_step is the decode position
+    # (the prompt's 4 tokens after the prefill), so the kill at 6 lands
+    # after the first snapshot (every gen/2 = 5 steps: position 5)
+    want = serve_cli.main(SUPERVISED)
+    capsys.readouterr()
+    extra = [] if tier == "ram" else ["--no-ram-tier"]
+    got = serve_cli.main(SUPERVISED + ["--ckpt-dir", str(tmp_path / "ck"), "--fault-plan",
+                                       '[{"kind":"kill_rank","at_step":6}]', *extra])
+    out = capsys.readouterr().out
+    incidents = [line for line in out.splitlines() if line.startswith("incident:")]
+    assert len(incidents) == 1 and incidents[0].startswith("incident: rank_dead rank=1 ")
+    assert f"tier={tier} " in incidents[0] and "pos=6->5" in incidents[0]
+    assert "supervised decode: 10 tokens x batch 1" in out
+    assert len(got) == len(want) == 10
+    np.testing.assert_array_equal(np.stack(got), np.stack(want))
+
+
+def test_cli_supervise_needs_a_ckpt_dir():
+    with pytest.raises(SystemExit, match="ckpt-dir"):
+        serve_cli.main(SUPERVISED + ["--supervise"])
+
+
+@pytest.mark.parametrize("rescale", ["preempt", "off"])
+def test_cli_preempt_follows_rescale_and_snapshot_flags(tmp_path, capsys, monkeypatch, rescale):
+    # a preemption notice at position 8: the rescale rung serves it in place
+    # unless --rescale off sends it down the ladder to the newest snapshot,
+    # which --snapshot-every 3 puts at position 6 (the default, gen/2, at 5)
+    from repro_torch.core import supervisor
+    seen = []
+
+    class Spy(supervisor.Supervisor):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen.append(self.config)
+
+    monkeypatch.setattr(supervisor, "Supervisor", Spy)
+    want = serve_cli.main(SUPERVISED)
+    capsys.readouterr()
+    got = serve_cli.main(SUPERVISED + [
+        "--ckpt-dir", str(tmp_path / "ck"), "--rescale", rescale, "--snapshot-every", "3",
+        "--backoff-floor", "0", "--backoff-ceiling", "0.01", "--fault-plan",
+        '[{"kind":"preempt_notice","at_step":8,"rank":1}]'])
+    out = capsys.readouterr().out
+    incidents = [line for line in out.splitlines() if line.startswith("incident:")]
+    assert len(incidents) == 1 and incidents[0].startswith("incident: preempt_notice rank=1 ")
+    if rescale == "preempt":
+        assert "pos=8->8 tier=rescale ckpt=None " in incidents[0]
+    else:
+        assert "pos=8->6 tier=ram ckpt=ram:step_00000006 " in incidents[0]
+    cfg, = seen
+    assert (cfg.rescale, cfg.backoff_floor_s, cfg.backoff_ceiling_s) == (rescale, 0.0, 0.01)
+    np.testing.assert_array_equal(np.stack(got), np.stack(want))
