@@ -72,9 +72,31 @@ not 0:
      random-weight model's logits by tens of percent, a float32 copy's
      kernel path (both schedules) to its plain path with equal first
      tokens;
+  train: full-width granite-3-2b (bf16 params, float32 AdamW state, remat
+     on, seeded random weights) through the port's Trainer (world 2,
+     mpich), batch 4 x 1024 tokens from the data pipeline: step 1's loss,
+     grad_norm and every leaf's gradient held to the same step on the plain
+     attention path under autograd; the same step from the same state run
+     twice, params equal byte for byte; ten steps through ``step_once``
+     with the launch counts checked (K1's forward twice a layer under
+     remat, each backward kernel once), the median step time, tok/s, the
+     model-FLOPs share ``mfu``, the peak memory, and one profiled step's
+     idle share and K1's forward and backward shares; then the C/R plane
+     at granite's widths and 4 layers: 6 steps with a checkpoint every 3
+     (codec none), rank 1 killed at step 4 and restarted under exampi, and
+     the same under the supervisor served from the RAM tier, each run's
+     params, optimizer state and loss trace equal the uninterrupted run's
+     byte for byte, with the blocking windows, persist, the restart's
+     phases and the MTTR;
   7. cli: ``repro_torch.launch.serve`` at smoke size on the card, granite
-     and hymba (both GLA schedules).
-Phase 3 also holds the GLA kernels (K4; K5's phases apart and together)
+     and hymba (both GLA schedules), and ``repro_torch.launch.train`` at
+     smoke size with a rank killed and the restart under exampi.
+Phase 3 also holds K1's logsumexp output and its backward kernels (the
+preprocess, dK/dV and dQ) to their plain versions at granite's training
+shape, at a ragged S and with a window, in bf16 and float32 (two runs
+equal bit for bit, the prefill's output unchanged with the logsumexp
+write on), and times the backward beside its bound, its plain version
+and SDPA's backward. Phase 3 also holds the GLA kernels (K4; K5's phases apart and together)
 and the ring-window decode to their plain versions: the GLA at the
 serving shape with the mixer's head-broadcast q/k (in bf16 also under
 steep decays), a smoke shape, one 16-row tile a chunk, lengths the chunk
@@ -92,6 +114,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -137,6 +160,36 @@ G_SHAPE = (4, 1536, 25, 16, 64, 256)
 G_MAIN = "bfloat16 B4 S1536 H25 N16 P64 chunk=256 head-stride-0 q/k"
 # hymba's windowed decode: B4 H25 K5 D64, a 1024-slot ring, the last step
 R_MAIN = "bfloat16 B4 H25 K5 D64 W_ring=1024 window=1024 pos=1567"
+# K1's logsumexp (float32 in both dtypes) against the plain one: 1e-4
+# absolute (ex2.approx and another summation order over the same scores),
+# against values of order log S. The backward's gradients are not bounded
+# by 1, so they are held by max |a - b| / max |b|: bf16 2e-2 (P and dS are
+# rounded to bf16 for their products, as the forward rounds P, and the
+# gradients to bf16 on output), float32 2e-5 (summation order only)
+LSE_TOL = 1e-4
+BWD_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# the backward at granite's training shape (the JSON record's errors), at a
+# ragged S, and with a window at a smoke shape
+BWD_SHAPES = ((4, 32, 8, 1024, 64, None), (4, 32, 8, 1000, 64, None),
+              (2, 4, 2, 200, 32, 50))
+B_MAIN = "bfloat16 B4 H32 K8 S1024 D64 window=None"
+BWD_PARTS = ("flash_attention_bwd_preprocess", "flash_attention_bwd_dkdv",
+             "flash_attention_bwd_dq")
+# the train phase: batch x tokens, timed steps, and its step 1 held to the
+# same step on the plain attention path (bf16 both, on the card): the
+# kernels round P and dS to bf16 where the plain version keeps float32, and
+# forty random-weight layers carry that rounding into every gradient. The
+# loss within 5e-4 and grad_norm within 1e-3 (relative; ~10x the 3.4e-5
+# and 4.7e-5 read on the card), and each leaf's gradient within 1e-1 of
+# the plain one's norm (||a - b|| / ||b||; 3.3e-2 read). The loss cannot
+# see the backward at all; tools/train_fault_witness.py plants backward
+# faults and reads what these bounds catch (PERF.md)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 10
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_GRAD_TOL = 5e-4, 1e-3, 1e-1
+# its C/R part: granite's widths at CR_LAYERS layers (about 4.5 GB of params
+# and AdamW state), CR_STEPS steps, a checkpoint every CR_EVERY, the last
+# rank killed at step CR_KILL_AT
+CR_LAYERS, CR_STEPS, CR_EVERY, CR_KILL_AT = 4, 6, 3, 4
 # the fleet: page size, lanes, pool pages, new tokens per session, the
 # sessions' prompt lengths and the later high-priority arrival's (PERF.md)
 FLEET_PAGE, FLEET_LANES, FLEET_PAGES, FLEET_NEW = 16, 4, 120, 32
@@ -415,6 +468,369 @@ def ckpt_phase(cfg, params, prompts, n_gen, card, dev, DA, FA):
     print(f"[ckpt] tail B ({n_gen} tokens x {a.shape[0]} after the restore) equals "
           f"tail A byte for byte; caches' digests equal; RNG key equal; restored "
           f"decode launches flash {launches[0]}, decode {launches[1]}", flush=True)
+
+
+def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms, F):
+    """K1's backward at granite's training shape, bf16, on the forward's
+    own output and logsumexp: the whole backward's CUDA-graph time against
+    its operations bound (five products of the forward's size), the plain
+    version's, and SDPA's backward as a yardstick (``torch.autograd.grad``
+    of its causal GQA forward: the profiler's device time per call, summed
+    over its kernels, since its autograd graph is not captured in a CUDA
+    graph and the host paces it); then each of the three kernels' profiler
+    time per call beside its own bound and its plain version's CUDA-graph
+    time. Returns {kernel: (ms, plain_ms, bound_ms, bound_by)}."""
+    import torch
+    bf = torch.bfloat16
+    bsets, dsets = [], []
+    for q, k, v in fsets:
+        o, lse = FA.flash_attention(q, k, v, lse=True)
+        do = randn(B, H, S, D, dtype=bf)
+        bsets.append((q, k, v, o, lse, do))
+        dsets.append((q, k, v, lse, do, ref.attention_bwd_delta(o, do)))
+    ms = cuda_ms(lambda *a: FA.flash_attention_bwd(*a), bsets)
+    plain = cuda_ms(lambda *a: ref.flash_attention_bwd(*a), bsets, iters=5)
+    lib_sets = []
+    for q, k, v, _, _, do in bsets:
+        ins = tuple(x.detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(*ins, is_causal=True, enable_gqa=True)
+        lib_sets.append((out, ins, do))
+
+    def sdpa_bwd(out, ins, do):
+        return torch.autograd.grad(out, ins, do, retain_graph=True)
+    lib = sum(kernel_us(sdpa_bwd, lib_sets, iters=20).values()) / 1e3
+    del lib_sets
+    n_q, n_kv, rows, pairs = B * H * S * D, B * K * S * D, B * H * S, S * S / 2
+    # q, k, v, o, dO and the logsumexp read once, dq, dk, dv written once
+    bound, by = bound_ms(5 * 2 * B * H * pairs * D, 2 * (4 * n_q + 4 * n_kv) + 4 * rows)
+    us = kernel_us(lambda *a: FA.flash_attention_bwd(*a), bsets, iters=20)
+
+    def one(name):
+        hits = [t for key, t in us.items() if name in key]
+        if len(hits) != 1 or len(us) != 3:
+            raise AssertionError(f"flash_attention_bwd: the profiler saw {list(us)}")
+        return hits[0] / 1e3
+    out = {
+        # o and dO read, the row sums written
+        "flash_attention_bwd_preprocess": (
+            one("preprocess_kernel"),
+            cuda_ms(lambda q, k, v, o, lse, do: ref.attention_bwd_delta(o, do), bsets),
+            *bound_ms(2 * n_q, 2 * 2 * n_q + 4 * rows)),
+        # S, dP, dV, dK: four products; q, k, v, dO, lse, Dr read, dk, dv written
+        "flash_attention_bwd_dkdv": (
+            one("dkdv_bf16_kernel"),
+            cuda_ms(lambda *a: ref.attention_bwd_dkdv(*a), dsets, iters=5),
+            *bound_ms(4 * 2 * B * H * pairs * D, 2 * (2 * n_q + 4 * n_kv) + 8 * rows)),
+        # S, dP, dQ: three products; q, k, v, dO, lse, Dr read, dq written
+        "flash_attention_bwd_dq": (
+            one("dq_bf16_kernel"),
+            cuda_ms(lambda *a: ref.attention_bwd_dq(*a), dsets, iters=5),
+            *bound_ms(3 * 2 * B * H * pairs * D, 2 * (3 * n_q + 2 * n_kv) + 8 * rows)),
+    }
+    print(f"[kernels] flash_attention_bwd bf16 B{B} H{H} K{K} S{S} D{D} causal (the train "
+          f"path's shape): {ms * 1e3:.1f} us (preprocess + dK/dV + dQ), plain "
+          f"{plain * 1e3:.1f} us, sdpa backward (yardstick, profiler) {lib * 1e3:.1f} us, bound "
+          f"{bound * 1e3:.2f} us ({by}: 5 products of the forward's size); per kernel "
+          f"(profiler): " + "; ".join(
+              f"{n[20:]} {t[0] * 1e3:.1f} us (plain {t[1] * 1e3:.1f} us, bound "
+              f"{t[2] * 1e3:.2f} us {t[3]})" for n, t in out.items()), flush=True)
+    out["whole"] = (ms, plain, bound, by, lib)
+    return out
+
+
+def train_phase(card, dev):
+    """Full-width granite-3-2b through the port's Trainer (see the module
+    docstring, phase ``train``). Returns the backward kernels' launch counts
+    over the ten timed steps."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from repro_torch import steps as ST
+    from repro_torch.configs import CkptIOConfig, get_config
+    from repro_torch.core.ckpt_tiers import ReplicaTier
+    from repro_torch.core.faults import FaultInjector, FaultPlan, FaultSpec
+    from repro_torch.core.supervisor import Supervisor, SupervisorConfig
+    from repro_torch.data import synth_batch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import Model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import global_norm
+
+    cfg = get_config("granite-3-2b")
+    L, hd = cfg.n_layers, cfg.resolved_head_dim
+
+    def counts():
+        return {"flash_attention": FA.launches, "flash_attention_bwd_preprocess":
+                FA.bwd_pre_launches, "flash_attention_bwd_dkdv": FA.bwd_dkdv_launches,
+                "flash_attention_bwd_dq": FA.bwd_dq_launches}
+
+    def zero_counts():
+        FA.launches = FA.bwd_pre_launches = FA.bwd_dkdv_launches = FA.bwd_dq_launches = 0
+
+    def expect(label, got, n_steps, n_layers=L):
+        # remat runs each layer's forward twice a step, the backward once
+        want = {k: (2 if k == "flash_attention" else 1) * n_layers * n_steps for k in got}
+        if got != want:
+            raise AssertionError(f"train: {label} launch counts {got} != {want}")
+        return got
+
+    def names(tree, path=""):
+        if isinstance(tree, dict):
+            return [n for k in sorted(tree) for n in names(tree[k], f"{path}/{k}")]
+        if isinstance(tree, list):
+            return [n for i, t in enumerate(tree) for n in names(t, f"{path}/{i}")]
+        return [path[1:]]
+
+    def rel_norm(a, b):
+        return (torch.linalg.vector_norm(a.float() - b.float())
+                / torch.linalg.vector_norm(b.float())).item()
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tr = Trainer(cfg, batch_size=TRAIN_B, seq_len=TRAIN_S, world_size=2, backend="mpich",
+                 total_steps=TRAIN_STEPS, device=dev)
+    if not torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("train: the Trainer did not turn on deterministic algorithms")
+    tr.init_state()
+    n_params = sum(t.numel() for t in tree_leaves(tr.params))
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves({"p": tr.params, "o": tr.opt_state})) / 1e9
+    # the pipeline's first batch, from its seed, for the holds below
+    batch = tr._device_batch(synth_batch(cfg, TRAIN_B, TRAIN_S, tr.pipeline.seed, 0))
+
+    # step 1's loss and gradients: the kernel path against the plain path
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    g_k, _, loss_k, _ = ST.loss_and_grads(tr.model, tr.params, batch)
+    torch.cuda.synchronize()
+    fb_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step1 = expect("step 1", counts(), 1)
+    gn_k = global_norm(g_k).item()
+    g_p, _, loss_p, _ = ST.loss_and_grads(Model(cfg, force="ref"), tr.params, batch)
+    if counts() != step1:
+        raise AssertionError("train: the plain path launched a kernel")
+    gn_p = global_norm(g_p).item()
+    errs = [rel_norm(a, b) for a, b in zip(tree_leaves(g_k), tree_leaves(g_p))]
+    finite = all(torch.isfinite(t).all().item() for t in tree_leaves(g_k))
+    del g_k, g_p
+    leaf = names(tr.params)
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    r_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    r_gn = abs(gn_k - gn_p) / gn_p
+    ok = (finite and r_loss <= TRAIN_LOSS_TOL and r_gn <= TRAIN_GNORM_TOL
+          and max(errs) <= TRAIN_GRAD_TOL)
+    print(f"[train] step 1 (batch 0 from the pipeline's seed), kernel path vs plain "
+          f"attention path under autograd: loss {loss_k.item():.6f} vs {loss_p.item():.6f} "
+          f"(rel {r_loss:.3e}, tol {TRAIN_LOSS_TOL:g}); grad_norm {gn_k:.6f} vs {gn_p:.6f} "
+          f"(rel {r_gn:.3e}, tol {TRAIN_GNORM_TOL:g}); per-leaf gradient ||a-b||/||b|| "
+          f"max {max(errs):.3e} at {leaf[worst]}, median {statistics.median(errs):.3e} "
+          f"over {len(errs)} leaves (tol {TRAIN_GRAD_TOL:g}); launches {step1} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("train: step 1 on the kernel path disagrees with the plain path")
+
+    # the same step from the same state, twice: equal bytes (step index 1,
+    # whose learning rate is past the warm-up's 0)
+    # (the step updates tr's params and state in place and returns them)
+    head0 = tr.params["head"].clone()
+    m1 = tr.train_step(tr.params, tr.opt_state, batch, 1)[2]
+    snap = [t.clone() for t in tree_leaves(tr.params)]
+    moved = not torch.equal(tr.params["head"], head0)
+    first = (m1["loss"].item(), m1["grad_norm"].item())
+    del m1, head0
+    tr.init_state()
+    m2 = tr.train_step(tr.params, tr.opt_state, batch, 1)[2]
+    same = all(torch.equal(a, b) for a, b in zip(snap, tree_leaves(tr.params))) \
+        and (m2["loss"].item(), m2["grad_norm"].item()) == first
+    del snap, m2
+    print(f"[train] the same step from the same state twice: params equal byte for byte "
+          f"{same}, loss and grad_norm equal {same}; the step moved the params {moved}",
+          flush=True)
+    if not (same and moved):
+        raise AssertionError("train: a repeated step differs (or moved nothing)")
+
+    # ten steps through step_once: the pipeline, the update, the metrics
+    # allreduce on the MANA plane and the heartbeats
+    tr.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times, hist = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.step_once()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        hist.append((float(m["loss"]), float(m["grad_norm"]), float(m["world_loss"])))
+    main = expect(f"{TRAIN_STEPS} steps", counts(), TRAIN_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for h in hist for x in h) \
+            or any(h[2] != h[0] for h in hist):
+        raise AssertionError(f"train: bad metrics {hist}")
+    step_ms = statistics.median(times[2:]) * 1e3
+    tokens = TRAIN_B * TRAIN_S
+    # model FLOPs: 6 N per token for the matmul params (the embedding table
+    # is a lookup), and the causal attention's 6 products of S^2/2 pairs
+    # (forward 2, backward 4; remat's recompute not counted)
+    n_matmul = n_params - cfg.padded_vocab * cfg.d_model
+    attn_flops = 6 * TRAIN_B * cfg.n_heads * TRAIN_S * TRAIN_S * hd * L
+    mfu = (6 * n_matmul * tokens + attn_flops) / (step_ms / 1e3) / PEAK_BF16_FLOPS
+    print(f"[train] granite-3-2b {n_params / 1e9:.3f}B params {cfg.param_dtype}, {L} layers, AdamW "
+          f"float32 state, remat on, batch {TRAIN_B} x {TRAIN_S} tokens ({card}): "
+          f"{TRAIN_STEPS} steps, step ms {[round(t * 1e3, 1) for t in times]}; median of "
+          f"steps 3-{TRAIN_STEPS} {step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tok/s, "
+          f"mfu {mfu:.3f} (6 x {n_matmul / 1e9:.3f}B matmul params x {tokens} tokens + "
+          f"{attn_flops / 1e12:.2f} TFLOP attention, over 989 TFLOP/s); params + AdamW "
+          f"state {state_gb:.2f} GB, peak memory {peak_gb:.2f} GB (forward and backward "
+          f"alone, step 1: {fb_peak_gb:.2f} GB)", flush=True)
+    print(f"[train] losses {[round(h[0], 4) for h in hist]}; grad_norm "
+          f"{[round(h[1], 3) for h in hist]}; world_loss equals loss; launches {main} "
+          f"(expected {2 * L}, {L}, {L}, {L} a step)", flush=True)
+
+    # one profiled step after a warm-up one: the device's busy and idle
+    # share and K1's forward and backward kernels' share of the step
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                                 active=1, repeat=1)) as prof:
+        tr.step_once()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        tr.step_once()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    fwd = sum(e.self_device_time_total for e in kern if "flash_bf16_kernel" in e.key) / 1e3
+    bwd = {n: sum(e.self_device_time_total for e in kern if n in e.key) / 1e3
+           for n in ("preprocess_kernel", "dkdv_bf16_kernel", "dq_bf16_kernel")}
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    if busy <= 0:
+        print("[train] profiled step: device busy time not measured (the profiler saw no "
+              "CUDA kernels)", flush=True)
+    else:
+        print(f"[train] one profiled step ({card}): {prof_ms:.1f} ms on the host clock, "
+              f"device busy {busy:.1f} ms ({1 - busy / prof_ms:.1%} idle); K1 forward "
+              f"{fwd:.2f} ms ({fwd / prof_ms:.1%} of the step, {2 * L} launches), backward "
+              f"{sum(bwd.values()):.2f} ms ({sum(bwd.values()) / prof_ms:.1%}: preprocess "
+              f"{bwd['preprocess_kernel']:.2f}, dK/dV {bwd['dkdv_bf16_kernel']:.2f}, dQ "
+              f"{bwd['dq_bf16_kernel']:.2f} ms); top: "
+              + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
+                          for e in top), flush=True)
+    tr.pipeline.stop()
+    del tr, batch
+    torch.cuda.empty_cache()
+    full_s = time.perf_counter() - t_phase
+
+    # the C/R plane at granite's widths and CR_LAYERS layers
+    t_cr = time.perf_counter()
+    cfg_cr = dataclasses.replace(cfg, n_layers=CR_LAYERS)
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+
+    def trainer(name):
+        return Trainer(cfg_cr, batch_size=TRAIN_B, seq_len=TRAIN_S, world_size=2,
+                       backend="mpich", total_steps=CR_STEPS, device=dev,
+                       ckpt_dir=None if name is None else base / name,
+                       ckpt_io=CkptIOConfig(codec="none"))
+
+    def recorded(t):
+        """Keep every checkpoint request the trainer makes (the supervisor
+        and ``run`` both call ``checkpoint``)."""
+        reqs, take = [], t.checkpoint
+
+        def checkpoint():
+            reqs.append(take())
+            return reqs[-1]
+        t.checkpoint = checkpoint
+        return reqs
+
+    def trace(t):
+        return [(h["step"], h["loss"]) for h in t.history]
+
+    try:
+        a = trainer(None)
+        a.init_state()
+        a.run(CR_STEPS, log_every=1)
+        want = dict(trace(a))
+        ref_state = tree_leaves({"p": a.params, "o": a.opt_state})
+        cr_gb = sum(t.numel() * t.element_size() for t in ref_state) / 1e9
+        a.pipeline.stop()
+
+        b = trainer("kill")
+        b.init_state()
+        reqs = recorded(b)
+        b.run(CR_STEPS, ckpt_every=CR_EVERY, kill_rank_at=CR_KILL_AT,
+              new_backend_on_restart="exampi", log_every=1)
+        b.cluster.writer.wait_idle()
+        same_b = all(torch.equal(x, y) for x, y in
+                     zip(tree_leaves({"p": b.params, "o": b.opt_state}), ref_state))
+        losses_b = trace(b)
+        trace_b = all(want[s] == v for s, v in losses_b) and b.step == CR_STEPS
+        rt_b, backend_b = b.restart_timings, b.cluster.backend_name
+        b.pipeline.stop()
+        b.cluster.writer.close()
+        del b
+        first = reqs[0].timings
+        print(f"[train] C/R at {CR_LAYERS} layers ({cr_gb:.2f} GB of params and AdamW "
+              f"state; {card}): {CR_STEPS} steps, a checkpoint every {CR_EVERY} (codec "
+              f"none), rank 1 killed at step {CR_KILL_AT}, restarted under {backend_b}: "
+              f"params and optimizer state equal the uninterrupted run's byte for byte "
+              f"{same_b}; loss trace {[round(v, 6) for _, v in losses_b]} (steps "
+              f"{[s for s, _ in losses_b]}) equal {trace_b}", flush=True)
+        print(f"[train] the first checkpoint's blocking window ({card}): "
+              f"{first['blocking_ms']} ms = drain {first['drain_ms']} ms, snapshot "
+              f"{first['snapshot_ms']} ms (side-stream copies "
+              f"{first.get('device_copy_ms')} ms), enqueue {first['enqueue_ms']} ms; "
+              f"persist {first.get('persist_ms')} ms; "
+              f"the next ones blocking "
+              f"{[r.timings['blocking_ms'] for r in reqs[1:]]} ms, persist "
+              f"{[r.timings.get('persist_ms') for r in reqs[1:]]} ms; the restart's "
+              f"phases {rt_b}", flush=True)
+        if not (same_b and trace_b and backend_b == "exampi"):
+            raise AssertionError("train: the recovered run differs from the uninterrupted one")
+
+        c = trainer("sup")
+        c.init_state()
+        reqs = recorded(c)
+        plan = FaultPlan([FaultSpec("kill_rank", at_step=CR_KILL_AT, rank=1)])
+        with FaultInjector(plan) as inj:
+            sup = Supervisor(c, injector=inj, verbose=False, tier=ReplicaTier(),
+                             config=SupervisorConfig(backoff_floor_s=0.0))
+            incidents = sup.run(CR_STEPS, ckpt_every=CR_EVERY)
+        c.cluster.writer.wait_idle()
+        same_c = all(torch.equal(x, y) for x, y in
+                     zip(tree_leaves({"p": c.params, "o": c.opt_state}), ref_state))
+        trace_c = all(want[s] == v for s, v in trace(c)) and c.step == CR_STEPS
+        rt_c = c.restart_timings
+        c.pipeline.stop()
+        c.cluster.writer.close()
+        del c, a, ref_state
+        inc, = incidents
+        t = inc.timings
+        print(f"[train] supervised at {CR_LAYERS} layers ({card}): {inc.kind} rank "
+              f"{inc.rank} at step {inc.step} -> step {inc.resumed_step} from {inc.ckpt} "
+              f"(tier {inc.tier}, world {inc.world_before}->{inc.world_after}); MTTR "
+              f"{t['total_ms']} ms = detect {t['detect_ms']} + classify {t['classify_ms']} "
+              f"+ restore {t['restore_ms']} + resume {t['resume_ms']} ms; the restart's "
+              f"phases {rt_c}; checkpoints blocking "
+              f"{[r.timings['blocking_ms'] for r in reqs]} ms, persist "
+              f"{[r.timings.get('persist_ms') for r in reqs]} ms; params and optimizer "
+              f"state equal the uninterrupted run's {same_c}; loss trace equal {trace_c}",
+              flush=True)
+        if not (same_c and trace_c and inc.tier == "ram" and inc.resumed_step == CR_EVERY):
+            raise AssertionError("train: the supervised recovery differs")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"[train] phase seconds: full width {full_s:.1f} s, C/R {time.perf_counter() - t_cr:.1f} s",
+          flush=True)
+    return main
 
 
 def pinned_copy_ms(nbytes, dev):
@@ -875,6 +1291,43 @@ def main() -> int:
                  ref.naive_ring_decode_attention(q, k, v, pos, window=w), dtype)
     del q, k, v, kp, vp, a, b, lg, yn, yc, y4, ya, pa, pd, d, start, y5   # phase 4's peak
 
+    # K1's logsumexp and the backward's three kernels, the train phase's
+    # path: the prefill's output with the logsumexp write on equals it
+    # without bit for bit, and two backward runs agree bit for bit
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        for B, H, K, S, D, w in BWD_SHAPES:
+            lab = f"{dn} B{B} H{H} K{K} S{S} D{D} window={w}"
+            q, k, v = flash_inputs(B, H, K, S, D, dtype)
+            o, lse = FA.flash_attention(q, k, v, window=w, lse=True)
+            same = torch.equal(o, FA.flash_attention(q, k, v, window=w))
+            lse_err = (lse - ref.naive_attention_lse(q, k, window=w)).abs().max().item()
+            do = randn(B, H, S, D, dtype=dtype)
+            delta = FA.bwd_delta(o, do)
+            pre_err = (delta - ref.attention_bwd_delta(o, do)).abs().max().item()
+            got = FA.flash_attention_bwd(q, k, v, o, lse, do, window=w)
+            again = FA.flash_attention_bwd(q, k, v, o, lse, do, window=w)
+            bits = all(torch.equal(x, y) for x, y in zip(got, again))
+            want = ref.flash_attention_bwd(q, k, v, o, lse, do, window=w)
+            r = {n: rel(x.float(), y.float()) for n, x, y in zip(("dq", "dk", "dv"), got, want)}
+            err = {n: (x.float() - y.float()).abs().max().item()
+                   for n, x, y in zip(("dq", "dk", "dv"), got, want)}
+            ok = (same and bits and lse_err <= LSE_TOL and pre_err <= LSE_TOL
+                  and all(math.isfinite(x) and x <= BWD_TOL[dn] for x in r.values()))
+            print(f"[kernels] flash_attention_bwd {lab}: max|a-b|/max|b| dq {r['dq']:.3e} "
+                  f"dk {r['dk']:.3e} dv {r['dv']:.3e} (tol {BWD_TOL[dn]:g}); logsumexp "
+                  f"max_abs_err {lse_err:.3e}, preprocess max_abs_err {pre_err:.3e} (tol "
+                  f"{LSE_TOL:g}); two runs equal bit for bit {bits}; the output with the "
+                  f"logsumexp write equals the prefill's bit for bit {same} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"flash_attention_bwd {lab} disagrees with its plain "
+                                     "version or is not deterministic")
+            errs.setdefault("flash_attention_bwd_preprocess", {})[lab] = pre_err
+            errs.setdefault("flash_attention_bwd_dkdv", {})[lab] = max(err["dk"], err["dv"])
+            errs.setdefault("flash_attention_bwd_dq", {})[lab] = err["dq"]
+    del q, k, v, o, lse, do, delta, got, again, want
+
     # times at the serving paths' shapes, bf16
     B, H, K, S, D, bf = 4, 32, 8, 1024, 64, torch.bfloat16
     fsets = [flash_inputs(B, H, K, S, D, bf) for _ in range(4)]
@@ -900,6 +1353,7 @@ def main() -> int:
     print(f"[kernels] flash_attention bf16 B{B} H{H} K{K} S{S} D{D}: {f_ms * 1e3:.1f} us, "
           f"plain {f_plain * 1e3:.1f} us, sdpa {f_lib * 1e3:.1f} us, "
           f"bound {f_bound * 1e3:.2f} us ({f_by})")
+    bwd = bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms, F)
     # K1 at hymba's prefill, windowed and global layers; SDPA's yardstick
     # takes the window as a boolean mask (causal and within the window)
     hB, hH, hK, hS = 4, 25, 5, 1536
@@ -1327,8 +1781,26 @@ def main() -> int:
     del srv, htokens
     torch.cuda.empty_cache()
 
+    # -- train. full-width granite-3-2b through the port's Trainer -------------
+    # (last before the CLI: the Trainer turns on deterministic algorithms for
+    # the process)
+    train_launches = train_phase(card, dev)
+
     # -- 7. the CLI -------------------------------------------------------------
     env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli") as ck:
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                              "--device", "cuda", "--steps", "8", "--ckpt-every", "4",
+                              "--kill-rank-at", "6", "--restart-backend", "exampi",
+                              "--batch-size", "2", "--seq-len", "64", "--ckpt-dir", ck],
+                             env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
+    lines = [ln for ln in cli.stdout.splitlines() if ln.startswith(("!!", "done:"))]
+    print(f"[cli] train --device cuda --kill-rank-at 6 --restart-backend exampi: rc "
+          f"{cli.returncode}: {' | '.join(lines)}", flush=True)
+    if cli.returncode != 0 or not any(ln.startswith("!! recovered from step_00000004")
+                                      for ln in lines) \
+            or not any(ln.startswith("done: loss ") for ln in lines):
+        raise AssertionError(f"train CLI failed:\n{cli.stdout}\n{cli.stderr}")
     for extra in ([], ["--arch", "hymba-1.5b"],
                   ["--arch", "hymba-1.5b", "--gla-schedule", "parallel"]):
         cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
@@ -1382,7 +1854,25 @@ def main() -> int:
          "launches": h_parallel["gla_phase_b"], "max_abs_err": errs["gla_phase_b"][G_MAIN],
          "ms": kb_ms, "plain_ms": kb_plain, "bound_ms": kb_bound, "bound_by": kb_by,
          "library_ms": None},
-    ]}
+    ] + [
+        {"name": name, "route": "cuda", "source": src + "flash_attention_bwd.cu",
+         "replaces": "none: the port's own kernel (the reference differentiates "
+                     "src/repro/models/layers.py:91 chunked_attention)",
+         "launches": train_launches[name], "max_abs_err": errs[name][B_MAIN],
+         "ms": bwd[name][0], "plain_ms": bwd[name][1], "bound_ms": bwd[name][2],
+         "bound_by": bwd[name][3], "library_ms": None,
+         "library_note": "no PyTorch call computes this part alone; SDPA's whole "
+                         "backward is library_ms of flash_attention_bwd"}
+        for name in BWD_PARTS] + [
+        # the three kernels as one backward (one call of the wrapper, which
+        # launches each once): SDPA's backward computes the same function
+        {"name": "flash_attention_bwd", "route": "cuda", "source": src + "flash_attention_bwd.cu",
+         "replaces": "none: the port's own kernel (the reference differentiates "
+                     "src/repro/models/layers.py:91 chunked_attention)",
+         "launches": train_launches["flash_attention_bwd_dkdv"],
+         "max_abs_err": max(errs[name][B_MAIN] for name in BWD_PARTS),
+         "ms": bwd["whole"][0], "plain_ms": bwd["whole"][1], "bound_ms": bwd["whole"][2],
+         "bound_by": bwd["whole"][3], "library_ms": bwd["whole"][4]}]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -265,6 +265,17 @@ def threefry_split(key: np.ndarray, num: int = 2) -> np.ndarray:
     return np.stack([b0, b1], axis=1)
 
 
+def threefry_fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)`` on raw threefry2x32 key data: the
+    cipher of counter (0, data), ``data`` taken as uint32 (JAX seeds the
+    counter pair from it as (high word, low word) of a 32-bit value).
+    Returns uint32[2]."""
+    with np.errstate(over="ignore"):
+        b0, b1 = threefry2x32(np.asarray(key, np.uint32), np.zeros(1, np.uint32),
+                              np.array([int(data) & 0xFFFFFFFF], np.uint32))
+    return np.array([b0[0], b1[0]], np.uint32)
+
+
 class RngStateProvider(StateProvider):
     """A threefry2x32 key stream (the JAX package's typed ``jax.random`` key),
     held as its raw key data: uint32[2] persisted as one leaf plus the impl

@@ -57,6 +57,14 @@
 // contiguous head dim, so [B,S,H,D] projections are taken as they are.
 // Each entry point returns cudaGetLastError() after its launch (or the
 // error of encoding a tensor map).
+//
+// The logsumexp: given a float32 [B,H,S] buffer (repro_flash_attention_lse),
+// each kernel also writes lse = log sum_k exp(q k / sqrt(D)) of every valid
+// row, the natural-log statistic the backward (flash_attention_bwd.cu)
+// recomputes P from. The row max and sum are already in registers at the
+// epilogue (the bf16 kernel's quad of threads holds each row's after its
+// shuffles), so the write is one float a row; a null buffer skips it and
+// leaves the output's arithmetic untouched.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
@@ -85,6 +93,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B,H,S] or null
   int H, K, S;
   Strides qs, ks, vs, os;
   int window;  // 0: no window
@@ -288,6 +297,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 struct TmaArgs {
   bf16* o;
+  float* lse;  // [B,H,S] or null
   Strides os;
   int H, K, S;
   int window;        // 0: no window
@@ -486,6 +496,12 @@ __global__ void __launch_bounds__(THREADS, 2)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   bf16* ob = a.o + b * a.os.b + h * a.os.h;
+  if (a.lse != nullptr && lane % 4 == 0) {
+    // m is in log2 units of the scaled scores: lse = (m + log2 l) ln 2
+    float* lb = a.lse + ((long long)b * a.H + h) * a.S;
+    if (qp0 < a.S) lb[qp0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * 0.6931471805599453f;
+    if (qp1 < a.S) lb[qp1] = (m1 + log2f(fmaxf(l1, 1e-30f))) * 0.6931471805599453f;
+  }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     if (qp0 < a.S)
@@ -580,6 +596,8 @@ __global__ void __launch_bounds__(BQ) flash_f32_kernel(Args a) {
     const float inv = 1.f / fmaxf(l_run, 1e-30f);
 #pragma unroll
     for (int d = 0; d < D; ++d) o[qpos * a.os.s + d] = acc[d] * inv;
+    if (a.lse != nullptr)
+      a.lse[((long long)b * a.H + h) * a.S + qpos] = m_run + logf(fmaxf(l_run, 1e-30f));
   }
 }
 
@@ -659,6 +677,7 @@ int launch_bf16(const Args& a, int B, cudaStream_t st) {
   if (!rc) rc = encode(&tv, a.v, D, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BK, &t.v_slots);
   if (rc) return rc;
   t.o = static_cast<bf16*>(a.o);
+  t.lse = a.lse;
   t.os = a.os;
   t.H = a.H;
   t.K = a.K;
@@ -683,9 +702,10 @@ int launch_bf16(const Args& a, int B, cudaStream_t st) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
-extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o,
+// dtype: 0 = float32, 1 = bfloat16. lse: float32 [B,H,S] (contiguous) for
+// the rows' logsumexp, or null. Returns a cudaError_t.
+extern "C" int repro_flash_attention_lse(
+    const void* q, const void* k, const void* v, void* o, float* lse,
     int B, int H, int K, int S, int D,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
@@ -695,6 +715,7 @@ extern "C" int repro_flash_attention(
   if (B < 1 || S < 1 || K < 1 || H % K != 0) return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
+  a.lse = lse;
   a.H = H; a.K = K; a.S = S;
   a.qs = {q_sb, q_sh, q_ss};
   a.ks = {k_sb, k_sh, k_ss};
@@ -714,4 +735,18 @@ extern "C" int repro_flash_attention(
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The forward alone (no logsumexp): the prefill's entry.
+extern "C" int repro_flash_attention(
+    const void* q, const void* k, const void* v, void* o,
+    int B, int H, int K, int S, int D,
+    long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss,
+    int window, int dtype, void* stream) {
+  return repro_flash_attention_lse(q, k, v, o, nullptr, B, H, K, S, D, q_sb, q_sh, q_ss,
+                                   k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
+                                   window, dtype, stream);
 }

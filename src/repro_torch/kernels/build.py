@@ -24,7 +24,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("flash_attention", "decode_attention", "paged_decode_attention", "gla_chunk")
+SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
+           "paged_decode_attention", "gla_chunk")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

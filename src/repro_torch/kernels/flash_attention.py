@@ -1,8 +1,15 @@
-"""Causal GQA flash attention (prefill) as a hand-written CUDA kernel.
+"""Causal GQA flash attention (prefill and training) as hand-written CUDA
+kernels.
 
-The Hopper twin of the JAX package's Pallas ``flash_attention._kernel``;
-the kernel and its design notes are in ``csrc/flash_attention.cu``. Its
-plain version is :func:`repro_torch.kernels.ref.naive_attention`.
+The forward is the Hopper twin of the JAX package's Pallas
+``flash_attention._kernel`` (``csrc/flash_attention.cu``); its plain
+version is :func:`repro_torch.kernels.ref.naive_attention`. Asked for it,
+the forward also writes each row's logsumexp (float32 ``[B,H,S]``, plain
+version :func:`~repro_torch.kernels.ref.naive_attention_lse`), from which
+the backward (``csrc/flash_attention_bwd.cu``: a preprocess, a dK/dV and a
+dQ kernel, deterministic, no atomics) recomputes the probabilities; its
+plain version is :func:`~repro_torch.kernels.ref.flash_attention_bwd`.
+:class:`FlashAttention` joins the two for ``torch.autograd``.
 
 Layout: q ``[B,H,S,D]``, k/v ``[B,K,S,D]`` as in the Pallas kernel, but any
 strides with a contiguous last dim are taken, so the model passes its
@@ -18,8 +25,13 @@ import torch
 
 from repro_torch.kernels import build
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: launches of the forward kernel since the count was last set to 0
 launches = 0
+#: launches of the backward's kernels, likewise: the preprocess (rowsum of
+#: dO o), the dK/dV kernel and the dQ kernel
+bwd_pre_launches = 0
+bwd_dkdv_launches = 0
+bwd_dq_launches = 0
 #: the shared library whose C entry ``repro_flash_attention`` the wrapper
 #: launches: None for the one built from ``csrc/flash_attention.cu``; the
 #: path of another build of a source with the same C entry compares an
@@ -32,13 +44,32 @@ _I64 = ctypes.c_longlong
 
 
 @functools.cache
-def _bind(path):
+def _bind(path, entry="repro_flash_attention"):
+    """The forward's C entry: ``repro_flash_attention``, or with a logsumexp
+    buffer after ``o`` ``repro_flash_attention_lse`` (``library`` may name
+    an earlier build, which has only the first)."""
     lib = build.load("flash_attention") if path is None else ctypes.CDLL(str(path))
-    fn = lib.repro_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [_I64] * 12
+    fn = getattr(lib, entry)
+    n_ptr = 5 if entry.endswith("_lse") else 4
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [_I64] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _bind_bwd():
+    """The backward's C entries: (the preprocess, the dK/dV and dQ kernels)."""
+    lib = build.load("flash_attention_bwd")
+    pre = lib.repro_flash_attention_bwd_delta
+    pre.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                    + [ctypes.POINTER(_I64), ctypes.c_int, ctypes.c_void_p])
+    pre.restype = ctypes.c_int
+    fn = lib.repro_flash_attention_bwd
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(_I64), ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return pre, fn
 
 
 def _check_rows(x, name):
@@ -50,35 +81,129 @@ def _check_rows(x, name):
         raise ValueError(f"{name}: rows must be 16-byte aligned")
 
 
-def flash_attention(q, k, v, *, window=None):
-    """Launch the kernel. q: [B,H,S,D]; k,v: [B,K,S,D] on one CUDA device,
-    all float32 or all bfloat16, D in ``HEAD_DIMS``. Returns [B,H,S,D]."""
-    global launches
+def _check_args(q, k, v, window, what):
+    """The kernels' shared checks; returns (B, H, K, S, D)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention kernel: q, k, v must lie on one CUDA device")
+        raise ValueError(f"{what} kernel: q, k, v must lie on one CUDA device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel: dtypes {q.dtype}/{k.dtype}/"
+        raise TypeError(f"{what} kernel: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; needs all float32 or all bfloat16")
     B, H, S, D = q.shape
     K = k.shape[1]
     if k.shape != (B, K, S, D) or v.shape != k.shape or H % K:
-        raise ValueError(f"flash_attention kernel: shapes q{tuple(q.shape)} "
+        raise ValueError(f"{what} kernel: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel: head dim {D} not in {HEAD_DIMS}")
+        raise ValueError(f"{what} kernel: head dim {D} not in {HEAD_DIMS}")
     if window is not None and window < 1:
-        raise ValueError(f"flash_attention kernel: window {window} < 1")
+        raise ValueError(f"{what} kernel: window {window} < 1")
     for x, n in ((q, "q"), (k, "k"), (v, "v")):
         _check_rows(x, n)
+    return B, H, K, S, D
+
+
+def flash_attention(q, k, v, *, window=None, lse=False):
+    """Launch the kernel. q: [B,H,S,D]; k,v: [B,K,S,D] on one CUDA device,
+    all float32 or all bfloat16, D in ``HEAD_DIMS``. Returns o [B,H,S,D],
+    or with ``lse`` (o, logsumexp float32 [B,H,S])."""
+    global launches
+    B, H, K, S, D = _check_args(q, k, v, window, "flash_attention")
     o = torch.empty_like(q)
+    m = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if lse else None
     if S == 0 or B == 0:
-        return o
-    fn = _bind(library)
+        return (o, m) if lse else o
     strides = [s for x in (q, k, v, o) for s in x.stride()[:3]]
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()]
+    if lse:
+        fn = _bind(library, "repro_flash_attention_lse")
+        ptrs.append(m.data_ptr())
+    else:
+        fn = _bind(library)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                B, H, K, S, D, *strides, window or 0, _DTYPES[q.dtype], stream)
+        rc = fn(*ptrs, B, H, K, S, D, *strides, window or 0, _DTYPES[q.dtype], stream)
     build.check(rc, "flash_attention")
     launches += 1
-    return o
+    return (o, m) if lse else o
+
+
+def bwd_delta(o, do):
+    """Launch the backward's preprocess: rowsum(do * o) in float32, [B,H,S]
+    contiguous. o, do: [B,H,S,D] of one type on one CUDA device."""
+    global bwd_pre_launches
+    if not (o.is_cuda and do.device == o.device) or o.shape != do.shape \
+            or o.dtype != do.dtype or o.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention_bwd kernel: o {tuple(o.shape)} {o.dtype} and "
+                         f"do {tuple(do.shape)} {do.dtype} must match on one CUDA device")
+    B, H, S, D = o.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd kernel: head dim {D} not in {HEAD_DIMS}")
+    for x, n in ((o, "o"), (do, "do")):
+        _check_rows(x, n)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=o.device)
+    if S == 0 or B == 0:
+        return delta
+    strides = (_I64 * 6)(*o.stride()[:3], *do.stride()[:3])
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _bind_bwd()[0](o.data_ptr(), do.data_ptr(), delta.data_ptr(), B, H, S, D,
+                            strides, _DTYPES[o.dtype], stream)
+    build.check(rc, "flash_attention_bwd preprocess")
+    bwd_pre_launches += 1
+    return delta
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, window=None):
+    """Launch the backward's three kernels: dq, dk, dv of :func:`flash_attention`
+    at (q, k, v) given its output ``o``, its logsumexp ``lse`` (float32
+    [B,H,S]) and the output's gradient ``do``. Each gradient is laid out
+    as ``torch.empty_like`` lays out its input (a dense view keeps its
+    strides). Deterministic: equal inputs give equal bits."""
+    global bwd_dkdv_launches, bwd_dq_launches
+    B, H, K, S, D = _check_args(q, k, v, window, "flash_attention_bwd")
+    for x, n in ((o, "o"), (do, "do")):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"flash_attention_bwd kernel: {n} {tuple(x.shape)} "
+                             f"{x.dtype} does not match q {tuple(q.shape)} {q.dtype}")
+        _check_rows(x, n)
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 or not lse.is_contiguous() \
+            or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd kernel: lse must be contiguous float32 "
+                         f"{(B, H, S)} on {q.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if S == 0 or B == 0:
+        return dq, dk, dv
+    delta = bwd_delta(o, do)
+    strides = (_I64 * 21)(*[s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]])
+    fn = _bind_bwd()[1]
+    ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, dq, dk, dv)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(1, *ptrs, B, H, K, S, D, strides, window or 0, _DTYPES[q.dtype], stream)
+        build.check(rc, "flash_attention_bwd dkdv")
+        bwd_dkdv_launches += 1
+        rc = fn(2, *ptrs, B, H, K, S, D, strides, window or 0, _DTYPES[q.dtype], stream)
+        build.check(rc, "flash_attention_bwd dq")
+        bwd_dq_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with its gradient from :func:`flash_attention_bwd`.
+    The forward saves q, k, v, o and the logsumexp; the backward makes dO
+    contiguous (autograd hands it over with any strides, and the kernels
+    need 16-byte rows). ``window`` takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        o, lse = flash_attention(q, k, v, window=window, lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window = window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         window=ctx.window)
+        return dq, dk, dv, None

@@ -5,9 +5,11 @@ plain version for CPU tensors; ``'kernel'`` takes the kernel and raises for
 tensors that are not on a CUDA device; ``'ref'`` takes the plain version
 (tests and ``chip_smoke.py`` use it to hold the kernels to it). A CUDA
 tensor never falls back to the plain version: a kernel that does not build
-or launch raises.
+or launch raises; the same holds for the backward kernels.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
@@ -36,8 +38,15 @@ def _use_kernel(x, force) -> bool:
 
 
 def flash_attention(q, k, v, *, window=None, force=None):
-    """Causal attention. q: [B,H,S,D]; k,v: [B,K,S,D]."""
+    """Causal attention. q: [B,H,S,D]; k,v: [B,K,S,D]. Differentiable on
+    both routes: on the kernel route, when an input requires a gradient,
+    through :class:`~repro_torch.kernels.flash_attention.FlashAttention`
+    (the forward writes its logsumexp and the gradient is the backward
+    kernels'); on the plain route through autograd of the plain version."""
     if _use_kernel(q, force):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _flash.FlashAttention.apply(q, k, v, window)
         return _flash.flash_attention(q, k, v, window=window)
     return ref.naive_attention(q, k, v, window=window)
 

@@ -9,13 +9,18 @@ import math
 import torch
 
 
-def naive_attention(q, k, v, *, causal=True, window=None):
-    """q: [B,H,S,D]; k,v: [B,K,S,D] with H % K == 0. Returns [B,H,S,D]."""
+def _acc(x):
+    """x in the type the plain versions compute in: float32, or float64 for
+    float64 inputs (the gradient checks)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def _scores(q, k, causal, window):
+    """Scaled scores [B,H,S,S] of q against k's heads repeated to H, with
+    the causal mask (and the window) as -inf."""
     B, H, S, D = q.shape
-    G = H // k.shape[1]
-    kr = k.repeat_interleave(G, dim=1)
-    vr = v.repeat_interleave(G, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) / math.sqrt(D)
+    kr = k.repeat_interleave(H // k.shape[1], dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", _acc(q), _acc(kr)) / math.sqrt(D)
     if causal:
         qpos = torch.arange(S, device=q.device)[:, None]
         kpos = torch.arange(S, device=q.device)[None, :]
@@ -23,8 +28,73 @@ def naive_attention(q, k, v, *, causal=True, window=None):
         if window is not None:
             mask &= (qpos - kpos) < window
         s = s.masked_fill(~mask, -math.inf)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vr.float()).to(q.dtype)
+    return s
+
+
+def naive_attention(q, k, v, *, causal=True, window=None):
+    """q: [B,H,S,D]; k,v: [B,K,S,D] with H % K == 0. Returns [B,H,S,D]."""
+    G = q.shape[1] // k.shape[1]
+    vr = v.repeat_interleave(G, dim=1)
+    p = torch.softmax(_scores(q, k, causal, window), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, _acc(vr)).to(q.dtype)
+
+
+def naive_attention_lse(q, k, *, window=None):
+    """The logsumexp over the keys of each row's scaled, causally masked
+    scores, the statistic the flash forward writes: [B,H,S] float32
+    (float64 for float64 inputs)."""
+    return torch.logsumexp(_scores(q, k, True, window), dim=-1)
+
+
+def attention_bwd_delta(o, do):
+    """The backward's preprocess: Dr = rowsum(dO o) [B,H,S] in float32."""
+    return (_acc(do) * _acc(o)).sum(-1)
+
+
+def _bwd_p(q, k, lse, window):
+    """P = exp(s - lse) [B,H,S,S], recomputed from q, k and the logsumexp."""
+    return torch.exp(_scores(q, k, True, window) - _acc(lse)[..., None])
+
+
+def attention_bwd_dkdv(q, k, v, lse, do, delta, *, window=None):
+    """dK, dV of the causal attention (the dK/dV kernel's function): dV =
+    P^T dO, dK = (P (dO V^T - Dr))^T Q / sqrt(D), each summed over its KV
+    head's query heads. Returns (dk, dv) in k's and v's types."""
+    B, H, S, D = q.shape
+    K = k.shape[1]
+    G = H // K
+    p = _bwd_p(q, k, lse, window)
+    vr = _acc(v.repeat_interleave(G, dim=1))
+    dof = _acc(do)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vr) - _acc(delta)[..., None])
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, _acc(q)) / math.sqrt(D)
+    return (dk.view(B, K, G, S, D).sum(2).to(k.dtype),
+            dv.view(B, K, G, S, D).sum(2).to(v.dtype))
+
+
+def attention_bwd_dq(q, k, v, lse, do, delta, *, window=None):
+    """dQ of the causal attention (the dQ kernel's function): dQ =
+    (P (dO V^T - Dr)) K / sqrt(D), in q's type."""
+    D = q.shape[-1]
+    G = q.shape[1] // k.shape[1]
+    kr, vr = (_acc(x.repeat_interleave(G, dim=1)) for x in (k, v))
+    p = _bwd_p(q, k, lse, window)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", _acc(do), vr) - _acc(delta)[..., None])
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, kr) / math.sqrt(D)).to(q.dtype)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, window=None):
+    """The causal attention's gradient, as the backward kernels compute it
+    from the forward's output ``o`` and logsumexp ``lse`` [B,H,S] and the
+    output's gradient ``do`` (q, o, do: [B,H,S,D]; k, v: [B,K,S,D]):
+    P = exp(s - lse), dV = P^T dO, dP = dO V^T, Dr = rowsum(dO o),
+    dS = P (dP - Dr), dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D); dK and dV
+    summed over each KV head's query heads. Returns (dq, dk, dv) in the
+    inputs' types."""
+    delta = attention_bwd_delta(o, do)
+    dk, dv = attention_bwd_dkdv(q, k, v, lse, do, delta, window=window)
+    return attention_bwd_dq(q, k, v, lse, do, delta, window=window), dk, dv
 
 
 def naive_decode_attention(q, k, v, length, *, window=None):

@@ -1,6 +1,6 @@
 """Core layers: RMSNorm (and its per-head form), RoPE, the depthwise causal
 conv, SwiGLU MLP and GQA attention (full, or sliding-window over a
-ring-buffer cache) in prefill and decode mode. Functions on tensors;
+ring-buffer cache) in train, prefill and decode mode. Functions on tensors;
 params are dict trees matching the ``*_specs`` functions, with
 ``[in, out]`` weights as in the JAX package.
 
@@ -96,6 +96,9 @@ def attn_apply(cfg, p, x, *, mode, cache, window=None, pos=None, force=None):
     """GQA attention block; ``window`` (sliding-window attention) keeps the
     layer's K/V in a ring-buffer cache, as the reference does.
 
+    train: x [B,S,d]; the prefill's attention with no cache (``cache`` is
+    None and comes back None). Under autograd the kernel route carries its
+    own backward (``ops.flash_attention``).
     prefill: x [B,S,d]. Full attention writes the K/V rows of positions
     ``0..S-1`` into ``cache`` ({'k','v'}: [B,S_max,K*hd], S_max >= S). A
     window layer's cache is a ring [B,W_ring,K*hd]: the last
@@ -116,10 +119,8 @@ def attn_apply(cfg, p, x, *, mode, cache, window=None, pos=None, force=None):
     hd = cfg.resolved_head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
     theta = cfg.rope_theta
-    kc, vc = cache["k"], cache["v"]
-    ring = window is not None and mode != "paged_decode"
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)
         q, k, v = _qkv(cfg, p, x)
@@ -130,7 +131,10 @@ def attn_apply(cfg, p, x, *, mode, cache, window=None, pos=None, force=None):
         o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), window=window, force=force)
         out = o.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
-        if ring:
+        if mode == "train":
+            return out, None
+        kc, vc = cache["k"], cache["v"]
+        if window is not None:
             # each slot takes the position it holds after the prompt (on
             # the host: no device sync)
             kpos = ring_slot_positions(S - 1, kc.shape[1])
@@ -145,8 +149,9 @@ def attn_apply(cfg, p, x, *, mode, cache, window=None, pos=None, force=None):
         return out, cache
 
     if mode not in ("decode", "paged_decode"):
-        raise ValueError(f"mode {mode!r}; expected 'prefill', 'decode' or "
-                         "'paged_decode'")
+        raise ValueError(f"mode {mode!r}; expected 'train', 'prefill', 'decode' "
+                         "or 'paged_decode'")
+    kc, vc = cache["k"], cache["v"]
     B, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
     posv = torch.full((B,), pos, device=x.device)
@@ -161,7 +166,7 @@ def attn_apply(cfg, p, x, *, mode, cache, window=None, pos=None, force=None):
         vc[page, off] = v.view(K, hd)
         o = ops.paged_decode_attention(q, kc, vc, cache["table"], cache["lengths"],
                                        window=window, force=force)
-    elif ring:
+    elif window is not None:
         W_ring = kc.shape[1]
         kc[:, pos % W_ring] = k
         vc[:, pos % W_ring] = v

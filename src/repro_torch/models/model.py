@@ -1,4 +1,4 @@
-"""Model facade: build once from a ModelConfig, expose init/prefill/decode."""
+"""Model facade: build once from a ModelConfig, expose init/train/prefill/decode."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -28,6 +28,18 @@ class Model:
 
     def alloc_caches(self, batch_size: int, max_len: int, device, prompt_len=None):
         return T.alloc_caches(self.cfg, batch_size, max_len, device, prompt_len)
+
+    def train_logits(self, params, batch):
+        """batch: ``{"tokens": [B,S] int64, ...}`` on the params' device. ->
+        (logits [B,S,Vp] float32, aux loss float32 0-d: 0, no MoE yet).
+        Differentiable: every layer runs in train mode (``T.run_segments``,
+        under ``torch.utils.checkpoint`` when ``cfg.remat``)."""
+        cfg = self.cfg
+        h = T.embed_tokens(cfg, params, batch["tokens"])
+        h, _ = T.run_segments(cfg, params, h, mode="train", caches=None, force=self.force)
+        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        return T.lm_head(cfg, params, h), torch.zeros((), dtype=torch.float32,
+                                                      device=h.device)
 
     def prefill(self, params, tokens, *, max_len: Optional[int] = None):
         """tokens: [B,S] int64. -> (last-position logits [B, Vp] float32,

@@ -19,6 +19,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
@@ -39,6 +40,17 @@ def _check_supported(cfg):
             or (cfg.block == "hymba" and cfg.ssm is None):
         raise NotImplementedError(
             f"{cfg.name}: only dense attention and hymba decoders are ported so far")
+
+
+def check_trainable(cfg):
+    """Training is ported for the dense attention decoder only (granite):
+    hymba's SSD heads differentiate the reference's plain-XLA GLA, whose
+    backward has no kernel in the port yet."""
+    _check_supported(cfg)
+    if cfg.block != "attn":
+        raise NotImplementedError(
+            f"{cfg.name}: training is granite-only for now (dense attention "
+            "decoders); hymba's SSD mixer has no GLA backward in the port yet")
 
 
 def plan_segments(cfg):
@@ -71,9 +83,11 @@ def block_specs(cfg, kind):
 def block_apply(cfg, kind, p, x, *, mode, window, cache, pos=None, force=None,
                 schedule="chunk"):
     """Returns (x_out, cache). Block norms use rmsnorm's default eps, as the
-    JAX package does; only the final norm takes ``cfg.norm_eps``."""
+    JAX package does; only the final norm takes ``cfg.norm_eps``. In train
+    mode ``cache`` is None."""
     xn = L.rmsnorm(x, p["ln1"])
-    a_out, _ = L.attn_apply(cfg, p["attn"], xn, mode=mode, cache=cache["attn"],
+    a_out, _ = L.attn_apply(cfg, p["attn"], xn, mode=mode,
+                            cache=None if cache is None else cache["attn"],
                             window=window, pos=pos, force=force)
     if kind == "hymba":
         s_out, _ = SSM.ssd_apply(cfg, p["ssd"], xn, mode=mode, cache=cache["ssd"],
@@ -146,7 +160,27 @@ def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None, lane=Non
     ``mode='paged_decode'``: ``caches[si]`` is ``{"attn": {"k", "v"}}`` of
     the page pool's ``[P, page, n_layers, K, hd]`` views and ``lane`` the
     lane's ``table`` / ``lengths`` / ``slot`` (see ``layers.attn_apply``);
-    layer ``i`` takes the strided view ``[:, :, i]``, nothing is copied."""
+    layer ``i`` takes the strided view ``[:, :, i]``, nothing is copied.
+
+    ``mode='train'``: no caches (``caches`` is None); with ``cfg.remat``
+    each layer runs under ``torch.utils.checkpoint`` (non-reentrant), which
+    keeps only the layer's input and recomputes the layer in the backward,
+    as the reference wraps each scanned layer in ``jax.checkpoint`` with
+    ``nothing_saveable``."""
+    if mode == "train":
+        check_trainable(cfg)
+        for si, seg in enumerate(plan_segments(cfg)):
+            p = params["segments"][si]
+            # a stacked leaf is unbound once: its gradient is then one stack
+            # of the layers' gradients, where indexing it per layer would
+            # give each layer's gradient as a zero-filled stacked-size
+            # tensor to add into the sum
+            layers = tree_map(lambda t: t.unbind(0), p) if seg.scanned else None
+            fn = _train_layer(cfg, seg, force)
+            for i in range(seg.n):
+                pi = tree_map(lambda t: t[i], layers) if seg.scanned else p
+                h = checkpoint(fn, pi, h, use_reentrant=False) if cfg.remat else fn(pi, h)
+        return h, caches
     for si, seg in enumerate(plan_segments(cfg)):
         p, c = params["segments"][si], caches[si]
         for i in range(seg.n):
@@ -159,3 +193,10 @@ def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None, lane=Non
             h, _ = block_apply(cfg, seg.kind, pi, h, mode=mode, window=seg.window,
                                cache=ci, pos=pos, force=force, schedule=schedule)
     return h, caches
+
+
+def _train_layer(cfg, seg, force):
+    def fn(p, x):
+        return block_apply(cfg, seg.kind, p, x, mode="train", window=seg.window,
+                           cache=None, force=force)[0]
+    return fn

@@ -819,3 +819,186 @@ def test_supervised_fleet_kill_rank_rehomes_on_the_card(cuda, tmp_path, tier):
     assert {s: eng.stream(s) for s in eng.sessions} == {s: ref.stream(s) for s in ref.sessions}
     for e in (ref, eng):
         e.cluster.writer.close()
+
+
+# -- K1's logsumexp and the backward kernels ------------------------------------
+# The backward's gradients are not bounded by 1, so they are held by
+# max |a - b| / max |b|: bf16 2e-2 (P and dS are rounded to bf16 for their
+# products, as the forward rounds P, and the gradients to bf16 on output),
+# float32 2e-5 (summation order only). The logsumexp is float32 in both
+# dtypes: 1e-4 absolute (bf16 inputs: the kernel's row max and sum come
+# from ex2.approx over the same bf16 scores; float32: expf and summation
+# order), against values of order log S.
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+LSE_TOL = 1e-4
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def _bwd_inputs(cuda, B, H, K, S, D, dtype, seed):
+    q, k, v = _flash_views(cuda, B, H, K, S, D, dtype, seed)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    do = torch.randn(B, H, S, D, generator=g, device=cuda).to(dtype)
+    return q, k, v, do
+
+
+def _bwd_held(q, k, v, do, window, dtype):
+    o, lse = FA.flash_attention(q, k, v, window=window, lse=True)
+    torch.testing.assert_close(lse, ref.naive_attention_lse(q, k, window=window),
+                               rtol=0, atol=LSE_TOL)
+    # the preprocess alone: float32 sums of exact products, another order
+    torch.testing.assert_close(FA.bwd_delta(o, do), ref.attention_bwd_delta(o, do),
+                               rtol=1e-5, atol=1e-5)
+    n0 = (FA.bwd_pre_launches, FA.bwd_dkdv_launches, FA.bwd_dq_launches)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    assert (FA.bwd_pre_launches, FA.bwd_dkdv_launches, FA.bwd_dq_launches) == \
+        tuple(n + 1 for n in n0)
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    for name, a, b, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert a.shape == x.shape and a.dtype == dtype, name
+        assert a.stride() == torch.empty_like(x).stride(), name
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) <= BWD_TOL[dtype], (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_lse_matches_plain_and_leaves_the_output_unchanged(cuda, window, dtype):
+    """The logsumexp output against the plain one; the output with the
+    write on equals the prefill's (null buffer) bit for bit."""
+    q, k, v = _flash_views(cuda, 2, 8, 2, 333, 64, dtype, seed=11)
+    o, lse = FA.flash_attention(q, k, v, window=window, lse=True)
+    assert lse.shape == (2, 8, 333) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, ref.naive_attention_lse(q, k, window=window),
+                               rtol=0, atol=LSE_TOL)
+    assert torch.equal(o, FA.flash_attention(q, k, v, window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("S,window", [(256, None), (200, None), (77, None), (300, 50),
+                                      (130, 64)])
+def test_flash_bwd_matches_plain(cuda, S, window, G, D, dtype):
+    q, k, v, do = _bwd_inputs(cuda, 2, 2 * G, 2, S, D, dtype, seed=S + G + D)
+    _bwd_held(q, k, v, do, window, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_at_granite_shape(cuda, dtype):
+    q, k, v, do = _bwd_inputs(cuda, 1, 32, 8, 1024, 64, dtype, seed=3)
+    _bwd_held(q, k, v, do, None, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_is_deterministic(cuda, dtype):
+    """Two runs on the same inputs give equal bits (no atomics; each
+    gradient row is summed by one block in a fixed order)."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 8, 2, 300, 64, dtype, seed=5)
+    o, lse = FA.flash_attention(q, k, v, lse=True)
+    a = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    b = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_autograd_function_matches_plain_autograd(cuda, dtype):
+    """ops.flash_attention under autograd on the card (FlashAttention: the
+    forward with its logsumexp, the backward kernels on a non-contiguous
+    dO) against autograd of the plain version."""
+    q, k, v = (x.detach().requires_grad_() for x in _flash_views(cuda, 2, 8, 2, 150, 64,
+                                                                   dtype, seed=9))
+    n0 = (FA.launches, FA.bwd_dkdv_launches)
+    out = ops.flash_attention(q, k, v, window=60)
+    w = torch.randn(2, 150, 8, 64, device=cuda).to(dtype).transpose(1, 2)
+    got = torch.autograd.grad((out.float() * w.float()).sum(), (q, k, v))
+    assert (FA.launches, FA.bwd_dkdv_launches) == (n0[0] + 1, n0[1] + 1)
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    ref_out = ops.flash_attention(qr, kr, vr, window=60, force="ref")
+    want = torch.autograd.grad((ref_out.float() * w.float()).sum(), (qr, kr, vr))
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= BWD_TOL[dtype]
+
+
+def test_flash_bwd_refuses_what_it_does_not_take(cuda):
+    q, k, v, do = _bwd_inputs(cuda, 1, 4, 2, 64, 64, torch.bfloat16, seed=1)
+    o, lse = FA.flash_attention(q, k, v, lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        FA.flash_attention_bwd(q, k, v, o, lse.double(), do)
+    with pytest.raises(ValueError, match="do"):
+        FA.flash_attention_bwd(q, k, v, o, lse, do.float())
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention_bwd(*(x[..., :48] for x in (q, k, v, o)), lse, do[..., :48])
+
+
+# -- training on the card --------------------------------------------------------
+
+@pytest.fixture
+def deterministic_restored():
+    """The trainer turns on deterministic algorithms for the process; give
+    the tests after these the mode they had."""
+    was = torch.are_deterministic_algorithms_enabled()
+    yield
+    torch.use_deterministic_algorithms(was)
+
+
+def _counts():
+    return (FA.launches, FA.bwd_pre_launches, FA.bwd_dkdv_launches, FA.bwd_dq_launches)
+
+
+def test_smoke_train_step_on_card_matches_plain_path(cuda, deterministic_restored):
+    """One float32 smoke-size step's loss and gradients on the card (K1's
+    forward twice a layer under remat, the backward kernels once) against
+    the same step with the plain attention under autograd on the card:
+    max |a - b| / max |b| <= 1e-4 per leaf (float32, the kernels' sums in
+    another order, as the CPU parity tests)."""
+    from repro_torch import steps as ST
+    from repro_torch.data import synth_batch
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import Model
+    from repro_torch.models.params import tree_leaves
+    cfg = smoke_config("granite-3-2b")
+    tr = Trainer(cfg, batch_size=2, seq_len=48, device=cuda)
+    tr.pipeline.stop()
+    assert torch.are_deterministic_algorithms_enabled()
+    tr.init_state()
+    batch = tr._device_batch(synth_batch(cfg, 2, 48, 1, 0))
+    n0, L = _counts(), cfg.n_layers
+    grads, total, _, _ = ST.loss_and_grads(tr.model, tr.params, batch)
+    assert _counts() == (n0[0] + 2 * L, n0[1] + L, n0[2] + L, n0[3] + L)
+    want, want_total, _, _ = ST.loss_and_grads(Model(cfg, force="ref"), tr.params, batch)
+    assert _counts() == (n0[0] + 2 * L, n0[1] + L, n0[2] + L, n0[3] + L)
+    assert abs(total.item() - want_total.item()) <= 1e-5 * abs(want_total.item())
+    for a, b in zip(tree_leaves(grads), tree_leaves(want)):
+        assert _rel(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smoke_train_kill_and_recover_on_card_is_byte_identical(cuda, tmp_path, dtype,
+                                                                deterministic_restored):
+    """Six steps with a checkpoint every 3: a run whose last rank dies at
+    step 4 and restarts under exampi ends with the params and optimizer
+    state of an uninterrupted run, byte for byte."""
+    from dataclasses import replace
+
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models.params import tree_leaves
+    cfg = replace(smoke_config("granite-3-2b"), param_dtype=dtype, compute_dtype=dtype)
+
+    def run(ck, kill):
+        tr = Trainer(cfg, batch_size=2, seq_len=48, device=cuda, ckpt_dir=ck, total_steps=6)
+        tr.init_state()
+        tr.run(6, ckpt_every=3, kill_rank_at=kill,
+               new_backend_on_restart="exampi" if kill else None, log_every=1)
+        leaves = tree_leaves({"p": tr.params, "o": tr.opt_state})
+        assert all(t.device.type == "cuda" for t in leaves)
+        assert tr.params["head"].dtype == getattr(torch, dtype)
+        out = [t.cpu().contiguous().view(torch.uint8).numpy().tobytes() for t in leaves]
+        losses = {h["step"]: h["loss"] for h in tr.history}
+        tr.pipeline.stop()
+        tr.cluster.writer.close()
+        return out, losses
+
+    assert run(tmp_path / "a", None) == run(tmp_path / "b", 4)

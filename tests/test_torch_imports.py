@@ -40,13 +40,15 @@ def test_package_has_the_slice_modules():
             "core/interpose.py", "core/drain.py", "core/ckpt_io.py",
             "core/ckpt_pipeline.py", "core/ckpt.py", "core/restore.py",
             "core/coordinator.py", "core/runtime_state.py", "core/ckpt_tiers.py",
-            "core/elastic.py", "core/supervisor.py", "serving/migrate.py"} <= names
+            "core/elastic.py", "core/supervisor.py", "serving/migrate.py",
+            "optim/__init__.py", "optim/optimizers.py", "optim/schedules.py",
+            "data/__init__.py", "data/pipeline.py", "launch/train.py"} <= names
     assert {f"core/backends/{n}.py" for n in (
         "__init__", "base", "fabric", "mpich", "craympi", "openmpi", "exampi",
         "fabricdirect")} <= names
     assert {p.name for p in (PKG / "csrc").iterdir()} >= {
         "flash_attention.cu", "decode_attention.cu", "paged_decode_attention.cu",
-        "decode_split.cuh", "gla_chunk.cu"}
+        "decode_split.cuh", "gla_chunk.cu", "flash_attention_bwd.cu"}
 
 
 @pytest.mark.parametrize("path", MODULES + [ROOT / "chip_smoke.py"],

@@ -121,4 +121,8 @@ def test_attn_apply_rejects_unknown_mode():
     _, tp = _params(JL.attn_specs, 4)
     cache = {k: torch.zeros(1, 4, CFG.kv_cache_width) for k in ("k", "v")}
     with pytest.raises(ValueError, match="mode"):
-        L.attn_apply(CFG, tp, torch.zeros(1, 4, CFG.d_model), mode="train", cache=cache)
+        L.attn_apply(CFG, tp, torch.zeros(1, 4, CFG.d_model), mode="score", cache=cache)
+    # 'train' is a mode since the port trains: the prefill's attention, no cache
+    out, none = L.attn_apply(CFG, tp, torch.zeros(1, 4, CFG.d_model), mode="train",
+                             cache=None)
+    assert none is None and out.shape == (1, 4, CFG.d_model)
