@@ -91,12 +91,13 @@ not 0:
   7. cli: ``repro_torch.launch.serve`` at smoke size on the card, granite
      and hymba (both GLA schedules), and ``repro_torch.launch.train`` at
      smoke size with a rank killed and the restart under exampi.
-Phase 3 also holds K1's logsumexp output and its backward kernels (the
-preprocess, dK/dV and dQ) to their plain versions at granite's training
-shape, at a ragged S and with a window, in bf16 and float32 (two runs
-equal bit for bit, the prefill's output unchanged with the logsumexp
-write on), and times the backward beside its bound, its plain version
-and SDPA's backward. Phase 3 also holds the GLA kernels (K4; K5's phases apart and together)
+Phase 3 also holds K1's logsumexp output and its backward kernels (dQ,
+which also writes the row sums rowsum(dO o), then dK/dV) and those row
+sums to their plain versions at granite's training shape, at a ragged S
+and with a window, in bf16 and float32 (two runs equal bit for bit, the
+prefill's output unchanged with the logsumexp write on), and times the
+backward beside its bound, its plain version and SDPA's backward.
+Phase 3 also holds the GLA kernels (K4; K5's phases apart and together)
 and the ring-window decode to their plain versions: the GLA at the
 serving shape with the mixer's head-broadcast q/k (in bf16 also under
 steep decays), a smoke shape, one 16-row tile a chunk, lengths the chunk
@@ -140,6 +141,7 @@ F32_NOISE_SHARE = 1e-2
 TIE_ULPS = 1
 MIN_HELD_SHARE = 0.5
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # the serving paths' shapes, whose largest errors go into the JSON record:
 # granite's prefill and last decode step, hymba's prefill (windowed and
@@ -173,8 +175,7 @@ BWD_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 BWD_SHAPES = ((4, 32, 8, 1024, 64, None), (4, 32, 8, 1000, 64, None),
               (2, 4, 2, 200, 32, 50))
 B_MAIN = "bfloat16 B4 H32 K8 S1024 D64 window=None"
-BWD_PARTS = ("flash_attention_bwd_preprocess", "flash_attention_bwd_dkdv",
-             "flash_attention_bwd_dq")
+BWD_PARTS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
 # the train phase: batch x tokens, timed steps, and its step 1 held to the
 # same step on the plain attention path (bf16 both, on the card): the
 # kernels round P and dS to bf16 where the plain version keeps float32, and
@@ -477,9 +478,10 @@ def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms, F):
     version's, and SDPA's backward as a yardstick (``torch.autograd.grad``
     of its causal GQA forward: the profiler's device time per call, summed
     over its kernels, since its autograd graph is not captured in a CUDA
-    graph and the host paces it); then each of the three kernels' profiler
+    graph and the host paces it); then each of the two kernels' profiler
     time per call beside its own bound and its plain version's CUDA-graph
-    time. Returns {kernel: (ms, plain_ms, bound_ms, bound_by)}."""
+    time (the dQ kernel's with the row sums it writes). Returns {kernel:
+    (ms, plain_ms, bound_ms, bound_by)}."""
     import torch
     bf = torch.bfloat16
     bsets, dsets = [], []
@@ -507,28 +509,29 @@ def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms, F):
 
     def one(name):
         hits = [t for key, t in us.items() if name in key]
-        if len(hits) != 1 or len(us) != 3:
+        if len(hits) != 1 or len(us) != 2:
             raise AssertionError(f"flash_attention_bwd: the profiler saw {list(us)}")
         return hits[0] / 1e3
+
+    def plain_dq(q, k, v, o, lse, do):
+        return ref.attention_bwd_dq(q, k, v, lse, do, ref.attention_bwd_delta(o, do))
     out = {
-        # o and dO read, the row sums written
-        "flash_attention_bwd_preprocess": (
-            one("preprocess_kernel"),
-            cuda_ms(lambda q, k, v, o, lse, do: ref.attention_bwd_delta(o, do), bsets),
-            *bound_ms(2 * n_q, 2 * 2 * n_q + 4 * rows)),
+        # S, dP, dQ: three products, and the row sums (float32 multiply-adds
+        # at the float32 rate, counted in tensor-core time); q, k, v, o, dO,
+        # lse read, dq and the row sums written
+        "flash_attention_bwd_dq": (
+            one("dq_bf16_kernel"),
+            cuda_ms(plain_dq, bsets, iters=5),
+            *bound_ms(3 * 2 * B * H * pairs * D + 2 * n_q * PEAK_BF16_FLOPS / PEAK_F32_FLOPS,
+                      2 * (4 * n_q + 2 * n_kv) + 8 * rows)),
         # S, dP, dV, dK: four products; q, k, v, dO, lse, Dr read, dk, dv written
         "flash_attention_bwd_dkdv": (
             one("dkdv_bf16_kernel"),
             cuda_ms(lambda *a: ref.attention_bwd_dkdv(*a), dsets, iters=5),
             *bound_ms(4 * 2 * B * H * pairs * D, 2 * (2 * n_q + 4 * n_kv) + 8 * rows)),
-        # S, dP, dQ: three products; q, k, v, dO, lse, Dr read, dq written
-        "flash_attention_bwd_dq": (
-            one("dq_bf16_kernel"),
-            cuda_ms(lambda *a: ref.attention_bwd_dq(*a), dsets, iters=5),
-            *bound_ms(3 * 2 * B * H * pairs * D, 2 * (3 * n_q + 2 * n_kv) + 8 * rows)),
     }
     print(f"[kernels] flash_attention_bwd bf16 B{B} H{H} K{K} S{S} D{D} causal (the train "
-          f"path's shape): {ms * 1e3:.1f} us (preprocess + dK/dV + dQ), plain "
+          f"path's shape): {ms * 1e3:.1f} us (dQ + dK/dV), plain "
           f"{plain * 1e3:.1f} us, sdpa backward (yardstick, profiler) {lib * 1e3:.1f} us, bound "
           f"{bound * 1e3:.2f} us ({by}: 5 products of the forward's size); per kernel "
           f"(profiler): " + "; ".join(
@@ -563,12 +566,11 @@ def train_phase(card, dev):
     L, hd = cfg.n_layers, cfg.resolved_head_dim
 
     def counts():
-        return {"flash_attention": FA.launches, "flash_attention_bwd_preprocess":
-                FA.bwd_pre_launches, "flash_attention_bwd_dkdv": FA.bwd_dkdv_launches,
-                "flash_attention_bwd_dq": FA.bwd_dq_launches}
+        return {"flash_attention": FA.launches, "flash_attention_bwd_dq": FA.bwd_dq_launches,
+                "flash_attention_bwd_dkdv": FA.bwd_dkdv_launches}
 
     def zero_counts():
-        FA.launches = FA.bwd_pre_launches = FA.bwd_dkdv_launches = FA.bwd_dq_launches = 0
+        FA.launches = FA.bwd_dq_launches = FA.bwd_dkdv_launches = 0
 
     def expect(label, got, n_steps, n_layers=L):
         # remat runs each layer's forward twice a step, the backward once
@@ -690,7 +692,7 @@ def train_phase(card, dev):
           f"alone, step 1: {fb_peak_gb:.2f} GB)", flush=True)
     print(f"[train] losses {[round(h[0], 4) for h in hist]}; grad_norm "
           f"{[round(h[1], 3) for h in hist]}; world_loss equals loss; launches {main} "
-          f"(expected {2 * L}, {L}, {L}, {L} a step)", flush=True)
+          f"(expected {2 * L}, {L}, {L} a step)", flush=True)
 
     # one profiled step after a warm-up one: the device's busy and idle
     # share and K1's forward and backward kernels' share of the step
@@ -709,7 +711,7 @@ def train_phase(card, dev):
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     fwd = sum(e.self_device_time_total for e in kern if "flash_bf16_kernel" in e.key) / 1e3
     bwd = {n: sum(e.self_device_time_total for e in kern if n in e.key) / 1e3
-           for n in ("preprocess_kernel", "dkdv_bf16_kernel", "dq_bf16_kernel")}
+           for n in ("dq_bf16_kernel", "dkdv_bf16_kernel")}
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
     if busy <= 0:
         print("[train] profiled step: device busy time not measured (the profiler saw no "
@@ -718,9 +720,8 @@ def train_phase(card, dev):
         print(f"[train] one profiled step ({card}): {prof_ms:.1f} ms on the host clock, "
               f"device busy {busy:.1f} ms ({1 - busy / prof_ms:.1%} idle); K1 forward "
               f"{fwd:.2f} ms ({fwd / prof_ms:.1%} of the step, {2 * L} launches), backward "
-              f"{sum(bwd.values()):.2f} ms ({sum(bwd.values()) / prof_ms:.1%}: preprocess "
-              f"{bwd['preprocess_kernel']:.2f}, dK/dV {bwd['dkdv_bf16_kernel']:.2f}, dQ "
-              f"{bwd['dq_bf16_kernel']:.2f} ms); top: "
+              f"{sum(bwd.values()):.2f} ms ({sum(bwd.values()) / prof_ms:.1%}: dQ "
+              f"{bwd['dq_bf16_kernel']:.2f}, dK/dV {bwd['dkdv_bf16_kernel']:.2f} ms); top: "
               + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
                           for e in top), flush=True)
     tr.pipeline.stop()
@@ -1291,9 +1292,10 @@ def main() -> int:
                  ref.naive_ring_decode_attention(q, k, v, pos, window=w), dtype)
     del q, k, v, kp, vp, a, b, lg, yn, yc, y4, ya, pa, pd, d, start, y5   # phase 4's peak
 
-    # K1's logsumexp and the backward's three kernels, the train phase's
+    # K1's logsumexp and the backward's two kernels, the train phase's
     # path: the prefill's output with the logsumexp write on equals it
-    # without bit for bit, and two backward runs agree bit for bit
+    # without bit for bit, the row sums the dQ launch writes hold to the
+    # plain ones, and two backward runs agree bit for bit
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
         for B, H, K, S, D, w in BWD_SHAPES:
@@ -1303,29 +1305,28 @@ def main() -> int:
             same = torch.equal(o, FA.flash_attention(q, k, v, window=w))
             lse_err = (lse - ref.naive_attention_lse(q, k, window=w)).abs().max().item()
             do = randn(B, H, S, D, dtype=dtype)
-            delta = FA.bwd_delta(o, do)
-            pre_err = (delta - ref.attention_bwd_delta(o, do)).abs().max().item()
-            got = FA.flash_attention_bwd(q, k, v, o, lse, do, window=w)
+            *got, delta = FA._bwd(q, k, v, o, lse, do, window=w)
+            dr_err = (delta - ref.attention_bwd_delta(o, do)).abs().max().item()
             again = FA.flash_attention_bwd(q, k, v, o, lse, do, window=w)
             bits = all(torch.equal(x, y) for x, y in zip(got, again))
             want = ref.flash_attention_bwd(q, k, v, o, lse, do, window=w)
             r = {n: rel(x.float(), y.float()) for n, x, y in zip(("dq", "dk", "dv"), got, want)}
             err = {n: (x.float() - y.float()).abs().max().item()
                    for n, x, y in zip(("dq", "dk", "dv"), got, want)}
-            ok = (same and bits and lse_err <= LSE_TOL and pre_err <= LSE_TOL
+            ok = (same and bits and lse_err <= LSE_TOL and dr_err <= LSE_TOL
                   and all(math.isfinite(x) and x <= BWD_TOL[dn] for x in r.values()))
             print(f"[kernels] flash_attention_bwd {lab}: max|a-b|/max|b| dq {r['dq']:.3e} "
                   f"dk {r['dk']:.3e} dv {r['dv']:.3e} (tol {BWD_TOL[dn]:g}); logsumexp "
-                  f"max_abs_err {lse_err:.3e}, preprocess max_abs_err {pre_err:.3e} (tol "
+                  f"max_abs_err {lse_err:.3e}, row sums (the dQ launch's) max_abs_err "
+                  f"{dr_err:.3e} (tol "
                   f"{LSE_TOL:g}); two runs equal bit for bit {bits}; the output with the "
                   f"logsumexp write equals the prefill's bit for bit {same} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise AssertionError(f"flash_attention_bwd {lab} disagrees with its plain "
                                      "version or is not deterministic")
-            errs.setdefault("flash_attention_bwd_preprocess", {})[lab] = pre_err
+            errs.setdefault("flash_attention_bwd_dq", {})[lab] = max(err["dq"], dr_err)
             errs.setdefault("flash_attention_bwd_dkdv", {})[lab] = max(err["dk"], err["dv"])
-            errs.setdefault("flash_attention_bwd_dq", {})[lab] = err["dq"]
     del q, k, v, o, lse, do, delta, got, again, want
 
     # times at the serving paths' shapes, bf16
@@ -1864,7 +1865,7 @@ def main() -> int:
          "library_note": "no PyTorch call computes this part alone; SDPA's whole "
                          "backward is library_ms of flash_attention_bwd"}
         for name in BWD_PARTS] + [
-        # the three kernels as one backward (one call of the wrapper, which
+        # the two kernels as one backward (one call of the wrapper, which
         # launches each once): SDPA's backward computes the same function
         {"name": "flash_attention_bwd", "route": "cuda", "source": src + "flash_attention_bwd.cu",
          "replaces": "none: the port's own kernel (the reference differentiates "

@@ -670,6 +670,12 @@ int encode(CUtensorMap* map, const void* base, int D, int S, int n_heads, int B,
 
 template <int D>
 int launch_bf16(const Args& a, int B, cudaStream_t st) {
+  // Encoding a tensor map needs a current context, and a host thread that
+  // has made no CUDA call yet has none: bind the device's primary context.
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv;
   TmaArgs t;
   int rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BM, &t.q_slots);
@@ -686,9 +692,6 @@ int launch_bf16(const Args& a, int B, cudaStream_t st) {
   t.scale_log2 = a.scale * 1.4426950408889634f;
   // above 48 KB of shared memory: allowed once per kernel and device
   static unsigned long long allowed = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
   if (dev >= 64 || !(allowed >> dev & 1)) {
     err = cudaFuncSetAttribute(flash_bf16_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);

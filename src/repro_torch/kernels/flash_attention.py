@@ -6,10 +6,11 @@ The forward is the Hopper twin of the JAX package's Pallas
 version is :func:`repro_torch.kernels.ref.naive_attention`. Asked for it,
 the forward also writes each row's logsumexp (float32 ``[B,H,S]``, plain
 version :func:`~repro_torch.kernels.ref.naive_attention_lse`), from which
-the backward (``csrc/flash_attention_bwd.cu``: a preprocess, a dK/dV and a
-dQ kernel, deterministic, no atomics) recomputes the probabilities; its
-plain version is :func:`~repro_torch.kernels.ref.flash_attention_bwd`.
-:class:`FlashAttention` joins the two for ``torch.autograd``.
+the backward (``csrc/flash_attention_bwd.cu``: a dQ kernel that also writes
+the row sums rowsum(dO o), then a dK/dV kernel; deterministic, no atomics)
+recomputes the probabilities; its plain version is
+:func:`~repro_torch.kernels.ref.flash_attention_bwd`. :class:`FlashAttention`
+joins the two for ``torch.autograd``.
 
 Layout: q ``[B,H,S,D]``, k/v ``[B,K,S,D]`` as in the Pallas kernel, but any
 strides with a contiguous last dim are taken, so the model passes its
@@ -27,11 +28,10 @@ from repro_torch.kernels import build
 
 #: launches of the forward kernel since the count was last set to 0
 launches = 0
-#: launches of the backward's kernels, likewise: the preprocess (rowsum of
-#: dO o), the dK/dV kernel and the dQ kernel
-bwd_pre_launches = 0
-bwd_dkdv_launches = 0
+#: launches of the backward's kernels, likewise: the dQ kernel (which also
+#: writes the row sums) and the dK/dV kernel
 bwd_dq_launches = 0
+bwd_dkdv_launches = 0
 #: the shared library whose C entry ``repro_flash_attention`` the wrapper
 #: launches: None for the one built from ``csrc/flash_attention.cu``; the
 #: path of another build of a source with the same C entry compares an
@@ -59,25 +59,26 @@ def _bind(path, entry="repro_flash_attention"):
 
 @functools.cache
 def _bind_bwd():
-    """The backward's C entries: (the preprocess, the dK/dV and dQ kernels)."""
-    lib = build.load("flash_attention_bwd")
-    pre = lib.repro_flash_attention_bwd_delta
-    pre.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                    + [ctypes.POINTER(_I64), ctypes.c_int, ctypes.c_void_p])
-    pre.restype = ctypes.c_int
-    fn = lib.repro_flash_attention_bwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    """The backward's C entry (kernel 1: dQ and the row sums; 2: dK/dV)."""
+    fn = build.load("flash_attention_bwd").repro_flash_attention_bwd
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                    + [ctypes.POINTER(_I64), ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return pre, fn
+    return fn
+
+
+def _rows_ok(x):
+    """Each row of D elements is contiguous and starts on 16 bytes (the
+    kernels' vector and TMA loads)."""
+    vec = 16 // x.element_size()
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and not any(s % vec for s in x.stride()[:-1]))
 
 
 def _check_rows(x, name):
-    """Each row of D elements must start on 16 bytes (vector loads)."""
-    vec = 16 // x.element_size()
     if x.stride(-1) != 1:
         raise ValueError(f"{name}: last dim must be contiguous")
-    if x.data_ptr() % 16 or any(s % vec for s in x.stride()[:-1]):
+    if not _rows_ok(x):
         raise ValueError(f"{name}: rows must be 16-byte aligned")
 
 
@@ -127,38 +128,11 @@ def flash_attention(q, k, v, *, window=None, lse=False):
     return (o, m) if lse else o
 
 
-def bwd_delta(o, do):
-    """Launch the backward's preprocess: rowsum(do * o) in float32, [B,H,S]
-    contiguous. o, do: [B,H,S,D] of one type on one CUDA device."""
-    global bwd_pre_launches
-    if not (o.is_cuda and do.device == o.device) or o.shape != do.shape \
-            or o.dtype != do.dtype or o.dtype not in _DTYPES:
-        raise ValueError(f"flash_attention_bwd kernel: o {tuple(o.shape)} {o.dtype} and "
-                         f"do {tuple(do.shape)} {do.dtype} must match on one CUDA device")
-    B, H, S, D = o.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd kernel: head dim {D} not in {HEAD_DIMS}")
-    for x, n in ((o, "o"), (do, "do")):
-        _check_rows(x, n)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=o.device)
-    if S == 0 or B == 0:
-        return delta
-    strides = (_I64 * 6)(*o.stride()[:3], *do.stride()[:3])
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _bind_bwd()[0](o.data_ptr(), do.data_ptr(), delta.data_ptr(), B, H, S, D,
-                            strides, _DTYPES[o.dtype], stream)
-    build.check(rc, "flash_attention_bwd preprocess")
-    bwd_pre_launches += 1
-    return delta
-
-
-def flash_attention_bwd(q, k, v, o, lse, do, *, window=None):
-    """Launch the backward's three kernels: dq, dk, dv of :func:`flash_attention`
-    at (q, k, v) given its output ``o``, its logsumexp ``lse`` (float32
-    [B,H,S]) and the output's gradient ``do``. Each gradient is laid out
-    as ``torch.empty_like`` lays out its input (a dense view keeps its
-    strides). Deterministic: equal inputs give equal bits."""
+def _bwd(q, k, v, o, lse, do, *, window=None):
+    """Launch the backward's two kernels on the current stream, the dQ
+    kernel first (it also writes each row's Dr = rowsum(do * o), float32
+    ``[B,H,S]`` contiguous, which the dK/dV kernel reads). Returns (dq, dk,
+    dv, Dr); :func:`flash_attention_bwd` is the public entry."""
     global bwd_dkdv_launches, bwd_dq_launches
     B, H, K, S, D = _check_args(q, k, v, window, "flash_attention_bwd")
     for x, n in ((o, "o"), (do, "do")):
@@ -171,28 +145,39 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, window=None):
         raise ValueError(f"flash_attention_bwd kernel: lse must be contiguous float32 "
                          f"{(B, H, S)} on {q.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if S == 0 or B == 0:
-        return dq, dk, dv
-    delta = bwd_delta(o, do)
-    strides = (_I64 * 21)(*[s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]])
-    fn = _bind_bwd()[1]
-    ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, dq, dk, dv)]
+        return dq, dk, dv, delta
+    strides = (_I64 * 24)(*[s for x in (q, k, v, o, do, dq, dk, dv) for s in x.stride()[:3]])
+    fn = _bind_bwd()
+    ptrs = [x.data_ptr() for x in (q, k, v, o, do, lse, delta, dq, dk, dv)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(1, *ptrs, B, H, K, S, D, strides, window or 0, _DTYPES[q.dtype], stream)
-        build.check(rc, "flash_attention_bwd dkdv")
-        bwd_dkdv_launches += 1
-        rc = fn(2, *ptrs, B, H, K, S, D, strides, window or 0, _DTYPES[q.dtype], stream)
         build.check(rc, "flash_attention_bwd dq")
         bwd_dq_launches += 1
-    return dq, dk, dv
+        rc = fn(2, *ptrs, B, H, K, S, D, strides, window or 0, _DTYPES[q.dtype], stream)
+        build.check(rc, "flash_attention_bwd dkdv")
+        bwd_dkdv_launches += 1
+    return dq, dk, dv, delta
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, window=None):
+    """Launch the backward's kernels: dq, dk, dv of :func:`flash_attention`
+    at (q, k, v) given its output ``o``, its logsumexp ``lse`` (float32
+    [B,H,S]) and the output's gradient ``do`` (any strides whose rows are
+    contiguous and start on 16 bytes). Each gradient is laid out as
+    ``torch.empty_like`` lays out its input (a dense view keeps its
+    strides). Deterministic: equal inputs give equal bits."""
+    return _bwd(q, k, v, o, lse, do, window=window)[:3]
 
 
 class FlashAttention(torch.autograd.Function):
     """:func:`flash_attention` with its gradient from :func:`flash_attention_bwd`.
-    The forward saves q, k, v, o and the logsumexp; the backward makes dO
-    contiguous (autograd hands it over with any strides, and the kernels
-    need 16-byte rows). ``window`` takes no gradient."""
+    The forward saves q, k, v, o and the logsumexp; the backward takes dO
+    with the strides autograd hands over (in training the transposed view
+    of the output projection's gradient) and copies it only when its rows
+    are not contiguous on 16 bytes. ``window`` takes no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, window):
@@ -204,6 +189,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         window=ctx.window)
+        if not _rows_ok(do) or 0 in do.stride():   # a broadcast dO is copied too
+            do = do.clone(memory_format=torch.contiguous_format)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, window=ctx.window)
         return dq, dk, dv, None

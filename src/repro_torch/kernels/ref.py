@@ -47,7 +47,8 @@ def naive_attention_lse(q, k, *, window=None):
 
 
 def attention_bwd_delta(o, do):
-    """The backward's preprocess: Dr = rowsum(dO o) [B,H,S] in float32."""
+    """The backward's row sums Dr = rowsum(dO o) [B,H,S] in float32 (the dQ
+    kernel writes them for the dK/dV kernel)."""
     return (_acc(do) * _acc(o)).sum(-1)
 
 

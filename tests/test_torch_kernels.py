@@ -6,6 +6,8 @@ Tolerance: float32 on both sides, different summation order: 1e-5 against
 the jnp oracles (same math, only the softmax/einsum order differs) and 2e-5
 against the Pallas kernels (online softmax, the tests/test_kernels.py TOL).
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -160,7 +162,7 @@ def test_ops_force_kernel_on_cpu_raises(call):
 
 
 @pytest.mark.parametrize("fn", [FA.flash_attention, DA.decode_attention,
-                                PA.paged_decode_attention])
+                                PA.paged_decode_attention, FA.flash_attention_bwd])
 def test_kernel_wrappers_refuse_cpu_tensors(fn):
     q = torch.randn(1, 2, 8, 32)
     with pytest.raises(ValueError, match="CUDA"):
@@ -169,8 +171,26 @@ def test_kernel_wrappers_refuse_cpu_tensors(fn):
         elif fn is PA.paged_decode_attention:
             fn(q[:, :, 0], q, q, torch.zeros(1, 1, dtype=torch.int32),
                torch.ones(1, dtype=torch.int32))
+        elif fn is FA.flash_attention_bwd:
+            fn(q, q, q, q, torch.zeros(1, 2, 8), q)
         else:
             fn(q, q, q)
+
+
+def test_backward_source_is_deterministic_and_on_wgmma_and_tma():
+    """K1's backward sums every output row in one block, in a fixed order:
+    no atomic operation in its code (comments aside); its bf16 kernels take
+    their tiles from TMA into wgmma, and the row sums come from the dQ
+    kernel, not from a pass of their own."""
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    assert "atomic" not in code.lower()
+    assert "preprocess" not in code and "bwd_delta" not in code
+    assert "cp.async.bulk.tensor" in code and "wgmma.mma_async" in code
+    assert "mma.sync" not in code
+    assert {"dq_bf16_kernel", "dkdv_bf16_kernel", "dq_f32_kernel", "dkdv_f32_kernel"} <= set(
+        re.findall(r"\b(\w+_kernel)\b", code))
+    assert re.findall(r'extern "C" int (\w+)', code) == ["repro_flash_attention_bwd"]
 
 
 @pytest.mark.parametrize("name", build.SOURCES)

@@ -96,12 +96,27 @@ def test_train_logits_match_jax():
     assert _rel(got.detach().numpy(), want) <= 1e-5
 
 
-@pytest.mark.parametrize("window", [None, 9])
-def test_attention_backward_plain_version_matches_jax_vjp(window):
+# (window, S, G, q_chunk, kv_chunk): the first two at a smoke size, the
+# rest at the backward kernels' edges (a block owns 128 rows, a streamed
+# tile is 64: S of 127 to 200, windows narrower and wider than a tile, G of
+# 1 and 4); chunked_attention halves a chunk until it divides S, so those
+# take one chunk of S rows
+BWD_VJP_CASES = {"None": (None, 40, 2, 16, 8), "9": (9, 40, 2, 16, 8),
+                 "S127-G1": (None, 127, 1, 127, 127), "S128-G4": (None, 128, 4, 128, 128),
+                 "S129-G1": (None, 129, 1, 129, 129), "S200-G4": (None, 200, 4, 200, 200),
+                 "S129-w9-G4": (9, 129, 4, 129, 129), "S200-w64-G1": (64, 200, 1, 200, 200),
+                 "S127-w100-G4": (100, 127, 4, 127, 127),
+                 "S200-w100-G1": (100, 200, 1, 200, 200)}
+
+
+@pytest.mark.parametrize("window,Sq,G,q_chunk,kv_chunk", list(BWD_VJP_CASES.values()),
+                         ids=list(BWD_VJP_CASES))
+def test_attention_backward_plain_version_matches_jax_vjp(window, Sq, G, q_chunk, kv_chunk):
     """ref.flash_attention_bwd from the plain forward's output and
     logsumexp against jax.vjp of chunked_attention (GQA heads repeated, as
     the reference's attn_apply passes them)."""
-    Bq, Sq, H, K, D = 2, 40, 4, 2, 16
+    Bq, K, D = 2, 2, 16
+    H = K * G
     rng = np.random.default_rng(3)
     q = rng.standard_normal((Bq, Sq, H, D)).astype(np.float32)
     k, v = (rng.standard_normal((Bq, Sq, K, D)).astype(np.float32) for _ in range(2))
@@ -111,7 +126,7 @@ def test_attention_backward_plain_version_matches_jax_vjp(window):
     def f(q_, k_, v_):
         return JL.chunked_attention(ctx, q_, jnp.repeat(k_, H // K, axis=2),
                                     jnp.repeat(v_, H // K, axis=2), window=window,
-                                    q_chunk=16, kv_chunk=8)
+                                    q_chunk=q_chunk, kv_chunk=kv_chunk)
     o_j, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     want = vjp(jnp.asarray(do))
     tq, tk, tv, tdo = (torch.from_numpy(x).transpose(1, 2) for x in (q, k, v, do))

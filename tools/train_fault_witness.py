@@ -7,10 +7,12 @@ Computes ``chip_smoke.py``'s train-phase step 1 (full-width granite-3-2b,
 bf16, seed 0, the pipeline's first batch of 4 x 1024 tokens, the
 deterministic mode the ``Trainer`` sets) on the plain attention path, on
 the kernel path, and on the kernel path with a fault planted at run time
-in the backward's Python wrappers (no source is edited):
+through the backward's entry point ``flash_attention_bwd`` (no source is
+edited):
 
-- ``no_delta``: the preprocess's row sums D = rowsum(dO * O) replaced by
-  zeros, so dS = P * dP (the D term dropped);
+- ``no_delta``: the row sums D = rowsum(dO * O) zero for both kernels (the
+  dQ launch computes them from an O of zeros and hands them to dK/dV), so
+  dS = P * dP (the D term dropped);
 - ``no_gqa_sum``: dK and dV from the first query head of each KV head's
   group alone (the other G - 1 terms of the sum dropped).
 
@@ -65,10 +67,11 @@ def main() -> int:
     g_p, _, loss_p, _ = ST.loss_and_grads(Model(cfg, force="ref"), params, batch)
     loss_p, gn_p = loss_p.item(), global_norm(g_p).item()
 
-    real_delta, real_bwd = FA.bwd_delta, FA.flash_attention_bwd
+    real_bwd = FA.flash_attention_bwd
 
-    def no_delta(o, do):
-        return torch.zeros_like(real_delta(o, do))
+    def no_delta(q, k, v, o, lse, do, *, window=None):
+        # o enters the backward only through its row sums
+        return real_bwd(q, k, v, torch.zeros_like(o), lse, do, window=window)
 
     def no_gqa_sum(q, k, v, o, lse, do, *, window=None):
         dq = real_bwd(q, k, v, o, lse, do, window=window)[0]
@@ -77,14 +80,13 @@ def main() -> int:
         _, dk, dv = real_bwd(q1, k, v, o1, lse1, do1, window=window)
         return dq, dk, dv
 
-    for name, patch in (("clean", {}), ("no_delta", {"bwd_delta": no_delta}),
-                        ("no_gqa_sum", {"flash_attention_bwd": no_gqa_sum})):
-        for attr, fn in patch.items():
-            setattr(FA, attr, fn)
+    for name, fault in (("clean", None), ("no_delta", no_delta), ("no_gqa_sum", no_gqa_sum)):
+        if fault is not None:
+            FA.flash_attention_bwd = fault
         try:
             g_k, _, loss_k, _ = ST.loss_and_grads(model, params, batch)
         finally:
-            FA.bwd_delta, FA.flash_attention_bwd = real_delta, real_bwd
+            FA.flash_attention_bwd = real_bwd
         gn_k = global_norm(g_k).item()
         errs = [(torch.linalg.vector_norm(a.float() - b.float())
                  / torch.linalg.vector_norm(b.float())).item()
