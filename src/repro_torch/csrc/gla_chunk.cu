@@ -1,9 +1,13 @@
 // Chunked gated linear attention (GLA) for NVIDIA Hopper (sm_90a): both
-// schedules of the JAX package's Pallas kernels.
+// schedules of the JAX package's Pallas kernels, and the backward.
 //
 // Replaces: src/repro/kernels/mlstm_chunk.py::_kernel (gla_chunk: K4 here,
-// repro_gla_chunk) and ::_phase_a_kernel / ::_phase_b_kernel
+// repro_gla_chunk; for training repro_gla_chunk_starts, which also writes
+// the state entering each chunk) and ::_phase_a_kernel / ::_phase_b_kernel
 // (gla_chunk_parallel: K5 here, repro_gla_phase_a / repro_gla_phase_b).
+// The backward (K4b, repro_gla_chunk_bwd, after the forward kernels)
+// replaces no Pallas kernel: the JAX package differentiates the plain-XLA
+// models/ssm.py chunked_gla; its design note is at gla_bwd_kernel.
 //
 // For each row b and head h, the recurrence
 //   h_t = exp(lg_t) h_{t-1} + k_t v_t^T,    y_t = q_t . h_t
@@ -112,7 +116,7 @@ constexpr int PW = GLA_PW;           // the bf16 kernels' P slice, columns
 // K4's and phase A's blocks an SM, for ptxas's register budget
 constexpr int MIN_BLOCKS = PW == 16 ? 3 : 2;
 
-enum Which { CHUNK = 0, PHASE_A = 1, PHASE_B = 2 };
+enum Which { CHUNK = 0, PHASE_A = 1, PHASE_B = 2, BWD = 3 };
 
 // Element strides of a [B,S,H,*] operand.
 struct Strides {
@@ -132,6 +136,20 @@ struct GlaIn {
   int S, H, c, B;
 };
 
+// The backward's other operands: dy [B,S,H,P] by its strides, K4's chunk
+// start states [B,H,nc,N,P] float32, and the gradients, contiguous: dq, dk
+// [B,S,H,N] float32 per head, dv [B,S,H,P] in v's type, dlg [B,S,H] float32.
+template <typename T>
+struct BwdIO {
+  const T* dy;
+  Strides sdy;
+  const float* starts;
+  float* dq;
+  float* dk;
+  T* dv;
+  float* dlg;
+};
+
 // ===========================================================================
 // float32: exact scalar products
 // ===========================================================================
@@ -143,28 +161,33 @@ __host__ __device__ size_t smem_f32(Which which, int c, int N, int P) {
   return sizeof(float) * (which == PHASE_B ? (size_t)c + N * P : (size_t)c * (N + P + 2) + N * P);
 }
 
-// Stage the chunk's lg and scan it in place into its inclusive cumsum:
-// warp 0 in 32-wide shuffle steps, a fixed order. Ends synchronised.
+// x[0..n) scanned in place into its inclusive cumsum by warp 0, 32-wide
+// shuffle steps with a carry: one fixed order. Not synchronised.
+__device__ void scan_rows(float* x, int n) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  float carry = 0.f;
+  for (int base = 0; base < n; base += 32) {
+    const int i = base + lane;
+    float v = i < n ? x[i] : 0.f;
+#pragma unroll
+    for (int o = 1; o < 32; o *= 2) {
+      const float y = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += y;
+    }
+    v += carry;
+    if (i < n) x[i] = v;
+    carry = __shfl_sync(0xffffffffu, v, 31);
+  }
+}
+
+// Stage the chunk's lg and scan it in place into its inclusive cumsum.
+// Ends synchronised.
 __device__ void stage_cum(const GlaIn<float>& in, int b, int h, int t0, float* cum_s) {
   for (int j = threadIdx.x; j < in.c; j += blockDim.x)
     cum_s[j] = in.lg[in.sl.at(b, t0 + j, h)];
   __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    float carry = 0.f;
-    for (int base = 0; base < in.c; base += 32) {
-      const int i = base + lane;
-      float x = i < in.c ? cum_s[i] : 0.f;
-#pragma unroll
-      for (int o = 1; o < 32; o *= 2) {
-        const float y = __shfl_up_sync(0xffffffffu, x, o);
-        if (lane >= o) x += y;
-      }
-      x += carry;
-      if (i < in.c) cum_s[i] = x;
-      carry = __shfl_sync(0xffffffffu, x, 31);
-    }
-  }
+  scan_rows(cum_s, in.c);
   __syncthreads();
 }
 
@@ -225,7 +248,8 @@ __device__ __forceinline__ float delta_elem(int e, int c, const float* k_s, cons
 // K4, float32. Grid (B*H); one block per (b, h) walks the chunks in order.
 template <int N, int P>
 __global__ void __launch_bounds__(THREADS)
-    gla_chunk_f32_kernel(GlaIn<float> in, float* __restrict__ y, float* __restrict__ state_out) {
+    gla_chunk_f32_kernel(GlaIn<float> in, float* __restrict__ y, float* __restrict__ state_out,
+                         float* __restrict__ starts) {
   extern __shared__ __align__(16) float smf[];
   const int c = in.c, nc = in.S / c, H = in.H;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
@@ -239,6 +263,10 @@ __global__ void __launch_bounds__(THREADS)
   for (int ci = 0; ci < nc; ++ci) {
     const int t0 = ci * c;
     __syncthreads();  // the previous chunk is done with k_s, v_s, cum_s, w_s
+    if (starts != nullptr) {  // the state entering this chunk, for the backward
+      float* so = starts + ((long long)blockIdx.x * nc + ci) * N * P;
+      for (int e = threadIdx.x; e < N * P; e += blockDim.x) so[e] = state_s[e];
+    }
     stage_kv<N, P>(in, b, h, t0, k_s, v_s);
     stage_cum(in, b, h, t0, cum_s);
     for (int i = threadIdx.x; i < c; i += blockDim.x) {
@@ -823,7 +851,8 @@ __device__ __forceinline__ void chunk_rows(int T, int c, const unsigned char* st
 // through two stages, the next unit's lg and then its rows loading by
 // cp.async while this one computes; the next unit's cum and decays are
 // computed in this one's tail, between the barriers the state partials
-// need anyway. K4 (CHAIN) carries the state slice from chunk to chunk.
+// need anyway. K4 (CHAIN) carries the state slice from chunk to chunk and,
+// given o2, writes the slice entering each chunk there ([B,H,nc,N,P]).
 template <int N, int P, bool CHAIN>
 __device__ __forceinline__ void pipeline(const GlaIn<bf16>& in, bf16* __restrict__ y,
                                          float* __restrict__ o1, float* __restrict__ o2) {
@@ -885,6 +914,10 @@ __device__ __forceinline__ void pipeline(const GlaIn<bf16>& in, bf16* __restrict
     GLA_STAMP(1);
     const Item x = unit(u);
     const int b = x.bh / H, h = x.bh % H, p0 = x.slice * PW;
+    if (CHAIN && o2 != nullptr) {  // K4's state slice entering this chunk
+      float* so = o2 + ((long long)x.bh * nc + x.ci) * N * P + p0;
+      for (int e = threadIdx.x; e < N * PW; e += THREADS) so[(e / PW) * P + e % PW] = st_s[e];
+    }
     uint32_t sb[PW / 8][4] = {};
     if (CHAIN) state_frags(st_s, sb);
     chunk_rows<CHAIN>(T, c, st, ds, L, sb, stg,
@@ -929,11 +962,12 @@ __device__ __forceinline__ void pipeline(const GlaIn<bf16>& in, bf16* __restrict
 
 // K4, bf16. Grid (B*H*P/PW): one block per (b, h, slice) walks the chunks
 // in order with its [16][PW] state slice in shared memory. y: [B,S,H,P];
-// state_out: [B,H,N,P].
+// state_out: [B,H,N,P]; starts (or null): [B,H,nc,N,P].
 template <int N, int P>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-    gla_chunk_kernel(GlaIn<bf16> in, bf16* __restrict__ y, float* __restrict__ state_out) {
-  pipeline<N, P, true>(in, y, state_out, nullptr);
+    gla_chunk_kernel(GlaIn<bf16> in, bf16* __restrict__ y, float* __restrict__ state_out,
+                     float* __restrict__ starts) {
+  pipeline<N, P, true>(in, y, state_out, starts);
 }
 
 // K5 phase A, bf16. Persistent: block x walks the items (b, h, chunk,
@@ -1021,6 +1055,620 @@ __global__ void __launch_bounds__(THREADS, 3)
   }
 }
 
+
+// ===========================================================================
+// the backward (K4b): dq, dk, dv and dlg of K4's function
+// ===========================================================================
+//
+// Per (b, h), the chunks in reverse, carrying dS (the gradient of the state
+// leaving the chunk; zero after the last), with cum the chunk's inclusive
+// cumsum of lg, tot its last value, S_z K4's state entering it and
+// W_ij = exp(cum_i - cum_j) for j <= i:
+//   dq_i = sum_{j<=i} W_ij (dy_i . v_j) k_j + exp(cum_i) S_z dy_i
+//   dk_j = sum_{i>=j} W_ij (dy_i . v_j) q_i + exp(tot - cum_j) dS v_j
+//   dv_j = sum_{i>=j} W_ij (q_i . k_j) dy_i + exp(tot - cum_j) dS^T k_j
+//   dS  <- exp(tot) dS + sum_i exp(cum_i) q_i dy_i^T
+// and dlg_t = sum_{s>=t} (q_s . dq_s - k_s . dk_s), the scalar decay's
+// identity (the final state takes no gradient). The plain version is
+// kernels/ref.py gla_bwd. dq and dk leave per head in float32: the model's
+// q and k are one row shared by the heads (head stride 0), and dlg needs
+// each head's own dots, so the sum over heads is the caller's.
+//
+// Bound: at hymba's training shape (B4 S1536 H25 N16 P64, c 256, bf16)
+// about 83 MB move (v, dy, dv in bf16, dq and dk per head in float32, the
+// states, lg and dlg): 24.7 us at 3.35 TB/s, against ~8 GFLOP of products
+// (c^2 (3N + 2P) multiply-adds under the causal half and four c N P state
+// products a chunk), 8 us of bf16 tensor-core time. Device-memory bytes
+// bound it.
+//
+// Design, deterministic with no atomics (the port's recovery is held
+// byte for byte): one block per (b, h) owns all P columns, because dq, dk
+// and dlg's dots sum over them (100 blocks at hymba's shape, one wave of
+// the 132 SMs). Two stages: chunk z - 1's rows load by cp.async while z
+// computes. Each warp takes query tiles t and T-1-t for dq and key tiles
+// t and T-1-t for dk and dv (T + 1 tile steps each), on mma.sync with K4's
+// swizzled staging and fragments: dq's pass computes dY_I V_J^T, dk/dv's
+// the transposed tiles V_J dY_I^T and K_J Q_I^T, so each product's
+// accumulator is the next one's A fragment. dlg is a difference of
+// per-row dots, so the decayed dY.V^T is split hi/lo into bf16 pairs for
+// the dq and dk products (float32 to about 16 bits), as are S_z and dS;
+// the decayed q.k for dv is rounded to bf16, as K4 rounds its
+// probabilities. Each element's decay is one ex2 under the causal mask.
+// dS's increment is summed per warp and the 8 partials added in warp
+// order; warp 0 runs dlg's suffix sums in 32-row segments with the later
+// chunks' carry. float32 runs a scalar kernel (exact products, no TF32),
+// one thread a row for dq and one a column for dk and dv.
+// On an H100 80GB HBM3 at 700 W (PERF.md) it takes 139.7 us, 5.7x the
+// bound: every tile's dY_I V_J^T is computed in both passes, each element
+// takes an ex2, and 100 blocks of 8 warps leave the tensor pipes idle on
+// each chain's latency; more blocks (a column split whose partials are
+// added in order) and K4's factored decays are the next steps.
+
+// dlg over the chunk's c rows: the suffix sums of r = rq - rk (q_t . dq_t -
+// k_t . dk_t), plus carry, the later chunks' sum, which it updates. Warp 0
+// in 32-row segments from the last, one fixed order; the other warps return
+// at once. dlg row i is dlg[row0 + i * rs].
+__device__ void dlg_rows(const float* rq, const float* rk, int c, float& carry, float* dlg,
+                         long long row0, long long rs) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  for (int seg = (c - 1) / 32; seg >= 0; --seg) {
+    const int i = seg * 32 + lane;
+    float x = i < c ? rq[i] - rk[i] : 0.f;
+#pragma unroll
+    for (int o = 1; o < 32; o *= 2) {
+      const float y = __shfl_down_sync(0xffffffffu, x, o);
+      if (lane + o < 32) x += y;
+    }
+    x += carry;
+    if (i < c) dlg[row0 + i * rs] = x;
+    carry = __shfl_sync(0xffffffffu, x, 0);
+  }
+}
+
+// Shared memory of a float32 backward block: the chunk's q, k [c][N], v, dy
+// [c][P], cum, q.dq and k.dk [c], the entering state S_z and the carried
+// dS [N][P], all float32.
+__host__ __device__ size_t smem_bwd_f32(int c, int N, int P) {
+  return sizeof(float) * ((size_t)c * (2 * N + 2 * P + 3) + 2 * N * P);
+}
+
+// K4b, float32: exact scalar products. Grid (B*H); one block per (b, h)
+// walks the chunks in reverse carrying dS, one thread a row for dq and one
+// a column j for dk and dv.
+template <int N, int P>
+__global__ void __launch_bounds__(THREADS)
+    gla_bwd_f32_kernel(GlaIn<float> in, BwdIO<float> io) {
+  extern __shared__ __align__(16) float smf[];
+  const int c = in.c, nc = in.S / c, H = in.H;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  float* q_s = smf;
+  float* k_s = q_s + c * N;
+  float* v_s = k_s + c * N;
+  float* dy_s = v_s + c * P;
+  float* cum_s = dy_s + c * P;
+  float* rq_s = cum_s + c;
+  float* rk_s = rq_s + c;
+  float* sz_s = rk_s + c;
+  float* ds_s = sz_s + N * P;
+  for (int e = threadIdx.x; e < N * P; e += blockDim.x) ds_s[e] = 0.f;
+  float carry = 0.f;
+  for (int z = nc - 1; z >= 0; --z) {
+    const int t0 = z * c;
+    __syncthreads();  // the later chunk is done with every array; dS is updated
+    for (int e = threadIdx.x; e < c * N; e += blockDim.x)
+      q_s[e] = in.q[in.sq.at(b, t0 + e / N, h) + e % N];
+    for (int e = threadIdx.x; e < c * P; e += blockDim.x)
+      dy_s[e] = io.dy[io.sdy.at(b, t0 + e / P, h) + e % P];
+    stage_kv<N, P>(in, b, h, t0, k_s, v_s);
+    const float* sz = io.starts + ((long long)blockIdx.x * nc + z) * N * P;
+    for (int e = threadIdx.x; e < N * P; e += blockDim.x) sz_s[e] = sz[e];
+    stage_cum(in, b, h, t0, cum_s);  // its barriers also cover the rows above
+    const float tot = cum_s[c - 1];
+    const long long row0 = (long long)b * in.S + t0;
+    // dq_i = sum_{j<=i} exp(cum_i - cum_j) (dy_i . v_j) k_j + exp(cum_i) S_z dy_i
+    for (int i = threadIdx.x; i < c; i += blockDim.x) {
+      const float* dyi = dy_s + i * P;
+      const float ci = cum_s[i];
+      float acc[N];
+#pragma unroll
+      for (int n = 0; n < N; ++n) acc[n] = 0.f;
+      for (int j = 0; j <= i; ++j) {
+        float d = 0.f;
+#pragma unroll
+        for (int p = 0; p < P; ++p) d += dyi[p] * v_s[j * P + p];
+        d *= expf(ci - cum_s[j]);
+#pragma unroll
+        for (int n = 0; n < N; ++n) acc[n] += d * k_s[j * N + n];
+      }
+      const float e = expf(ci);
+      float r = 0.f;
+      float* out = io.dq + ((row0 + i) * H + h) * N;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        float x = 0.f;
+#pragma unroll
+        for (int p = 0; p < P; ++p) x += sz_s[n * P + p] * dyi[p];
+        acc[n] += e * x;
+        r += q_s[i * N + n] * acc[n];
+        out[n] = acc[n];
+      }
+      rq_s[i] = r;
+    }
+    // dk_j = sum_{i>=j} w_ij (dy_i . v_j) q_i + exp(tot - cum_j) dS v_j
+    // dv_j = sum_{i>=j} w_ij (q_i . k_j) dy_i + exp(tot - cum_j) dS^T k_j
+    for (int j = threadIdx.x; j < c; j += blockDim.x) {
+      const float* vj = v_s + j * P;
+      const float* kj = k_s + j * N;
+      const float cj = cum_s[j];
+      float dk[N], dv[P];
+#pragma unroll
+      for (int n = 0; n < N; ++n) dk[n] = 0.f;
+#pragma unroll
+      for (int p = 0; p < P; ++p) dv[p] = 0.f;
+      for (int i = j; i < c; ++i) {
+        const float w = expf(cum_s[i] - cj);
+        float d = 0.f, a = 0.f;
+#pragma unroll
+        for (int p = 0; p < P; ++p) d += dy_s[i * P + p] * vj[p];
+#pragma unroll
+        for (int n = 0; n < N; ++n) a += q_s[i * N + n] * kj[n];
+        d *= w;
+        a *= w;
+#pragma unroll
+        for (int n = 0; n < N; ++n) dk[n] += d * q_s[i * N + n];
+#pragma unroll
+        for (int p = 0; p < P; ++p) dv[p] += a * dy_s[i * P + p];
+      }
+      const float e = expf(tot - cj);
+      float r = 0.f;
+      float* ko = io.dk + ((row0 + j) * H + h) * N;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        float x = 0.f;
+#pragma unroll
+        for (int p = 0; p < P; ++p) x += ds_s[n * P + p] * vj[p];
+        dk[n] += e * x;
+        r += kj[n] * dk[n];
+        ko[n] = dk[n];
+      }
+      float* vo = io.dv + ((row0 + j) * H + h) * P;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        float x = 0.f;
+#pragma unroll
+        for (int n = 0; n < N; ++n) x += ds_s[n * P + p] * kj[n];
+        vo[p] = dv[p] + e * x;
+      }
+      rk_s[j] = r;
+    }
+    __syncthreads();  // every row has read dS and written its q.dq, k.dk
+    // dS <- exp(tot) dS + sum_i exp(cum_i) q_i dy_i^T, i in order
+    const float g = expf(tot);
+    for (int e = threadIdx.x; e < N * P; e += blockDim.x) {
+      const int n = e / P, p = e % P;
+      float x = 0.f;
+      for (int i = 0; i < c; ++i) x += expf(cum_s[i]) * q_s[i * N + n] * dy_s[i * P + p];
+      ds_s[e] = ds_s[e] * g + x;
+    }
+    dlg_rows(rq_s, rk_s, c, carry, io.dlg, row0 * H + h, H);
+  }
+}
+
+// Dynamic shared memory of a bf16 backward block, byte offsets; rows padded
+// to tc (the chunk rounded up to 16), q and k rows to 16 columns. Two
+// stages, one chunk's while the one before it loads: q and k rows [tc][16]
+// and v and dy rows [tc][P] bf16 (XOR-swizzled), lg [tc] float32 (scanned in
+// place into cum) and the entering state S_z [16][P] float32 (rows n >= N
+// zero). Then the carried dS [16][P] float32, the decays cl = cum log2(e),
+// eq = exp(cum) and ek = exp(tot - cum) [tc], the rows' q.dq and k.dk [tc],
+// float32, and the warps' dS partials [WARPS][16][P + 4] float32.
+struct BwdLayout {
+  int q, k, v, dy, lg, sz, stage, ds, cl, eq, ek, rq, rk, scratch, total;
+  __host__ __device__ BwdLayout(int c, int P) {
+    const int tc = (c + 15) & ~15;
+    q = 0;
+    k = q + tc * 32;
+    v = k + tc * 32;
+    dy = v + tc * P * 2;
+    lg = dy + tc * P * 2;
+    sz = lg + tc * 4;
+    stage = sz + 16 * P * 4;
+    ds = 2 * stage;
+    cl = ds + 16 * P * 4;
+    eq = cl + tc * 4;
+    ek = eq + tc * 4;
+    rq = ek + tc * 4;
+    rk = rq + tc * 4;
+    scratch = rk + tc * 4;
+    total = scratch + WARPS * 16 * (P + 4) * 4;
+  }
+};
+
+// Stage chunk z of (b, h) by cp.async (not committed): rows c..tc-1 and the
+// q/k columns from N to 16 are zeros, and so are S_z's rows from N.
+template <int N, int P>
+__device__ void bwd_stage(const GlaIn<bf16>& in, const BwdIO<bf16>& io, int b, int h, int z,
+                          unsigned char* st, const BwdLayout& L) {
+  constexpr int VCH = P / 8, PCH = P / 4;
+  const int c = in.c, tc = (c + 15) & ~15, t0 = z * c;
+  const uint32_t qa = smem_addr(st + L.q), ka = smem_addr(st + L.k);
+  for (int idx = threadIdx.x; idx < tc * 2; idx += THREADS) {
+    const int j = idx >> 1, ch = idx & 1;
+    const bool ok = j < c && ch * 8 < N;
+    cp16(qa + swz<2>(j, ch), in.q + (ok ? in.sq.at(b, t0 + j, h) + ch * 8 : 0), ok);
+    cp16(ka + swz<2>(j, ch), in.k + (ok ? in.sk.at(b, t0 + j, h) + ch * 8 : 0), ok);
+  }
+  const uint32_t va = smem_addr(st + L.v), da = smem_addr(st + L.dy);
+  for (int idx = threadIdx.x; idx < tc * VCH; idx += THREADS) {
+    const int j = idx / VCH, ch = idx % VCH;
+    const bool ok = j < c;
+    cp16(va + swz<VCH>(j, ch), in.v + (ok ? in.sv.at(b, t0 + j, h) + ch * 8 : 0), ok);
+    cp16(da + swz<VCH>(j, ch), io.dy + (ok ? io.sdy.at(b, t0 + j, h) + ch * 8 : 0), ok);
+  }
+  const uint32_t la = smem_addr(st + L.lg);
+  for (int j = threadIdx.x; j < tc; j += THREADS) {
+    const bool ok = j < c;
+    cp4(la + 4 * j, in.lg + (ok ? in.sl.at(b, t0 + j, h) : 0), ok);
+  }
+  const float* src = io.starts + ((long long)(b * in.H + h) * (in.S / c) + z) * N * P;
+  const uint32_t sa = smem_addr(st + L.sz);
+  for (int idx = threadIdx.x; idx < 16 * PCH; idx += THREADS) {
+    const int n = idx / PCH, ch = idx % PCH;
+    cp16(sa + 16 * idx, src + (n < N ? n * P + ch * 4 : 0), n < N);
+  }
+}
+
+// ldmatrix lane addresses of the 16 x 16 bf16 block at rows r0.. and
+// column group kc (16-byte pieces 2kc, 2kc + 1) of rows of CH pieces.
+// lane_a: with ldsm the block as an A fragment (rows the M index); with
+// ldsm_t the B fragments of column tiles 2kc and 2kc + 1 of the block read
+// as [K][N] (rows the K index): {b0, b1} of each. lane_b: with ldsm the B
+// fragments of row tiles 0 and 1 of the block read as [N][K] (the product
+// with its transpose); with ldsm_t the A fragment of its transpose.
+template <int CH>
+__device__ __forceinline__ uint32_t lane_a(uint32_t base, int r0, int kc) {
+  const int lane = threadIdx.x & 31, m = lane >> 3, r = lane & 7;
+  return base + swz<CH>(r0 + (m & 1) * 8 + r, 2 * kc + (m >> 1));
+}
+template <int CH>
+__device__ __forceinline__ uint32_t lane_b(uint32_t base, int r0, int kc) {
+  const int lane = threadIdx.x & 31, m = lane >> 3, r = lane & 7;
+  return base + swz<CH>(r0 + (m >> 1) * 8 + r, 2 * kc + (m & 1));
+}
+
+// A C fragment pair (two 16x8 tiles, rows m, columns 0-15) as the A
+// fragment of the next product, hi and lo: float32 to about 16 bits
+__device__ __forceinline__ void split_a(const float (&s)[2][4], uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split(s[0][0], s[0][1], hi[0], lo[0]);
+  split(s[0][2], s[0][3], hi[1], lo[1]);
+  split(s[1][0], s[1][1], hi[2], lo[2]);
+  split(s[1][2], s[1][3], hi[3], lo[3]);
+}
+
+// x[nt] += A . X^T over P for a float32 X [16][P] in shared memory (rows n,
+// split hi/lo as B fragments): A's fragments a[kc] for k = p in 16kc..
+template <int P>
+__device__ __forceinline__ void times_xt(const uint32_t (&a)[P / 16][4], const float* x,
+                                         float (&out)[2][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kc = 0; kc < P / 16; ++kc)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const float* r = x + (8 * nt + g) * P + 16 * kc + 2 * t;
+      uint32_t h0, l0, h1, l1;
+      split(r[0], r[1], h0, l0);
+      split(r[8], r[9], h1, l1);
+      mma(out[nt], a[kc], h0, h1);
+      mma(out[nt], a[kc], l0, l1);
+    }
+}
+
+// Write a 16 x 16 float32 tile's columns n < N of rows i < c (row i at out +
+// i * rs, rows r0..) and return each row's dot with the bf16 rows x (q or
+// k, in shared memory at xa): lane (g, t) gets rows r0 + g and r0 + g + 8.
+template <int N>
+__device__ __forceinline__ float2 put_nrows(const float (&o)[2][4], int r0, int c,
+                                            const unsigned char* xa, float* out, long long rs) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, i0 = r0 + g;
+  float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int n = 8 * nt + 2 * t;
+    if (n < N) {
+      const float2 x0 = unpack(*reinterpret_cast<const uint32_t*>(xa + swz<2>(i0, nt) + 4 * t));
+      const float2 x1 =
+          unpack(*reinterpret_cast<const uint32_t*>(xa + swz<2>(i0 + 8, nt) + 4 * t));
+      d0 += x0.x * o[nt][0] + x0.y * o[nt][1];
+      d1 += x1.x * o[nt][2] + x1.y * o[nt][3];
+      if (i0 < c) *reinterpret_cast<float2*>(out + i0 * rs + n) = make_float2(o[nt][0], o[nt][1]);
+      if (i0 + 8 < c)
+        *reinterpret_cast<float2*>(out + (i0 + 8) * rs + n) = make_float2(o[nt][2], o[nt][3]);
+    }
+  }
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ *= 2) {
+    d0 += __shfl_xor_sync(0xffffffffu, d0, o_);
+    d1 += __shfl_xor_sync(0xffffffffu, d1, o_);
+  }
+  return make_float2(d0, d1);
+}
+
+// dq of query tile I: sum over key tiles J <= I of (W o dY_I V_J^T) K_J,
+// then diag(exp(cum)) dY_I S_z^T; rows and q.dq out. The first product's
+// A (dY) and B (V) are bf16 as given; W o (dY V^T) is split hi/lo for the
+// second, so dq is float32 to about 16 bits (dlg is a difference of such
+// dots).
+template <int N, int P>
+__device__ __forceinline__ void bwd_dq_tile(int I, int c, const unsigned char* st,
+                                            const BwdLayout& L, const float* cl_s,
+                                            const float* eq_s, float* rq_s, float* dq,
+                                            long long rs) {
+  constexpr int VCH = P / 8, KS = P / 16;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, i0 = 16 * I + g;
+  const uint32_t k_a = smem_addr(st + L.k), v_a = smem_addr(st + L.v),
+                 d_a = smem_addr(st + L.dy);
+  uint32_t dya[KS][4];
+#pragma unroll
+  for (int kc = 0; kc < KS; ++kc) ldsm(dya[kc], lane_a<VCH>(d_a, 16 * I, kc));
+  const float c0 = cl_s[i0], c1 = cl_s[i0 + 8];
+  float acc[2][4] = {};
+  for (int J = 0; J <= I; ++J) {
+    float s[2][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < KS; ++kc) {
+      uint32_t vb[4];
+      ldsm(vb, lane_b<VCH>(v_a, 16 * J, kc));
+      mma(s[0], dya[kc], vb[0], vb[1]);
+      mma(s[1], dya[kc], vb[2], vb[3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int j = 16 * J + 8 * nt + 2 * t + (x & 1), i = i0 + (x < 2 ? 0 : 8);
+        s[nt][x] = (J < I || i >= j) ? s[nt][x] * ex2((x < 2 ? c0 : c1) - cl_s[j]) : 0.f;
+      }
+    uint32_t hi[4], lo[4], kb[4];
+    split_a(s, hi, lo);
+    ldsm_t(kb, lane_a<2>(k_a, 16 * J, 0));
+    mma(acc[0], hi, kb[0], kb[1]);
+    mma(acc[0], lo, kb[0], kb[1]);
+    mma(acc[1], hi, kb[2], kb[3]);
+    mma(acc[1], lo, kb[2], kb[3]);
+  }
+  float x[2][4] = {};
+  times_xt<P>(dya, reinterpret_cast<const float*>(st + L.sz), x);
+  const float e0 = eq_s[i0], e1 = eq_s[i0 + 8];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    acc[nt][0] += e0 * x[nt][0];
+    acc[nt][1] += e0 * x[nt][1];
+    acc[nt][2] += e1 * x[nt][2];
+    acc[nt][3] += e1 * x[nt][3];
+  }
+  const float2 r = put_nrows<N>(acc, 16 * I, c, st + L.q, dq, rs);
+  if (t == 0) {
+    rq_s[i0] = r.x;
+    rq_s[i0 + 8] = r.y;
+  }
+}
+
+// dk and dv of key tile J: over query tiles I >= J, with the tiles
+// transposed (rows j): dk += (W o V_J dY_I^T) Q_I (A split hi/lo, as dq's)
+// and dv += (W o K_J Q_I^T) dY_I (A rounded to bf16, as K4 rounds its
+// probabilities); then diag(exp(tot - cum)) times V_J dS^T and K_J dS (dS
+// split hi/lo). Rows, k.dk and dv out.
+template <int N, int P>
+__device__ __forceinline__ void bwd_dkdv_tile(int J, int T, int c, const unsigned char* st,
+                                              const BwdLayout& L, const float* cl_s,
+                                              const float* ek_s, const float* ds_s,
+                                              float* rk_s, float* dk_out, long long rsk,
+                                              bf16* dv_out, long long rsv) {
+  constexpr int VCH = P / 8, KS = P / 16, NT = P / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, j0 = 16 * J + g;
+  const uint32_t q_a = smem_addr(st + L.q), k_a = smem_addr(st + L.k),
+                 v_a = smem_addr(st + L.v), d_a = smem_addr(st + L.dy);
+  uint32_t ka[4], va[KS][4];
+  ldsm(ka, lane_a<2>(k_a, 16 * J, 0));
+#pragma unroll
+  for (int kc = 0; kc < KS; ++kc) ldsm(va[kc], lane_a<VCH>(v_a, 16 * J, kc));
+  const float c0 = cl_s[j0], c1 = cl_s[j0 + 8];
+  float dk[2][4] = {}, dv[NT][4] = {};
+  for (int I = J; I < T; ++I) {
+    float at[2][4] = {}, pt[2][4] = {};
+    uint32_t qb[4];
+    ldsm(qb, lane_b<2>(q_a, 16 * I, 0));
+    mma(at[0], ka, qb[0], qb[1]);
+    mma(at[1], ka, qb[2], qb[3]);
+#pragma unroll
+    for (int kc = 0; kc < KS; ++kc) {
+      uint32_t db[4];
+      ldsm(db, lane_b<VCH>(d_a, 16 * I, kc));
+      mma(pt[0], va[kc], db[0], db[1]);
+      mma(pt[1], va[kc], db[2], db[3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int i = 16 * I + 8 * nt + 2 * t + (x & 1), j = j0 + (x < 2 ? 0 : 8);
+        const float w = (I > J || i >= j) ? ex2(cl_s[i] - (x < 2 ? c0 : c1)) : 0.f;
+        at[nt][x] *= w;
+        pt[nt][x] *= w;
+      }
+    uint32_t hi[4], lo[4], qt[4];
+    split_a(pt, hi, lo);
+    ldsm_t(qt, lane_a<2>(q_a, 16 * I, 0));
+    mma(dk[0], hi, qt[0], qt[1]);
+    mma(dk[0], lo, qt[0], qt[1]);
+    mma(dk[1], hi, qt[2], qt[3]);
+    mma(dk[1], lo, qt[2], qt[3]);
+    const uint32_t pa[4] = {pack(at[0][0], at[0][1]), pack(at[0][2], at[0][3]),
+                            pack(at[1][0], at[1][1]), pack(at[1][2], at[1][3])};
+#pragma unroll
+    for (int kc = 0; kc < KS; ++kc) {
+      uint32_t db[4];
+      ldsm_t(db, lane_a<VCH>(d_a, 16 * I, kc));
+      mma(dv[2 * kc], pa, db[0], db[1]);
+      mma(dv[2 * kc + 1], pa, db[2], db[3]);
+    }
+  }
+  const float e0 = ek_s[j0], e1 = ek_s[j0 + 8];
+  float x[2][4] = {};
+  times_xt<P>(va, ds_s, x);
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    dk[nt][0] += e0 * x[nt][0];
+    dk[nt][1] += e0 * x[nt][1];
+    dk[nt][2] += e1 * x[nt][2];
+    dk[nt][3] += e1 * x[nt][3];
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int p = 8 * nt + g;
+    uint32_t h0, l0, h1, l1;
+    split(ds_s[2 * t * P + p], ds_s[(2 * t + 1) * P + p], h0, l0);
+    split(ds_s[(2 * t + 8) * P + p], ds_s[(2 * t + 9) * P + p], h1, l1);
+    float y[4] = {};
+    mma(y, ka, h0, h1);
+    mma(y, ka, l0, l1);
+    dv[nt][0] += e0 * y[0];
+    dv[nt][1] += e0 * y[1];
+    dv[nt][2] += e1 * y[2];
+    dv[nt][3] += e1 * y[3];
+  }
+  const float2 r = put_nrows<N>(dk, 16 * J, c, st + L.k, dk_out, rsk);
+  if (t == 0) {
+    rk_s[j0] = r.x;
+    rk_s[j0 + 8] = r.y;
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int p = 8 * nt + 2 * t;
+    if (j0 < c) *reinterpret_cast<uint32_t*>(dv_out + j0 * rsv + p) = pack(dv[nt][0], dv[nt][1]);
+    if (j0 + 8 < c)
+      *reinterpret_cast<uint32_t*>(dv_out + (j0 + 8) * rsv + p) = pack(dv[nt][2], dv[nt][3]);
+  }
+}
+
+// This warp's share of the chunk's dS increment, sum over its query tiles
+// I = warp, warp + 8, ... of (Q_I diag(exp(cum)))^T dY_I: rows n, columns
+// p; the scaled q split hi/lo (as K4's state delta).
+template <int P>
+__device__ __forceinline__ void bwd_ds_part(int T, const unsigned char* st, const BwdLayout& L,
+                                            const float* eq_s, float (&d)[P / 8][4]) {
+  constexpr int VCH = P / 8, KS = P / 16;
+  const int t = threadIdx.x & 3;
+  const uint32_t q_a = smem_addr(st + L.q), d_a = smem_addr(st + L.dy);
+  for (int I = threadIdx.x >> 5; I < T; I += WARPS) {
+    uint32_t qa[4], hi[4], lo[4];
+    ldsm_t(qa, lane_b<2>(q_a, 16 * I, 0));
+    const float2 w0 = *reinterpret_cast<const float2*>(eq_s + 16 * I + 2 * t);
+    const float2 w1 = *reinterpret_cast<const float2*>(eq_s + 16 * I + 8 + 2 * t);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float2 f = unpack(qa[x]), w = x < 2 ? w0 : w1;
+      split(f.x * w.x, f.y * w.y, hi[x], lo[x]);
+    }
+#pragma unroll
+    for (int kc = 0; kc < KS; ++kc) {
+      uint32_t db[4];
+      ldsm_t(db, lane_a<VCH>(d_a, 16 * I, kc));
+      mma(d[2 * kc], hi, db[0], db[1]);
+      mma(d[2 * kc], lo, db[0], db[1]);
+      mma(d[2 * kc + 1], hi, db[2], db[3]);
+      mma(d[2 * kc + 1], lo, db[2], db[3]);
+    }
+  }
+}
+
+// K4b, bf16. Grid (B*H): one block per (b, h) walks the chunks in reverse
+// with dS [16][P] in shared memory, two stages (chunk z - 1 loads while z
+// computes). Each warp takes query tiles t and T-1-t for dq and key tiles t
+// and T-1-t for dk and dv (T + 1 tile steps each), then its share of the
+// dS increment; the 8 partials are added in warp order by one thread per
+// element, and warp 0 runs dlg's suffix sums: no atomics, one fixed order.
+template <int N, int P>
+__global__ void __launch_bounds__(THREADS, 1)
+    gla_bwd_kernel(GlaIn<bf16> in, BwdIO<bf16> io) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  const int c = in.c, nc = in.S / c, H = in.H, tc = (c + 15) & ~15, T = tc / 16;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const BwdLayout L(c, P);
+  float* ds_s = reinterpret_cast<float*>(sm + L.ds);
+  float* cl_s = reinterpret_cast<float*>(sm + L.cl);
+  float* eq_s = reinterpret_cast<float*>(sm + L.eq);
+  float* ek_s = reinterpret_cast<float*>(sm + L.ek);
+  float* rq_s = reinterpret_cast<float*>(sm + L.rq);
+  float* rk_s = reinterpret_cast<float*>(sm + L.rk);
+  float* scr = reinterpret_cast<float*>(sm + L.scratch);
+  for (int e = threadIdx.x; e < 16 * P; e += THREADS) ds_s[e] = 0.f;
+  float carry = 0.f;
+  bwd_stage<N, P>(in, io, b, h, nc - 1, sm, L);
+  cp_commit();
+  for (int n = 0; n < nc; ++n) {
+    const int z = nc - 1 - n;
+    unsigned char* st = sm + (n & 1) * L.stage;
+    if (z > 0) {
+      bwd_stage<N, P>(in, io, b, h, z - 1, sm + ((n + 1) & 1) * L.stage, L);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // chunk z's rows are in; the later chunk's dS and dlg are done
+    float* cum = reinterpret_cast<float*>(st + L.lg);
+    scan_rows(cum, tc);
+    __syncthreads();
+    const float tot = cum[c - 1], cl_tot = tot * LOG2E;
+    for (int j = threadIdx.x; j < tc; j += THREADS) {
+      const float cl = cum[j] * LOG2E;
+      cl_s[j] = cl;
+      eq_s[j] = ex2(cl);
+      ek_s[j] = ex2(cl_tot - cl);
+    }
+    __syncthreads();
+    const long long row0 = (long long)b * in.S + z * c;
+    float* dq = io.dq + (row0 * H + h) * N;
+    float* dk = io.dk + (row0 * H + h) * N;
+    bf16* dv = io.dv + (row0 * H + h) * P;
+    for (int pr = warp; pr < (T + 1) / 2; pr += WARPS) {
+      const int I1 = T - 1 - pr;
+      bwd_dq_tile<N, P>(I1, c, st, L, cl_s, eq_s, rq_s, dq, (long long)H * N);
+      if (pr < I1) bwd_dq_tile<N, P>(pr, c, st, L, cl_s, eq_s, rq_s, dq, (long long)H * N);
+      bwd_dkdv_tile<N, P>(pr, T, c, st, L, cl_s, ek_s, ds_s, rk_s, dk, (long long)H * N, dv,
+                          (long long)H * P);
+      if (pr < I1)
+        bwd_dkdv_tile<N, P>(I1, T, c, st, L, cl_s, ek_s, ds_s, rk_s, dk, (long long)H * N,
+                            dv, (long long)H * P);
+    }
+    float d[P / 8][4] = {};
+    bwd_ds_part<P>(T, st, L, eq_s, d);
+    float* mine = scr + warp * 16 * (P + 4);
+#pragma unroll
+    for (int nt = 0; nt < P / 8; ++nt) {
+      *reinterpret_cast<float2*>(mine + g * (P + 4) + 8 * nt + 2 * t) =
+          make_float2(d[nt][0], d[nt][1]);
+      *reinterpret_cast<float2*>(mine + (g + 8) * (P + 4) + 8 * nt + 2 * t) =
+          make_float2(d[nt][2], d[nt][3]);
+    }
+    __syncthreads();  // every tile has read dS; the partials, q.dq and k.dk are in
+    const float gc = expf(tot);
+    for (int e = threadIdx.x; e < 16 * P; e += THREADS) {
+      const int nn = e / P, p = e % P;
+      float x = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) x += scr[(w * 16 + nn) * (P + 4) + p];
+      ds_s[e] = ds_s[e] * gc + x;
+    }
+    dlg_rows(rq_s, rk_s, c, carry, io.dlg, row0 * H + h, H);
+  }
+}
+
 // ===========================================================================
 // launch
 // ===========================================================================
@@ -1046,7 +1694,49 @@ cudaError_t persistent_grid(K kern, size_t smem, int items, int* grid) {
 }
 
 size_t smem_bytes(Which which, int c, int N, int P, int dtype) {
+  if (which == BWD)
+    return dtype == 1 ? (size_t)BwdLayout(c, P).total : smem_bwd_f32(c, N, P);
   return dtype == 1 ? (size_t)Layout(which, c).total : smem_f32(which, c, N, P);
+}
+
+template <int N, int P, typename T, typename K>
+int launch_bwd(K kern, const GlaIn<T>& in, const BwdIO<T>& io, size_t smem, cudaStream_t st) {
+  static_assert(P % 16 == 0 && N <= 16 && N % 8 == 0, "N in {8, 16}; P a multiple of 16");
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<in.B * in.H, THREADS, smem, st>>>(in, io);
+  return (int)cudaGetLastError();
+}
+
+// K4b's dispatch: dtype and (N, P) as dispatch's; strides: q, k, v, lg, dy.
+int dispatch_bwd(const void* q, const void* k, const void* v, const void* lg, const void* dy,
+                 const float* starts, float* dq, float* dk, void* dv, float* dlg, int B, int S,
+                 int H, int N, int P, int c, const long long* strides, int dtype, void* stream) {
+  if (B < 1 || H < 1 || c < 1 || S < c || S % c != 0 || starts == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Strides sq{strides[0], strides[1], strides[2]}, sk{strides[3], strides[4], strides[5]},
+      sv{strides[6], strides[7], strides[8]}, sl{strides[9], strides[10], strides[11]},
+      sd{strides[12], strides[13], strides[14]};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* lgf = static_cast<const float*>(lg);
+#define GLA_BWD_CASE(T, NN, PP, KERN, SMEM)                                                  \
+  if (N == NN && P == PP) {                                                                  \
+    const GlaIn<T> in{static_cast<const T*>(q), static_cast<const T*>(k),                    \
+                      static_cast<const T*>(v), lgf, sq, sk, sv, sl, S, H, c, B};            \
+    const BwdIO<T> io{static_cast<const T*>(dy), sd, starts, dq, dk, static_cast<T*>(dv),    \
+                      dlg};                                                                  \
+    return launch_bwd<NN, PP>(KERN<NN, PP>, in, io, SMEM, st);                               \
+  }
+  if (dtype == 1) {
+    GLA_BWD_CASE(bf16, 16, 64, gla_bwd_kernel, (size_t)BwdLayout(c, 64).total)
+    GLA_BWD_CASE(bf16, 8, 32, gla_bwd_kernel, (size_t)BwdLayout(c, 32).total)
+  } else if (dtype == 0) {
+    GLA_BWD_CASE(float, 16, 64, gla_bwd_f32_kernel, smem_bwd_f32(c, 16, 64))
+    GLA_BWD_CASE(float, 8, 32, gla_bwd_f32_kernel, smem_bwd_f32(c, 8, 32))
+  }
+#undef GLA_BWD_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int N, int P>
@@ -1059,7 +1749,8 @@ int launch_f32(Which which, const GlaIn<float>& in, int B, void* o0, void* o1, v
   if (which == CHUNK) {
     auto kern = gla_chunk_f32_kernel<N, P>;
     if ((err = set_smem(kern, smem)) != cudaSuccess) return (int)err;
-    kern<<<B * in.H, THREADS, smem, st>>>(in, static_cast<float*>(o0), static_cast<float*>(o1));
+    kern<<<B * in.H, THREADS, smem, st>>>(in, static_cast<float*>(o0), static_cast<float*>(o1),
+                                          static_cast<float*>(o2));
   } else if (which == PHASE_A) {
     auto kern = gla_phase_a_f32_kernel<N, P>;
     if ((err = set_smem(kern, smem)) != cudaSuccess) return (int)err;
@@ -1087,7 +1778,7 @@ int launch_bf16(Which which, const GlaIn<bf16>& in, int B, void* o0, void* o1, v
     auto kern = gla_chunk_kernel<N, P>;
     if ((err = set_smem(kern, smem)) != cudaSuccess) return (int)err;
     kern<<<B * in.H * NS, THREADS, smem, st>>>(in, static_cast<bf16*>(o0),
-                                               static_cast<float*>(o1));
+                                               static_cast<float*>(o1), static_cast<float*>(o2));
   } else if (which == PHASE_A) {
     auto kern = gla_phase_a_kernel<N, P>;
     int grid = 0;
@@ -1150,6 +1841,18 @@ extern "C" int repro_gla_chunk(const void* q, const void* k, const void* v, cons
                   stream);
 }
 
+// K4 for training: repro_gla_chunk, and the state entering each chunk into
+// starts, [B,H,nc,N,P] float32 contiguous (zeros for chunk 0), which the
+// backward reads. y and state are the same bits as repro_gla_chunk's.
+extern "C" int repro_gla_chunk_starts(const void* q, const void* k, const void* v,
+                                      const void* lg, void* y, void* state, void* starts, int B,
+                                      int S, int H, int N, int P, int c,
+                                      const long long* strides, int dtype, void* stream) {
+  if (starts == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(CHUNK, q, k, v, lg, y, state, starts, B, S, H, N, P, c, strides, dtype,
+                  stream);
+}
+
 // K5 phase A. y_intra: [B,S,H,P] contiguous; g: [B,H,nc]; d: [B,H,nc,N,P].
 extern "C" int repro_gla_phase_a(const void* q, const void* k, const void* v, const void* lg,
                                  void* y_intra, void* g, void* d, int B, int S, int H, int N,
@@ -1169,8 +1872,22 @@ extern "C" int repro_gla_phase_b(const void* q, const void* lg, const void* star
                   const_cast<void*>(y_intra), B, S, H, N, P, c, strides, dtype, stream);
 }
 
+// K4b, the backward of K4's function: dq, dk [B,S,H,N] float32 (per head),
+// dv [B,S,H,P] in v's type and dlg [B,S,H] float32, all contiguous, from q,
+// k, v, lg, dy and K4's chunk start states starts [B,H,nc,N,P] float32.
+// strides: q, k, v, lg, dy, three each (batch, position, head), in elements.
+extern "C" int repro_gla_chunk_bwd(const void* q, const void* k, const void* v, const void* lg,
+                                   const void* dy, const void* starts, void* dq, void* dk,
+                                   void* dv, void* dlg, int B, int S, int H, int N, int P,
+                                   int c, const long long* strides, int dtype, void* stream) {
+  return dispatch_bwd(q, k, v, lg, dy, static_cast<const float*>(starts),
+                      static_cast<float*>(dq), static_cast<float*>(dk), dv,
+                      static_cast<float*>(dlg), B, S, H, N, P, c, strides, dtype, stream);
+}
+
 // Dynamic shared memory of one block of kernel `which` (0 K4, 1 phase A, 2
-// phase B) at chunk c, in bytes; the launch refuses more than a block has.
+// phase B, 3 K4b) at chunk c, in bytes; the launch refuses more than a block
+// has.
 extern "C" long long repro_gla_smem_bytes(int which, int c, int N, int P, int dtype) {
   return (long long)smem_bytes(static_cast<Which>(which), c, N, P, dtype);
 }

@@ -16,6 +16,14 @@ The Hopper twins of the JAX package's Pallas kernels in
   float32 one block per (row, head, chunk)), with the scan over chunks
   between them in plain torch (:func:`scan_chunks`, chunk order). The plain versions of the phases and the scan are
   ``ref.gla_phase_a``, ``ref.gla_phase_b`` and ``ref.gla_scan``.
+* :func:`gla_chunk_bwd` (K4b, the port's own kernel: the reference
+  differentiates the plain-XLA ``ssm.chunked_gla``): dq, dk, dv and dlg of
+  K4's function from the state entering each chunk, which K4 writes with
+  ``starts=True``; one block per (row, head) walks the chunks in reverse,
+  deterministic (no atomics). Its plain version is
+  :func:`repro_torch.kernels.ref.gla_bwd`. :class:`GLAChunk` joins K4 and
+  K4b for ``torch.autograd``; both schedules compute one function, and
+  training takes the chunk schedule.
 
 Layout: q, k ``[B,S,H,N]`` and v ``[B,S,H,P]`` with any strides whose last
 dim is contiguous (the model passes its head-broadcast q and k as
@@ -39,6 +47,8 @@ launches = 0
 launches_a = 0
 #: launches of K5's phase B, likewise
 launches_b = 0
+#: launches of K4b, the backward, likewise
+bwd_launches = 0
 #: the shared library whose C entries (``repro_gla_*``) the wrappers launch:
 #: None for the one built from ``csrc/gla_chunk.cu``; the path of another
 #: build of a source with the same entries (a diagnostic build of
@@ -49,11 +59,12 @@ library = None
 SHAPES = ((16, 64), (8, 32))
 MAX_SMEM = 232448        # a block's shared memory on sm_90, bytes
 #: the kernels as ``repro_gla_smem_bytes`` numbers them
-KERNELS = ("chunk", "phase_a", "phase_b")
+KERNELS = ("chunk", "phase_a", "phase_b", "bwd")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 #: pointer arguments of each C entry (csrc/gla_chunk.cu)
-_N_PTRS = {"repro_gla_chunk": 6, "repro_gla_phase_a": 7, "repro_gla_phase_b": 5}
+_N_PTRS = {"repro_gla_chunk": 6, "repro_gla_chunk_starts": 7, "repro_gla_phase_a": 7,
+           "repro_gla_phase_b": 5, "repro_gla_chunk_bwd": 10}
 
 
 @functools.cache
@@ -134,12 +145,16 @@ def _check_np(N, P, c, what, kernel, dtype):
         raise ValueError(f"{what} kernel: chunk {c} needs {need} bytes of shared memory")
 
 
+def _rows_ok(t):
+    """bf16: each [B,S,H,*] row starts on 16 bytes (the kernels copy rows
+    16 bytes at a time); float32 rows may start anywhere."""
+    return t.dtype != torch.bfloat16 or (t.data_ptr() % 16 == 0 and not any(
+        st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
+
+
 def _check_rows(what, *ts):
-    """bf16: each [B,S,H,*] row must start on 16 bytes (the kernels copy
-    rows 16 bytes at a time)."""
     for t in ts:
-        if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(
-                st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)):
+        if not _rows_ok(t):
             raise ValueError(f"{what} kernel: bf16 rows must start on 16 bytes; got data "
                              f"pointer % 16 = {t.data_ptr() % 16}, strides {t.stride()}")
 
@@ -158,9 +173,12 @@ def _call(entry, ptrs, dims, strides, dtype, device):
     build.check(rc, entry)
 
 
-def gla_chunk(q, k, v, lg, *, chunk):
+def gla_chunk(q, k, v, lg, *, chunk, starts=False):
     """K4. q,k: [B,S,H,N]; v: [B,S,H,P]; lg: [B,S,H]. Returns (y
-    [B,S,H,P] in v's dtype, final state [B,H,N,P] float32)."""
+    [B,S,H,P] in v's dtype, final state [B,H,N,P] float32); with
+    ``starts`` also the state entering each chunk [B,H,nc,N,P] float32
+    (zeros for chunk 0), which :func:`gla_chunk_bwd` reads (y and the final
+    state are the same bits either way)."""
     global launches
     B, S, H, N, P, c = _check(q, k, v, lg, chunk, "gla_chunk")
     _check_np(N, P, c, "gla_chunk", "chunk", q.dtype)
@@ -168,12 +186,76 @@ def gla_chunk(q, k, v, lg, *, chunk):
     lgf = lg.float()
     y = torch.empty((B, S, H, P), dtype=v.dtype, device=q.device)
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=q.device)
-    _call("repro_gla_chunk",
-          (q.data_ptr(), k.data_ptr(), v.data_ptr(), lgf.data_ptr(), y.data_ptr(),
-           state.data_ptr()),
-          (B, S, H, N, P, c), _strides(q, k, v, lgf), q.dtype, q.device)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), lgf.data_ptr(), y.data_ptr(),
+            state.data_ptr()]
+    entry = "repro_gla_chunk"
+    if starts:
+        st = torch.empty((B, H, S // c, N, P), dtype=torch.float32, device=q.device)
+        ptrs.append(st.data_ptr())
+        entry = "repro_gla_chunk_starts"
+    _call(entry, ptrs, (B, S, H, N, P, c), _strides(q, k, v, lgf), q.dtype, q.device)
     launches += 1
-    return y, state
+    return (y, state, st) if starts else (y, state)
+
+
+def gla_chunk_bwd(q, k, v, lg, dy, starts, *, chunk):
+    """K4b: the gradient of :func:`gla_chunk`'s y at (q, k, v, lg) given
+    ``dy`` [B,S,H,P] (v's dtype, any strides whose rows are contiguous) and
+    K4's ``starts`` [B,H,nc,N,P] float32. Returns (dq, dk [B,S,H,N] float32
+    per head: a head-stride-0 q or k gets each head's share, which the
+    ``expand``'s backward sums; dv [B,S,H,P] in v's dtype; dlg [B,S,H]
+    float32), all contiguous. Deterministic: equal inputs give equal
+    bits."""
+    global bwd_launches
+    B, S, H, N, P, c = _check(q, k, v, lg, chunk, "gla_chunk_bwd")
+    _check_np(N, P, c, "gla_chunk_bwd", "bwd", q.dtype)
+    if dy.shape != v.shape or dy.dtype != v.dtype or dy.device != q.device \
+            or dy.stride(-1) != 1:
+        raise ValueError(f"gla_chunk_bwd kernel: dy {tuple(dy.shape)} {dy.dtype} needs "
+                         f"v's shape and dtype {tuple(v.shape)} {v.dtype}, rows contiguous")
+    nc = S // c
+    if starts.shape != (B, H, nc, N, P) or starts.dtype != torch.float32 \
+            or not starts.is_contiguous() or starts.device != q.device \
+            or starts.data_ptr() % 16:
+        raise ValueError(f"gla_chunk_bwd kernel: starts {tuple(starts.shape)} "
+                         f"{starts.dtype}; needs ({B}, {H}, {nc}, {N}, {P}) float32, "
+                         "contiguous, on 16 bytes")
+    _check_rows("gla_chunk_bwd", q, k, v, dy)
+    lgf = lg.float()
+    dq = torch.empty((B, S, H, N), dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(dq)
+    dv = torch.empty((B, S, H, P), dtype=v.dtype, device=q.device)
+    dlg = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+    _call("repro_gla_chunk_bwd",
+          [x.data_ptr() for x in (q, k, v, lgf, dy, starts, dq, dk, dv, dlg)],
+          (B, S, H, N, P, c), _strides(q, k, v, lgf, dy), q.dtype, q.device)
+    bwd_launches += 1
+    return dq, dk, dv, dlg
+
+
+class GLAChunk(torch.autograd.Function):
+    """:func:`gla_chunk` with its gradient from :func:`gla_chunk_bwd`: the
+    forward runs K4 with the chunk start states and saves them with q, k, v
+    and lg; the backward runs K4b. The final state takes no gradient
+    (training discards it; it is marked non-differentiable), and neither
+    does ``chunk``. dq and dk come back in q's and k's dtype, per head,
+    before the ``expand``'s backward sums them; dlg in lg's."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lg, chunk):
+        y, state, starts = gla_chunk(q, k, v, lg, chunk=chunk, starts=True)
+        ctx.save_for_backward(q, k, v, lg, starts)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(state)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, _dstate):
+        q, k, v, lg, starts = ctx.saved_tensors
+        if dy.stride(-1) != 1 or not _rows_ok(dy):
+            dy = dy.contiguous()
+        dq, dk, dv, dlg = gla_chunk_bwd(q, k, v, lg, dy, starts, chunk=ctx.chunk)
+        return dq.to(q.dtype), dk.to(k.dtype), dv, dlg.to(lg.dtype), None
 
 
 def gla_phase_a(q, k, v, lg, *, chunk):

@@ -182,13 +182,13 @@ def naive_gla(q, k, v, lg):
 
 
 def _by_chunk(q, k, v, lg, chunk):
-    """float32 [B,nc,c,H,*] views of q, k, v and the within-chunk inclusive
-    cumsum of lg [B,nc,c,H]."""
+    """float32 (float64 for float64 inputs) [B,nc,c,H,*] views of q, k, v
+    and the within-chunk inclusive cumsum of lg [B,nc,c,H]."""
     B, S, H, N = q.shape
     c = chunk_len(S, chunk)
     nc = S // c
-    cum = lg.float().reshape(B, nc, c, H).cumsum(2)
-    return tuple(None if x is None else x.float().reshape(B, nc, c, H, x.shape[-1])
+    cum = _acc(lg).reshape(B, nc, c, H).cumsum(2)
+    return tuple(None if x is None else _acc(x).reshape(B, nc, c, H, x.shape[-1])
                  for x in (q, k, v)) + (cum,)
 
 
@@ -200,7 +200,13 @@ def _intra_and_delta(qf, kf, vf, cum):
     s = torch.einsum("bzihn,bzjhn->bzhij", qf, kf)
     ch = cum.transpose(2, 3)                                   # [B,nc,H,c]
     mask = torch.ones((c, c), dtype=torch.bool, device=cum.device).tril()
-    w = torch.where(mask, torch.exp(ch[..., :, None] - ch[..., None, :]), 0.0)
+    # the exponent is masked before the exp as well as after: above the
+    # diagonal cum_i - cum_j > 0 can overflow to inf, and the gradient
+    # through a where of inf is 0 * inf = nan (the reference's
+    # ``chunked_gla`` masks only after, so its lg gradient is nan once a
+    # chunk's decays pass exp's range); the values are the same bits
+    dec = torch.where(mask, ch[..., :, None] - ch[..., None, :], 0.0)
+    w = torch.where(mask, torch.exp(dec), 0.0)
     y = torch.einsum("bzhij,bzjhp->bzihp", s * w, vf)
     total = cum[:, :, -1]
     kdec = torch.exp(total[:, :, None] - cum)                  # [B,nc,c,H]
@@ -208,20 +214,84 @@ def _intra_and_delta(qf, kf, vf, cum):
     return y, d, total
 
 
-def chunked_gla(q, k, v, lg, chunk=256):
+def chunked_gla(q, k, v, lg, chunk=256, *, starts=False):
     """A copy of the reference's ``ssm.chunked_gla`` (the plain version of
     K4): the chunks in order, carrying the state. Returns (y [B,S,H,P] in
-    q's dtype, final state [B,H,N,P] float32)."""
+    q's dtype, final state [B,H,N,P] float32); with ``starts`` also the
+    state entering each chunk [B,H,nc,N,P] (zeros for chunk 0), K4's
+    output for training (the plain version of ``gla_chunk(...,
+    starts=True)``). Differentiable by autograd: the plain route's
+    training path."""
     B, S, H, _ = q.shape
     qf, kf, vf, cum = _by_chunk(q, k, v, lg, chunk)
     y_intra, d, total = _intra_and_delta(qf, kf, vf, cum)
     state = torch.zeros_like(d[:, :, 0])
-    ys = []
+    ys, entering = [], []
     for z in range(cum.shape[1]):
+        entering.append(state)
         qdec = qf[:, z] * torch.exp(cum[:, z])[..., None]
         ys.append(y_intra[:, z] + torch.einsum("bihn,bhnp->bihp", qdec, state))
         state = state * torch.exp(total[:, z])[..., None, None] + d[:, :, z]
-    return torch.stack(ys, dim=1).reshape(B, S, H, -1).to(q.dtype), state
+    y = torch.stack(ys, dim=1).reshape(B, S, H, -1).to(q.dtype)
+    return (y, state, torch.stack(entering, dim=2)) if starts else (y, state)
+
+
+def gla_bwd(q, k, v, lg, dy, starts, *, chunk, dfinal=None):
+    """The gradient of :func:`chunked_gla` (the plain version of the GLA
+    backward kernel), as the kernel computes it: the chunks in reverse,
+    carrying dS, the gradient of the state leaving the chunk (``dfinal``
+    [B,H,N,P] for the last, else zeros). Within a chunk, with cum the
+    inclusive cumsum of lg, tot its last value, S_z = ``starts[:, :, z]``
+    the state entering it and W_ij = exp(cum_i - cum_j) for j <= i:
+
+        dq_i = sum_{j<=i} W_ij (dy_i . v_j) k_j + exp(cum_i) S_z dy_i
+        dk_j = sum_{i>=j} W_ij (dy_i . v_j) q_i + exp(tot - cum_j) dS v_j
+        dv_j = sum_{i>=j} W_ij (q_i . k_j) dy_i + exp(tot - cum_j) dS^T k_j
+        dS  <- exp(tot) dS + sum_i exp(cum_i) q_i dy_i^T
+
+    and dlg by the scalar-decay identity dlg_t = sum_{s>=t} (q_s . dq_s -
+    k_s . dk_s) per head, plus <final, dfinal> at every position (the
+    final state's decay runs through every lg). q, k [B,S,H,N] (any
+    strides; head-stride-0 views take per-head gradients), v, dy
+    [B,S,H,P], lg [B,S,H], starts [B,H,nc,N,P]. Returns (dq, dk [B,S,H,N]
+    and dlg [B,S,H] float32 (float64 for float64 inputs), per head; dv in
+    v's dtype)."""
+    B, S, H, N = q.shape
+    qf, kf, vf, cum = _by_chunk(q, k, v, lg, chunk)
+    nc, c, P = cum.shape[1], cum.shape[2], vf.shape[-1]
+    dyf = _acc(dy).reshape(B, nc, c, H, P)
+    st = starts.to(qf.dtype)
+    mask = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
+    dS = torch.zeros_like(st[:, :, 0]) if dfinal is None else dfinal.to(qf.dtype)
+    dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)
+    for z in reversed(range(nc)):
+        qc, kc, vc, dyc = qf[:, z], kf[:, z], vf[:, z], dyf[:, z]     # [B,c,H,*]
+        ch = cum[:, z].transpose(1, 2)                               # [B,H,c]
+        tot = ch[..., -1]                                            # [B,H]
+        w = torch.where(mask, torch.exp(torch.where(mask, ch[..., :, None] - ch[..., None, :],
+                                                    0.0)), 0.0)
+        m = w * torch.einsum("bihp,bjhp->bhij", dyc, vc)
+        m2 = w * torch.einsum("bihn,bjhn->bhij", qc, kc)
+        eq, ek = torch.exp(ch), torch.exp(tot[..., None] - ch)       # [B,H,c]
+        dq[:, z] = (torch.einsum("bhij,bjhn->bihn", m, kc)
+                    + torch.einsum("bhi,bihp,bhnp->bihn", eq, dyc, st[:, :, z]))
+        dk[:, z] = (torch.einsum("bhij,bihn->bjhn", m, qc)
+                    + torch.einsum("bhj,bjhp,bhnp->bjhn", ek, vc, dS))
+        dv[:, z] = (torch.einsum("bhij,bihp->bjhp", m2, dyc)
+                    + torch.einsum("bhj,bjhn,bhnp->bjhp", ek, kc, dS))
+        dS = dS * torch.exp(tot)[..., None, None] + torch.einsum(
+            "bhi,bihn,bihp->bhnp", eq, qc, dyc)
+    dq, dk = dq.reshape(B, S, H, N), dk.reshape(B, S, H, N)
+    r = (qf.reshape(B, S, H, N) * dq).sum(-1) - (kf.reshape(B, S, H, N) * dk).sum(-1)
+    dlg = r.flip(1).cumsum(1).flip(1)
+    if dfinal is not None:
+        # the final state, from the last chunk's entering one
+        ch = cum[:, -1].transpose(1, 2)
+        delta = torch.einsum("bhj,bjhn,bjhp->bhnp", torch.exp(ch[..., -1:] - ch),
+                             kf[:, -1], vf[:, -1])
+        final = st[:, :, -1] * torch.exp(ch[..., -1])[..., None, None] + delta
+        dlg = dlg + (final * dfinal.to(qf.dtype)).sum((-2, -1))[:, None]
+    return dq, dk, dv.reshape(B, S, H, P).to(v.dtype), dlg
 
 
 def gla_phase_a(q, k, v, lg, *, chunk):

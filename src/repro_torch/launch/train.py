@@ -4,7 +4,8 @@ port of the JAX package's ``launch/train.py``).
 Every run is a Cluster of logical ranks (threads in one process). The
 training step is one device's step in PyTorch (no mesh): every layer's
 attention runs the hand-written flash kernel forward and its backward
-kernels on the card, the plain versions on the CPU. The MANA layer wraps
+kernels on the card, and hymba's SSD heads the GLA kernel (K4) and its
+backward kernel; the plain versions on the CPU. The MANA layer wraps
 everything around it: virtual-id-tracked communicators, drained prefetch
 requests, per-rank checkpoint images, failure detection and elastic
 restart (another world size or MPI flavor on resume). A checkpoint holds
@@ -340,7 +341,7 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--device", default="cuda",
-                    help="torch device; 'cpu' runs the plain attention under autograd")
+                    help="torch device; 'cpu' runs the kernels' plain versions under autograd")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=64)

@@ -18,18 +18,24 @@ from repro_torch.kernels import ops
 from repro_torch.models.params import ParamSpec
 
 
+def acc_dtype(x):
+    """The type the norms, rope and the head compute in: float32, or float64
+    for a float64 model (a precision yardstick)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def rmsnorm(x, w, eps=1e-5):
-    xf = x.float()
+    xf = x.to(acc_dtype(x))
     y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
-    return (y * w.float()).to(x.dtype)
+    return (y * w.to(xf.dtype)).to(x.dtype)
 
 
 def rms_groupnorm(x, w, groups, eps=1e-5):
     """Per-head RMS norm over the trailing dim split into ``groups`` heads."""
     *lead, d = x.shape
-    xf = x.float().reshape(*lead, groups, d // groups)
+    xf = x.to(acc_dtype(x)).reshape(*lead, groups, d // groups)
     y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
-    return (y.reshape(*lead, d) * w.float()).to(x.dtype)
+    return (y.reshape(*lead, d) * w.to(xf.dtype)).to(x.dtype)
 
 
 def causal_conv1d(x, w):
@@ -58,14 +64,15 @@ def ring_slot_positions(pos, W):
 
 def rope(x, positions, theta):
     """x: [..., S, H, D] (or [..., H, D] with per-row positions). Rotates the
-    two halves of each head; angles in float32."""
+    two halves of each head; angles in float32 (float64 for float64 x)."""
     half = x.shape[-1] // 2
+    dt = acc_dtype(x)
     freqs = torch.exp(-math.log(theta)
-                      * torch.arange(half, dtype=torch.float32, device=x.device) / half)
-    ang = positions[..., None].float() * freqs         # [..., S, half]
+                      * torch.arange(half, dtype=dt, device=x.device) / half)
+    ang = positions[..., None].to(dt) * freqs          # [..., S, half]
     cos = torch.cos(ang).unsqueeze(-2)                 # broadcast over heads
     sin = torch.sin(ang).unsqueeze(-2)
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    x1, x2 = x[..., :half].to(dt), x[..., half:].to(dt)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 

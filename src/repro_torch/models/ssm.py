@@ -1,10 +1,11 @@
 """The SSD mixer (Mamba-2 scalar-decay form): Hymba's parallel SSM heads.
 
 A copy of the SSD half of the JAX package's ``models/ssm.py`` (the mLSTM
-half comes with xLSTM). The prefill's chunked gated linear attention runs
-through :func:`repro_torch.kernels.ops.gla`: the CUDA kernels (K4, or K5
-under ``schedule='parallel'``) for tensors on the card, their plain
-versions on the CPU. The decode's one-token update, :func:`gla_step`, is
+half comes with xLSTM). The prefill's and training's chunked gated linear
+attention runs through :func:`repro_torch.kernels.ops.gla`: the CUDA
+kernels (K4, or K5 under ``schedule='parallel'``; in training K4 and its
+backward kernel) for tensors on the card, their plain versions on the
+CPU. The decode's one-token update, :func:`gla_step`, is
 plain torch, as the reference leaves it to XLA.
 
 The cache is ``{'state': [B,H,N,P] float32, 'conv': [B,W-1,C]}`` in the
@@ -61,17 +62,19 @@ def _gates(p, x):
     return dt, -torch.exp(p["a_log"]) * dt
 
 
-def ssd_apply(cfg, p, x, *, mode, cache, force=None, schedule="chunk"):
-    """x: [B,S,d] (prefill) or [B,d] (decode); ``cache`` is updated in place.
-    Returns (out, cache). ``schedule`` picks the prefill's GLA kernel
+def ssd_apply(cfg, p, x, *, mode, cache=None, force=None, schedule="chunk"):
+    """x: [B,S,d] (train, prefill) or [B,d] (decode); ``cache`` is updated
+    in place (train: None). Returns (out, cache). Train mode is the
+    prefill's math with no cache, differentiable (``ops.gla`` under the
+    chunk schedule). ``schedule`` picks the prefill's GLA kernel
     (:data:`repro_torch.kernels.ops.GLA_SCHEDULES`)."""
     s = cfg.ssm
     Hs, Pd, N, W = s.n_ssm_heads, s.head_dim, s.d_state, s.d_conv
     dss = Hs * Pd
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         B, S, _ = x.shape
-        if S < W - 1:
+        if mode == "prefill" and S < W - 1:
             # the reference keeps pre_conv[:, S - (W - 1):], which is short
             # of W - 1 rows here, and its next decode step fails
             raise ValueError(f"SSD prefill of {S} positions: needs at least "
@@ -90,12 +93,15 @@ def ssd_apply(cfg, p, x, *, mode, cache, force=None, schedule="chunk"):
         y = y + uh * p["d_skip"][None, None, :, None]
         y = rms_groupnorm(y.reshape(B, S, dss), p["norm"], Hs)
         out = (y * F.silu(z)) @ p["wo"]
+        if mode == "train":
+            return out, None
         cache["state"].copy_(state)
         cache["conv"].copy_(pre_conv[:, S - (W - 1):])
         return out, cache
 
     if mode != "decode":
-        raise ValueError(f"mode {mode!r}; the SSD mixer takes 'prefill' or 'decode'")
+        raise ValueError(f"mode {mode!r}; the SSD mixer takes 'train', 'prefill' or "
+                         "'decode'")
     B, _ = x.shape
     proj = x @ p["w_in"]
     pre_conv, z = proj[..., : dss + 2 * N], proj[..., dss + 2 * N:]

@@ -43,14 +43,9 @@ def _check_supported(cfg):
 
 
 def check_trainable(cfg):
-    """Training is ported for the dense attention decoder only (granite):
-    hymba's SSD heads differentiate the reference's plain-XLA GLA, whose
-    backward has no kernel in the port yet."""
+    """Training is ported for the blocks the port serves: the dense
+    attention decoder (K1's backward) and hymba (also the GLA backward)."""
     _check_supported(cfg)
-    if cfg.block != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: training is granite-only for now (dense attention "
-            "decoders); hymba's SSD mixer has no GLA backward in the port yet")
 
 
 def plan_segments(cfg):
@@ -90,7 +85,8 @@ def block_apply(cfg, kind, p, x, *, mode, window, cache, pos=None, force=None,
                             cache=None if cache is None else cache["attn"],
                             window=window, pos=pos, force=force)
     if kind == "hymba":
-        s_out, _ = SSM.ssd_apply(cfg, p["ssd"], xn, mode=mode, cache=cache["ssd"],
+        s_out, _ = SSM.ssd_apply(cfg, p["ssd"], xn, mode=mode,
+                                 cache=None if cache is None else cache["ssd"],
                                  force=force, schedule=schedule)
         x = x + 0.5 * (a_out + s_out)
     else:
@@ -117,8 +113,9 @@ def embed_tokens(cfg, params, tokens):
 
 
 def lm_head(cfg, params, h):
-    """h: [..., d] -> logits [..., padded_vocab] (float32)."""
-    return (h @ params["head"]).float()
+    """h: [..., d] -> logits [..., padded_vocab] (float32; float64 for a
+    float64 model)."""
+    return (h @ params["head"]).to(L.acc_dtype(h))
 
 
 def ring_width(window, prompt_len, max_len):

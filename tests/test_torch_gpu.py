@@ -877,7 +877,7 @@ def test_flash_lse_matches_plain_and_leaves_the_output_unchanged(cuda, window, d
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [32, 64])
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("G", [1, 4, 5])
 @pytest.mark.parametrize("S,window", [(256, None), (200, None), (77, None), (300, 50),
                                       (130, 64), (127, None), (128, None), (129, None),
                                       (255, None), (257, None), (129, 9), (255, 100),
@@ -894,6 +894,15 @@ def test_flash_bwd_matches_plain(cuda, S, window, G, D, dtype):
 def test_flash_bwd_at_granite_shape(cuda, dtype):
     q, k, v, do = _bwd_inputs(cuda, 1, 32, 8, 1024, 64, dtype, seed=3)
     _bwd_held(q, k, v, do, None, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [1024, None])
+def test_flash_bwd_at_hymba_shape(cuda, window, dtype):
+    """hymba's training shape: G = 5 (25 query heads over 5 KV heads), S
+    1536, its 29 window-1024 layers and 3 global ones."""
+    q, k, v, do = _bwd_inputs(cuda, 4, 25, 5, 1536, 64, dtype, seed=21)
+    _bwd_held(q, k, v, do, window, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -993,39 +1002,45 @@ def deterministic_restored():
 
 
 def _counts():
-    return (FA.launches, FA.bwd_dq_launches, FA.bwd_dkdv_launches)
+    return (FA.launches, FA.bwd_dq_launches, FA.bwd_dkdv_launches, GC.launches,
+            GC.bwd_launches)
 
 
-def test_smoke_train_step_on_card_matches_plain_path(cuda, deterministic_restored):
+@pytest.mark.parametrize("arch", ["granite-3-2b", "hymba-1.5b"])
+def test_smoke_train_step_on_card_matches_plain_path(cuda, deterministic_restored, arch):
     """One float32 smoke-size step's loss and gradients on the card (K1's
-    forward twice a layer under remat, the backward kernels once) against
-    the same step with the plain attention under autograd on the card:
-    max |a - b| / max |b| <= 1e-4 per leaf (float32, the kernels' sums in
-    another order, as the CPU parity tests)."""
+    forward twice a layer under remat, the backward kernels once; hymba's
+    K4 twice a layer and its backward once) against the same step with the
+    plain versions under autograd on the card: max |a - b| / max |b| <=
+    1e-4 per leaf (float32, the kernels' sums in another order, as the CPU
+    parity tests)."""
     from repro_torch import steps as ST
     from repro_torch.data import synth_batch
     from repro_torch.launch.train import Trainer
     from repro_torch.models import Model
     from repro_torch.models.params import tree_leaves
-    cfg = smoke_config("granite-3-2b")
+    cfg = smoke_config(arch)
     tr = Trainer(cfg, batch_size=2, seq_len=48, device=cuda)
     tr.pipeline.stop()
     assert torch.are_deterministic_algorithms_enabled()
     tr.init_state()
     batch = tr._device_batch(synth_batch(cfg, 2, 48, 1, 0))
     n0, L = _counts(), cfg.n_layers
+    ssd = L if arch == "hymba-1.5b" else 0
+    step = (n0[0] + 2 * L, n0[1] + L, n0[2] + L, n0[3] + 2 * ssd, n0[4] + ssd)
     grads, total, _, _ = ST.loss_and_grads(tr.model, tr.params, batch)
-    assert _counts() == (n0[0] + 2 * L, n0[1] + L, n0[2] + L)
+    assert _counts() == step
     want, want_total, _, _ = ST.loss_and_grads(Model(cfg, force="ref"), tr.params, batch)
-    assert _counts() == (n0[0] + 2 * L, n0[1] + L, n0[2] + L)
+    assert _counts() == step
     assert abs(total.item() - want_total.item()) <= 1e-5 * abs(want_total.item())
     for a, b in zip(tree_leaves(grads), tree_leaves(want)):
         assert _rel(a, b) <= 1e-4
 
 
+@pytest.mark.parametrize("arch", ["granite-3-2b", "hymba-1.5b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_smoke_train_kill_and_recover_on_card_is_byte_identical(cuda, tmp_path, dtype,
-                                                                deterministic_restored):
+                                                                deterministic_restored, arch):
     """Six steps with a checkpoint every 3: a run whose last rank dies at
     step 4 and restarts under exampi ends with the params and optimizer
     state of an uninterrupted run, byte for byte."""
@@ -1033,7 +1048,7 @@ def test_smoke_train_kill_and_recover_on_card_is_byte_identical(cuda, tmp_path, 
 
     from repro_torch.launch.train import Trainer
     from repro_torch.models.params import tree_leaves
-    cfg = replace(smoke_config("granite-3-2b"), param_dtype=dtype, compute_dtype=dtype)
+    cfg = replace(smoke_config(arch), param_dtype=dtype, compute_dtype=dtype)
 
     def run(ck, kill):
         tr = Trainer(cfg, batch_size=2, seq_len=48, device=cuda, ckpt_dir=ck, total_steps=6)
@@ -1050,3 +1065,108 @@ def test_smoke_train_kill_and_recover_on_card_is_byte_identical(cuda, tmp_path, 
         return out, losses
 
     assert run(tmp_path / "a", None) == run(tmp_path / "b", 4)
+
+
+# -- the GLA backward (K4b) --------------------------------------------------------
+
+# max |a - b| / max |b| per gradient: bf16 2e-2 (dv's products take the
+# decayed q.k rounded to bf16, as K4 rounds its probabilities, and dv is
+# bf16 on output; dq and dk are float32 to about 16 bits through the hi/lo
+# split); float32 1e-4 (exact scalar products in another order; dlg is a
+# difference of per-row dots summed over up to S positions)
+GLA_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _gla_bwd_held(q, k, v, lg, chunk, dtype, seed):
+    """K4's chunk start states against the plain ones (K4's tolerance), y
+    and the final state unchanged with them on, then K4b against
+    ``ref.gla_bwd`` on the same inputs, and a second run equal bit for
+    bit."""
+    g = torch.Generator(device=q.device).manual_seed(seed)
+    dy = torch.randn(v.shape, generator=g, device=q.device).to(dtype)
+    y, fin, starts = GC.gla_chunk(q, k, v, lg, chunk=chunk, starts=True)
+    _gla_close(starts, ref.chunked_gla(q, k, v, lg, chunk=chunk, starts=True)[2], dtype)
+    y0, fin0 = GC.gla_chunk(q, k, v, lg, chunk=chunk)
+    assert torch.equal(y, y0) and torch.equal(fin, fin0)
+    n0 = GC.bwd_launches
+    got = GC.gla_chunk_bwd(q, k, v, lg, dy, starts, chunk=chunk)
+    assert GC.bwd_launches == n0 + 1
+    want = ref.gla_bwd(q, k, v, lg, dy, starts, chunk=chunk)
+    for name, a, b in zip(("dq", "dk", "dv", "dlg"), got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert _rel(a, b) <= GLA_BWD_TOL[dtype], (name, _rel(a, b))
+    assert got[2].dtype == v.dtype and got[3].dtype == torch.float32
+    again = GC.gla_chunk_bwd(q, k, v, lg, dy, starts, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+GLA_BWD_CASES = [(2, 3, 64, 8, 32, 16, False), (1, 2, 40, 8, 32, 16, True),   # 40: chunk 8
+                 (1, 2, 96, 16, 64, 64, False), (2, 2, 512, 16, 64, 256, True),  # 96: chunk 32
+                 (1, 2, 1000, 16, 64, 256, True)]                               # 1000: chunk 8
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,S,N,P,chunk,broadcast", GLA_BWD_CASES)
+def test_gla_bwd_kernel_matches_plain(cuda, B, H, S, N, P, chunk, broadcast, dtype):
+    q, k, v, lg = _gla_inputs(cuda, B, H, S, N, P, dtype, seed=S + N, broadcast=broadcast)
+    _gla_bwd_held(q, k, v, lg, chunk, dtype, seed=S)
+
+
+@pytest.mark.parametrize("N,P", [(8, 32), (16, 64)])
+@pytest.mark.parametrize("c", [1, 8, 16, 24, 64, 256])
+def test_gla_bwd_bf16_kernel_at_every_chunk_length(cuda, c, N, P):
+    """Chunks of one row, below a 16-row tile, one tile, a ragged tile, and
+    up to the serving chunk."""
+    q, k, v, lg = _gla_inputs(cuda, 2, 2, 3 * c, N, P, torch.bfloat16, seed=c,
+                              broadcast=True)
+    _gla_bwd_held(q, k, v, lg, c, torch.bfloat16, seed=c)
+
+
+@pytest.mark.parametrize("S,N,P,chunk", [(512, 16, 64, 256), (192, 8, 32, 64)])
+def test_gla_bwd_bf16_kernel_under_steep_decays(cuda, S, N, P, chunk):
+    q, k, v, lg = _gla_inputs(cuda, 2, 2, S, N, P, torch.bfloat16, seed=S, broadcast=True,
+                              steep=True)
+    _gla_bwd_held(q, k, v, lg, chunk, torch.bfloat16, seed=S)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gla_bwd_at_hymba_training_shape(cuda, dtype):
+    q, k, v, lg = _gla_inputs(cuda, 4, 25, 1536, 16, 64, dtype, seed=1, broadcast=True)
+    _gla_bwd_held(q, k, v, lg, 256, dtype, seed=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gla_autograd_function_matches_plain_autograd(cuda, dtype):
+    """ops.gla under autograd on the card (GLAChunk: K4 with its chunk
+    start states, then K4b; the head-broadcast q and k take the sum over
+    heads in the expand's backward) against autograd of the plain version
+    on the card."""
+    q, k, v, lg = _gla_inputs(cuda, 2, 3, 200, 16, 64, dtype, seed=4, broadcast=True)
+    row = q[:, :, 0].detach().clone().requires_grad_()
+    kr = k[:, :, 0].detach().clone().requires_grad_()
+    vv, ll = v.detach().clone().requires_grad_(), lg.detach().clone().requires_grad_()
+    w = torch.randn(v.shape, device=cuda).to(dtype)
+
+    def grads(force):
+        y, _ = ops.gla(row[:, :, None].expand(q.shape), kr[:, :, None].expand(k.shape), vv,
+                       ll, chunk=64, force=force)
+        return torch.autograd.grad((y.float() * w.float()).sum(), (row, kr, vv, ll))
+    n0 = (GC.launches, GC.bwd_launches)
+    got = grads(None)
+    assert (GC.launches, GC.bwd_launches) == (n0[0] + 1, n0[1] + 1)
+    want = grads("ref")
+    assert (GC.launches, GC.bwd_launches) == (n0[0] + 1, n0[1] + 1)
+    for name, a, b in zip(("dq", "dk", "dv", "dlg"), got, want):
+        assert a.dtype == b.dtype and _rel(a, b) <= GLA_BWD_TOL[dtype], (name, _rel(a, b))
+
+
+def test_gla_bwd_refuses_what_it_does_not_take(cuda):
+    q, k, v, lg = _gla_inputs(cuda, 1, 2, 64, 16, 64, torch.bfloat16, seed=3)
+    _, _, starts = GC.gla_chunk(q, k, v, lg, chunk=16, starts=True)
+    dy = torch.zeros_like(v)
+    with pytest.raises(ValueError, match="starts"):
+        GC.gla_chunk_bwd(q, k, v, lg, dy, starts[:, :, :2], chunk=16)
+    with pytest.raises(ValueError, match="dy"):
+        GC.gla_chunk_bwd(q, k, v, lg, dy.float(), starts, chunk=16)
+    with pytest.raises(ValueError, match="not in"):
+        GC.gla_chunk_bwd(q[..., :12], k[..., :12], v, lg, dy, starts, chunk=16)

@@ -1,15 +1,17 @@
 """The port's trainer under the checkpoint-restart plane, on the CPU.
 
-* Checkpoints move between the packages both ways: a JAX ``Trainer``
-  checkpoint resumed by the port's ``Trainer``, and the port's resumed by
-  the JAX one (the module's one JAX trainer), each continuing with the
-  other's losses (max |a - b| / max |b| <= 1e-4: float32, as
-  tests/test_torch_train.py) and the same key stream and data cursor.
-* The torch chaos gate: the port's kill-rank failover (under another MPI
-  flavor and world size), and supervised ``kill_rank`` served from RAM and
-  from disk, ``preempt_notice`` on the rescale rung and ``restore_error``:
-  each run's params and optimizer state equal a fault-free port run's
-  byte for byte (tests/test_faults_supervisor.py's cases).
+* Checkpoints move between the packages both ways, granite and hymba: a
+  JAX ``Trainer`` checkpoint resumed by the port's ``Trainer``, and the
+  port's resumed by the JAX one (the module's one JAX trainer per arch),
+  each continuing with the other's losses (max |a - b| / max |b| <= 1e-4:
+  float32, as tests/test_torch_train.py) and the same key stream and data
+  cursor.
+* The torch chaos gate, granite and hymba: the port's kill-rank failover
+  (under another MPI flavor and world size), and supervised ``kill_rank``
+  served from RAM and from disk, ``preempt_notice`` on the rescale rung and
+  ``restore_error``: each run's params and optimizer state equal a
+  fault-free port run's byte for byte (tests/test_faults_supervisor.py's
+  cases).
 * The CLI's surfaces 1 (kill-rank and cross-flavor restart), 4
   (supervised, disk), 6 (the RAM tier) and 7 (the rescale rung) with
   ``--device cpu``, and ``--resume`` under another flavor.
@@ -25,7 +27,7 @@ import jax  # noqa: E402
 
 from repro.configs import smoke_config as jax_smoke_config  # noqa: E402
 from repro.launch.train import Trainer as JaxTrainer  # noqa: E402
-from repro_torch.configs import CkptIOConfig, smoke_config  # noqa: E402
+from repro_torch.configs import CkptIOConfig, SSMConfig, smoke_config  # noqa: E402
 from repro_torch.core import faults  # noqa: E402
 from repro_torch.core.ckpt_tiers import ReplicaTier  # noqa: E402
 from repro_torch.core.faults import FaultInjector, FaultPlan, FaultSpec  # noqa: E402
@@ -39,6 +41,9 @@ torch.set_num_threads(1)
 ARCH = "granite-3-2b"
 B, S = 2, 32
 STEPS, EVERY = 9, 3
+#: the trained archs and their sequence lengths (hymba's at a length its
+#: smoke window of 32 bites)
+ARCHS = {"granite-3-2b": 32, "hymba-1.5b": 48}
 
 
 @pytest.fixture(autouse=True)
@@ -55,11 +60,13 @@ def _close(tr):
 
 # -- checkpoints across the packages ---------------------------------------------
 
-@pytest.fixture(scope="module")
-def jax_trainer(tmp_path_factory):
-    """The module's JAX Trainer: 9 steps with a checkpoint every 3 (steps 3,
-    6 and 9 kept); its initial params and per-step losses."""
-    tr = JaxTrainer(jax_smoke_config(ARCH), batch_size=B, seq_len=S, world_size=2,
+@pytest.fixture(scope="module", params=list(ARCHS))
+def jax_trainer(request, tmp_path_factory):
+    """The module's JAX Trainer per arch: 9 steps with a checkpoint every 3
+    (steps 3, 6 and 9 kept); its arch, initial params and per-step
+    losses."""
+    arch = request.param
+    tr = JaxTrainer(jax_smoke_config(arch), batch_size=B, seq_len=ARCHS[arch], world_size=2,
                     total_steps=STEPS, mesh=None,
                     ckpt_dir=tmp_path_factory.mktemp("jax") / "ck")
     tr.init_state()
@@ -70,7 +77,7 @@ def jax_trainer(tmp_path_factory):
         if tr.step % EVERY == 0:
             tr.checkpoint()
     tr.cluster.writer.wait_idle()
-    yield tr, p0, losses
+    yield tr, arch, p0, losses
     _close(tr)
 
 
@@ -93,9 +100,9 @@ def _fold_chain(seed, n):
 
 
 def test_jax_trainer_checkpoint_resumes_in_the_port(jax_trainer, tmp_path):
-    jtr, _, losses = jax_trainer
+    jtr, arch, _, losses = jax_trainer
     ck = jtr.cluster.writer.base / "step_00000006"
-    tr = _port(ckpt_dir=tmp_path / "ck")
+    tr = _port(smoke_config(arch), seq_len=ARCHS[arch], ckpt_dir=tmp_path / "ck")
     tr.init_state()
     try:
         tr.restore(ck, new_backend="exampi")
@@ -111,9 +118,9 @@ def test_jax_trainer_checkpoint_resumes_in_the_port(jax_trainer, tmp_path):
 
 
 def test_port_checkpoint_resumes_in_the_jax_trainer(jax_trainer, tmp_path):
-    jtr, p0, losses = jax_trainer
-    cfg = smoke_config(ARCH)
-    tr = _port(ckpt_dir=tmp_path / "ck")
+    jtr, arch, p0, losses = jax_trainer
+    cfg = smoke_config(arch)
+    tr = _port(cfg, seq_len=ARCHS[arch], ckpt_dir=tmp_path / "ck")
     tr.init_state(from_jax_params(p0, cfg, "cpu"))
     try:
         mine = [float(tr.step_once()["loss"]) for _ in range(6)]
@@ -150,17 +157,21 @@ def test_trainer_refuses_a_checkpoint_without_a_runtime_section(tmp_path):
 
 # -- the torch chaos gate ---------------------------------------------------------
 
-def _tiny_cfg():
-    return replace(smoke_config(ARCH), n_layers=1, d_model=32, n_heads=2, n_kv_heads=1,
-                   head_dim=16, d_ff=64, vocab_size=128, vocab_pad_multiple=64)
+def _tiny_cfg(arch=ARCH):
+    cfg = replace(smoke_config(arch), n_layers=1, d_model=32, n_heads=2, n_kv_heads=1,
+                  head_dim=16, d_ff=64, vocab_size=128, vocab_pad_multiple=64)
+    if arch == "hymba-1.5b":   # a window layer and a global one; SSD heads of 16
+        cfg = replace(cfg, n_layers=2, global_layers=(1,),
+                      ssm=SSMConfig(d_state=8, d_conv=4, n_ssm_heads=2, head_dim=16, chunk=8))
+    return cfg
 
 
 def _io():
     return CkptIOConfig(codec="zlib", incremental=True, drain_timeout=1.0)
 
 
-def _tiny(ckpt_dir, world=2):
-    return _port(_tiny_cfg(), batch_size=4, seq_len=16, world_size=world,
+def _tiny(ckpt_dir, world=2, arch=ARCH):
+    return _port(_tiny_cfg(arch), batch_size=4, seq_len=16, world_size=world,
                  ckpt_dir=ckpt_dir, ckpt_io=_io())
 
 
@@ -168,9 +179,14 @@ def _bytes(tr):
     return [t.numpy().tobytes() for t in tree_leaves({"p": tr.params, "o": tr.opt_state})]
 
 
+@pytest.fixture(scope="module", params=list(ARCHS))
+def chaos_arch(request):
+    return request.param
+
+
 @pytest.fixture(scope="module")
-def ref_bytes(tmp_path_factory):
-    tr = _tiny(tmp_path_factory.mktemp("ref") / "ck")
+def ref_bytes(tmp_path_factory, chaos_arch):
+    tr = _tiny(tmp_path_factory.mktemp("ref") / "ck", arch=chaos_arch)
     tr.init_state()
     try:
         tr.run(STEPS, ckpt_every=EVERY, log_every=100)
@@ -202,8 +218,8 @@ def test_adafactor_trainer_restores_its_factored_state_byte_identical(tmp_path):
 
 
 def test_kill_rank_failover_under_another_flavor_is_byte_identical(tmp_path, ref_bytes,
-                                                                   capsys):
-    tr = _tiny(tmp_path / "ck", world=4)
+                                                                   chaos_arch, capsys):
+    tr = _tiny(tmp_path / "ck", world=4, arch=chaos_arch)
     tr.init_state()
     try:
         tr.run(STEPS, ckpt_every=EVERY, kill_rank_at=5, new_backend_on_restart="exampi",
@@ -216,10 +232,10 @@ def test_kill_rank_failover_under_another_flavor_is_byte_identical(tmp_path, ref
         _close(tr)
 
 
-def _supervised(tmp_path, specs, *, world=2, tier=True, **cfg_kw):
+def _supervised(tmp_path, specs, arch, *, world=2, tier=True, **cfg_kw):
     cfg_kw.setdefault("backoff_floor_s", 0.01)
     cfg_kw.setdefault("backoff_ceiling_s", 0.05)
-    tr = _tiny(tmp_path / "ck", world=world)
+    tr = _tiny(tmp_path / "ck", world=world, arch=arch)
     tr.init_state()
     with FaultInjector(FaultPlan(specs)) as inj:
         sup = Supervisor(tr, injector=inj, lease_s=1.0, verbose=False,
@@ -230,8 +246,8 @@ def _supervised(tmp_path, specs, *, world=2, tier=True, **cfg_kw):
 
 
 @pytest.mark.parametrize("tier", ["ram", "disk"])
-def test_supervised_kill_rank_is_byte_identical(tmp_path, ref_bytes, tier):
-    tr, incidents = _supervised(tmp_path, [FaultSpec("kill_rank", at_step=5)],
+def test_supervised_kill_rank_is_byte_identical(tmp_path, ref_bytes, chaos_arch, tier):
+    tr, incidents = _supervised(tmp_path, [FaultSpec("kill_rank", at_step=5)], chaos_arch,
                                 tier=tier == "ram")
     try:
         inc, = incidents
@@ -244,9 +260,9 @@ def test_supervised_kill_rank_is_byte_identical(tmp_path, ref_bytes, tier):
         _close(tr)
 
 
-def test_supervised_preempt_notice_rescales_byte_identical(tmp_path, ref_bytes):
+def test_supervised_preempt_notice_rescales_byte_identical(tmp_path, ref_bytes, chaos_arch):
     tr, incidents = _supervised(tmp_path, [FaultSpec("preempt_notice", at_step=5, rank=3)],
-                                world=4)
+                                chaos_arch, world=4)
     try:
         inc, = incidents
         assert inc.tier == "rescale" and inc.ckpt is None
@@ -257,8 +273,9 @@ def test_supervised_preempt_notice_rescales_byte_identical(tmp_path, ref_bytes):
         _close(tr)
 
 
-def test_supervised_restore_error_retries_byte_identical(tmp_path, ref_bytes):
-    tr, incidents = _supervised(tmp_path, [FaultSpec("restore_error", at_step=5)])
+def test_supervised_restore_error_retries_byte_identical(tmp_path, ref_bytes, chaos_arch):
+    tr, incidents = _supervised(tmp_path, [FaultSpec("restore_error", at_step=5)],
+                                chaos_arch)
     try:
         inc, = incidents
         assert inc.tier == "ram" and len(inc.ladder) == 1
@@ -292,6 +309,17 @@ def test_cli_kill_rank_restarts_under_another_flavor(tmp_path, capsys):
     dirs = sorted(p.name for p in ck.iterdir())
     assert dirs == ["step_00000008", "step_00000012"]
     assert all((ck / d / "COMMIT").exists() for d in dirs)
+
+
+def test_cli_hymba_kill_rank_restarts_under_another_flavor(tmp_path, capsys):
+    """hymba-1.5b at smoke size through the CLI: a rank dies at step 6 and
+    the job restarts from step 4 under exampi and finishes."""
+    tr = train_cli.main(CLI + ["--arch", "hymba-1.5b", "--kill-rank-at", "6",
+                               "--restart-backend", "exampi",
+                               "--ckpt-dir", str(tmp_path / "ck")])
+    out = capsys.readouterr().out
+    assert "!! recovered from step_00000004 at step 4 (world=2, backend=exampi)" in out
+    assert "done: loss " in out and tr.step == 12 and tr.cfg.block == "hymba"
 
 
 def test_cli_resume_under_another_flavor_continues_the_losses(tmp_path, capsys):

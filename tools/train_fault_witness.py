@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Would the train phase's step-1 hold catch a wrong K1 backward?
+"""Would the train phases' step-1 holds catch a wrong backward kernel?
 
-    python3 tools/train_fault_witness.py
+    python3 tools/train_fault_witness.py                      # K1's, granite
+    python3 tools/train_fault_witness.py --arch hymba-1.5b    # the GLA's, hymba
 
 Computes ``chip_smoke.py``'s train-phase step 1 (full-width granite-3-2b,
 bf16, seed 0, the pipeline's first batch of 4 x 1024 tokens, the
@@ -19,12 +20,30 @@ edited):
 For each it prints the three readings ``chip_smoke.py`` holds step 1 to
 (loss and grad_norm relative to the plain path's, and each leaf's
 ||a - b|| / ||b||) beside that script's tolerances, and whether the hold
-would pass. Needs one CUDA device and nvcc; imports nothing of JAX.
+would pass.
+
+``--arch hymba-1.5b`` runs the train_hymba phase's step 1 (full-width
+hymba-1.5b, bf16 params, seed 0, the pipeline's first batch of 4 x 1536)
+through ``chip_smoke.hymba_step1_hold`` (the float64 yardstick and the
+float32 paths, so the faults act on the float32 kernel's output; the
+bf16 kernel is held in ``chip_smoke.py``'s phase 3) clean and with two
+faults planted at run time through the GLA backward's entry point
+``gla_chunk_bwd``:
+
+- ``no_dlg``: dlg zeroed (a_log's gradient comes only through it, dt's
+  partly);
+- ``no_carry``: dS not carried across chunks (each chunk's backward
+  called alone, so the later chunks' state gradient never reaches its dk
+  and dv; dlg's suffix sums still run across the chunks).
+
+Needs one CUDA device and nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
 import statistics
 import sys
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -32,11 +51,77 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 
+def hymba() -> int:
+    """The GLA backward's faults against the train_hymba phase's step-1
+    hold."""
+    import torch
+    import chip_smoke as CS
+    from repro_torch.configs import get_config
+    from repro_torch.data import synth_batch
+    from repro_torch.kernels import gla_chunk as GC
+    from repro_torch.launch.train import set_deterministic
+    from repro_torch.models import Model
+
+    dev = torch.device("cuda")
+    set_deterministic(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(CS.card_line(), flush=True)
+    cfg = get_config("hymba-1.5b")
+    state = types.SimpleNamespace(params=Model(cfg).init(0, dev))
+    host = synth_batch(cfg, CS.HYMBA_B, CS.HYMBA_S, 1, 0)
+    batch = {k: torch.from_numpy(host[k]).to(dev, torch.int64) for k in ("tokens", "targets")}
+
+    def names(tree, path=""):
+        if isinstance(tree, dict):
+            return [n for k in sorted(tree) for n in names(tree[k], f"{path}/{k}")]
+        if isinstance(tree, list):
+            return [n for i, t in enumerate(tree) for n in names(t, f"{path}/{i}")]
+        return [path[1:]]
+
+    def rel_norm(a, b):
+        return (torch.linalg.vector_norm(a.float() - b.float())
+                / torch.linalg.vector_norm(b.float())).item()
+
+    real_bwd = GC.gla_chunk_bwd
+
+    def no_dlg(q, k, v, lg, dy, starts, *, chunk):
+        dq, dk, dv, dlg = real_bwd(q, k, v, lg, dy, starts, chunk=chunk)
+        return dq, dk, dv, torch.zeros_like(dlg)
+
+    def no_carry(q, k, v, lg, dy, starts, *, chunk):
+        c = GC.chunk_len(q.shape[1], chunk)
+        parts = [real_bwd(*(x[:, z * c:(z + 1) * c] for x in (q, k, v, lg, dy)),
+                          starts[:, :, z:z + 1].contiguous(), chunk=c)
+                 for z in range(q.shape[1] // c)]
+        dlg, carry = [], 0
+        for p in reversed(parts):    # the later chunks' sums, as the kernel carries them
+            dlg.insert(0, p[3] + carry)
+            carry = carry + p[3][:, :1]
+        return (*(torch.cat([p[i] for p in parts], dim=1) for i in range(3)),
+                torch.cat(dlg, dim=1))
+
+    leaf = names(state.params)
+    for name, fault in (("clean", None), ("no_dlg", no_dlg), ("no_carry", no_carry)):
+        if fault is not None:
+            GC.gla_chunk_bwd = fault
+        try:
+            ok = CS.hymba_step1_hold(cfg, state, batch, leaf, rel_norm)[0]
+        finally:
+            GC.gla_chunk_bwd = real_bwd
+        print(f"[witness] hymba {name}: the hold {'passes' if ok else 'fails'}", flush=True)
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="granite-3-2b", choices=["granite-3-2b", "hymba-1.5b"])
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("train_fault_witness: no CUDA device", file=sys.stderr)
         return 1
+    if args.arch == "hymba-1.5b":
+        return hymba()
     import chip_smoke as CS
     from repro_torch import steps as ST
     from repro_torch.configs import get_config
