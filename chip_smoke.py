@@ -97,8 +97,9 @@ not 0:
      twice the float32 plain path's (this holds the float32 kernels at
      model level; the bf16 kernels that the Trainer runs rest on phase 3's
      holds at these shapes), the launch counts checked per step (K1 and K4 twice a layer, each
-     backward kernel once), and the GLA kernels' shares of the profiled
-     step beside K1's; the C/R part at 4 layers with global layers 0 and
+     backward kernel once: K4b's four bf16 kernels, one in float32), and the GLA kernels' shares of the profiled
+     step beside K1's (K4b's four launches by name) and its count of
+     device kernels; the C/R part at 4 layers with global layers 0 and
      3;
   7. cli: ``repro_torch.launch.serve`` at smoke size on the card, granite
      and hymba (both GLA schedules), and ``repro_torch.launch.train`` at
@@ -111,14 +112,19 @@ with a window and at hymba's training shape (window 1024 and none), in
 bf16 and float32 (two runs equal bit for bit, the prefill's output
 unchanged with the logsumexp write on), and times the backward beside its
 bound, its plain version and SDPA's backward at granite's shape and at
-hymba's. It holds K4's chunk start states and the GLA backward kernel
-(K4b) to ``ref.chunked_gla(..., starts=True)`` and ``ref.gla_bwd`` at
-hymba's training shape with head-stride-0 q/k (bf16 also under steep
-decays), a ragged length, the smoke shape and per-head q/k, in bf16 and
-float32 (two runs equal bit for bit, K4's prefill output unchanged with
-the chunk-start write on), and times K4b beside its bound and its plain
-version (no PyTorch call computes GLA or its gradient: library time
-null).
+hymba's. It holds K4's chunk start states and the GLA backward (K4b) to
+``ref.chunked_gla(..., starts=True)`` and ``ref.gla_bwd`` at hymba's
+training shape with head-stride-0 q/k (bf16 also under steep decays), a
+ragged length, the smoke shape and per-head q/k, in bf16 and float32 (two
+runs equal bit for bit, K4's prefill output unchanged with the
+chunk-start write on), with head-broadcast q/k also through the
+shared-row route (q and k as [B,S,N] rows, dq and dk the heads' sum) and
+in bf16 each launch to its plain part (the reversed state pass's dS to
+``ref.gla_bwd_states``, the dq and dk/dv launches' per-head q.dq and
+k.dk rows); it times K4b as the whole call (its four bf16 launches, each
+once a call by the profiler, with their times) beside its bound and its
+plain version (no PyTorch call computes GLA or its gradient: library
+time null).
 Phase 3 also holds the GLA kernels (K4; K5's phases apart and together)
 and the ring-window decode to their plain versions: the GLA at the
 serving shape with the mixer's head-broadcast q/k (in bf16 also under
@@ -243,6 +249,9 @@ HYMBA_F32_FLOOR = (1e-6, 1e-5, 1e-4)
 # scalar products in another order; dlg is a difference of per-row dots
 # summed over up to S positions)
 GLA_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# K4b's bf16 launches, in order: each runs once a call
+GLA_BWD_KERNELS = ("gla_bwd_state_kernel", "gla_bwd_dq_kernel", "gla_bwd_dkdv_kernel",
+                   "gla_bwd_finish_kernel")
 # the fleet: page size, lanes, pool pages, new tokens per session, the
 # sessions' prompt lengths and the later high-priority arrival's (PERF.md)
 FLEET_PAGE, FLEET_LANES, FLEET_PAGES, FLEET_NEW = 16, 4, 120, 32
@@ -263,12 +272,13 @@ def bound_ms(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
-def kernel_us(fn, sets, iters=40):
+def kernel_us(fn, sets, iters=40, counts=False):
     """Device microseconds per call of each CUDA kernel ``fn`` launches, by
     name, from the profiler over ``iters`` calls cycling through ``sets``
     (the profiler reads each kernel's device time, so the host's pace does
-    not enter). A warm-up step comes first: the tracer may drop the records
-    of the first launches after it starts."""
+    not enter); with ``counts`` also each kernel's launches in those calls.
+    A warm-up step comes first: the tracer may drop the records of the
+    first launches after it starts."""
     import torch
     for s in sets:
         fn(*s)
@@ -283,9 +293,10 @@ def kernel_us(fn, sets, iters=40):
             fn(*sets[i % len(sets)])
         torch.cuda.synchronize()
         prof.step()
-    return {e.key: e.self_device_time_total / iters for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0}
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    us = {e.key: e.self_device_time_total / iters for e in ev}
+    return (us, {e.key: e.count for e in ev}) if counts else us
 
 
 def rel(a, b):
@@ -696,10 +707,11 @@ def train_phase(card, dev, arch="granite-3-2b"):
         FA.launches = FA.bwd_dq_launches = FA.bwd_dkdv_launches = 0
         GC.launches = GC.bwd_launches = 0
 
-    def expect(label, got, n_steps, n_layers=L):
-        # remat runs each layer's forward twice a step, the backward once
-        want = {k: (2 if k in ("flash_attention", "gla_chunk") else 1) * n_layers * n_steps
-                for k in got}
+    def expect(label, got, n_steps, n_layers=L, k4b=GC.BWD_LAUNCHES):
+        # remat runs each layer's forward twice a step, the backward once;
+        # a K4b call launches ``k4b`` kernels (four in bf16, one in float32)
+        per = {"flash_attention": 2, "gla_chunk": 2, "gla_chunk_bwd": k4b}
+        want = {k: per.get(k, 1) * n_layers * n_steps for k in got}
         if got != want:
             raise AssertionError(f"{tag}: {label} launch counts {got} != {want}")
         return got
@@ -745,7 +757,7 @@ def train_phase(card, dev, arch="granite-3-2b"):
         ok, step1 = hymba_step1_hold(cfg, tr, batch, leaf, rel_norm)
         fb_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         tr.init_state()
-        expect("step 1 (float32 copy)", dict(zip(counts(), step1)), 1)
+        expect("step 1 (float32 copy)", dict(zip(counts(), step1)), 1, k4b=1)
         if not ok:
             raise AssertionError("train_hymba: step 1 on the kernel path disagrees with the "
                                  "plain path")
@@ -878,10 +890,13 @@ def train_phase(card, dev, arch="granite-3-2b"):
         print(f"[{tag}] profiled step: device busy time not measured (the profiler saw no "
               "CUDA kernels)", flush=True)
     else:
+        g4b = {n: dev_ms(n) for n in GLA_BWD_KERNELS}
         gla = (f"; GLA forward (K4) {dev_ms('gla_chunk_kernel'):.2f} ms "
                f"({dev_ms('gla_chunk_kernel') / prof_ms:.1%}, {2 * L} launches), backward "
-               f"(K4b) {dev_ms('gla_bwd_kernel'):.2f} ms "
-               f"({dev_ms('gla_bwd_kernel') / prof_ms:.1%}, {L} launches)") if hymba else ""
+               f"(K4b) {sum(g4b.values()):.2f} ms ({sum(g4b.values()) / prof_ms:.1%}, {L} "
+               "calls of four launches: " + ", ".join(f"{n} {t:.2f}" for n, t in g4b.items())
+               + " ms)") if hymba else ""
+        gla += f"; {sum(e.count for e in kern)} device kernels in the step"
         print(f"[{tag}] one profiled step ({card}): {prof_ms:.1f} ms on the host clock, "
               f"device busy {busy:.1f} ms ({1 - busy / prof_ms:.1%} idle); K1 forward "
               f"{fwd:.2f} ms ({fwd / prof_ms:.1%} of the step, {2 * L} launches), backward "
@@ -1523,26 +1538,41 @@ def main() -> int:
             held("gla_chunk", lab + " chunk start states", st,
                  ref.chunked_gla(q, k, v, lg, chunk=chunk, starts=True)[2], dtype, gla=True)
             dy = randn(B, S, H, P, dtype=dtype)
-            got = GC.gla_chunk_bwd(q, k, v, lg, dy, st, chunk=chunk)
-            again = GC.gla_chunk_bwd(q, k, v, lg, dy, st, chunk=chunk)
-            bits = all(torch.equal(a, b) for a, b in zip(got, again))
             want = ref.gla_bwd(q, k, v, lg, dy, st, chunk=chunk)
             names = ("dq", "dk", "dv", "dlg")
-            r = {n: rel(a.float(), b.float()) for n, a, b in zip(names, got, want)}
-            err = {n: (a.float() - b.float()).abs().max().item()
-                   for n, a, b in zip(names, got, want)}
-            ok = (same and bits and all(torch.isfinite(a).all().item() for a in got)
-                  and all(math.isfinite(x) and x <= GLA_BWD_TOL[dn] for x in r.values()))
-            print(f"[kernels] gla_chunk_bwd {lab}: max|a-b|/max|b| "
-                  + " ".join(f"{n} {x:.3e}" for n, x in r.items())
-                  + f" (tol {GLA_BWD_TOL[dn]:g}); two runs equal bit for bit {bits}; K4's "
-                  f"output with the chunk-start write equals the prefill's bit for bit {same} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                raise AssertionError(f"gla_chunk_bwd {lab} disagrees with its plain version "
-                                     "or is not deterministic")
-            errs.setdefault("gla_chunk_bwd", {})[lab] = max(err.values())
-    del q, k, v, lg, y, y0, st, dy, got, again, want
+            routes = [("per-head q/k", (q, k), want)]
+            if bcast:
+                # the shared-row route, as GLAChunk takes the SSD mixer's C_t
+                # and B_t: dq and dk come back as the rows, the heads' sum
+                routes.append(("shared rows", (q[:, :, 0], k[:, :, 0]),
+                               (want[0].float().sum(2), want[1].float().sum(2)) + want[2:]))
+            for route, qk, wnt in routes:
+                got = GC._bwd(*qk, v, lg, dy, st, chunk=chunk)
+                again = GC._bwd(*qk, v, lg, dy, st, chunk=chunk)
+                bits = all(torch.equal(a, b) for a, b in zip(got[:4], again[:4]))
+                r = {n: rel(a.float(), b.float()) for n, a, b in zip(names, got, wnt)}
+                err = {n: (a.float() - b.float()).abs().max().item()
+                       for n, a, b in zip(names, got, wnt)}
+                scr = got[4]
+                if scr:   # bf16: each launch held to its plain part
+                    r["state pass dS"] = rel(scr["dstate"],
+                                             ref.gla_bwd_states(q, lg, dy, chunk=chunk))
+                    r["dq launch q.dq"] = rel(scr["rq"], (q.float() * want[0].float()).sum(
+                        -1).transpose(1, 2))
+                    r["dk/dv launch k.dk"] = rel(scr["rk"], (k.float() * want[1].float()).sum(
+                        -1).transpose(1, 2))
+                ok = (same and bits and all(torch.isfinite(a).all().item() for a in got[:4])
+                      and all(math.isfinite(x) and x <= GLA_BWD_TOL[dn] for x in r.values()))
+                print(f"[kernels] gla_chunk_bwd {lab}, {route}: max|a-b|/max|b| "
+                      + " ".join(f"{n} {x:.3e}" for n, x in r.items())
+                      + f" (tol {GLA_BWD_TOL[dn]:g}); two runs equal bit for bit {bits}; K4's "
+                      f"output with the chunk-start write equals the prefill's bit for bit "
+                      f"{same} {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise AssertionError(f"gla_chunk_bwd {lab} ({route}) disagrees with its "
+                                         "plain version or is not deterministic")
+                errs.setdefault("gla_chunk_bwd", {})[f"{lab}, {route}"] = max(err.values())
+    del q, k, v, lg, y, y0, st, dy, got, again, want, wnt, scr
 
     # times at the serving paths' shapes, bf16
     B, H, K, S, D, bf = 4, 32, 8, 1024, 64, torch.bfloat16
@@ -1719,21 +1749,22 @@ def main() -> int:
     print(f"[kernels] bf16 B{B} S{S} H{H} N{N} P{P} chunk {C}, head-stride-0 q/k: "
           f"{gla_line}; no PyTorch call computes GLA", flush=True)
     # K4 with its chunk start states and K4b on them, the training path: each
-    # set adds dy and the states (22 MB), so four of them still pass the L2.
+    # set adds dy and the states (22 MB), so four of them still pass the L2;
+    # K4b takes q and k as the rows the heads share, as GLAChunk does.
     # K4b's bytes are what its function needs: the q and k rows read and
-    # their gradients written as the same shared rows in q's dtype (the
-    # kernel's per-head float32 dq and dk, 20 MB here, and autograd's sum
-    # over the heads are this design's extra traffic, not the function's),
-    # v and dy read and dv written (bf16), lg read and dlg written
-    # (float32), the states read; its operations: the causal pairs' five
-    # products, q.k and dy.v (N + P) and dq, dk, dv (2N + P), and four state
-    # products a chunk (S_z into dq, dS into dk and dv, the dS increment)
+    # their gradients written as the same shared rows in q's dtype, v and dy
+    # read and dv written (bf16), lg read and dlg written (float32), the
+    # states read; its operations: the causal pairs' five products, q.k and
+    # dy.v (N + P) and dq, dk, dv (2N + P), and four state products a chunk
+    # (S_z into dq, dS into dk and dv, the dS increment). The design's own
+    # scratch (the dS states, each chunk's cum, the heads' q.dq and k.dk,
+    # the head groups' dq and dk) is its traffic, not the function's
     g4s_ms = cuda_ms(lambda q, k, v, lg: GC.gla_chunk(q, k, v, lg, chunk=C, starts=True),
                      glsets)
     g4bsets = []
     for q, k, v, lg in glsets:
         st = GC.gla_chunk(q, k, v, lg, chunk=C, starts=True)[2]
-        g4bsets.append((q, k, v, lg, randn(B, S, H, P, dtype=bf), st))
+        g4bsets.append((q[:, :, 0], k[:, :, 0], v, lg, randn(B, S, H, P, dtype=bf), st))
     g4b_ms = cuda_ms(lambda q, k, v, lg, dy, st: GC.gla_chunk_bwd(q, k, v, lg, dy, st,
                                                                   chunk=C), g4bsets)
     g4b_plain = cuda_ms(lambda q, k, v, lg, dy, st: ref.gla_bwd(q, k, v, lg, dy, st, chunk=C),
@@ -1741,19 +1772,30 @@ def main() -> int:
     g4b_bound, g4b_by = bound_ms(
         B * H * nc * (C * (C + 1) * (3 * N + 2 * P) + 8 * C * N * P),
         2 * qk_bytes + 3 * v_bytes + 2 * lg_bytes + st_bytes)
-    g4b_extra_mb = 2 * 4 * B * S * H * N / 1e6
-    us = {key: t for key, t in kernel_us(
+    ng = -(-H // GC.head_group(B, S, H, C))
+    g4b_extra_mb = (st_bytes + 3 * 4 * B * H * S + 2 * 4 * ng * B * S * N) / 1e6
+    iters = 20
+    us, counts = kernel_us(
         lambda q, k, v, lg, dy, st: GC.gla_chunk_bwd(q, k, v, lg, dy, st, chunk=C), g4bsets,
-        iters=20).items() if "gla_" in key}
-    if len(us) != 1 or "gla_bwd_kernel" not in next(iter(us)):
+        iters=iters, counts=True)
+    us = {key: t for key, t in us.items() if "gla_" in key}
+    g4b_us = {}
+    for kname in GLA_BWD_KERNELS:
+        hits = [key for key in us if kname + "<" in key]
+        if len(hits) != 1 or counts[hits[0]] != iters:
+            raise AssertionError(f"gla_chunk_bwd: the profiler saw GLA kernels {list(us)} "
+                                 f"with counts {[counts[k] for k in us]} over {iters} calls")
+        g4b_us[kname] = us[hits[0]]
+    if len(us) != len(GLA_BWD_KERNELS):
         raise AssertionError(f"gla_chunk_bwd: the profiler saw GLA kernels {list(us)}")
-    g4b_us = next(iter(us.values()))
-    print(f"[kernels] GLA backward (K4b) bf16 B{B} S{S} H{H} N{N} P{P} chunk {C}, "
-          f"head-stride-0 q/k ({card}): {g4b_ms * 1e3:.1f} us (profiler {g4b_us:.1f} us, one "
-          f"kernel a call), plain {g4b_plain * 1e3:.1f} us, bound {g4b_bound * 1e3:.2f} us "
-          f"({g4b_by}; the kernel also writes dq and dk per head in float32, "
-          f"{g4b_extra_mb:.1f} MB, which the bound does not count); K4 with the chunk start states {g4s_ms * 1e3:.1f} us (without "
-          f"{k4_ms * 1e3:.1f} us); no PyTorch call computes GLA or its gradient", flush=True)
+    print(f"[kernels] GLA backward (K4b) bf16 B{B} S{S} H{H} N{N} P{P} chunk {C}, q/k the "
+          f"rows the heads share ({card}): {g4b_ms * 1e3:.1f} us (profiler per call, each "
+          f"kernel once: " + ", ".join(f"{n} {t:.1f} us" for n, t in g4b_us.items())
+          + f"; sum {sum(g4b_us.values()):.1f} us), plain {g4b_plain * 1e3:.1f} us, bound "
+          f"{g4b_bound * 1e3:.2f} us ({g4b_by}; the design's scratch, {g4b_extra_mb:.1f} MB "
+          f"written and read, is not counted); K4 with the chunk start states "
+          f"{g4s_ms * 1e3:.1f} us (without {k4_ms * 1e3:.1f} us); no PyTorch call computes "
+          "GLA or its gradient", flush=True)
     del glsets, blsets, y_intra, g, d, g4bsets
 
     # K2 over hymba's 1024-slot ring at the serving decode's last step: each
@@ -2160,10 +2202,11 @@ def main() -> int:
          "replaces": "none: the port's own kernel (the reference differentiates "
                      "src/repro/models/ssm.py:24 chunked_gla)",
          "launches": hymba_launches["gla_chunk_bwd"],
-         "max_abs_err": errs["gla_chunk_bwd"][G_MAIN],
+         "max_abs_err": errs["gla_chunk_bwd"][G_MAIN + ", shared rows"],
          "ms": g4b_ms, "plain_ms": g4b_plain, "bound_ms": g4b_bound, "bound_by": g4b_by,
          "library_ms": None,
-         "library_note": "no PyTorch call computes GLA or its gradient"},
+         "library_note": "no PyTorch call computes GLA or its gradient",
+         "parts_us": g4b_us},
     ] + [
         {"name": name, "route": "cuda", "source": src + "flash_attention_bwd.cu",
          "replaces": "none: the port's own kernel (the reference differentiates "

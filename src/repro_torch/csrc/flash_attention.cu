@@ -66,10 +66,11 @@
 // shuffles), so the write is one float a row; a null buffer skips it and
 // leaves the output's arithmetic untouched.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -118,171 +119,6 @@ __device__ __forceinline__ void kv_range(int q0, int S, int window, int bk,
   int l = window > 0 ? max(q0 - window + 1, 0) : 0;
   *lo = (l / bk) * bk;
 }
-
-// ---------------------------------------------------------------------------
-// Hopper building blocks: mbarriers, TMA, wgmma (inline PTX).
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box of a 4-D tensor map (dim 0 the head dim, then the seq, head
-// and batch axes in the map's order) into shared memory; completion is
-// counted on `bar`. `slots` packs the map dim (1..3) of seq, head and
-// batch in bits 0-1, 2-3 and 4-5.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int slots, int s, int h,
-                                         int b) {
-  const int ps = slots & 3, ph = (slots >> 2) & 3, pb = (slots >> 4) & 3;
-  const int c1 = (ps == 1 ? s : 0) + (ph == 1 ? h : 0) + (pb == 1 ? b : 0);
-  const int c2 = (ps == 2 ? s : 0) + (ph == 2 ? h : 0) + (pb == 2 ? b : 0);
-  const int c3 = (ps == 3 ? s : 0) + (ph == 3 ? h : 0) + (pb == 3 ? b : 0);
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-// A wgmma shared-memory matrix descriptor for a tile whose rows are D bf16
-// elements (D * 2 bytes), as the TMA wrote it with the matching swizzle
-// (128 B for D = 64, 64 B for D = 32): 8-row groups lie 8 * D * 2 bytes
-// apart (the stride byte offset, for a K-major operand along M/N, for the
-// MN-major V along K). The leading byte offset is not read for these
-// shapes (one swizzle atom spans the row).
-template <int D>
-__device__ __forceinline__ uint64_t smem_desc(const void* tile) {
-  constexpr uint64_t layout = D == 64 ? 1 : 2;  // 1: 128-byte swizzle, 2: 64-byte
-  constexpr uint64_t sbo = 8 * D * 2;
-  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((sbo >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma (the asm statements above are ordered).
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// D[64 x 64] (+)= A[64 x 16] * B[16 x 64]; A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] += A[64 x 16] * B[16 x 64]; A from registers (bf16 pairs),
-// B MN-major in shared memory (the transpose bit set).
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 32] += A[64 x 16] * B[16 x 32]; A from registers (bf16 pairs),
-// B MN-major in shared memory (the transpose bit set).
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int D>
-struct PV;
-template <>
-struct PV<64> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t db) {
-    wgmma_rs_n64(d, a, db);
-  }
-};
-template <>
-struct PV<32> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t db) {
-    wgmma_rs_n32(d, a, db);
-  }
-};
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -414,7 +250,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
     wg_commit();
-    wg_wait_all();
+    wg_wait<0>();
     fence_regs<NS>(s);
 
     // the online softmax on the accumulator
@@ -479,9 +315,9 @@ __global__ void __launch_bounds__(THREADS, 2)
     fence_regs<NO>(o);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) PV<D>::mma(o, pa[kk], dv + ((16 * D * 2) >> 4) * kk);
+    for (int kk = 0; kk < BK / 16; ++kk) mma_rs<D>(o, pa[kk], dv + ((16 * D * 2) >> 4) * kk);
     wg_commit();
-    wg_wait_all();
+    wg_wait<0>();
     fence_regs<NO>(o);
     mbar_arrive(&empty[st]);
   }
@@ -604,69 +440,6 @@ __global__ void __launch_bounds__(BQ) flash_f32_kernel(Args a) {
 }  // namespace
 
 namespace {
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the library
-// needs no -lcuda.
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn) return fn;
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-  if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-    fn = reinterpret_cast<EncodeTiled>(p);
-  return fn;
-}
-
-// A 4-D bf16 tensor map over a [.., seq, .., D] strided view: dim 0 the
-// head dim, dims 1-3 the seq, head and batch axes in order of their
-// strides (element strides s, h, b; extents S, n_heads, B). The box is
-// `rows` seq positions of one (batch, head). Returns a cudaError_t and
-// the axes' map dims packed as tma_load() reads them.
-int encode(CUtensorMap* map, const void* base, int D, int S, int n_heads, int B,
-           long long ss, long long sh, long long sb, int rows, int* slots) {
-  EncodeTiled fn = encode_fn();
-  if (!fn) return (int)cudaErrorNotSupported;
-  const long long stride[3] = {ss, sh, sb};
-  const long long extent[3] = {S, n_heads, B};
-  int order[3] = {0, 1, 2};
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
-      const int t = order[j];
-      order[j] = order[j - 1];
-      order[j - 1] = t;
-    }
-  cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
-  cuuint64_t strides[3];
-  cuuint32_t box[4] = {(cuuint32_t)D, 1, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  int slot[3];
-  for (int i = 0; i < 3; ++i) {
-    dims[i + 1] = (cuuint64_t)extent[order[i]];
-    strides[i] = (cuuint64_t)(stride[order[i]] * 2);
-    slot[order[i]] = i + 1;
-    if (order[i] == 0) box[i + 1] = (cuuint32_t)rows;
-  }
-  *slots = slot[0] | (slot[1] << 2) | (slot[2] << 4);
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 template <int D>
 int launch_bf16(const Args& a, int B, cudaStream_t st) {

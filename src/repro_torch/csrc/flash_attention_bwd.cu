@@ -92,10 +92,11 @@
 // entry launches either kernel and returns cudaGetLastError() after its
 // launch (or the error of encoding a tensor map).
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -143,100 +144,6 @@ __device__ __forceinline__ bool valid_pair(int qp, int kp, int S, int window) {
   return qp < S && kp <= qp && (window <= 0 || qp - kp < window);
 }
 
-// ---------------------------------------------------------------------------
-// Hopper building blocks (inline PTX), as flash_attention.cu has them.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box of a 4-D tensor map (dim 0 the head dim, then the seq, head
-// and batch axes in the map's order) into shared memory; completion is
-// counted on `bar`. `slots` packs the map dim (1..3) of seq, head and
-// batch in bits 0-1, 2-3 and 4-5.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int slots, int s, int h,
-                                         int b) {
-  const int ps = slots & 3, ph = (slots >> 2) & 3, pb = (slots >> 4) & 3;
-  const int c1 = (ps == 1 ? s : 0) + (ph == 1 ? h : 0) + (pb == 1 ? b : 0);
-  const int c2 = (ps == 2 ? s : 0) + (ph == 2 ? h : 0) + (pb == 2 ? b : 0);
-  const int c3 = (ps == 3 ? s : 0) + (ph == 3 ? h : 0) + (pb == 3 ? b : 0);
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-// A wgmma shared-memory matrix descriptor for a tile whose rows are D bf16
-// elements (D * 2 bytes), as the TMA wrote it with the matching swizzle
-// (128 B for D = 64, 64 B for D = 32): 8-row groups lie 8 * D * 2 bytes
-// apart. The same descriptor serves a K-major read (k16 steps of 32 bytes
-// along a row: + 2) and an MN-major read under the transpose bit (k16
-// steps of 16 rows: + mn_step), since one swizzle atom spans the row.
-template <int D>
-__device__ __forceinline__ uint64_t smem_desc(const void* tile) {
-  constexpr uint64_t layout = D == 64 ? 1 : 2;  // 1: 128-byte swizzle, 2: 64-byte
-  constexpr uint64_t sbo = 8 * D * 2;
-  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((sbo >> 4) << 32) | (layout << 62);
-}
-template <int D>
-__device__ __forceinline__ constexpr uint64_t mn_step() {
-  return (16 * D * 2) >> 4;
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed groups of this warpgroup's wgmma are in
-// flight (they complete in order).
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma (the asm statements above are ordered).
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 // The same for A fragments: they are written before the wgmma.fence that
 // precedes the wgmma reading them, not sunk past it.
 __device__ __forceinline__ void fence_frag(uint32_t (&r)[BN / 16][4]) {
@@ -246,103 +153,6 @@ __device__ __forceinline__ void fence_frag(uint32_t (&r)[BN / 16][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
-// D[64 x 64] (+)= A[64 x 16] * B[16 x 64]; A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] += A[64 x 16] * B[16 x 64]; A from registers (bf16 pairs),
-// B MN-major in shared memory (the transpose bit set).
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 32] += A[64 x 16] * B[16 x 32]; A from registers (bf16 pairs),
-// B MN-major in shared memory (the transpose bit set).
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// s = A_s B_s^T and dp = A_p B_p^T, 64 x 64 each over D: every operand
-// K-major in shared memory (descriptors of its first k16 step)
-template <int D>
-__device__ __forceinline__ void issue_two(float* s, float* dp, uint64_t as, uint64_t bs,
-                                          uint64_t ap, uint64_t bp) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(s, as + 2 * kk, bs + 2 * kk, kk > 0);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(dp, ap + 2 * kk, bp + 2 * kk, kk > 0);
-}
-
-// acc[64 x D] += A[64 x 16] (registers) * B[16 x D] (MN-major)
-template <int D>
-__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a, uint64_t db) {
-  if constexpr (D == 64)
-    wgmma_rs_n64(d, a, db);
-  else
-    wgmma_rs_n32(d, a, db);
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-// threadIdx.x / 32 through a shuffle, so that the compiler knows it is the
-// same in every lane: branches on it (and on the warpgroup index) are then
-// not divergent, and the wgmma inside them need not be serialized
-__device__ __forceinline__ int warp_index() {
-  return __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
-}
 
 // A barrier of one consumer warpgroup's 128 threads (ids 1, 2; 0 is
 // __syncthreads's)
@@ -1012,69 +822,6 @@ __global__ void __launch_bounds__(FT) dq_f32_kernel(Args a) {
 // ---------------------------------------------------------------------------
 // Host side: tensor maps and launches.
 // ---------------------------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the library
-// needs no -lcuda.
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn) return fn;
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-  if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-    fn = reinterpret_cast<EncodeTiled>(p);
-  return fn;
-}
-
-// A 4-D bf16 tensor map over a [.., seq, .., D] strided view: dim 0 the
-// head dim, dims 1-3 the seq, head and batch axes in order of their
-// strides (element strides of st; extents S, n_heads, B). The box is
-// `rows` seq positions of one (batch, head). Returns a cudaError_t and
-// the axes' map dims packed as tma_load() reads them.
-int encode(CUtensorMap* map, const void* base, int D, int S, int n_heads, int B,
-           const Strides& st, int rows, int* slots) {
-  EncodeTiled fn = encode_fn();
-  if (!fn) return (int)cudaErrorNotSupported;
-  const long long stride[3] = {st.s, st.h, st.b};
-  const long long extent[3] = {S, n_heads, B};
-  int order[3] = {0, 1, 2};
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
-      const int t = order[j];
-      order[j] = order[j - 1];
-      order[j - 1] = t;
-    }
-  cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
-  cuuint64_t strides[3];
-  cuuint32_t box[4] = {(cuuint32_t)D, 1, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  int slot[3];
-  for (int i = 0; i < 3; ++i) {
-    dims[i + 1] = (cuuint64_t)extent[order[i]];
-    strides[i] = (cuuint64_t)(stride[order[i]] * 2);
-    slot[order[i]] = i + 1;
-    if (order[i] == 0) box[i + 1] = (cuuint32_t)rows;
-  }
-  *slots = slot[0] | (slot[1] << 2) | (slot[2] << 4);
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 // Once per kernel and device: allow its dynamic shared memory above 48 KB,
 // and check that its register count at launch leaves room for the
 // consumers' setmaxnreg.inc from the registers the producer warpgroup
@@ -1126,11 +873,11 @@ int launch_bf16(int kernel, const Args& a, int B, cudaStream_t st) {
   if (kernel == 1) {
     CUtensorMap tq, tdo, to, tk, tv;
     constexpr int BM = DqSmem<D>::BM;
-    rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs, BM, &t.q_slots);
-    if (!rc) rc = encode(&tdo, a.dout, D, a.S, a.H, B, a.dos, BM, &t.do_slots);
-    if (!rc) rc = encode(&to, a.o, D, a.S, a.H, B, a.os, BM, &t.o_slots);
-    if (!rc) rc = encode(&tk, a.k, D, a.S, a.K, B, a.ks, BN, &t.k_slots);
-    if (!rc) rc = encode(&tv, a.v, D, a.S, a.K, B, a.vs, BN, &t.v_slots);
+    rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BM, &t.q_slots);
+    if (!rc) rc = encode(&tdo, a.dout, D, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, BM, &t.do_slots);
+    if (!rc) rc = encode(&to, a.o, D, a.S, a.H, B, a.os.s, a.os.h, a.os.b, BM, &t.o_slots);
+    if (!rc) rc = encode(&tk, a.k, D, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BN, &t.k_slots);
+    if (!rc) rc = encode(&tv, a.v, D, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BN, &t.v_slots);
     static unsigned long long done = 0;
     if (!rc) rc = prepare<DQ_WGS>(dq_bf16_kernel<D>, DqSmem<D>::BYTES, &done);
     if (rc) return rc;
@@ -1140,10 +887,10 @@ int launch_bf16(int kernel, const Args& a, int B, cudaStream_t st) {
   } else {
     CUtensorMap tk, tv, tq, tdo;
     constexpr int BM = KvSmem<D>::BM;
-    rc = encode(&tk, a.k, D, a.S, a.K, B, a.ks, BM, &t.k_slots);
-    if (!rc) rc = encode(&tv, a.v, D, a.S, a.K, B, a.vs, BM, &t.v_slots);
-    if (!rc) rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs, BN, &t.q_slots);
-    if (!rc) rc = encode(&tdo, a.dout, D, a.S, a.H, B, a.dos, BN, &t.do_slots);
+    rc = encode(&tk, a.k, D, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BM, &t.k_slots);
+    if (!rc) rc = encode(&tv, a.v, D, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BM, &t.v_slots);
+    if (!rc) rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BN, &t.q_slots);
+    if (!rc) rc = encode(&tdo, a.dout, D, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, BN, &t.do_slots);
     static unsigned long long done = 0;
     if (!rc) rc = prepare<KV_WGS>(dkdv_bf16_kernel<D>, KvSmem<D>::BYTES, &done);
     if (rc) return rc;

@@ -7,7 +7,7 @@
 // (gla_chunk_parallel: K5 here, repro_gla_phase_a / repro_gla_phase_b).
 // The backward (K4b, repro_gla_chunk_bwd, after the forward kernels)
 // replaces no Pallas kernel: the JAX package differentiates the plain-XLA
-// models/ssm.py chunked_gla; its design note is at gla_bwd_kernel.
+// models/ssm.py chunked_gla; its design note opens its section below.
 //
 // For each row b and head h, the recurrence
 //   h_t = exp(lg_t) h_{t-1} + k_t v_t^T,    y_t = q_t . h_t
@@ -94,11 +94,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 #ifdef GLA_CLOCK
 #include <cstdio>
 #define GLA_STAMP(k) stamp[k] = clock64()
+#define GLA_STAMP_DECL(n) long long stamp[n]
 #else
 #define GLA_STAMP(k)
+#define GLA_STAMP_DECL(n)
 #endif
 
 namespace {
@@ -116,7 +120,8 @@ constexpr int PW = GLA_PW;           // the bf16 kernels' P slice, columns
 // K4's and phase A's blocks an SM, for ptxas's register budget
 constexpr int MIN_BLOCKS = PW == 16 ? 3 : 2;
 
-enum Which { CHUNK = 0, PHASE_A = 1, PHASE_B = 2, BWD = 3 };
+// BWD: K4b as a whole (its largest block); BWD_STATE: its state pass's layout
+enum Which { CHUNK = 0, PHASE_A = 1, PHASE_B = 2, BWD = 3, BWD_STATE = 4 };
 
 // Element strides of a [B,S,H,*] operand.
 struct Strides {
@@ -355,14 +360,14 @@ __global__ void __launch_bounds__(THREADS)
 // bf16: tensor cores (mma.sync m16n8k16, bf16 in, float32 sums)
 // ===========================================================================
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes (4: cp4) from global to shared, or zeros when !full
+// 16 bytes (8: cp8; 4: cp4) from global to shared, or zeros when !full
 __device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp8(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 8 : 0));
 }
 __device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool full) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
@@ -433,12 +438,14 @@ __device__ __forceinline__ uint32_t swz(int r, int ch) {
 
 // Dynamic shared memory of a bf16 block, byte offsets; rows padded to tc,
 // the chunk rounded up to 16. Two stages, one chunk's (K4) or one item's
-// (the phases) while the other computes: q rows and (not phase B) k rows
-// [tc][16] bf16, the PW-column slice of v (phase B: of y_intra) [tc][PW]
+// (the phases) while the other computes: q rows and (not phase B or K4b's
+// state pass) k rows [tc][16] bf16, the PW-column slice of v (phase B: of
+// y_intra; the state pass: of dy) [tc][PW]
 // bf16, lg [tc] float32 (scanned in place), and in phase B the item's start
 // state slice [16][PW] float32. Two sets of the decays, one a stage, from
 // dset, dsz bytes each: cl = cum log2(e), bk, al, w, e [tc] float32 and the
-// scan's segment totals. K4's state slice [16][PW] float32. The warps'
+// scan's segment totals (K4b's state pass: one stage and one set). K4's
+// state slice [16][PW] float32. The warps'
 // scratch, wsz bytes each: state partials [16][PW + 4] float32 (K4, phase
 // A), also the staged output rows [16][PW] bf16.
 struct Layout {
@@ -447,11 +454,12 @@ struct Layout {
     const int tc = (c + 15) & ~15;
     q = 0;
     k = q + tc * 32;
-    v = k + (which == PHASE_B ? 0 : tc * 32);
+    v = k + (which == PHASE_B || which == BWD_STATE ? 0 : tc * 32);
     lg = v + tc * PW * 2;
     st0 = lg + tc * 4;
     stage = st0 + (which == PHASE_B ? 16 * PW * 4 : 0);
-    dset = 2 * stage;
+    const int sets = which == BWD_STATE ? 1 : 2;  // K4b's state pass: one chunk a block
+    dset = sets * stage;
     cl = 0;
     bk = cl + tc * 4;
     al = bk + tc * 4;
@@ -459,7 +467,7 @@ struct Layout {
     e = w + tc * 4;
     tot = e + tc * 4;
     dsz = tot + (((tc + 31) / 32 * 4 + 15) & ~15);
-    state = dset + 2 * dsz;
+    state = dset + sets * dsz;
     scratch = state + (which == CHUNK ? 16 * PW * 4 : 0);
     wsz = which == PHASE_B ? 16 * PW * 2 : 16 * (PW + 4) * 4;
     total = scratch + WARPS * wsz;
@@ -526,7 +534,8 @@ __device__ void stage_start(const float* src, unsigned char* st, const Layout& L
 // order, and writes, for each row j < tc: e = exp(cum_j); and unless phase
 // B (!INTRA): cl = cum log2(e); bk = exp(cum_end - cum_j), end the last row
 // of j's 16-row tile; al = exp(cum_j - cum_{s-1}), s the first row of j's
-// tile (1 in tile 0); w = exp(total - cum_j). It returns total = cum_{c-1}.
+// tile (1 in tile 0); w = exp(total - cum_j) (K4b's state pass, CL: cl and
+// e only). It returns total = cum_{c-1}.
 // Neither synchronises.
 __device__ void scan_segments(int tc, unsigned char* st, unsigned char* ds, const Layout& L) {
   float* x_s = reinterpret_cast<float*>(st + L.lg);
@@ -544,7 +553,7 @@ __device__ void scan_segments(int tc, unsigned char* st, unsigned char* ds, cons
     if (lane == 31) tot_s[seg] = x;
   }
 }
-template <bool INTRA>
+template <bool INTRA, bool CL = INTRA>
 __device__ float chunk_decays(int c, int tc, const unsigned char* st, unsigned char* ds,
                               const Layout& L) {
   const float* x_s = reinterpret_cast<const float*>(st + L.lg);
@@ -567,8 +576,8 @@ __device__ float chunk_decays(int c, int tc, const unsigned char* st, unsigned c
     }
     const float cl = (x_s[j] + cj) * LOG2E;
     e_s[j] = ex2(cl);
+    if (CL) cl_s[j] = cl;
     if (INTRA) {
-      cl_s[j] = cl;
       bk_s[j] = ex2((x_s[j | 15] + cj) * LOG2E - cl);
       al_s[j] = j < 16 ? 1.f : ex2(cl - (x_s[(j & ~15) - 1] + (j & 16 ? cj : cp)) * LOG2E);
       w_s[j] = ex2(cl_tot - cl);
@@ -1060,49 +1069,94 @@ __global__ void __launch_bounds__(THREADS, 3)
 // the backward (K4b): dq, dk, dv and dlg of K4's function
 // ===========================================================================
 //
-// Per (b, h), the chunks in reverse, carrying dS (the gradient of the state
-// leaving the chunk; zero after the last), with cum the chunk's inclusive
-// cumsum of lg, tot its last value, S_z K4's state entering it and
-// W_ij = exp(cum_i - cum_j) for j <= i:
+// With cum the chunk's inclusive cumsum of lg, tot its last value, S_z
+// K4's state entering chunk z, dS_z the gradient of the state leaving it
+// (zero after the last chunk) and W_ij = exp(cum_i - cum_j) for j <= i:
 //   dq_i = sum_{j<=i} W_ij (dy_i . v_j) k_j + exp(cum_i) S_z dy_i
-//   dk_j = sum_{i>=j} W_ij (dy_i . v_j) q_i + exp(tot - cum_j) dS v_j
-//   dv_j = sum_{i>=j} W_ij (q_i . k_j) dy_i + exp(tot - cum_j) dS^T k_j
-//   dS  <- exp(tot) dS + sum_i exp(cum_i) q_i dy_i^T
+//   dk_j = sum_{i>=j} W_ij (dy_i . v_j) q_i + exp(tot - cum_j) dS_z v_j
+//   dv_j = sum_{i>=j} W_ij (q_i . k_j) dy_i + exp(tot - cum_j) dS_z^T k_j
+//   dS_{z-1} = exp(tot) dS_z + sum_i exp(cum_i) q_i dy_i^T
 // and dlg_t = sum_{s>=t} (q_s . dq_s - k_s . dk_s), the scalar decay's
-// identity (the final state takes no gradient). The plain version is
-// kernels/ref.py gla_bwd. dq and dk leave per head in float32: the model's
-// q and k are one row shared by the heads (head stride 0), and dlg needs
-// each head's own dots, so the sum over heads is the caller's.
+// identity (the final state takes no gradient), with each head's own dots.
+// The plain versions are kernels/ref.py gla_bwd and gla_bwd_states. In the
+// model q and k are one row shared by the heads (head stride 0): the bf16
+// route takes them so and returns dq and dk as the shared rows, the heads'
+// sum, in bf16; float32 and per-head q and k get per-head rows.
 //
-// Bound: at hymba's training shape (B4 S1536 H25 N16 P64, c 256, bf16)
-// about 83 MB move (v, dy, dv in bf16, dq and dk per head in float32, the
-// states, lg and dlg): 24.7 us at 3.35 TB/s, against ~8 GFLOP of products
-// (c^2 (3N + 2P) multiply-adds under the causal half and four c N P state
-// products a chunk), 8 us of bf16 tensor-core time. Device-memory bytes
-// bound it.
+// Bound: at hymba's training shape (B4 S1536 H25 N16 P64, c 256, bf16) the
+// function moves ~63.5 MB (v, dy, dv in bf16, q, k and their gradients as
+// the shared rows, lg and dlg, K4's states): 18.9 us at 3.35 TB/s, against
+// ~8 GFLOP of products (c^2 (3N + 2P) multiply-adds under the causal half
+// and four c N P state products a chunk), 8 us of tensor-core time.
+// Device-memory bytes bound it.
 //
-// Design, deterministic with no atomics (the port's recovery is held
-// byte for byte): one block per (b, h) owns all P columns, because dq, dk
-// and dlg's dots sum over them (100 blocks at hymba's shape, one wave of
-// the 132 SMs). Two stages: chunk z - 1's rows load by cp.async while z
-// computes. Each warp takes query tiles t and T-1-t for dq and key tiles
-// t and T-1-t for dk and dv (T + 1 tile steps each), on mma.sync with K4's
-// swizzled staging and fragments: dq's pass computes dY_I V_J^T, dk/dv's
-// the transposed tiles V_J dY_I^T and K_J Q_I^T, so each product's
-// accumulator is the next one's A fragment. dlg is a difference of
-// per-row dots, so the decayed dY.V^T is split hi/lo into bf16 pairs for
-// the dq and dk products (float32 to about 16 bits), as are S_z and dS;
-// the decayed q.k for dv is rounded to bf16, as K4 rounds its
-// probabilities. Each element's decay is one ex2 under the causal mask.
-// dS's increment is summed per warp and the 8 partials added in warp
-// order; warp 0 runs dlg's suffix sums in 32-row segments with the later
-// chunks' carry. float32 runs a scalar kernel (exact products, no TF32),
-// one thread a row for dq and one a column for dk and dv.
-// On an H100 80GB HBM3 at 700 W (PERF.md) it takes 139.7 us, 5.7x the
-// bound: every tile's dY_I V_J^T is computed in both passes, each element
-// takes an ex2, and 100 blocks of 8 warps leave the tensor pipes idle on
-// each chain's latency; more blocks (a column split whose partials are
-// added in order) and K4's factored decays are the next steps.
+// Design (bf16), four launches, each deterministic (no atomics; the port's
+// recovery is held byte for byte), so that the chunks and heads no longer
+// wait on each other and the tensor work runs on wgmma:
+//  (a) The reversed state pass: dS_z for every chunk into [B,H,nc,N,P]
+//      float32 (K4's `starts` layout). Its own launch (gla_bwd_state_kernel)
+//      computes every chunk's increment sum_i exp(cum_i) q_i dy_i^T at once,
+//      one block per (b, h, chunk, 32-column slice), on K4's state-delta
+//      machinery with q in k's place and dy in v's, and each chunk's cum
+//      log2(e) and 64-row tiles' factors fwd and bwd, [B,H,S]; the walk
+//      from the last chunk, dS_{z-1} = exp(tot_z) dS_z + increment_z, a few
+//      multiply-adds an element, runs in the first blocks of the dq launch,
+//      which reads no dS. (One block per (b, h, slice) walking the chunks in
+//      series took 22 us; each tile's increment taken in the dq launch from
+//      its dY tile, so that dy is read once, cost dq more than it saved.)
+//  (b) dq (gla_bwd_dq_kernel): a block owns a query tile of 64 rows of one
+//      (b, chunk) and a group of heads, walked in order. Per head: the
+//      inter term dY_I (exp(cum_I0) S_z)^T first (S_z split hi/lo into
+//      bf16 tiles); per key tile J < I, dP = dY_I V_J^T by wgmma from the
+//      TMA tiles; the decay as K4 factors it, exp(cum_i - cum_j) = fwd_i
+//      g_IJ bwd_j with every factor <= 1, so an off-diagonal tile takes a
+//      column factor and the sum fwd_i once, and only the diagonal tile an
+//      ex2 an element; dq_h += (.) K_J by wgmma, A from registers split
+//      hi/lo (dlg is a difference of per-row dots) and B = K_J^T staged as a
+//      128-byte-swizzled tile. q . dq_h goes to a [B,H,S] row, and dq_h
+//      into the group's sum in registers, head by head.
+//  (c) dk and dv (gla_bwd_dkdv_kernel): a block owns a key tile J of one
+//      (b, chunk) and a group of heads. Per head: the inter terms V_J dS'^T
+//      and K_J dS' (dS' = exp(tot - cum_J1) dS_z, hi/lo), then the query
+//      tiles I >= J from the last: dP^T = V_J dY_I^T (wgmma), the scores
+//      K_J Q_I^T on mma.sync (their K index is N = 16, read from q rows as
+//      K4 stages them; recomputed per head, a fifth of a tile's tensor
+//      work, rather than held in 16 KB a tile), both times the column
+//      factor, dv_h += P^T dY_I (P rounded to bf16, as K4 rounds its
+//      probabilities; dY read MN-major from the same TMA tile) and dk_h +=
+//      dP^T Q_I (hi/lo); the row factor bwd_j, then the diagonal. k . dk_h
+//      to a row, dk_h into the group's sum, dv_h out in bf16 through a
+//      staging tile, 16 bytes a thread.
+//  (d) The finish (gla_bwd_finish_kernel): dq and dk, the head groups'
+//      partials added in group order, out as the shared rows in bf16; dlg's
+//      suffix sums over all S positions per (b, h), one block each: runs of
+//      rows a thread, the runs' totals across the block, one fixed order.
+//  Blocks of (b) and (c) are one consumer warpgroup and a producer warp
+//  (dk/dv: a producer warpgroup, whose registers go to the consumers by
+//  setmaxnreg, 232 a thread, so dk/dv's accumulators do not spill); its
+//  lane 0 issues the TMA loads into a 3-slot ring and a double buffer
+//  (mbarriers full and empty); one tile of look-ahead: a group holds this
+//  tile's second products and the next tile's first. A head's decays and
+//  state rows arrive by cp.async into a second buffer while the head
+//  before computes, one barrier a head. Heads come in equal groups (5 at
+//  hymba's shape: 480 blocks a launch; groups sized by the tile's weight,
+//  and groups of 1-3 or 8, were slower), the heaviest tiles first (dq: the
+//  last query tile; dk/dv: the first key tile).
+// On an H100 80GB HBM3 at 700 W (PERF.md) it takes 127.6 us (the earlier
+// design, one block per (b, h) on mma.sync, took 139.5), 6.7x the bound:
+// the state pass 17.3, dq 47.3, dk/dv 54.9, the finish 7.7 us. Each
+// warpgroup's tile is a chain (its group, the wait, then the decays and
+// hi/lo splits with the tensor cores idle: ~1.8K cycles a dq tile pair at
+// three blocks an SM against ~190 of tensor work), a head adds ~2.5K
+// cycles, the state pass reads dy again, and the finish is a few
+// dependent round trips to memory a block.
+// float32 runs one scalar kernel (exact products, no TF32), one block per
+// (b, h) walking the chunks in reverse carrying dS, one thread a row for
+// dq and one a column for dk and dv.
+// Diagnostic builds: GLA_LOADONLY stops each launch's compute after its
+// loads (dq's and dk/dv's consumers wait and release the tiles), GLA_NOEXP
+// as above, GLA_CLOCK prints one block's phases of each launch in clock64
+// cycles.
 
 // dlg over the chunk's c rows: the suffix sums of r = rq - rk (q_t . dq_t -
 // k_t . dk_t), plus carry, the later chunks' sum, which it updates. Warp 0
@@ -1255,418 +1309,930 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Dynamic shared memory of a bf16 backward block, byte offsets; rows padded
-// to tc (the chunk rounded up to 16), q and k rows to 16 columns. Two
-// stages, one chunk's while the one before it loads: q and k rows [tc][16]
-// and v and dy rows [tc][P] bf16 (XOR-swizzled), lg [tc] float32 (scanned in
-// place into cum) and the entering state S_z [16][P] float32 (rows n >= N
-// zero). Then the carried dS [16][P] float32, the decays cl = cum log2(e),
-// eq = exp(cum) and ek = exp(tot - cum) [tc], the rows' q.dq and k.dk [tc],
-// float32, and the warps' dS partials [WARPS][16][P + 4] float32.
-struct BwdLayout {
-  int q, k, v, dy, lg, sz, stage, ds, cl, eq, ek, rq, rk, scratch, total;
-  __host__ __device__ BwdLayout(int c, int P) {
-    const int tc = (c + 15) & ~15;
-    q = 0;
-    k = q + tc * 32;
-    v = k + tc * 32;
-    dy = v + tc * P * 2;
-    lg = dy + tc * P * 2;
-    sz = lg + tc * 4;
-    stage = sz + 16 * P * 4;
-    ds = 2 * stage;
-    cl = ds + 16 * P * 4;
-    eq = cl + tc * 4;
-    ek = eq + tc * 4;
-    rq = ek + tc * 4;
-    rk = rq + tc * 4;
-    scratch = rk + tc * 4;
-    total = scratch + WARPS * 16 * (P + 4) * 4;
+// ---------------------------------------------------------------------------
+// K4b, bf16: the state pass, dq (with the state pass's walk), dk/dv and the
+// finish (design note above)
+// ---------------------------------------------------------------------------
+
+constexpr int BT = 64;             // rows of a dq or dk/dv tile: one wgmma M
+constexpr int BSTAGES = 3;         // slots of the streamed tiles' ring
+constexpr int BWD_THREADS = 160;   // dq: one consumer warpgroup, then a producer warp
+// dk/dv: one consumer warpgroup, then a producer warpgroup that gives its
+// registers up (setmaxnreg) to the consumers: two blocks an SM hold 128 a
+// thread at launch, the producer keeps 24 and the consumers rise to 232
+constexpr int DKDV_THREADS = 256, DKDV_AT_LAUNCH = 128, PRODUCER_REGS = 24,
+              CONSUMER_REGS = 232;
+constexpr int FIN_ROWS = 2048;     // rows of q.dq and k.dk the finish stages at once
+
+// The bf16 backward's operands besides GlaIn's: dy by its strides, K4's
+// chunk start states, the scratch one launch hands the next (float32,
+// contiguous) and the outputs.
+struct Bwd16 {
+  const bf16* dy;
+  Strides sdy;
+  const float* starts;  // [B,H,nc,N,P]
+  float* cl;            // [B,H,S]: cum log2(e) within each chunk (the state pass)
+  float* fwd;           // [B,H,S]: exp(cum_x - cum_x0), x0 the first row of x's 64-row tile
+  float* bwd;           // [B,H,S]: exp(cum_x1 - cum_x), x1 its last (at most c - 1)
+  float* dstate;        // [B,H,nc,N,P]: the gradient of the state leaving chunk z
+  float* rq;            // [B,H,S]: each head's q . dq (dq kernel)
+  float* rk;            // [B,H,S]: each head's k . dk (dk/dv kernel)
+  float* dqp;           // [ng,B,S,N]: each head group's dq (dq kernel)
+  float* dkp;           // [ng,B,S,N]: each head group's dk (dk/dv kernel)
+  bf16* dq;             // [B,S,N] (shared rows) or [B,S,H,N] (per head)
+  bf16* dk;
+  bf16* dv;             // [B,S,H,P]
+  float* dlg;           // [B,S,H]
+  int hg;               // heads a block of dq and dk/dv walks; 0: per-head q and k
+  int ng;               // head groups: head_groups(H, hg)
+};
+
+// The groups of hg heads that a dq or dk/dv launch's blocks walk (one head
+// a group when q and k are per head, hg = 0).
+__host__ __device__ inline int head_groups(int H, int hg) {
+  return hg > 0 ? (H + hg - 1) / hg : H;
+}
+
+// The reversed state pass, first half (K4b's first launch): every chunk's
+// increment of dS at once. Grid (B*H*nc*P/PW): one block per (b, h, chunk,
+// slice) stages the chunk's q rows, its dy slice and lg, scans lg into cum,
+// and writes the increment sum_i exp(cum_i) q_i dy_i^T of its [N][PW] slice
+// of dS into dstate (K4's state-delta machinery with q in k's place and dy
+// in v's: each warp's tiles, the 8 partials added in warp order); slice 0
+// also writes the chunk's cum log2(e) and its 64-row tiles' decays fwd and
+// bwd (the dq and dk/dv launches' factors of exp(cum_i - cum_j)). The walk
+// over the chunks that turns the increments into dS_z runs in the first
+// blocks of the dq launch (walk_states).
+template <int N, int P>
+__global__ void __launch_bounds__(THREADS, 4)
+    gla_bwd_state_kernel(GlaIn<bf16> in, Bwd16 w) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  constexpr int NS = P / PW;
+  const int c = in.c, nc = in.S / c, tc = (c + 15) & ~15, T = tc / 16;
+  const int slice = blockIdx.x % NS, z = blockIdx.x / NS % nc, bh = blockIdx.x / NS / nc;
+  const int b = bh / in.H, h = bh % in.H, p0 = slice * PW;
+  const Layout L(BWD_STATE, c);
+  float* scr = reinterpret_cast<float*>(sm + L.scratch);
+  unsigned char* ds = sm + L.dset;
+  GLA_STAMP_DECL(4);
+  GLA_STAMP(0);
+  stage_lg(in, b, h, z * c, tc, sm, L);
+  stage_rows<N, false>(in, b, h, z * c, p0, tc, sm, L);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+#ifdef GLA_LOADONLY
+  if (c > 0) return;
+#endif
+  GLA_STAMP(1);
+  scan_segments(tc, sm, ds, L);
+  __syncthreads();
+  chunk_decays<false, true>(c, tc, sm, ds, L);
+  __syncthreads();
+  if (slice == 0) {  // cl, and the 64-row tiles' decays the dq and dk/dv launches take
+    const float* cl_s = reinterpret_cast<const float*>(ds + L.cl);
+    const long long row = (long long)bh * in.S + z * c;
+    for (int j = threadIdx.x; j < c; j += THREADS) {
+      const int j0 = j & ~(BT - 1), j1 = min(j0 + BT - 1, c - 1);
+      w.cl[row + j] = cl_s[j];
+      w.fwd[row + j] = ex2(cl_s[j] - cl_s[j0]);
+      w.bwd[row + j] = ex2(cl_s[j1] - cl_s[j]);
+    }
+  }
+  GLA_STAMP(2);
+  float d[PW / 8][4] = {};
+  delta_part(T, smem_addr(sm + L.q), smem_addr(sm + L.v),
+             reinterpret_cast<const float*>(ds + L.e), d);
+  write_part(d, scr);
+  __syncthreads();
+  float* out = w.dstate + ((long long)bh * nc + z) * N * P + p0;
+  for (int e = threadIdx.x; e < N * PW; e += THREADS) out[(e / PW) * P + e % PW] = sum_parts(scr, e);
+  GLA_STAMP(3);
+#ifdef GLA_CLOCK
+  if (blockIdx.x == 0 && (threadIdx.x & 31) == 0)
+    printf("[clock] K4b state pass block 0 warp %d: loads %lld, cumsum + decays %lld, "
+           "increment + partial sum %lld cycles\n", threadIdx.x >> 5, stamp[1] - stamp[0],
+           stamp[2] - stamp[1], stamp[3] - stamp[2]);
+#endif
+}
+
+// The reversed state pass, second half, by the first blocks of the dq
+// launch (which reads no dS): turn each chunk's increment in dstate into
+// dS_z, the gradient of the state leaving chunk z, in place: dS_{nc-1} = 0
+// and dS_{z-1} = exp(tot_z) dS_z + increment_z, from the last chunk, the
+// increments of eight chunks loaded at once. Thread x of the walk owns
+// four elements of one (b, h)'s [N][P].
+template <int N, int P>
+__device__ void walk_states(const GlaIn<bf16>& in, const Bwd16& w, int x) {
+  constexpr int NP = N * P, U = 8;
+  const int c = in.c, nc = in.S / c;
+  if (x >= in.B * in.H * NP / 4) return;
+  const int bh = x / (NP / 4), e = x % (NP / 4);
+  float4* ds = reinterpret_cast<float4*>(w.dstate + (long long)bh * nc * NP) + e;
+  const float* cl = w.cl + (long long)bh * in.S + c - 1;  // each chunk's cum log2(e) at its end
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int z1 = nc; z1 > 0; z1 -= U) {
+    float4 inc[U];
+    float g[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (z1 - 1 - u >= 0) {
+        inc[u] = ds[(long long)(z1 - 1 - u) * (NP / 4)];
+        g[u] = ex2(cl[(long long)(z1 - 1 - u) * c]);
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (z1 - 1 - u >= 0) {
+        ds[(long long)(z1 - 1 - u) * (NP / 4)] = acc;
+        acc.x = acc.x * g[u] + inc[u].x;
+        acc.y = acc.y * g[u] + inc[u].y;
+        acc.z = acc.z * g[u] + inc[u].z;
+        acc.w = acc.w * g[u] + inc[u].w;
+      }
+  }
+}
+
+// Byte offset of bf16 element (r, x) in a tile of rows of RB bytes (64 or
+// 128) swizzled as the TMA writes it (the tile on 1024 bytes): 16-byte
+// chunk x / 8 of row r lies at chunk (x / 8) ^ (address bits 7-9 or 7-8).
+template <int RB>
+__device__ __forceinline__ uint32_t sw_off(int r, int x) {
+  const int sw = RB == 128 ? (r & 7) : ((r >> 1) & 3);
+  return (uint32_t)(r * RB + (((x >> 3) ^ sw) << 4) + (x & 7) * 2);
+}
+
+// Shared memory of a dq or dk/dv block, byte offsets from a 1024-byte
+// aligned base, for P columns and the chunk's nt = ceil(c / 64) tiles: two
+// buffers of the per-head tile (dq: dY_I; dk/dv: V_J) and the ring of
+// streamed tiles (dq: V_J; dk/dv: dY_I), 64 x P bf16 each as the TMA writes
+// them; the chunk's q or k tiles transposed, [16][64] bf16 swizzled by 128
+// bytes (dq: K_J^T; dk/dv: Q_I^T); for dk/dv the chunk's q rows and the key
+// tile's k rows [.][16] as K4 stages them. Then two of each per-head
+// buffer, one head's in use while the next head's fills: its state
+// operand hi and lo [16][P] bf16 swizzled as a P-column tile, the state
+// rows it is made from [16][P] float32, the cl, fwd and bwd rows of the
+// chunk [64 nt] float32 and two scalars a consumer thread (the operand's
+// scale), all by cp.async; for dk/dv two staging tiles of dv [64][P] bf16
+// (a head's rows leave 16 bytes a thread); the barriers.
+struct TileSmem {
+  int one, ring, tr, qrows, krow, sth, stl, sts, rst, cl, fwd, bwd, slot, dvs, rows, bar, total;
+  __host__ __device__ TileSmem(int c, int P, bool dkdv) {
+    const int nt = (c + BT - 1) / BT, tile = BT * P * 2;
+    rows = nt * BT;
+    sts = (16 * P * 2 + 1023) & ~1023;
+    one = 0;
+    ring = one + 2 * tile;
+    tr = ring + BSTAGES * tile;
+    qrows = tr + nt * 2048;
+    krow = qrows + (dkdv ? nt * BT * 32 : 0);
+    sth = (krow + (dkdv ? BT * 32 : 0) + 1023) & ~1023;
+    stl = sth + 2 * sts;
+    rst = stl + 2 * sts;
+    cl = rst + 2 * 16 * P * 4;
+    fwd = cl + 2 * rows * 4;
+    bwd = fwd + 2 * rows * 4;
+    slot = bwd + 2 * rows * 4;
+    dvs = slot + 2 * 128 * 2 * 4;
+    bar = dvs + (dkdv ? 2 * tile : 0);
+    total = bar + (2 * BSTAGES + 4) * 8 + 1024;  // + the base's alignment slack
   }
 };
 
-// Stage chunk z of (b, h) by cp.async (not committed): rows c..tc-1 and the
-// q/k columns from N to 16 are zeros, and so are S_z's rows from N.
+// A barrier of the 128 consumer threads (id 1; 0 is __syncthreads's)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// Keeps A fragments written before the wgmma.fence that precedes the wgmma
+// reading them (not sunk past it).
+__device__ __forceinline__ void pin_frag(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// A 64 x 64 accumulator as four k16 A fragments: rounded to bf16 (p), or
+// split hi/lo (float32 to about 16 bits).
+__device__ __forceinline__ void acc_round(const float* a, uint32_t (&p)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) p[kk][x] = pack(a[8 * kk + 2 * x], a[8 * kk + 2 * x + 1]);
+}
+__device__ __forceinline__ void acc_split(const float* a, uint32_t (&hi)[4][4],
+                                          uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) split(a[8 * kk + 2 * x], a[8 * kk + 2 * x + 1], hi[kk][x], lo[kk][x]);
+}
+
+// Start the copies of head h's rows into buffer d, by the consumer
+// threads (committed by the caller): its cl, fwd and bwd rows of the chunk
+// (rows from c on zero), its state [N][P] float32 (st_g; rows from N on
+// zero), each thread its own pairs, and to each thread's slot the cl
+// values at rows s0 and s1 of the chunk (its operand's scale).
 template <int N, int P>
-__device__ void bwd_stage(const GlaIn<bf16>& in, const BwdIO<bf16>& io, int b, int h, int z,
-                          unsigned char* st, const BwdLayout& L) {
-  constexpr int VCH = P / 8, PCH = P / 4;
-  const int c = in.c, tc = (c + 15) & ~15, t0 = z * c;
-  const uint32_t qa = smem_addr(st + L.q), ka = smem_addr(st + L.k);
-  for (int idx = threadIdx.x; idx < tc * 2; idx += THREADS) {
-    const int j = idx >> 1, ch = idx & 1;
-    const bool ok = j < c && ch * 8 < N;
-    cp16(qa + swz<2>(j, ch), in.q + (ok ? in.sq.at(b, t0 + j, h) + ch * 8 : 0), ok);
-    cp16(ka + swz<2>(j, ch), in.k + (ok ? in.sk.at(b, t0 + j, h) + ch * 8 : 0), ok);
+__device__ void prefetch_head(const Bwd16& w, long long row, const float* st_g, int c, int s0,
+                              int s1, int d, unsigned char* sm, const TileSmem& L) {
+  const uint32_t cl = smem_addr(sm + L.cl) + d * L.rows * 4;
+  const uint32_t fw = smem_addr(sm + L.fwd) + d * L.rows * 4;
+  const uint32_t bw = smem_addr(sm + L.bwd) + d * L.rows * 4;
+  for (int x = threadIdx.x; x < L.rows; x += 128) {
+    const bool ok = x < c;
+    const long long at = row + (ok ? x : 0);
+    cp4(cl + 4 * x, w.cl + at, ok);
+    cp4(fw + 4 * x, w.fwd + at, ok);
+    cp4(bw + 4 * x, w.bwd + at, ok);
   }
-  const uint32_t va = smem_addr(st + L.v), da = smem_addr(st + L.dy);
-  for (int idx = threadIdx.x; idx < tc * VCH; idx += THREADS) {
-    const int j = idx / VCH, ch = idx % VCH;
-    const bool ok = j < c;
-    cp16(va + swz<VCH>(j, ch), in.v + (ok ? in.sv.at(b, t0 + j, h) + ch * 8 : 0), ok);
-    cp16(da + swz<VCH>(j, ch), io.dy + (ok ? io.sdy.at(b, t0 + j, h) + ch * 8 : 0), ok);
+  const uint32_t rst = smem_addr(sm + L.rst) + d * 16 * P * 4;
+  for (int e = 2 * threadIdx.x; e < 16 * P; e += 256) {
+    const bool ok = e / P < N;
+    cp8(rst + 4 * e, st_g + (ok ? e : 0), ok);
   }
-  const uint32_t la = smem_addr(st + L.lg);
-  for (int j = threadIdx.x; j < tc; j += THREADS) {
-    const bool ok = j < c;
-    cp4(la + 4 * j, in.lg + (ok ? in.sl.at(b, t0 + j, h) : 0), ok);
-  }
-  const float* src = io.starts + ((long long)(b * in.H + h) * (in.S / c) + z) * N * P;
-  const uint32_t sa = smem_addr(st + L.sz);
-  for (int idx = threadIdx.x; idx < 16 * PCH; idx += THREADS) {
-    const int n = idx / PCH, ch = idx % PCH;
-    cp16(sa + 16 * idx, src + (n < N ? n * P + ch * 4 : 0), n < N);
+  const uint32_t slot = smem_addr(sm + L.slot) + (d * 128 + threadIdx.x) * 8;
+  cp4(slot, w.cl + row + s0, true);
+  cp4(slot + 4, w.cl + row + s1, true);
+}
+
+// Head h's state operand in buffer d from the rows its thread copied there
+// (the caller waits for them): scale * X as the bf16 hi and lo tiles
+// [16][P], scale = exp(cl_s0 (- cl_s1 when SUB)) from its slot.
+template <int P, bool SUB>
+__device__ void head_operand(int d, unsigned char* sm, const TileSmem& L) {
+  const float* rst = reinterpret_cast<const float*>(sm + L.rst) + d * 16 * P;
+  const float* slot = reinterpret_cast<const float*>(sm + L.slot) + (d * 128 + threadIdx.x) * 2;
+  const float sc = ex2(SUB ? slot[0] - slot[1] : slot[0]);
+  unsigned char* hi = sm + L.sth + d * L.sts;
+  unsigned char* lo = sm + L.stl + d * L.sts;
+  for (int e = 2 * threadIdx.x; e < 16 * P; e += 256) {
+    const int n = e / P, p = e % P;
+    const float2 v = *reinterpret_cast<const float2*>(rst + e);
+    uint32_t h, l;
+    split(v.x * sc, v.y * sc, h, l);
+    *reinterpret_cast<uint32_t*>(hi + sw_off<P * 2>(n, p)) = h;
+    *reinterpret_cast<uint32_t*>(lo + sw_off<P * 2>(n, p)) = l;
   }
 }
 
-// ldmatrix lane addresses of the 16 x 16 bf16 block at rows r0.. and
-// column group kc (16-byte pieces 2kc, 2kc + 1) of rows of CH pieces.
-// lane_a: with ldsm the block as an A fragment (rows the M index); with
-// ldsm_t the B fragments of column tiles 2kc and 2kc + 1 of the block read
-// as [K][N] (rows the K index): {b0, b1} of each. lane_b: with ldsm the B
-// fragments of row tiles 0 and 1 of the block read as [N][K] (the product
-// with its transpose); with ldsm_t the A fragment of its transpose.
-template <int CH>
-__device__ __forceinline__ uint32_t lane_a(uint32_t base, int r0, int kc) {
-  const int lane = threadIdx.x & 31, m = lane >> 3, r = lane & 7;
-  return base + swz<CH>(r0 + (m & 1) * 8 + r, 2 * kc + (m >> 1));
-}
-template <int CH>
-__device__ __forceinline__ uint32_t lane_b(uint32_t base, int r0, int kc) {
-  const int lane = threadIdx.x & 31, m = lane >> 3, r = lane & 7;
-  return base + swz<CH>(r0 + (m >> 1) * 8 + r, 2 * kc + (m & 1));
-}
-
-// A C fragment pair (two 16x8 tiles, rows m, columns 0-15) as the A
-// fragment of the next product, hi and lo: float32 to about 16 bits
-__device__ __forceinline__ void split_a(const float (&s)[2][4], uint32_t (&hi)[4],
-                                        uint32_t (&lo)[4]) {
-  split(s[0][0], s[0][1], hi[0], lo[0]);
-  split(s[0][2], s[0][3], hi[1], lo[1]);
-  split(s[1][0], s[1][1], hi[2], lo[2]);
-  split(s[1][2], s[1][3], hi[3], lo[3]);
-}
-
-// x[nt] += A . X^T over P for a float32 X [16][P] in shared memory (rows n,
-// split hi/lo as B fragments): A's fragments a[kc] for k = p in 16kc..
-template <int P>
-__device__ __forceinline__ void times_xt(const uint32_t (&a)[P / 16][4], const float* x,
-                                         float (&out)[2][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kc = 0; kc < P / 16; ++kc)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const float* r = x + (8 * nt + g) * P + 16 * kc + 2 * t;
-      uint32_t h0, l0, h1, l1;
-      split(r[0], r[1], h0, l0);
-      split(r[8], r[9], h1, l1);
-      mma(out[nt], a[kc], h0, h1);
-      mma(out[nt], a[kc], l0, l1);
-    }
-}
-
-// Write a 16 x 16 float32 tile's columns n < N of rows i < c (row i at out +
-// i * rs, rows r0..) and return each row's dot with the bf16 rows x (q or
-// k, in shared memory at xa): lane (g, t) gets rows r0 + g and r0 + g + 8.
+// Rows [r0, r0 + 64) of the chunk's q or k (head h; zeros from row c and
+// column N on) transposed into a [16][64] bf16 tile swizzled by 128 bytes:
+// the K-major B operand of a product over those rows. Consumer threads.
 template <int N>
-__device__ __forceinline__ float2 put_nrows(const float (&o)[2][4], int r0, int c,
-                                            const unsigned char* xa, float* out, long long rs) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, i0 = r0 + g;
-  float d0 = 0.f, d1 = 0.f;
+__device__ void stage_transposed(const bf16* x, const Strides& sx, int b, int h, int t0, int r0,
+                                 int c, unsigned char* tile) {
+  const int j = threadIdx.x & (BT - 1), hf = threadIdx.x >> 6;
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  if (hf * 8 < N && r0 + j < c)
+    u = *reinterpret_cast<const uint4*>(x + sx.at(b, t0 + r0 + j, h) + hf * 8);
+  const bf16* e8 = reinterpret_cast<const bf16*>(&u);
 #pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    const int n = 8 * nt + 2 * t;
-    if (n < N) {
-      const float2 x0 = unpack(*reinterpret_cast<const uint32_t*>(xa + swz<2>(i0, nt) + 4 * t));
-      const float2 x1 =
-          unpack(*reinterpret_cast<const uint32_t*>(xa + swz<2>(i0 + 8, nt) + 4 * t));
-      d0 += x0.x * o[nt][0] + x0.y * o[nt][1];
-      d1 += x1.x * o[nt][2] + x1.y * o[nt][3];
-      if (i0 < c) *reinterpret_cast<float2*>(out + i0 * rs + n) = make_float2(o[nt][0], o[nt][1]);
-      if (i0 + 8 < c)
-        *reinterpret_cast<float2*>(out + (i0 + 8) * rs + n) = make_float2(o[nt][2], o[nt][3]);
-    }
+  for (int e = 0; e < 8; ++e) *reinterpret_cast<bf16*>(tile + sw_off<128>(hf * 8 + e, j)) = e8[e];
+}
+
+// Rows [r0, r0 + n) of q or k (head h; zeros from row c and column N on) as
+// K4 stages them, [n][16] bf16 swizzled (swz<2>). Consumer threads.
+template <int N>
+__device__ void stage_rows16(const bf16* x, const Strides& sx, int b, int h, int t0, int r0,
+                             int n, int c, unsigned char* dst) {
+  for (int idx = threadIdx.x; idx < 2 * n; idx += 128) {
+    const int j = idx >> 1, ch = idx & 1;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (ch * 8 < N && r0 + j < c)
+      u = *reinterpret_cast<const uint4*>(x + sx.at(b, t0 + r0 + j, h) + ch * 8);
+    *reinterpret_cast<uint4*>(dst + swz<2>(j, ch)) = u;
   }
+}
+
+// A consumer thread's two rows of q or k (rows r and r + 8 of the chunk, head
+// h; zeros past c), columns 2t, 2t + 1, 8 + 2t, 9 + 2t: the columns of its
+// n16 accumulator, for the rows' dots.
+template <int N>
+__device__ __forceinline__ void row_pair(const bf16* x, const Strides& sx, int b, int h, int t0,
+                                         int r, int c, float (&v)[2][4]) {
+  const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int o_ = 1; o_ < 4; o_ *= 2) {
-    d0 += __shfl_xor_sync(0xffffffffu, d0, o_);
-    d1 += __shfl_xor_sync(0xffffffffu, d1, o_);
+  for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+      const int i = r + 8 * rr, n = 8 * nb + 2 * t;
+      float2 f = make_float2(0.f, 0.f);
+      if (i < c && n < N) f = unpack(*reinterpret_cast<const uint32_t*>(x + sx.at(b, t0 + i, h) + n));
+      v[rr][2 * nb] = f.x;
+      v[rr][2 * nb + 1] = f.y;
+    }
+}
+
+// The dots of a thread's two rows (v, row_pair's) with an n16 accumulator,
+// summed over the four lanes that share the rows.
+__device__ __forceinline__ float2 row_dots(const float (&v)[2][4], const float* a) {
+  float d0 = v[0][0] * a[0] + v[0][1] * a[1] + v[0][2] * a[4] + v[0][3] * a[5];
+  float d1 = v[1][0] * a[2] + v[1][1] * a[3] + v[1][2] * a[6] + v[1][3] * a[7];
+#pragma unroll
+  for (int o = 1; o < 4; o *= 2) {
+    d0 += __shfl_xor_sync(0xffffffffu, d0, o);
+    d1 += __shfl_xor_sync(0xffffffffu, d1, o);
   }
   return make_float2(d0, d1);
 }
 
-// dq of query tile I: sum over key tiles J <= I of (W o dY_I V_J^T) K_J,
-// then diag(exp(cum)) dY_I S_z^T; rows and q.dq out. The first product's
-// A (dY) and B (V) are bf16 as given; W o (dY V^T) is split hi/lo for the
-// second, so dq is float32 to about 16 bits (dlg is a difference of such
-// dots).
-template <int N, int P>
-__device__ __forceinline__ void bwd_dq_tile(int I, int c, const unsigned char* st,
-                                            const BwdLayout& L, const float* cl_s,
-                                            const float* eq_s, float* rq_s, float* dq,
-                                            long long rs) {
-  constexpr int VCH = P / 8, KS = P / 16;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, i0 = 16 * I + g;
-  const uint32_t k_a = smem_addr(st + L.k), v_a = smem_addr(st + L.v),
-                 d_a = smem_addr(st + L.dy);
-  uint32_t dya[KS][4];
-#pragma unroll
-  for (int kc = 0; kc < KS; ++kc) ldsm(dya[kc], lane_a<VCH>(d_a, 16 * I, kc));
-  const float c0 = cl_s[i0], c1 = cl_s[i0 + 8];
-  float acc[2][4] = {};
-  for (int J = 0; J <= I; ++J) {
-    float s[2][4] = {};
-#pragma unroll
-    for (int kc = 0; kc < KS; ++kc) {
-      uint32_t vb[4];
-      ldsm(vb, lane_b<VCH>(v_a, 16 * J, kc));
-      mma(s[0], dya[kc], vb[0], vb[1]);
-      mma(s[1], dya[kc], vb[2], vb[3]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const int j = 16 * J + 8 * nt + 2 * t + (x & 1), i = i0 + (x < 2 ? 0 : 8);
-        s[nt][x] = (J < I || i >= j) ? s[nt][x] * ex2((x < 2 ? c0 : c1) - cl_s[j]) : 0.f;
-      }
-    uint32_t hi[4], lo[4], kb[4];
-    split_a(s, hi, lo);
-    ldsm_t(kb, lane_a<2>(k_a, 16 * J, 0));
-    mma(acc[0], hi, kb[0], kb[1]);
-    mma(acc[0], lo, kb[0], kb[1]);
-    mma(acc[1], hi, kb[2], kb[3]);
-    mma(acc[1], lo, kb[2], kb[3]);
-  }
-  float x[2][4] = {};
-  times_xt<P>(dya, reinterpret_cast<const float*>(st + L.sz), x);
-  const float e0 = eq_s[i0], e1 = eq_s[i0 + 8];
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    acc[nt][0] += e0 * x[nt][0];
-    acc[nt][1] += e0 * x[nt][1];
-    acc[nt][2] += e1 * x[nt][2];
-    acc[nt][3] += e1 * x[nt][3];
-  }
-  const float2 r = put_nrows<N>(acc, 16 * I, c, st + L.q, dq, rs);
-  if (t == 0) {
-    rq_s[i0] = r.x;
-    rq_s[i0 + 8] = r.y;
-  }
-}
-
-// dk and dv of key tile J: over query tiles I >= J, with the tiles
-// transposed (rows j): dk += (W o V_J dY_I^T) Q_I (A split hi/lo, as dq's)
-// and dv += (W o K_J Q_I^T) dY_I (A rounded to bf16, as K4 rounds its
-// probabilities); then diag(exp(tot - cum)) times V_J dS^T and K_J dS (dS
-// split hi/lo). Rows, k.dk and dv out.
-template <int N, int P>
-__device__ __forceinline__ void bwd_dkdv_tile(int J, int T, int c, const unsigned char* st,
-                                              const BwdLayout& L, const float* cl_s,
-                                              const float* ek_s, const float* ds_s,
-                                              float* rk_s, float* dk_out, long long rsk,
-                                              bf16* dv_out, long long rsv) {
-  constexpr int VCH = P / 8, KS = P / 16, NT = P / 8;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, j0 = 16 * J + g;
-  const uint32_t q_a = smem_addr(st + L.q), k_a = smem_addr(st + L.k),
-                 v_a = smem_addr(st + L.v), d_a = smem_addr(st + L.dy);
-  uint32_t ka[4], va[KS][4];
-  ldsm(ka, lane_a<2>(k_a, 16 * J, 0));
-#pragma unroll
-  for (int kc = 0; kc < KS; ++kc) ldsm(va[kc], lane_a<VCH>(v_a, 16 * J, kc));
-  const float c0 = cl_s[j0], c1 = cl_s[j0 + 8];
-  float dk[2][4] = {}, dv[NT][4] = {};
-  for (int I = J; I < T; ++I) {
-    float at[2][4] = {}, pt[2][4] = {};
-    uint32_t qb[4];
-    ldsm(qb, lane_b<2>(q_a, 16 * I, 0));
-    mma(at[0], ka, qb[0], qb[1]);
-    mma(at[1], ka, qb[2], qb[3]);
-#pragma unroll
-    for (int kc = 0; kc < KS; ++kc) {
-      uint32_t db[4];
-      ldsm(db, lane_b<VCH>(d_a, 16 * I, kc));
-      mma(pt[0], va[kc], db[0], db[1]);
-      mma(pt[1], va[kc], db[2], db[3]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const int i = 16 * I + 8 * nt + 2 * t + (x & 1), j = j0 + (x < 2 ? 0 : 8);
-        const float w = (I > J || i >= j) ? ex2(cl_s[i] - (x < 2 ? c0 : c1)) : 0.f;
-        at[nt][x] *= w;
-        pt[nt][x] *= w;
-      }
-    uint32_t hi[4], lo[4], qt[4];
-    split_a(pt, hi, lo);
-    ldsm_t(qt, lane_a<2>(q_a, 16 * I, 0));
-    mma(dk[0], hi, qt[0], qt[1]);
-    mma(dk[0], lo, qt[0], qt[1]);
-    mma(dk[1], hi, qt[2], qt[3]);
-    mma(dk[1], lo, qt[2], qt[3]);
-    const uint32_t pa[4] = {pack(at[0][0], at[0][1]), pack(at[0][2], at[0][3]),
-                            pack(at[1][0], at[1][1]), pack(at[1][2], at[1][3])};
-#pragma unroll
-    for (int kc = 0; kc < KS; ++kc) {
-      uint32_t db[4];
-      ldsm_t(db, lane_a<VCH>(d_a, 16 * I, kc));
-      mma(dv[2 * kc], pa, db[0], db[1]);
-      mma(dv[2 * kc + 1], pa, db[2], db[3]);
-    }
-  }
-  const float e0 = ek_s[j0], e1 = ek_s[j0 + 8];
-  float x[2][4] = {};
-  times_xt<P>(va, ds_s, x);
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    dk[nt][0] += e0 * x[nt][0];
-    dk[nt][1] += e0 * x[nt][1];
-    dk[nt][2] += e1 * x[nt][2];
-    dk[nt][3] += e1 * x[nt][3];
-  }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int p = 8 * nt + g;
-    uint32_t h0, l0, h1, l1;
-    split(ds_s[2 * t * P + p], ds_s[(2 * t + 1) * P + p], h0, l0);
-    split(ds_s[(2 * t + 8) * P + p], ds_s[(2 * t + 9) * P + p], h1, l1);
-    float y[4] = {};
-    mma(y, ka, h0, h1);
-    mma(y, ka, l0, l1);
-    dv[nt][0] += e0 * y[0];
-    dv[nt][1] += e0 * y[1];
-    dv[nt][2] += e1 * y[2];
-    dv[nt][3] += e1 * y[3];
-  }
-  const float2 r = put_nrows<N>(dk, 16 * J, c, st + L.k, dk_out, rsk);
-  if (t == 0) {
-    rk_s[j0] = r.x;
-    rk_s[j0 + 8] = r.y;
-  }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int p = 8 * nt + 2 * t;
-    if (j0 < c) *reinterpret_cast<uint32_t*>(dv_out + j0 * rsv + p) = pack(dv[nt][0], dv[nt][1]);
-    if (j0 + 8 < c)
-      *reinterpret_cast<uint32_t*>(dv_out + (j0 + 8) * rsv + p) = pack(dv[nt][2], dv[nt][3]);
-  }
-}
-
-// This warp's share of the chunk's dS increment, sum over its query tiles
-// I = warp, warp + 8, ... of (Q_I diag(exp(cum)))^T dY_I: rows n, columns
-// p; the scaled q split hi/lo (as K4's state delta).
-template <int P>
-__device__ __forceinline__ void bwd_ds_part(int T, const unsigned char* st, const BwdLayout& L,
-                                            const float* eq_s, float (&d)[P / 8][4]) {
-  constexpr int VCH = P / 8, KS = P / 16;
+// Write an n16 accumulator's columns n < N of the thread's rows r, r + 8 (<
+// c): row i at out + i * N, float32.
+template <int N>
+__device__ __forceinline__ void put_n16(const float* a, int r, int c, float* out) {
   const int t = threadIdx.x & 3;
-  const uint32_t q_a = smem_addr(st + L.q), d_a = smem_addr(st + L.dy);
-  for (int I = threadIdx.x >> 5; I < T; I += WARPS) {
-    uint32_t qa[4], hi[4], lo[4];
-    ldsm_t(qa, lane_b<2>(q_a, 16 * I, 0));
-    const float2 w0 = *reinterpret_cast<const float2*>(eq_s + 16 * I + 2 * t);
-    const float2 w1 = *reinterpret_cast<const float2*>(eq_s + 16 * I + 8 + 2 * t);
 #pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const float2 f = unpack(qa[x]), w = x < 2 ? w0 : w1;
-      split(f.x * w.x, f.y * w.y, hi[x], lo[x]);
-    }
+  for (int rr = 0; rr < 2; ++rr)
 #pragma unroll
-    for (int kc = 0; kc < KS; ++kc) {
-      uint32_t db[4];
-      ldsm_t(db, lane_a<VCH>(d_a, 16 * I, kc));
-      mma(d[2 * kc], hi, db[0], db[1]);
-      mma(d[2 * kc], lo, db[0], db[1]);
-      mma(d[2 * kc + 1], hi, db[2], db[3]);
-      mma(d[2 * kc + 1], lo, db[2], db[3]);
+    for (int nb = 0; nb < 2; ++nb) {
+      const int i = r + 8 * rr, n = 8 * nb + 2 * t;
+      if (i < c && n < N)
+        *reinterpret_cast<float2*>(out + (long long)i * N + n) =
+            make_float2(a[4 * nb + 2 * rr], a[4 * nb + 2 * rr + 1]);
     }
+}
+
+// sc = K_J Q_I^T for a warp's 16 key rows (ka, their A fragment) and the 64
+// query rows of tile I (q_a: the chunk's q rows as K4 stages them) on
+// mma.sync, as eight 16 x 8 C fragments: the layout of a warp's share of a
+// 64 x 64 wgmma accumulator.
+__device__ __forceinline__ void scores64(const uint32_t (&ka)[4], uint32_t q_a, int I,
+                                         float (&sc)[8][4]) {
+  const int lane = threadIdx.x & 31, m = lane >> 3, r = lane & 7;
+  const uint32_t base = q_a + swz<2>((m >> 1) * 8 + r, m & 1);
+#pragma unroll
+  for (int q4 = 0; q4 < 4; ++q4) {
+    uint32_t qb[4];
+    ldsm(qb, base + KT * (4 * I + q4));
+#pragma unroll
+    for (int x = 0; x < 4; ++x) sc[2 * q4][x] = sc[2 * q4 + 1][x] = 0.f;
+    mma(sc[2 * q4], ka, qb[0], qb[1]);
+    mma(sc[2 * q4 + 1], ka, qb[2], qb[3]);
   }
 }
 
-// K4b, bf16. Grid (B*H): one block per (b, h) walks the chunks in reverse
-// with dS [16][P] in shared memory, two stages (chunk z - 1 loads while z
-// computes). Each warp takes query tiles t and T-1-t for dq and key tiles t
-// and T-1-t for dk and dv (T + 1 tile steps each), then its share of the
-// dS increment; the 8 partials are added in warp order by one thread per
-// element, and warp 0 runs dlg's suffix sums: no atomics, one fixed order.
+// dq. Grid (nt x B x nc x ng), the query tiles with the most key tiles
+// first: a block owns query tile I (64 rows) of one (b, chunk) and walks its
+// head group's heads in order. The consumer warpgroup, per head: dq_h =
+// dY_I (exp(cum_I0) S_z)^T (the inter term, hi and lo); for each key tile J
+// < I, dP = dY_I V_J^T, times g_IJ bwd_j by column, split hi/lo, dq_h +=
+// (.) K_J (the next tile's dP in the same wgmma group); dq_h *= fwd_i; the
+// diagonal tile with one ex2 an element under the mask; then q . dq_h into
+// rq and dq_h into the group's sum, in head order. The producer warp's lane
+// 0 streams dY_I (two buffers) and the V_J (a ring) by TMA.
 template <int N, int P>
-__global__ void __launch_bounds__(THREADS, 1)
-    gla_bwd_kernel(GlaIn<bf16> in, BwdIO<bf16> io) {
-  extern __shared__ __align__(128) unsigned char sm[];
-  const int c = in.c, nc = in.S / c, H = in.H, tc = (c + 15) & ~15, T = tc / 16;
-  const int b = blockIdx.x / H, h = blockIdx.x % H, warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const BwdLayout L(c, P);
-  float* ds_s = reinterpret_cast<float*>(sm + L.ds);
-  float* cl_s = reinterpret_cast<float*>(sm + L.cl);
-  float* eq_s = reinterpret_cast<float*>(sm + L.eq);
-  float* ek_s = reinterpret_cast<float*>(sm + L.ek);
-  float* rq_s = reinterpret_cast<float*>(sm + L.rq);
-  float* rk_s = reinterpret_cast<float*>(sm + L.rk);
-  float* scr = reinterpret_cast<float*>(sm + L.scratch);
-  for (int e = threadIdx.x; e < 16 * P; e += THREADS) ds_s[e] = 0.f;
-  float carry = 0.f;
-  bwd_stage<N, P>(in, io, b, h, nc - 1, sm, L);
-  cp_commit();
-  for (int n = 0; n < nc; ++n) {
-    const int z = nc - 1 - n;
-    unsigned char* st = sm + (n & 1) * L.stage;
-    if (z > 0) {
-      bwd_stage<N, P>(in, io, b, h, z - 1, sm + ((n + 1) & 1) * L.stage, L);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();  // chunk z's rows are in; the later chunk's dS and dlg are done
-    float* cum = reinterpret_cast<float*>(st + L.lg);
-    scan_rows(cum, tc);
-    __syncthreads();
-    const float tot = cum[c - 1], cl_tot = tot * LOG2E;
-    for (int j = threadIdx.x; j < tc; j += THREADS) {
-      const float cl = cum[j] * LOG2E;
-      cl_s[j] = cl;
-      eq_s[j] = ex2(cl);
-      ek_s[j] = ex2(cl_tot - cl);
-    }
-    __syncthreads();
-    const long long row0 = (long long)b * in.S + z * c;
-    float* dq = io.dq + (row0 * H + h) * N;
-    float* dk = io.dk + (row0 * H + h) * N;
-    bf16* dv = io.dv + (row0 * H + h) * P;
-    for (int pr = warp; pr < (T + 1) / 2; pr += WARPS) {
-      const int I1 = T - 1 - pr;
-      bwd_dq_tile<N, P>(I1, c, st, L, cl_s, eq_s, rq_s, dq, (long long)H * N);
-      if (pr < I1) bwd_dq_tile<N, P>(pr, c, st, L, cl_s, eq_s, rq_s, dq, (long long)H * N);
-      bwd_dkdv_tile<N, P>(pr, T, c, st, L, cl_s, ek_s, ds_s, rk_s, dk, (long long)H * N, dv,
-                          (long long)H * P);
-      if (pr < I1)
-        bwd_dkdv_tile<N, P>(I1, T, c, st, L, cl_s, ek_s, ds_s, rk_s, dk, (long long)H * N,
-                            dv, (long long)H * P);
-    }
-    float d[P / 8][4] = {};
-    bwd_ds_part<P>(T, st, L, eq_s, d);
-    float* mine = scr + warp * 16 * (P + 4);
-#pragma unroll
-    for (int nt = 0; nt < P / 8; ++nt) {
-      *reinterpret_cast<float2*>(mine + g * (P + 4) + 8 * nt + 2 * t) =
-          make_float2(d[nt][0], d[nt][1]);
-      *reinterpret_cast<float2*>(mine + (g + 8) * (P + 4) + 8 * nt + 2 * t) =
-          make_float2(d[nt][2], d[nt][3]);
-    }
-    __syncthreads();  // every tile has read dS; the partials, q.dq and k.dk are in
-    const float gc = expf(tot);
-    for (int e = threadIdx.x; e < 16 * P; e += THREADS) {
-      const int nn = e / P, p = e % P;
-      float x = 0.f;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) x += scr[(w * 16 + nn) * (P + 4) + p];
-      ds_s[e] = ds_s[e] * gc + x;
-    }
-    dlg_rows(rq_s, rk_s, c, carry, io.dlg, row0 * H + h, H);
+__global__ void __launch_bounds__(BWD_THREADS, 3)
+    gla_bwd_dq_kernel(const __grid_constant__ CUtensorMap tdy,
+                      const __grid_constant__ CUtensorMap tv, GlaIn<bf16> in, Bwd16 w,
+                      int dy_slots, int v_slots, int walk_blocks) {
+  if ((int)blockIdx.x < walk_blocks) {  // the state pass's walk (they run first)
+    walk_states<N, P>(in, w, blockIdx.x * BWD_THREADS + threadIdx.x);
+    return;
   }
+  constexpr int TILE = BT * P * 2, KS = P / 16;
+  constexpr uint64_t TILE_D = TILE >> 4, TR_D = 2048 >> 4;
+  extern __shared__ uint8_t smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int c = in.c, nc = in.S / c, H = in.H, nt = (c + BT - 1) / BT;
+  const TileSmem L(c, P, false);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bar);
+  uint64_t* empty = full + BSTAGES;
+  uint64_t* ofull = empty + BSTAGES;
+  uint64_t* oempty = ofull + 2;
+  // block -> (I, b, z, head group): the query tiles with the most key tiles
+  // first
+  const int per = in.B * nc * w.ng, blk = (int)blockIdx.x - walk_blocks;
+  const int I = nt - 1 - blk / per, rest = blk % per;
+  const int g = rest % w.ng, z = rest / w.ng % nc, b = rest / w.ng / nc;
+  const int hg = w.hg > 0 ? w.hg : 1;
+  const int h0 = g * hg, h1 = min(h0 + hg, H);
+  const int t0 = z * c, I0 = I * BT;
+  const int warp = warp_index();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < BSTAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 128);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&ofull[i], 1);
+      mbar_init(&oempty[i], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 4) {  // the producer: lane 0 issues the loads
+    if (threadIdx.x != 128) return;
+    for (int h = h0, hc = 0, it = 0; h < h1; ++h, ++hc) {
+      const int o = hc & 1;
+      if (hc >= 2) mbar_wait(&oempty[o], ((hc >> 1) - 1) & 1);
+      mbar_expect_tx(&ofull[o], TILE);
+      tma_load(sm + L.one + o * TILE, &tdy, &ofull[o], dy_slots, t0 + I0, h, b);
+      for (int J = 0; J <= I; ++J, ++it) {
+        const int s = it % BSTAGES;
+        if (it >= BSTAGES) mbar_wait(&empty[s], ((it / BSTAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], TILE);
+        tma_load(sm + L.ring + s * TILE, &tv, &full[s], v_slots, t0 + J * BT, h, b);
+      }
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31, tq = lane & 3, r0 = warp * 16 + (lane >> 2);
+  // K_J^T for J <= I, from head h0's k (the group's shared row)
+  for (int J = 0; J <= I; ++J)
+    stage_transposed<N>(in.k, in.sk, b, h0, t0, J * BT, c, sm + L.tr + J * 2048);
+  float qv[2][4];
+  row_pair<N>(in.q, in.sq, b, h0, t0, I0 + r0, c, qv);
+  const uint64_t d_one = smem_desc<P>(sm + L.one), d_ring = smem_desc<P>(sm + L.ring);
+  const uint64_t d_sth0 = smem_desc<P>(sm + L.sth), d_stl0 = smem_desc<P>(sm + L.stl);
+  const uint64_t d_tr = smem_desc<64>(sm + L.tr);
+  float dq_tot[8] = {};
+#ifdef GLA_CLOCK
+  long long stamp[4];
+#endif
+  auto prefetch = [&](int h, int d) {  // head h's decays and S_z into buffer d
+    const long long bhh = (long long)b * H + h;
+    prefetch_head<N, P>(w, bhh * in.S + t0, w.starts + (bhh * nc + z) * N * P, c, I0, I0, d,
+                        sm, L);
+    cp_commit();
+  };
+  // the operand exp(cum_I0) S_z of the head whose rows buffer d holds
+  auto operand = [&](int d) {
+    cp_wait<0>();
+    head_operand<P, false>(d, sm, L);
+    fence_proxy_async();
+    consumer_sync();  // the buffer is in for every thread (the first: the tiles above too)
+  };
+  prefetch(h0, 0);
+  operand(0);
+  for (int h = h0, hc = 0, it = 0; h < h1; ++h, ++hc) {
+    const int o = hc & 1, d = hc & 1;
+    const long long bhh = (long long)b * H + h;
+    GLA_STAMP(0);
+    if (h + 1 < h1) prefetch(h + 1, d ^ 1);  // lands while this head computes
+    const float* cl_s = reinterpret_cast<const float*>(sm + L.cl) + d * L.rows;
+    const float* fwd_s = reinterpret_cast<const float*>(sm + L.fwd) + d * L.rows;
+    const float* bwd_s = reinterpret_cast<const float*>(sm + L.bwd) + d * L.rows;
+    const uint64_t d_sth = d_sth0 + (L.sts >> 4) * d, d_stl = d_stl0 + (L.sts >> 4) * d;
+#ifdef GLA_LOADONLY
+    mbar_wait(&ofull[o], (hc >> 1) & 1);
+    for (int J = 0; J <= I; ++J, ++it) {
+      mbar_wait(&full[it % BSTAGES], (it / BSTAGES) & 1);
+      mbar_arrive(&empty[it % BSTAGES]);
+    }
+    mbar_arrive(&oempty[o]);
+    if (h + 1 < h1) operand(d ^ 1);
+    continue;
+#endif
+    const float f0 = fwd_s[I0 + r0], f1 = fwd_s[I0 + r0 + 8];
+    const float c0 = cl_s[I0 + r0], c1 = cl_s[I0 + r0 + 8];
+    float dq[8] = {}, dp[32] = {};
+    mbar_wait(&ofull[o], (hc >> 1) & 1);
+    const uint64_t d_y = d_one + TILE_D * o;
+    mbar_wait(&full[it % BSTAGES], (it / BSTAGES) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wgmma_ss_n16(dq, d_y + 2 * kk, d_sth + 2 * kk, kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wgmma_ss_n16(dq, d_y + 2 * kk, d_stl + 2 * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss_n64(dp, d_y + 2 * kk, d_ring + TILE_D * (it % BSTAGES) + 2 * kk, kk > 0);
+    wg_commit();
+    GLA_STAMP(1);
+    for (int J = 0; J <= I; ++J, ++it) {
+      wg_wait<0>();
+      fence_regs<32>(dp);
+      fence_regs<8>(dq);
+      mbar_arrive(&empty[it % BSTAGES]);  // V_J is read
+      if (J < I) {  // exp(cum_i - cum_j) = fwd_i g bwd_j, fwd_i applied after the sum
+        const float gj = ex2(cl_s[I0] - cl_s[J * BT + BT - 1]);
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const float2 bb = *reinterpret_cast<const float2*>(bwd_s + J * BT + 8 * nb + 2 * tq);
+          dp[4 * nb] *= gj * bb.x;
+          dp[4 * nb + 1] *= gj * bb.y;
+          dp[4 * nb + 2] *= gj * bb.x;
+          dp[4 * nb + 3] *= gj * bb.y;
+        }
+      } else {  // the diagonal, after the off-diagonal sum takes its row factor
+#pragma unroll
+        for (int x = 0; x < 8; ++x) dq[x] *= x & 2 ? f1 : f0;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = I0 + r0 + (e & 2 ? 8 : 0), j = I0 + 8 * nb + 2 * tq + (e & 1);
+            dp[4 * nb + e] =
+                j <= i && i < c ? dp[4 * nb + e] * ex2((e & 2 ? c1 : c0) - cl_s[j]) : 0.f;
+          }
+      }
+      uint32_t hi[4][4], lo[4][4];
+      acc_split(dp, hi, lo);
+      pin_frag(hi);
+      pin_frag(lo);
+      fence_regs<32>(dp);
+      wg_fence();
+      if (J < I) {  // the next key tile's dP
+        const int s = (it + 1) % BSTAGES;
+        mbar_wait(&full[s], ((it + 1) / BSTAGES) & 1);
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_ss_n64(dp, d_y + 2 * kk, d_ring + TILE_D * s + 2 * kk, kk > 0);
+      }
+      const uint64_t d_k = d_tr + TR_D * J;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_n16(dq, hi[kk], d_k + 2 * kk);
+        wgmma_rs_n16(dq, lo[kk], d_k + 2 * kk);
+      }
+      wg_commit();
+    }
+    wg_wait<0>();
+    fence_regs<8>(dq);
+    mbar_arrive(&oempty[o]);  // dY_I is read
+    GLA_STAMP(2);
+    const float2 r = row_dots(qv, dq);
+    if (tq == 0) {
+      if (I0 + r0 < c) w.rq[bhh * in.S + t0 + I0 + r0] = r.x;
+      if (I0 + r0 + 8 < c) w.rq[bhh * in.S + t0 + I0 + r0 + 8] = r.y;
+    }
+#pragma unroll
+    for (int x = 0; x < 8; ++x) dq_tot[x] += dq[x];
+    if (h + 1 < h1) operand(d ^ 1);
+    GLA_STAMP(3);
+#ifdef GLA_CLOCK
+    if (blk == 0 && hc < 2 && lane == 0)
+      printf("[clock] K4b dq block 0 (query tile %d) head %d warp %d: first group %lld, %d "
+             "tiles %lld, epilogue + the next head's operand %lld cycles\n", I, h, warp,
+             stamp[1] - stamp[0], I + 1, stamp[2] - stamp[1], stamp[3] - stamp[2]);
+#endif
+  }
+  put_n16<N>(dq_tot, I0 + r0, c, w.dqp + ((long long)g * in.B + b) * in.S * N + (long long)t0 * N);
+}
+
+// dk and dv. Grid (nt x B x nc x ng), the key tiles with the most query
+// tiles first: a block owns key tile J of one (b, chunk) and walks its head
+// group's heads in order. The consumer warpgroup, per head: the inter terms
+// dk_h = V_J dS'^T and dv_h = K_J dS' (dS' = exp(tot - cum_J1) dS_z, hi
+// and lo); for each query tile I > J from the last, dP^T = V_J dY_I^T and
+// the scores K_J Q_I^T (on mma.sync: the K index is N = 16; no head in
+// them), both times g_JI fwd_i by column, dv_h += P^T dY_I (P rounded to
+// bf16) and dk_h += dP^T Q_I (split hi/lo); dk_h, dv_h *= bwd_j; the
+// diagonal tile; then k . dk_h into rk, dk_h into the group's sum in head
+// order and dv_h out in bf16. The producer warp streams V_J (two buffers)
+// and the dY_I (a ring) by TMA.
+template <int N, int P>
+__global__ void __launch_bounds__(DKDV_THREADS, 2)
+    gla_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdy, GlaIn<bf16> in, Bwd16 w,
+                        int v_slots, int dy_slots) {
+  constexpr int TILE = BT * P * 2, KS = P / 16, NV = P / 2;
+  constexpr uint64_t TILE_D = TILE >> 4, TR_D = 2048 >> 4;
+  extern __shared__ uint8_t smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int c = in.c, nc = in.S / c, H = in.H, nt = (c + BT - 1) / BT;
+  const TileSmem L(c, P, true);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bar);
+  uint64_t* empty = full + BSTAGES;
+  uint64_t* ofull = empty + BSTAGES;
+  uint64_t* oempty = ofull + 2;
+  // block -> (J, b, z, head group): the key tiles with the most query tiles
+  // first
+  const int per = in.B * nc * w.ng;
+  const int J = (int)blockIdx.x / per, rest = (int)blockIdx.x % per;
+  const int g = rest % w.ng, z = rest / w.ng % nc, b = rest / w.ng / nc;
+  const int hg = w.hg > 0 ? w.hg : 1;
+  const int h0 = g * hg, h1 = min(h0 + hg, H);
+  const int t0 = z * c, J0 = J * BT;
+  const int warp = warp_index();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < BSTAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 128);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&ofull[i], 1);
+      mbar_init(&oempty[i], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp >= 4) {  // the producer warpgroup: its registers go to the consumers, lane 0 loads
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x != 128) return;
+    for (int h = h0, hc = 0, it = 0; h < h1; ++h, ++hc) {
+      const int o = hc & 1;
+      if (hc >= 2) mbar_wait(&oempty[o], ((hc >> 1) - 1) & 1);
+      mbar_expect_tx(&ofull[o], TILE);
+      tma_load(sm + L.one + o * TILE, &tv, &ofull[o], v_slots, t0 + J0, h, b);
+      for (int I = nt - 1; I >= J; --I, ++it) {
+        const int s = it % BSTAGES;
+        if (it >= BSTAGES) mbar_wait(&empty[s], ((it / BSTAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], TILE);
+        tma_load(sm + L.ring + s * TILE, &tdy, &full[s], dy_slots, t0 + I * BT, h, b);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int lane = threadIdx.x & 31, tq = lane & 3, r0 = warp * 16 + (lane >> 2);
+  // Q_I^T for I >= J, the chunk's q rows and tile J's k rows (head h0's)
+  for (int I = J; I < nt; ++I)
+    stage_transposed<N>(in.q, in.sq, b, h0, t0, I * BT, c, sm + L.tr + I * 2048);
+  stage_rows16<N>(in.q, in.sq, b, h0, t0, 0, nt * BT, c, sm + L.qrows);
+  stage_rows16<N>(in.k, in.sk, b, h0, t0, J0, BT, c, sm + L.krow);
+  const uint32_t q_a = smem_addr(sm + L.qrows);
+  const uint64_t d_one = smem_desc<P>(sm + L.one), d_ring = smem_desc<P>(sm + L.ring);
+  const uint64_t d_sth0 = smem_desc<P>(sm + L.sth), d_stl0 = smem_desc<P>(sm + L.stl);
+  const uint64_t d_tr = smem_desc<64>(sm + L.tr);
+  float dk_tot[8] = {};
+  uint32_t ka[4];
+  consumer_sync();  // the rows are staged
+  load_qa(ka, smem_addr(sm + L.krow), warp);  // K_J's A fragment: the warp's 16 key rows
+#ifdef GLA_CLOCK
+  long long stamp[4];
+#endif
+  const int j1 = min(J0 + BT - 1, c - 1);
+  auto prefetch = [&](int h, int d) {  // head h's decays and dS_z into buffer d
+    const long long bhh = (long long)b * H + h;
+    prefetch_head<N, P>(w, bhh * in.S + t0, w.dstate + (bhh * nc + z) * N * P, c, c - 1, j1,
+                        d, sm, L);
+    cp_commit();
+  };
+  // the operand exp(tot - cum_J1) dS_z of the head whose rows buffer d holds
+  auto operand = [&](int d) {
+    cp_wait<0>();
+    head_operand<P, true>(d, sm, L);
+    fence_proxy_async();
+    consumer_sync();  // the buffer is in for every thread
+  };
+  prefetch(h0, 0);
+  operand(0);
+  for (int h = h0, hc = 0, it = 0; h < h1; ++h, ++hc) {
+    const int o = hc & 1, d = hc & 1;
+    const long long bhh = (long long)b * H + h;
+    GLA_STAMP(0);
+    if (h + 1 < h1) prefetch(h + 1, d ^ 1);  // lands while this head computes
+    const float* cl_s = reinterpret_cast<const float*>(sm + L.cl) + d * L.rows;
+    const float* fwd_s = reinterpret_cast<const float*>(sm + L.fwd) + d * L.rows;
+    const float* bwd_s = reinterpret_cast<const float*>(sm + L.bwd) + d * L.rows;
+    const uint64_t d_sth = d_sth0 + (L.sts >> 4) * d, d_stl = d_stl0 + (L.sts >> 4) * d;
+#ifdef GLA_LOADONLY
+    mbar_wait(&ofull[o], (hc >> 1) & 1);
+    for (int I = nt - 1; I >= J; --I, ++it) {
+      mbar_wait(&full[it % BSTAGES], (it / BSTAGES) & 1);
+      mbar_arrive(&empty[it % BSTAGES]);
+    }
+    mbar_arrive(&oempty[o]);
+    if (h + 1 < h1) operand(d ^ 1);
+    continue;
+#endif
+    const float b0 = bwd_s[J0 + r0], b1 = bwd_s[J0 + r0 + 8];
+    const float c0 = cl_s[J0 + r0], c1 = cl_s[J0 + r0 + 8];
+    float dk[8] = {}, dv[NV] = {}, dp[32] = {}, sc[8][4];
+    uint32_t pa[4][4] = {}, hi[4][4] = {}, lo[4][4] = {};
+    mbar_wait(&ofull[o], (hc >> 1) & 1);
+    const uint64_t d_v = d_one + TILE_D * o;
+    mbar_wait(&full[it % BSTAGES], (it / BSTAGES) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wgmma_ss_n16(dk, d_v + 2 * kk, d_sth + 2 * kk, kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wgmma_ss_n16(dk, d_v + 2 * kk, d_stl + 2 * kk, 1);
+    mma_rs<P>(dv, ka, d_sth);  // the state tile read MN-major: its 16 rows are the K index
+    mma_rs<P>(dv, ka, d_stl);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss_n64(dp, d_v + 2 * kk, d_ring + TILE_D * (it % BSTAGES) + 2 * kk, kk > 0);
+    wg_commit();
+    GLA_STAMP(1);
+    for (int I = nt - 1; I >= J; --I, ++it) {
+      scores64(ka, q_a, I, sc);  // no head in them; on mma.sync while the group runs
+      // the fragments the products in flight read stay where they are
+      pin_frag(pa);
+      pin_frag(hi);
+      pin_frag(lo);
+      wg_wait<0>();
+      fence_regs<32>(dp);
+      fence_regs<8>(dk);
+      fence_regs<NV>(dv);
+      if (I < nt - 1) mbar_arrive(&empty[(it - 1) % BSTAGES]);  // the last tile's dY is read
+      if (I > J) {  // exp(cum_i - cum_j) = bwd_j g fwd_i, bwd_j applied after the sum
+        const float gi = ex2(cl_s[I * BT] - cl_s[J0 + BT - 1]);
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const float2 ff = *reinterpret_cast<const float2*>(fwd_s + I * BT + 8 * nb + 2 * tq);
+          const float x0 = gi * ff.x, x1 = gi * ff.y;
+          sc[nb][0] *= x0;
+          sc[nb][1] *= x1;
+          sc[nb][2] *= x0;
+          sc[nb][3] *= x1;
+          dp[4 * nb] *= x0;
+          dp[4 * nb + 1] *= x1;
+          dp[4 * nb + 2] *= x0;
+          dp[4 * nb + 3] *= x1;
+        }
+      } else {  // the diagonal, after the off-diagonal sum takes its row factor
+#pragma unroll
+        for (int x = 0; x < 8; ++x) dk[x] *= x & 2 ? b1 : b0;
+#pragma unroll
+        for (int x = 0; x < NV; ++x) dv[x] *= x & 2 ? b1 : b0;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = J0 + r0 + (e & 2 ? 8 : 0), i = J0 + 8 * nb + 2 * tq + (e & 1);
+            const float wt = i >= j && i < c ? ex2(cl_s[i] - (e & 2 ? c1 : c0)) : 0.f;
+            sc[nb][e] *= wt;
+            dp[4 * nb + e] *= wt;
+          }
+      }
+      acc_round(&sc[0][0], pa);
+      acc_split(dp, hi, lo);
+      pin_frag(pa);
+      pin_frag(hi);
+      pin_frag(lo);
+      fence_regs<32>(dp);
+      wg_fence();
+      if (I > J) {  // the next query tile's dP^T
+        const int s = (it + 1) % BSTAGES;
+        mbar_wait(&full[s], ((it + 1) / BSTAGES) & 1);
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_ss_n64(dp, d_v + 2 * kk, d_ring + TILE_D * s + 2 * kk, kk > 0);
+      }
+      const uint64_t d_y = d_ring + TILE_D * (it % BSTAGES);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) mma_rs<P>(dv, pa[kk], d_y + mn_step<P>() * kk);
+      const uint64_t d_q = d_tr + TR_D * I;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_n16(dk, hi[kk], d_q + 2 * kk);
+        wgmma_rs_n16(dk, lo[kk], d_q + 2 * kk);
+      }
+      wg_commit();
+    }
+    wg_wait<0>();
+    fence_regs<8>(dk);
+    fence_regs<NV>(dv);
+    mbar_arrive(&empty[(it - 1) % BSTAGES]);
+    mbar_arrive(&oempty[o]);  // V_J is read
+    GLA_STAMP(2);
+    float kv[2][4];  // k of the thread's two rows, from the staged k rows
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        const float2 f = unpack(*reinterpret_cast<const uint32_t*>(
+            sm + L.krow + swz<2>(r0 + 8 * rr, nb) + 4 * tq));
+        kv[rr][2 * nb] = f.x;
+        kv[rr][2 * nb + 1] = f.y;
+      }
+    const float2 r = row_dots(kv, dk);
+    if (tq == 0) {
+      if (J0 + r0 < c) w.rk[bhh * in.S + t0 + J0 + r0] = r.x;
+      if (J0 + r0 + 8 < c) w.rk[bhh * in.S + t0 + J0 + r0 + 8] = r.y;
+    }
+#pragma unroll
+    for (int x = 0; x < 8; ++x) dk_tot[x] += dk[x];
+    // dv through staging tile d: its rows leave 16 bytes a thread after the
+    // barrier that the next head's operand (or the last head) takes anyway
+    unsigned char* stg = sm + L.dvs + d * BT * P * 2;
+#pragma unroll
+    for (int nb = 0; nb < P / 8; ++nb)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        *reinterpret_cast<uint32_t*>(stg + sw_off<P * 2>(r0 + 8 * rr, 8 * nb + 2 * tq)) =
+            pack(dv[4 * nb + 2 * rr], dv[4 * nb + 2 * rr + 1]);
+    if (h + 1 < h1)
+      operand(d ^ 1);
+    else
+      consumer_sync();
+    for (int idx = threadIdx.x; idx < BT * P / 8; idx += 128) {
+      const int r = idx / (P / 8), ch = idx % (P / 8);
+      if (J0 + r < c)
+        *reinterpret_cast<uint4*>(w.dv + (((long long)b * in.S + t0 + J0 + r) * H + h) * P +
+                                  8 * ch) = *reinterpret_cast<const uint4*>(stg + sw_off<P * 2>(r, 8 * ch));
+    }
+    GLA_STAMP(3);
+#ifdef GLA_CLOCK
+    if (blockIdx.x == 0 && hc < 2 && lane == 0)
+      printf("[clock] K4b dk/dv block 0 (key tile %d) head %d warp %d: first group %lld, %d "
+             "tiles %lld, epilogue + the next head's operand %lld cycles\n", J, h, warp,
+             stamp[1] - stamp[0], nt - J, stamp[2] - stamp[1], stamp[3] - stamp[2]);
+#endif
+  }
+  put_n16<N>(dk_tot, J0 + r0, c, w.dkp + ((long long)g * in.B + b) * in.S * N + (long long)t0 * N);
+}
+
+// The finish. Blocks 0 .. B*H-1: dlg of one (b, h), the suffix sums of r =
+// rq - rk from the last row, FIN_ROWS rows staged at a time; one fixed
+// order: each thread sums a run of consecutive rows from its top, the runs'
+// totals are summed across the block by warp shuffles and the warps' totals
+// in warp order, and the later pieces' sum is carried. The other blocks: dq
+// and dk out in bf16, the head groups' partials added in group order
+// (shared rows) or each head's row moved to [B,S,H,N] (per head).
+template <int N, int P>
+__global__ void __launch_bounds__(THREADS)
+    gla_bwd_finish_kernel(GlaIn<bf16> in, Bwd16 w) {
+  __shared__ float x_s[FIN_ROWS];
+  __shared__ float wt_s[WARPS];
+  const int S = in.S, H = in.H, nbh = in.B * H;
+  if ((int)blockIdx.x < nbh) {
+    const int b = blockIdx.x / H, h = blockIdx.x % H;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const float* rq = w.rq + (long long)blockIdx.x * S;
+    const float* rk = w.rk + (long long)blockIdx.x * S;
+    float carry = 0.f;
+    GLA_STAMP_DECL(2);
+    GLA_STAMP(0);
+    for (int hi = S; hi > 0; hi -= FIN_ROWS) {
+      const int lo = max(hi - FIN_ROWS, 0), n = hi - lo, run = (n + THREADS - 1) / THREADS;
+      __syncthreads();  // the last piece's rows and warp totals are read
+      for (int i0 = 0; i0 < n; i0 += 8 * THREADS) {  // eight rows' loads in flight a thread
+        float a[8], b[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = i0 + u * THREADS + threadIdx.x;
+          if (i < n) {
+            a[u] = rq[lo + i];
+            b[u] = rk[lo + i];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = i0 + u * THREADS + threadIdx.x;
+          if (i < n) x_s[i] = a[u] - b[u];
+        }
+      }
+      __syncthreads();
+      const int r0 = threadIdx.x * run, r1 = min(r0 + run, n);
+      float acc = 0.f;
+      for (int i = r1 - 1; i >= r0; --i) {
+        acc += x_s[i];
+        x_s[i] = acc;
+      }
+      float suf = acc;  // this thread's run and the later runs of its warp
+#pragma unroll
+      for (int o = 1; o < 32; o *= 2) {
+        const float y = __shfl_down_sync(0xffffffffu, suf, o);
+        if (lane + o < 32) suf += y;
+      }
+      if (lane == 0) wt_s[warp] = suf;
+      __syncthreads();
+      float later = carry;  // the later warps' runs and the later pieces
+      for (int v = WARPS - 1; v > warp; --v) later += wt_s[v];
+      float excl = __shfl_down_sync(0xffffffffu, suf, 1);  // the later lanes' runs
+      if (lane == 31) excl = 0.f;
+      later += excl;
+      for (int i = r0; i < r1; ++i)
+        w.dlg[((long long)b * S + lo + i) * H + h] = x_s[i] + later;
+      for (int v = WARPS - 1; v >= 0; --v) carry += wt_s[v];
+    }
+    GLA_STAMP(1);
+#ifdef GLA_CLOCK
+    if (blockIdx.x == 0 && threadIdx.x == 0)
+      printf("[clock] K4b finish block 0 (dlg of one (b, h)): %lld cycles\n", stamp[1] - stamp[0]);
+#endif
+    return;
+  }
+  GLA_STAMP_DECL(2);
+  GLA_STAMP(0);
+  const bool shared = w.hg > 0;
+  const long long bs = (long long)in.B * S, E = shared ? bs * N : bs * H * N;
+  const long long step = (long long)(gridDim.x - nbh) * THREADS;
+  for (long long e = (long long)(blockIdx.x - nbh) * THREADS + threadIdx.x; e < E; e += step) {
+    long long src = e;  // shared: e = (b S + s) N + n; per head: ((b S + s) H + h) N + n
+    if (!shared) {
+      const long long n = e % N, hh = e / N % H, row = e / N / H;
+      src = (hh * bs + row) * N + n;
+    }
+    const int ng = shared ? w.ng : 1;
+    float x = 0.f, y = 0.f;
+    for (int g0 = 0; g0 < ng; g0 += 8) {  // the loads first, then the sums in group order
+      float a[8], b[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (g0 + u < ng) {
+          a[u] = w.dqp[(g0 + u) * bs * N + src];
+          b[u] = w.dkp[(g0 + u) * bs * N + src];
+        }
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (g0 + u < ng) {
+          x += a[u];
+          y += b[u];
+        }
+    }
+    w.dq[e] = __float2bfloat16(x);
+    w.dk[e] = __float2bfloat16(y);
+  }
+  GLA_STAMP(1);
+#ifdef GLA_CLOCK
+  if ((int)blockIdx.x == nbh && threadIdx.x == 0)
+    printf("[clock] K4b finish block %d (dq and dk rows): %lld cycles\n", nbh, stamp[1] - stamp[0]);
+#endif
 }
 
 // ===========================================================================
@@ -1694,48 +2260,122 @@ cudaError_t persistent_grid(K kern, size_t smem, int items, int* grid) {
 }
 
 size_t smem_bytes(Which which, int c, int N, int P, int dtype) {
-  if (which == BWD)
-    return dtype == 1 ? (size_t)BwdLayout(c, P).total : smem_bwd_f32(c, N, P);
+  if (which == BWD) {  // the largest block of the backward's launches
+    if (dtype != 1) return smem_bwd_f32(c, N, P);
+    const size_t a = Layout(BWD_STATE, c).total, t = TileSmem(c, P, true).total;
+    return a > t ? a : t;
+  }
   return dtype == 1 ? (size_t)Layout(which, c).total : smem_f32(which, c, N, P);
 }
 
-template <int N, int P, typename T, typename K>
-int launch_bwd(K kern, const GlaIn<T>& in, const BwdIO<T>& io, size_t smem, cudaStream_t st) {
-  static_assert(P % 16 == 0 && N <= 16 && N % 8 == 0, "N in {8, 16}; P a multiple of 16");
+template <int N, int P>
+int launch_bwd_f32(const GlaIn<float>& in, const BwdIO<float>& io, cudaStream_t st) {
+  const size_t smem = smem_bwd_f32(in.c, N, P);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  auto kern = gla_bwd_f32_kernel<N, P>;
   const cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<in.B * in.H, THREADS, smem, st>>>(in, io);
   return (int)cudaGetLastError();
 }
 
+// K4b in bf16: the state pass, dq (its first blocks the walk), dk/dv and the finish, in that order on
+// the caller's stream. The TMA maps of v and dy are encoded per call and
+// passed by value (a CUDA graph keeps them).
+template <int N, int P>
+int launch_bwd(const GlaIn<bf16>& in, const Bwd16& w, cudaStream_t st) {
+  static_assert(P % PW == 0 && N <= 16 && N % 8 == 0, "slices of PW columns; N in {8, 16}");
+  const int c = in.c, nc = in.S / c, nt = (c + BT - 1) / BT;
+  const size_t s_a = Layout(BWD_STATE, c).total, s_q = TileSmem(c, P, false).total,
+               s_k = TileSmem(c, P, true).total, smem = s_a > s_k ? s_a : s_k;
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  // Encoding a tensor map needs a current context, and a host thread that
+  // has made no CUDA call yet (the autograd engine's worker) has none: bind
+  // the device's primary context.
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tdy, tv;
+  int dy_slots = 0, v_slots = 0;
+  int rc = encode(&tdy, w.dy, P, in.S, in.H, in.B, w.sdy.s, w.sdy.h, w.sdy.b, BT, &dy_slots);
+  if (!rc) rc = encode(&tv, in.v, P, in.S, in.H, in.B, in.sv.s, in.sv.h, in.sv.b, BT, &v_slots);
+  if (rc) return rc;
+  GlaIn<bf16> iy = in;  // the state pass stages dy in v's place
+  iy.v = w.dy;
+  iy.sv = w.sdy;
+  auto ka = gla_bwd_state_kernel<N, P>;
+  if ((err = set_smem(ka, s_a)) != cudaSuccess) return (int)err;
+  ka<<<in.B * in.H * nc * (P / PW), THREADS, s_a, st>>>(iy, w);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int blocks = in.B * nc * nt * w.ng;  // of dq, and of dk/dv
+  const int walk = (in.B * in.H * N * P / 4 + BWD_THREADS - 1) / BWD_THREADS;
+  auto kq = gla_bwd_dq_kernel<N, P>;
+  if ((err = set_smem(kq, s_q)) != cudaSuccess) return (int)err;
+  kq<<<walk + blocks, BWD_THREADS, s_q, st>>>(tdy, tv, in, w, dy_slots, v_slots, walk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  auto kk = gla_bwd_dkdv_kernel<N, P>;
+  if ((err = set_smem(kk, s_k)) != cudaSuccess) return (int)err;
+  // the consumers' setmaxnreg.inc must find its registers in the pool the
+  // producer gives up (an increase it cannot serve would never return)
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, kk)) != cudaSuccess) return (int)err;
+  if (attr.numRegs > DKDV_AT_LAUNCH || attr.numRegs < PRODUCER_REGS)
+    return (int)cudaErrorInvalidConfiguration;
+  kk<<<blocks, DKDV_THREADS, s_k, st>>>(tv, tdy, in, w, v_slots, dy_slots);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long E = (long long)in.B * in.S * N * (w.hg > 0 ? 1 : in.H);
+  const long long fill = (E + THREADS - 1) / THREADS;
+  gla_bwd_finish_kernel<N, P><<<in.B * in.H + (int)(fill < 1024 ? fill : 1024), THREADS, 0, st>>>(
+      in, w);
+  return (int)cudaGetLastError();
+}
+
 // K4b's dispatch: dtype and (N, P) as dispatch's; strides: q, k, v, lg, dy.
+// float32 writes dq and dk per head [B,S,H,N] float32 and takes no scratch;
+// bf16 reads and writes the scratch of Bwd16 (scr: cl, fwd, bwd, dstate, rq,
+// rk, dqp, dkp) and writes dq and dk in bf16, as the shared rows
+// [B,S,N] when hg > 0 (a block walks hg heads; q's and k's head strides are
+// then 0) and per head [B,S,H,N] when hg = 0.
 int dispatch_bwd(const void* q, const void* k, const void* v, const void* lg, const void* dy,
-                 const float* starts, float* dq, float* dk, void* dv, float* dlg, int B, int S,
-                 int H, int N, int P, int c, const long long* strides, int dtype, void* stream) {
-  if (B < 1 || H < 1 || c < 1 || S < c || S % c != 0 || starts == nullptr)
+                 const float* starts, void* dq, void* dk, void* dv, float* dlg,
+                 float* const* scr, int B, int S, int H, int N, int P, int c, int hg,
+                 const long long* strides, int dtype, void* stream) {
+  if (B < 1 || H < 1 || c < 1 || S < c || S % c != 0 || starts == nullptr || hg < 0)
     return (int)cudaErrorInvalidValue;
   const Strides sq{strides[0], strides[1], strides[2]}, sk{strides[3], strides[4], strides[5]},
       sv{strides[6], strides[7], strides[8]}, sl{strides[9], strides[10], strides[11]},
       sd{strides[12], strides[13], strides[14]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lgf = static_cast<const float*>(lg);
-#define GLA_BWD_CASE(T, NN, PP, KERN, SMEM)                                                  \
+  if (dtype == 0) {
+#define GLA_BWD_F32(NN, PP)                                                                   \
   if (N == NN && P == PP) {                                                                  \
-    const GlaIn<T> in{static_cast<const T*>(q), static_cast<const T*>(k),                    \
-                      static_cast<const T*>(v), lgf, sq, sk, sv, sl, S, H, c, B};            \
-    const BwdIO<T> io{static_cast<const T*>(dy), sd, starts, dq, dk, static_cast<T*>(dv),    \
-                      dlg};                                                                  \
-    return launch_bwd<NN, PP>(KERN<NN, PP>, in, io, SMEM, st);                               \
+    const GlaIn<float> in{static_cast<const float*>(q), static_cast<const float*>(k),        \
+                          static_cast<const float*>(v), lgf, sq, sk, sv, sl, S, H, c, B};    \
+    const BwdIO<float> io{static_cast<const float*>(dy), sd, starts, static_cast<float*>(dq), \
+                          static_cast<float*>(dk), static_cast<float*>(dv), dlg};            \
+    return launch_bwd_f32<NN, PP>(in, io, st);                                               \
   }
-  if (dtype == 1) {
-    GLA_BWD_CASE(bf16, 16, 64, gla_bwd_kernel, (size_t)BwdLayout(c, 64).total)
-    GLA_BWD_CASE(bf16, 8, 32, gla_bwd_kernel, (size_t)BwdLayout(c, 32).total)
-  } else if (dtype == 0) {
-    GLA_BWD_CASE(float, 16, 64, gla_bwd_f32_kernel, smem_bwd_f32(c, 16, 64))
-    GLA_BWD_CASE(float, 8, 32, gla_bwd_f32_kernel, smem_bwd_f32(c, 8, 32))
+    GLA_BWD_F32(16, 64)
+    GLA_BWD_F32(8, 32)
+#undef GLA_BWD_F32
+  } else if (dtype == 1) {
+    if (scr == nullptr || (hg > 0 && (sq.h != 0 || sk.h != 0))) return (int)cudaErrorInvalidValue;
+    const Bwd16 w{static_cast<const bf16*>(dy), sd, starts, scr[0], scr[1], scr[2], scr[3],
+                  scr[4], scr[5], scr[6], scr[7], static_cast<bf16*>(dq),
+                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), dlg, hg,
+                  head_groups(H, hg)};
+#define GLA_BWD_BF16(NN, PP)                                                                  \
+  if (N == NN && P == PP) {                                                                  \
+    const GlaIn<bf16> in{static_cast<const bf16*>(q), static_cast<const bf16*>(k),           \
+                         static_cast<const bf16*>(v), lgf, sq, sk, sv, sl, S, H, c, B};      \
+    return launch_bwd<NN, PP>(in, w, st);                                               \
   }
-#undef GLA_BWD_CASE
+    GLA_BWD_BF16(16, 64)
+    GLA_BWD_BF16(8, 32)
+#undef GLA_BWD_BF16
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1872,17 +2512,29 @@ extern "C" int repro_gla_phase_b(const void* q, const void* lg, const void* star
                   const_cast<void*>(y_intra), B, S, H, N, P, c, strides, dtype, stream);
 }
 
-// K4b, the backward of K4's function: dq, dk [B,S,H,N] float32 (per head),
-// dv [B,S,H,P] in v's type and dlg [B,S,H] float32, all contiguous, from q,
-// k, v, lg, dy and K4's chunk start states starts [B,H,nc,N,P] float32.
-// strides: q, k, v, lg, dy, three each (batch, position, head), in elements.
+// K4b, the backward of K4's function, from q, k, v, lg, dy and K4's chunk
+// start states starts [B,H,nc,N,P] float32: dv [B,S,H,P] in v's type and
+// dlg [B,S,H] float32, contiguous, and dq, dk: float32 per head [B,S,H,N]
+// (dtype 0); bf16 (dtype 1) as the shared rows [B,S,N] (hg > 0: q's and k's
+// head strides 0, a block of the dq and dk/dv launches walks hg heads) or
+// per head [B,S,H,N] (hg = 0). The bf16 launches' scratch, float32 contiguous (null
+// for float32): cl, fwd, bwd, rq, rk [B,H,S], dstate [B,H,nc,N,P] (the
+// gradient of the state leaving each chunk) and dqp, dkp [ng,B,S,N] with ng
+// = ceil(H / hg) (H when hg = 0). strides: q, k, v,
+// lg, dy, three each (batch, position, head), in elements.
 extern "C" int repro_gla_chunk_bwd(const void* q, const void* k, const void* v, const void* lg,
                                    const void* dy, const void* starts, void* dq, void* dk,
-                                   void* dv, void* dlg, int B, int S, int H, int N, int P,
-                                   int c, const long long* strides, int dtype, void* stream) {
-  return dispatch_bwd(q, k, v, lg, dy, static_cast<const float*>(starts),
-                      static_cast<float*>(dq), static_cast<float*>(dk), dv,
-                      static_cast<float*>(dlg), B, S, H, N, P, c, strides, dtype, stream);
+                                   void* dv, void* dlg, void* cl, void* fwd, void* bwd,
+                                   void* dstate, void* rq, void* rk, void* dqp, void* dkp,
+                                   int B, int S, int H, int N, int P, int c, int hg,
+                                   const long long* strides, int dtype, void* stream) {
+  float* const scr[8] = {static_cast<float*>(cl),     static_cast<float*>(fwd),
+                         static_cast<float*>(bwd),    static_cast<float*>(dstate),
+                         static_cast<float*>(rq),     static_cast<float*>(rk),
+                         static_cast<float*>(dqp),    static_cast<float*>(dkp)};
+  return dispatch_bwd(q, k, v, lg, dy, static_cast<const float*>(starts), dq, dk, dv,
+                      static_cast<float*>(dlg), dtype == 1 ? scr : nullptr, B, S, H, N, P, c,
+                      hg, strides, dtype, stream);
 }
 
 // Dynamic shared memory of one block of kernel `which` (0 K4, 1 phase A, 2

@@ -19,18 +19,26 @@ The Hopper twins of the JAX package's Pallas kernels in
 * :func:`gla_chunk_bwd` (K4b, the port's own kernel: the reference
   differentiates the plain-XLA ``ssm.chunked_gla``): dq, dk, dv and dlg of
   K4's function from the state entering each chunk, which K4 writes with
-  ``starts=True``; one block per (row, head) walks the chunks in reverse,
-  deterministic (no atomics). Its plain version is
-  :func:`repro_torch.kernels.ref.gla_bwd`. :class:`GLAChunk` joins K4 and
-  K4b for ``torch.autograd``; both schedules compute one function, and
-  training takes the chunk schedule.
+  ``starts=True``. In bf16 four launches, each deterministic (no
+  atomics): the reversed state pass (the gradient of the state leaving
+  each chunk: every chunk's increment at once, walked over the chunks by
+  the first blocks of the next launch), dq and dk/dv (chunk-parallel tiles
+  of 64 rows on wgmma fed by TMA, a group of heads a block) and the finish
+  (the head groups' sums, dlg's suffix sums); in float32 one exact scalar
+  kernel. With q and k given as
+  the rows the heads share (``[B,S,N]``), dq and dk come back so, the
+  heads' sum. Its plain versions are :func:`repro_torch.kernels.ref.gla_bwd`
+  and, for the state pass, :func:`repro_torch.kernels.ref.gla_bwd_states`.
+  :class:`GLAChunk` joins K4 and K4b for ``torch.autograd``; both schedules
+  compute one function, and training takes the chunk schedule.
 
 Layout: q, k ``[B,S,H,N]`` and v ``[B,S,H,P]`` with any strides whose last
-dim is contiguous (the model passes its head-broadcast q and k as
-``expand`` views with head stride 0; nothing is copied), lg ``[B,S,H]`` log
-decays (<= 0, cast to float32). y comes back ``[B,S,H,P]`` contiguous in
-v's dtype; states are float32. The chunk follows the JAX rule
-(:func:`chunk_len`).
+dim is contiguous (the model's head-broadcast q and k are ``expand`` views
+with head stride 0; nothing is copied), lg ``[B,S,H]`` log decays (<= 0,
+cast to float32). :class:`GLAChunk` and :func:`gla_chunk_bwd` also take q
+and k as ``[B,S,N]``, one row shared by every head. y comes back
+``[B,S,H,P]`` contiguous in v's dtype; states are float32. The chunk
+follows the JAX rule (:func:`chunk_len`).
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 #: launches of K4 since the count was last set to 0
 launches = 0
@@ -47,7 +55,9 @@ launches = 0
 launches_a = 0
 #: launches of K5's phase B, likewise
 launches_b = 0
-#: launches of K4b, the backward, likewise
+#: launches of K4b's kernels, the backward, likewise: a bf16 call launches
+#: :data:`BWD_LAUNCHES` (the state pass, dq, dk/dv, the finish), a float32
+#: call one
 bwd_launches = 0
 #: the shared library whose C entries (``repro_gla_*``) the wrappers launch:
 #: None for the one built from ``csrc/gla_chunk.cu``; the path of another
@@ -64,7 +74,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 #: pointer arguments of each C entry (csrc/gla_chunk.cu)
 _N_PTRS = {"repro_gla_chunk": 6, "repro_gla_chunk_starts": 7, "repro_gla_phase_a": 7,
-           "repro_gla_phase_b": 5, "repro_gla_chunk_bwd": 10}
+           "repro_gla_phase_b": 5, "repro_gla_chunk_bwd": 18}
+#: int arguments of each C entry after the pointers (B, S, H, N, P, c, and
+#: the backward's heads a block)
+_N_INTS = {"repro_gla_chunk_bwd": 7}
+#: blocks of K4b's dq and dk/dv launches the head groups aim at: about four
+#: an SM of an H100 (132 SMs), so that each fills the card more than twice
+BWD_BLOCKS = 528
+BWD_TILE = 64            # rows of K4b's dq and dk/dv tiles
+BWD_LAUNCHES = 4         # kernels a bf16 call of K4b launches, each once
+_SCRATCH = ("cl", "fwd", "bwd", "dstate", "rq", "rk", "dqp", "dkp")
 
 
 @functools.cache
@@ -75,7 +94,7 @@ def _bind(entry, path=None):
         fn.argtypes = [ctypes.c_int] * 5
         fn.restype = ctypes.c_longlong
         return fn
-    fn.argtypes = ([_P] * _N_PTRS[entry] + [ctypes.c_int] * 6
+    fn.argtypes = ([_P] * _N_PTRS[entry] + [ctypes.c_int] * _N_INTS.get(entry, 6)
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, _P])
     fn.restype = ctypes.c_int
     return fn
@@ -198,16 +217,33 @@ def gla_chunk(q, k, v, lg, *, chunk, starts=False):
     return (y, state, st) if starts else (y, state)
 
 
-def gla_chunk_bwd(q, k, v, lg, dy, starts, *, chunk):
-    """K4b: the gradient of :func:`gla_chunk`'s y at (q, k, v, lg) given
-    ``dy`` [B,S,H,P] (v's dtype, any strides whose rows are contiguous) and
-    K4's ``starts`` [B,H,nc,N,P] float32. Returns (dq, dk [B,S,H,N] float32
-    per head: a head-stride-0 q or k gets each head's share, which the
-    ``expand``'s backward sums; dv [B,S,H,P] in v's dtype; dlg [B,S,H]
-    float32), all contiguous. Deterministic: equal inputs give equal
-    bits."""
+def head_group(B: int, S: int, H: int, c: int) -> int:
+    """Heads a block of K4b's dq and dk/dv launches walks, in order, when q
+    and k are rows the heads share: equal groups, the fewest that give each
+    launch :data:`BWD_BLOCKS` blocks (one a 64-row tile of a chunk a group),
+    so that their partial sums stay few. hymba's training shape: 5 heads a
+    block, 480 blocks (groups sized by the tile's weight, and groups of 1-3
+    or 8, were slower on an H100: PERF.md)."""
+    blocks = B * (S // c) * -(-c // BWD_TILE)
+    ng = min(H, max(1, -(-BWD_BLOCKS // blocks)))
+    return -(-H // ng)
+
+
+def _bwd(q, k, v, lg, dy, starts, *, chunk):
+    """K4b's launches, counted in :data:`bwd_launches`; returns (dq, dk,
+    dv, dlg, the bf16 launches' scratch by name (:data:`_SCRATCH`: each
+    chunk's cum log2(e) and its 64-row tiles' decays, the dS states, each
+    head's q.dq and k.dk rows, the head groups' dq and dk); empty in
+    float32). :func:`gla_chunk_bwd` is the public call; the scratch lets
+    tests and ``chip_smoke.py`` hold each launch to its plain part."""
     global bwd_launches
-    B, S, H, N, P, c = _check(q, k, v, lg, chunk, "gla_chunk_bwd")
+    shared = q.dim() == 3
+    if shared != (k.dim() == 3):
+        raise ValueError("gla_chunk_bwd kernel: q and k must both be [B,S,N] shared rows or "
+                         f"both [B,S,H,N]; got {tuple(q.shape)} and {tuple(k.shape)}")
+    H = v.shape[2] if v.dim() == 4 else 0
+    qe, ke = ref.expand_heads(q, H), ref.expand_heads(k, H)
+    B, S, H, N, P, c = _check(qe, ke, v, lg, chunk, "gla_chunk_bwd")
     _check_np(N, P, c, "gla_chunk_bwd", "bwd", q.dtype)
     if dy.shape != v.shape or dy.dtype != v.dtype or dy.device != q.device \
             or dy.stride(-1) != 1:
@@ -220,37 +256,70 @@ def gla_chunk_bwd(q, k, v, lg, dy, starts, *, chunk):
         raise ValueError(f"gla_chunk_bwd kernel: starts {tuple(starts.shape)} "
                          f"{starts.dtype}; needs ({B}, {H}, {nc}, {N}, {P}) float32, "
                          "contiguous, on 16 bytes")
-    _check_rows("gla_chunk_bwd", q, k, v, dy)
+    _check_rows("gla_chunk_bwd", qe, ke, v, dy)
     lgf = lg.float()
-    dq = torch.empty((B, S, H, N), dtype=torch.float32, device=q.device)
+    dev, f32 = q.device, torch.float32
+    dv = torch.empty((B, S, H, P), dtype=v.dtype, device=dev)
+    dlg = torch.empty((B, S, H), dtype=f32, device=dev)
+    scratch, hg = {}, 0
+    if q.dtype == torch.bfloat16:
+        hg = head_group(B, S, H, c) if shared else 0
+        ng = -(-H // hg) if shared else H
+        rows = {n: (B, H, S) for n in ("cl", "fwd", "bwd", "rq", "rk")}
+        rows.update(dstate=(B, H, nc, N, P), dqp=(ng, B, S, N), dkp=(ng, B, S, N))
+        scratch = {n: torch.empty(rows[n], dtype=f32, device=dev) for n in _SCRATCH}
+        dq = torch.empty((B, S, N) if shared else (B, S, H, N), dtype=q.dtype, device=dev)
+    else:
+        dq = torch.empty((B, S, H, N), dtype=f32, device=dev)
     dk = torch.empty_like(dq)
-    dv = torch.empty((B, S, H, P), dtype=v.dtype, device=q.device)
-    dlg = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+    work = [scratch[n].data_ptr() if scratch else None for n in _SCRATCH]
     _call("repro_gla_chunk_bwd",
-          [x.data_ptr() for x in (q, k, v, lgf, dy, starts, dq, dk, dv, dlg)],
-          (B, S, H, N, P, c), _strides(q, k, v, lgf, dy), q.dtype, q.device)
-    bwd_launches += 1
-    return dq, dk, dv, dlg
+          [x.data_ptr() for x in (qe, ke, v, lgf, dy, starts, dq, dk, dv, dlg)] + work,
+          (B, S, H, N, P, c, hg), _strides(qe, ke, v, lgf, dy), q.dtype, q.device)
+    bwd_launches += BWD_LAUNCHES if scratch else 1
+    if shared and not scratch:   # float32: each head's rows, summed in head order
+        dq, dk = (functools.reduce(torch.add, x.unbind(2)) for x in (dq, dk))
+    return dq, dk, dv, dlg, scratch
+
+
+def gla_chunk_bwd(q, k, v, lg, dy, starts, *, chunk):
+    """K4b: the gradient of :func:`gla_chunk`'s y at (q, k, v, lg) given
+    ``dy`` [B,S,H,P] (v's dtype, any strides whose rows are contiguous) and
+    K4's ``starts`` [B,H,nc,N,P] float32. q and k: [B,S,H,N] (any strides,
+    head stride 0 included), or [B,S,N], one row shared by every head.
+    Returns (dq, dk in q's dtype: [B,S,N] for shared rows, the sum over the
+    heads; else per head [B,S,H,N] (float32 in float32); dv [B,S,H,P] in
+    v's dtype; dlg [B,S,H] float32), all contiguous. Deterministic: equal
+    inputs give equal bits."""
+    return _bwd(q, k, v, lg, dy, starts, chunk=chunk)[:4]
 
 
 class GLAChunk(torch.autograd.Function):
     """:func:`gla_chunk` with its gradient from :func:`gla_chunk_bwd`: the
     forward runs K4 with the chunk start states and saves them with q, k, v
-    and lg; the backward runs K4b. The final state takes no gradient
-    (training discards it; it is marked non-differentiable), and neither
-    does ``chunk``. dq and dk come back in q's and k's dtype, per head,
-    before the ``expand``'s backward sums them; dlg in lg's."""
+    and lg; the backward runs K4b. q and k may be [B,S,N] rows shared by
+    every head (the SSD mixer's C_t and B_t): K4 reads them as head-stride-0
+    views, and K4b returns their gradients as such rows, the heads' sum, in
+    their dtype (no per-head copy, no cast or sum pass after it). The final
+    state takes no gradient (training discards it; it is marked
+    non-differentiable), and neither does ``chunk``; dlg comes back in lg's
+    dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, lg, chunk):
-        y, state, starts = gla_chunk(q, k, v, lg, chunk=chunk, starts=True)
+        H = v.shape[2]
+        y, state, starts = gla_chunk(ref.expand_heads(q, H), ref.expand_heads(k, H), v, lg,
+                                     chunk=chunk, starts=True)
         ctx.save_for_backward(q, k, v, lg, starts)
         ctx.chunk = chunk
         ctx.mark_non_differentiable(state)
+        ctx.set_materialize_grads(False)  # no zeros filled for the state's gradient
         return y, state
 
     @staticmethod
     def backward(ctx, dy, _dstate):
+        if dy is None:  # y took no gradient
+            return None, None, None, None, None
         q, k, v, lg, starts = ctx.saved_tensors
         if dy.stride(-1) != 1 or not _rows_ok(dy):
             dy = dy.contiguous()

@@ -69,26 +69,30 @@ def window_decode_attention(q, k_ring, v_ring, pos, *, window, force=None):
 
 
 def gla(q, k, v, lg, *, chunk, schedule="chunk", force=None):
-    """Chunked gated linear attention. q,k: [B,S,H,N]; v: [B,S,H,P]; lg:
+    """Chunked gated linear attention. q,k: [B,S,H,N], or [B,S,N], one row
+    shared by every head (the SSD mixer's C_t and B_t); v: [B,S,H,P]; lg:
     [B,S,H]. Returns (y [B,S,H,P], final state [B,H,N,P] float32).
     Differentiable on both routes under the chunk schedule: on the kernel
     route, when an input requires a gradient, through
     :class:`~repro_torch.kernels.gla_chunk.GLAChunk` (K4 and its backward
-    kernel; the final state takes no gradient); on the plain route through
-    autograd of the plain version. Training takes the chunk schedule, as
-    the reference differentiates the sequential ``chunked_gla``: the
-    parallel one raises when a gradient is asked for."""
+    kernel, which returns a shared row's gradient as such a row; the final
+    state takes no gradient); on the plain route through autograd of the
+    plain version (shared rows expanded inside, so autograd sums the heads).
+    Training takes the chunk schedule, as the reference differentiates the
+    sequential ``chunked_gla``: the parallel one raises when a gradient is
+    asked for."""
     if schedule not in GLA_SCHEDULES:
         raise ValueError(f"schedule={schedule!r}; expected one of {GLA_SCHEDULES}")
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, lg))
     if grad and schedule != "chunk":
         raise ValueError(f"schedule={schedule!r} takes no gradient; training takes the "
                          "chunk schedule")
+    if _use_kernel(q, force) and grad:
+        return _gla.GLAChunk.apply(q, k, v, lg, chunk)
+    q, k = ref.expand_heads(q, v.shape[2]), ref.expand_heads(k, v.shape[2])
     if _use_kernel(q, force):
         if schedule == "parallel":
             return _gla.gla_chunk_parallel(q, k, v, lg, chunk=chunk)
-        if grad:
-            return _gla.GLAChunk.apply(q, k, v, lg, chunk)
         return _gla.gla_chunk(q, k, v, lg, chunk=chunk)
     fn = ref.chunked_gla if schedule == "chunk" else ref.gla_chunk_parallel
     return fn(q, k, v, lg, chunk=chunk)

@@ -236,38 +236,71 @@ def chunked_gla(q, k, v, lg, chunk=256, *, starts=False):
     return (y, state, torch.stack(entering, dim=2)) if starts else (y, state)
 
 
+def expand_heads(x, H):
+    """A [B,S,N] row shared by the heads as a [B,S,H,N] view (head stride
+    0); a [B,S,H,N] tensor as it is."""
+    return x[:, :, None].expand(x.shape[0], x.shape[1], H, x.shape[-1]) if x.dim() == 3 else x
+
+
+def gla_bwd_states(q, lg, dy, *, chunk, dfinal=None):
+    """The reversed state pass of the GLA backward (the plain version of
+    its first launch): dS_z, the gradient of the state leaving chunk z, for
+    every z, from the last: dS_{nc-1} = ``dfinal`` (zeros if None) and
+    dS_{z-1} = exp(tot_z) dS_z + sum_{i in z} exp(cum_i) q_i dy_i^T, with
+    cum the chunk's inclusive cumsum of lg and tot its last value. q
+    [B,S,H,N] or [B,S,N] (shared by the heads), dy [B,S,H,P], lg [B,S,H].
+    Returns [B,H,nc,N,P] float32 (float64 for float64 inputs)."""
+    B, S, H, P = dy.shape
+    qf, _, _, cum = _by_chunk(expand_heads(q, H), None, None, lg, chunk)
+    nc, c, N = cum.shape[1], cum.shape[2], qf.shape[-1]
+    dyf = _acc(dy).reshape(B, nc, c, H, P)
+    dS = (torch.zeros((B, H, N, P), dtype=qf.dtype, device=qf.device) if dfinal is None
+          else dfinal.to(qf.dtype))
+    out = torch.empty((B, H, nc, N, P), dtype=qf.dtype, device=qf.device)
+    for z in reversed(range(nc)):
+        out[:, :, z] = dS
+        ch = cum[:, z].transpose(1, 2)                               # [B,H,c]
+        dS = dS * torch.exp(ch[..., -1])[..., None, None] + torch.einsum(
+            "bhi,bihn,bihp->bhnp", torch.exp(ch), qf[:, z], dyf[:, z])
+    return out
+
+
 def gla_bwd(q, k, v, lg, dy, starts, *, chunk, dfinal=None):
     """The gradient of :func:`chunked_gla` (the plain version of the GLA
-    backward kernel), as the kernel computes it: the chunks in reverse,
-    carrying dS, the gradient of the state leaving the chunk (``dfinal``
-    [B,H,N,P] for the last, else zeros). Within a chunk, with cum the
+    backward kernel), as the kernel computes it: with dS_z the gradient of
+    the state leaving chunk z (:func:`gla_bwd_states`; ``dfinal``
+    [B,H,N,P] for the last, else zeros) and, within chunk z, cum the
     inclusive cumsum of lg, tot its last value, S_z = ``starts[:, :, z]``
     the state entering it and W_ij = exp(cum_i - cum_j) for j <= i:
 
         dq_i = sum_{j<=i} W_ij (dy_i . v_j) k_j + exp(cum_i) S_z dy_i
-        dk_j = sum_{i>=j} W_ij (dy_i . v_j) q_i + exp(tot - cum_j) dS v_j
-        dv_j = sum_{i>=j} W_ij (q_i . k_j) dy_i + exp(tot - cum_j) dS^T k_j
-        dS  <- exp(tot) dS + sum_i exp(cum_i) q_i dy_i^T
+        dk_j = sum_{i>=j} W_ij (dy_i . v_j) q_i + exp(tot - cum_j) dS_z v_j
+        dv_j = sum_{i>=j} W_ij (q_i . k_j) dy_i + exp(tot - cum_j) dS_z^T k_j
 
     and dlg by the scalar-decay identity dlg_t = sum_{s>=t} (q_s . dq_s -
     k_s . dk_s) per head, plus <final, dfinal> at every position (the
     final state's decay runs through every lg). q, k [B,S,H,N] (any
-    strides; head-stride-0 views take per-head gradients), v, dy
-    [B,S,H,P], lg [B,S,H], starts [B,H,nc,N,P]. Returns (dq, dk [B,S,H,N]
-    and dlg [B,S,H] float32 (float64 for float64 inputs), per head; dv in
+    strides; head-stride-0 views take per-head gradients) or [B,S,N], one
+    row shared by every head (their gradients are then the sum over the
+    heads, [B,S,N]); v, dy [B,S,H,P], lg [B,S,H], starts [B,H,nc,N,P].
+    Returns (dq, dk and dlg float32 (float64 for float64 inputs); dv in
     v's dtype)."""
-    B, S, H, N = q.shape
+    B, S, H, P = v.shape
+    shared = q.dim() == 3
+    q, k = expand_heads(q, H), expand_heads(k, H)
+    N = q.shape[-1]
     qf, kf, vf, cum = _by_chunk(q, k, v, lg, chunk)
-    nc, c, P = cum.shape[1], cum.shape[2], vf.shape[-1]
+    nc, c = cum.shape[1], cum.shape[2]
     dyf = _acc(dy).reshape(B, nc, c, H, P)
     st = starts.to(qf.dtype)
+    dst = gla_bwd_states(q, lg, dy, chunk=chunk, dfinal=dfinal)
     mask = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
-    dS = torch.zeros_like(st[:, :, 0]) if dfinal is None else dfinal.to(qf.dtype)
     dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)
     for z in reversed(range(nc)):
         qc, kc, vc, dyc = qf[:, z], kf[:, z], vf[:, z], dyf[:, z]     # [B,c,H,*]
         ch = cum[:, z].transpose(1, 2)                               # [B,H,c]
         tot = ch[..., -1]                                            # [B,H]
+        dS = dst[:, :, z]
         w = torch.where(mask, torch.exp(torch.where(mask, ch[..., :, None] - ch[..., None, :],
                                                     0.0)), 0.0)
         m = w * torch.einsum("bihp,bjhp->bhij", dyc, vc)
@@ -279,8 +312,6 @@ def gla_bwd(q, k, v, lg, dy, starts, *, chunk, dfinal=None):
                     + torch.einsum("bhj,bjhp,bhnp->bjhn", ek, vc, dS))
         dv[:, z] = (torch.einsum("bhij,bihp->bjhp", m2, dyc)
                     + torch.einsum("bhj,bjhn,bhnp->bjhp", ek, kc, dS))
-        dS = dS * torch.exp(tot)[..., None, None] + torch.einsum(
-            "bhi,bihn,bihp->bhnp", eq, qc, dyc)
     dq, dk = dq.reshape(B, S, H, N), dk.reshape(B, S, H, N)
     r = (qf.reshape(B, S, H, N) * dq).sum(-1) - (kf.reshape(B, S, H, N) * dk).sum(-1)
     dlg = r.flip(1).cumsum(1).flip(1)
@@ -291,6 +322,8 @@ def gla_bwd(q, k, v, lg, dy, starts, *, chunk, dfinal=None):
                              kf[:, -1], vf[:, -1])
         final = st[:, :, -1] * torch.exp(ch[..., -1])[..., None, None] + delta
         dlg = dlg + (final * dfinal.to(qf.dtype)).sum((-2, -1))[:, None]
+    if shared:
+        dq, dk = dq.sum(2), dk.sum(2)
     return dq, dk, dv.reshape(B, S, H, P).to(v.dtype), dlg
 
 

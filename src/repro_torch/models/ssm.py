@@ -86,10 +86,10 @@ def ssd_apply(cfg, p, x, *, mode, cache=None, force=None, schedule="chunk"):
         dt, lg = _gates(p, x)                                   # [B,S,H]
         uh = u.reshape(B, S, Hs, Pd)
         v = uh * dt[..., None]
-        # the heads share C_t and B_t: head-stride-0 views, nothing copied
-        q = Ct[:, :, None].expand(B, S, Hs, N)
-        k = Bt[:, :, None].expand(B, S, Hs, N)
-        y, state = ops.gla(q, k, v, lg, chunk=s.chunk, schedule=schedule, force=force)
+        # the heads share C_t and B_t: ops.gla takes the rows as they are (the
+        # kernels read them as head-stride-0 views, nothing copied, and the
+        # backward kernel returns their gradients as rows)
+        y, state = ops.gla(Ct, Bt, v, lg, chunk=s.chunk, schedule=schedule, force=force)
         y = y + uh * p["d_skip"][None, None, :, None]
         y = rms_groupnorm(y.reshape(B, S, dss), p["norm"], Hs)
         out = (y * F.silu(z)) @ p["wo"]

@@ -18,6 +18,12 @@ the JAX package, on the CPU (float32, hymba's smoke config).
 * ``ops.gla``'s plain route differentiable, the parallel schedule refusing
   a gradient, and the chunk start states of ``ref.chunked_gla`` equal to
   the chunk-parallel scan's.
+* The rows the heads share ([B,S,N] q and k, as the SSD mixer passes C_t
+  and B_t): ``ops.gla`` equal to the expanded call in values and
+  gradients, ``ref.gla_bwd`` returning the heads' sum against ``jax.vjp``,
+  and ``ref.gla_bwd_states`` (the backward kernel's reversed state pass)
+  against the gradient of a state fed in through a prefix chunk, by
+  ``jax.vjp`` and by autograd, with a final-state cotangent (1e-5).
 * ``ssd_apply(mode="train")`` against the reference's train mode, output
   and gradients (1e-4, tests/conftest.py's assert_close, as the mixer's
   other tests).
@@ -190,6 +196,117 @@ def test_chunk_start_states_are_the_parallel_scans():
     scan_starts, scan_final = ref.gla_scan(g, d)
     torch.testing.assert_close(starts, scan_starts, rtol=1e-6, atol=1e-6)
     assert not starts[:, :, 0].any()
+
+
+@pytest.mark.parametrize("schedule", ["chunk", "parallel"])
+def test_ops_gla_takes_shared_rows_as_the_expanded_call(schedule):
+    """q and k as [B,S,N] rows shared by the heads: the same values as the
+    head-stride-0 expand, and (chunk schedule) the same gradients, the
+    expand's sum over heads included."""
+    B, S, H, N, P = 2, 40, 3, 8, 32
+    q, k, v, lg, dy, df = (torch.from_numpy(x) for x in
+                           _inputs(B, S, H, N, P, 11, bcast=True, steep=False))
+    q, k = q[:, :, 0], k[:, :, 0]
+    grad = schedule == "chunk"
+    a = [x.clone().requires_grad_(grad) for x in (q, k, v, lg)]
+    b = [x.clone().requires_grad_(grad) for x in (q, k, v, lg)]
+    with torch.set_grad_enabled(grad):
+        y1, f1 = ops.gla(*a, chunk=16, schedule=schedule)
+        y2, f2 = ops.gla(b[0][:, :, None].expand(B, S, H, N),
+                         b[1][:, :, None].expand(B, S, H, N), b[2], b[3], chunk=16,
+                         schedule=schedule)
+    assert torch.equal(y1, y2) and torch.equal(f1, f2)
+    if not grad:
+        return
+    g1 = torch.autograd.grad((y1 * dy).sum() + (f1 * df).sum(), a)
+    g2 = torch.autograd.grad((y2 * dy).sum() + (f2 * df).sum(), b)
+    for name, x, y in zip(("dq", "dk", "dv", "dlg"), g1, g2):
+        assert x.shape == y.shape and torch.equal(x, y), name
+    assert g1[0].shape == (B, S, N)
+
+
+@pytest.mark.parametrize("steep", [False, True])
+def test_gla_bwd_of_shared_rows_is_the_heads_sum_against_jax(steep):
+    B, S, H, N, P, chunk = 2, 48, 3, 8, 32, 16
+    q, k, v, lg, dy, _ = _inputs(B, S, H, N, P, 12, bcast=True, steep=steep)
+
+    def f(q_, k_, v_, lg_):
+        q_, k_ = (jnp.broadcast_to(x[:, :, None], (B, S, H, N)) for x in (q_, k_))
+        return JS.chunked_gla(q_, k_, v_, lg_, chunk=chunk)
+    q3, k3 = q[:, :, 0], k[:, :, 0]
+    _, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q3, k3, v, lg)))
+    want = vjp((jnp.asarray(dy), jnp.zeros((B, H, N, P), jnp.float32)))
+    tq, tk = torch.from_numpy(q3), torch.from_numpy(k3)
+    tv, tlg = torch.from_numpy(v), torch.from_numpy(lg)
+    starts = ref.chunked_gla(tq[:, :, None].expand(B, S, H, N), tk[:, :, None].expand(
+        B, S, H, N), tv, tlg, chunk=chunk, starts=True)[2]
+    got = ref.gla_bwd(tq, tk, tv, tlg, torch.from_numpy(dy), starts, chunk=chunk)
+    assert got[0].shape == got[1].shape == (B, S, N)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):   # lg: see the module docstring
+        assert _rel(a.numpy(), b) <= TOL, name
+
+
+def _prefixed(q, k, v, lg, dy, z, c):
+    """The chunks after chunk z, behind a prefix chunk of c positions that
+    feeds a state S0 in: positions n < N carry k = e_n and v = S0[n] (the
+    variable), q = 0 and lg = 0, so the state entering the first real chunk
+    is S0 and the prefix adds nothing to y. Returns the inputs (numpy) with
+    v's prefix rows zero, to be filled, and dy with a zero prefix."""
+    B, N = q.shape[0], q.shape[-1]
+
+    def pre(x):
+        return np.concatenate([np.zeros((B, c) + x.shape[2:], x.dtype), x[:, (z + 1) * c:]], 1)
+    kp = pre(k)
+    kp[:, :N] = np.eye(N, dtype=np.float32)[None, :, None, :]
+    return pre(q), kp, pre(v), pre(lg), pre(dy)
+
+
+@pytest.mark.parametrize("bcast", [False, True])
+def test_gla_bwd_states_against_jax_vjp_and_autograd(bcast):
+    """dS_z, the gradient of the state leaving chunk z, for every z, with a
+    final-state cotangent: ref.gla_bwd_states against the gradient of S0
+    fed in by a prefix chunk before chunks z+1.. (jax.vjp of the
+    reference's chunked_gla, and autograd of ref.chunked_gla)."""
+    B, S, H, N, P, c = 2, 48, 3, 8, 32, 16
+    q, k, v, lg, dy, df = _inputs(B, S, H, N, P, 13, bcast=bcast, steep=False)
+    qh, kh = (np.broadcast_to(x, (B, S, H, N)).copy() for x in (q, k))
+    tq = torch.from_numpy(q[:, :, 0] if bcast else q)
+    got = ref.gla_bwd_states(tq, torch.from_numpy(lg), torch.from_numpy(dy), chunk=c,
+                             dfinal=torch.from_numpy(df))
+    assert got.shape == (B, H, S // c, N, P) and got.dtype == torch.float32
+    for z in range(S // c):
+        pq, pk, pv, plg, pdy = _prefixed(qh, kh, v, lg, dy, z, c)
+        s0 = np.random.default_rng(z).standard_normal((B, H, N, P)).astype(np.float32)
+
+        def f(s0_):
+            vv = jnp.asarray(pv).at[:, :N].set(jnp.transpose(s0_, (0, 2, 1, 3)))
+            return JS.chunked_gla(jnp.asarray(pq), jnp.asarray(pk), vv, jnp.asarray(plg),
+                                  chunk=c)
+        _, vjp = jax.vjp(f, jnp.asarray(s0))
+        want = np.asarray(vjp((jnp.asarray(pdy), jnp.asarray(df)))[0])
+        assert _rel(got[:, :, z].numpy(), want) <= TOL, z
+        ts0 = torch.from_numpy(s0).requires_grad_()
+        tv = torch.cat([ts0.permute(0, 2, 1, 3), torch.from_numpy(pv[:, N:])], 1)
+        y, fin = ref.chunked_gla(*(torch.from_numpy(x) for x in (pq, pk)), tv,
+                                 torch.from_numpy(plg), chunk=c)
+        (g,) = torch.autograd.grad((y * torch.from_numpy(pdy)).sum()
+                                   + (fin * torch.from_numpy(df)).sum(), ts0)
+        assert _rel(got[:, :, z].numpy(), g.numpy()) <= TOL, z
+
+
+def test_head_group_fills_the_card_with_equal_groups():
+    """K4b's head groups: hymba's training shape takes 5 heads a block
+    (480 blocks a launch); every shape gets three blocks an H100 SM (the
+    groups aim at BWD_BLOCKS, four) unless one head a block gives fewer,
+    with groups as even as the count allows."""
+    assert GC.head_group(4, 1536, 25, 256) == 5
+    assert GC.head_group(1, 64, 2, 16) == 1               # small: a head a group
+    for B, S, H, c in ((4, 1536, 25, 256), (2, 512, 3, 256), (1, 1000, 2, 8), (1, 64, 2, 16)):
+        hg = GC.head_group(B, S, H, c)
+        ng = -(-H // hg)
+        blocks = B * (S // c) * -(-c // 64) * ng
+        assert 1 <= hg <= H and (blocks >= 3 * 132 or hg == 1)
+        assert ng * hg - H < hg                           # no empty group
 
 
 def test_gla_bwd_wrapper_refuses_cpu_tensors():

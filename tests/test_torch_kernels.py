@@ -181,8 +181,12 @@ def test_backward_source_is_deterministic_and_on_wgmma_and_tma():
     """K1's backward sums every output row in one block, in a fixed order:
     no atomic operation in its code (comments aside); its bf16 kernels take
     their tiles from TMA into wgmma, and the row sums come from the dQ
-    kernel, not from a pass of their own."""
+    kernel, not from a pass of their own. The TMA and wgmma helpers live in
+    the shared ``hopper.cuh``, which the source includes: it is read with
+    it."""
     src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert '#include "hopper.cuh"' in src
+    src += (build.CSRC / "hopper.cuh").read_text()
     code = "\n".join(line.split("//")[0] for line in src.splitlines())
     assert "atomic" not in code.lower()
     assert "preprocess" not in code and "bwd_delta" not in code

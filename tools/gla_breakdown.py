@@ -29,9 +29,24 @@ and ``pw16``, ptxas's registers and spills, the shared memory a block and
 the blocks an SM that both allow, and each kernel's output against its
 plain version. The other builds' outputs are wrong by design. Exits 1
 with no CUDA device.
+
+The GLA backward (K4b, ``gla_chunk_bwd``) at hymba-1.5b's training shape
+(the same shape, with dy and K4's chunk start states; q and k as the
+rows the heads share) runs through the
+same builds: ``base`` (held to ``ref.gla_bwd``), ``loadonly`` (each
+launch's loads and the waits on them, nothing else), ``noexp`` and
+``clock`` (one block's phases in ``clock64`` cycles, as the source's
+``GLA_CLOCK`` prints them), each timed as the whole call (CUDA-graph
+replay) with each of its kernels' profiler time per call, and ptxas's
+registers and spills of its bf16 kernels. ``--only fwd`` or ``--only
+bwd`` runs one half. ``--groups 3,5,8`` also times the shipped K4b with
+each of those heads a block of its dq and dk/dv launches in place of
+``head_group``'s choice (the tool swaps the module's ``head_group`` for the
+sweep and puts it back after).
 """
 from __future__ import annotations
 
+import argparse
 import os
 import re
 import subprocess
@@ -56,12 +71,17 @@ SHAPE = (4, 1536, 25, 16, 64, 256)   # hymba-1.5b's SSD heads: B, S, H, N, P, ch
 REGS_PER_SM, SMEM_PER_SM, THREADS = 65536, 233472, 256
 KERNELS = (("gla_chunk_kernel", "chunk"), ("gla_phase_a_kernel", "phase_a"),
            ("gla_phase_b_kernel", "phase_b"))
+#: the backward's bf16 kernels, in launch order, by the name prefix ptxas
+#: and the profiler show
+BWD_KERNELS = ("gla_bwd_kernel", "gla_bwd_state_kernel", "gla_bwd_dq_kernel",
+               "gla_bwd_dkdv_kernel", "gla_bwd_finish_kernel")
 
 
 def ptxas_resources(log):
     """{kernel: (registers, spill line)} for the bf16 <16, 64> kernels in
     an ``nvcc -Xptxas -v`` log."""
     out, kernel = {}, None
+    names = [k for k, _ in KERNELS] + list(BWD_KERNELS)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
@@ -69,7 +89,7 @@ def ptxas_resources(log):
             continue
         if not (kernel and "bfloat16" in kernel and "ILi16ELi64E" in kernel):
             continue
-        short = next((k for k, _ in KERNELS if k + "I" in kernel), None)
+        short = next((k for k in names if k + "I" in kernel), None)
         if short is None:
             continue
         regs, spill = out.get(short, (0, "no spill line"))
@@ -102,7 +122,70 @@ def build(out_dir):
     return {n: out_dir / f"lib{n}.so" for n in VARIANTS}, res
 
 
+def bwd_breakdown(libs, regs, GC, ref, cuda_ms, kernel_us, rn, groups=()):
+    """K4b through each build at hymba's training shape (module
+    docstring)."""
+    import torch
+    Bn, S, H, N, P, C = SHAPE
+    sets = []
+    for _ in range(4):                          # 4 x 62 MB, more than the L2
+        q, k, v, lg = rn()
+        GC.library = libs["base"]
+        st = GC.gla_chunk(q, k, v, lg, chunk=C, starts=True)[2]
+        # q and k as the rows the heads share (the SSD mixer's C_t and B_t)
+        sets.append((q[:, :, 0], k[:, :, 0], v, lg, v.clone().normal_(), st))
+    q, k, v, lg, dy, st = sets[0]
+    want = ref.gla_bwd(q, k, v, lg, dy, st, chunk=C)
+
+    def call(q, k, v, lg, dy, st):
+        return GC.gla_chunk_bwd(q, k, v, lg, dy, st, chunk=C)
+
+    for name, r in regs.items():
+        for kernel in BWD_KERNELS:
+            if kernel in r and name in ("base", "noexp"):
+                print(f"[ptxas {name}] {kernel}<16, 64> bf16: {r[kernel][0]} registers; "
+                      f"{r[kernel][1]}", flush=True)
+    GC.library = libs["base"]
+    shipped = GC.head_group
+    for hg in groups:
+        GC.head_group = lambda *_, hg=hg: hg
+        try:
+            ms = cuda_ms(call, sets)
+            us = {key: t for key, t in kernel_us(call, sets, iters=20).items() if "gla_" in key}
+        finally:
+            GC.head_group = shipped
+        parts = ", ".join(f"{next((k for k in BWD_KERNELS if k + '<' in key), key[:40])} "
+                          f"{t:.1f} us" for key, t in us.items())
+        print(f"[bwd groups of {hg}] {ms * 1e3:.1f} us a call; profiler per call: {parts}",
+              flush=True)
+    for name in ("base", "loadonly", "noexp", "clock", "base"):
+        GC.library = libs[name]
+        if name == "clock":
+            call(*sets[0])
+            torch.cuda.synchronize()
+            continue
+        if name == "base":
+            got = call(*sets[0])
+            err = " ".join(
+                f"{n} {((a.float() - b.float()).abs().max() / b.float().abs().max()).item():.3e}"
+                for n, a, b in zip(("dq", "dk", "dv", "dlg"), got, want))
+            print(f"[bwd {name}] against ref.gla_bwd, max|a-b|/max|b|: {err}", flush=True)
+        ms = cuda_ms(call, sets)
+        us = {key: t for key, t in kernel_us(call, sets, iters=20).items() if "gla_" in key}
+        parts = ", ".join(f"{next((k for k in BWD_KERNELS if k + '<' in key), key[:40])} "
+                          f"{t:.1f} us" for key, t in us.items())
+        print(f"[bwd {name}] K4b bf16 B{Bn} S{S} H{H} N{N} P{P} chunk {C}: "
+              f"{ms * 1e3:.1f} us a call; profiler per call: {parts}", flush=True)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("fwd", "bwd"), default=None,
+                    help="run only the forward kernels' or the backward's part")
+    ap.add_argument("--groups", default="",
+                    help="comma-separated heads a block of K4b's dq and dk/dv, each timed")
+    args = ap.parse_args()
+    groups = [int(x) for x in args.groups.split(",") if x]
     import torch
     if not torch.cuda.is_available():
         print("gla_breakdown: no CUDA device", file=sys.stderr)
@@ -112,6 +195,8 @@ def main() -> int:
     from repro_torch.kernels import gla_chunk as GC
     from repro_torch.kernels import ref
     from repro_torch.kernels.timing import cuda_ms
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import kernel_us
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -136,6 +221,12 @@ def main() -> int:
         q = row[..., H * P + N:, None].transpose(-1, -2).expand(Bn, S, H, N)
         return q, k, v, lg
 
+    if args.only == "bwd":
+        try:
+            bwd_breakdown(libs, regs, GC, ref, cuda_ms, kernel_us, inputs, groups)
+        finally:
+            GC.library = None
+        return 0
     sets = [inputs() for _ in range(4)]          # 160 MB, more than the L2
     outs = [torch.empty_like(s[2]) for s in sets]
     copy = cuda_ms(lambda v, o: o.copy_(v), [(s[2], o) for s, o in zip(sets, outs)])
@@ -184,6 +275,9 @@ def main() -> int:
             print(f"[{name}] K4 {k4 * 1e3:.1f} us, phase A {ka * 1e3:.1f} us, "
                   f"phase B {kb * 1e3:.1f} us", flush=True)
             del bsets
+        if args.only is None:
+            del sets, outs
+            bwd_breakdown(libs, regs, GC, ref, cuda_ms, kernel_us, inputs, groups)
     finally:
         GC.library = None
     return 0

@@ -36,6 +36,12 @@ faults planted at run time through the GLA backward's entry point
   called alone, so the later chunks' state gradient never reaches its dk
   and dv; dlg's suffix sums still run across the chunks).
 
+The SSD mixer hands ``gla_chunk_bwd`` C_t and B_t as the [B,S,N] rows the
+heads share, so dq and dk come back as such rows (the heads' sum; the
+float32 route adds its per-head rows in head order) and the faults keep
+that shape: ``no_carry`` cuts q, k, v, lg and dy along the positions and
+joins each chunk's rows again.
+
 Needs one CUDA device and nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
