@@ -40,12 +40,17 @@
 //    single split the block writes the output.
 //  * Streaming. Each warp takes 32 positions; D * sizeof(T) / 16 lanes read
 //    one K or V row (8 lanes for a bf16 row of 64), 16 bytes each, so a
-//    warp's load covers several whole rows. Every K and V load of a thread
-//    is issued before any is used, and nothing waits on another warp before
-//    the merge, so one warp's math overlaps the other warps' (and blocks')
-//    loads. 128-position splits rather than 64 halve the partials the
-//    combine reads, while each warp keeps twice the loads in flight, so the
-//    card holds as many bytes in flight.
+//    warp's load covers one or more whole rows. Every K and V load of a
+//    thread is issued before any is used (up to batch<D>() of each at once), and
+//    nothing waits on another warp before the merge, so one warp's math
+//    overlaps the other warps' (and blocks') loads. 128-position splits
+//    rather than 64 halve the partials the combine reads, while each warp
+//    keeps twice the loads in flight, so the card holds as many bytes in
+//    flight. At D = 128 (added later; not redesigned) a bf16 row takes 16
+//    lanes and a float32 row the whole warp, 16 or 32 loads of K and of V a
+//    lane: the warp takes its positions in batches of 8 loads, each later
+//    batch's (m, l, P V) merged into the earlier ones' in shared memory, so
+//    the loads stay in registers.
 //  * Per query head of the KV head, a warp computes its positions' scores
 //    (a lane's slice of q from shared memory against its slice of the K
 //    row, summed over the row's lanes by shuffles), its online-softmax
@@ -80,6 +85,12 @@ constexpr int WARPS = 4;      // warps per split block
 constexpr int WARP_POS = 32;  // positions per warp
 constexpr int SPLIT = WARPS * WARP_POS;
 constexpr int MIN_BLOCKS = 3;  // resident blocks per SM the registers allow
+// K (and V) loads a lane keeps in flight at most: at D = 128 eight, so
+// that a bf16 row's 16 loads do not spill (ptxas: 830 bytes at 16)
+template <int D>
+__host__ __device__ constexpr int batch() {
+  return D > 64 ? 8 : 16;
+}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -159,6 +170,8 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS) decode_kernel(
   constexpr int LPR = D / E;               // lanes per K or V row
   constexpr int RPW = 32 / LPR;            // rows one warp load covers
   constexpr int NIT = WARP_POS / RPW;      // K (and V) loads per lane
+  constexpr int NB = NIT > batch<D>() ? NIT / batch<D>() : 1;  // batches of them
+  constexpr int NI = NIT / NB;             // loads a batch
   constexpr int THREADS = WARPS * 32;
   extern __shared__ __align__(16) float sm[];
   __shared__ int last;
@@ -180,87 +193,107 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS) decode_kernel(
   float* red_m = red_o + WARPS * G * D;  // [WARPS][G]
   float* red_l = red_m + WARPS * G;      // [WARPS][G]
 
-  // this lane's positions: start + warp * WARP_POS + it * RPW + rg
+  // this lane's positions: start + warp * WARP_POS + it * RPW + rg, batch
+  // bt holding it = bt NI .. (bt + 1) NI - 1
   const bool empty = j0 >= j1;
-  uint4 kr[NIT], vr[NIT];
-  bool live[NIT];
+  uint4 kr[NI], vr[NI];
+  bool live[NI];
+  auto load = [&](int bt) {
 #pragma unroll
-  for (int it = 0; it < NIT; ++it) {
-    const int j = start + warp * WARP_POS + it * RPW + rg;
-    live[it] = j >= j0 && j < j1;
-  }
-  if (!empty) {
-#pragma unroll
-    for (int it = 0; it < NIT; ++it) {
-      kr[it] = vr[it] = make_uint4(0, 0, 0, 0);
-      if (live[it]) {
-        const int j = start + warp * WARP_POS + it * RPW + rg;
+    for (int i = 0; i < NI; ++i) {
+      const int j = start + warp * WARP_POS + (bt * NI + i) * RPW + rg;
+      live[i] = j >= j0 && j < j1;
+      kr[i] = vr[i] = make_uint4(0, 0, 0, 0);
+      if (live[i]) {
         const long long row = kv.row(b, j, kh) + cl * E;
-        kr[it] = __ldg(reinterpret_cast<const uint4*>(k + row));
-        vr[it] = __ldg(reinterpret_cast<const uint4*>(v + row));
+        kr[i] = __ldg(reinterpret_cast<const uint4*>(k + row));
+        vr[i] = __ldg(reinterpret_cast<const uint4*>(v + row));
       }
     }
-  }
+  };
+  if (!empty) load(0);
   const T* qb = q + ((long long)b * H + kh * G) * D;
   // scores in the log2 domain: q scaled by log2(e) / sqrt(D), exp2 below
   for (int i = threadIdx.x; i < G * D; i += THREADS) q_s[i] = to_f(qb[i]) * scale;
   __syncthreads();
 
   if (!empty) {
-    for (int g = 0; g < G; ++g) {
-      float qv[E];
 #pragma unroll
-      for (int e = 0; e < E; e += 4) {
-        const float4 f = *reinterpret_cast<const float4*>(q_s + g * D + cl * E + e);
-        qv[e] = f.x;
-        qv[e + 1] = f.y;
-        qv[e + 2] = f.z;
-        qv[e + 3] = f.w;
+    for (int bt = 0; bt < NB; ++bt) {
+      if (bt > 0) load(bt);
+      for (int g = 0; g < G; ++g) {
+        float qv[E];
+#pragma unroll
+        for (int e = 0; e < E; e += 4) {
+          const float4 f = *reinterpret_cast<const float4*>(q_s + g * D + cl * E + e);
+          qv[e] = f.x;
+          qv[e + 1] = f.y;
+          qv[e + 2] = f.z;
+          qv[e + 3] = f.w;
+        }
+        float s[NI];
+        float mx = NEG_INF;
+#pragma unroll
+        for (int it = 0; it < NI; ++it) {
+          const T* kt = reinterpret_cast<const T*>(&kr[it]);
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) dot += qv[e] * to_f(kt[e]);
+#pragma unroll
+          for (int off = LPR / 2; off > 0; off /= 2)
+            dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          s[it] = live[it] ? dot : NEG_INF;
+          mx = fmaxf(mx, s[it]);
+        }
+#pragma unroll
+        for (int off = 16; off >= LPR; off /= 2)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        float sum = 0.f, acc[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] = 0.f;
+#pragma unroll
+        for (int it = 0; it < NI; ++it) {
+          const float p = live[it] ? ex2(s[it] - mx) : 0.f;
+          const T* vt = reinterpret_cast<const T*>(&vr[it]);
+          sum += p;
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[e] += p * to_f(vt[e]);
+        }
+#pragma unroll
+        for (int off = 16; off >= LPR; off /= 2) {
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+        }
+        float* ro = red_o + (warp * G + g) * D + cl * E;
+        if (bt == 0) {
+          if (rg == 0) {
+#pragma unroll
+            for (int e = 0; e < E; e += 4)
+              *reinterpret_cast<float4*>(ro + e) = make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+          }
+          if (lane == 0) {
+            red_m[warp * G + g] = mx;
+            red_l[warp * G + g] = sum;
+          }
+        } else {
+          // merge into the earlier batches' partial (mx and sum are the
+          // same in every lane, and so are the stored m and l)
+          const float mo = red_m[warp * G + g], lo_ = red_l[warp * G + g];
+          const float mn = fmaxf(mo, mx);
+          const float wo = ex2(mo - mn), wn = ex2(mx - mn);
+          if (rg == 0) {
+#pragma unroll
+            for (int e = 0; e < E; ++e) ro[e] = wo * ro[e] + wn * acc[e];
+          }
+          __syncwarp();  // every lane has read m and l
+          if (lane == 0) {
+            red_m[warp * G + g] = mn;
+            red_l[warp * G + g] = wo * lo_ + wn * sum;
+          }
+        }
       }
-      float s[NIT];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int it = 0; it < NIT; ++it) {
-        const T* kt = reinterpret_cast<const T*>(&kr[it]);
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) dot += qv[e] * to_f(kt[e]);
-#pragma unroll
-        for (int off = LPR / 2; off > 0; off /= 2)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        s[it] = live[it] ? dot : NEG_INF;
-        mx = fmaxf(mx, s[it]);
-      }
-#pragma unroll
-      for (int off = 16; off >= LPR; off /= 2)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      float sum = 0.f, acc[E];
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[e] = 0.f;
-#pragma unroll
-      for (int it = 0; it < NIT; ++it) {
-        const float p = live[it] ? ex2(s[it] - mx) : 0.f;
-        const T* vt = reinterpret_cast<const T*>(&vr[it]);
-        sum += p;
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[e] += p * to_f(vt[e]);
-      }
-#pragma unroll
-      for (int off = 16; off >= LPR; off /= 2) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
-      }
-      if (rg == 0) {
-#pragma unroll
-        for (int e = 0; e < E; e += 4)
-          *reinterpret_cast<float4*>(red_o + (warp * G + g) * D + cl * E + e) =
-              make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
-      }
-      if (lane == 0) {
-        red_m[warp * G + g] = mx;
-        red_l[warp * G + g] = sum;
-      }
+      __syncwarp();  // the batch's m and l are written before the next reads them
     }
   }
   __syncthreads();
@@ -371,7 +404,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* part_o,
   return (int)cudaGetLastError();
 }
 
-// The four built instantiations: dtype 0 = float32, 1 = bfloat16; D 32, 64.
+// The six built instantiations: dtype 0 = float32, 1 = bfloat16; D 32, 64, 128.
 // `split` must be SPLIT (the callers size the partials by it).
 template <typename KV>
 int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
@@ -384,10 +417,14 @@ int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
   float* pml = static_cast<float*>(part_ml);
   int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && D == 128)
+    return launch<bf16, 128>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
   if (dtype == 1 && D == 64)
     return launch<bf16, 64>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
   if (dtype == 1 && D == 32)
     return launch<bf16, 32>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
+  if (dtype == 0 && D == 128)
+    return launch<float, 128>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
   if (dtype == 0 && D == 32)

@@ -20,10 +20,13 @@
 // path of every warpgroup at once.
 // Design against that bound (bf16):
 //  * One block owns 128 query rows of one (row, query head): two consumer
-//    warpgroups of 64 rows each, and one producer warp. Two blocks share an
-//    SM (the registers allow 96 a thread), so while one warpgroup computes
-//    its softmax the other three keep the tensor cores busy; within a
-//    warpgroup a tile's S, softmax and P V run in turn.
+//    warpgroups of 64 rows each, and one producer warp. For D <= 64 two
+//    blocks share an SM (the registers allow 96 a thread), so while one
+//    warpgroup computes its softmax the other three keep the tensor cores
+//    busy; within a warpgroup a tile's S, softmax and P V run in turn. At
+//    D = 128 (added later; not redesigned) the block's shared memory (Q and
+//    the ring: 128 KB) and its O accumulator (64 floats a thread) leave one
+//    block an SM.
 //  * The producer warp's lane 0 issues TMA loads: Q once per block, then
 //    the KV head's K and V tiles of 64 rows into a ring of STAGES slots in
 //    shared memory. Each slot has a "full" mbarrier (the TMA's byte count)
@@ -34,12 +37,17 @@
 //    per call and passed by value (__grid_constant__), so a CUDA graph
 //    keeps them; rows at or beyond S are zero-filled by the TMA.
 //    128-byte swizzle for D = 64 (a bf16 row is 128 B), 64-byte for D = 32.
+//    A row of 128 (256 B) is wider than the swizzle's span: each tile
+//    arrives as two 64-column boxes, two TMA loads into the tile's two
+//    halves ([rows][64] each), and the k16 steps of S = Q K^T walk into the
+//    second half after four (hopper.cuh: tma_tile, k_step).
 //  * S = Q K^T is wgmma m64n64k16 with both operands read from shared
 //    memory through descriptors (Q and K are K-major as they lie).
 //    O += P V is wgmma m64nDk16 with A = P from registers: the float32
 //    accumulator fragment of S, rounded to bf16 pairs, has the layout of
 //    the A register fragment; V is MN-major and read with the transpose
-//    bit. S, P and O never leave the registers.
+//    bit. S, P and O never leave the registers. At D = 128, P V is two
+//    m64n64k16 products a k16 step, one per half of V's columns.
 //  * The softmax is online, on the accumulator registers: each thread holds
 //    two rows of its warp's 16, so a row's max and sum are two shuffles
 //    across the quad; ex2.approx of scores scaled by log2(e)/sqrt(D).
@@ -50,8 +58,9 @@
 //  * Blocks are launched heaviest-first (the last query tiles, which have
 //    the most KV tiles, lead the grid), so the short tiles fill its tail.
 //  * float32 inputs have no exact tensor-core path (TF32 would round
-//    them), so they take a scalar kernel: one thread per query row, K/V
-//    tiles in shared memory read as broadcasts.
+//    them), so they take a scalar kernel: one thread per query row (two at
+//    D = 128, each holding half of the row's q and o, their dot products
+//    joined by a shuffle), K/V tiles in shared memory read as broadcasts.
 //
 // Layout: every tensor is addressed by (batch, head, seq) strides with a
 // contiguous head dim, so [B,S,H,D] projections are taken as they are.
@@ -159,7 +168,7 @@ struct Smem {
 // query rows each, then one producer warp.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, D > 64 ? 1 : 2)
     flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, TmaArgs a) {
@@ -196,13 +205,13 @@ __global__ void __launch_bounds__(THREADS, 2)
   if (warp == 4 * CONSUMERS) {  // producer
     if (threadIdx.x % 32 == 0) {
       mbar_expect_tx(q_full, BM * D * 2);
-      tma_load(smem + L::Q, &tq, q_full, a.q_slots, q0, h, b);
+      tma_tile<D>(smem + L::Q, &tq, q_full, a.q_slots, BM, q0, h, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % STAGES;
         if (it >= STAGES) mbar_wait(&empty[st], ((it / STAGES) - 1) & 1);
         mbar_expect_tx(&full[st], 2 * L::TILE);
-        tma_load(smem + L::K + st * L::TILE, &tk, &full[st], a.k_slots, lo + it * BK, kh, b);
-        tma_load(smem + L::V + st * L::TILE, &tv, &full[st], a.v_slots, lo + it * BK, kh, b);
+        tma_tile<D>(smem + L::K + st * L::TILE, &tk, &full[st], a.k_slots, BK, lo + it * BK, kh, b);
+        tma_tile<D>(smem + L::V + st * L::TILE, &tv, &full[st], a.v_slots, BK, lo + it * BK, kh, b);
       }
     }
     return;
@@ -233,7 +242,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
   for (int i = 0; i < NS; ++i) s[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  const uint64_t dq = smem_desc<D>(smem + L::Q + wg * BQ * D * 2);
+  // the warpgroup's rows of Q (of each half at D = 128)
+  const uint64_t dq = smem_desc<D>(smem + L::Q + wg * BQ * box_cols<D>() * 2);
 
   mbar_wait(q_full, 0);
   for (int it = 0; it < it_lo; ++it) {  // tiles no row of this warpgroup needs
@@ -248,7 +258,8 @@ __global__ void __launch_bounds__(THREADS, 2)
     const uint64_t dk = smem_desc<D>(smem + L::K + st * L::TILE);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, k_step<D>(dq, BM, kk), k_step<D>(dk, BK, kk), kk > 0);
     wg_commit();
     wg_wait<0>();
     fence_regs<NS>(s);
@@ -315,7 +326,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     fence_regs<NO>(o);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) mma_rs<D>(o, pa[kk], dv + ((16 * D * 2) >> 4) * kk);
+    for (int kk = 0; kk < BK / 16; ++kk) mma_rs<D>(o, pa[kk], dv + mn_step<D>() * kk, BK);
     wg_commit();
     wg_wait<0>();
     fence_regs<NO>(o);
@@ -350,10 +361,17 @@ __global__ void __launch_bounds__(THREADS, 2)
 }
 
 // ---------------------------------------------------------------------------
-// float32: scalar FMA, one thread per query row, 64 threads per block.
+// float32: scalar FMA, one thread per query row (f32_tpr<D>() threads: each
+// holds DP = D / f32_tpr<D>() columns of the row's q and o), 64 rows a block.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(BQ) flash_f32_kernel(Args a) {
+__host__ __device__ constexpr int f32_tpr() {
+  return D > 64 ? D / 64 : 1;
+}
+
+template <int D>
+__global__ void __launch_bounds__(BQ * f32_tpr<D>()) flash_f32_kernel(Args a) {
+  constexpr int TPR = f32_tpr<D>(), DP = D / TPR;
   __shared__ __align__(16) float k_s[BKS][D];
   __shared__ __align__(16) float v_s[BKS][D];
 
@@ -361,17 +379,18 @@ __global__ void __launch_bounds__(BQ) flash_f32_kernel(Args a) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (a.H / a.K);
   const int q0 = qt * BQ;
-  const int qpos = q0 + threadIdx.x;
+  const int qpos = q0 + threadIdx.x / TPR;
+  const int d0 = (threadIdx.x % TPR) * DP;  // this thread's first column
   const bool active = qpos < a.S;
   const float* q = static_cast<const float*>(a.q) + b * a.qs.b + h * a.qs.h;
   const float* k = static_cast<const float*>(a.k) + b * a.ks.b + kh * a.ks.h;
   const float* v = static_cast<const float*>(a.v) + b * a.vs.b + kh * a.vs.h;
   float* o = static_cast<float*>(a.o) + b * a.os.b + h * a.os.h;
 
-  float qr[D], acc[D];
+  float qr[DP], acc[DP];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = active ? q[qpos * a.qs.s + d] * a.scale : 0.f;
+  for (int d = 0; d < DP; ++d) {
+    qr[d] = active ? q[qpos * a.qs.s + d0 + d] * a.scale : 0.f;
     acc[d] = 0.f;
   }
   float m_run = NEG_INF, l_run = 0.f;
@@ -391,7 +410,9 @@ __global__ void __launch_bounds__(BQ) flash_f32_kernel(Args a) {
       *reinterpret_cast<float4*>(&v_s[r][c]) = vv;
     }
     __syncthreads();
-    if (!active) continue;
+    // (with TPR > 1 every thread goes on: the shuffles below need the
+    // whole warp; a row past S computes on zeros and writes nothing)
+    if (TPR == 1 && !active) continue;
 
     const bool full = tile_full(q0, k0, BKS, a.window);
     float s[BKS];
@@ -400,10 +421,12 @@ __global__ void __launch_bounds__(BQ) flash_f32_kernel(Args a) {
     for (int j = 0; j < BKS; ++j) {
       float dot = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(&k_s[j][d]);
+      for (int d = 0; d < DP; d += 4) {
+        const float4 kk = *reinterpret_cast<const float4*>(&k_s[j][d0 + d]);
         dot += qr[d] * kk.x + qr[d + 1] * kk.y + qr[d + 2] * kk.z + qr[d + 3] * kk.w;
       }
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off /= 2) dot += __shfl_xor_sync(0xffffffffu, dot, off);
       s[j] = dot;
       if (full || valid_pair(qpos, k0 + j, a.window)) tmax = fmaxf(tmax, dot);
     }
@@ -411,15 +434,15 @@ __global__ void __launch_bounds__(BQ) flash_f32_kernel(Args a) {
     const float alpha = expf(m_run - m_new);
     l_run *= alpha;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+    for (int d = 0; d < DP; ++d) acc[d] *= alpha;
 #pragma unroll
     for (int j = 0; j < BKS; ++j) {
       const bool ok = full || valid_pair(qpos, k0 + j, a.window);
       const float p = ok ? expf(s[j] - m_new) : 0.f;
       l_run += p;
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&v_s[j][d]);
+      for (int d = 0; d < DP; d += 4) {
+        const float4 vv = *reinterpret_cast<const float4*>(&v_s[j][d0 + d]);
         acc[d] += p * vv.x;
         acc[d + 1] += p * vv.y;
         acc[d + 2] += p * vv.z;
@@ -431,8 +454,8 @@ __global__ void __launch_bounds__(BQ) flash_f32_kernel(Args a) {
   if (active) {
     const float inv = 1.f / fmaxf(l_run, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < D; ++d) o[qpos * a.os.s + d] = acc[d] * inv;
-    if (a.lse != nullptr)
+    for (int d = 0; d < DP; ++d) o[qpos * a.os.s + d0 + d] = acc[d] * inv;
+    if (a.lse != nullptr && d0 == 0)
       a.lse[((long long)b * a.H + h) * a.S + qpos] = m_run + logf(fmaxf(l_run, 1e-30f));
   }
 }
@@ -501,9 +524,13 @@ extern "C" int repro_flash_attention_lse(
   a.scale = 1.0f / sqrtf((float)D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
+  if (dtype == 1 && D == 128) return launch_bf16<128>(a, B, st);
   if (dtype == 1 && D == 64) return launch_bf16<64>(a, B, st);
   if (dtype == 1 && D == 32) return launch_bf16<32>(a, B, st);
-  if (dtype == 0 && D == 64) {
+  constexpr int wide = BQ * f32_tpr<128>();  // threads a float32 block at D = 128
+  if (dtype == 0 && D == 128) {
+    flash_f32_kernel<128><<<grid, wide, 0, st>>>(a);
+  } else if (dtype == 0 && D == 64) {
     flash_f32_kernel<64><<<grid, BQ, 0, st>>>(a);
   } else if (dtype == 0 && D == 32) {
     flash_f32_kernel<32><<<grid, BQ, 0, st>>>(a);

@@ -77,13 +77,25 @@
 //    every tile starts on 1024 bytes. The tensor maps are 4-D over the
 //    strided (batch, head, seq) views, encoded per call and passed by value
 //    (__grid_constant__), so a CUDA graph keeps them; rows at or past S are
-//    zero-filled by the TMA and never stored.
+//    zero-filled by the TMA and never stored. A row of 128 (256 B) is wider
+//    than the swizzle's span: each tile arrives as two 64-column boxes into
+//    its two halves ([rows][64] each), as in the forward (hopper.cuh:
+//    tma_tile, k_step; a product by D's columns is two n64 wgmma, mma_rs).
+//  * D = 128 (added later; not redesigned): dQ's block of three warpgroups
+//    would need 243 KB of shared memory (Q, dO, O at 48 KB each and the
+//    ring), so it takes two (128 rows, 192 KB); dK/dV's consumers would hold
+//    dK and dV at 2 x 64 floats a thread beside S^T, dP^T and their A
+//    fragments, past the 240 registers two consumer warpgroups can rise
+//    to, so it takes one consumer warpgroup of 64 KV rows, which keeps
+//    the registers a thread has at launch (up to 255) and needs no
+//    setmaxnreg.
 //  * Diagnostic macros (tools/bwd_breakdown.py): BWD_DQ_WGS (dQ's consumer
 //    warpgroups), BWD_NOEXP (P = its exponent's argument, no mask) and
 //    BWD_NOSECOND (no dQ, dV, dK products); the last two give wrong
 //    gradients by design.
 // float32 inputs have no exact tensor-core path (TF32 would round them), so
-// they take scalar kernels (one thread a row, the other side's rows read
+// they take scalar kernels (one thread a row, two at D = 128, each with half
+// the row's columns; the other side's rows read
 // from shared memory as broadcasts); their dQ kernel also computes each
 // row's Dr from its own O and dO row, writes it, and runs first.
 //
@@ -109,21 +121,38 @@ constexpr int WG_ROWS = 64;                    // rows of a consumer warpgroup
 // 65536 / (128 (NC + 1)) registers (168 for NC = 2, 128 for NC = 3); the
 // producer keeps PRODUCER_REGS and the consumers rise to REGS:
 // (168 - 24) x 128 = (240 - 168) x 256 and (128 - 24) x 128 >= (160 - 128) x 384.
+// With NC = 1 every thread keeps what it has at launch (up to 255).
 #ifndef BWD_DQ_WGS
 #define BWD_DQ_WGS 3
 #endif
-constexpr int DQ_WGS = BWD_DQ_WGS, KV_WGS = 2;
+template <int D>
+__host__ __device__ constexpr int dq_wgs() {
+  return D > 64 ? 2 : BWD_DQ_WGS;
+}
+template <int D>
+__host__ __device__ constexpr int kv_wgs() {
+  return D > 64 ? 1 : 2;
+}
 constexpr int PRODUCER_REGS = 24;
 template <int NC>
 struct Shape {
   static constexpr int ROWS = WG_ROWS * NC;   // rows a block owns
   static constexpr int THREADS = 128 * (NC + 1);
-  static constexpr int REGS = NC == 2 ? 240 : 160;  // a consumer's, after setmaxnreg
+  static constexpr int REGS = NC == 1 ? 0 : NC == 2 ? 240 : 160;  // a consumer's, after setmaxnreg
 };
 constexpr int BN = 64;                         // rows of a streamed tile
 constexpr int STAGES = 3;                      // slots of the ring
-constexpr int FT = 64;  // rows a block owns (float32 kernels: a thread each)
-constexpr int FB = 16;  // rows of the other side's broadcast tile (float32)
+// The float32 kernels' shape: a block owns FT rows, TPR threads a row (each
+// DP = D / TPR of its columns), and walks the other side in FB-row tiles. At
+// D = 128 two threads a row keep the sums to 64 columns a thread, and the
+// smaller tiles keep the rows in 48 KB of static shared memory.
+template <int D>
+struct F32 {
+  static constexpr int TPR = D > 64 ? 2 : 1;
+  static constexpr int DP = D / TPR;
+  static constexpr int FT = D > 64 ? 32 : 64;
+  static constexpr int FB = D > 64 ? 8 : 16;
+};
 
 struct Strides {
   long long b, h, s;
@@ -226,7 +255,7 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 // barriers.
 template <int D>
 struct DqSmem {
-  static constexpr int BM = Shape<DQ_WGS>::ROWS;
+  static constexpr int BM = Shape<dq_wgs<D>()>::ROWS;
   static constexpr int ROWS = BM * D * 2;  // bytes of a tile of the block's rows
   static constexpr int TILE = BN * D * 2;  // bytes of a 64-row tile
   static constexpr int Q = 0;
@@ -302,23 +331,25 @@ __device__ __forceinline__ void dq_step(int it, int it_lo, int it_hi, int lo, fl
   if (it + 1 < it_hi) {  // S = Q K^T and dP = dO V^T (64 x 64 each) of the next tile
     const int nx = (it + 1) % STAGES;
     mbar_wait(&full[nx], ((it + 1) / STAGES) & 1);
-    issue_two<D>(s, dp, desc_q, desc_k0 + SLOT * nx, desc_do, desc_v0 + SLOT * nx);
+    issue_two<D>(s, dp, desc_q, desc_k0 + SLOT * nx, desc_do, desc_v0 + SLOT * nx,
+                 DqSmem<D>::BM, BN);
   }
 #ifndef BWD_NOSECOND
   // dQ += dS K: K read MN-major, BN / 16 k16 steps of 16 key rows
   const uint64_t dk = desc_k0 + SLOT * (it % STAGES);
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) mma_rs<D>(dq, ds[kk], dk + mn_step<D>() * kk);
+  for (int kk = 0; kk < BN / 16; ++kk) mma_rs<D>(dq, ds[kk], dk + mn_step<D>() * kk, BN);
 #endif
   wg_commit();
 }
 
 template <int D>
-__global__ void __launch_bounds__(Shape<DQ_WGS>::THREADS, 1)
+__global__ void __launch_bounds__(Shape<dq_wgs<D>()>::THREADS, 1)
     dq_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                    const __grid_constant__ CUtensorMap to, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, TmaArgs a) {
   using L = DqSmem<D>;
+  constexpr int DQ_WGS = dq_wgs<D>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
@@ -353,19 +384,19 @@ __global__ void __launch_bounds__(Shape<DQ_WGS>::THREADS, 1)
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 128 * DQ_WGS) {
       mbar_expect_tx(rows_full, 3 * L::ROWS);
-      tma_load(smem + L::Q, &tq, rows_full, a.q_slots, q0, h, b);
-      tma_load(smem + L::DO, &tdo, rows_full, a.do_slots, q0, h, b);
-      tma_load(smem + L::O, &to, rows_full, a.o_slots, q0, h, b);
+      tma_tile<D>(smem + L::Q, &tq, rows_full, a.q_slots, L::BM, q0, h, b);
+      tma_tile<D>(smem + L::DO, &tdo, rows_full, a.do_slots, L::BM, q0, h, b);
+      tma_tile<D>(smem + L::O, &to, rows_full, a.o_slots, L::BM, q0, h, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % STAGES;
         if (it >= STAGES) mbar_wait(&empty[st], ((it / STAGES) - 1) & 1);
         mbar_expect_tx(&full[st], 2 * L::TILE);
-        tma_load(smem + L::K + st * L::TILE, &tk, &full[st], a.k_slots, lo + it * BN, kh, b);
-        tma_load(smem + L::V + st * L::TILE, &tv, &full[st], a.v_slots, lo + it * BN, kh, b);
+        tma_tile<D>(smem + L::K + st * L::TILE, &tk, &full[st], a.k_slots, BN, lo + it * BN, kh, b);
+        tma_tile<D>(smem + L::V + st * L::TILE, &tv, &full[st], a.v_slots, BN, lo + it * BN, kh, b);
       }
     }
   } else {  // consumer warpgroup wg: query rows [q0w, q0w + 64)
-    setmaxnreg_inc<Shape<DQ_WGS>::REGS>();
+    setmaxnreg_inc<Shape<DQ_WGS>::REGS>();  // DQ_WGS >= 2
     constexpr int NS = BN / 2;  // S and dP accumulator floats a thread
     constexpr int NQ = D / 2;   // dQ accumulator floats a thread
     const int wg = warp / 4, t = threadIdx.x % 128, lane = threadIdx.x % 32;
@@ -385,12 +416,14 @@ __global__ void __launch_bounds__(Shape<DQ_WGS>::THREADS, 1)
     const long long row = ((long long)b * a.H + h) * a.S;
 
     // Dr = rowsum(dO o) of the warpgroup's rows: two threads a row, each
-    // one half of the row's bytes in both tiles; rows past S are zeros
+    // one half of the row's bytes in both tiles (at D = 128 the row's part
+    // in one of the tile's halves); rows past S are zeros
     mbar_wait(rows_full, 0);
     {
       const int rr = wg * WG_ROWS + t / 2;
-      const uint4* po = reinterpret_cast<const uint4*>(smem + L::O + rr * D * 2 + (t & 1) * D);
-      const uint4* pd = reinterpret_cast<const uint4*>(smem + L::DO + rr * D * 2 + (t & 1) * D);
+      const int off = D > 64 ? (t & 1) * L::BM * 128 + rr * 128 : rr * D * 2 + (t & 1) * D;
+      const uint4* po = reinterpret_cast<const uint4*>(smem + L::O + off);
+      const uint4* pd = reinterpret_cast<const uint4*>(smem + L::DO + off);
       float acc = 0.f;
 #pragma unroll
       for (int i = 0; i < D / 16; ++i) {
@@ -426,8 +459,8 @@ __global__ void __launch_bounds__(Shape<DQ_WGS>::THREADS, 1)
     for (int i = 0; i < NQ; ++i) dq[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
-    const uint64_t desc_q = smem_desc<D>(smem + L::Q + wg * WG_ROWS * D * 2);
-    const uint64_t desc_do = smem_desc<D>(smem + L::DO + wg * WG_ROWS * D * 2);
+    const uint64_t desc_q = smem_desc<D>(smem + L::Q + wg * WG_ROWS * box_cols<D>() * 2);
+    const uint64_t desc_do = smem_desc<D>(smem + L::DO + wg * WG_ROWS * box_cols<D>() * 2);
     const uint64_t desc_k0 = smem_desc<D>(smem + L::K), desc_v0 = smem_desc<D>(smem + L::V);
 
     for (int it = 0; it < it_lo; ++it) {  // tiles no row of this warpgroup needs
@@ -439,7 +472,7 @@ __global__ void __launch_bounds__(Shape<DQ_WGS>::THREADS, 1)
       mbar_wait(&full[st], (it_lo / STAGES) & 1);
       wg_fence();
       issue_two<D>(s, dp, desc_q, desc_k0 + (L::TILE >> 4) * st, desc_do,
-                   desc_v0 + (L::TILE >> 4) * st);
+                   desc_v0 + (L::TILE >> 4) * st, L::BM, BN);
       wg_commit();
       for (int it = it_lo; it < it_hi; ++it)
         dq_step<D>(it, it_lo, it_hi, lo, s, dp, dq, full, empty, desc_q, desc_do, desc_k0,
@@ -464,7 +497,7 @@ __global__ void __launch_bounds__(Shape<DQ_WGS>::THREADS, 1)
 // and dO rings, the per-slot lse (log2 units) and Dr vectors, the barriers.
 template <int D>
 struct KvSmem {
-  static constexpr int BM = Shape<KV_WGS>::ROWS;
+  static constexpr int BM = Shape<kv_wgs<D>()>::ROWS;
   static constexpr int ROWS = BM * D * 2;
   static constexpr int TILE = BN * D * 2;
   static constexpr int K = 0;
@@ -541,27 +574,29 @@ __device__ __forceinline__ void kv_step(int it, int it_lo, int it_hi, float* s, 
   if (it + 1 < it_hi) {  // S^T = K Q^T and dP^T = V dO^T of the next tile
     const int nx = (it + 1) % STAGES;
     mbar_wait(&full[nx], ((it + 1) / STAGES) & 1);
-    issue_two<D>(s, dp, desc_k, desc_q0 + SLOT * nx, desc_v, desc_do0 + SLOT * nx);
+    issue_two<D>(s, dp, desc_k, desc_q0 + SLOT * nx, desc_v, desc_do0 + SLOT * nx,
+                 KvSmem<D>::BM, BN);
   }
 #ifndef BWD_NOSECOND
   // dV += P^T dO, dK += dS^T Q: dO and Q read MN-major, BN / 16 k16 steps
   // of 16 query rows
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
-    mma_rs<D>(dv, pa[kk], desc_do0 + SLOT * st + mn_step<D>() * kk);
+    mma_rs<D>(dv, pa[kk], desc_do0 + SLOT * st + mn_step<D>() * kk, BN);
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
-    mma_rs<D>(dk, sa[kk], desc_q0 + SLOT * st + mn_step<D>() * kk);
+    mma_rs<D>(dk, sa[kk], desc_q0 + SLOT * st + mn_step<D>() * kk, BN);
 #endif
   wg_commit();
 }
 
 template <int D>
-__global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
+__global__ void __launch_bounds__(Shape<kv_wgs<D>()>::THREADS, 1)
     dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo, TmaArgs a) {
   using L = KvSmem<D>;
+  constexpr int KV_WGS = kv_wgs<D>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
@@ -593,12 +628,12 @@ __global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
   __syncthreads();
 
   if (warp >= 4 * KV_WGS) {  // producer: its first warp's 32 lanes work
-    setmaxnreg_dec<PRODUCER_REGS>();
+    if constexpr (KV_WGS > 1) setmaxnreg_dec<PRODUCER_REGS>();
     if (warp > 4 * KV_WGS) return;
     if (lane == 0) {
       mbar_expect_tx(kv_full, 2 * L::ROWS);
-      tma_load(smem + L::K, &tk, kv_full, a.k_slots, k0, kh, b);
-      tma_load(smem + L::V, &tv, kv_full, a.v_slots, k0, kh, b);
+      tma_tile<D>(smem + L::K, &tk, kv_full, a.k_slots, L::BM, k0, kh, b);
+      tma_tile<D>(smem + L::V, &tv, kv_full, a.v_slots, L::BM, k0, kh, b);
     }
     for (int it = 0; it < n_it; ++it) {
       const int st = it % STAGES;
@@ -613,14 +648,14 @@ __global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
       }
       if (lane == 0) {
         mbar_expect_tx(&full[st], 2 * L::TILE);
-        tma_load(smem + L::Q + st * L::TILE, &tq, &full[st], a.q_slots, q0, h, b);
-        tma_load(smem + L::DO + st * L::TILE, &tdo, &full[st], a.do_slots, q0, h, b);
+        tma_tile<D>(smem + L::Q + st * L::TILE, &tq, &full[st], a.q_slots, BN, q0, h, b);
+        tma_tile<D>(smem + L::DO + st * L::TILE, &tdo, &full[st], a.do_slots, BN, q0, h, b);
       } else {
         mbar_arrive(&full[st]);
       }
     }
   } else {  // consumer warpgroup wg: KV rows [k0w, k0w + 64)
-    setmaxnreg_inc<Shape<KV_WGS>::REGS>();
+    if constexpr (KV_WGS > 1) setmaxnreg_inc<Shape<KV_WGS>::REGS>();
     constexpr int NS = BN / 2;  // S^T and dP^T accumulator floats a thread
     constexpr int NK = D / 2;   // dK, dV accumulator floats a thread
     const int wg = warp / 4, t = threadIdx.x % 128;
@@ -643,8 +678,8 @@ __global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
     for (int i = 0; i < NK; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
-    const uint64_t desc_k = smem_desc<D>(smem + L::K + wg * WG_ROWS * D * 2);
-    const uint64_t desc_v = smem_desc<D>(smem + L::V + wg * WG_ROWS * D * 2);
+    const uint64_t desc_k = smem_desc<D>(smem + L::K + wg * WG_ROWS * box_cols<D>() * 2);
+    const uint64_t desc_v = smem_desc<D>(smem + L::V + wg * WG_ROWS * box_cols<D>() * 2);
 
     const uint64_t desc_q0 = smem_desc<D>(smem + L::Q), desc_do0 = smem_desc<D>(smem + L::DO);
     KvCols c;
@@ -667,7 +702,7 @@ __global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
         mbar_wait(&full[st], (lo_it / STAGES) & 1);
         wg_fence();
         issue_two<D>(s, dp, desc_k, desc_q0 + (L::TILE >> 4) * st, desc_v,
-                     desc_do0 + (L::TILE >> 4) * st);
+                     desc_do0 + (L::TILE >> 4) * st, L::BM, BN);
         wg_commit();
         // two steps a trip: ptxas schedules dK/dV's better so (dQ's, on
         // three warpgroups, worse), as measured on an H100
@@ -692,9 +727,9 @@ __global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// float32: scalar FMA. A block owns FT rows (one thread each, the row in
-// shared memory with a padded stride, the sums in registers) and walks the
-// other side in FB-row tiles read as broadcasts.
+// float32: scalar FMA. A block owns F32<D>::FT rows (TPR threads each, the
+// row in shared memory with a padded stride, the sums in registers) and
+// walks the other side in FB-row tiles read as broadcasts.
 // ---------------------------------------------------------------------------
 template <int D>
 __device__ __forceinline__ void load_rows_f32(float (*dst)[D + 1], const void* src,
@@ -707,20 +742,31 @@ __device__ __forceinline__ void load_rows_f32(float (*dst)[D + 1], const void* s
   }
 }
 
+// The sum of a dot product's parts over the TPR threads of a row (a pair of
+// neighbouring lanes): both get the same bits (a + b == b + a).
+template <int TPR>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off /= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
 template <int D>
-__global__ void __launch_bounds__(FT) dkdv_f32_kernel(Args a) {
+__global__ void __launch_bounds__(F32<D>::FT * F32<D>::TPR) dkdv_f32_kernel(Args a) {
+  constexpr int FT = F32<D>::FT, FB = F32<D>::FB, TPR = F32<D>::TPR, DP = F32<D>::DP;
   __shared__ float k_s[FT][D + 1], v_s[FT][D + 1];
   __shared__ float q_s[FB][D + 1], do_s[FB][D + 1];
   __shared__ float lse_s[FB], dr_s[FB];
 
   const int kt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.K;
-  const int k0 = kt * FT, j = threadIdx.x, kp = k0 + j;
+  const int k0 = kt * FT, j = threadIdx.x / TPR, kp = k0 + j;
+  const int d0 = (threadIdx.x % TPR) * DP;  // this thread's first column
   load_rows_f32<D>(k_s, a.k, a.ks, b, kh, k0, FT, a.S);
   load_rows_f32<D>(v_s, a.v, a.vs, b, kh, k0, FT, a.S);
-  float dk[D], dv[D];
+  float dk[DP], dv[DP];
 #pragma unroll
-  for (int d = 0; d < D; ++d) dk[d] = dv[d] = 0.f;
+  for (int d = 0; d < DP; ++d) dk[d] = dv[d] = 0.f;
 
   const int q_hi = a.window > 0 ? min(a.S, k0 + FT - 1 + a.window) : a.S;
   for (int gi = 0; gi < G; ++gi) {
@@ -738,28 +784,33 @@ __global__ void __launch_bounds__(FT) dkdv_f32_kernel(Args a) {
       }
       __syncthreads();
       for (int i = 0; i < FB; ++i) {
-        if (!valid_pair(q0 + i, kp, a.S, a.window)) continue;
+        const bool ok = valid_pair(q0 + i, kp, a.S, a.window);
+        // (with TPR > 1 the row's threads go on to the shuffles together)
+        if (TPR == 1 && !ok) continue;
         float s = 0.f, dp = 0.f;
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-          s += q_s[i][d] * k_s[j][d];
-          dp += do_s[i][d] * v_s[j][d];
+        for (int d = 0; d < DP; ++d) {
+          s += q_s[i][d0 + d] * k_s[j][d0 + d];
+          dp += do_s[i][d0 + d] * v_s[j][d0 + d];
         }
+        s = row_sum<TPR>(s);
+        dp = row_sum<TPR>(dp);
+        if (!ok) continue;
         const float p = expf(s * a.scale - lse_s[i]);
         const float ds = p * (dp - dr_s[i]);
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-          dv[d] += p * do_s[i][d];
-          dk[d] += ds * q_s[i][d];
+        for (int d = 0; d < DP; ++d) {
+          dv[d] += p * do_s[i][d0 + d];
+          dk[d] += ds * q_s[i][d0 + d];
         }
       }
     }
   }
   if (kp < a.S) {
-    float* dkr = static_cast<float*>(a.dk) + b * a.dks.b + kh * a.dks.h + kp * a.dks.s;
-    float* dvr = static_cast<float*>(a.dv) + b * a.dvs.b + kh * a.dvs.h + kp * a.dvs.s;
+    float* dkr = static_cast<float*>(a.dk) + b * a.dks.b + kh * a.dks.h + kp * a.dks.s + d0;
+    float* dvr = static_cast<float*>(a.dv) + b * a.dvs.b + kh * a.dvs.h + kp * a.dvs.s + d0;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DP; ++d) {
       dkr[d] = dk[d] * a.scale;
       dvr[d] = dv[d];
     }
@@ -768,14 +819,16 @@ __global__ void __launch_bounds__(FT) dkdv_f32_kernel(Args a) {
 
 // dQ of FT query rows, and their Dr = rowsum(dO o), written for dK/dV
 template <int D>
-__global__ void __launch_bounds__(FT) dq_f32_kernel(Args a) {
+__global__ void __launch_bounds__(F32<D>::FT * F32<D>::TPR) dq_f32_kernel(Args a) {
+  constexpr int FT = F32<D>::FT, FB = F32<D>::FB, TPR = F32<D>::TPR, DP = F32<D>::DP;
   __shared__ float q_s[FT][D + 1], do_s[FT][D + 1];
   __shared__ float k_s[FB][D + 1], v_s[FB][D + 1];
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (a.H / a.K);
-  const int q0 = qt * FT, i = threadIdx.x, qp = q0 + i;
+  const int q0 = qt * FT, i = threadIdx.x / TPR, qp = q0 + i;
+  const int d0 = (threadIdx.x % TPR) * DP;  // this thread's first column
   load_rows_f32<D>(q_s, a.q, a.qs, b, h, q0, FT, a.S);
   load_rows_f32<D>(do_s, a.dout, a.dos, b, h, q0, FT, a.S);
   __syncthreads();
@@ -784,13 +837,16 @@ __global__ void __launch_bounds__(FT) dq_f32_kernel(Args a) {
   if (qp < a.S) {
     const float* o = static_cast<const float*>(a.o) + b * a.os.b + h * a.os.h + qp * a.os.s;
 #pragma unroll
-    for (int d = 0; d < D; ++d) dr += do_s[i][d] * o[d];
-    a.delta[row] = dr;
+    for (int d = 0; d < DP; ++d) dr += do_s[i][d0 + d] * o[d0 + d];
+  }
+  dr = row_sum<TPR>(dr);  // (a row past S: both threads hold 0)
+  if (qp < a.S) {
+    if (d0 == 0) a.delta[row] = dr;
     lse = a.lse[row];
   }
-  float dq[D];
+  float dq[DP];
 #pragma unroll
-  for (int d = 0; d < D; ++d) dq[d] = 0.f;
+  for (int d = 0; d < DP; ++d) dq[d] = 0.f;
 
   const int k_lo = a.window > 0 ? max(q0 - a.window + 1, 0) : 0;
   const int k_hi = min(q0 + FT, a.S);
@@ -800,22 +856,26 @@ __global__ void __launch_bounds__(FT) dq_f32_kernel(Args a) {
     load_rows_f32<D>(v_s, a.v, a.vs, b, kh, k0, FB, a.S);
     __syncthreads();
     for (int j = 0; j < FB; ++j) {
-      if (!valid_pair(qp, k0 + j, a.S, a.window)) continue;
+      const bool ok = valid_pair(qp, k0 + j, a.S, a.window);
+      if (TPR == 1 && !ok) continue;
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s += q_s[i][d] * k_s[j][d];
-        dp += do_s[i][d] * v_s[j][d];
+      for (int d = 0; d < DP; ++d) {
+        s += q_s[i][d0 + d] * k_s[j][d0 + d];
+        dp += do_s[i][d0 + d] * v_s[j][d0 + d];
       }
+      s = row_sum<TPR>(s);
+      dp = row_sum<TPR>(dp);
+      if (!ok) continue;
       const float ds = expf(s * a.scale - lse) * (dp - dr);
 #pragma unroll
-      for (int d = 0; d < D; ++d) dq[d] += ds * k_s[j][d];
+      for (int d = 0; d < DP; ++d) dq[d] += ds * k_s[j][d0 + d];
     }
   }
   if (qp < a.S) {
-    float* dqr = static_cast<float*>(a.dq) + b * a.dqs.b + h * a.dqs.h + qp * a.dqs.s;
+    float* dqr = static_cast<float*>(a.dq) + b * a.dqs.b + h * a.dqs.h + qp * a.dqs.s + d0;
 #pragma unroll
-    for (int d = 0; d < D; ++d) dqr[d] = dq[d] * a.scale;
+    for (int d = 0; d < DP; ++d) dqr[d] = dq[d] * a.scale;
   }
 }
 
@@ -839,7 +899,8 @@ int prepare(Kernel kernel, int smem, unsigned long long* done) {
   if (err != cudaSuccess) return (int)err;
   const int r = attr.numRegs;
   constexpr int cons = Shape<NC>::REGS;
-  if (r > cons || r < PRODUCER_REGS || (r - PRODUCER_REGS) * 128 < (cons - r) * 128 * NC)
+  if (NC > 1 &&
+      (r > cons || r < PRODUCER_REGS || (r - PRODUCER_REGS) * 128 < (cons - r) * 128 * NC))
     return (int)cudaErrorInvalidConfiguration;
   if (dev < 64) *done |= 1ull << dev;
   return 0;
@@ -879,9 +940,10 @@ int launch_bf16(int kernel, const Args& a, int B, cudaStream_t st) {
     if (!rc) rc = encode(&tk, a.k, D, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BN, &t.k_slots);
     if (!rc) rc = encode(&tv, a.v, D, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BN, &t.v_slots);
     static unsigned long long done = 0;
-    if (!rc) rc = prepare<DQ_WGS>(dq_bf16_kernel<D>, DqSmem<D>::BYTES, &done);
+    constexpr int NC = dq_wgs<D>();
+    if (!rc) rc = prepare<NC>(dq_bf16_kernel<D>, DqSmem<D>::BYTES, &done);
     if (rc) return rc;
-    dq_bf16_kernel<D><<<dim3(a.H, B, (a.S + BM - 1) / BM), Shape<DQ_WGS>::THREADS,
+    dq_bf16_kernel<D><<<dim3(a.H, B, (a.S + BM - 1) / BM), Shape<NC>::THREADS,
                         DqSmem<D>::BYTES, st>>>(
         tq, tdo, to, tk, tv, t);
   } else {
@@ -892,9 +954,10 @@ int launch_bf16(int kernel, const Args& a, int B, cudaStream_t st) {
     if (!rc) rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BN, &t.q_slots);
     if (!rc) rc = encode(&tdo, a.dout, D, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, BN, &t.do_slots);
     static unsigned long long done = 0;
-    if (!rc) rc = prepare<KV_WGS>(dkdv_bf16_kernel<D>, KvSmem<D>::BYTES, &done);
+    constexpr int NC = kv_wgs<D>();
+    if (!rc) rc = prepare<NC>(dkdv_bf16_kernel<D>, KvSmem<D>::BYTES, &done);
     if (rc) return rc;
-    dkdv_bf16_kernel<D><<<dim3(a.K, B, (a.S + BM - 1) / BM), Shape<KV_WGS>::THREADS,
+    dkdv_bf16_kernel<D><<<dim3(a.K, B, (a.S + BM - 1) / BM), Shape<NC>::THREADS,
                           KvSmem<D>::BYTES, st>>>(
         tk, tv, tq, tdo, t);
   }
@@ -904,10 +967,11 @@ int launch_bf16(int kernel, const Args& a, int B, cudaStream_t st) {
 template <int D>
 int launch(int kernel, const Args& a, int B, int dtype, cudaStream_t st) {
   if (dtype == 1) return launch_bf16<D>(kernel, a, B, st);
+  constexpr int rows = F32<D>::FT, threads = F32<D>::FT * F32<D>::TPR;
   if (kernel == 1)
-    dq_f32_kernel<D><<<dim3((a.S + FT - 1) / FT, a.H, B), FT, 0, st>>>(a);
+    dq_f32_kernel<D><<<dim3((a.S + rows - 1) / rows, a.H, B), threads, 0, st>>>(a);
   else
-    dkdv_f32_kernel<D><<<dim3((a.S + FT - 1) / FT, a.K, B), FT, 0, st>>>(a);
+    dkdv_f32_kernel<D><<<dim3((a.S + rows - 1) / rows, a.K, B), threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -937,6 +1001,7 @@ extern "C" int repro_flash_attention_bwd(int kernel, const void* q, const void* 
   a.window = window;
   a.scale = 1.0f / sqrtf((float)D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128) return launch<128>(kernel, a, B, dtype, st);
   if (D == 64) return launch<64>(kernel, a, B, dtype, st);
   if (D == 32) return launch<32>(kernel, a, B, dtype, st);
   return (int)cudaErrorInvalidValue;

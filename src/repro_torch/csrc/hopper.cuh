@@ -49,10 +49,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // One TMA box of a 4-D tensor map (dim 0 the head dim, then the seq, head
 // and batch axes in the map's order) into shared memory; completion is
 // counted on `bar`. `slots` packs the map dim (1..3) of seq, head and
-// batch in bits 0-1, 2-3 and 4-5.
+// batch in bits 0-1, 2-3 and 4-5; `c0` is the box's first head-dim column.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int slots, int s, int h,
-                                         int b) {
+                                         int b, int c0 = 0) {
   const int ps = slots & 3, ph = (slots >> 2) & 3, pb = (slots >> 4) & 3;
   const int c1 = (ps == 1 ? s : 0) + (ph == 1 ? h : 0) + (pb == 1 ? b : 0);
   const int c2 = (ps == 2 ? s : 0) + (ph == 2 ? h : 0) + (pb == 2 ? b : 0);
@@ -60,27 +60,54 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(c1), "r"(c2), "r"(c3),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_addr(bar))
       : "memory");
 }
 
-// A wgmma shared-memory matrix descriptor for a tile whose rows are D bf16
-// elements (D * 2 bytes), as the TMA wrote it with the matching swizzle
-// (128 B for D = 64, 64 B for D = 32): 8-row groups lie 8 * D * 2 bytes
-// apart. The same descriptor serves a K-major read (k16 steps of 32 bytes
-// along a row: + 2) and an MN-major read under the transpose bit (k16
-// steps of 16 rows: + mn_step), since one swizzle atom spans the row.
+// The bf16 columns of one swizzled box. A row of D <= 64 (at most 128
+// bytes) is one box; a row of 128 (256 bytes, wider than the 128-byte
+// swizzle's span) is two boxes of 64 columns, and a tile of such rows lies
+// as two halves, [rows][64] each, the second after the first.
+template <int D>
+__host__ __device__ constexpr int box_cols() {
+  return D > 64 ? 64 : D;
+}
+
+// A wgmma shared-memory matrix descriptor for a tile whose box rows are
+// box_cols<D>() bf16 elements, as the TMA wrote it with the matching
+// swizzle (128 B for 64 columns, 64 B for 32): 8-row groups lie 8 rows of
+// the box apart. The same descriptor serves a K-major read (k16 steps of 32
+// bytes along a row: k_step) and an MN-major read under the transpose bit
+// (k16 steps of 16 rows: + mn_step), since one swizzle atom spans the box.
 template <int D>
 __device__ __forceinline__ uint64_t smem_desc(const void* tile) {
-  constexpr uint64_t layout = D == 64 ? 1 : 2;  // 1: 128-byte swizzle, 2: 64-byte
-  constexpr uint64_t sbo = 8 * D * 2;
+  constexpr int W = box_cols<D>();
+  constexpr uint64_t layout = W == 64 ? 1 : 2;  // 1: 128-byte swizzle, 2: 64-byte
+  constexpr uint64_t sbo = 8 * W * 2;
   return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((sbo >> 4) << 32) | (layout << 62);
 }
 template <int D>
 __device__ __forceinline__ constexpr uint64_t mn_step() {
-  return (16 * D * 2) >> 4;
+  return (16 * box_cols<D>() * 2) >> 4;
+}
+// The descriptor of k16 step kk of a K-major tile of `rows` rows whose
+// first step is `desc`: 32 bytes a step along a box's row, then on into
+// the next half (D = 128).
+template <int D>
+__device__ __forceinline__ uint64_t k_step(uint64_t desc, int rows, int kk) {
+  constexpr int PER = box_cols<D>() / 16;  // k16 steps a box holds
+  return desc + (uint64_t)((kk / PER) * ((rows * box_cols<D>() * 2) >> 4) + 2 * (kk % PER));
+}
+
+// A tile of `rows` rows of a D-column map at (s, h, b): one box, or for
+// D = 128 two 64-column boxes into the tile's two halves.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int slots, int rows, int s, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < D; c += box_cols<D>()) tma_load(dst + c * rows * 2, map, bar, slots, s, h, b, c);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -166,23 +193,34 @@ __device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64
 }
 
 // s = A_s B_s^T and dp = A_p B_p^T, 64 x 64 each over D: every operand
-// K-major in shared memory (descriptors of its first k16 step)
+// K-major in shared memory (descriptors of its first k16 step); the A
+// operands' tiles have ra rows, the B operands' rb (their halves' offset at
+// D = 128)
 template <int D>
 __device__ __forceinline__ void issue_two(float* s, float* dp, uint64_t as, uint64_t bs,
-                                          uint64_t ap, uint64_t bp) {
+                                          uint64_t ap, uint64_t bp, int ra, int rb) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(s, as + 2 * kk, bs + 2 * kk, kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(s, k_step<D>(as, ra, kk), k_step<D>(bs, rb, kk), kk > 0);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(dp, ap + 2 * kk, bp + 2 * kk, kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(dp, k_step<D>(ap, ra, kk), k_step<D>(bp, rb, kk), kk > 0);
 }
 
-// acc[64 x D] += A[64 x 16] (registers) * B[16 x D] (MN-major)
+// acc[64 x D] += A[64 x 16] (registers) * B[16 x D] (MN-major). At D = 128
+// the B tile (of `rows` rows) lies in two 64-column halves: two n64
+// products, acc[0..31] the first half's columns and acc[32..63] the second's,
+// so acc[4n + e] is column 8n + ... for every D.
 template <int D>
-__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a, uint64_t db) {
-  if constexpr (D == 64)
+__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a, uint64_t db, int rows = 0) {
+  if constexpr (D == 128) {
     wgmma_rs_n64(d, a, db);
-  else
+    wgmma_rs_n64(d + 32, a, db + (uint64_t)((rows * 128) >> 4));
+  } else if constexpr (D == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else {
     wgmma_rs_n32(d, a, db);
+  }
 }
 
 // D[64 x 16] (+)= A[64 x 16] * B[16 x 16]; A and B K-major in shared memory.
@@ -261,7 +299,8 @@ EncodeTiled encode_fn() {
 // A 4-D bf16 tensor map over a [.., seq, .., D] strided view: dim 0 the
 // head dim, dims 1-3 the seq, head and batch axes in order of their
 // strides (element strides s, h, b; extents S, n_heads, B). The box is
-// `rows` seq positions of one (batch, head). Returns a cudaError_t and
+// `rows` seq positions of one (batch, head) and box_cols(D) columns (at
+// D = 128 a tile takes two boxes: tma_tile). Returns a cudaError_t and
 // the axes' map dims packed as tma_load() reads them.
 int encode(CUtensorMap* map, const void* base, int D, int S, int n_heads, int B,
            long long ss, long long sh, long long sb, int rows, int* slots) {
@@ -278,7 +317,8 @@ int encode(CUtensorMap* map, const void* base, int D, int S, int n_heads, int B,
     }
   cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
   cuuint64_t strides[3];
-  cuuint32_t box[4] = {(cuuint32_t)D, 1, 1, 1};
+  const int W = D > 64 ? 64 : D;  // box_cols<D>()
+  cuuint32_t box[4] = {(cuuint32_t)W, 1, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   int slot[3];
   for (int i = 0; i < 3; ++i) {
@@ -290,7 +330,7 @@ int encode(CUtensorMap* map, const void* base, int D, int S, int n_heads, int B,
   *slots = slot[0] | (slot[1] << 2) | (slot[2] << 4);
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

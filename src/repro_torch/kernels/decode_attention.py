@@ -40,7 +40,7 @@ launches = 0
 #: launches of the kernel over a ring-buffer cache, likewise
 ring_launches = 0
 
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (32, 64, 128)
 SPLIT = 128          # cache positions per split block (SPLIT in the source)
 MAX_G = 16           # query heads per KV head (GMAX in the source)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -38,7 +38,7 @@ bwd_dkdv_launches = 0
 #: earlier or altered version on the same calls (``tools/k1_witness.py``)
 library = None
 
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _I64 = ctypes.c_longlong
 

@@ -38,7 +38,7 @@ import time
 import torch
 
 from repro_torch import steps as ST
-from repro_torch.configs import CkptIOConfig, get_config, smoke_config
+from repro_torch.configs import ARCH_IDS, CkptIOConfig, get_config, smoke_config
 from repro_torch.core import BACKENDS, Cluster
 from repro_torch.core import runtime_state as RS
 from repro_torch.core.restore import as_source, translation_plan
@@ -337,7 +337,7 @@ def main(argv=None):
     """Returns the Trainer after the run."""
     flavors = sorted(BACKENDS)
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--arch", default="granite-3-2b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--device", default="cuda",

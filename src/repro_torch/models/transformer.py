@@ -2,11 +2,12 @@
 unstacked exceptional layers), block specs/apply, embeddings, head, and
 the loop over a segment's layers.
 
-Two blocks are here: ``attn`` (GQA attention and a SwiGLU MLP, full or
-sliding-window attention) and ``hymba`` (attention and the SSD mixer in
-parallel on the same normed input, then the MLP). MLA, MoE, xLSTM and the
-multi-codebook/vision frontends come with their own slices and raise until
-then. Params and caches keep the JAX package's layout: a list with one
+Two blocks are here: ``attn`` (GQA attention, with or without q/k/v
+biases, and a SwiGLU MLP, full or sliding-window attention: the dense
+families granite-3-2b, minicpm-2b and qwen2.5-14b) and ``hymba``
+(attention and the SSD mixer in parallel on the same normed input, then the
+MLP). MLA, MoE, xLSTM and the multi-codebook/vision frontends come with
+their own slices and raise until then. Params and caches keep the JAX package's layout: a list with one
 entry per segment; a stacked (scanned) segment's leaves carry a leading
 ``[n_layers]`` axis, an unstacked one's (hymba's global-attention layers)
 do not. Cache leaves: attention ``{"k", "v"}`` ``[B, S_max, K*hd]`` (a
@@ -39,12 +40,14 @@ def _check_supported(cfg):
             or cfg.moe is not None or cfg.n_codebooks > 1 or cfg.img_tokens \
             or (cfg.block == "hymba" and cfg.ssm is None):
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention and hymba decoders are ported so far")
+            f"{cfg.name}: only the dense attention decoders (granite-3-2b, minicpm-2b, "
+            "qwen2.5-14b) and hymba are ported so far")
 
 
 def check_trainable(cfg):
     """Training is ported for the blocks the port serves: the dense
-    attention decoder (K1's backward) and hymba (also the GLA backward)."""
+    attention decoders (granite-3-2b, minicpm-2b, qwen2.5-14b: K1's
+    backward) and hymba (also the GLA backward)."""
     _check_supported(cfg)
 
 

@@ -96,7 +96,7 @@ def test_flash_kernel_windows(cuda, window, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("G", [1, 4, 5, 16])
 def test_flash_kernel_group_sizes_and_head_dims(cuda, G, D, dtype):
     q, k, v = _flash_views(cuda, 2, 2 * G, 2, 300, D, dtype, seed=G * D)
@@ -267,7 +267,8 @@ def _paged_inputs(cuda, B, H, K, D, n_layers, layer, lengths, page, dtype, seed,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("lengths,window", [([1, 16], None), ([DA.SPLIT, 300], None),
                                             ([300, DA.SPLIT + 1], 50), ([0, 17], None)])
-@pytest.mark.parametrize("H,K,D", [(8, 2, 64), (DA.MAX_G, 1, 32), (4, 4, 64)])
+@pytest.mark.parametrize("H,K,D", [(8, 2, 64), (DA.MAX_G, 1, 32), (4, 4, 64), (10, 2, 128),
+                                   (40, 8, 128)])
 def test_paged_decode_kernel_matches_plain(cuda, lengths, window, dtype, H, K, D):
     q, kp, vp, table, lens = _paged_inputs(cuda, 2, H, K, D, 3, 1, lengths, 16, dtype,
                                            seed=sum(lengths) + H)
@@ -901,7 +902,7 @@ def test_flash_lse_matches_plain_and_leaves_the_output_unchanged(cuda, window, d
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("G", [1, 4, 5])
 @pytest.mark.parametrize("S,window", [(256, None), (200, None), (77, None), (300, 50),
                                       (130, 64), (127, None), (128, None), (129, None),
@@ -909,8 +910,9 @@ def test_flash_lse_matches_plain_and_leaves_the_output_unchanged(cuda, window, d
                                       (257, 200), (300, 129)])
 def test_flash_bwd_matches_plain(cuda, S, window, G, D, dtype):
     """The 128-row blocks' and 64-row tiles' edges (S around 128 and 256),
-    windows narrower and wider than a block, both head dims (the 64- and
-    128-byte swizzles, each tile read K-major and MN-major)."""
+    windows narrower and wider than a block, every head dim (the 64- and
+    128-byte swizzles, each tile read K-major and MN-major; at 128 each
+    tile two 64-column halves, dQ's blocks 128 rows and dK/dV's 64)."""
     q, k, v, do = _bwd_inputs(cuda, 2, 2 * G, 2, S, D, dtype, seed=S + G + D)
     _bwd_held(q, k, v, do, window, dtype)
 
@@ -1325,3 +1327,166 @@ def test_gla_bwd_refuses_what_it_does_not_take(cuda):
         GC.gla_chunk_bwd(q[..., :12], k[..., :12], v, lg, dy, starts, chunk=16)
     with pytest.raises(ValueError, match="both"):
         GC.gla_chunk_bwd(q[:, :, 0], k, v, lg, dy, starts, chunk=16)
+
+
+# -- head dim 128 (qwen2.5-14b: G = 5; minicpm-2b runs at head dim 64, G = 1) -------
+
+def _padded_views(cuda, B, H, K, S, D, dtype, seed):
+    """q, k, v as [B,n,S,D] views whose rows start 16 bytes past a 128-byte
+    boundary: each a slice of a [B,S,n*D + pad] row, pad 16 bytes (strided
+    views as a fused projection passes them; the TMA needs only 16)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    pad = 16 // torch.empty((), dtype=dtype).element_size()
+    out = []
+    for n in (H, K, K):
+        row = torch.randn(B, S, n * D + pad, generator=g, device=cuda).to(dtype)
+        x = row[..., pad:].unflatten(-1, (n, D)).transpose(1, 2)
+        assert x.data_ptr() % 128 == 16 and x.stride(2) * x.element_size() % 128
+        out.append(x)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_at_head_dim_128_take_rows_on_16_bytes(cuda, dtype):
+    """Rows 16- but not 128-byte aligned give a contiguous copy's bits, in
+    the forward (and its logsumexp) and the backward."""
+    q, k, v = _padded_views(cuda, 2, 10, 2, 200, 128, dtype, seed=3)
+    o, lse = FA.flash_attention(q, k, v, window=77, lse=True)
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    oc, lsec = FA.flash_attention(qc, kc, vc, window=77, lse=True)
+    assert torch.equal(o, oc) and torch.equal(lse, lsec)
+    _close(o, ref.naive_attention(q, k, v, window=77), dtype)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    do = torch.randn(2, 200, 10 * 128 + 8, generator=g, device=cuda).to(dtype)
+    do = do[..., 8:].unflatten(-1, (10, 128)).transpose(1, 2)
+    assert FA._rows_ok(do)
+    a = FA.flash_attention_bwd(q, k, v, o, lse, do, window=77)
+    b = FA.flash_attention_bwd(qc, kc, vc, oc, lsec, do.contiguous(), window=77)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    _bwd_held(q, k, v, do, 77, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_at_qwen_shape(cuda, dtype):
+    """qwen2.5-14b's training shape, one row of the batch: 40 query heads
+    over 8 KV heads, S 1024, D 128; two runs equal bit for bit."""
+    q, k, v, do = _bwd_inputs(cuda, 1, 40, 8, 1024, 128, dtype, seed=23)
+    _bwd_held(q, k, v, do, None, dtype)
+    o, lse = FA.flash_attention(q, k, v, lse=True)
+    a = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    b = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("length,window", [(1, None), (DA.SPLIT, None), (DA.SPLIT + 1, None),
+                                           (300, None), (300, 50), (1056, None)])
+@pytest.mark.parametrize("H,K", [(10, 2), (4, 4), (DA.MAX_G, 1)])
+def test_decode_kernel_at_head_dim_128(cuda, length, window, dtype, H, K):
+    """K2 at D = 128 (a float32 row is the whole warp: its positions in two
+    batches of loads), qwen's G = 5, G = 1 and the largest G."""
+    B, S, D = 2, 1056, 128
+    g = torch.Generator(device=cuda).manual_seed(length + H)
+    q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, S, K, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    n0 = DA.launches
+    out = ops.decode_attention(q, k, v, length, window=window)
+    assert DA.launches == n0 + 1
+    _close(out, ref.naive_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
+                                           length, window=window), dtype)
+    assert torch.equal(out, ops.decode_attention(q, k, v, length, window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("W,window,pos", [(64, 64, 40), (64, 64, 300), (300, 256, 1000)])
+def test_ring_decode_kernel_at_head_dim_128(cuda, W, window, pos, dtype):
+    g = torch.Generator(device=cuda).manual_seed(pos)
+    q = torch.randn(2, 10, 128, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(2, W, 2, 128, generator=g, device=cuda).to(dtype) for _ in range(2))
+    _close(DA.ring_decode_attention(q, k, v, pos, window=window),
+           ref.naive_ring_decode_attention(q, k, v, pos, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("length,window", [(1, None), (DA.SPLIT, None), (1000, None),
+                                           (300, 50)])
+def test_paged_kernel_at_head_dim_128_over_in_order_pages_equals_contiguous(
+        cuda, length, window, dtype):
+    B, H, K, D, page, S = 2, 40, 8, 128, 16, 1056
+    g = torch.Generator(device=cuda).manual_seed(length)
+    q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, S, K, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    n = S // page
+    table = torch.arange(B * n, dtype=torch.int32, device=cuda).view(B, n)
+    lens = torch.full((B,), length, dtype=torch.int32, device=cuda)
+    paged = PA.paged_decode_attention(q, k.view(B * n, page, K, D), v.view(B * n, page, K, D),
+                                      table, lens, window=window)
+    assert torch.equal(paged, DA.decode_attention(q, k, v, length, window=window))
+
+
+def _qwen_d128(dtype="float32"):
+    """qwen2.5-14b's smoke config at head dim 128 (2 layers, 4/2 heads)."""
+    from dataclasses import replace
+    return replace(smoke_config("qwen2.5-14b"), head_dim=128, n_layers=2,
+                   param_dtype=dtype, compute_dtype=dtype, cache_dtype=dtype)
+
+
+def _biased(params):
+    """Non-zero q/k/v biases (the spec initialises them to zeros)."""
+    g = torch.Generator(device=params["embed"].device).manual_seed(5)
+    for name in ("bq", "bk", "bv"):
+        b = params["segments"][0]["attn"][name]
+        b.copy_(0.5 * torch.randn(b.shape, generator=g, device=b.device).to(b.dtype))
+    return params
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen2.5-14b", "qwen2.5-14b-d128"])
+def test_dense_family_smoke_server_on_card_matches_cpu(cuda, arch):
+    """A smoke prefill launches K1 once a layer and a decode step K2 once a
+    layer, and the card's logits and greedy stream equal the CPU's plain
+    path's (float32, non-zero biases for qwen)."""
+    cfg = _qwen_d128() if arch.endswith("d128") else smoke_config(arch)
+    gpu = Server(cfg, device=cuda, seed=0)
+    if cfg.qkv_bias:
+        _biased(gpu.params)
+    cpu = Server(cfg, device="cpu", params=tree_map(lambda t: t.cpu(), gpu.params))
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12))
+    n0 = (FA.launches, DA.launches)
+    lg = gpu.prefill(prompt, pad_to=20)
+    assert (FA.launches, DA.launches) == (n0[0] + cfg.n_layers, n0[1])
+    lc = cpu.prefill(prompt, pad_to=20)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    first = np.argmax(lc[:, : cfg.vocab_size].numpy(), -1)
+    n0 = (FA.launches, DA.launches)
+    tg, _ = gpu.decode(1, first)
+    assert (FA.launches, DA.launches) == (n0[0], n0[1] + cfg.n_layers)
+    tg2, _ = gpu.decode(5, tg[-1])
+    tc, _ = cpu.decode(6, first)
+    np.testing.assert_array_equal(np.stack(tg + tg2), np.stack(tc))
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen2.5-14b-d128"])
+def test_dense_family_smoke_train_step_on_card_matches_plain_path(cuda, deterministic_restored,
+                                                                  arch):
+    """One float32 step at D = 128 (qwen, non-zero biases) and at minicpm's
+    G = 1: 2 K1 forwards a layer, one of each backward kernel, the
+    gradients within 1e-4 of the plain path's per leaf."""
+    from repro_torch import steps as ST
+    from repro_torch.data import synth_batch
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import Model
+    from repro_torch.models.params import tree_leaves
+    cfg = _qwen_d128() if arch.endswith("d128") else smoke_config(arch)
+    tr = Trainer(cfg, batch_size=2, seq_len=48, device=cuda)
+    tr.pipeline.stop()
+    tr.init_state()
+    if cfg.qkv_bias:
+        _biased(tr.params)
+    batch = tr._device_batch(synth_batch(cfg, 2, 48, 1, 0))
+    n0, L = _counts(), cfg.n_layers
+    grads, total, _, _ = ST.loss_and_grads(tr.model, tr.params, batch)
+    assert _counts() == (n0[0] + 2 * L, n0[1] + L, n0[2] + L, n0[3], n0[4])
+    want, want_total, _, _ = ST.loss_and_grads(Model(cfg, force="ref"), tr.params, batch)
+    assert abs(total.item() - want_total.item()) <= 1e-5 * abs(want_total.item())
+    for a, b in zip(tree_leaves(grads), tree_leaves(want)):
+        assert _rel(a, b) <= 1e-4

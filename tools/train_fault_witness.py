@@ -2,11 +2,14 @@
 """Would the train phases' step-1 holds catch a wrong backward kernel?
 
     python3 tools/train_fault_witness.py                      # K1's, granite
+    python3 tools/train_fault_witness.py --arch qwen2.5-14b   # K1's at head dim 128
     python3 tools/train_fault_witness.py --arch hymba-1.5b    # the GLA's, hymba
 
 Computes ``chip_smoke.py``'s train-phase step 1 (full-width granite-3-2b,
 bf16, seed 0, the pipeline's first batch of 4 x 1024 tokens, the
-deterministic mode the ``Trainer`` sets) on the plain attention path, on
+deterministic mode the ``Trainer`` sets; with ``--arch qwen2.5-14b`` the
+train_qwen phase's step 1: qwen2.5-14b's widths at ``chip_smoke.py``'s cut
+depth ``QWEN_TRAIN_LAYERS``, head dim 128, G = 5) on the plain attention path, on
 the kernel path, and on the kernel path with a fault planted at run time
 through the backward's entry point ``flash_attention_bwd`` (no source is
 edited):
@@ -47,6 +50,7 @@ Needs one CUDA device and nvcc; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import statistics
 import sys
 import types
@@ -120,7 +124,8 @@ def hymba() -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="granite-3-2b", choices=["granite-3-2b", "hymba-1.5b"])
+    ap.add_argument("--arch", default="granite-3-2b",
+                    choices=["granite-3-2b", "qwen2.5-14b", "hymba-1.5b"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -141,7 +146,11 @@ def main() -> int:
     dev = torch.device("cuda")
     set_deterministic(dev)
     print(CS.card_line(), flush=True)
-    cfg = get_config("granite-3-2b")
+    cfg = get_config(args.arch)
+    if args.arch == "qwen2.5-14b":
+        cfg = dataclasses.replace(cfg, n_layers=CS.QWEN_TRAIN_LAYERS)
+    print(f"[witness] {args.arch}, {cfg.n_layers} layers, head dim {cfg.resolved_head_dim}, "
+          f"G {cfg.n_heads // cfg.n_kv_heads}", flush=True)
     model = Model(cfg)
     params = model.init(0, dev)
     host = synth_batch(cfg, CS.TRAIN_B, CS.TRAIN_S, 1, 0)
