@@ -157,6 +157,10 @@ its width, wider and narrower than the window. Phase 6 prints the GLA
 kernels' share of each hymba prefill.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
+SDPA's backward, the yardstick of K1's, is read by CUDA events over warmed
+calls and by the profiler in a fresh child process, ``python3
+chip_smoke.py --sdpa-bwd-profile B,H,K,S,D``, which prints only that
+reading.
 """
 from __future__ import annotations
 
@@ -169,6 +173,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -340,6 +345,111 @@ def kernel_us(fn, sets, iters=40, counts=False):
           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     us = {e.key: e.self_device_time_total / iters for e in ev}
     return (us, {e.key: e.count for e in ev}) if counts else us
+
+
+def sdpa_backend(names) -> str:
+    """Which of SDPA's backends ran, from its backward's kernel names."""
+    low = " ".join(names).lower()
+    for key, backend in (("cudnn", "cudnn"), ("fmha_cutlassb", "efficient"),
+                         ("flash", "flash")):
+        if key in low:
+            return backend
+    return "math"
+
+
+def _sdpa_bwd_sets(B, H, K, S, D, n=4):
+    """SDPA's causal GQA forward on seeded bf16 inputs laid out as the
+    model's [B,S,H,D] projections seen as [B,H,S,D], each with a dO:
+    (out, (q, k, v), dO) for ``torch.autograd.grad``."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(B * S + H)
+    sets = []
+    for _ in range(n):
+        ins = tuple(torch.randn(B, S, m, D, generator=gen, device="cuda").bfloat16()
+                    .transpose(1, 2).requires_grad_() for m in (H, K, K))
+        out = F.scaled_dot_product_attention(*ins, is_causal=True, enable_gqa=True)
+        sets.append((out, ins, torch.randn(B, H, S, D, generator=gen, device="cuda")
+                     .bfloat16()))
+    return sets
+
+
+def _sdpa_bwd(out, ins, do):
+    import torch
+    return torch.autograd.grad(out, ins, do, retain_graph=True)
+
+
+def events_ms(fn, sets, iters=20):
+    """Mean ms of one ``fn(*s)`` call between two CUDA events over ``iters``
+    warmed calls cycling through ``sets``: for a call whose device time
+    well exceeds the host's cost (an autograd backward of a layer), which
+    cannot be captured in a CUDA graph."""
+    import torch
+    for s in sets:
+        fn(*s)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*sets[i % len(sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def sdpa_bwd_child(shape) -> int:
+    """``chip_smoke.py --sdpa-bwd-profile B,H,K,S,D``: SDPA's backward in a
+    process whose card has not idled, by the profiler (each kernel's device
+    time per call, summed), printed as one JSON line."""
+    import torch
+    B, H, K, S, D = (int(x) for x in shape.split(","))
+    sets = _sdpa_bwd_sets(B, H, K, S, D)
+    us, counts = kernel_us(_sdpa_bwd, sets, iters=20, counts=True)
+    print(json.dumps({"us": sum(us.values()), "kernels": us, "counts": counts,
+                      "backend": sdpa_backend(us)}))
+    del sets
+    torch.cuda.synchronize()
+    return 0
+
+
+def sdpa_bwd_yardstick(B, H, K, S, D, iters=20):
+    """SDPA's backward at a causal GQA training shape (bf16), the library
+    yardstick of K1's backward, read two ways: the profiler's summed device
+    time per call in a fresh child process (the tracer keeps every record
+    in a process whose card has not idled), and CUDA events over warmed
+    calls here; with the backend SDPA chose (from its kernel names) and
+    each backend's events time when forced. Returns (events ms, profiler
+    ms, backend, {forced backend: ms or None})."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--sdpa-bwd-profile",
+                          f"{B},{H},{K},{S},{D}"], capture_output=True, text=True, timeout=300)
+    if out.returncode:
+        raise RuntimeError(f"SDPA backward profile child failed:\n{out.stderr[-3000:]}")
+    child = json.loads(out.stdout.strip().splitlines()[-1])
+    forced = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"):
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # why a backend refuses: printed as refused
+                sets = _sdpa_bwd_sets(B, H, K, S, D)
+            forced[name.lower()] = events_ms(_sdpa_bwd, sets, iters)
+        except (RuntimeError, AttributeError):
+            forced[name.lower()] = None
+        sets = None
+    sets = _sdpa_bwd_sets(B, H, K, S, D)
+    ev = events_ms(_sdpa_bwd, sets, iters)
+    del sets
+    torch.cuda.synchronize()
+    top = sorted(child["kernels"].items(), key=lambda kv: -kv[1])[:4]
+    print(f"[kernels] sdpa backward bf16 B{B} H{H} K{K} S{S} D{D} causal GQA (yardstick): "
+          f"CUDA events over {iters} warmed calls {ev * 1e3:.1f} us; profiler in a fresh "
+          f"process {child['us']:.1f} us a call; backend {child['backend']} ("
+          + ", ".join(f"{k[:60]} {t:.1f} us x{child['counts'][k] / 20:g}" for k, t in top)
+          + "); each backend forced (events): " + ", ".join(
+              f"{n} " + (f"{t * 1e3:.1f} us" if t is not None else "refused")
+              for n, t in forced.items()), flush=True)
+    return ev, child["us"] / 1e3, child["backend"], forced
 
 
 def rel(a, b):
@@ -601,15 +711,15 @@ def ckpt_phase(cfg, params, prompts, n_gen, card, dev, DA, FA):
           f"decode launches flash {launches[0]}, decode {launches[1]}", flush=True)
 
 
-def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms, F,
+def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms,
               label="the train path's shape"):
     """K1's backward at a training shape (granite's; qwen2.5-14b's), bf16, on the forward's
     own output and logsumexp: the whole backward's CUDA-graph time against
     its operations bound (five products of the forward's size), the plain
     version's, and SDPA's backward as a yardstick (``torch.autograd.grad``
-    of its causal GQA forward: the profiler's device time per call, summed
-    over its kernels, since its autograd graph is not captured in a CUDA
-    graph and the host paces it); then each of the two kernels' profiler
+    of its causal GQA forward, which no CUDA graph captures: CUDA events
+    over warmed calls, beside the profiler's summed device time per call in
+    a fresh process, ``sdpa_bwd_yardstick``); then each of the two kernels' profiler
     time per call beside its own bound and its plain version's CUDA-graph
     time (the dQ kernel's with the row sums it writes). Returns {kernel:
     (ms, plain_ms, bound_ms, bound_by)}."""
@@ -623,16 +733,7 @@ def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms, F,
         dsets.append((q, k, v, lse, do, ref.attention_bwd_delta(o, do)))
     ms = cuda_ms(lambda *a: FA.flash_attention_bwd(*a), bsets)
     plain = cuda_ms(lambda *a: ref.flash_attention_bwd(*a), bsets, iters=5)
-    lib_sets = []
-    for q, k, v, _, _, do in bsets:
-        ins = tuple(x.detach().requires_grad_() for x in (q, k, v))
-        out = F.scaled_dot_product_attention(*ins, is_causal=True, enable_gqa=True)
-        lib_sets.append((out, ins, do))
-
-    def sdpa_bwd(out, ins, do):
-        return torch.autograd.grad(out, ins, do, retain_graph=True)
-    lib = sum(kernel_us(sdpa_bwd, lib_sets, iters=20).values()) / 1e3
-    del lib_sets
+    lib, lib_prof, backend, _ = sdpa_bwd_yardstick(B, H, K, S, D)
     n_q, n_kv, rows, pairs = B * H * S * D, B * K * S * D, B * H * S, S * S / 2
     # q, k, v, o, dO and the logsumexp read once, dq, dk, dv written once
     bound, by = bound_ms(5 * 2 * B * H * pairs * D, 2 * (4 * n_q + 4 * n_kv) + 4 * rows)
@@ -663,7 +764,8 @@ def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms, F,
     }
     print(f"[kernels] flash_attention_bwd bf16 B{B} H{H} K{K} S{S} D{D} causal ({label}): "
           f"{ms * 1e3:.1f} us (dQ + dK/dV), plain "
-          f"{plain * 1e3:.1f} us, sdpa backward (yardstick, profiler) {lib * 1e3:.1f} us, bound "
+          f"{plain * 1e3:.1f} us, sdpa backward (yardstick, {backend}) {lib * 1e3:.1f} us by "
+          f"CUDA events ({lib_prof * 1e3:.1f} us by the profiler in a fresh process), bound "
           f"{bound * 1e3:.2f} us ({by}: 5 products of the forward's size); per kernel "
           f"(profiler): " + "; ".join(
               f"{n[20:]} {t[0] * 1e3:.1f} us (plain {t[1] * 1e3:.1f} us, bound "
@@ -1585,6 +1687,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--sdpa-bwd-profile":
+        return sdpa_bwd_child(sys.argv[2])
     sys.path.insert(0, str(SRC))
     import numpy as np
     import torch.nn.functional as F
@@ -1704,14 +1808,15 @@ def main() -> int:
                  FA.flash_attention(q, k, v, window=w),
                  ref.naive_attention(q, k, v, window=w), dtype)
         for B, H, K, S, D, length, w in ((4, 32, 8, 1056, 64, 1, None),
-                                         (4, 32, 8, 1056, 64, DA.SPLIT, None),
+                                         (4, 32, 8, 1056, 64, DA.split_len(64), None),
                                          (4, 32, 8, 1056, 64, 1056, None),
                                          (4, 32, 8, 1056, 64, 1056, 300),
                                          (4, 25, 5, 1568, 64, 1537, None),
                                          (4, 25, 5, 1568, 64, 1568, None),
                                          (2, 4, 2, 24, 32, 17, None),
                                          (4, 40, 8, 1056, 128, 1, None),
-                                         (4, 40, 8, 1056, 128, DA.SPLIT, None),
+                                         (4, 40, 8, 1056, 128, DA.split_len(128), None),
+                                         (4, 40, 8, 1056, 128, DA.split_len(128) + 1, None),
                                          (4, 40, 8, 1056, 128, 1056, None),
                                          (4, 40, 8, 1056, 128, 1056, 300),
                                          (4, 36, 36, 1056, 64, 1056, None)):
@@ -1724,8 +1829,9 @@ def main() -> int:
         # seen as layer 20's strided view, a shuffled table; lengths 1, a page
         # edge, a split edge and the full 1056
         for B, lengths, w in ((1, [1], None), (1, [FLEET_PAGE], None),
-                              (1, [DA.SPLIT], None), (1, [1056], None), (1, [1056], 300),
-                              (4, [1, FLEET_PAGE, DA.SPLIT, 1056], None)):
+                              (1, [DA.split_len(64)], None), (1, [1056], None),
+                              (1, [1056], 300),
+                              (4, [1, FLEET_PAGE, DA.split_len(64), 1056], None)):
             q, kp, vp, table, lens = paged_inputs(B, lengths, dtype)
             held("paged_decode_attention", f"{dn} B{B} H32 K8 D64 layer 20/40 "
                  f"lengths={lengths} window={w}",
@@ -1733,8 +1839,9 @@ def main() -> int:
                  ref.naive_paged_decode_attention(q, kp, vp, table, lens, window=w), dtype)
         # qwen2.5-14b's fleet decode: D 128, G 5, its 48-layer store seen as
         # layer 24's strided view
-        for B, lengths, w in ((1, [1], None), (1, [DA.SPLIT], None), (1, [1056], None),
-                              (1, [1056], 300), (4, [1, FLEET_PAGE, DA.SPLIT, 1056], None)):
+        for B, lengths, w in ((1, [1], None), (1, [DA.split_len(128)], None),
+                              (1, [1056], None), (1, [1056], 300),
+                              (4, [1, FLEET_PAGE, DA.split_len(128) + 1, 1056], None)):
             q, kp, vp, table, lens = paged_inputs(B, lengths, dtype, layer=24, n_layers=48,
                                                   H=40, K=8, D=128)
             held("paged_decode_attention", f"{dn} B{B} H40 K8 D128 layer 24/48 "
@@ -1941,7 +2048,7 @@ def main() -> int:
     print(f"[kernels] flash_attention bf16 B{B} H{H} K{K} S{S} D{D}: {f_ms * 1e3:.1f} us, "
           f"plain {f_plain * 1e3:.1f} us, sdpa {f_lib * 1e3:.1f} us, "
           f"bound {f_bound * 1e3:.2f} us ({f_by})")
-    bwd = bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms, F)
+    bwd = bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms)
     # K1 at hymba's prefill, windowed and global layers; SDPA's yardstick
     # takes the window as a boolean mask (causal and within the window)
     hB, hH, hK, hS = 4, 25, 5, 1536
@@ -2044,7 +2151,11 @@ def main() -> int:
 
     def dense_row(key, label, fn, sets, plain_fn, lib_fn, flops, nbytes, plain_iters=5):
         ms = cuda_ms(fn, sets, iters=40)
-        prof = sum(kernel_us(fn, sets, iters=20).values())
+        us, n_calls = kernel_us(fn, sets, iters=20, counts=True)
+        if key.startswith(("decode", "paged")) and len(n_calls) != 1:
+            raise AssertionError(f"{label}: the profiler saw {n_calls} over 20 calls; "
+                                 "one kernel expected")
+        prof = sum(us.values())
         plain = cuda_ms(plain_fn, sets, iters=plain_iters)
         lib = cuda_ms(lib_fn, sets, iters=40)
         bound, by = bound_ms(flops, nbytes)
@@ -2063,7 +2174,7 @@ def main() -> int:
                                                                  enable_gqa=True),
                   4 * B * H * S * S * D / 2, 2 * (2 * B * H * S * D + 2 * B * K * S * D))
         if arch == "qwen2.5-14b":
-            qbwd = bwd_times(sets, B, H, K, S, D, randn, FA, ref, cuda_ms, F,
+            qbwd = bwd_times(sets, B, H, K, S, D, randn, FA, ref, cuda_ms,
                              label="qwen2.5-14b's training shape")
         del sets
     for arch, (B, H, K, D) in (("qwen2.5-14b", (4, 40, 8, 128)), ("minicpm-2b", (4, 36, 36, 64))):

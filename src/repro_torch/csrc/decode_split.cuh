@@ -24,8 +24,9 @@
 // round trip to device memory per block with nothing else in flight, on
 // __syncthreads between phases, and on a second launch.
 // Design against that bound:
-//  * One launch. The splits are parallel blocks: one block of 4 warps per
-//    (row, KV head, split of SPLIT = 128 logical positions). Each block
+//  * One launch. The splits are parallel blocks: one block per (row, KV
+//    head, split of split_len<D>() logical positions: 128 at D <= 64, 64 at
+//    D = 128, whatever B, the length or the addressing). Each block
 //    writes an unnormalised partial (m, l, o) for the KV head's G query
 //    heads, then takes a ticket from a per-(row, KV head) counter (after
 //    __syncthreads, one atomicAdd with release and acquire semantics, which
@@ -38,7 +39,8 @@
 //    m taken from the registers when one batch holds every split), so the
 //    tail after the last ticket is one or two round trips to L2. With a
 //    single split the block writes the output.
-//  * Streaming. Each warp takes 32 positions; D * sizeof(T) / 16 lanes read
+//  * Streaming (float32 at every D, bf16 at D <= 64: decode_kernel, 4
+//    warps). Each warp takes split_len<D>() / 4 positions; D * sizeof(T) / 16 lanes read
 //    one K or V row (8 lanes for a bf16 row of 64), 16 bytes each, so a
 //    warp's load covers one or more whole rows. Every K and V load of a
 //    thread is issued before any is used (up to batch<D>() of each at once), and
@@ -46,11 +48,9 @@
 //    overlaps the other warps' (and blocks') loads. 128-position splits
 //    rather than 64 halve the partials the combine reads, while each warp
 //    keeps twice the loads in flight, so the card holds as many bytes in
-//    flight. At D = 128 (added later; not redesigned) a bf16 row takes 16
-//    lanes and a float32 row the whole warp, 16 or 32 loads of K and of V a
-//    lane: the warp takes its positions in batches of 8 loads, each later
-//    batch's (m, l, P V) merged into the earlier ones' in shared memory, so
-//    the loads stay in registers.
+//    flight. At D = 128 a float32 row takes the whole warp, 16 loads of K
+//    and of V a lane, in two batches of 8, the second's (m, l, P V) merged
+//    into the first's in shared memory, so the loads stay in registers.
 //  * Per query head of the KV head, a warp computes its positions' scores
 //    (a lane's slice of q from shared memory against its slice of the K
 //    row, summed over the row's lanes by shuffles), its online-softmax
@@ -58,6 +58,33 @@
 //    registers; the 4 warps' partials are merged through shared memory in
 //    warp order. Scores are in the log2 domain (q scaled by
 //    log2(e) / sqrt(D)) and exponentiated with ex2.approx.
+//  * bf16 at D = 128 (decode_mma_kernel, 4 warps, redesigned for Hopper):
+//    the G <= 16 query heads of the KV head go through the tensor cores
+//    together, so every K/V row is read from shared memory once for all of
+//    them and no shuffle reduces a dot product. The block stages q (G rows,
+//    zeros to 16) and its 64 K rows as one cp.async group and its 64 V rows
+//    as a second (16 bytes a copy, 16 lanes a row, zeros outside the
+//    window; no registers held), so every byte of the split is in flight at
+//    once and the scores run while V lands; each thread computes its four
+//    rows' addresses first (a paged pool: four table reads, issued
+//    together), so no load waits on a table read after that. S = q K^T by
+//    mma.sync m16n8k16 (q the A operand, zero-padded to 16 rows; the K rows
+//    as they lie, [pos][D], the B operand through ldmatrix), each warp 16
+//    positions, scaled to the log2 domain in float32 and masked into
+//    shared memory; then each warp takes 32 of the D columns: the row max
+//    and sum over the split's 64 positions from its A fragments (a quad of
+//    shuffles), P = ex2(s - m) kept in registers as the A fragment of P V
+//    (as FlashAttention-2 does on Ampere), split into a bf16 high and low
+//    part so that P V keeps about 16 bits of P, and V read by
+//    ldmatrix.trans, each k16 step's P V right after its P. 64-position
+//    splits give 17 x 8 = 136 blocks at one lane of qwen2.5-14b's 1056
+//    positions. Its combine copies the splits' partial outputs into the
+//    block's shared memory by cp.async (as many splits a round as fit, up
+//    to 32: all 17 of qwen's G = 5), while one warp a head takes the head's
+//    largest m, weighted l and each split's weight into shared memory: one
+//    round trip to L2 for the whole tail, with no registers held by the
+//    copies, so that five blocks of 128 threads fit an SM and qwen's 544
+//    blocks at B = 4 run in one wave.
 //  * A split wholly outside [lo, length) writes the empty partial
 //    (m = -1e30, l = 0, o = 0) without reading the cache; the combine weighs
 //    it by exp2(-1e30 - m) = 0, so it adds exactly nothing and no NaN. The
@@ -81,12 +108,15 @@ using bf16 = __nv_bfloat16;
 
 constexpr float NEG_INF = -1e30f;
 constexpr int GMAX = 16;      // query heads per KV head a launch takes
-constexpr int WARPS = 4;      // warps per split block
-constexpr int WARP_POS = 32;  // positions per warp
-constexpr int SPLIT = WARPS * WARP_POS;
+constexpr int WARPS = 4;      // warps per decode_kernel block
 constexpr int MIN_BLOCKS = 3;  // resident blocks per SM the registers allow
-// K (and V) loads a lane keeps in flight at most: at D = 128 eight, so
-// that a bf16 row's 16 loads do not spill (ptxas: 830 bytes at 16)
+// Logical cache positions a split block takes: it depends on the head dim
+// alone, so the contiguous, ring and paged decodes cut a row alike and a
+// B = 1 lane gives a batched row's bits
+__host__ __device__ constexpr int split_len(int D) { return D > 64 ? 64 : 128; }
+// K (and V) loads a lane of decode_kernel keeps in flight at most: at
+// D = 128 (float32 there: a row is the whole warp) eight, so that a lane's
+// 16 loads do not spill
 template <int D>
 __host__ __device__ constexpr int batch() {
   return D > 64 ? 8 : 16;
@@ -147,7 +177,7 @@ struct PagedKV {
 // lo = pos + 1 - n, n = min(window, W, pos + 1): the positions the ring
 // still holds and the window admits. The kernel's index j reads position
 // lo + j, so its splits cover exactly that range (the caller passes window
-// 0 and n_splits = ceil(n / SPLIT)) and none lies wholly below it.
+// 0 and n_splits = ceil(n / split_len(D))) and none lies wholly below it.
 struct RingKV {
   int W, K, D, n, lo;
   __device__ __forceinline__ int length(int) const { return n; }
@@ -166,6 +196,8 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS) decode_kernel(
     T* __restrict__ out, float* __restrict__ part_o, float* __restrict__ part_m,
     float* __restrict__ part_l, int* __restrict__ counters, KV kv, int H, int K,
     int window, float scale) {
+  constexpr int SPLIT = split_len(D);
+  constexpr int WARP_POS = SPLIT / WARPS;  // positions per warp
   constexpr int E = 16 / sizeof(T);        // elements per 16-byte load
   constexpr int LPR = D / E;               // lanes per K or V row
   constexpr int RPW = 32 / LPR;            // rows one warp load covers
@@ -380,6 +412,374 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS) decode_kernel(
   if (threadIdx.x == 0) counters[b * K + kh] = 0;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D = 128: a KV head's query heads on the tensor cores
+// ---------------------------------------------------------------------------
+namespace mma128 {
+constexpr int D = 128;
+constexpr int SPLIT = split_len(D);  // positions a block takes (64)
+constexpr int NWARP = 4;             // each 16 positions of S, then 32 columns of P V
+constexpr int THREADS = NWARP * 32;
+constexpr int RESIDENT = 5;          // blocks an SM holds: the registers (<= 96) and
+                                     // shared memory allow it, so that qwen2.5-14b's
+                                     // 544 blocks at B = 4 run in one wave
+constexpr int ROW = D * 2 + 16;      // bytes of a staged row: +16, so that the
+                                     // 8 rows an ldmatrix reads lie in distinct banks
+constexpr int CH = D * 2 / 16;       // 16-byte pieces of a row
+constexpr int RPP = THREADS / CH;    // rows one pass of the block's copies covers
+constexpr int SROW = SPLIT + 4;      // floats of a score row
+constexpr int K_S = 0;               // byte offsets: K rows, V rows, q rows, scores
+constexpr int V_S = K_S + SPLIT * ROW;
+constexpr int Q_S = V_S + SPLIT * ROW;
+constexpr int S_S = Q_S + GMAX * ROW;
+constexpr int MAIN = S_S + GMAX * SROW * 4;  // 43,520 bytes
+constexpr int CMAX = 32;             // splits a round of the combine stages at most
+constexpr int WMAX = 64;             // splits whose weights the combine keeps
+// The combine reuses the block's shared memory: the staged partial outputs
+// of a round of splits from the start, the weights of up to WMAX splits at
+// the end. A little more than the main phase needs, so that one round
+// takes all 17 splits of qwen2.5-14b's 1056 positions at G = 5
+constexpr int COMBINE_QWEN = 17 * 5 * D * 4 + WMAX * 5 * 4;
+constexpr int BYTES = MAIN > COMBINE_QWEN ? MAIN : COMBINE_QWEN;  // 44,800
+static_assert(GMAX * CH % THREADS == 0, "the q rows' copies split evenly");
+}  // namespace mma128
+
+// 16 bytes from global to shared by cp.async, or zeros (no read) when !full
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// d += a . b for one m16n8k16 tile: a row-major 16 x 16, b 16 x 8, bf16
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// (x0, x1) = hi + lo to about 16 bits, each a bf16 pair (x0 in the low half)
+__device__ __forceinline__ void split_hi_lo(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Grid (n_splits, K, B); mma128::THREADS threads; mma128::BYTES of dynamic
+// shared memory. Arguments as decode_kernel's.
+template <typename KV>
+__global__ void __launch_bounds__(mma128::THREADS, mma128::RESIDENT) decode_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ out, float* __restrict__ part_o, float* __restrict__ part_m,
+    float* __restrict__ part_l, int* __restrict__ counters, KV kv, int H, int K,
+    int window, float scale) {
+  using namespace mma128;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int last;
+  __shared__ float mg_s[GMAX], den_s[GMAX];
+  const int G = H / K;
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int n_splits = gridDim.x;
+  const int start = split * SPLIT;
+  const int length = kv.length(b);
+  const int lo = window > 0 ? max(length - window, 0) : 0;
+  const int j0 = max(start, lo), j1 = min(start + SPLIT, length);
+  const bool empty = j0 >= j1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long long pidx = ((long long)(b * K + kh) * n_splits + split) * G;
+  bf16* o = out + ((long long)b * H + kh * G) * D;
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  float* s_s = reinterpret_cast<float*>(smem + S_S);
+
+  if (!empty) {
+    // stage q's G rows (zeros to 16) and the split's K rows as one group,
+    // then its V rows: piece ch of rows r0, r0 + RPP, ... (zeros outside
+    // [j0, j1)); every row's address first, then every copy
+    const int ch = tid % CH, r0 = tid / CH;
+    const bf16* qb = q + ((long long)b * H + kh * G) * D;
+#pragma unroll
+    for (int i = 0; i < GMAX / RPP; ++i) {
+      const int r = r0 + i * RPP;
+      cp16(base + Q_S + r * ROW + ch * 16, qb + (r < G ? r : 0) * D + ch * 8, r < G);
+    }
+    long long off[SPLIT / RPP];
+    bool in[SPLIT / RPP];
+#pragma unroll
+    for (int i = 0; i < SPLIT / RPP; ++i) {
+      const int j = start + r0 + i * RPP;
+      in[i] = j >= j0 && j < j1;
+      off[i] = in[i] ? kv.row(b, j, kh) + ch * 8 : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < SPLIT / RPP; ++i)
+      cp16(base + K_S + (r0 + i * RPP) * ROW + ch * 16, k + off[i], in[i]);
+    cp_commit();
+#pragma unroll
+    for (int i = 0; i < SPLIT / RPP; ++i)
+      cp16(base + V_S + (r0 + i * RPP) * ROW + ch * 16, v + off[i], in[i]);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+
+    // S = q K^T for the warp's 16 positions (two n8 tiles), two k16 steps a
+    // pass; then scaled to the log2 domain and masked into shared memory
+    const int pos0 = warp * 16;
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kp = 0; kp < D / 32; ++kp) {
+      uint32_t k0[4], k1[4], qa[4];
+      ldsm(k0, base + K_S + (pos0 + lane % 8) * ROW + (4 * kp + lane / 8) * 16);
+      ldsm(k1, base + K_S + (pos0 + 8 + lane % 8) * ROW + (4 * kp + lane / 8) * 16);
+      ldsm(qa, base + Q_S + (lane % 16) * ROW + (4 * kp + lane / 16) * 16);
+      mma(sc[0], qa, k0[0], k0[1]);
+      mma(sc[1], qa, k1[0], k1[1]);
+      ldsm(qa, base + Q_S + (lane % 16) * ROW + (4 * kp + 2 + lane / 16) * 16);
+      mma(sc[0], qa, k0[2], k0[3]);
+      mma(sc[1], qa, k1[2], k1[3]);
+    }
+    const int r = lane / 4, cq = 2 * (lane % 4);
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int c = pos0 + 8 * t + cq, jc = start + c;
+      const bool ok0 = jc >= j0 && jc < j1, ok1 = jc + 1 >= j0 && jc + 1 < j1;
+      *reinterpret_cast<float2*>(s_s + r * SROW + c) =
+          make_float2(ok0 ? sc[t][0] * scale : NEG_INF, ok1 ? sc[t][1] * scale : NEG_INF);
+      *reinterpret_cast<float2*>(s_s + (r + 8) * SROW + c) =
+          make_float2(ok0 ? sc[t][2] * scale : NEG_INF, ok1 ? sc[t][3] * scale : NEG_INF);
+    }
+    cp_wait<0>();
+    __syncthreads();
+
+    // P for the split's 64 positions as the A fragments of four k16 steps:
+    // rows r and r + 8, positions 16 kk + cq (+1) and 16 kk + 8 + cq (+1);
+    // the rows' max over the quad first, then step by step P and its P V
+    // for the warp's 32 columns (four n8 tiles), V through ldmatrix.trans
+    auto frag = [&](int kk, float (&x)[8]) {
+      const float2 a = *reinterpret_cast<const float2*>(s_s + r * SROW + 16 * kk + cq);
+      const float2 c = *reinterpret_cast<const float2*>(s_s + (r + 8) * SROW + 16 * kk + cq);
+      const float2 e = *reinterpret_cast<const float2*>(s_s + r * SROW + 16 * kk + 8 + cq);
+      const float2 f = *reinterpret_cast<const float2*>(s_s + (r + 8) * SROW + 16 * kk + 8 + cq);
+      x[0] = a.x; x[1] = a.y; x[2] = c.x; x[3] = c.y;
+      x[4] = e.x; x[5] = e.y; x[6] = f.x; x[7] = f.y;
+    };
+    float m0 = NEG_INF, m1 = NEG_INF;
+#pragma unroll
+    for (int kk = 0; kk < SPLIT / 16; ++kk) {
+      float x[8];
+      frag(kk, x);
+      m0 = fmaxf(fmaxf(m0, fmaxf(x[0], x[1])), fmaxf(x[4], x[5]));
+      m1 = fmaxf(fmaxf(m1, fmaxf(x[2], x[3])), fmaxf(x[6], x[7]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    float l0 = 0.f, l1 = 0.f;
+    float acc[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < SPLIT / 16; ++kk) {
+      float p[8];
+      frag(kk, p);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) p[e] = ex2(p[e] - ((e & 2) ? m1 : m0));
+      l0 += (p[0] + p[1]) + (p[4] + p[5]);
+      l1 += (p[2] + p[3]) + (p[6] + p[7]);
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_hi_lo(p[2 * i], p[2 * i + 1], ph[i], pl[i]);
+#pragma unroll
+      for (int t2 = 0; t2 < 2; ++t2) {  // n8 tiles 2 t2 and 2 t2 + 1
+        uint32_t vb[4];
+        ldsm_t(vb, base + V_S + (16 * kk + lane % 16) * ROW +
+                       (4 * warp + 2 * t2 + lane / 16) * 16);
+        mma(acc[2 * t2], ph, vb[0], vb[1]);
+        mma(acc[2 * t2], pl, vb[0], vb[1]);
+        mma(acc[2 * t2 + 1], ph, vb[2], vb[3]);
+        mma(acc[2 * t2 + 1], pl, vb[2], vb[3]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int col = 32 * warp + 8 * t + cq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int g = r + 8 * h;
+        if (g >= G) continue;
+        const float a0 = acc[t][2 * h], a1 = acc[t][2 * h + 1];
+        if (n_splits == 1) {
+          const float inv = 1.f / fmaxf(h ? l1 : l0, 1e-30f);
+          *reinterpret_cast<__nv_bfloat162*>(o + g * D + col) =
+              __floats2bfloat162_rn(a0 * inv, a1 * inv);
+        } else {
+          *reinterpret_cast<float2*>(part_o + (pidx + g) * D + col) = make_float2(a0, a1);
+          if (warp == 0 && t == 0 && cq == 0) {
+            part_m[pidx + g] = h ? m1 : m0;
+            part_l[pidx + g] = h ? l1 : l0;
+          }
+        }
+      }
+    }
+  } else {
+    // the empty partial (or, alone, a zero output row)
+    for (int e = tid; e < G * D; e += THREADS) {
+      if (n_splits == 1)
+        o[e] = __float2bfloat16(0.f);
+      else
+        part_o[pidx * D + e] = 0.f;
+    }
+    if (n_splits > 1 && tid < G) {
+      part_m[pidx + tid] = NEG_INF;
+      part_l[pidx + tid] = 0.f;
+    }
+  }
+  if (n_splits == 1) return;
+
+  // the last split block to finish combines (the ticket as decode_kernel's)
+  __syncthreads();
+  if (tid == 0) last = ticket(&counters[b * K + kh]) == n_splits - 1;
+  __syncthreads();
+  if (!last) return;
+  // The splits' partial outputs come into shared memory (free now) by
+  // cp.async, CS splits a round, while one warp a head takes the head's
+  // largest m and weighted l over the splits (lanes the splits, two a lane
+  // in registers) and, up to WMAX splits, each split's weight
+  // ex2(m - max) into shared memory (past WMAX, each round loads its
+  // splits' weights beside its copies); then each thread sums its float4
+  // pieces of the G x D output over the round's splits in split order.
+  const long long pb = (long long)(b * K + kh) * n_splits * G;
+  const int GD = G * D, n_pc = GD / 4;
+  const bool kept = n_splits <= WMAX;  // the weights in shared memory
+  const int CS = min(CMAX, (BYTES - WMAX * G * 4) / (GD * 4));  // splits a round stages
+  float* o_s = reinterpret_cast<float*>(smem);                    // [CS][G][D]
+  float* w_s = reinterpret_cast<float*>(smem + BYTES) - WMAX * G;  // [WMAX][G]
+  auto stage = [&](int s0) {
+    const float* src = part_o + (pb + (long long)s0 * G) * D;
+    const int n4 = min(CS, n_splits - s0) * n_pc;
+    for (int i = tid; i < n4; i += THREADS) cp16(base + i * 16, src + i * 4, true);
+    cp_commit();
+  };
+  stage(0);
+  if (kept) {
+    // every head's m and l loads issued before any is used: warp w takes
+    // heads w, w + NWARP, ..., two splits a lane
+    constexpr int HPW = GMAX / NWARP;
+    float ma[HPW], mb[HPW], la[HPW], lb[HPW];
+    const bool i0 = lane < n_splits, i1 = lane + 32 < n_splits;
+#pragma unroll
+    for (int j = 0; j < HPW; ++j) {
+      const int g = warp + j * NWARP;
+      const bool h = g < G;
+      ma[j] = h && i0 ? __ldcg(part_m + pb + (long long)lane * G + g) : NEG_INF;
+      mb[j] = h && i1 ? __ldcg(part_m + pb + (long long)(lane + 32) * G + g) : NEG_INF;
+      la[j] = h && i0 ? __ldcg(part_l + pb + (long long)lane * G + g) : 0.f;
+      lb[j] = h && i1 ? __ldcg(part_l + pb + (long long)(lane + 32) * G + g) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < HPW; ++j) {
+      const int g = warp + j * NWARP;
+      if (g >= G) break;
+      float mx = fmaxf(ma[j], mb[j]);
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float wa = ex2(ma[j] - mx), wb = ex2(mb[j] - mx);
+      float den = wa * la[j] + wb * lb[j];
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) den += __shfl_xor_sync(0xffffffffu, den, off);
+      if (i0) w_s[lane * G + g] = wa;
+      if (i1) w_s[(lane + 32) * G + g] = wb;
+      if (lane == 0) {
+        mg_s[g] = mx;
+        den_s[g] = den;
+      }
+    }
+  } else {
+    for (int g = warp; g < G; g += NWARP) {
+      float mx = NEG_INF, den = 0.f;
+      for (int sp = lane; sp < n_splits; sp += 32)
+        mx = fmaxf(mx, __ldcg(part_m + pb + (long long)sp * G + g));
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      for (int sp = lane; sp < n_splits; sp += 32)
+        den += ex2(__ldcg(part_m + pb + (long long)sp * G + g) - mx) *
+               __ldcg(part_l + pb + (long long)sp * G + g);
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) den += __shfl_xor_sync(0xffffffffu, den, off);
+      if (lane == 0) {
+        mg_s[g] = mx;
+        den_s[g] = den;
+      }
+    }
+  }
+  constexpr int NP = GMAX * D / 4 / THREADS;  // pieces a thread sums at most
+  float4 num[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) num[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (!kept) __syncthreads();  // the heads' largest m, for the rounds' weights
+  for (int s0 = 0; s0 < n_splits; s0 += CS) {
+    const int nc = min(CS, n_splits - s0);
+    if (s0 > 0) {
+      __syncthreads();  // the last round's pieces and weights are read
+      stage(s0);
+    }
+    if (!kept)  // the round's weights, loaded beside its copies
+      for (int i = tid; i < nc * G; i += THREADS)
+        w_s[i] = ex2(__ldcg(part_m + pb + (long long)s0 * G + i) - mg_s[i % G]);
+    cp_wait<0>();
+    __syncthreads();  // the round's pieces and weights (first: the heads' m and l)
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int pc = tid + i * THREADS;
+      if (pc >= n_pc) break;
+      const int g = pc * 4 / D;
+      const float* w = w_s + (kept ? s0 * G : 0) + g;
+#pragma unroll 4
+      for (int u = 0; u < nc; ++u) {  // in split order
+        const float wu = w[u * G];
+        const float4 x = *reinterpret_cast<const float4*>(o_s + u * GD + pc * 4);
+        num[i].x += wu * x.x;
+        num[i].y += wu * x.y;
+        num[i].z += wu * x.z;
+        num[i].w += wu * x.w;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int pc = tid + i * THREADS;
+    if (pc >= n_pc) break;
+    const float den = fmaxf(den_s[pc * 4 / D], 1e-30f);
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(o + pc * 4);
+    dst[0] = __floats2bfloat162_rn(num[i].x / den, num[i].y / den);
+    dst[1] = __floats2bfloat162_rn(num[i].z / den, num[i].w / den);
+  }
+  if (tid == 0) counters[b * K + kh] = 0;
+}
+
 // Bytes of dynamic shared memory decode_kernel<T, D> needs: q, then each
 // warp's P V sums and (m, l).
 template <int D>
@@ -404,21 +804,37 @@ int launch(const void* q, const void* k, const void* v, void* o, float* part_o,
   return (int)cudaGetLastError();
 }
 
-// The six built instantiations: dtype 0 = float32, 1 = bfloat16; D 32, 64, 128.
-// `split` must be SPLIT (the callers size the partials by it).
+// The same for decode_mma_kernel (bf16, D = 128).
+template <typename KV>
+int launch_mma(const void* q, const void* k, const void* v, void* o, float* part_o,
+               float* part_ml, int* counters, const KV& kv, int B, int H, int K,
+               int n_splits, int window, cudaStream_t st) {
+  const int G = H / K;
+  const long long n_part = (long long)B * K * n_splits * G;
+  if (G > GMAX) return (int)cudaErrorInvalidValue;
+  decode_mma_kernel<KV><<<dim3(n_splits, K, B), mma128::THREADS, mma128::BYTES, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), part_o, part_ml, part_ml + n_part, counters, kv, H, K, window,
+      1.4426950408889634f / sqrtf(128.f));
+  return (int)cudaGetLastError();
+}
+
+// The six built instantiations: dtype 0 = float32, 1 = bfloat16; D 32, 64, 128
+// (bf16 at 128 on decode_mma_kernel). `split` must be split_len(D) (the
+// callers size the partials by it).
 template <typename KV>
 int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
              void* o, void* part_o, void* part_ml, void* counters, const KV& kv,
              int B, int H, int K, int n_splits, int window, int split,
              void* stream) {
-  if (B < 1 || K < 1 || H % K != 0 || n_splits < 1 || split != SPLIT)
+  if (B < 1 || K < 1 || H % K != 0 || n_splits < 1 || split != split_len(D))
     return (int)cudaErrorInvalidValue;
   float* po = static_cast<float*>(part_o);
   float* pml = static_cast<float*>(part_ml);
   int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 128)
-    return launch<bf16, 128>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
+    return launch_mma(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
   if (dtype == 1 && D == 64)
     return launch<bf16, 64>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
   if (dtype == 1 && D == 32)

@@ -50,8 +50,9 @@
 //  * dK/dV, launched second: a block owns 128 KV rows of one (b, KV head),
 //    two consumer warpgroups of 64 rows, K and V loaded once by TMA. The
 //    producer's first warp streams, for gi = 0..G-1 and then the query
-//    tiles in order, head kh G + gi's Q and dO tiles of 64 rows into the
-//    ring, with that tile's lse (times log2e) and Dr in a per-slot float32
+//    tiles in order, head kh G + gi's Q and dO tiles of kv_bn<D>() rows
+//    (64; 32 at D = 128) into the ring, with that tile's lse (times log2e)
+//    and Dr in a per-slot float32
 //    vector (written by the warp's 32 lanes, 0 past S, each lane arriving
 //    on the full barrier after its stores). Per tile: S^T = K Q^T and dP^T
 //    = V dO^T (wgmma, K-major both), P^T and dS^T on the registers with lse
@@ -81,14 +82,19 @@
 //    than the swizzle's span: each tile arrives as two 64-column boxes into
 //    its two halves ([rows][64] each), as in the forward (hopper.cuh:
 //    tma_tile, k_step; a product by D's columns is two n64 wgmma, mma_rs).
-//  * D = 128 (added later; not redesigned): dQ's block of three warpgroups
-//    would need 243 KB of shared memory (Q, dO, O at 48 KB each and the
-//    ring), so it takes two (128 rows, 192 KB); dK/dV's consumers would hold
-//    dK and dV at 2 x 64 floats a thread beside S^T, dP^T and their A
-//    fragments, past the 240 registers two consumer warpgroups can rise
-//    to, so it takes one consumer warpgroup of 64 KV rows, which keeps
-//    the registers a thread has at launch (up to 255) and needs no
-//    setmaxnreg.
+//  * D = 128: dQ's block of three warpgroups would need 243 KB of shared
+//    memory (Q, dO, O at 48 KB each and the ring), so it takes two (128
+//    rows, 192 KB). dK/dV (redesigned for Hopper, as FlashAttention-3's
+//    backward at this head dim) keeps two consumer warpgroups of 64 KV rows
+//    and a producer at setmaxnreg.dec 24, and streams the query tiles at 32
+//    rows in a ring of 4 slots: S^T = K Q^T and dP^T = V dO^T are m64n32
+//    wgmma (16 floats a thread each), P^T and dS^T two k16 A fragments
+//    each, and dV += P^T dO, dK += dS^T Q two k16 steps of two n64 halves,
+//    so a consumer holds dK and dV (128 floats), S^T and dP^T (32) and the
+//    fragments (16) under its 240 registers. (One consumer warpgroup with
+//    64-row tiles, 250 registers at launch, had ptxas serialize its wgmma,
+//    C7511, and left the SM's tensor cores to one chain.) K and V of 128
+//    rows take 64 KB, the ring 64 KB.
 //  * Diagnostic macros (tools/bwd_breakdown.py): BWD_DQ_WGS (dQ's consumer
 //    warpgroups), BWD_NOEXP (P = its exponent's argument, no mask) and
 //    BWD_NOSECOND (no dQ, dV, dK products); the last two give wrong
@@ -121,7 +127,6 @@ constexpr int WG_ROWS = 64;                    // rows of a consumer warpgroup
 // 65536 / (128 (NC + 1)) registers (168 for NC = 2, 128 for NC = 3); the
 // producer keeps PRODUCER_REGS and the consumers rise to REGS:
 // (168 - 24) x 128 = (240 - 168) x 256 and (128 - 24) x 128 >= (160 - 128) x 384.
-// With NC = 1 every thread keeps what it has at launch (up to 255).
 #ifndef BWD_DQ_WGS
 #define BWD_DQ_WGS 3
 #endif
@@ -129,19 +134,28 @@ template <int D>
 __host__ __device__ constexpr int dq_wgs() {
   return D > 64 ? 2 : BWD_DQ_WGS;
 }
-template <int D>
-__host__ __device__ constexpr int kv_wgs() {
-  return D > 64 ? 1 : 2;
-}
+constexpr int KV_WGS = 2;                      // dK/dV's consumer warpgroups
 constexpr int PRODUCER_REGS = 24;
 template <int NC>
 struct Shape {
   static constexpr int ROWS = WG_ROWS * NC;   // rows a block owns
   static constexpr int THREADS = 128 * (NC + 1);
-  static constexpr int REGS = NC == 1 ? 0 : NC == 2 ? 240 : 160;  // a consumer's, after setmaxnreg
+  static constexpr int REGS = NC == 2 ? 240 : 160;  // a consumer's, after setmaxnreg
 };
-constexpr int BN = 64;                         // rows of a streamed tile
-constexpr int STAGES = 3;                      // slots of the ring
+constexpr int BN = 64;                         // rows of dQ's streamed K/V tiles
+constexpr int STAGES = 3;                      // slots of dQ's ring
+// dK/dV's streamed query tiles: 64 rows in 3 slots at D <= 64; 32 rows in
+// 4 slots at D = 128, so that S^T and dP^T (64 x 32, 16 floats a thread
+// each) and their A fragments fit beside dK and dV (128 floats) under the
+// 240 registers a consumer of two warpgroups rises to
+template <int D>
+__host__ __device__ constexpr int kv_bn() {
+  return D > 64 ? 32 : 64;
+}
+template <int D>
+__host__ __device__ constexpr int kv_stages() {
+  return D > 64 ? 4 : 3;
+}
 // The float32 kernels' shape: a block owns FT rows, TPR threads a row (each
 // DP = D / TPR of its columns), and walks the other side in FB-row tiles. At
 // D = 128 two threads a row keep the sums to 64 columns a thread, and the
@@ -175,9 +189,10 @@ __device__ __forceinline__ bool valid_pair(int qp, int kp, int S, int window) {
 
 // The same for A fragments: they are written before the wgmma.fence that
 // precedes the wgmma reading them, not sunk past it.
-__device__ __forceinline__ void fence_frag(uint32_t (&r)[BN / 16][4]) {
+template <int KS>
+__device__ __forceinline__ void fence_frag(uint32_t (&r)[KS][4]) {
 #pragma unroll
-  for (int i = 0; i < BN / 16; ++i)
+  for (int i = 0; i < KS; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
@@ -200,11 +215,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// The 64 x 64 accumulator as the A fragments of four k16 steps, rounded to
-// bf16: columns 16kk .. 16kk+15 are its n8 blocks 2kk and 2kk+1.
-__device__ __forceinline__ void acc_to_a(uint32_t (&r)[BN / 16][4], const float* c) {
+// The 64 x 16 KS accumulator as the A fragments of KS k16 steps, rounded
+// to bf16: columns 16kk .. 16kk+15 are its n8 blocks 2kk and 2kk+1.
+template <int KS>
+__device__ __forceinline__ void acc_to_a(uint32_t (&r)[KS][4], const float* c) {
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     r[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
     r[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
     r[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
@@ -322,7 +338,7 @@ __device__ __forceinline__ void dq_step(int it, int it_lo, int it_hi, int lo, fl
       dp[i] = p * (dp[i] - (e < 2 ? r.d0 : r.d1));
     }
   uint32_t ds[BN / 16][4];
-  acc_to_a(ds, dp);
+  acc_to_a<BN / 16>(ds, dp);
   fence_frag(ds);
   fence_regs<BN / 2>(s);
   fence_regs<BN / 2>(dp);
@@ -497,7 +513,9 @@ __global__ void __launch_bounds__(Shape<dq_wgs<D>()>::THREADS, 1)
 // and dO rings, the per-slot lse (log2 units) and Dr vectors, the barriers.
 template <int D>
 struct KvSmem {
-  static constexpr int BM = Shape<kv_wgs<D>()>::ROWS;
+  static constexpr int BN = kv_bn<D>();         // rows of a streamed tile
+  static constexpr int STAGES = kv_stages<D>();  // slots of the ring
+  static constexpr int BM = Shape<KV_WGS>::ROWS;
   static constexpr int ROWS = BM * D * 2;
   static constexpr int TILE = BN * D * 2;
   static constexpr int K = 0;
@@ -527,6 +545,7 @@ __device__ __forceinline__ void kv_step(int it, int it_lo, int it_hi, float* s, 
                                         const float* lse_s, const float* dr_s, uint64_t desc_k,
                                         uint64_t desc_v, uint64_t desc_q0, uint64_t desc_do0,
                                         const KvCols& c, const TmaArgs& a) {
+  constexpr int BN = KvSmem<D>::BN, STAGES = KvSmem<D>::STAGES;
   constexpr uint64_t SLOT = (BN * D * 2) >> 4;  // a ring slot in descriptor units
   wg_wait<0>();
   fence_regs<BN / 2>(s);
@@ -563,8 +582,8 @@ __device__ __forceinline__ void kv_step(int it, int it_lo, int it_hi, float* s, 
     }
   }
   uint32_t pa[BN / 16][4], sa[BN / 16][4];
-  acc_to_a(pa, s);
-  acc_to_a(sa, dp);
+  acc_to_a<BN / 16>(pa, s);
+  acc_to_a<BN / 16>(sa, dp);
   fence_frag(pa);
   fence_frag(sa);
   fence_regs<BN / 2>(s);
@@ -574,8 +593,8 @@ __device__ __forceinline__ void kv_step(int it, int it_lo, int it_hi, float* s, 
   if (it + 1 < it_hi) {  // S^T = K Q^T and dP^T = V dO^T of the next tile
     const int nx = (it + 1) % STAGES;
     mbar_wait(&full[nx], ((it + 1) / STAGES) & 1);
-    issue_two<D>(s, dp, desc_k, desc_q0 + SLOT * nx, desc_v, desc_do0 + SLOT * nx,
-                 KvSmem<D>::BM, BN);
+    issue_two<D, BN>(s, dp, desc_k, desc_q0 + SLOT * nx, desc_v, desc_do0 + SLOT * nx,
+                     KvSmem<D>::BM, BN);
   }
 #ifndef BWD_NOSECOND
   // dV += P^T dO, dK += dS^T Q: dO and Q read MN-major, BN / 16 k16 steps
@@ -591,12 +610,12 @@ __device__ __forceinline__ void kv_step(int it, int it_lo, int it_hi, float* s, 
 }
 
 template <int D>
-__global__ void __launch_bounds__(Shape<kv_wgs<D>()>::THREADS, 1)
+__global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
     dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo, TmaArgs a) {
   using L = KvSmem<D>;
-  constexpr int KV_WGS = kv_wgs<D>();
+  constexpr int BN = L::BN, STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
@@ -628,7 +647,7 @@ __global__ void __launch_bounds__(Shape<kv_wgs<D>()>::THREADS, 1)
   __syncthreads();
 
   if (warp >= 4 * KV_WGS) {  // producer: its first warp's 32 lanes work
-    if constexpr (KV_WGS > 1) setmaxnreg_dec<PRODUCER_REGS>();
+    setmaxnreg_dec<PRODUCER_REGS>();
     if (warp > 4 * KV_WGS) return;
     if (lane == 0) {
       mbar_expect_tx(kv_full, 2 * L::ROWS);
@@ -655,7 +674,7 @@ __global__ void __launch_bounds__(Shape<kv_wgs<D>()>::THREADS, 1)
       }
     }
   } else {  // consumer warpgroup wg: KV rows [k0w, k0w + 64)
-    if constexpr (KV_WGS > 1) setmaxnreg_inc<Shape<KV_WGS>::REGS>();
+    setmaxnreg_inc<Shape<KV_WGS>::REGS>();
     constexpr int NS = BN / 2;  // S^T and dP^T accumulator floats a thread
     constexpr int NK = D / 2;   // dK, dV accumulator floats a thread
     const int wg = warp / 4, t = threadIdx.x % 128;
@@ -701,8 +720,8 @@ __global__ void __launch_bounds__(Shape<kv_wgs<D>()>::THREADS, 1)
         const int st = lo_it % STAGES;
         mbar_wait(&full[st], (lo_it / STAGES) & 1);
         wg_fence();
-        issue_two<D>(s, dp, desc_k, desc_q0 + (L::TILE >> 4) * st, desc_v,
-                     desc_do0 + (L::TILE >> 4) * st, L::BM, BN);
+        issue_two<D, BN>(s, dp, desc_k, desc_q0 + (L::TILE >> 4) * st, desc_v,
+                         desc_do0 + (L::TILE >> 4) * st, L::BM, BN);
         wg_commit();
         // two steps a trip: ptxas schedules dK/dV's better so (dQ's, on
         // three warpgroups, worse), as measured on an H100
@@ -899,8 +918,7 @@ int prepare(Kernel kernel, int smem, unsigned long long* done) {
   if (err != cudaSuccess) return (int)err;
   const int r = attr.numRegs;
   constexpr int cons = Shape<NC>::REGS;
-  if (NC > 1 &&
-      (r > cons || r < PRODUCER_REGS || (r - PRODUCER_REGS) * 128 < (cons - r) * 128 * NC))
+  if (r > cons || r < PRODUCER_REGS || (r - PRODUCER_REGS) * 128 < (cons - r) * 128 * NC)
     return (int)cudaErrorInvalidConfiguration;
   if (dev < 64) *done |= 1ull << dev;
   return 0;
@@ -951,13 +969,13 @@ int launch_bf16(int kernel, const Args& a, int B, cudaStream_t st) {
     constexpr int BM = KvSmem<D>::BM;
     rc = encode(&tk, a.k, D, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BM, &t.k_slots);
     if (!rc) rc = encode(&tv, a.v, D, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BM, &t.v_slots);
-    if (!rc) rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BN, &t.q_slots);
-    if (!rc) rc = encode(&tdo, a.dout, D, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, BN, &t.do_slots);
+    constexpr int QR = KvSmem<D>::BN;
+    if (!rc) rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, QR, &t.q_slots);
+    if (!rc) rc = encode(&tdo, a.dout, D, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, QR, &t.do_slots);
     static unsigned long long done = 0;
-    constexpr int NC = kv_wgs<D>();
-    if (!rc) rc = prepare<NC>(dkdv_bf16_kernel<D>, KvSmem<D>::BYTES, &done);
+    if (!rc) rc = prepare<KV_WGS>(dkdv_bf16_kernel<D>, KvSmem<D>::BYTES, &done);
     if (rc) return rc;
-    dkdv_bf16_kernel<D><<<dim3(a.K, B, (a.S + BM - 1) / BM), Shape<NC>::THREADS,
+    dkdv_bf16_kernel<D><<<dim3(a.K, B, (a.S + BM - 1) / BM), Shape<KV_WGS>::THREADS,
                           KvSmem<D>::BYTES, st>>>(
         tk, tv, tq, tdo, t);
   }

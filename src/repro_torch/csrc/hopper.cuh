@@ -152,6 +152,22 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 32] (+)= A[64 x 16] * B[16 x 32]; A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 64] += A[64 x 16] * B[16 x 64]; A from registers (bf16 pairs),
 // B MN-major in shared memory (the transpose bit set).
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
@@ -192,19 +208,28 @@ __device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// s = A_s B_s^T and dp = A_p B_p^T, 64 x 64 each over D: every operand
-// K-major in shared memory (descriptors of its first k16 step); the A
-// operands' tiles have ra rows, the B operands' rb (their halves' offset at
-// D = 128)
-template <int D>
+// s = A_s B_s^T and dp = A_p B_p^T, 64 x N each (N 64 or 32) over D: every
+// operand K-major in shared memory (descriptors of its first k16 step); the
+// A operands' tiles have ra rows, the B operands' rb (their halves' offset
+// at D = 128)
+template <int D, int N = 64>
 __device__ __forceinline__ void issue_two(float* s, float* dp, uint64_t as, uint64_t bs,
                                           uint64_t ap, uint64_t bp, int ra, int rb) {
+  static_assert(N == 64 || N == 32, "issue_two: N is 64 or 32");
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n64(s, k_step<D>(as, ra, kk), k_step<D>(bs, rb, kk), kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if constexpr (N == 64)
+      wgmma_ss_n64(s, k_step<D>(as, ra, kk), k_step<D>(bs, rb, kk), kk > 0);
+    else
+      wgmma_ss_n32(s, k_step<D>(as, ra, kk), k_step<D>(bs, rb, kk), kk > 0);
+  }
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n64(dp, k_step<D>(ap, ra, kk), k_step<D>(bp, rb, kk), kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if constexpr (N == 64)
+      wgmma_ss_n64(dp, k_step<D>(ap, ra, kk), k_step<D>(bp, rb, kk), kk > 0);
+    else
+      wgmma_ss_n32(dp, k_step<D>(ap, ra, kk), k_step<D>(bp, rb, kk), kk > 0);
+  }
 }
 
 // acc[64 x D] += A[64 x 16] (registers) * B[16 x D] (MN-major). At D = 128

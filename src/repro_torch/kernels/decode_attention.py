@@ -8,7 +8,8 @@ points in ``csrc/decode_attention.cu``). Its plain version is
 
 Layout: q ``[B,H,D]``; k/v ``[B,S,K,D]``, which is the decode cache
 ``[B, S_max, K*D]`` viewed without a copy. The cache is cut into splits of
-``SPLIT`` positions; one block per (row, KV head, split) reads its K/V
+``split_len(D)`` positions (64 at head dim 128, else 128); one block per
+(row, KV head, split) reads its K/V
 rows once for the KV head's ``G = H/K`` query heads (at most ``MAX_G``) and
 writes an unnormalised partial to a scratch buffer. In the same launch the
 last block of each (row, KV head) to finish, elected by a ticket counter,
@@ -41,7 +42,6 @@ launches = 0
 ring_launches = 0
 
 HEAD_DIMS = (32, 64, 128)
-SPLIT = 128          # cache positions per split block (SPLIT in the source)
 MAX_G = 16           # query heads per KV head (GMAX in the source)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _counter_bufs: dict[torch.device, torch.Tensor] = {}
@@ -78,8 +78,27 @@ def counters(device, n: int) -> torch.Tensor:
     return buf
 
 
-def n_splits(S: int) -> int:
-    return -(-S // SPLIT)
+def split_len(D: int) -> int:
+    """Cache positions a split block takes at head dim ``D``
+    (``split_len`` in the source): 64 at D = 128, whose bf16 kernel puts a
+    KV head's query heads on the tensor cores, else 128. It depends on the
+    head dim alone, so the contiguous, ring and paged decodes cut a row
+    alike."""
+    return 64 if D > 64 else 128
+
+
+def n_splits(S: int, D: int) -> int:
+    """Split blocks over ``S`` cache positions at head dim ``D``."""
+    return -(-S // split_len(D))
+
+
+def partials(B: int, H: int, K: int, D: int, ns: int, device):
+    """The float32 scratch a launch over ``ns`` splits writes: the
+    unnormalised outputs ``[B,K,ns,G,D]`` and each split's (m, l)
+    ``[2,B,K,ns,G]``."""
+    G = H // K
+    return (torch.empty((B, K, ns, G, D), dtype=torch.float32, device=device),
+            torch.empty((2, B, K, ns, G), dtype=torch.float32, device=device))
 
 
 def _check(q, k, v, what):
@@ -113,17 +132,15 @@ def _launch(entry, q, k, v, ns, *ints):
     ``entry`` with the C entry's int arguments ``ints``."""
     B, H, D = q.shape
     K = k.shape[2]
-    G = H // K
     o = torch.empty_like(q)
-    part_o = torch.empty((B, K, ns, G, D), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((2, B, K, ns, G), dtype=torch.float32, device=q.device)
+    part_o, part_ml = partials(B, H, K, D, ns, q.device)
     cnt = counters(q.device, B * K)
     fn = _bind(entry)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 part_o.data_ptr(), part_ml.data_ptr(), cnt.data_ptr(), *ints,
-                _DTYPES[q.dtype], SPLIT, stream)
+                _DTYPES[q.dtype], split_len(D), stream)
     build.check(rc, entry)
     return o
 
@@ -140,7 +157,7 @@ def decode_attention(q, k, v, length, *, window=None):
         raise ValueError(f"decode_attention kernel: length {length} not in [1, {S}]")
     if window is not None and window < 1:
         raise ValueError(f"decode_attention kernel: window {window} < 1")
-    o = _launch("repro_decode_attention", q, k, v, n_splits(S),
+    o = _launch("repro_decode_attention", q, k, v, n_splits(S, D),
                 B, H, K, S, D, length, window or 0)
     launches += 1
     return o
@@ -158,7 +175,7 @@ def ring_decode_attention(q, k, v, pos, *, window):
     if pos < 0 or window is None or window < 1:
         raise ValueError(f"ring_decode_attention kernel: pos {pos}, window {window}")
     n = min(window, W, pos + 1)
-    o = _launch("repro_ring_decode_attention", q, k, v, n_splits(n),
+    o = _launch("repro_ring_decode_attention", q, k, v, n_splits(n, D),
                 B, H, K, W, D, pos, window)
     ring_launches += 1
     return o

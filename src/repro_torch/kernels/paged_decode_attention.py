@@ -23,7 +23,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import HEAD_DIMS, MAX_G, SPLIT, counters
+from repro_torch.kernels.decode_attention import (HEAD_DIMS, MAX_G, counters, partials,
+                                                   split_len)
 
 #: launches of the CUDA kernel since the count was last set to 0
 launches = 0
@@ -42,8 +43,10 @@ def _bind():
     return fn
 
 
-def n_splits(n_table: int, page_size: int) -> int:
-    return -(-(n_table * page_size) // SPLIT)
+def n_splits(n_table: int, page_size: int, D: int) -> int:
+    """Split blocks over a table's ``n_table * page_size`` positions at head
+    dim ``D``: the contiguous decode's over as many positions."""
+    return -(-(n_table * page_size) // split_len(D))
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *, window=None):
@@ -92,11 +95,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *, window=N
             x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
         raise ValueError("paged_decode_attention kernel: rows must be 16-byte aligned")
     n_tab = page_table.shape[1]
-    G = H // K
-    ns = n_splits(n_tab, page)
     o = torch.empty_like(q)
-    part_o = torch.empty((B, K, ns, G, D), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((2, B, K, ns, G), dtype=torch.float32, device=dev)
+    part_o, part_ml = partials(B, H, K, D, n_splits(n_tab, page, D), dev)
     cnt = counters(dev, B * K)
     fn = _bind()
     with torch.cuda.device(dev):
@@ -105,7 +105,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *, window=N
                 part_o.data_ptr(), part_ml.data_ptr(), cnt.data_ptr(),
                 page_table.data_ptr(), lengths.data_ptr(), B, H, K, D, n_tab, page,
                 *strides[:3],
-                window or 0, _DTYPES[q.dtype], SPLIT, stream)
+                window or 0, _DTYPES[q.dtype], split_len(D), stream)
     build.check(rc, "paged_decode_attention")
     launches += 1
     return o

@@ -13,6 +13,7 @@ the step-by-step recurrence, whose float32 sums run in another order over
 hundreds of decayed terms, and their outputs are not bounded by 1.
 """
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -34,6 +35,8 @@ from repro_torch.serving.engine import ServeEngine, Server  # noqa: E402
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# the decode's split lengths: 128 positions at head dim 64 (and 32), 64 at 128
+S64, S128 = DA.split_len(64), DA.split_len(128)
 GLA_TOL = {torch.bfloat16: 5e-2, torch.float32: 5e-4}
 
 
@@ -114,11 +117,11 @@ def test_flash_kernel_on_model_views_equals_contiguous_copy(cuda, dtype):
     assert torch.equal(a, b)
 
 
-def _decode_calls(cuda, dtype):
-    """One call each of K2, K2 over a ring and K3 at small shapes, as
-    closures over fixed inputs; with their launch counters."""
+def _decode_calls(cuda, dtype, D=64):
+    """One call each of K2, K2 over a ring and K3 at small shapes (head dim
+    ``D``), as closures over fixed inputs; with their launch counters."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    B, H, K, D, S = 2, 8, 2, 64, 300
+    B, H, K, S = 2, 8, 2, 300
     q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
     k, v = (torch.randn(B, S, K, D, generator=g, device=cuda).to(dtype) for _ in range(2))
     kr, vr = (torch.randn(B, 64, K, D, generator=g, device=cuda).to(dtype) for _ in range(2))
@@ -134,20 +137,22 @@ def _decode_calls(cuda, dtype):
     }
 
 
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kind", ["decode", "ring", "paged"])
-def test_decode_kernels_are_deterministic_across_launches(cuda, kind, dtype):
-    fn, _, _ = _decode_calls(cuda, dtype)[kind]
+def test_decode_kernels_are_deterministic_across_launches(cuda, kind, dtype, D):
+    fn, _, _ = _decode_calls(cuda, dtype, D)[kind]
     a, b = fn(), fn()
     torch.cuda.synchronize()
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("kind", ["decode", "ring", "paged"])
-def test_decode_kernels_replay_in_a_cuda_graph(cuda, kind):
+def test_decode_kernels_replay_in_a_cuda_graph(cuda, kind, D):
     """Three calls captured in one graph and replayed three times equal the
     eager calls bit for bit: each launch leaves its ticket counters at 0."""
-    fn, _, _ = _decode_calls(cuda, torch.bfloat16)[kind]
+    fn, _, _ = _decode_calls(cuda, torch.bfloat16, D)[kind]
     lengths = (300, 129, 1)
     eager = [fn(L) for L in lengths]
     graph = torch.cuda.CUDAGraph()
@@ -161,11 +166,12 @@ def test_decode_kernels_replay_in_a_cuda_graph(cuda, kind):
     assert torch.equal(fn(300), eager[0])
 
 
-def test_decode_graph_replays_after_the_counters_grow(cuda):
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_graph_replays_after_the_counters_grow(cuda, D):
     """A graph captured before a larger launch grows the ticket counters
     still replays equal to the eager call (the outgrown buffer stays
     allocated), and a capture that would need more counters raises."""
-    fn, _, _ = _decode_calls(cuda, torch.bfloat16)["decode"]
+    fn, _, _ = _decode_calls(cuda, torch.bfloat16, D)["decode"]
     want = fn()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -193,9 +199,10 @@ def test_decode_graph_replays_after_the_counters_grow(cuda):
             DA.decode_attention(q2, k2, k2, S)
 
 
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("kind", ["decode", "ring", "paged"])
-def test_decode_kernels_are_one_launch_per_call(cuda, kind):
-    fn, counter, mod = _decode_calls(cuda, torch.bfloat16)[kind]
+def test_decode_kernels_are_one_launch_per_call(cuda, kind, D):
+    fn, counter, mod = _decode_calls(cuda, torch.bfloat16, D)[kind]
     fn()
     torch.cuda.synchronize()
     n0 = getattr(mod, counter)
@@ -206,13 +213,13 @@ def test_decode_kernels_are_one_launch_per_call(cuda, kind):
     assert getattr(mod, counter) == n0 + 3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0
-               and "decode_kernel" in e.key]
+               and re.search(r"decode_(mma_)?kernel", e.key)]
     assert len(kernels) == 1 and kernels[0].count == 3, [(e.key, e.count) for e in kernels]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("length,window", [(1, None), (DA.SPLIT, None),
-                                           (DA.SPLIT + 1, None), (300, None), (300, 50)])
+@pytest.mark.parametrize("length,window", [(1, None), (S64, None),
+                                           (S64 + 1, None), (300, None), (300, 50)])
 @pytest.mark.parametrize("H,K", [(8, 2), (DA.MAX_G, 1), (4, 4)])
 def test_decode_kernel_matches_plain(cuda, length, window, dtype, H, K):
     B, S, D = 2, 300, 64
@@ -228,12 +235,14 @@ def test_decode_kernel_matches_plain(cuda, length, window, dtype, H, K):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("length,window", [(16 * DA.SPLIT, None), (16 * DA.SPLIT + 1, None),
-                                           (40 * DA.SPLIT, None), (40 * DA.SPLIT, 1000)])
-def test_decode_kernel_long_cache(cuda, length, window, dtype):
-    """More splits than the combine's one load batch (16): its largest-m
-    pass runs first."""
-    B, H, K, D = 2, 8, 2, 64
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("n,extra,window", [(16, 0, None), (16, 1, None), (40, 0, None),
+                                            (40, 0, 1000), (70, 5, None)])
+def test_decode_kernel_long_cache(cuda, n, extra, window, dtype, D):
+    """More splits than the combine's one load batch (16), and at D = 128
+    more than its two in registers a lane (64): the longer passes run."""
+    B, H, K = 2, 8, 2
+    length = n * DA.split_len(D) + extra
     g = torch.Generator(device=cuda).manual_seed(length)
     q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
     k, v = (torch.randn(B, length, K, D, generator=g, device=cuda).to(dtype)
@@ -265,8 +274,9 @@ def _paged_inputs(cuda, B, H, K, D, n_layers, layer, lengths, page, dtype, seed,
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("lengths,window", [([1, 16], None), ([DA.SPLIT, 300], None),
-                                            ([300, DA.SPLIT + 1], 50), ([0, 17], None)])
+@pytest.mark.parametrize("lengths,window", [([1, 16], None), ([S64, 300], None),
+                                            ([300, S64 + 1], 50), ([0, 17], None),
+                                            ([S128 - 1, S128 + 1], None), ([S128, 0], 20)])
 @pytest.mark.parametrize("H,K,D", [(8, 2, 64), (DA.MAX_G, 1, 32), (4, 4, 64), (10, 2, 128),
                                    (40, 8, 128)])
 def test_paged_decode_kernel_matches_plain(cuda, lengths, window, dtype, H, K, D):
@@ -283,7 +293,7 @@ def test_paged_decode_kernel_matches_plain(cuda, lengths, window, dtype, H, K, D
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("length,window", [(1, None), (DA.SPLIT, None), (300, None),
+@pytest.mark.parametrize("length,window", [(1, None), (S64, None), (300, None),
                                            (300, 50)])
 def test_paged_kernel_over_in_order_pages_equals_contiguous_kernel(cuda, length, window,
                                                                    dtype):
@@ -964,13 +974,14 @@ def test_flash_bwd_takes_a_transposed_do_as_it_comes(cuda, dtype):
     assert all(torch.equal(x, y) for x, y in zip(a, c))
 
 
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_kernels_launch_from_a_fresh_host_thread(cuda, dtype):
+def test_flash_kernels_launch_from_a_fresh_host_thread(cuda, dtype, D):
     """The autograd engine runs a backward on its own thread, whose first
     CUDA call it may be: the backward, and the forward, launched from a
     thread that has made no CUDA call give the main thread's bits."""
     import threading
-    q, k, v, do = _bwd_inputs(cuda, 2, 8, 2, 200, 64, dtype, seed=15)
+    q, k, v, do = _bwd_inputs(cuda, 2, 8, 2, 200, D, dtype, seed=15)
     o, lse = FA.flash_attention(q, k, v, window=77, lse=True)
     want = FA.flash_attention_bwd(q, k, v, o, lse, do, window=77)
     got = {}
@@ -1367,6 +1378,21 @@ def test_flash_kernels_at_head_dim_128_take_rows_on_16_bytes(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("S", [31, 32, 33, 127, 128, 129, 1000, 1024])
+def test_flash_bwd_at_head_dim_128_tile_edges(cuda, S, window, dtype):
+    """dK/dV at D = 128 streams 32-row query tiles past 128-row KV blocks
+    (two warpgroups of 64 rows): S on both sides of each edge, with and
+    without a window, G = 5; two runs equal bit for bit."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 10, 2, S, 128, dtype, seed=S + 7)
+    _bwd_held(q, k, v, do, window, dtype)
+    o, lse = FA.flash_attention(q, k, v, window=window, lse=True)
+    a = FA.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    b = FA.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_bwd_at_qwen_shape(cuda, dtype):
     """qwen2.5-14b's training shape, one row of the batch: 40 query heads
     over 8 KV heads, S 1024, D 128; two runs equal bit for bit."""
@@ -1379,12 +1405,14 @@ def test_flash_bwd_at_qwen_shape(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("length,window", [(1, None), (DA.SPLIT, None), (DA.SPLIT + 1, None),
-                                           (300, None), (300, 50), (1056, None)])
+@pytest.mark.parametrize("length,window", [(1, None), (S128 - 1, None), (S128, None),
+                                           (S128 + 1, None), (300, None), (300, 50),
+                                           (1056, None), (1056, 70)])
 @pytest.mark.parametrize("H,K", [(10, 2), (4, 4), (DA.MAX_G, 1)])
 def test_decode_kernel_at_head_dim_128(cuda, length, window, dtype, H, K):
-    """K2 at D = 128 (a float32 row is the whole warp: its positions in two
-    batches of loads), qwen's G = 5, G = 1 and the largest G."""
+    """K2 at D = 128 around its 64-position split (bf16 on the tensor
+    cores; a float32 row is the whole warp, its positions in two batches of
+    loads), qwen's G = 5, G = 1 and the largest G."""
     B, S, D = 2, 1056, 128
     g = torch.Generator(device=cuda).manual_seed(length + H)
     q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
@@ -1408,11 +1436,13 @@ def test_ring_decode_kernel_at_head_dim_128(cuda, W, window, pos, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("length,window", [(1, None), (DA.SPLIT, None), (1000, None),
-                                           (300, 50)])
+@pytest.mark.parametrize("H,K", [(40, 8), (4, 4), (DA.MAX_G, 1)])
+@pytest.mark.parametrize("length,window", [(1, None), (S128 - 1, None), (S128, None),
+                                           (S128 + 1, None), (1000, None), (300, 50),
+                                           (1056, None)])
 def test_paged_kernel_at_head_dim_128_over_in_order_pages_equals_contiguous(
-        cuda, length, window, dtype):
-    B, H, K, D, page, S = 2, 40, 8, 128, 16, 1056
+        cuda, length, window, dtype, H, K):
+    B, D, page, S = 2, 128, 16, 1056
     g = torch.Generator(device=cuda).manual_seed(length)
     q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
     k, v = (torch.randn(B, S, K, D, generator=g, device=cuda).to(dtype) for _ in range(2))
@@ -1422,6 +1452,24 @@ def test_paged_kernel_at_head_dim_128_over_in_order_pages_equals_contiguous(
     paged = PA.paged_decode_attention(q, k.view(B * n, page, K, D), v.view(B * n, page, K, D),
                                       table, lens, window=window)
     assert torch.equal(paged, DA.decode_attention(q, k, v, length, window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,K", [(40, 8), (4, 4), (DA.MAX_G, 1)])
+@pytest.mark.parametrize("lengths,window", [([1, S128 - 1], None), ([S128, S128 + 1], None),
+                                            ([1056, 300], None), ([1056, 0], 50)])
+def test_paged_kernel_at_head_dim_128_over_shuffled_pages(cuda, lengths, window, dtype, H,
+                                                          K):
+    """K3 at D = 128 over a 3-layer store's strided view and a shuffled
+    table, around the 64-position split, G = 5, 1 and 16."""
+    q, kp, vp, table, lens = _paged_inputs(cuda, 2, H, K, 128, 3, 1, lengths, 16, dtype,
+                                           seed=sum(lengths) + H)
+    n0 = PA.launches
+    out = PA.paged_decode_attention(q, kp, vp, table, lens, window=window)
+    assert PA.launches == n0 + 1
+    _close(out, ref.naive_paged_decode_attention(q, kp, vp, table, lens, window=window),
+           dtype)
+    assert torch.equal(out, PA.paged_decode_attention(q, kp, vp, table, lens, window=window))
 
 
 def _qwen_d128(dtype="float32"):

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where K1's bf16 backward kernels' time goes, on one NVIDIA GPU.
 
-    python3 tools/bwd_breakdown.py
+    python3 tools/bwd_breakdown.py [--shape granite|qwen]
 
 Builds ``src/repro_torch/csrc/flash_attention_bwd.cu`` as shipped and with
 each of its diagnostic macros (``-D``; one ``nvcc`` each, in parallel, into
-``src/repro_torch/_build/breakdown/``), then, at granite-3-2b's training
-shape (bf16 B4 H32 K8 S1024 D64, causal, on the forward's own output and
-logsumexp, inputs rotated through more than the L2), times each build's dQ
-launch and dK/dV launch alone (CUDA-graph replay, ``kernels/timing.cuda_ms``):
+``src/repro_torch/_build/breakdown/``), then, at a training shape
+(``granite``, the default: granite-3-2b's bf16 B4 H32 K8 S1024 D64;
+``qwen``: qwen2.5-14b's B4 H40 K8 S1024 D128, the head-dim-128 kernels),
+causal, on the forward's own output and logsumexp, inputs rotated through
+more than the L2, times each build's dQ launch and dK/dV launch alone
+(CUDA-graph replay, ``kernels/timing.cuda_ms``):
 
 - ``base``: the kernels as shipped;
 - ``dq2``: ``BWD_DQ_WGS=2``, the dQ kernel on two consumer warpgroups
@@ -21,10 +23,14 @@ launch and dK/dV launch alone (CUDA-graph replay, ``kernels/timing.cuda_ms``):
 Beside them: ptxas's registers at launch, spills and its notes on wgmma
 (C75xx) for each build's bf16 kernels, and the shipped build's gradients
 against the plain version. The other builds' outputs are wrong by design
-(``dq2`` aside). Exits 1 with no CUDA device.
+(``dq2`` aside; at head dim 128 dQ always takes two warpgroups, so
+``dq2`` is ``base``). Last, SDPA's backward at the same shape, the
+yardstick (``chip_smoke.sdpa_bwd_yardstick``: CUDA events, and the
+profiler in a fresh process). Exits 1 with no CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import re
 import subprocess
@@ -38,7 +44,8 @@ sys.path.insert(0, str(ROOT))
 #: build name -> the macros it defines
 VARIANTS = {"base": (), "dq2": ("BWD_DQ_WGS=2",), "noexp": ("BWD_NOEXP",),
             "nosecond": ("BWD_NOSECOND",)}
-SHAPE = (4, 32, 8, 1024, 64)   # granite-3-2b's training shape: B, H, K, S, D
+#: training shapes: B, H, K, S, D
+SHAPES = {"granite": (4, 32, 8, 1024, 64), "qwen": (4, 40, 8, 1024, 128)}
 
 
 def ptxas_notes(log: str) -> list[str]:
@@ -60,6 +67,9 @@ def ptxas_notes(log: str) -> list[str]:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="granite")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("bwd_breakdown: no CUDA device", file=sys.stderr)
@@ -90,7 +100,7 @@ def main() -> int:
         fn.argtypes, fn.restype = FA._bind_bwd().argtypes, ctypes.c_int
         fns[name] = fn
 
-    B, H, K, S, D = SHAPE
+    B, H, K, S, D = SHAPES[args.shape]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -126,6 +136,8 @@ def main() -> int:
         print(f"[time] {name}: dQ {cuda_ms(launch(fn, 1), sets) * 1e3:.1f} us, dK/dV "
               f"{cuda_ms(launch(fn, 2), sets) * 1e3:.1f} us (bf16 B{B} H{H} K{K} S{S} D{D}, "
               f"causal, CUDA-graph replay)", flush=True)
+    del sets
+    CS.sdpa_bwd_yardstick(B, H, K, S, D)
     return 0
 
 

@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
 """What the one-launch split-KV decode spends after its last split.
 
-    python3 tools/decode_tail.py
+    python3 tools/decode_tail.py [--split N]
 
-Times the shipped K2 kernel (``csrc/decode_split.cuh``) on a serving
-shape, where each (row, KV head) has several splits and the last split
+Times the shipped decode kernels (``csrc/decode_split.cuh``) on serving
+shapes, where each (row, KV head) has several splits and the last split
 block to finish combines them, and on the same cache positions cut into
-rows of one split each (``SPLIT`` positions), where every block writes its
-output directly: the same K/V bytes and about as many blocks, with no
-partials, no ticket and no combine. The difference is the combine's tail.
-Times are the replay of a CUDA graph (``repro_torch.kernels.timing``),
-as in ``chip_smoke.py``. Needs one
-CUDA device and nvcc; imports nothing of JAX.
+rows of one split each, where every block writes its output directly: the
+same K/V bytes and as many blocks, with no partials, no ticket and no
+combine. The difference is the combine's tail. Shapes: K2 at granite-3-2b's
+last decode step (B4 H32 K8 D64, length 1056), at hymba-1.5b's window (B4
+H25 K5 D64, 1024) and at qwen2.5-14b's (B4 H40 K8 D128, 1056); K3 at
+qwen2.5-14b's fleet decode (one lane, B1 H40 K8 D128, length 1056, page 16,
+each call another layer's strided view of a 48-layer pool store, a
+shuffled page table; its one-split rows are lanes whose tables hold the
+same pages, a split's worth each). ``--split`` gives the rows' length (by
+default the kernels' split length at each head dim). Times are the replay
+of a CUDA graph (``repro_torch.kernels.timing``), as in ``chip_smoke.py``.
+Needs one CUDA device and nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 from pathlib import Path
@@ -22,13 +29,23 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
+#: (kernel, B, H, K, D, length)
+CASES = (("K2", 4, 32, 8, 64, 1056), ("K2", 4, 25, 5, 64, 1024),
+         ("K2", 4, 40, 8, 128, 1056), ("K3", 1, 40, 8, 128, 1056))
+PAGE, LAYERS = 16, 48
+
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--split", type=int, default=None,
+                    help="positions a one-split row holds (default: the kernels' split)")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("decode_tail: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import paged_decode_attention as PA
     from repro_torch.kernels.timing import cuda_ms
 
     dev = torch.device("cuda")
@@ -37,24 +54,52 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
 
-    def sets(B, H, K, S, n):
-        return [tuple(torch.randn(shape, generator=gen, device=dev).bfloat16()
-                      for shape in ((B, H, 64), (B, S, K, 64), (B, S, K, 64)))
-                for _ in range(n)]
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
 
-    # granite-3-2b's last decode step, and hymba-1.5b's window (ring) length
-    for B, H, K, L in ((4, 32, 8, 1056), (4, 25, 5, 1024)):
-        rows = B * L // DA.SPLIT            # one split each, the same positions
-        many = sets(B, H, K, L, 8)
-        one = sets(rows, H, K, DA.SPLIT, 8)
-        t_many = cuda_ms(lambda q, k, v: DA.decode_attention(q, k, v, L), many, iters=40)
-        t_one = cuda_ms(lambda q, k, v: DA.decode_attention(q, k, v, DA.SPLIT), one,
-                        iters=40)
-        print(f"K2 bf16 H{H} K{K} D64: B{B} length {L} ({DA.n_splits(L)} splits, "
-              f"{B * K * DA.n_splits(L)} blocks) {t_many * 1e3:.2f} us; the same "
-              f"{B * L} positions as {rows} one-split rows ({rows * K} blocks) "
-              f"{t_one * 1e3:.2f} us; the combine's tail {(t_many - t_one) * 1e3:.2f} us",
-              flush=True)
+    for kern, B, H, K, D, L in CASES:
+        split = args.split or DA.split_len(D)
+        n_split = -(-L // split)
+        if kern == "K2":
+            rows = B * L // split            # one split each, the same positions
+            many = [(randn(B, H, D), randn(B, L, K, D), randn(B, L, K, D)) for _ in range(8)]
+            one = [(randn(rows, H, D), randn(rows, split, K, D), randn(rows, split, K, D))
+                   for _ in range(8)]
+            t_many = cuda_ms(lambda q, k, v: DA.decode_attention(q, k, v, L), many, iters=40)
+            t_one = cuda_ms(lambda q, k, v: DA.decode_attention(q, k, v, split), one,
+                            iters=40)
+            blocks = B * K * n_split
+        else:
+            n, per = L // PAGE, split // PAGE
+            P = n + 3
+            stores = [randn(P, PAGE, LAYERS * K * D).view(P, PAGE, LAYERS, K, D)
+                      for _ in range(2)]
+            table = torch.randperm(P, generator=torch.Generator().manual_seed(P))[:n]
+            table = table.to(torch.int32).to(dev)
+            # the lanes of the one-split rows: a split's worth of the same pages each
+            lanes = n_split
+            t_one_tab = torch.zeros(lanes, per, dtype=torch.int32, device=dev)
+            lens_one = torch.empty(lanes, dtype=torch.int32, device=dev)
+            for i in range(lanes):
+                pages = table[i * per:(i + 1) * per]
+                t_one_tab[i, :len(pages)] = pages
+                lens_one[i] = min(split, L - i * split)
+            lens = torch.tensor([L], dtype=torch.int32, device=dev)
+            many = [(randn(1, H, D), stores[0][:, :, i], stores[1][:, :, i], table[None], lens)
+                    for i in range(LAYERS)]
+            one = [(randn(lanes, H, D), stores[0][:, :, i], stores[1][:, :, i], t_one_tab,
+                    lens_one) for i in range(LAYERS)]
+
+            def paged(q, kp, vp, t, ln):
+                return PA.paged_decode_attention(q, kp, vp, t, ln)
+            t_many = cuda_ms(paged, many, iters=40)
+            t_one = cuda_ms(paged, one, iters=40)
+            rows = lanes
+            blocks = K * n_split
+        print(f"{kern} bf16 H{H} K{K} D{D}: B{B} length {L} ({n_split} splits of {split}, "
+              f"{blocks} blocks) {t_many * 1e3:.2f} us; the same {B * L} positions as "
+              f"{rows} one-split rows ({rows * K} blocks) {t_one * 1e3:.2f} us; the "
+              f"combine's tail {(t_many - t_one) * 1e3:.2f} us", flush=True)
     return 0
 
 
