@@ -1089,7 +1089,7 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
 
     def dev_ms(name):
         return sum(e.self_device_time_total for e in kern if name in e.key) / 1e3
-    fwd = dev_ms("flash_bf16_kernel")
+    fwd = dev_ms("flash_bf16_kernel") + dev_ms("flash_d128_kernel")
     bwd = {n: dev_ms(n) for n in ("dq_bf16_kernel", "dkdv_bf16_kernel")}
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
     if busy <= 0:

@@ -85,6 +85,33 @@
 //    round trip to L2 for the whole tail, with no registers held by the
 //    copies, so that five blocks of 128 threads fit an SM and qwen's 544
 //    blocks at B = 4 run in one wave.
+//  * bf16 at G = 1, D <= 64 (decode_g1_kernel, 4 warps, redesigned for
+//    Hopper; minicpm-2b's MHA): each K/V row serves one query head, so
+//    nothing is reused and the kernel is pure streaming; what costs is
+//    every wait that leaves no bytes in flight. The work items are the
+//    (row, KV head, split)s; the grid is one wave (as many blocks as the
+//    card holds, the items spread evenly over them), and a block walks its
+//    items x, x + grid, ..., staging each in shared memory by cp.async (16
+//    bytes a copy, no registers held; zeros outside [lo, length)) as soon
+//    as its warps have read the last. One item a block in shared memory
+//    (33 KB) lets six blocks share an SM, whose copies keep its bytes in
+//    flight during the others' math, merge and partial writes; two
+//    (DEC_G1_STAGES=2, three blocks an SM) streamed a little faster and
+//    had a longer tail, 1.5-2 us more in all (tools/decode_tail.py
+//    --define). Each warp scores 32 of the split's positions from shared
+//    memory as decode_kernel does (8 lanes a row of 64); the warps' (m, l,
+//    P V) meet by one barrier and warp 0
+//    merges them in warp order. The tickets are the other wait: an atomic
+//    round trip to L2 under the streaming load takes microseconds, and
+//    drawn after each item it stalled the block (its warps wait on warp 0
+//    at the next item's barrier). So warp 0 notes each item's row and
+//    draws the block's tickets together (one a lane, all in flight at
+//    once) when it has no item left, then combines the rows whose last
+//    ticket it drew, in split order as decode_kernel's combine. (One
+//    block a whole row, combining its own partials with no ticket at all,
+//    streamed slower at minicpm's 144 rows: not kept.) The split is
+//    split_len(D), as for every G, so a B = 1 lane and K3 over in-order
+//    pages give a batched row's and K2's bits.
 //  * A split wholly outside [lo, length) writes the empty partial
 //    (m = -1e30, l = 0, o = 0) without reading the cache; the combine weighs
 //    it by exp2(-1e30 - m) = 0, so it adds exactly nothing and no NaN. The
@@ -780,6 +807,281 @@ __global__ void __launch_bounds__(mma128::THREADS, mma128::RESIDENT) decode_mma_
   if (tid == 0) counters[b * K + kh] = 0;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at G = 1 and D <= 64: a KV head serves one query head
+// ---------------------------------------------------------------------------
+namespace g1 {
+constexpr int NWARP = 4;      // each 32 positions of a split
+constexpr int THREADS = NWARP * 32;
+constexpr int U = 16;         // splits whose loads the combine has in flight at once
+#ifndef DEC_G1_STAGES
+#define DEC_G1_STAGES 1
+#endif
+constexpr int STAGES = DEC_G1_STAGES;  // items a block has staged or in flight
+template <int D>
+struct L {
+  static constexpr int SPLIT = split_len(D);           // positions an item takes
+  static constexpr int ROW = D * 2;                    // bytes of a K or V row
+  static constexpr int CH = ROW / 16;                  // 16-byte pieces of a row
+  static constexpr int RPP = THREADS / CH;             // rows one pass of the copies covers
+  static constexpr int TILE = SPLIT * ROW;             // bytes of a split's K (or V) rows
+  static constexpr int STAGE = 2 * TILE + ROW;         // K rows, V rows, q
+  static constexpr int RED = STAGES * STAGE;           // the stages, then the warps'
+  static constexpr int BYTES = RED + NWARP * (D + 2) * 4;  // o [NWARP][D], m and l [NWARP]
+  static_assert(SPLIT % RPP == 0 && SPLIT == 32 * NWARP, "a split's rows split evenly");
+};
+}  // namespace g1
+
+// Grid: as many blocks as the card holds at once, at most one per item;
+// g1::THREADS threads; g1::L<D>::BYTES of dynamic shared memory. The work
+// items are the (row, KV head, split)s, item (b K + kh) n_splits + split;
+// block x takes items x, x + gridDim.x, ... Other arguments as
+// decode_kernel's; H == K.
+template <int D, typename KV>
+__global__ void __launch_bounds__(g1::THREADS) decode_g1_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ out, float* __restrict__ part_o, float* __restrict__ part_m,
+    float* __restrict__ part_l, int* __restrict__ counters, KV kv, int B, int K, int n_splits,
+    int window, float scale) {
+  using namespace g1;
+  using Ly = L<D>;
+  constexpr int SPLIT = Ly::SPLIT;
+  constexpr int E = 8;                      // bf16 elements of a 16-byte piece
+  constexpr int LPR = D / E;                // lanes a row takes when read
+  constexpr int RPW = 32 / LPR;             // rows one warp read covers
+  constexpr int NIT = SPLIT / NWARP / RPW;  // rows a lane reads
+  constexpr int C = D / 32;                 // columns a lane of warp 0 merges
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  float* red_o = reinterpret_cast<float*>(smem + Ly::RED);  // [NWARP][D]
+  float* red_m = red_o + NWARP * D;                          // [NWARP]
+  float* red_l = red_m + NWARP;                              // [NWARP]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_items = B * K * n_splits;
+
+  // an item's split: its first position and the positions [j0, j1) of it
+  // below the row's length and inside the window (none: an empty split)
+  struct Item {
+    int b, kh, split, start, j0, j1;
+  };
+  auto item_at = [&](int it) {
+    Item r;
+    r.split = it % n_splits;
+    r.kh = (it / n_splits) % K;
+    r.b = it / (n_splits * K);
+    r.start = r.split * SPLIT;
+    const int length = kv.length(r.b);
+    const int lo = window > 0 ? max(length - window, 0) : 0;
+    r.j0 = max(r.start, lo);
+    r.j1 = min(r.start + SPLIT, length);
+    return r;
+  };
+  // stage an item's K and V rows (zeros outside [j0, j1)) and its q row
+  // into stage buf by cp.async, every row's address first; an empty split
+  // or a block past the last item copies nothing. Commits one group
+  // either way, so that a thread's groups stay one per item.
+  auto stage = [&](int it, int buf) {
+    if (it < n_items) {
+      const Item r = item_at(it);
+      if (r.j0 < r.j1) {
+        const uint32_t dst = sbase + buf * Ly::STAGE;
+        const int ch = tid % Ly::CH, r0 = tid / Ly::CH;
+        long long off[SPLIT / Ly::RPP];
+        bool in[SPLIT / Ly::RPP];
+#pragma unroll
+        for (int i = 0; i < SPLIT / Ly::RPP; ++i) {
+          const int j = r.start + r0 + i * Ly::RPP;
+          in[i] = j >= r.j0 && j < r.j1;
+          off[i] = in[i] ? kv.row(r.b, j, r.kh) + ch * E : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < SPLIT / Ly::RPP; ++i)
+          cp16(dst + (r0 + i * Ly::RPP) * Ly::ROW + ch * 16, k + off[i], in[i]);
+#pragma unroll
+        for (int i = 0; i < SPLIT / Ly::RPP; ++i)
+          cp16(dst + Ly::TILE + (r0 + i * Ly::RPP) * Ly::ROW + ch * 16, v + off[i], in[i]);
+        if (tid < Ly::CH)
+          cp16(dst + 2 * Ly::TILE + tid * 16, q + ((long long)r.b * K + r.kh) * D + tid * E, true);
+      }
+    }
+    cp_commit();
+  };
+
+  // the combine of row `row` (b K + kh) by warp 0, in split order: U
+  // splits' (m, l, o) loads in flight at once, the largest m from the
+  // registers when one batch holds every split; the row's counter back to 0
+  auto combine = [&](int row) {
+    const long long base = (long long)row * n_splits;
+    const float* pm = part_m + base;
+    const float* pl = part_l + base;
+    const float* po = part_o + base * D + lane;
+    float mg = NEG_INF;
+    if (n_splits > U) {
+      for (int sp = lane; sp < n_splits; sp += 32) mg = fmaxf(mg, __ldcg(pm + sp));
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) mg = fmaxf(mg, __shfl_xor_sync(0xffffffffu, mg, off));
+    }
+    float num[C], den = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) num[c] = 0.f;
+    for (int s0 = 0; s0 < n_splits; s0 += U) {
+      float mm[U], ll[U], oo[U][C];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const bool in = s0 + u < n_splits;
+        mm[u] = in ? __ldcg(pm + s0 + u) : NEG_INF;
+        ll[u] = in ? __ldcg(pl + s0 + u) : 0.f;
+#pragma unroll
+        for (int c = 0; c < C; ++c) oo[u][c] = in ? __ldcg(po + (long long)(s0 + u) * D + 32 * c) : 0.f;
+      }
+      if (n_splits <= U) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) mg = fmaxf(mg, mm[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float w = ex2(mm[u] - mg);
+        den += w * ll[u];
+#pragma unroll
+        for (int c = 0; c < C; ++c) num[c] += w * oo[u][c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      out[(long long)row * D + lane + 32 * c] = __float2bfloat16(num[c] / fmaxf(den, 1e-30f));
+    if (lane == 0) counters[row] = 0;
+  };
+  // The tickets of warp 0's pending splits (lane i holds the row of the
+  // i-th), drawn together when the block has no item left (or 32 are
+  // pending), off the items' critical path: after __syncwarp (the lanes'
+  // partial stores ordered before it), one ticket a pending split, all in
+  // flight at once, with release (those stores visible device-wide first)
+  // and acquire (the row's last ticket sees every split's partial); the
+  // block combines the rows whose last ticket it drew.
+  int pending = 0, n_pending = 0;
+  auto flush = [&]() {
+    __syncwarp();
+    const bool last = lane < n_pending && ticket(&counters[pending]) == n_splits - 1;
+    unsigned todo = __ballot_sync(0xffffffffu, last);
+    __syncwarp();
+    while (todo) {
+      const int row = __shfl_sync(0xffffffffu, pending, __ffs(todo) - 1);
+      todo &= todo - 1;
+      combine(row);
+    }
+    n_pending = 0;
+  };
+
+  int it = blockIdx.x;
+#pragma unroll
+  for (int j = 0; j < STAGES; ++j) stage(it + j * gridDim.x, j);
+  for (int i = 0; it < n_items; ++i, it += gridDim.x) {
+    const int buf = i % STAGES;
+    const Item r = item_at(it);
+    const bool empty = r.j0 >= r.j1;
+    cp_wait<STAGES - 1>();  // this thread's copies of the item are in
+    __syncthreads();  // everyone's; and warp 0 is done with the last item's partials
+
+    // this warp's positions start + 32 warp + RPW i + rg: scores (q scaled
+    // to the log2 domain against a lane's piece of each K row, summed over
+    // the row's lanes), their max and sum over the warp, and P V
+    if (!empty) {
+      const uint8_t* st = smem + buf * Ly::STAGE;
+      const int rg = lane / LPR, cl = lane % LPR;
+      float qv[E];
+      {
+        const uint4 qr = *reinterpret_cast<const uint4*>(st + 2 * Ly::TILE + cl * 16);
+        const bf16* qe = reinterpret_cast<const bf16*>(&qr);
+#pragma unroll
+        for (int e = 0; e < E; ++e) qv[e] = __bfloat162float(qe[e]) * scale;
+      }
+      float s[NIT];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < NIT; ++n) {
+        const int row = warp * 32 + n * RPW + rg, j = r.start + row;
+        const uint4 kr = *reinterpret_cast<const uint4*>(st + row * Ly::ROW + cl * 16);
+        const bf16* kt = reinterpret_cast<const bf16*>(&kr);
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) dot += qv[e] * __bfloat162float(kt[e]);
+#pragma unroll
+        for (int off = LPR / 2; off > 0; off /= 2) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        s[n] = j >= r.j0 && j < r.j1 ? dot : NEG_INF;
+        mx = fmaxf(mx, s[n]);
+      }
+#pragma unroll
+      for (int off = 16; off >= LPR; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      float sum = 0.f, acc[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] = 0.f;
+#pragma unroll
+      for (int n = 0; n < NIT; ++n) {
+        const int row = warp * 32 + n * RPW + rg;
+        const float pr = s[n] > NEG_INF ? ex2(s[n] - mx) : 0.f;
+        const uint4 vr = *reinterpret_cast<const uint4*>(st + Ly::TILE + row * Ly::ROW + cl * 16);
+        const bf16* vt = reinterpret_cast<const bf16*>(&vr);
+        sum += pr;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] += pr * __bfloat162float(vt[e]);
+      }
+#pragma unroll
+      for (int off = 16; off >= LPR; off /= 2) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+      }
+      if (rg == 0) {
+        float* ro = red_o + warp * D + cl * E;
+#pragma unroll
+        for (int e = 0; e < E; e += 4)
+          *reinterpret_cast<float4*>(ro + e) = make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+      }
+      if (lane == 0) {
+        red_m[warp] = mx;
+        red_l[warp] = sum;
+      }
+    }
+    __syncthreads();  // the warps' partials are in; the stage is read
+    stage(it + STAGES * gridDim.x, buf);
+    if (warp != 0) continue;
+
+    // warp 0: the split's partial, the warps' merged in warp order (lane
+    // takes columns lane + 32c); its ticket waits for the flush
+    float m = NEG_INF, l = 0.f, acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = 0.f;
+    if (!empty) {
+#pragma unroll
+      for (int w = 0; w < NWARP; ++w) m = fmaxf(m, red_m[w]);
+#pragma unroll
+      for (int w = 0; w < NWARP; ++w) {
+        const float wt = ex2(red_m[w] - m);
+        l += wt * red_l[w];
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[c] += wt * red_o[w * D + lane + 32 * c];
+      }
+    }
+    const int row = r.b * K + r.kh;
+    if (n_splits == 1) {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        out[(long long)row * D + lane + 32 * c] = __float2bfloat16(acc[c] / fmaxf(l, 1e-30f));
+      continue;
+    }
+    const long long base = (long long)row * n_splits;
+#pragma unroll
+    for (int c = 0; c < C; ++c) part_o[(base + r.split) * D + lane + 32 * c] = acc[c];
+    if (lane == 0) {
+      part_m[base + r.split] = m;
+      part_l[base + r.split] = l;
+    }
+    if (lane == n_pending) pending = row;
+    if (++n_pending == 32) flush();
+  }
+  if (warp == 0 && n_pending > 0) flush();
+}
+
 // Bytes of dynamic shared memory decode_kernel<T, D> needs: q, then each
 // warp's P V sums and (m, l).
 template <int D>
@@ -819,9 +1121,58 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, float* part
   return (int)cudaGetLastError();
 }
 
-// The six built instantiations: dtype 0 = float32, 1 = bfloat16; D 32, 64, 128
-// (bf16 at 128 on decode_mma_kernel). `split` must be split_len(D) (the
-// callers size the partials by it).
+namespace {
+// Blocks of decode_g1_kernel<D, KV> the card holds at once, per device (0:
+// not read yet). In an unnamed namespace: a static of a template of the
+// named one would be one object across every loaded build of this header.
+template <int D, typename KV>
+int* g1_fit() {
+  static int fit[64];
+  return fit;
+}
+}  // namespace
+
+// The same for decode_g1_kernel (bf16, G = 1, D <= 64): as many blocks as
+// fit the card at once (the occupancy and the SM count, read once per
+// device), at most one per item.
+template <int D, typename KV>
+int launch_g1(const void* q, const void* k, const void* v, void* o, float* part_o,
+              float* part_ml, int* counters, const KV& kv, int B, int K, int n_splits,
+              int window, cudaStream_t st) {
+  constexpr int BYTES = g1::L<D>::BYTES;
+  int* fit = g1_fit<D, KV>();
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = dev < 64 ? fit[dev] : 0;
+  if (blocks == 0) {
+    auto kernel = decode_g1_kernel<D, KV>;
+    int per_sm = 0, sms = 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, g1::THREADS, BYTES);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    blocks = per_sm * sms;
+    if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+    if (dev < 64) fit[dev] = blocks;
+  }
+  const long long n_items = (long long)B * K * n_splits;
+  const long long n_part = n_items;
+  // as many items a block as the card's blocks need, spread evenly
+  const long long per_block = (n_items + blocks - 1) / blocks;
+  const int grid = (int)((n_items + per_block - 1) / per_block);
+  decode_g1_kernel<D, KV><<<grid, g1::THREADS, BYTES, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), part_o, part_ml, part_ml + n_part, counters, kv, B, K, n_splits,
+      window, 1.4426950408889634f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+// The built instantiations: dtype 0 = float32, 1 = bfloat16; D 32, 64, 128
+// (bf16 at 128 on decode_mma_kernel; bf16 at G = 1 and D <= 64 on
+// decode_g1_kernel). `split` must be split_len(D) (the callers size the
+// partials by it).
 template <typename KV>
 int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
              void* o, void* part_o, void* part_ml, void* counters, const KV& kv,
@@ -835,6 +1186,10 @@ int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 128)
     return launch_mma(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
+  if (dtype == 1 && D == 64 && H == K)
+    return launch_g1<64>(q, k, v, o, po, pml, cnt, kv, B, K, n_splits, window, st);
+  if (dtype == 1 && D == 32 && H == K)
+    return launch_g1<32>(q, k, v, o, po, pml, cnt, kv, B, K, n_splits, window, st);
   if (dtype == 1 && D == 64)
     return launch<bf16, 64>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
   if (dtype == 1 && D == 32)

@@ -23,10 +23,7 @@
 //    warpgroups of 64 rows each, and one producer warp. For D <= 64 two
 //    blocks share an SM (the registers allow 96 a thread), so while one
 //    warpgroup computes its softmax the other three keep the tensor cores
-//    busy; within a warpgroup a tile's S, softmax and P V run in turn. At
-//    D = 128 (added later; not redesigned) the block's shared memory (Q and
-//    the ring: 128 KB) and its O accumulator (64 floats a thread) leave one
-//    block an SM.
+//    busy; within a warpgroup a tile's S, softmax and P V run in turn.
 //  * The producer warp's lane 0 issues TMA loads: Q once per block, then
 //    the KV head's K and V tiles of 64 rows into a ring of STAGES slots in
 //    shared memory. Each slot has a "full" mbarrier (the TMA's byte count)
@@ -46,8 +43,7 @@
 //    O += P V is wgmma m64nDk16 with A = P from registers: the float32
 //    accumulator fragment of S, rounded to bf16 pairs, has the layout of
 //    the A register fragment; V is MN-major and read with the transpose
-//    bit. S, P and O never leave the registers. At D = 128, P V is two
-//    m64n64k16 products a k16 step, one per half of V's columns.
+//    bit. S, P and O never leave the registers.
 //  * The softmax is online, on the accumulator registers: each thread holds
 //    two rows of its warp's 16, so a row's max and sum are two shuffles
 //    across the quad; ex2.approx of scores scaled by log2(e)/sqrt(D).
@@ -57,6 +53,39 @@
 //    diagonal or the window edge evaluate the mask.
 //  * Blocks are launched heaviest-first (the last query tiles, which have
 //    the most KV tiles, lead the grid), so the short tiles fill its tail.
+//  * D = 128 (flash_d128_kernel, redesigned for Hopper after
+//    FlashAttention-3's forward). Q (32 KB), the rings and O (64 floats a
+//    thread) leave one block an SM, so no second block fills the consumers'
+//    gaps; the block makes its own overlap. Three warpgroups: a producer
+//    that gives its registers up (setmaxnreg.dec 24) and two consumers of
+//    64 rows that take them (240). The consumers take turns at the tensor
+//    cores through two named barriers (bar.sync / bar.arrive): warpgroup 0
+//    issues a KV tile's products, then warpgroup 1 issues its own while 0
+//    runs its softmax, so the exponentials of one run under the other's
+//    products. Within a warpgroup, tile j's S = Q K^T is issued before tile
+//    j - 1's O += P V, and tile j's softmax runs while that product is in
+//    flight (wait_group 1); O is rescaled under S. No A fragment is written
+//    while a wgmma reading one is in flight, so ptxas serializes nothing (no
+//    C751x note). KV tiles of 128 rows (S m64n128, 64 floats a thread) in
+//    rings of 2 for K and 2 for V with their own barriers, so K_(j+1) loads
+//    once S_(j-1) is done and V_j once P V_(j-2) is: Q, the rings and O
+//    take 192 KB. P V is one m64n128k16 wgmma a step over V's two
+//    64-column TMA boxes (a descriptor whose leading byte offset spans the
+//    halves). The
+//    grid is persistent, one block an SM, each walking output tiles in
+//    heaviest-first order dealt out as a snake over the blocks, so that the
+//    next tile's Q and K/V loads run under this tile's last P V and its
+//    epilogue instead of after them. O leaves through shared memory (32
+//    KB, in the map's 128-byte swizzle) by two TMA stores a warpgroup:
+//    stored from the registers, 4 bytes a thread with rows 10 KB apart at
+//    qwen's shape, the epilogue took a fifth of the kernel. (Holding a
+//    tile's store until the next tile's first S is issued made ptxas wait
+//    for that product before the O registers are read, C7517: not kept.)
+//    FWD_BN, FWD_PV_N64, FWD_ONE_TILE, FWD_NOEXP, FWD_NOPV, FWD_NOLOAD and
+//    FWD_NOSTORE (tools/fwd_breakdown.py) build its variants: 64-row KV
+//    tiles, two n64 products, one block a tile (no persistence), no
+//    exponentials or mask, no P V, no K/V loads after each slot's first,
+//    no O stores (the last four wrong by design).
 //  * float32 inputs have no exact tensor-core path (TF32 would round
 //    them), so they take a scalar kernel: one thread per query row (two at
 //    D = 128, each holding half of the row's q and o, their dot products
@@ -361,6 +390,414 @@ __global__ void __launch_bounds__(THREADS, D > 64 ? 1 : 2)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at D = 128: a producer warpgroup and two consumer warpgroups that
+// take turns at the tensor cores (FlashAttention-3's forward shape).
+// ---------------------------------------------------------------------------
+#ifndef FWD_BN
+#define FWD_BN 128
+#endif
+namespace d128 {
+constexpr int D = 128;
+constexpr int BN = FWD_BN;                     // KV rows a tile
+constexpr int SLOTS = BN == 128 ? 2 : 4;      // slots of the K ring, and of the V ring
+constexpr int TILE = BN * D * 2;               // bytes of one K or V tile
+constexpr int NTHREADS = 128 * (CONSUMERS + 1); // the consumers, then the producer warpgroup
+// At launch ptxas gives a thread 65536 / 384 = 168 registers; the producer
+// warpgroup keeps 24 and the consumers rise to 240:
+// (168 - 24) x 128 = (240 - 168) x 256
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+// Shared memory from a 1024-byte aligned base: Q (the block's 128 rows),
+// the K ring, the V ring, O (each warpgroup's 64 rows as two [64][64]
+// halves, for the TMA store), then the barriers
+constexpr int Q = 0;
+constexpr int K = Q + BM * D * 2;
+constexpr int V = K + SLOTS * TILE;
+constexpr int O = V + SLOTS * TILE;
+constexpr int O_WG = BQ * D * 2;  // bytes of a warpgroup's rows of O
+constexpr int BAR = O + CONSUMERS * O_WG;
+constexpr int BYTES = BAR + (4 * SLOTS + 2) * 8 + 1024;  // + alignment slack
+static_assert(BN == 128 || BN == 64, "FWD_BN is 128 or 64");
+static_assert(BYTES <= 232448, "the block's shared memory exceeds the SM's");
+}  // namespace d128
+
+// Keeps the compiler from sinking writes of A fragments past the
+// wgmma.fence that precedes the wgmma reading them.
+template <int KS>
+__device__ __forceinline__ void fence_frag(uint32_t (&r)[KS][4]) {
+#pragma unroll
+  for (int i = 0; i < KS; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// S = Q K^T for one warpgroup: 64 x BN over D / 16 k16 steps, both operands
+// K-major in shared memory (their halves BM and BN rows on, hopper.cuh
+// k_step).
+__device__ __forceinline__ void d128_qk(float* s, uint64_t dq, uint64_t dk) {
+#pragma unroll
+  for (int kk = 0; kk < d128::D / 16; ++kk) {
+    if constexpr (d128::BN == 128)
+      wgmma_ss_n128(s, k_step<128>(dq, BM, kk), k_step<128>(dk, d128::BN, kk), kk > 0);
+    else
+      wgmma_ss_n64(s, k_step<128>(dq, BM, kk), k_step<128>(dk, d128::BN, kk), kk > 0);
+  }
+}
+
+// O += P V for one warpgroup: BN / 16 k16 steps of 16 rows of the V tile at
+// `v`, P the A fragments. One m64n128 product a step over both halves of V
+// (a descriptor whose leading byte offset spans them); with FWD_PV_N64,
+// two m64n64 products a step, one a half.
+__device__ __forceinline__ void d128_pv(float* o, uint32_t (*p)[4], const uint8_t* v) {
+#ifdef FWD_NOPV
+  return;
+#endif
+#pragma unroll
+  for (int kk = 0; kk < d128::BN / 16; ++kk) {
+#ifdef FWD_PV_N64
+    mma_rs<128>(o, p[kk], smem_desc<128>(v) + mn_step<128>() * kk, d128::BN);
+#else
+    wgmma_rs_n128(o, p[kk], smem_desc_n128(v, d128::BN) + mn_step<128>() * kk);
+#endif
+  }
+}
+
+// The online softmax of one tile on the S accumulator (this thread's rows
+// qp0, qp1 and its columns from key k0 + c0): the mask unless every pair of
+// the warpgroup's rows and the tile is valid, the rows' new max m (log2
+// units) and the factor al by which their O and l shrink, then s = P
+// (ex2 of the scaled scores less m) and l's new value. A row with no valid
+// key yet keeps m = -inf and subtracts 0, so that its masked scores give
+// exp2(-inf) = 0 and not NaN.
+template <int NS>
+__device__ __forceinline__ void d128_softmax(float* s, float& m0, float& m1, float& l0, float& l1,
+                                             float& al0, float& al1, bool full, int qp0, int qp1,
+                                             int k0, int c0, int window, float scale_log2) {
+#ifndef FWD_NOEXP
+  if (!full) {
+#pragma unroll
+    for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + 8 * n + c0 + (e & 1);
+        if (!valid_pair(e < 2 ? qp0 : qp1, kp, window)) s[n * 4 + e] = -INFINITY;
+      }
+  }
+#endif
+  float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < NS / 4; ++n) {
+    x0 = fmaxf(x0, fmaxf(s[n * 4], s[n * 4 + 1]));
+    x1 = fmaxf(x1, fmaxf(s[n * 4 + 2], s[n * 4 + 3]));
+  }
+  x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 1));
+  x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 2));
+  x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 1));
+  x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 2));
+  const float n0 = fmaxf(m0, x0 * scale_log2), n1 = fmaxf(m1, x1 * scale_log2);
+  const float u0 = n0 == -INFINITY ? 0.f : n0, u1 = n1 == -INFINITY ? 0.f : n1;
+  al0 = ex2(m0 - u0);
+  al1 = ex2(m1 - u1);
+  m0 = n0;
+  m1 = n1;
+  float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < NS / 4; ++n) {
+#ifdef FWD_NOEXP
+    s[n * 4 + 0] = fmaf(s[n * 4 + 0], scale_log2, -u0);
+    s[n * 4 + 1] = fmaf(s[n * 4 + 1], scale_log2, -u0);
+    s[n * 4 + 2] = fmaf(s[n * 4 + 2], scale_log2, -u1);
+    s[n * 4 + 3] = fmaf(s[n * 4 + 3], scale_log2, -u1);
+#else
+    s[n * 4 + 0] = ex2(fmaf(s[n * 4 + 0], scale_log2, -u0));
+    s[n * 4 + 1] = ex2(fmaf(s[n * 4 + 1], scale_log2, -u0));
+    s[n * 4 + 2] = ex2(fmaf(s[n * 4 + 2], scale_log2, -u1));
+    s[n * 4 + 3] = ex2(fmaf(s[n * 4 + 3], scale_log2, -u1));
+#endif
+    p0 += s[n * 4 + 0] + s[n * 4 + 1];
+    p1 += s[n * 4 + 2] + s[n * 4 + 3];
+  }
+  l0 = l0 * al0 + p0;  // this thread's part of the row sums
+  l1 = l1 * al1 + p1;
+}
+
+// The 64 x BN accumulator as the A fragments of BN / 16 k16 steps, rounded
+// to bf16: columns 16kk .. 16kk+15 are its n8 blocks 2kk and 2kk+1.
+template <int KS>
+__device__ __forceinline__ void acc_to_a(uint32_t (&r)[KS][4], const float* c) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    r[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+    r[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+    r[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+    r[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+template <int NO>
+__device__ __forceinline__ void rescale(float* o, float al0, float al1) {
+#pragma unroll
+  for (int n = 0; n < NO / 4; ++n) {
+    o[n * 4 + 0] *= al0;
+    o[n * 4 + 1] *= al0;
+    o[n * 4 + 2] *= al1;
+    o[n * 4 + 3] *= al1;
+  }
+}
+
+// The k-th output tile (k = 0, 1, ...) of block x of a grid of g blocks
+// over `total` tiles: index k g + x in even rounds, k g + g - 1 - x in odd
+// ones (a snake, so that the heaviest-first order leaves the blocks' sums
+// of work close); -1 past the last.
+__device__ __forceinline__ int d128_tile(int k, int total) {
+  const int g = gridDim.x, x = blockIdx.x;
+  const int i = k * g + ((k & 1) ? g - 1 - x : x);
+  return i < total ? i : -1;
+}
+
+// A tile's place: tile index i counts from the heaviest (the last query
+// rows of each (row, head), which walk the most KV tiles) down; the KV
+// tiles [lo, lo + n BN) both warpgroups walk, from the window's edge of
+// the block's first row to the diagonal of its last.
+struct D128Tile {
+  int q0, h, b, lo, n;
+  __device__ __forceinline__ D128Tile(int i, int B, int n_qt, const TmaArgs& a) {
+    const int hb = a.H * B;
+    q0 = (n_qt - 1 - i / hb) * BM;
+    h = (i % hb) % a.H;
+    b = (i % hb) / a.H;
+    int hi;
+    kv_range(q0, a.S, a.window, d128::BN, &lo, &hi);
+    hi = min(q0 + BM, a.S);
+    n = (hi - lo + d128::BN - 1) / d128::BN;
+  }
+};
+
+// Grid: one block an SM (at most one a tile), each walking its tiles
+// d128_tile(0), d128_tile(1), ... of the B H ceil(S / BM) output tiles;
+// d128::NTHREADS threads; d128::BYTES of dynamic shared memory. Warpgroups
+// 0 and 1 consume query rows [q0 + 64 wg, + 64) of each tile; warpgroup 2
+// is the producer, whose first thread issues the TMA loads. The K and V
+// rings run on across the block's tiles, and the next tile's Q is loaded
+// once the consumers' last S = Q K^T of this one is done, so that the
+// next tile's loads run under this tile's last P V and its epilogue.
+__global__ void __launch_bounds__(d128::NTHREADS, 1)
+    flash_d128_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap to, TmaArgs a, int o_slots, int B) {
+  using namespace d128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + BAR);
+  uint64_t* empty_k = full_k + SLOTS;
+  uint64_t* full_v = empty_k + SLOTS;
+  uint64_t* empty_v = full_v + SLOTS;
+  uint64_t* q_full = empty_v + SLOTS;
+  uint64_t* q_empty = q_full + 1;
+  const int n_qt = (a.S + BM - 1) / BM;
+  const int total = n_qt * a.H * B;
+  const int warp = warp_index();
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < SLOTS; ++i) {
+      mbar_init(&full_k[i], 1);
+      mbar_init(&empty_k[i], 128 * CONSUMERS);
+      mbar_init(&full_v[i], 1);
+      mbar_init(&empty_v[i], 128 * CONSUMERS);
+    }
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 128 * CONSUMERS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * CONSUMERS) {  // producer: per tile Q, then K_0, then K_it and V_(it-1) in turn
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 128 * CONSUMERS) {
+      int kv = 0;  // K (and V) tiles loaded before this output tile
+      for (int k = 0, i; (i = d128_tile(k, total)) >= 0; ++k) {
+        const D128Tile t(i, B, n_qt, a);
+        const int kh = t.h / (a.H / a.K);
+        if (k > 0) mbar_wait(q_empty, (k - 1) & 1);
+        mbar_expect_tx(q_full, BM * D * 2);
+        tma_tile<D>(smem + Q, &tq, q_full, a.q_slots, BM, t.q0, t.h, t.b);
+        for (int it = 0; it <= t.n; ++it) {
+          if (it < t.n) {
+            const int j = kv + it, st = j % SLOTS;
+            if (j >= SLOTS) mbar_wait(&empty_k[st], ((j / SLOTS) - 1) & 1);
+#ifdef FWD_NOLOAD
+            if (j >= SLOTS) {  // the slot keeps its first tile: no load
+              mbar_arrive(&full_k[st]);
+            } else
+#endif
+            {
+              mbar_expect_tx(&full_k[st], TILE);
+              tma_tile<D>(smem + K + st * TILE, &tk, &full_k[st], a.k_slots, BN, t.lo + it * BN,
+                          kh, t.b);
+            }
+          }
+          if (it > 0) {
+            const int j = kv + it - 1, st = j % SLOTS;
+            if (j >= SLOTS) mbar_wait(&empty_v[st], ((j / SLOTS) - 1) & 1);
+#ifdef FWD_NOLOAD
+            if (j >= SLOTS) {
+              mbar_arrive(&full_v[st]);
+            } else
+#endif
+            {
+              mbar_expect_tx(&full_v[st], TILE);
+              tma_tile<D>(smem + V + st * TILE, &tv, &full_v[st], a.v_slots, BN,
+                          t.lo + (it - 1) * BN, kh, t.b);
+            }
+          }
+        }
+        kv += t.n;
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  // consumer warpgroup wg. Both walk all t.n KV tiles of each output tile
+  // (a tile outside a warpgroup's window is masked whole), so that they
+  // take turns evenly: warpgroup wg issues its products after
+  // bar_sync(1 + wg) and then lets the other issue theirs (bar_arrive(2 -
+  // wg)), so one warpgroup's softmax runs under the other's products.
+  // Within a warpgroup, KV tile it's S = Q K^T is issued before tile
+  // it - 1's O += P V, and tile it's softmax runs while that product is in
+  // flight.
+  constexpr int NS = BN / 2;  // S accumulator floats a thread
+  constexpr int NO = D / 2;   // O accumulator floats a thread
+  constexpr int KS = BN / 16; // k16 steps of P V
+  const int wg = warp / 4, t128 = threadIdx.x % 128, lane = threadIdx.x % 32;
+  // this thread's rows (of the warpgroup's 64) and its first key column:
+  // s[n*4 + i*2 + j] is row r0 + 8i, key k0 + 8n + c0 + j
+  const int r0 = (t128 / 32) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const int mine = 1 + wg, theirs = 2 - wg;
+  // the warpgroup's rows of Q (of each half)
+  const uint64_t dq = smem_desc<D>(smem + Q + wg * BQ * box_cols<D>() * 2);
+  const uint64_t dk0 = smem_desc<D>(smem + K);
+
+  float o[NO], s[NS];
+  uint32_t p[KS][4];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = 0.f;
+  if (wg == 1) bar_arrive(1, 256);  // warpgroup 0 goes first
+  int kv = 0;  // K (and V) tiles consumed before this output tile
+  for (int k = 0, i; (i = d128_tile(k, total)) >= 0; ++k) {
+    const D128Tile t(i, B, n_qt, a);
+    // warpgroup 1's last turn of the block hands on nothing
+    const bool last_tile = d128_tile(k + 1, total) < 0;
+    const int q0w = t.q0 + wg * BQ;
+    const int qp0 = q0w + r0, qp1 = qp0 + 8;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) o[j] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, al0 = 1.f, al1 = 1.f;
+
+    mbar_wait(q_full, k & 1);
+    // KV tile 0: S alone
+    {
+      const int st = kv % SLOTS;
+      mbar_wait(&full_k[st], (kv / SLOTS) & 1);
+      bar_sync(mine, 256);
+      fence_regs<NS>(s);
+      wg_fence();
+      d128_qk(s, dq, dk0 + (uint64_t)((st * TILE) >> 4));
+      wg_commit();
+      if (wg == 0 || !(last_tile && t.n == 1)) bar_arrive(theirs, 256);
+      wg_wait<0>();
+      fence_regs<NS>(s);
+      mbar_arrive(&empty_k[st]);
+      if (t.n == 1) mbar_arrive(q_empty);  // Q is read
+      d128_softmax<NS>(s, m0, m1, l0, l1, al0, al1, tile_full(q0w, t.lo, BN, a.window), qp0,
+                       qp1, t.lo, c0, a.window, a.scale_log2);
+      acc_to_a<KS>(p, s);
+    }
+    for (int it = 1; it < t.n; ++it) {
+      const int sk = (kv + it) % SLOTS, sv = (kv + it - 1) % SLOTS;
+      const int k0 = t.lo + it * BN;
+      mbar_wait(&full_k[sk], ((kv + it) / SLOTS) & 1);
+      bar_sync(mine, 256);
+      fence_regs<NS>(s);
+      wg_fence();
+      d128_qk(s, dq, dk0 + (uint64_t)((sk * TILE) >> 4));
+      wg_commit();
+      rescale<NO>(o, al0, al1);  // under S: tile it - 1's factor
+      mbar_wait(&full_v[sv], ((kv + it - 1) / SLOTS) & 1);
+      fence_regs<NO>(o);
+      fence_frag(p);
+      wg_fence();
+      d128_pv(o, p, smem + V + sv * TILE);
+      wg_commit();
+      if (wg == 0 || !(last_tile && it == t.n - 1)) bar_arrive(theirs, 256);
+      wg_wait<1>();  // S of tile it is in; its P V in flight
+      fence_regs<NS>(s);
+      mbar_arrive(&empty_k[sk]);
+      if (it == t.n - 1) mbar_arrive(q_empty);  // Q is read
+      d128_softmax<NS>(s, m0, m1, l0, l1, al0, al1, tile_full(q0w, k0, BN, a.window), qp0,
+                       qp1, k0, c0, a.window, a.scale_log2);
+      wg_wait<0>();
+      fence_regs<NO>(o);
+      mbar_arrive(&empty_v[sv]);
+      acc_to_a<KS>(p, s);
+    }
+    // the last KV tile's P V
+    const int sv = (kv + t.n - 1) % SLOTS;
+    rescale<NO>(o, al0, al1);
+    mbar_wait(&full_v[sv], ((kv + t.n - 1) / SLOTS) & 1);
+    fence_regs<NO>(o);
+    fence_frag(p);
+    wg_fence();
+    d128_pv(o, p, smem + V + sv * TILE);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs<NO>(o);
+    mbar_arrive(&empty_v[sv]);
+    kv += t.n;
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (a.lse != nullptr && lane % 4 == 0) {
+      // m is in log2 units of the scaled scores: lse = (m + log2 l) ln 2
+      float* lb = a.lse + ((long long)t.b * a.H + t.h) * a.S;
+      if (qp0 < a.S) lb[qp0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * 0.6931471805599453f;
+      if (qp1 < a.S) lb[qp1] = (m1 + log2f(fmaxf(l1, 1e-30f))) * 0.6931471805599453f;
+    }
+#ifndef FWD_NOSTORE
+    // O through shared memory and two TMA stores (one a 64-column half;
+    // rows past S are not written): the warpgroup's rows as the map's
+    // 128-byte swizzle lays them, 16-byte piece c of row r at piece
+    // c ^ (r % 8), so a quad's 16 bytes of 8 rows hit 8 distinct banks.
+    // The buffer is free once the last tile's stores have read it.
+    uint8_t* ow = smem + O + wg * O_WG;
+    if (t128 == 0) bulk_wait_read<0>();
+    bar_sync(3 + wg, 128);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      uint8_t* half = ow + (n / 8) * (BQ * 128);
+      const int piece = n % 8, off = c0 * 2;
+      *reinterpret_cast<uint32_t*>(half + r0 * 128 + ((piece ^ (r0 % 8)) * 16) + off) =
+          pack_bf16(o[n * 4 + 0] * inv0, o[n * 4 + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(half + (r0 + 8) * 128 + ((piece ^ ((r0 + 8) % 8)) * 16) + off) =
+          pack_bf16(o[n * 4 + 2] * inv1, o[n * 4 + 3] * inv1);
+    }
+    fence_proxy_async();
+    bar_sync(3 + wg, 128);
+    if (t128 == 0) {
+      tma_store(&to, ow, o_slots, q0w, t.h, t.b, 0);
+      tma_store(&to, ow + BQ * 128, o_slots, q0w, t.h, t.b, 64);
+      bulk_commit();
+    }
+#endif
+  }
+  if (t128 == 0) bulk_wait<0>();  // the last stores are done before the block leaves
+}
+
+// ---------------------------------------------------------------------------
 // float32: scalar FMA, one thread per query row (f32_tpr<D>() threads: each
 // holds DP = D / f32_tpr<D>() columns of the row's q and o), 64 rows a block.
 // ---------------------------------------------------------------------------
@@ -499,6 +936,62 @@ int launch_bf16(const Args& a, int B, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The head-dim-128 bf16 forward: tensor maps of 128-row Q boxes and
+// BN-row K and V boxes. Once per device: its shared memory above 48 KB, and
+// the check that its register count at launch leaves room for the
+// consumers' setmaxnreg.inc from what the producer gives up (an increase
+// the pool cannot serve would never return).
+int launch_d128(const Args& a, int B, cudaStream_t st) {
+  using namespace d128;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);  // bind the primary context
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tq, tk, tv;
+  TmaArgs t;
+  int rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BM, &t.q_slots);
+  if (!rc) rc = encode(&tk, a.k, D, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BN, &t.k_slots);
+  if (!rc) rc = encode(&tv, a.v, D, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BN, &t.v_slots);
+  CUtensorMap to;
+  int o_slots = 0;
+  if (!rc) rc = encode(&to, a.o, D, a.S, a.H, B, a.os.s, a.os.h, a.os.b, BQ, &o_slots);
+  if (rc) return rc;
+  t.o = static_cast<bf16*>(a.o);
+  t.lse = a.lse;
+  t.os = a.os;
+  t.H = a.H;
+  t.K = a.K;
+  t.S = a.S;
+  t.window = a.window;
+  t.scale_log2 = a.scale * 1.4426950408889634f;
+  static unsigned long long ready = 0;
+  static int sms[64];  // SMs of each device: the persistent grid's blocks
+  if (dev >= 64 || !(ready >> dev & 1)) {
+    int n = 0;
+    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)err;
+    sms[dev < 64 ? dev : 0] = n;
+    err = cudaFuncSetAttribute(flash_d128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               BYTES);
+    if (err != cudaSuccess) return (int)err;
+    cudaFuncAttributes attr;
+    if ((err = cudaFuncGetAttributes(&attr, flash_d128_kernel)) != cudaSuccess) return (int)err;
+    const int r = attr.numRegs;
+    if (r > CONSUMER_REGS || r < PRODUCER_REGS ||
+        (r - PRODUCER_REGS) * 128 < (CONSUMER_REGS - r) * 128 * CONSUMERS)
+      return (int)cudaErrorInvalidConfiguration;
+    if (dev < 64) ready |= 1ull << dev;
+  }
+  const int tiles = (a.S + BM - 1) / BM * a.H * B;
+#ifdef FWD_ONE_TILE
+  const int grid = tiles;
+#else
+  const int grid = tiles < sms[dev < 64 ? dev : 0] ? tiles : sms[dev < 64 ? dev : 0];
+#endif
+  flash_d128_kernel<<<grid, NTHREADS, BYTES, st>>>(tq, tk, tv, to, t, o_slots, B);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. lse: float32 [B,H,S] (contiguous) for
@@ -524,7 +1017,7 @@ extern "C" int repro_flash_attention_lse(
   a.scale = 1.0f / sqrtf((float)D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  if (dtype == 1 && D == 128) return launch_bf16<128>(a, B, st);
+  if (dtype == 1 && D == 128) return launch_d128(a, B, st);
   if (dtype == 1 && D == 64) return launch_bf16<64>(a, B, st);
   if (dtype == 1 && D == 32) return launch_bf16<32>(a, B, st);
   constexpr int wide = BQ * f32_tpr<128>();  // threads a float32 block at D = 128

@@ -8,12 +8,13 @@ points in ``csrc/decode_attention.cu``). Its plain version is
 
 Layout: q ``[B,H,D]``; k/v ``[B,S,K,D]``, which is the decode cache
 ``[B, S_max, K*D]`` viewed without a copy. The cache is cut into splits of
-``split_len(D)`` positions (64 at head dim 128, else 128); one block per
-(row, KV head, split) reads its K/V
-rows once for the KV head's ``G = H/K`` query heads (at most ``MAX_G``) and
-writes an unnormalised partial to a scratch buffer. In the same launch the
-last block of each (row, KV head) to finish, elected by a ticket counter,
-combines the partials in split order, so the result is deterministic. The
+``split_len(D)`` positions (64 at head dim 128, else 128); each (row, KV
+head, split) is read once for the KV head's ``G = H/K`` query heads (at
+most ``MAX_G``), by a block of its own (or, in bf16 at G = 1, by one of a
+one-wave grid's blocks walking such splits), into an unnormalised partial
+in a scratch buffer. In the same launch the last block of each (row, KV
+head) to finish, elected by a ticket counter, combines the partials in
+split order, so the result is deterministic. The
 counters are this module's, one zeroed int32 buffer per device that every
 launch leaves at zero (so a captured CUDA graph replays correctly); two
 launches that may run at once on different streams must not share it. A
@@ -40,6 +41,10 @@ from repro_torch.kernels import build
 launches = 0
 #: launches of the kernel over a ring-buffer cache, likewise
 ring_launches = 0
+#: the shared library whose C entries the wrappers launch: None for the one
+#: built from ``csrc/decode_attention.cu``; the path of another build of it
+#: (with diagnostic macros, ``tools/decode_tail.py --define``) runs that one
+library = None
 
 HEAD_DIMS = (32, 64, 128)
 MAX_G = 16           # query heads per KV head (GMAX in the source)
@@ -51,8 +56,9 @@ _outgrown: list[torch.Tensor] = []
 
 
 @functools.cache
-def _bind(entry):
-    fn = getattr(build.load("decode_attention"), entry)
+def _bind(path, entry):
+    lib = build.load("decode_attention") if path is None else ctypes.CDLL(str(path))
+    fn = getattr(lib, entry)
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -135,7 +141,7 @@ def _launch(entry, q, k, v, ns, *ints):
     o = torch.empty_like(q)
     part_o, part_ml = partials(B, H, K, D, ns, q.device)
     cnt = counters(q.device, B * K)
-    fn = _bind(entry)
+    fn = _bind(library, entry)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -28,14 +28,18 @@ from repro_torch.kernels.decode_attention import (HEAD_DIMS, MAX_G, counters, pa
 
 #: launches of the CUDA kernel since the count was last set to 0
 launches = 0
+#: the shared library whose C entry the wrapper launches: None for the one
+#: built from ``csrc/paged_decode_attention.cu``; the path of another build
+#: of it runs that one (``tools/decode_tail.py --define``)
+library = None
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _I64 = ctypes.c_longlong
 
 
 @functools.cache
-def _bind():
-    lib = build.load("paged_decode_attention")
+def _bind(path):
+    lib = build.load("paged_decode_attention") if path is None else ctypes.CDLL(str(path))
     fn = lib.repro_paged_decode_attention
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [_I64] * 3
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -98,7 +102,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *, window=N
     o = torch.empty_like(q)
     part_o, part_ml = partials(B, H, K, D, n_splits(n_tab, page, D), dev)
     cnt = counters(dev, B * K)
-    fn = _bind()
+    fn = _bind(library)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),

@@ -117,11 +117,12 @@ def test_flash_kernel_on_model_views_equals_contiguous_copy(cuda, dtype):
     assert torch.equal(a, b)
 
 
-def _decode_calls(cuda, dtype, D=64):
+def _decode_calls(cuda, dtype, D=64, G=4):
     """One call each of K2, K2 over a ring and K3 at small shapes (head dim
-    ``D``), as closures over fixed inputs; with their launch counters."""
+    ``D``, ``G`` query heads a KV head), as closures over fixed inputs; with
+    their launch counters."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    B, H, K, S = 2, 8, 2, 300
+    B, H, K, S = 2, 2 * G, 2, 300
     q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
     k, v = (torch.randn(B, S, K, D, generator=g, device=cuda).to(dtype) for _ in range(2))
     kr, vr = (torch.randn(B, 64, K, D, generator=g, device=cuda).to(dtype) for _ in range(2))
@@ -1538,3 +1539,231 @@ def test_dense_family_smoke_train_step_on_card_matches_plain_path(cuda, determin
     assert abs(total.item() - want_total.item()) <= 1e-5 * abs(want_total.item())
     for a, b in zip(tree_leaves(grads), tree_leaves(want)):
         assert _rel(a, b) <= 1e-4
+
+
+# -- K1 at head dim 128 on a producer warpgroup and two consumer warpgroups
+#    that take turns (128-row KV tiles); the bf16 decode at G = 1 (minicpm-2b)
+#    on its own kernel, whose blocks walk the (row, KV head, split) items ----
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 255, 256, 1000, 1024, 1536])
+def test_flash_d128_kernel_at_tile_edges(cuda, S):
+    """bf16 K1 at D = 128: 128-row query blocks of two 64-row warpgroups
+    over 128-row KV tiles, S on both sides of each edge, G = 5, the model's
+    strided views; the logsumexp against the plain one, and the output with
+    it written equal to the prefill's bit for bit."""
+    q, k, v = _flash_views(cuda, 2, 10, 2, S, 128, torch.bfloat16, seed=S + 128)
+    _flash_held(q, k, v, None, torch.bfloat16)
+    o, lse = FA.flash_attention(q, k, v, lse=True)
+    torch.testing.assert_close(lse, ref.naive_attention_lse(q, k), rtol=0, atol=LSE_TOL)
+    assert torch.equal(o, FA.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("window", [1, 63, 64, 65, 127, 128, 129, 200, 1000])
+@pytest.mark.parametrize("G", [1, 5, 8, 16])
+def test_flash_d128_kernel_windows_and_groups(cuda, window, G):
+    """Windows narrower and wider than a KV tile and a query block (a tile
+    outside one warpgroup's window is masked whole; its rows start with no
+    valid key), and G = 1, 5, 8, 16 query heads a KV head; the logsumexp."""
+    q, k, v = _flash_views(cuda, 1, 2 * G, 2, 600, 128, torch.bfloat16, seed=window + G)
+    _flash_held(q, k, v, window, torch.bfloat16)
+    _, lse = FA.flash_attention(q, k, v, window=window, lse=True)
+    torch.testing.assert_close(lse, ref.naive_attention_lse(q, k, window=window), rtol=0,
+                               atol=LSE_TOL)
+
+
+def test_flash_d128_kernel_is_deterministic(cuda):
+    """Two launches at qwen2.5-14b's prefill shape (one row) give equal bits."""
+    q, k, v = _flash_views(cuda, 1, 40, 8, 1024, 128, torch.bfloat16, seed=40)
+    a = FA.flash_attention(q, k, v, lse=True)
+    b = FA.flash_attention(q, k, v, lse=True)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    _close(a[0], ref.naive_attention(q, k, v), torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("length,window", [
+    (1, None), (S64 - 1, None), (S64, None), (S64 + 1, None), (1000, None), (1056, None),
+    (16 * S64, None), (16 * S64 + 1, None), (40 * S64 + 7, None), (1056, 50), (1056, 200),
+    (40 * S64 + 7, 1000)])
+def test_decode_g1_kernel_matches_plain(cuda, length, window, D):
+    """bf16 K2 at G = 1 (minicpm-2b: one query head a KV head) around its
+    128-position split, over more splits than the combine's load batch
+    (16) and than a warp's lanes (32), with windows; one launch, two calls
+    bit-equal."""
+    B, H = 2, 4
+    g = torch.Generator(device=cuda).manual_seed(length + D)
+    q = torch.randn(B, H, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, length + 3, H, D, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    n0 = DA.launches
+    out = ops.decode_attention(q, k, v, length, window=window)
+    assert DA.launches == n0 + 1
+    _close(out, ref.naive_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
+                                           length, window=window), torch.bfloat16)
+    assert torch.equal(out, ops.decode_attention(q, k, v, length, window=window))
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("W,window,pos", [(64, 64, 40), (1024, 1024, 1567), (300, 256, 1000),
+                                          (2100, 2100, 2099)])
+def test_ring_decode_g1_kernel_matches_plain(cuda, W, window, pos, D):
+    g = torch.Generator(device=cuda).manual_seed(pos + D)
+    q = torch.randn(2, 4, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(2, W, 4, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    n0 = DA.ring_launches
+    out = DA.ring_decode_attention(q, k, v, pos, window=window)
+    assert DA.ring_launches == n0 + 1
+    _close(out, ref.naive_ring_decode_attention(q, k, v, pos, window=window), torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("lengths,window", [([1, S64 - 1], None), ([S64, S64 + 1], None),
+                                            ([1056, 300], None), ([1056, 0], 50),
+                                            ([17 * S64 + 5, 9], None)])
+def test_paged_decode_g1_kernel_over_shuffled_pages(cuda, lengths, window, D):
+    """K3 at G = 1 over a 3-layer store's strided view and a shuffled table."""
+    q, kp, vp, table, lens = _paged_inputs(cuda, 2, 4, 4, D, 3, 1, lengths, 16,
+                                           torch.bfloat16, seed=sum(lengths) + D)
+    n0 = PA.launches
+    out = PA.paged_decode_attention(q, kp, vp, table, lens, window=window)
+    assert PA.launches == n0 + 1
+    _close(out, ref.naive_paged_decode_attention(q, kp, vp, table, lens, window=window),
+           torch.bfloat16)
+    assert torch.equal(out, PA.paged_decode_attention(q, kp, vp, table, lens, window=window))
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("length,window", [(1, None), (S64 + 1, None), (1000, None),
+                                           (1056, None), (1056, 70), (2200, None)])
+def test_paged_g1_kernel_over_in_order_pages_equals_contiguous(cuda, length, window, D):
+    """At G = 1 the paged decode over pages in order gives the contiguous
+    decode's bits: both cut a row into the same splits."""
+    B, H, page, S = 2, 4, 16, 2208
+    g = torch.Generator(device=cuda).manual_seed(length + D)
+    q = torch.randn(B, H, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, S, H, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    n = S // page
+    table = torch.arange(B * n, dtype=torch.int32, device=cuda).view(B, n)
+    lens = torch.full((B,), length, dtype=torch.int32, device=cuda)
+    paged = PA.paged_decode_attention(q, k.view(B * n, page, H, D), v.view(B * n, page, H, D),
+                                      table, lens, window=window)
+    assert torch.equal(paged, DA.decode_attention(q, k, v, length, window=window))
+
+
+def test_decode_g1_lane_gives_a_batched_rows_bits(cuda):
+    """A row decoded alone (B = 1, as a fleet lane) equals the same row of
+    a batch of 4 at minicpm-2b's shape: the blocks walk other items, but
+    each item's partial and the combine do not depend on B."""
+    B, H, D, L = 4, 36, 64, 1056
+    g = torch.Generator(device=cuda).manual_seed(36)
+    q = torch.randn(B, H, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, L, H, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    batch = DA.decode_attention(q, k, v, L)
+    for b in range(B):
+        assert torch.equal(DA.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], L),
+                           batch[b:b + 1])
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("kind", ["decode", "ring", "paged"])
+def test_decode_g1_kernels_are_deterministic_across_launches(cuda, kind, D):
+    fn, _, _ = _decode_calls(cuda, torch.bfloat16, D, G=1)[kind]
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("kind", ["decode", "ring", "paged"])
+def test_decode_g1_kernels_replay_in_a_cuda_graph(cuda, kind, D):
+    """Three G = 1 calls captured in one graph and replayed three times
+    equal the eager calls bit for bit: each launch leaves its ticket
+    counters at 0."""
+    fn, _, _ = _decode_calls(cuda, torch.bfloat16, D, G=1)[kind]
+    lengths = (300, 129, 1)
+    eager = [fn(L) for L in lengths]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(L) for L in lengths]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, eager):
+            assert torch.equal(got, want)
+    assert torch.equal(fn(300), eager[0])
+
+
+def test_decode_g1_graph_replays_after_the_counters_grow(cuda):
+    """A G = 1 graph captured before a larger launch grows the ticket
+    counters still replays equal to the eager call."""
+    fn, _, _ = _decode_calls(cuda, torch.bfloat16, 64, G=1)["decode"]
+    want = fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    K, D, S = 4, 64, 300
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows = DA.counters(dev, 1).numel() // K + 1
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn(rows, K, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(rows, S, K, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    big = DA.decode_attention(q, k, v, S)
+    _close(big, ref.naive_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2), S),
+           torch.bfloat16)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(DA.decode_attention(q, k, v, S), big)
+
+
+def _decode_g1_one_launch_profile():
+    """The profiled calls of test_decode_g1_kernels_are_one_launch_per_call,
+    run as ``python -c`` in a process of its own: prints, as JSON, for each
+    G = 1 call (K2, K2 over a ring, K3; D 32 and 64) the decode kernels the
+    profiler saw over 3 calls with their counts, and the wrapper's launch
+    count over those calls."""
+    cuda = torch.device("cuda")
+    out = {}
+    for D in (32, 64):
+        for kind, (fn, counter, mod) in _decode_calls(cuda, torch.bfloat16, D, G=1).items():
+            fn()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                        schedule=torch.profiler.schedule(
+                                            wait=0, warmup=1, active=1, repeat=1)) as prof:
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+                n0 = getattr(mod, counter)
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+            seen = {e.key: e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0
+                    and re.search(r"decode_(mma_|g1_)?kernel", e.key)}
+            out[f"{kind}-{D}"] = {"seen": seen, "launches": getattr(mod, counter) - n0}
+    print(json.dumps(out))
+
+
+def test_decode_g1_kernels_are_one_launch_per_call(cuda):
+    """Each G = 1 call is one launch of decode_g1_kernel (the last split's
+    block combines), for K2, K2 over a ring and K3 at D 32 and 64: the
+    profiler sees it 3 times over 3 calls and no other decode kernel. As
+    test_gla_kernels_are_one_launch_per_call, profiled in a fresh process
+    after a warm-up step (the tracer may drop records otherwise)."""
+    here = Path(__file__).resolve().parent
+    code = (f"import sys; sys.path[:0] = [{str(here)!r}, {str(Path(DA.__file__).parents[2])!r}]; "
+            "import test_torch_gpu as T; T._decode_g1_one_launch_profile()")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sorted(got) == sorted(f"{k}-{D}" for k in ("decode", "ring", "paged")
+                                 for D in (32, 64))
+    for name, r in got.items():
+        assert r["launches"] == 3, (name, r)
+        assert len(r["seen"]) == 1, (name, r)
+        (key, cnt), = r["seen"].items()
+        assert "decode_g1_kernel" in key and cnt == 3, (name, r)

@@ -78,3 +78,51 @@ def test_partials_shapes(B, H, K, D, ns):
     assert part_o.shape == (B, K, ns, G, D) and part_o.dtype == torch.float32
     assert part_ml.shape == (2, B, K, ns, G) and part_ml.dtype == torch.float32
     assert part_o.is_contiguous() and part_ml.is_contiguous()
+
+
+def _g1_source():
+    """``csrc/decode_split.cuh``'s G = 1 part: namespace ``g1`` through the
+    dispatch."""
+    src = (build.CSRC / "decode_split.cuh").read_text()
+    return src[src.index("namespace g1 {"):]
+
+
+@pytest.mark.parametrize("B,H,K,D,S,ns", [(4, 36, 36, 64, 1056, 9), (1, 36, 36, 64, 1056, 9),
+                                          (2, 4, 4, 32, 2049, 17), (3, 4, 4, 64, 128, 1)])
+def test_g1_split_plan_and_partials(B, H, K, D, S, ns):
+    """The G = 1 decode (minicpm-2b's MHA: B4 H36 K36 D64 at 1056 positions,
+    and one fleet lane of it) cuts a row into split_len(D) = 128-position
+    splits like every G, so its work items, (row, KV head, split), number
+    B K ns, and its partials are the G = 1 case of ``partials``."""
+    assert H == K and DA.n_splits(S, D) == ns
+    part_o, part_ml = DA.partials(B, H, K, D, ns, "cpu")
+    assert part_o.shape == (B, K, ns, 1, D) and part_ml.shape == (2, B, K, ns, 1)
+    assert part_o.numel() == B * K * ns * D and part_ml[0].numel() == B * K * ns
+    page = 16
+    assert PA.n_splits(-(-S // page), page, D) == DA.n_splits(-(-S // page) * page, D)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_g1_kernel_takes_the_wrappers_split(D):
+    """decode_g1_kernel's items are split_len(D) positions (the value the
+    wrappers size the partials by and pass to the C entry), and a split is
+    its 4 warps' 32 positions each."""
+    src = _g1_source()
+    assert re.search(r"static constexpr int SPLIT = split_len\(D\);", src)
+    assert re.search(r"constexpr int NWARP = 4;", src)
+    assert DA.split_len(D) == _source_split_len(D) == 4 * 32
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_dispatch_routes_bf16_g1_to_its_kernel(D):
+    """bf16 at G = 1 (H == K) and D <= 64 launches decode_g1_kernel;
+    float32, G > 1 and D = 128 keep their kernels."""
+    src = (build.CSRC / "decode_split.cuh").read_text()
+    body = src[src.index("int dispatch("):]
+    m = re.search(rf"if \(dtype == 1 && D == {D} && H == K\)\s+return launch_g1<{D}>\(", body)
+    assert m, f"no G = 1 route at D = {D}"
+    # the G = 1 route comes before the general bf16 one at the same D
+    general = re.search(rf"if \(dtype == 1 && D == {D}\)\s+return launch<bf16, {D}>\(", body)
+    assert general and m.start() < general.start()
+    assert not re.search(r"dtype == 0[^\n]*H == K", body)
+    assert "launch_g1<128>" not in body

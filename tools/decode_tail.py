@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What the one-launch split-KV decode spends after its last split.
 
-    python3 tools/decode_tail.py [--split N]
+    python3 tools/decode_tail.py [--split N] [--g1] [--define MACROS ...]
 
 Times the shipped decode kernels (``csrc/decode_split.cuh``) on serving
 shapes, where each (row, KV head) has several splits and the last split
@@ -10,12 +10,18 @@ rows of one split each, where every block writes its output directly: the
 same K/V bytes and as many blocks, with no partials, no ticket and no
 combine. The difference is the combine's tail. Shapes: K2 at granite-3-2b's
 last decode step (B4 H32 K8 D64, length 1056), at hymba-1.5b's window (B4
-H25 K5 D64, 1024) and at qwen2.5-14b's (B4 H40 K8 D128, 1056); K3 at
-qwen2.5-14b's fleet decode (one lane, B1 H40 K8 D128, length 1056, page 16,
-each call another layer's strided view of a 48-layer pool store, a
+H25 K5 D64, 1024), at qwen2.5-14b's (B4 H40 K8 D128, 1056) and at
+minicpm-2b's (B4 H36 K36 D64, 1056: G = 1, one query head a KV head); K3
+at qwen2.5-14b's fleet decode (one lane, B1 H40 K8 D128, length 1056, page
+16, each call another layer's strided view of a 48-layer pool store, a
 shuffled page table; its one-split rows are lanes whose tables hold the
-same pages, a split's worth each). ``--split`` gives the rows' length (by
-default the kernels' split length at each head dim). Times are the replay
+same pages, a split's worth each) and at one minicpm-2b lane (B1 H36 K36
+D64, G = 1, a 40-layer store). ``--split`` gives the rows' length (by
+default the kernels' split length at each head dim); ``--g1`` runs the G = 1
+cases alone. Each ``--define`` (comma-separated macros) adds a build of
+both decode sources with those ``-D`` flags (``nvcc`` in parallel, into
+``src/repro_torch/_build/breakdown/``), timed on the same cases after the
+shipped build through the wrappers' ``library`` hooks. Times are the replay
 of a CUDA graph (``repro_torch.kernels.timing``), as in ``chip_smoke.py``.
 Needs one CUDA device and nvcc; imports nothing of JAX.
 """
@@ -29,24 +35,47 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-#: (kernel, B, H, K, D, length)
-CASES = (("K2", 4, 32, 8, 64, 1056), ("K2", 4, 25, 5, 64, 1024),
-         ("K2", 4, 40, 8, 128, 1056), ("K3", 1, 40, 8, 128, 1056))
-PAGE, LAYERS = 16, 48
+#: (kernel, B, H, K, D, length, layers of the paged store)
+CASES = (("K2", 4, 32, 8, 64, 1056, 0), ("K2", 4, 25, 5, 64, 1024, 0),
+         ("K2", 4, 40, 8, 128, 1056, 0), ("K2", 4, 36, 36, 64, 1056, 0),
+         ("K3", 1, 40, 8, 128, 1056, 48), ("K3", 1, 36, 36, 64, 1056, 40))
+PAGE = 16
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split", type=int, default=None,
                     help="positions a one-split row holds (default: the kernels' split)")
+    ap.add_argument("--g1", action="store_true", help="the G = 1 cases alone")
+    ap.add_argument("--define", action="append", default=[],
+                    help="comma-separated macros of a further build (repeatable)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("decode_tail: no CUDA device", file=sys.stderr)
         return 1
+    from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import paged_decode_attention as PA
     from repro_torch.kernels.timing import cuda_ms
+
+    builds = {"shipped": None}
+    out_dir = build.BUILD_ROOT / "breakdown"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, macros in enumerate(args.define):
+        libs = {}
+        for src in ("decode_attention", "paged_decode_attention"):
+            libs[src] = out_dir / f"lib{src}_d{i}.so"
+            cmd = build.nvcc_command(src, libs[src], build.nvcc_path())
+            cmd[1:1] = [f"-D{m}" for m in macros.split(",") if m]
+            procs.append((macros, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                   stderr=subprocess.STDOUT, text=True)))
+        builds[macros] = libs
+    for macros, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed with {macros}:\n{log}")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -57,8 +86,21 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).bfloat16()
 
-    for kern, B, H, K, D, L in CASES:
-        split = args.split or DA.split_len(D)
+    cases = [c for c in CASES if not args.g1 or c[2] == c[3]]
+    for name, libs in builds.items():
+        DA.library = libs and libs["decode_attention"]
+        PA.library = libs and libs["paged_decode_attention"]
+        try:
+            run_cases(cases, name, args.split, randn, DA, PA, cuda_ms, torch, dev)
+        finally:
+            DA.library = PA.library = None
+    return 0
+
+
+def run_cases(cases, name, split_arg, randn, DA, PA, cuda_ms, torch, dev):
+    """Time each case with the build the wrappers point at."""
+    for kern, B, H, K, D, L, layers in cases:
+        split = split_arg or DA.split_len(D)
         n_split = -(-L // split)
         if kern == "K2":
             rows = B * L // split            # one split each, the same positions
@@ -72,7 +114,7 @@ def main() -> int:
         else:
             n, per = L // PAGE, split // PAGE
             P = n + 3
-            stores = [randn(P, PAGE, LAYERS * K * D).view(P, PAGE, LAYERS, K, D)
+            stores = [randn(P, PAGE, layers * K * D).view(P, PAGE, layers, K, D)
                       for _ in range(2)]
             table = torch.randperm(P, generator=torch.Generator().manual_seed(P))[:n]
             table = table.to(torch.int32).to(dev)
@@ -86,9 +128,9 @@ def main() -> int:
                 lens_one[i] = min(split, L - i * split)
             lens = torch.tensor([L], dtype=torch.int32, device=dev)
             many = [(randn(1, H, D), stores[0][:, :, i], stores[1][:, :, i], table[None], lens)
-                    for i in range(LAYERS)]
+                    for i in range(layers)]
             one = [(randn(lanes, H, D), stores[0][:, :, i], stores[1][:, :, i], t_one_tab,
-                    lens_one) for i in range(LAYERS)]
+                    lens_one) for i in range(layers)]
 
             def paged(q, kp, vp, t, ln):
                 return PA.paged_decode_attention(q, kp, vp, t, ln)
@@ -96,11 +138,10 @@ def main() -> int:
             t_one = cuda_ms(paged, one, iters=40)
             rows = lanes
             blocks = K * n_split
-        print(f"{kern} bf16 H{H} K{K} D{D}: B{B} length {L} ({n_split} splits of {split}, "
+        print(f"[{name}] {kern} bf16 H{H} K{K} D{D}: B{B} length {L} ({n_split} splits of {split}, "
               f"{blocks} blocks) {t_many * 1e3:.2f} us; the same {B * L} positions as "
               f"{rows} one-split rows ({rows * K} blocks) {t_one * 1e3:.2f} us; the "
               f"combine's tail {(t_many - t_one) * 1e3:.2f} us", flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Where K1's bf16 forward spends its time, on one NVIDIA GPU.
+
+    python3 tools/fwd_breakdown.py [--shape qwen|granite|minicpm] [--only base,noexp,...]
+
+Builds ``src/repro_torch/csrc/flash_attention.cu`` as shipped and with
+each of its diagnostic macros (``-D``; one ``nvcc`` each, in parallel, into
+``src/repro_torch/_build/breakdown/``), then times each build's forward
+(``repro_flash_attention``, through the wrapper with
+``kernels.flash_attention.library`` set to the build) at a prefill shape,
+causal, inputs rotated through more than the L2, by CUDA-graph replay
+(``kernels/timing.cuda_ms``):
+
+- ``base``: the kernel as shipped;
+- ``noexp``: ``FWD_NOEXP``, P taken as its exponent's argument, no mask:
+  the exponentials' and the mask's share;
+- ``nopv``: ``FWD_NOPV``, no O += P V product: its share;
+- ``bn64``: ``FWD_BN=64``, the head-dim-128 kernel on 64-row KV tiles in
+  a ring of four (its default is 128-row tiles in two);
+- ``pvn64``: ``FWD_PV_N64``, the head-dim-128 kernel's P V as two m64n64
+  products a k16 step (its default is one m64n128);
+- ``onetile``: ``FWD_ONE_TILE``, the head-dim-128 kernel's grid one block
+  a tile, as a non-persistent kernel's (its default is one block an SM);
+- ``noload``: ``FWD_NOLOAD``, no K or V load after each ring slot's first
+  (the slot's data is reused): what the tiles' loads from L2 cost;
+- ``nostore``: ``FWD_NOSTORE``, no O stores: the epilogue's share.
+
+The macros act on the head-dim-128 bf16 kernel only (``qwen``:
+qwen2.5-14b's B4 H40 K8 S1024 D128, the default); at ``granite`` (B4 H32
+K8 S1024 D64) and ``minicpm`` (B4 H36 K36 S1024 D64) every build is the
+shipped D <= 64 kernel, whose time is the check that it did not move.
+Beside the times: ptxas's registers at launch, spills and its notes on
+wgmma (C75xx) for each build's bf16 forward kernels, each build's output
+against the plain version (``noexp``, ``nopv``, ``noload`` and ``nostore``
+are wrong by design),
+and SDPA at the same shape, the yardstick. Exits 1 with no CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+#: build name -> the macros it defines
+VARIANTS = {"base": (), "noexp": ("FWD_NOEXP",), "nopv": ("FWD_NOPV",),
+            "bn64": ("FWD_BN=64",), "pvn64": ("FWD_PV_N64",), "onetile": ("FWD_ONE_TILE",),
+            "noload": ("FWD_NOLOAD",), "nostore": ("FWD_NOSTORE",)}
+#: prefill shapes: B, H, K, S, D
+SHAPES = {"qwen": (4, 40, 8, 1024, 128), "granite": (4, 32, 8, 1024, 64),
+          "minicpm": (4, 36, 36, 1024, 64)}
+#: the bf16 forward kernels' mangled names hold one of these
+KERNELS = ("flash_bf16_kernel", "flash_d128_kernel")
+
+
+def ptxas_notes(log: str) -> list[str]:
+    """Registers, spills and C75xx notes of the bf16 forward kernels in a
+    ``-v`` log."""
+    out, kernel = [], None
+    names = "|".join(KERNELS)
+    for line in log.splitlines():
+        m = re.search(rf"Compiling entry function '\w*?({names})(?:ILi(\d+))?", line)
+        if m:
+            kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        elif "Compiling entry function" in line:
+            kernel = None
+        elif kernel and ("Used" in line or "spill" in line):
+            out.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
+        m = re.search(rf"\((C75\d\d)\) (.*?) in (?:the )?function '\w*?({names})(?:ILi(\d+))?",
+                      re.sub(r" around line \d+", "", line))
+        if m:
+            name = m.group(3) + (f"<{m.group(4)}>" if m.group(4) else "")
+            out.append(f"{name}: {m.group(1)} {m.group(2)}")
+    return sorted(set(out))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="qwen")
+    ap.add_argument("--only", default=",".join(VARIANTS),
+                    help="comma-separated builds to make and time (default: all)")
+    args = ap.parse_args()
+    names = [n for n in args.only.split(",") if n]
+    if unknown := [n for n in names if n not in VARIANTS]:
+        ap.error(f"unknown builds {unknown}; known: {sorted(VARIANTS)}")
+    import torch
+    if not torch.cuda.is_available():
+        print("fwd_breakdown: no CUDA device", file=sys.stderr)
+        return 1
+    import torch.nn.functional as F
+
+    import chip_smoke as CS
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.timing import cuda_ms
+
+    print(CS.card_line(), flush=True)
+    out_dir = build.BUILD_ROOT / "breakdown"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        cmd = build.nvcc_command("flash_attention", out_dir / f"libfwd_{name}.so",
+                                 build.nvcc_path())
+        cmd[1:1] = ["-Xptxas", "-v", *(f"-D{m}" for m in VARIANTS[name])]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+        for note in ptxas_notes(log):
+            print(f"[ptxas] {name} {note}", flush=True)
+
+    B, H, K, S, D = SHAPES[args.shape]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    # 4 sets of the model's [B,S,n,D] projections seen as [B,n,S,D] views
+    # (~59 MB each at qwen's shape): each call finds its inputs cold
+    sets = [tuple(randn(B, S, n, D).transpose(1, 2) for n in (H, K, K)) for _ in range(4)]
+    shape = f"bf16 B{B} H{H} K{K} S{S} D{D}, causal"
+    q, k, v = sets[0]
+    want = ref.naive_attention(q, k, v).float()
+    try:
+        for name in names:
+            FA.library = out_dir / f"libfwd_{name}.so"
+            got = FA.flash_attention(q, k, v).float()
+            err = CS.rel(got, want)
+            ms = cuda_ms(lambda q, k, v: FA.flash_attention(q, k, v), sets, iters=40)
+            print(f"[time] {name}: {ms * 1e3:.1f} us ({shape}, CUDA-graph replay); "
+                  f"max|a-b|/max|b| {err:.3e}", flush=True)
+    finally:
+        FA.library = None
+    del want
+    lib = cuda_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), sets, iters=40)
+    flops = 4 * B * H * S * S * D / 2
+    bound, by = CS.bound_ms(flops, 2 * (2 * B * H * S * D + 2 * B * K * S * D))
+    print(f"[time] sdpa {lib * 1e3:.1f} us (yardstick); bound {bound * 1e3:.2f} us ({by})",
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
