@@ -155,6 +155,13 @@ steep decays), a smoke shape, one 16-row tile a chunk, lengths the chunk
 does not divide and head-stride-0 views; the ring below, at and far past
 its width, wider and narrower than the window. Phase 6 prints the GLA
 kernels' share of each hymba prefill.
+Wherever phase 3 times K1's forward (granite's, hymba's, minicpm-2b's and
+qwen2.5-14b's prefill) or its backward (granite's, hymba's and qwen's
+training shapes), it also captures one call in a CUDA graph and checks its
+kernel nodes (``graph_launches``, no tracer): one, the route's kernel
+(``kernels.flash_attention.fwd_kernel``: ``flash_ws_kernel`` at head dims
+64 and 128), for the forward with and without the logsumexp; dQ
+(``dq_d128_kernel`` at head dim 128) then dK/dV for the backward.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 SDPA's backward, the yardstick of K1's, is read by CUDA events over warmed
@@ -345,6 +352,21 @@ def kernel_us(fn, sets, iters=40, counts=False):
           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     us = {e.key: e.self_device_time_total / iters for e in ev}
     return (us, {e.key: e.count for e in ev}) if counts else us
+
+
+def graph_launches(label, fn, want):
+    """The kernels one ``fn()`` call launches, read from the kernel nodes of
+    a CUDA graph captured around it (``timing.graph_kernels``; no tracer,
+    whose records can drop): raise unless they are one node each of the
+    names in ``want``, in order. Returns the nodes' names."""
+    from repro_torch.kernels.timing import graph_kernels
+    nodes = [name for name, _, _ in graph_kernels(fn)]
+    if len(nodes) != len(want) or not all(w in n for w, n in zip(want, nodes)):
+        raise AssertionError(f"{label}: a captured call is the kernel nodes {nodes}; "
+                             f"expected one each of {list(want)}")
+    print(f"[kernels] {label}: one call is {len(nodes)} kernel node(s) of a captured CUDA "
+          f"graph: {', '.join(want)}", flush=True)
+    return nodes
 
 
 def sdpa_backend(names) -> str:
@@ -738,6 +760,9 @@ def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms,
     # q, k, v, o, dO and the logsumexp read once, dq, dk, dv written once
     bound, by = bound_ms(5 * 2 * B * H * pairs * D, 2 * (4 * n_q + 4 * n_kv) + 4 * rows)
     us = kernel_us(lambda *a: FA.flash_attention_bwd(*a), bsets, iters=20)
+    dq_name = "dq_d128_kernel" if D == 128 else "dq_bf16_kernel"
+    graph_launches(f"flash_attention_bwd bf16 B{B} H{H} K{K} S{S} D{D} ({label})",
+                   lambda: FA.flash_attention_bwd(*bsets[0]), (dq_name, "dkdv_bf16_kernel"))
 
     def one(name):
         hits = [t for key, t in us.items() if name in key]
@@ -752,7 +777,7 @@ def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms,
         # at the float32 rate, counted in tensor-core time); q, k, v, o, dO,
         # lse read, dq and the row sums written
         "flash_attention_bwd_dq": (
-            one("dq_bf16_kernel"),
+            one(dq_name),
             cuda_ms(plain_dq, bsets, iters=5),
             *bound_ms(3 * 2 * B * H * pairs * D + 2 * n_q * PEAK_BF16_FLOPS / PEAK_F32_FLOPS,
                       2 * (4 * n_q + 2 * n_kv) + 8 * rows)),
@@ -1089,8 +1114,9 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
 
     def dev_ms(name):
         return sum(e.self_device_time_total for e in kern if name in e.key) / 1e3
-    fwd = dev_ms("flash_bf16_kernel") + dev_ms("flash_d128_kernel")
-    bwd = {n: dev_ms(n) for n in ("dq_bf16_kernel", "dkdv_bf16_kernel")}
+    fwd = dev_ms("flash_bf16_kernel") + dev_ms("flash_ws_kernel")
+    bwd = {"dq": dev_ms("dq_bf16_kernel") + dev_ms("dq_d128_kernel"),
+           "dkdv": dev_ms("dkdv_bf16_kernel")}
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
     if busy <= 0:
         print(f"[{tag}] profiled step: device busy time not measured (the profiler saw no "
@@ -1107,7 +1133,7 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
               f"device busy {busy:.1f} ms ({1 - busy / prof_ms:.1%} idle); K1 forward "
               f"{fwd:.2f} ms ({fwd / prof_ms:.1%} of the step, {2 * L} launches), backward "
               f"{sum(bwd.values()):.2f} ms ({sum(bwd.values()) / prof_ms:.1%}: dQ "
-              f"{bwd['dq_bf16_kernel']:.2f}, dK/dV {bwd['dkdv_bf16_kernel']:.2f} ms){gla}; top: "
+              f"{bwd['dq']:.2f}, dK/dV {bwd['dkdv']:.2f} ms){gla}; top: "
               + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
                           for e in top), flush=True)
     tr.pipeline.stop()
@@ -2026,6 +2052,10 @@ def main() -> int:
     # times at the serving paths' shapes, bf16
     B, H, K, S, D, bf = 4, 32, 8, 1024, 64, torch.bfloat16
     fsets = [flash_inputs(B, H, K, S, D, bf) for _ in range(4)]
+    for lse in (False, True):
+        graph_launches(f"flash_attention bf16 B{B} H{H} K{K} S{S} D{D} lse={lse}",
+                       lambda: FA.flash_attention(*fsets[0], lse=lse),
+                       (FA.fwd_kernel(bf, D, H // K),))
     f_ms = cuda_ms(lambda q, k, v: FA.flash_attention(q, k, v), fsets)
     f_plain = cuda_ms(lambda q, k, v: ref.naive_attention(q, k, v), fsets, iters=5)
     f_lib = cuda_ms(lambda q, k, v: F.scaled_dot_product_attention(
@@ -2055,6 +2085,9 @@ def main() -> int:
     hsets = [flash_inputs(hB, hH, hK, hS, D, bf) for _ in range(4)]
     pos = torch.arange(hS, device=dev)
     for w in (1024, None):
+        graph_launches(f"flash_attention bf16 B{hB} H{hH} K{hK} S{hS} D{D} window={w}",
+                       lambda: FA.flash_attention(*hsets[0], window=w),
+                       (FA.fwd_kernel(bf, D, hH // hK, w),))
         h_ms = cuda_ms(lambda q, k, v: FA.flash_attention(q, k, v, window=w), hsets)
         h_plain = cuda_ms(lambda q, k, v: ref.naive_attention(q, k, v, window=w), hsets,
                           iters=5)
@@ -2082,6 +2115,9 @@ def main() -> int:
         for q, k, v in hsets:
             o, lse = FA.flash_attention(q, k, v, window=w, lse=True)
             hb.append((q, k, v, o, lse, randn(hB, hH, hS, D, dtype=bf)))
+        graph_launches(f"flash_attention_bwd bf16 B{hB} H{hH} K{hK} S{hS} D{D} window={w}",
+                       lambda: FA.flash_attention_bwd(*hb[0], window=w),
+                       ("dq_bf16_kernel", "dkdv_bf16_kernel"))
         hb_ms = cuda_ms(lambda *a: FA.flash_attention_bwd(*a, window=w), hb)
         hb_plain = cuda_ms(lambda *a: ref.flash_attention_bwd(*a, window=w), hb, iters=3)
         lib_sets = []
@@ -2149,7 +2185,10 @@ def main() -> int:
     t_dense = time.perf_counter()
     dense = {}
 
-    def dense_row(key, label, fn, sets, plain_fn, lib_fn, flops, nbytes, plain_iters=5):
+    def dense_row(key, label, fn, sets, plain_fn, lib_fn, flops, nbytes, plain_iters=5,
+                  kernel=None):
+        if kernel:
+            graph_launches(label, lambda: fn(*sets[0]), (kernel,))
         ms = cuda_ms(fn, sets, iters=40)
         us, n_calls = kernel_us(fn, sets, iters=20, counts=True)
         if key.startswith(("decode", "paged")) and len(n_calls) != 1:
@@ -2172,7 +2211,8 @@ def main() -> int:
                   lambda q, k, v: ref.naive_attention(q, k, v),
                   lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                                  enable_gqa=True),
-                  4 * B * H * S * S * D / 2, 2 * (2 * B * H * S * D + 2 * B * K * S * D))
+                  4 * B * H * S * S * D / 2, 2 * (2 * B * H * S * D + 2 * B * K * S * D),
+                  kernel=FA.fwd_kernel(bf, D, H // K))
         if arch == "qwen2.5-14b":
             qbwd = bwd_times(sets, B, H, K, S, D, randn, FA, ref, cuda_ms,
                              label="qwen2.5-14b's training shape")

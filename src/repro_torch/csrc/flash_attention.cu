@@ -18,74 +18,77 @@
 // synchronous tile loads, scores or products staged through shared memory
 // between the two products, and the softmax's exponentials on the critical
 // path of every warpgroup at once.
-// Design against that bound (bf16):
-//  * One block owns 128 query rows of one (row, query head): two consumer
-//    warpgroups of 64 rows each, and one producer warp. For D <= 64 two
-//    blocks share an SM (the registers allow 96 a thread), so while one
-//    warpgroup computes its softmax the other three keep the tensor cores
-//    busy; within a warpgroup a tile's S, softmax and P V run in turn.
-//  * The producer warp's lane 0 issues TMA loads: Q once per block, then
-//    the KV head's K and V tiles of 64 rows into a ring of STAGES slots in
-//    shared memory. Each slot has a "full" mbarrier (the TMA's byte count)
-//    and an "empty" one (every consumer thread arrives when its products
-//    have read the slot), so the next tiles are in flight while the
-//    consumers compute. The tensor maps are 4-D over the strided
-//    (batch, head, seq) views as the model passes them, encoded on the host
-//    per call and passed by value (__grid_constant__), so a CUDA graph
-//    keeps them; rows at or beyond S are zero-filled by the TMA.
-//    128-byte swizzle for D = 64 (a bf16 row is 128 B), 64-byte for D = 32.
-//    A row of 128 (256 B) is wider than the swizzle's span: each tile
-//    arrives as two 64-column boxes, two TMA loads into the tile's two
-//    halves ([rows][64] each), and the k16 steps of S = Q K^T walk into the
-//    second half after four (hopper.cuh: tma_tile, k_step).
-//  * S = Q K^T is wgmma m64n64k16 with both operands read from shared
-//    memory through descriptors (Q and K are K-major as they lie).
-//    O += P V is wgmma m64nDk16 with A = P from registers: the float32
-//    accumulator fragment of S, rounded to bf16 pairs, has the layout of
-//    the A register fragment; V is MN-major and read with the transpose
-//    bit. S, P and O never leave the registers.
-//  * The softmax is online, on the accumulator registers: each thread holds
-//    two rows of its warp's 16, so a row's max and sum are two shuffles
-//    across the quad; ex2.approx of scores scaled by log2(e)/sqrt(D).
-//  * The loop over KV tiles stops at the diagonal and starts at the
-//    window's edge (per warpgroup: a tile no row of the warpgroup needs is
-//    waited for and released, not computed). Only tiles that straddle the
-//    diagonal or the window edge evaluate the mask.
-//  * Blocks are launched heaviest-first (the last query tiles, which have
-//    the most KV tiles, lead the grid), so the short tiles fill its tail.
-//  * D = 128 (flash_d128_kernel, redesigned for Hopper after
-//    FlashAttention-3's forward). Q (32 KB), the rings and O (64 floats a
-//    thread) leave one block an SM, so no second block fills the consumers'
-//    gaps; the block makes its own overlap. Three warpgroups: a producer
-//    that gives its registers up (setmaxnreg.dec 24) and two consumers of
-//    64 rows that take them (240). The consumers take turns at the tensor
-//    cores through two named barriers (bar.sync / bar.arrive): warpgroup 0
-//    issues a KV tile's products, then warpgroup 1 issues its own while 0
-//    runs its softmax, so the exponentials of one run under the other's
-//    products. Within a warpgroup, tile j's S = Q K^T is issued before tile
-//    j - 1's O += P V, and tile j's softmax runs while that product is in
-//    flight (wait_group 1); O is rescaled under S. No A fragment is written
-//    while a wgmma reading one is in flight, so ptxas serializes nothing (no
-//    C751x note). KV tiles of 128 rows (S m64n128, 64 floats a thread) in
-//    rings of 2 for K and 2 for V with their own barriers, so K_(j+1) loads
-//    once S_(j-1) is done and V_j once P V_(j-2) is: Q, the rings and O
-//    take 192 KB. P V is one m64n128k16 wgmma a step over V's two
-//    64-column TMA boxes (a descriptor whose leading byte offset spans the
-//    halves). The
-//    grid is persistent, one block an SM, each walking output tiles in
-//    heaviest-first order dealt out as a snake over the blocks, so that the
-//    next tile's Q and K/V loads run under this tile's last P V and its
-//    epilogue instead of after them. O leaves through shared memory (32
-//    KB, in the map's 128-byte swizzle) by two TMA stores a warpgroup:
-//    stored from the registers, 4 bytes a thread with rows 10 KB apart at
-//    qwen's shape, the epilogue took a fifth of the kernel. (Holding a
-//    tile's store until the next tile's first S is issued made ptxas wait
-//    for that product before the O registers are read, C7517: not kept.)
-//    FWD_BN, FWD_PV_N64, FWD_ONE_TILE, FWD_NOEXP, FWD_NOPV, FWD_NOLOAD and
-//    FWD_NOSTORE (tools/fwd_breakdown.py) build its variants: 64-row KV
-//    tiles, two n64 products, one block a tile (no persistence), no
-//    exponentials or mask, no P V, no K/V loads after each slot's first,
-//    no O stores (the last four wrong by design).
+// Design against that bound (bf16). Which kernel runs is a rule on
+// (D, G, window), ws_route: flash_ws_kernel<D> at D = 64 and 128,
+// flash_bf16_kernel<32> at 32.
+//  * Common to both: TMA loads of Q, K and V tiles into shared memory, each
+//    slot with a "full" mbarrier (the TMA's byte count) and an "empty" one
+//    (every consumer thread arrives when its products have read the slot),
+//    so the next tiles are in flight while the consumers compute. The
+//    tensor maps are 4-D over the strided (batch, head, seq) views as the
+//    model passes them, encoded on the host per call and passed by value
+//    (__grid_constant__), so a CUDA graph keeps them; rows at or beyond S
+//    are zero-filled by the TMA. 128-byte swizzle for D = 64 (a bf16 row is
+//    128 B), 64-byte for D = 32. A row of 128 (256 B) is wider than the
+//    swizzle's span: each tile arrives as two 64-column boxes, two TMA
+//    loads into the tile's two halves ([rows][64] each), and the k16 steps
+//    of S = Q K^T walk into the second half after four (hopper.cuh:
+//    tma_tile, k_step). S = Q K^T is wgmma with both operands read from
+//    shared memory through descriptors (Q and K are K-major as they lie);
+//    O += P V is wgmma with A = P from registers (the float32 accumulator
+//    fragment of S, rounded to bf16 pairs, has the layout of the A register
+//    fragment) and V MN-major, read with the transpose bit. S, P and O
+//    never leave the registers until the epilogue. The softmax is online,
+//    on the accumulator registers: each thread holds two rows of its
+//    warp's 16, so a row's max and sum are two shuffles across the quad;
+//    ex2.approx of scores scaled by log2(e)/sqrt(D). Only tiles that
+//    straddle the diagonal or the window edge evaluate the mask.
+//  * flash_bf16_kernel (D = 32): one block owns 128 query rows of one (row,
+//    query head), two consumer warpgroups of 64 rows and one producer warp
+//    streaming 64-row K/V tiles into a ring of STAGES slots; two blocks
+//    share an SM, and within a warpgroup a tile's S, softmax and P V run in
+//    turn. Blocks go heaviest first. A warpgroup's loop starts at its
+//    window's edge and stops at its diagonal.
+//  * flash_ws_kernel<D> (D = 64 and 128, redesigned for Hopper after
+//    FlashAttention-3's forward). One block an SM: three warpgroups, a
+//    producer that gives its registers up (setmaxnreg.dec 32) and two
+//    consumers of 64 rows that take them (232). The consumers take turns
+//    at the tensor cores through two named barriers (bar.sync /
+//    bar.arrive): warpgroup 0 issues a KV tile's products, then warpgroup 1
+//    issues its own while 0 runs its softmax, so the exponentials of one
+//    run under the other's products (without the turns: slower at D = 64).
+//    Within a warpgroup, tile j's S = Q K^T is issued
+//    before tile j - 1's O += P V, and tile j's softmax runs while that
+//    product is in flight (wait_group 1); O is rescaled under S. No A
+//    fragment is written while a wgmma reading one is in flight, so ptxas
+//    serializes nothing (no C751x note). KV tiles of 128 rows (S m64n128,
+//    64 floats a thread) in rings of 2 for K and 2 for V with their own
+//    barriers, so K_(j+1) loads once S_(j-1) is done and V_j once P V_(j-2)
+//    is. P V is one m64nDk16 wgmma a step (at D = 128 over V's two
+//    64-column TMA boxes, a descriptor whose leading byte offset spans the
+//    halves). Both warpgroups walk all KV tiles of the block's 128 rows (a
+//    tile outside one's window is masked whole), so that they take turns
+//    evenly. The grid is persistent, one block an SM, each walking output
+//    tiles in heaviest-first order dealt out as a snake over the blocks,
+//    so that the next tile's loads run under this tile's last products. At
+//    D = 128 Q has two buffers (the next tile's Q lands under this one); at
+//    D = 64 one measured faster. O leaves through shared memory (in the
+//    map's 128-byte swizzle) by TMA stores that the producer's warp 1
+//    issues once a warpgroup's threads have arrived on its o_full barrier;
+//    it frees the buffer (o_free) when the store has read it, so no
+//    consumer thread waits on a store. Stored from the registers, 4 bytes a
+//    thread with rows 10 KB apart at qwen's shape, the epilogue took a
+//    fifth of the kernel. (Not kept, each measured slower: the stores from
+//    the consumers or as 16-byte stores from the producer's warps; one
+//    stream of KV tiles across a block's output tiles, the next tile's
+//    first S issued with the last one's P V; a tile's store held until the
+//    next tile's first S, C7517.) FWD_BN, FWD_QBUFS, FWD_PV_N64,
+//    FWD_ONE_TILE, FWD_NOEXP, FWD_NOPV, FWD_NOLOAD and FWD_NOSTORE
+//    (tools/fwd_breakdown.py) build its variants: 64-row KV tiles, one or
+//    two Q buffers, two n64 products at D = 128, one block a tile (no
+//    persistence), no exponentials or mask, no P V, no K/V loads after
+//    each slot's first, no O stores (the last four wrong by design; with
+//    no store ptxas may drop the products no output reads).
 //  * float32 inputs have no exact tensor-core path (TF32 would round
 //    them), so they take a scalar kernel: one thread per query row (two at
 //    D = 128, each holding half of the row's q and o, their dot products
@@ -390,35 +393,55 @@ __global__ void __launch_bounds__(THREADS, D > 64 ? 1 : 2)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 128: a producer warpgroup and two consumer warpgroups that
-// take turns at the tensor cores (FlashAttention-3's forward shape).
+// bf16, warp-specialized (flash_ws_kernel<D>, D = 128 and 64): a producer
+// warpgroup and two consumer warpgroups that take turns at the tensor cores
+// (FlashAttention-3's forward shape).
 // ---------------------------------------------------------------------------
 #ifndef FWD_BN
 #define FWD_BN 128
 #endif
-namespace d128 {
-constexpr int D = 128;
-constexpr int BN = FWD_BN;                     // KV rows a tile
-constexpr int SLOTS = BN == 128 ? 2 : 4;      // slots of the K ring, and of the V ring
-constexpr int TILE = BN * D * 2;               // bytes of one K or V tile
+namespace ws {
+constexpr int BN = FWD_BN;                      // KV rows a tile
 constexpr int NTHREADS = 128 * (CONSUMERS + 1); // the consumers, then the producer warpgroup
 // At launch ptxas gives a thread 65536 / 384 = 168 registers; the producer
-// warpgroup keeps 24 and the consumers rise to 240:
-// (168 - 24) x 128 = (240 - 168) x 256
-constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-// Shared memory from a 1024-byte aligned base: Q (the block's 128 rows),
-// the K ring, the V ring, O (each warpgroup's 64 rows as two [64][64]
-// halves, for the TMA store), then the barriers
-constexpr int Q = 0;
-constexpr int K = Q + BM * D * 2;
-constexpr int V = K + SLOTS * TILE;
-constexpr int O = V + SLOTS * TILE;
-constexpr int O_WG = BQ * D * 2;  // bytes of a warpgroup's rows of O
-constexpr int BAR = O + CONSUMERS * O_WG;
-constexpr int BYTES = BAR + (4 * SLOTS + 2) * 8 + 1024;  // + alignment slack
-static_assert(BN == 128 || BN == 64, "FWD_BN is 128 or 64");
-static_assert(BYTES <= 232448, "the block's shared memory exceeds the SM's");
-}  // namespace d128
+// warpgroup keeps 32 (at 24 its store loop spilled) and the consumers rise
+// to 232: (168 - 32) x 128 >= (232 - 168) x 256
+constexpr int PRODUCER_REGS = 32, CONSUMER_REGS = 232;
+// Slots of the K ring, and of the V ring: two 128-row tiles (three at
+// D = 64 measured no faster), or four of 64 rows
+constexpr int SLOTS = BN == 64 ? 4 : 2;
+// Q buffers: at D = 128 two, so that the next output tile's Q arrives
+// under this one's products; at D = 64 one (its tiles are loaded sooner,
+// and the second buffer measured slower there). FWD_QBUFS overrides.
+template <int D>
+__host__ __device__ constexpr int qbufs() {
+#ifdef FWD_QBUFS
+  return FWD_QBUFS;
+#endif
+  return D == 128 ? 2 : 1;
+}
+
+// Shared memory from a 1024-byte aligned base: the Q buffers (the block's
+// 128 rows each), the K ring, the V ring, O (each warpgroup's 64 rows, at
+// D = 128 as two [64][64] halves, for the TMA store), then the barriers
+template <int D>
+struct Layout {
+  static constexpr int QBUFS = qbufs<D>();
+  static constexpr int TILE = BN * D * 2;  // bytes of one K or V tile
+  static constexpr int Q_TILE = BM * D * 2;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + QBUFS * Q_TILE;
+  static constexpr int V = K + SLOTS * TILE;
+  static constexpr int O = V + SLOTS * TILE;
+  static constexpr int O_WG = BQ * D * 2;  // bytes of a warpgroup's rows of O
+  static constexpr int BAR = O + CONSUMERS * O_WG;
+  // full/empty of each K and V slot, q_full/q_empty of each Q buffer,
+  // o_full/o_free of each warpgroup's O
+  static constexpr int BYTES = BAR + (4 * SLOTS + 2 * QBUFS + 2 * CONSUMERS) * 8 + 1024;
+  static_assert(BN == 128 || BN == 64, "FWD_BN is 128 or 64");
+  static_assert(BYTES <= 232448, "the block's shared memory exceeds the SM's");
+};
+}  // namespace ws
 
 // Keeps the compiler from sinking writes of A fragments past the
 // wgmma.fence that precedes the wgmma reading them.
@@ -431,33 +454,36 @@ __device__ __forceinline__ void fence_frag(uint32_t (&r)[KS][4]) {
 }
 
 // S = Q K^T for one warpgroup: 64 x BN over D / 16 k16 steps, both operands
-// K-major in shared memory (their halves BM and BN rows on, hopper.cuh
-// k_step).
-__device__ __forceinline__ void d128_qk(float* s, uint64_t dq, uint64_t dk) {
+// K-major in shared memory (at D = 128 their halves BM and BN rows on,
+// hopper.cuh k_step).
+template <int D>
+__device__ __forceinline__ void ws_qk(float* s, uint64_t dq, uint64_t dk) {
 #pragma unroll
-  for (int kk = 0; kk < d128::D / 16; ++kk) {
-    if constexpr (d128::BN == 128)
-      wgmma_ss_n128(s, k_step<128>(dq, BM, kk), k_step<128>(dk, d128::BN, kk), kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if constexpr (ws::BN == 128)
+      wgmma_ss_n128(s, k_step<D>(dq, BM, kk), k_step<D>(dk, ws::BN, kk), kk > 0);
     else
-      wgmma_ss_n64(s, k_step<128>(dq, BM, kk), k_step<128>(dk, d128::BN, kk), kk > 0);
+      wgmma_ss_n64(s, k_step<D>(dq, BM, kk), k_step<D>(dk, ws::BN, kk), kk > 0);
   }
 }
 
 // O += P V for one warpgroup: BN / 16 k16 steps of 16 rows of the V tile at
-// `v`, P the A fragments. One m64n128 product a step over both halves of V
-// (a descriptor whose leading byte offset spans them); with FWD_PV_N64,
-// two m64n64 products a step, one a half.
-__device__ __forceinline__ void d128_pv(float* o, uint32_t (*p)[4], const uint8_t* v) {
+// `v`, P the A fragments. At D = 128 one m64n128 product a step over both
+// halves of V (a descriptor whose leading byte offset spans them; with
+// FWD_PV_N64, two m64n64 products a step, one a half); at D = 64 one m64n64.
+template <int D>
+__device__ __forceinline__ void ws_pv(float* o, uint32_t (*p)[4], const uint8_t* v) {
 #ifdef FWD_NOPV
   return;
 #endif
 #pragma unroll
-  for (int kk = 0; kk < d128::BN / 16; ++kk) {
-#ifdef FWD_PV_N64
-    mma_rs<128>(o, p[kk], smem_desc<128>(v) + mn_step<128>() * kk, d128::BN);
-#else
-    wgmma_rs_n128(o, p[kk], smem_desc_n128(v, d128::BN) + mn_step<128>() * kk);
+  for (int kk = 0; kk < ws::BN / 16; ++kk) {
+#ifndef FWD_PV_N64
+    if constexpr (D == 128)
+      wgmma_rs_n128(o, p[kk], smem_desc_n128(v, ws::BN) + mn_step<128>() * kk);
+    else
 #endif
+      mma_rs<D>(o, p[kk], smem_desc<D>(v) + mn_step<D>() * kk, ws::BN);
   }
 }
 
@@ -469,7 +495,7 @@ __device__ __forceinline__ void d128_pv(float* o, uint32_t (*p)[4], const uint8_
 // key yet keeps m = -inf and subtracts 0, so that its masked scores give
 // exp2(-inf) = 0 and not NaN.
 template <int NS>
-__device__ __forceinline__ void d128_softmax(float* s, float& m0, float& m1, float& l0, float& l1,
+__device__ __forceinline__ void ws_softmax(float* s, float& m0, float& m1, float& l0, float& l1,
                                              float& al0, float& al1, bool full, int qp0, int qp1,
                                              int k0, int c0, int window, float scale_log2) {
 #ifndef FWD_NOEXP
@@ -548,7 +574,7 @@ __device__ __forceinline__ void rescale(float* o, float al0, float al1) {
 // over `total` tiles: index k g + x in even rounds, k g + g - 1 - x in odd
 // ones (a snake, so that the heaviest-first order leaves the blocks' sums
 // of work close); -1 past the last.
-__device__ __forceinline__ int d128_tile(int k, int total) {
+__device__ __forceinline__ int ws_tile(int k, int total) {
   const int g = gridDim.x, x = blockIdx.x;
   const int i = k * g + ((k & 1) ? g - 1 - x : x);
   return i < total ? i : -1;
@@ -558,34 +584,38 @@ __device__ __forceinline__ int d128_tile(int k, int total) {
 // rows of each (row, head), which walk the most KV tiles) down; the KV
 // tiles [lo, lo + n BN) both warpgroups walk, from the window's edge of
 // the block's first row to the diagonal of its last.
-struct D128Tile {
+struct WsTile {
   int q0, h, b, lo, n;
-  __device__ __forceinline__ D128Tile(int i, int B, int n_qt, const TmaArgs& a) {
+  __device__ __forceinline__ WsTile(int i, int B, int n_qt, const TmaArgs& a) {
     const int hb = a.H * B;
     q0 = (n_qt - 1 - i / hb) * BM;
     h = (i % hb) % a.H;
     b = (i % hb) / a.H;
     int hi;
-    kv_range(q0, a.S, a.window, d128::BN, &lo, &hi);
+    kv_range(q0, a.S, a.window, ws::BN, &lo, &hi);
     hi = min(q0 + BM, a.S);
-    n = (hi - lo + d128::BN - 1) / d128::BN;
+    n = (hi - lo + ws::BN - 1) / ws::BN;
   }
 };
 
 // Grid: one block an SM (at most one a tile), each walking its tiles
-// d128_tile(0), d128_tile(1), ... of the B H ceil(S / BM) output tiles;
-// d128::NTHREADS threads; d128::BYTES of dynamic shared memory. Warpgroups
+// ws_tile(0), ws_tile(1), ... of the B H ceil(S / BM) output tiles;
+// ws::NTHREADS threads; ws::Layout<D>::BYTES of dynamic shared memory. Warpgroups
 // 0 and 1 consume query rows [q0 + 64 wg, + 64) of each tile; warpgroup 2
 // is the producer, whose first thread issues the TMA loads. The K and V
 // rings run on across the block's tiles, and the next tile's Q is loaded
 // once the consumers' last S = Q K^T of this one is done, so that the
 // next tile's loads run under this tile's last P V and its epilogue.
-__global__ void __launch_bounds__(d128::NTHREADS, 1)
-    flash_d128_kernel(const __grid_constant__ CUtensorMap tq,
-                      const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv,
-                      const __grid_constant__ CUtensorMap to, TmaArgs a, int o_slots, int B) {
-  using namespace d128;
+template <int D>
+__global__ void __launch_bounds__(ws::NTHREADS, 1)
+    flash_ws_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap to, TmaArgs a, int o_slots, int B) {
+  using namespace ws;
+  using L = Layout<D>;
+  constexpr int TILE = L::TILE, Q = L::Q, K = L::K, V = L::V, O = L::O,
+                O_WG = L::O_WG, BAR = L::BAR, Q_TILE = L::Q_TILE, QBUFS = L::QBUFS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + BAR);
@@ -593,7 +623,9 @@ __global__ void __launch_bounds__(d128::NTHREADS, 1)
   uint64_t* full_v = empty_k + SLOTS;
   uint64_t* empty_v = full_v + SLOTS;
   uint64_t* q_full = empty_v + SLOTS;
-  uint64_t* q_empty = q_full + 1;
+  uint64_t* q_empty = q_full + QBUFS;
+  uint64_t* o_full = q_empty + QBUFS;       // a warpgroup's O is in shared memory
+  uint64_t* o_free = o_full + CONSUMERS;    // its store has read it
   const int n_qt = (a.S + BM - 1) / BM;
   const int total = n_qt * a.H * B;
   const int warp = warp_index();
@@ -605,22 +637,52 @@ __global__ void __launch_bounds__(d128::NTHREADS, 1)
       mbar_init(&full_v[i], 1);
       mbar_init(&empty_v[i], 128 * CONSUMERS);
     }
-    mbar_init(q_full, 1);
-    mbar_init(q_empty, 128 * CONSUMERS);
+    for (int i = 0; i < QBUFS; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 128 * CONSUMERS);
+    }
+    for (int i = 0; i < CONSUMERS; ++i) {
+      mbar_init(&o_full[i], 128);
+      mbar_init(&o_free[i], 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp >= 4 * CONSUMERS) {  // producer: per tile Q, then K_0, then K_it and V_(it-1) in turn
+  if (warp >= 4 * CONSUMERS) {  // producer warpgroup
     setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 128 * CONSUMERS + 32) {  // warp 1: each tile's O, as TMA stores
+      for (int k = 0, i; (i = ws_tile(k, total)) >= 0; ++k) {
+        const WsTile t(i, B, n_qt, a);
+        for (int wg = 0; wg < CONSUMERS; ++wg) {
+          mbar_wait(&o_full[wg], k & 1);
+#ifndef FWD_NOSTORE
+          if (t.q0 + wg * BQ < a.S) {  // (rows past S are not written)
+#pragma unroll
+            for (int c = 0; c < D; c += 64)
+              tma_store(&to, smem + O + wg * O_WG + (c / 64) * (BQ * 128), o_slots,
+                        t.q0 + wg * BQ, t.h, t.b, c);
+          }
+#endif
+          bulk_commit();
+        }
+        bulk_wait_read<1>();
+        mbar_arrive(&o_free[0]);
+        bulk_wait_read<0>();
+        mbar_arrive(&o_free[1]);
+      }
+      bulk_wait<0>();  // the last stores are done before the block leaves
+    }
+    // warp 0: per tile Q, then K_0, then K_it and V_(it-1) in turn
     if (threadIdx.x == 128 * CONSUMERS) {
       int kv = 0;  // K (and V) tiles loaded before this output tile
-      for (int k = 0, i; (i = d128_tile(k, total)) >= 0; ++k) {
-        const D128Tile t(i, B, n_qt, a);
+      for (int k = 0, i; (i = ws_tile(k, total)) >= 0; ++k) {
+        const WsTile t(i, B, n_qt, a);
         const int kh = t.h / (a.H / a.K);
-        if (k > 0) mbar_wait(q_empty, (k - 1) & 1);
-        mbar_expect_tx(q_full, BM * D * 2);
-        tma_tile<D>(smem + Q, &tq, q_full, a.q_slots, BM, t.q0, t.h, t.b);
+        const int qb = k % QBUFS;
+        if (k >= QBUFS) mbar_wait(&q_empty[qb], ((k / QBUFS) - 1) & 1);
+        mbar_expect_tx(&q_full[qb], Q_TILE);
+        tma_tile<D>(smem + Q + qb * Q_TILE, &tq, &q_full[qb], a.q_slots, BM, t.q0, t.h, t.b);
         for (int it = 0; it <= t.n; ++it) {
           if (it < t.n) {
             const int j = kv + it, st = j % SLOTS;
@@ -675,27 +737,71 @@ __global__ void __launch_bounds__(d128::NTHREADS, 1)
   const int r0 = (t128 / 32) * 16 + lane / 4;
   const int c0 = 2 * (lane % 4);
   const int mine = 1 + wg, theirs = 2 - wg;
-  // the warpgroup's rows of Q (of each half)
-  const uint64_t dq = smem_desc<D>(smem + Q + wg * BQ * box_cols<D>() * 2);
   const uint64_t dk0 = smem_desc<D>(smem + K);
+  // the warpgroup's rows of Q buffer qb (of each half)
+  auto q_desc = [&](int qb) {
+    return smem_desc<D>(smem + Q + qb * Q_TILE + wg * BQ * box_cols<D>() * 2);
+  };
 
   float o[NO], s[NS];
   uint32_t p[KS][4];
 #pragma unroll
   for (int i = 0; i < NS; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+
+  // The epilogue of the block's k-th output tile t, whose O is in o: the
+  // rows' logsumexp, then O through shared memory, the warpgroup's rows as
+  // the map's 128-byte swizzle lays them (16-byte piece c of row r at
+  // piece c ^ (r % 8), so a quad's 16 bytes of 8 rows hit 8 distinct
+  // banks). The producer's warp 1 stores them by TMA once every thread has
+  // arrived on o_full, and frees the buffer (o_free) when its store has
+  // read it: no thread of the consumers waits on a store.
+  auto epilogue = [&](int k, const WsTile& t, float m0, float m1, float l0, float l1) {
+    const int qp0 = t.q0 + wg * BQ + r0, qp1 = qp0 + 8;
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (a.lse != nullptr && lane % 4 == 0) {
+      // m is in log2 units of the scaled scores: lse = (m + log2 l) ln 2
+      float* lb = a.lse + ((long long)t.b * a.H + t.h) * a.S;
+      if (qp0 < a.S) lb[qp0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * 0.6931471805599453f;
+      if (qp1 < a.S) lb[qp1] = (m1 + log2f(fmaxf(l1, 1e-30f))) * 0.6931471805599453f;
+    }
+    uint8_t* ow = smem + O + wg * O_WG;
+    if (k > 0) mbar_wait(&o_free[wg], (k - 1) & 1);
+#ifndef FWD_NOSTORE
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      uint8_t* half = ow + (n / 8) * (BQ * 128);
+      const int piece = n % 8, off = c0 * 2;
+      *reinterpret_cast<uint32_t*>(half + r0 * 128 + ((piece ^ (r0 % 8)) * 16) + off) =
+          pack_bf16(o[n * 4 + 0] * inv0, o[n * 4 + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(half + (r0 + 8) * 128 + ((piece ^ ((r0 + 8) % 8)) * 16) + off) =
+          pack_bf16(o[n * 4 + 2] * inv1, o[n * 4 + 3] * inv1);
+    }
+#endif
+    fence_proxy_async();
+    mbar_arrive(&o_full[wg]);
+  };
+
   if (wg == 1) bar_arrive(1, 256);  // warpgroup 0 goes first
   int kv = 0;  // K (and V) tiles consumed before this output tile
-  for (int k = 0, i; (i = d128_tile(k, total)) >= 0; ++k) {
-    const D128Tile t(i, B, n_qt, a);
+  for (int k = 0, i; (i = ws_tile(k, total)) >= 0; ++k) {
+    const WsTile t(i, B, n_qt, a);
     // warpgroup 1's last turn of the block hands on nothing
-    const bool last_tile = d128_tile(k + 1, total) < 0;
+    const bool last_tile = ws_tile(k + 1, total) < 0;
     const int q0w = t.q0 + wg * BQ;
     const int qp0 = q0w + r0, qp1 = qp0 + 8;
+    const int qb = k % QBUFS;
+    const uint64_t dq = q_desc(qb);
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, al0 = 1.f, al1 = 1.f;
 #pragma unroll
     for (int j = 0; j < NO; ++j) o[j] = 0.f;
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, al0 = 1.f, al1 = 1.f;
 
-    mbar_wait(q_full, k & 1);
+    mbar_wait(&q_full[qb], (k / QBUFS) & 1);
     // KV tile 0: S alone
     {
       const int st = kv % SLOTS;
@@ -703,15 +809,15 @@ __global__ void __launch_bounds__(d128::NTHREADS, 1)
       bar_sync(mine, 256);
       fence_regs<NS>(s);
       wg_fence();
-      d128_qk(s, dq, dk0 + (uint64_t)((st * TILE) >> 4));
+      ws_qk<D>(s, dq, dk0 + (uint64_t)((st * TILE) >> 4));
       wg_commit();
       if (wg == 0 || !(last_tile && t.n == 1)) bar_arrive(theirs, 256);
       wg_wait<0>();
       fence_regs<NS>(s);
       mbar_arrive(&empty_k[st]);
-      if (t.n == 1) mbar_arrive(q_empty);  // Q is read
-      d128_softmax<NS>(s, m0, m1, l0, l1, al0, al1, tile_full(q0w, t.lo, BN, a.window), qp0,
-                       qp1, t.lo, c0, a.window, a.scale_log2);
+      if (t.n == 1) mbar_arrive(&q_empty[qb]);  // Q is read
+      ws_softmax<NS>(s, m0, m1, l0, l1, al0, al1, tile_full(q0w, t.lo, BN, a.window), qp0,
+                     qp1, t.lo, c0, a.window, a.scale_log2);
       acc_to_a<KS>(p, s);
     }
     for (int it = 1; it < t.n; ++it) {
@@ -721,22 +827,22 @@ __global__ void __launch_bounds__(d128::NTHREADS, 1)
       bar_sync(mine, 256);
       fence_regs<NS>(s);
       wg_fence();
-      d128_qk(s, dq, dk0 + (uint64_t)((sk * TILE) >> 4));
+      ws_qk<D>(s, dq, dk0 + (uint64_t)((sk * TILE) >> 4));
       wg_commit();
       rescale<NO>(o, al0, al1);  // under S: tile it - 1's factor
       mbar_wait(&full_v[sv], ((kv + it - 1) / SLOTS) & 1);
       fence_regs<NO>(o);
       fence_frag(p);
       wg_fence();
-      d128_pv(o, p, smem + V + sv * TILE);
+      ws_pv<D>(o, p, smem + V + sv * TILE);
       wg_commit();
       if (wg == 0 || !(last_tile && it == t.n - 1)) bar_arrive(theirs, 256);
       wg_wait<1>();  // S of tile it is in; its P V in flight
       fence_regs<NS>(s);
       mbar_arrive(&empty_k[sk]);
-      if (it == t.n - 1) mbar_arrive(q_empty);  // Q is read
-      d128_softmax<NS>(s, m0, m1, l0, l1, al0, al1, tile_full(q0w, k0, BN, a.window), qp0,
-                       qp1, k0, c0, a.window, a.scale_log2);
+      if (it == t.n - 1) mbar_arrive(&q_empty[qb]);  // Q is read
+      ws_softmax<NS>(s, m0, m1, l0, l1, al0, al1, tile_full(q0w, k0, BN, a.window), qp0,
+                     qp1, k0, c0, a.window, a.scale_log2);
       wg_wait<0>();
       fence_regs<NO>(o);
       mbar_arrive(&empty_v[sv]);
@@ -749,52 +855,14 @@ __global__ void __launch_bounds__(d128::NTHREADS, 1)
     fence_regs<NO>(o);
     fence_frag(p);
     wg_fence();
-    d128_pv(o, p, smem + V + sv * TILE);
+    ws_pv<D>(o, p, smem + V + sv * TILE);
     wg_commit();
     wg_wait<0>();
     fence_regs<NO>(o);
     mbar_arrive(&empty_v[sv]);
     kv += t.n;
-
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-    if (a.lse != nullptr && lane % 4 == 0) {
-      // m is in log2 units of the scaled scores: lse = (m + log2 l) ln 2
-      float* lb = a.lse + ((long long)t.b * a.H + t.h) * a.S;
-      if (qp0 < a.S) lb[qp0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * 0.6931471805599453f;
-      if (qp1 < a.S) lb[qp1] = (m1 + log2f(fmaxf(l1, 1e-30f))) * 0.6931471805599453f;
-    }
-#ifndef FWD_NOSTORE
-    // O through shared memory and two TMA stores (one a 64-column half;
-    // rows past S are not written): the warpgroup's rows as the map's
-    // 128-byte swizzle lays them, 16-byte piece c of row r at piece
-    // c ^ (r % 8), so a quad's 16 bytes of 8 rows hit 8 distinct banks.
-    // The buffer is free once the last tile's stores have read it.
-    uint8_t* ow = smem + O + wg * O_WG;
-    if (t128 == 0) bulk_wait_read<0>();
-    bar_sync(3 + wg, 128);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      uint8_t* half = ow + (n / 8) * (BQ * 128);
-      const int piece = n % 8, off = c0 * 2;
-      *reinterpret_cast<uint32_t*>(half + r0 * 128 + ((piece ^ (r0 % 8)) * 16) + off) =
-          pack_bf16(o[n * 4 + 0] * inv0, o[n * 4 + 1] * inv0);
-      *reinterpret_cast<uint32_t*>(half + (r0 + 8) * 128 + ((piece ^ ((r0 + 8) % 8)) * 16) + off) =
-          pack_bf16(o[n * 4 + 2] * inv1, o[n * 4 + 3] * inv1);
-    }
-    fence_proxy_async();
-    bar_sync(3 + wg, 128);
-    if (t128 == 0) {
-      tma_store(&to, ow, o_slots, q0w, t.h, t.b, 0);
-      tma_store(&to, ow + BQ * 128, o_slots, q0w, t.h, t.b, 64);
-      bulk_commit();
-    }
-#endif
+    epilogue(k, t, m0, m1, l0, l1);
   }
-  if (t128 == 0) bulk_wait<0>();  // the last stores are done before the block leaves
 }
 
 // ---------------------------------------------------------------------------
@@ -936,13 +1004,15 @@ int launch_bf16(const Args& a, int B, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// The head-dim-128 bf16 forward: tensor maps of 128-row Q boxes and
-// BN-row K and V boxes. Once per device: its shared memory above 48 KB, and
-// the check that its register count at launch leaves room for the
-// consumers' setmaxnreg.inc from what the producer gives up (an increase
-// the pool cannot serve would never return).
-int launch_d128(const Args& a, int B, cudaStream_t st) {
-  using namespace d128;
+// The warp-specialized bf16 forward: tensor maps of 128-row Q boxes,
+// BN-row K and V boxes and 64-row O boxes. Once per device: its shared
+// memory above 48 KB, and the check that its register count at launch
+// leaves room for the consumers' setmaxnreg.inc from what the producer
+// gives up (an increase the pool cannot serve would never return).
+template <int D>
+int launch_ws(const Args& a, int B, cudaStream_t st) {
+  using namespace ws;
+  constexpr int BYTES = Layout<D>::BYTES;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaSetDevice(dev);  // bind the primary context
@@ -971,11 +1041,11 @@ int launch_d128(const Args& a, int B, cudaStream_t st) {
     if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return (int)err;
     sms[dev < 64 ? dev : 0] = n;
-    err = cudaFuncSetAttribute(flash_d128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(flash_ws_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                BYTES);
     if (err != cudaSuccess) return (int)err;
     cudaFuncAttributes attr;
-    if ((err = cudaFuncGetAttributes(&attr, flash_d128_kernel)) != cudaSuccess) return (int)err;
+    if ((err = cudaFuncGetAttributes(&attr, flash_ws_kernel<D>)) != cudaSuccess) return (int)err;
     const int r = attr.numRegs;
     if (r > CONSUMER_REGS || r < PRODUCER_REGS ||
         (r - PRODUCER_REGS) * 128 < (CONSUMER_REGS - r) * 128 * CONSUMERS)
@@ -988,8 +1058,18 @@ int launch_d128(const Args& a, int B, cudaStream_t st) {
 #else
   const int grid = tiles < sms[dev < 64 ? dev : 0] ? tiles : sms[dev < 64 ? dev : 0];
 #endif
-  flash_d128_kernel<<<grid, NTHREADS, BYTES, st>>>(tq, tk, tv, to, t, o_slots, B);
+  flash_ws_kernel<D><<<grid, NTHREADS, BYTES, st>>>(tq, tk, tv, to, t, o_slots, B);
   return (int)cudaGetLastError();
+}
+
+// Which bf16 kernel runs at head dim D with G = H / K query heads a KV
+// head and a window (0: none): flash_ws_kernel<D> where this holds,
+// flash_bf16_kernel<D> elsewhere (kernels/flash_attention.py fwd_kernel
+// mirrors it). At D = 64 flash_ws_kernel was measured faster than
+// flash_bf16_kernel at every G and window the models run (PERF.md), so the
+// rule rests on D alone.
+bool ws_route(int D, int G, int window) {
+  return D == 128 || D == 64;
 }
 
 }  // namespace
@@ -1017,9 +1097,10 @@ extern "C" int repro_flash_attention_lse(
   a.scale = 1.0f / sqrtf((float)D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  if (dtype == 1 && D == 128) return launch_d128(a, B, st);
-  if (dtype == 1 && D == 64) return launch_bf16<64>(a, B, st);
-  if (dtype == 1 && D == 32) return launch_bf16<32>(a, B, st);
+  const bool ws = dtype == 1 && ws_route(D, H / K, window);
+  if (ws && D == 128) return launch_ws<128>(a, B, st);
+  if (ws && D == 64) return launch_ws<64>(a, B, st);
+  if (dtype == 1 && !ws && D == 32) return launch_bf16<32>(a, B, st);
   constexpr int wide = BQ * f32_tpr<128>();  // threads a float32 block at D = 128
   if (dtype == 0 && D == 128) {
     flash_f32_kernel<128><<<grid, wide, 0, st>>>(a);

@@ -28,8 +28,9 @@
 // both kernels: seven products instead of five, 7/5 of the bound.
 //
 // Design (bf16), on the forward's machinery (flash_attention.cu):
-//  * dQ, launched first: a block owns 192 query rows of one (b, query
-//    head): three consumer warpgroups of 64 rows and a producer warpgroup.
+//  * dQ, launched first (at D <= 64; D = 128 below): a block owns 192
+//    query rows of one (b, query head): three consumer warpgroups of 64
+//    rows and a producer warpgroup.
 //    One producer thread issues TMA loads of Q, dO and O once, then the KV
 //    head's K and V tiles of 64 rows into a ring of STAGES slots, each with
 //    a "full" mbarrier (the TMA's bytes) and an "empty" one (every consumer
@@ -82,9 +83,28 @@
 //    than the swizzle's span: each tile arrives as two 64-column boxes into
 //    its two halves ([rows][64] each), as in the forward (hopper.cuh:
 //    tma_tile, k_step; a product by D's columns is two n64 wgmma, mma_rs).
-//  * D = 128: dQ's block of three warpgroups would need 243 KB of shared
-//    memory (Q, dO, O at 48 KB each and the ring), so it takes two (128
-//    rows, 192 KB). dK/dV (redesigned for Hopper, as FlashAttention-3's
+//  * dQ at D = 128 (dq_d128_kernel, redesigned for Hopper): persistent,
+//    one block an SM walking 128-row output tiles heaviest first, dealt as
+//    a snake. Two consumer warpgroups of 64 rows (three would not fit: Q
+//    and dO of 192 rows alone take 96 KB) and a producer warpgroup whose
+//    warps split the work: warp 0 streams the 64-row K/V tiles into a
+//    3-slot ring on across the block's tiles, warp 1 loads each tile's Q
+//    and dO into one of two buffers and stores dQ, warps 2-3 take Dr =
+//    rowsum(dO o) from O in global memory and dO in shared memory (the
+//    same sums in the same order as dq_bf16_kernel's two-thread pass). O
+//    never enters shared memory; that is what makes room for the second
+//    Q/dO buffer, so the next tile's rows and Dr arrive under this tile's
+//    products. dQ leaves through the warpgroup's rows of the tile's Q
+//    buffer (free once its last S is done): the consumers write it in the
+//    map's swizzle and arrive on dq_ready, and warp 1 stores it by TMA
+//    before it loads that buffer again (in place of store_acc's 4-byte
+//    writes from the registers, rows 10 KB apart). The first dS K
+//    of a tile overwrites dQ (the wgmma's accumulate flag): zeroing it
+//    with other instructions in the persistent loop made ptxas serialize
+//    every wgmma (C7515). The producer keeps 56 registers (its Dr pass),
+//    the consumers rise to 224. Its sums are dq_bf16_kernel<128>'s, in
+//    the same order: dQ and Dr are the parent's bits.
+//  * dK/dV at D = 128 (redesigned for Hopper, as FlashAttention-3's
 //    backward at this head dim) keeps two consumer warpgroups of 64 KV rows
 //    and a producer at setmaxnreg.dec 24, and streams the query tiles at 32
 //    rows in a ring of 4 slots: S^T = K Q^T and dP^T = V dO^T are m64n32
@@ -96,9 +116,12 @@
 //    C7511, and left the SM's tensor cores to one chain.) K and V of 128
 //    rows take 64 KB, the ring 64 KB.
 //  * Diagnostic macros (tools/bwd_breakdown.py): BWD_DQ_WGS (dQ's consumer
-//    warpgroups), BWD_NOEXP (P = its exponent's argument, no mask) and
-//    BWD_NOSECOND (no dQ, dV, dK products); the last two give wrong
-//    gradients by design.
+//    warpgroups at D <= 64), BWD_NOEXP (P = its exponent's argument, no
+//    mask), BWD_NOSECOND (no dQ, dV, dK products), BWD_NOLOAD (dq_d128_kernel
+//    loads no K/V tile after each ring slot's first) and BWD_NOSTORE
+//    (dq_d128_kernel stores no dQ);
+//    the last four give wrong gradients by design (and with no store ptxas
+//    may drop the products no output reads).
 // float32 inputs have no exact tensor-core path (TF32 would round them), so
 // they take scalar kernels (one thread a row, two at D = 128, each with half
 // the row's columns; the other side's rows read
@@ -502,6 +525,373 @@ __global__ void __launch_bounds__(Shape<dq_wgs<D>()>::THREADS, 1)
       mbar_arrive(&empty[it % STAGES]);
     }
     store_acc<D>(dq, a.scale, a.dq, a.dqs, b, h, qp0, c0, a.S);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dQ (and Dr) at D = 128, redesigned for Hopper: persistent, one block
+// an SM walking 128-row output tiles heaviest first, dealt as a snake; two
+// consumer warpgroups of 64 rows and a producer warpgroup whose warps split
+// the work: warp 0's first thread streams the K/V ring, warp 1's loads each
+// tile's Q and dO into one of two buffers, and warps 2-3 take each row's
+// Dr = rowsum(dO o) of the next tile from O in global memory and dO in
+// shared memory. O never enters shared memory, and that is what makes room
+// for two Q/dO buffers beside a 3-slot ring: the next tile's Q, dO and Dr
+// arrive under this tile's products. dQ leaves through the tile's Q
+// buffer (free once the warpgroup's last S = Q K^T is done) by TMA stores,
+// one a 64-column half.
+// ---------------------------------------------------------------------------
+namespace dq128 {
+constexpr int D = 128;
+constexpr int NC = 2;                       // consumer warpgroups
+constexpr int BM = WG_ROWS * NC;            // 128 query rows a tile
+constexpr int THREADS = 128 * (NC + 1);
+constexpr int SLOTS = 3;                    // K/V ring slots of BN rows
+constexpr int ROWS = BM * D * 2;            // 32 KB: a tile's Q (or dO) rows
+constexpr int TILE = BN * D * 2;            // 16 KB: a K (or V) tile
+constexpr int DR_THREADS = 64;              // the producer's warps 2-3
+// At launch ptxas gives a thread 65536 / 384 = 168 registers; the producer
+// warpgroup keeps 56 (its Dr pass holds a 16-byte load of O and one of dO
+// in flight) and the consumers rise to 224: (168 - 56) x 128 = (224 - 168) x 256
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+// Shared memory from a 1024-byte aligned base: Q[2], dO[2] (each two
+// [BM][64] halves), the K and V rings, Dr[2][BM], the barriers
+constexpr int Q = 0;
+constexpr int DO = Q + 2 * ROWS;
+constexpr int K = DO + 2 * ROWS;
+constexpr int V = K + SLOTS * TILE;
+constexpr int DR = V + SLOTS * TILE;
+constexpr int BAR = DR + 2 * BM * 4;
+// full[SLOTS], empty[SLOTS], rows_full[2], dq_ready[2], dr_full[2], dr_free[2]
+constexpr int BYTES = BAR + (2 * SLOTS + 8) * 8 + 1024;  // + alignment slack
+static_assert(BYTES <= 232448, "the block's shared memory exceeds the SM's");
+static_assert((224 - 168) * 128 * NC == (168 - 56) * 128, "the register split");
+}  // namespace dq128
+
+// Output tile i counts from the heaviest (the last query rows of each (row,
+// head)) down; the KV tiles [lo, lo + n BN) the block streams for it: from
+// the window's edge of its first row to the diagonal of its last.
+struct Dq128Tile {
+  int q0, h, b, lo, n;
+  __device__ __forceinline__ Dq128Tile(int i, int B, int n_qt, const TmaArgs& a) {
+    const int hb = a.H * B;
+    q0 = (n_qt - 1 - i / hb) * dq128::BM;
+    h = (i % hb) % a.H;
+    b = (i % hb) / a.H;
+    int hi;
+    kv_range(q0, a.S, a.window, &lo, &hi);
+    hi = min(q0 + dq128::BM, a.S);
+    n = (hi - lo + BN - 1) / BN;
+  }
+};
+
+// The k-th output tile (k = 0, 1, ...) of this block of a grid over
+// `total` tiles: index k g + x in even rounds, k g + g - 1 - x in odd ones
+// (a snake, so that heaviest-first leaves the blocks' sums of work close);
+// -1 past the last.
+__device__ __forceinline__ int dq128_tile(int k, int total) {
+  const int g = gridDim.x, x = blockIdx.x;
+  const int i = k * g + ((k & 1) ? g - 1 - x : x);
+  return i < total ? i : -1;
+}
+
+// dq_step on the persistent ring, in two halves: KV tile it of the output
+// tile sits in ring slot (j0 + it) % SLOTS, j0 the ring's count of tiles
+// before it. dq128_wait waits for the group in flight (tile it's S and dP,
+// and tile it - 1's dS K) and releases tile it - 1's slot; dq128_issue
+// then commits the next group.
+__device__ __forceinline__ void dq128_wait(int it, int it_lo, int j0, float* s, float* dp,
+                                           float* dq, uint64_t* empty) {
+  using namespace dq128;
+  wg_wait<0>();
+  fence_regs<BN / 2>(s);
+  fence_regs<BN / 2>(dp);
+  fence_regs<D / 2>(dq);
+  if (it > it_lo) mbar_arrive(&empty[(j0 + it - 1) % SLOTS]);
+}
+
+__device__ __forceinline__ void dq128_issue(int it, int it_lo, int it_hi, int lo, int j0, float* s,
+                                            float* dp, float* dq, uint64_t* full,
+                                            uint64_t desc_q, uint64_t desc_do, uint64_t desc_k0,
+                                            uint64_t desc_v0, const DqRows& r, const TmaArgs& a) {
+  using namespace dq128;
+  constexpr uint64_t SLOT = TILE >> 4;  // a ring slot in descriptor units
+  // P under K1's mask, then dS = P (dP - Dr) in place of dP
+  const int k0 = lo + it * BN;
+  const bool whole =
+      k0 + BN - 1 <= r.q0w && (a.window <= 0 || r.q0w + WG_ROWS - 1 - k0 < a.window);
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = n * 4 + e;
+#ifdef BWD_NOEXP
+      float p = fmaf(s[i], a.scale_log2, -(e < 2 ? r.l0 : r.l1));
+#else
+      float p = ex2(fmaf(s[i], a.scale_log2, -(e < 2 ? r.l0 : r.l1)));
+      if (!whole && !valid_pair(e < 2 ? r.qp0 : r.qp1, k0 + 8 * n + r.c0 + (e & 1), a.S, a.window))
+        p = 0.f;
+#endif
+      dp[i] = p * (dp[i] - (e < 2 ? r.d0 : r.d1));
+    }
+  uint32_t ds[BN / 16][4];
+  acc_to_a<BN / 16>(ds, dp);
+  fence_frag(ds);
+  fence_regs<BN / 2>(s);
+  fence_regs<BN / 2>(dp);
+
+  wg_fence();
+  if (it + 1 < it_hi) {  // S = Q K^T and dP = dO V^T (64 x 64 each) of the next tile
+    const int nx = (j0 + it + 1) % SLOTS;
+    mbar_wait(&full[nx], ((j0 + it + 1) / SLOTS) & 1);
+    issue_two<D>(s, dp, desc_q, desc_k0 + SLOT * nx, desc_do, desc_v0 + SLOT * nx, BM, BN);
+  }
+#ifndef BWD_NOSECOND
+  // dQ (+)= dS K: K read MN-major, BN / 16 k16 steps of 16 key rows. The
+  // output tile's first step overwrites dQ: zeroing it with other
+  // instructions in the persistent loop made ptxas serialize every wgmma
+  // (C7515; 206.7 against 168.0 us at qwen2.5-14b's shape on an H100)
+  const uint64_t dk = desc_k0 + SLOT * ((j0 + it) % SLOTS);
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    mma_rs<D>(dq, ds[kk], dk + mn_step<D>() * kk, BN, it > it_lo || kk > 0);
+#endif
+  wg_commit();
+}
+
+// Grid: min(tiles, SMs) blocks of dq128::THREADS threads and dq128::BYTES
+// of dynamic shared memory, over the B H ceil(S / 128) output tiles.
+// `o`/`os`: O and its strides, read by the Dr pass; `tdq`: dQ's map, 64-row
+// boxes.
+__global__ void __launch_bounds__(dq128::THREADS, 1)
+    dq_d128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdq, TmaArgs a, const bf16* o, Strides os,
+                   int dq_slots, int B) {
+  using namespace dq128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR);
+  uint64_t* empty = full + SLOTS;
+  uint64_t* rows_full = empty + SLOTS;  // Q and dO of buffer 0, 1 landed
+  uint64_t* dq_ready = rows_full + 2;   // buffer 0, 1 read, its dQ staged
+  uint64_t* dr_full = dq_ready + 2;     // Dr of buffer 0, 1 written
+  uint64_t* dr_free = dr_full + 2;      // Dr of buffer 0, 1 read
+  float* dr_s = reinterpret_cast<float*>(smem + DR);
+  const int n_qt = (a.S + BM - 1) / BM;
+  const int total = n_qt * a.H * B;
+  const int warp = warp_index();
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < SLOTS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 128 * NC);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&rows_full[i], 1);
+      mbar_init(&dq_ready[i], 128 * NC);
+      mbar_init(&dr_full[i], DR_THREADS);
+      mbar_init(&dr_free[i], 128 * NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NC) {  // producer warpgroup
+    setmaxnreg_dec<dq128::PRODUCER_REGS>();
+    const int pw = warp - 4 * NC, lane = threadIdx.x % 32;
+    if (pw == 0 && lane == 0) {  // the K/V ring, on across the block's tiles
+      int kv = 0;
+      for (int k = 0, i; (i = dq128_tile(k, total)) >= 0; ++k) {
+        const Dq128Tile t(i, B, n_qt, a);
+        const int kh = t.h / (a.H / a.K);
+        for (int it = 0; it < t.n; ++it) {
+          const int j = kv + it, st = j % SLOTS;
+          if (j >= SLOTS) mbar_wait(&empty[st], ((j / SLOTS) - 1) & 1);
+#ifdef BWD_NOLOAD
+          if (j >= SLOTS) {  // the slot keeps its first tiles: no load
+            mbar_arrive(&full[st]);
+            continue;
+          }
+#endif
+          mbar_expect_tx(&full[st], 2 * TILE);
+          tma_tile<D>(smem + K + st * TILE, &tk, &full[st], a.k_slots, BN, t.lo + it * BN, kh, t.b);
+          tma_tile<D>(smem + V + st * TILE, &tv, &full[st], a.v_slots, BN, t.lo + it * BN, kh, t.b);
+        }
+        kv += t.n;
+      }
+    } else if (pw == 1 && lane == 0) {
+      // each tile's Q and dO into buffer k % 2; once tile k - 2 staged its
+      // dQ in that buffer, dQ out by TMA stores first (two a warpgroup, one
+      // a 64-column half; rows past S are not written)
+      auto store = [&](int k) {
+        const Dq128Tile t(dq128_tile(k, total), B, n_qt, a);
+        const int buf = k & 1;
+        mbar_wait(&dq_ready[buf], (k >> 1) & 1);
+#ifndef BWD_NOSTORE
+        for (int wg = 0; wg < NC; ++wg) {
+          const int q0w = t.q0 + wg * WG_ROWS;
+          if (q0w >= a.S) continue;
+          uint8_t* rows = smem + Q + buf * ROWS + wg * WG_ROWS * 128;
+          tma_store(&tdq, rows, dq_slots, q0w, t.h, t.b, 0);
+          tma_store(&tdq, rows + BM * 128, dq_slots, q0w, t.h, t.b, 64);
+        }
+#endif
+        bulk_commit();
+      };
+      int k = 0;
+      for (int i; (i = dq128_tile(k, total)) >= 0; ++k) {
+        const Dq128Tile t(i, B, n_qt, a);
+        const int buf = k & 1;
+        if (k >= 2) {
+          store(k - 2);
+          bulk_wait_read<0>();
+        }
+        mbar_expect_tx(&rows_full[buf], 2 * ROWS);
+        tma_tile<D>(smem + Q + buf * ROWS, &tq, &rows_full[buf], a.q_slots, BM, t.q0, t.h, t.b);
+        tma_tile<D>(smem + DO + buf * ROWS, &tdo, &rows_full[buf], a.do_slots, BM, t.q0, t.h, t.b);
+      }
+      for (int j = k >= 2 ? k - 2 : 0; j < k; ++j) store(j);
+      bulk_wait<0>();  // the last stores are done before the block leaves
+    } else if (pw >= 2) {  // Dr = rowsum(dO o): rows u and u + 64 of each tile
+      const int u = threadIdx.x - 128 * NC - 64;
+      for (int k = 0, i; (i = dq128_tile(k, total)) >= 0; ++k) {
+        const Dq128Tile t(i, B, n_qt, a);
+        const int buf = k & 1;
+        mbar_wait(&rows_full[buf], (k >> 1) & 1);
+        if (k >= 2) mbar_wait(&dr_free[buf], ((k - 2) >> 1) & 1);
+        const long long row = ((long long)t.b * a.H + t.h) * a.S;
+#pragma unroll 1
+        for (int rr = u; rr < BM; rr += DR_THREADS) {
+          const int qp = t.q0 + rr;
+          // the row's halves in turn, each over the 16-byte chunks in the
+          // order the swizzled tile holds them (chunk c ^ (rr % 8) at
+          // place c), as the two-thread pass of dq_bf16_kernel sums them
+          float acc[2] = {0.f, 0.f};
+          if (qp < a.S) {
+            const bf16* orow = o + t.b * os.b + t.h * os.h + qp * os.s;
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const uint4* pd =
+                  reinterpret_cast<const uint4*>(smem + DO + buf * ROWS + hf * BM * 128 + rr * 128);
+#pragma unroll 4
+              for (int c = 0; c < 8; ++c) {
+                const uint4 x = __ldg(reinterpret_cast<const uint4*>(orow + hf * 64) + (c ^ (rr % 8)));
+                const uint4 y = pd[c];
+                const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+                const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                  const float2 fx = __bfloat1622float2(xs[j]), fy = __bfloat1622float2(ys[j]);
+                  acc[hf] = fmaf(fx.x, fy.x, acc[hf]);
+                  acc[hf] = fmaf(fx.y, fy.y, acc[hf]);
+                }
+              }
+            }
+          }
+          const float dr = acc[0] + acc[1];
+          dr_s[buf * BM + rr] = dr;
+          if (qp < a.S) a.delta[row + qp] = dr;
+        }
+        mbar_arrive(&dr_full[buf]);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<dq128::CONSUMER_REGS>();
+
+  // consumer warpgroup wg: query rows [q0 + 64 wg, + 64) of each tile
+  constexpr int NS = BN / 2;  // S and dP accumulator floats a thread
+  constexpr int NQ = D / 2;   // dQ accumulator floats a thread
+  const int wg = warp / 4, t128 = threadIdx.x % 128, lane = threadIdx.x % 32;
+  // this thread's rows (of the warpgroup's 64) and its first key column:
+  // s[n*4 + i*2 + j] is row r0 + 8i, key k0 + 8n + c0 + j
+  const int r0 = (t128 / 32) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const uint64_t desc_k0 = smem_desc<D>(smem + K), desc_v0 = smem_desc<D>(smem + V);
+  float dq[NQ], s[NS], dp[NS];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) dq[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
+  auto skip = [&](int j) {  // a ring tile no row of this warpgroup needs
+    mbar_wait(&full[j % SLOTS], (j / SLOTS) & 1);
+    mbar_arrive(&empty[j % SLOTS]);
+  };
+  int kv = 0;  // ring tiles before this output tile
+  for (int k = 0, i; (i = dq128_tile(k, total)) >= 0; ++k) {
+    const Dq128Tile t(i, B, n_qt, a);
+    const int buf = k & 1;
+    const int q0w = t.q0 + wg * WG_ROWS;
+    int it_lo = 0, it_hi = 0;  // no rows below S: compute nothing
+    if (q0w < a.S) {
+      int lo_w, hi_w;
+      kv_range(q0w, a.S, a.window, &lo_w, &hi_w);
+      it_lo = (lo_w - t.lo) / BN;
+      it_hi = (hi_w - t.lo + BN - 1) / BN;
+    }
+    const long long row = ((long long)t.b * a.H + t.h) * a.S;
+    DqRows r;
+    r.q0w = q0w;
+    r.qp0 = q0w + r0;
+    r.qp1 = r.qp0 + 8;
+    r.c0 = c0;
+    r.l0 = r.qp0 < a.S ? a.lse[row + r.qp0] * LOG2E : 0.f;
+    r.l1 = r.qp1 < a.S ? a.lse[row + r.qp1] * LOG2E : 0.f;
+    uint8_t* qb = smem + Q + buf * ROWS;
+    const uint64_t desc_q = smem_desc<D>(qb + wg * WG_ROWS * 128);
+    const uint64_t desc_do = smem_desc<D>(smem + DO + buf * ROWS + wg * WG_ROWS * 128);
+
+    mbar_wait(&rows_full[buf], (k >> 1) & 1);
+    for (int it = 0; it < it_lo; ++it) skip(kv + it);
+    if (it_lo < it_hi) {  // the first tile's S and dP, under the waits below
+      const int j = kv + it_lo;
+      mbar_wait(&full[j % SLOTS], (j / SLOTS) & 1);
+      wg_fence();
+      issue_two<D>(s, dp, desc_q, desc_k0 + (TILE >> 4) * (j % SLOTS), desc_do,
+                   desc_v0 + (TILE >> 4) * (j % SLOTS), BM, BN);
+      wg_commit();
+    }
+    mbar_wait(&dr_full[buf], (k >> 1) & 1);
+    r.d0 = dr_s[buf * BM + wg * WG_ROWS + r0];
+    r.d1 = dr_s[buf * BM + wg * WG_ROWS + r0 + 8];
+    mbar_arrive(&dr_free[buf]);
+
+    for (int it = it_lo; it < it_hi; ++it) {
+      dq128_wait(it, it_lo, kv, s, dp, dq, empty);
+      dq128_issue(it, it_lo, it_hi, t.lo, kv, s, dp, dq, full, desc_q, desc_do, desc_k0,
+                  desc_v0, r, a);
+    }
+    // (unconditional: ptxas then knows no product is in flight when dQ is
+    // read for the store)
+    wg_wait<0>();
+    fence_regs<NQ>(dq);
+    fence_regs<NS>(s);
+    fence_regs<NS>(dp);
+    if (it_lo < it_hi) mbar_arrive(&empty[(kv + it_hi - 1) % SLOTS]);
+    for (int it = it_hi; it < t.n; ++it) skip(kv + it);
+    kv += t.n;
+
+    // dQ into the warpgroup's rows of this tile's Q buffer (every S of the
+    // warpgroup is done), as the map's 128-byte swizzle lays them: 16-byte
+    // piece c of row r at piece c ^ (r % 8). The producer's warp 1 stores
+    // them once every consumer thread has arrived on dq_ready (which also
+    // frees the buffer's Q and dO): no consumer waits on a store.
+#ifndef BWD_NOSTORE
+    if (q0w < a.S) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        uint8_t* half = qb + (n / 8) * (BM * 128) + wg * WG_ROWS * 128;
+        const int piece = n % 8, off = c0 * 2;
+        *reinterpret_cast<uint32_t*>(half + r0 * 128 + ((piece ^ (r0 % 8)) * 16) + off) =
+            pack_bf16(dq[n * 4 + 0] * a.scale, dq[n * 4 + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(half + (r0 + 8) * 128 + ((piece ^ ((r0 + 8) % 8)) * 16) + off) =
+            pack_bf16(dq[n * 4 + 2] * a.scale, dq[n * 4 + 3] * a.scale);
+      }
+    }
+#endif
+    fence_proxy_async();
+    mbar_arrive(&dq_ready[buf]);
   }
 }
 
@@ -924,6 +1314,45 @@ int prepare(Kernel kernel, int smem, unsigned long long* done) {
   return 0;
 }
 
+// dq_d128_kernel: tensor maps of 128-row Q and dO boxes, 64-row K, V and
+// dQ boxes; a persistent grid of one block an SM (at most one a tile).
+// Once per device: its shared memory above 48 KB, and the check that its
+// register count at launch leaves room for the consumers' setmaxnreg.inc.
+int launch_dq128(const Args& a, int B, TmaArgs t, cudaStream_t st) {
+  using namespace dq128;
+  CUtensorMap tq, tdo, tk, tv, tdq;
+  int dq_slots = 0;
+  int rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BM, &t.q_slots);
+  if (!rc) rc = encode(&tdo, a.dout, D, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, BM, &t.do_slots);
+  if (!rc) rc = encode(&tk, a.k, D, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BN, &t.k_slots);
+  if (!rc) rc = encode(&tv, a.v, D, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BN, &t.v_slots);
+  if (!rc) rc = encode(&tdq, a.dq, D, a.S, a.H, B, a.dqs.s, a.dqs.h, a.dqs.b, WG_ROWS, &dq_slots);
+  if (rc) return rc;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  static unsigned long long ready = 0;
+  static int sms[64];  // SMs of each device: the persistent grid's blocks
+  if (dev >= 64 || !(ready >> dev & 1)) {
+    int n = 0;
+    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)err;
+    sms[dev < 64 ? dev : 0] = n;
+    err = cudaFuncSetAttribute(dq_d128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+    if (err != cudaSuccess) return (int)err;
+    cudaFuncAttributes attr;
+    if ((err = cudaFuncGetAttributes(&attr, dq_d128_kernel)) != cudaSuccess) return (int)err;
+    const int r = attr.numRegs, prod = dq128::PRODUCER_REGS, cons = dq128::CONSUMER_REGS;
+    if (r > cons || r < prod || (r - prod) * 128 < (cons - r) * 128 * NC)
+      return (int)cudaErrorInvalidConfiguration;
+    if (dev < 64) ready |= 1ull << dev;
+  }
+  const int tiles = (a.S + BM - 1) / BM * a.H * B, n_sm = sms[dev < 64 ? dev : 0];
+  dq_d128_kernel<<<tiles < n_sm ? tiles : n_sm, THREADS, BYTES, st>>>(
+      tq, tdo, tk, tv, tdq, t, static_cast<const bf16*>(a.o), a.os, dq_slots, B);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_bf16(int kernel, const Args& a, int B, cudaStream_t st) {
   // Encoding a tensor map needs a current context, and a host thread that
@@ -949,7 +1378,9 @@ int launch_bf16(int kernel, const Args& a, int B, cudaStream_t st) {
   t.scale = a.scale;
   t.scale_log2 = a.scale * LOG2E;
   int rc;
-  if (kernel == 1) {
+  if (kernel == 1 && D == 128) {
+    return launch_dq128(a, B, t, st);
+  } else if (kernel == 1) {
     CUtensorMap tq, tdo, to, tk, tv;
     constexpr int BM = DqSmem<D>::BM;
     rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BM, &t.q_slots);
@@ -959,11 +1390,13 @@ int launch_bf16(int kernel, const Args& a, int B, cudaStream_t st) {
     if (!rc) rc = encode(&tv, a.v, D, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BN, &t.v_slots);
     static unsigned long long done = 0;
     constexpr int NC = dq_wgs<D>();
-    if (!rc) rc = prepare<NC>(dq_bf16_kernel<D>, DqSmem<D>::BYTES, &done);
-    if (rc) return rc;
-    dq_bf16_kernel<D><<<dim3(a.H, B, (a.S + BM - 1) / BM), Shape<NC>::THREADS,
-                        DqSmem<D>::BYTES, st>>>(
-        tq, tdo, to, tk, tv, t);
+    if constexpr (D <= 64) {  // D = 128 is dq_d128_kernel's
+      if (!rc) rc = prepare<NC>(dq_bf16_kernel<D>, DqSmem<D>::BYTES, &done);
+      if (rc) return rc;
+      dq_bf16_kernel<D><<<dim3(a.H, B, (a.S + BM - 1) / BM), Shape<NC>::THREADS,
+                          DqSmem<D>::BYTES, st>>>(
+          tq, tdo, to, tk, tv, t);
+    }
   } else {
     CUtensorMap tk, tv, tq, tdo;
     constexpr int BM = KvSmem<D>::BM;

@@ -168,9 +168,11 @@ __device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// D[64 x 64] += A[64 x 16] * B[16 x 64]; A from registers (bf16 pairs),
-// B MN-major in shared memory (the transpose bit set).
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64]; A from registers (bf16 pairs),
+// B MN-major in shared memory (the transpose bit set); accumulate 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db,
+                                             int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -188,7 +190,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // D[64 x 32] += A[64 x 16] * B[16 x 32]; A from registers (bf16 pairs),
@@ -235,14 +237,16 @@ __device__ __forceinline__ void issue_two(float* s, float* dp, uint64_t as, uint
 // acc[64 x D] += A[64 x 16] (registers) * B[16 x D] (MN-major). At D = 128
 // the B tile (of `rows` rows) lies in two 64-column halves: two n64
 // products, acc[0..31] the first half's columns and acc[32..63] the second's,
-// so acc[4n + e] is column 8n + ... for every D.
+// so acc[4n + e] is column 8n + ... for every D. accumulate 0 overwrites
+// acc (D = 64 and 128).
 template <int D>
-__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a, uint64_t db, int rows = 0) {
+__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a, uint64_t db, int rows = 0,
+                                       int accumulate = 1) {
   if constexpr (D == 128) {
-    wgmma_rs_n64(d, a, db);
-    wgmma_rs_n64(d + 32, a, db + (uint64_t)((rows * 128) >> 4));
+    wgmma_rs_n64(d, a, db, accumulate);
+    wgmma_rs_n64(d + 32, a, db + (uint64_t)((rows * 128) >> 4), accumulate);
   } else if constexpr (D == 64) {
-    wgmma_rs_n64(d, a, db);
+    wgmma_rs_n64(d, a, db, accumulate);
   } else {
     wgmma_rs_n32(d, a, db);
   }

@@ -43,6 +43,19 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _I64 = ctypes.c_longlong
 
 
+def fwd_kernel(dtype, D, G, window=None):
+    """The forward kernel a CUDA call launches at head dim ``D`` with ``G``
+    query heads a KV head and ``window``: ``flash_f32_kernel`` in float32;
+    in bf16 ``flash_ws_kernel`` (warp-specialized, persistent) at D = 64 and
+    128, ``flash_bf16_kernel`` at 32. It mirrors the C entry's ``ws_route``
+    (``csrc/flash_attention.cu``), a rule on (D, G, window) that
+    ``tests/test_torch_flash_route.py`` holds it to; no route depends on G
+    or the window today."""
+    if dtype == torch.float32:
+        return "flash_f32_kernel"
+    return "flash_ws_kernel" if D in (64, 128) else "flash_bf16_kernel"
+
+
 @functools.cache
 def _bind(path, entry="repro_flash_attention"):
     """The forward's C entry: ``repro_flash_attention``, or with a logsumexp
@@ -104,9 +117,10 @@ def _check_args(q, k, v, window, what):
 
 
 def flash_attention(q, k, v, *, window=None, lse=False):
-    """Launch the kernel. q: [B,H,S,D]; k,v: [B,K,S,D] on one CUDA device,
-    all float32 or all bfloat16, D in ``HEAD_DIMS``. Returns o [B,H,S,D],
-    or with ``lse`` (o, logsumexp float32 [B,H,S])."""
+    """Launch the kernel (:func:`fwd_kernel` names which). q: [B,H,S,D];
+    k,v: [B,K,S,D] on one CUDA device, all float32 or all bfloat16, D in
+    ``HEAD_DIMS``. Returns o [B,H,S,D], or with ``lse`` (o, logsumexp
+    float32 [B,H,S])."""
     global launches
     B, H, K, S, D = _check_args(q, k, v, window, "flash_attention")
     o = torch.empty_like(q)

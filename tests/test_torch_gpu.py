@@ -29,6 +29,7 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import gla_chunk as GC  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as PA  # noqa: E402
+from repro_torch.kernels.timing import graph_kernels  # noqa: E402
 from repro_torch.models.params import tree_map  # noqa: E402
 from repro_torch.serving.engine import ServeEngine, Server  # noqa: E402
 
@@ -1767,3 +1768,122 @@ def test_decode_g1_kernels_are_one_launch_per_call(cuda):
         assert len(r["seen"]) == 1, (name, r)
         (key, cnt), = r["seen"].items()
         assert "decode_g1_kernel" in key and cnt == 3, (name, r)
+
+
+# -- K1's bf16 forward at D = 64 on flash_ws_kernel (persistent; a producer
+#    warpgroup and two consumers taking turns; O out by TMA stores) and dQ at
+#    D = 128 on dq_d128_kernel (persistent; Q and dO in two buffers, Dr from
+#    the producer's warps, dQ out by TMA stores); which kernel a call ran is
+#    read from the kernel nodes of a CUDA graph captured around it ----------
+
+def _ws_held(q, k, v, window):
+    """K1 (flash_ws_kernel at D = 64) against the plain version, with its
+    logsumexp, and its output with the logsumexp written equal to the
+    output without it."""
+    n0 = FA.launches
+    o, lse = FA.flash_attention(q, k, v, window=window, lse=True)
+    assert FA.launches == n0 + 1 and o.stride() == q.stride()
+    _close(o, ref.naive_attention(q, k, v, window=window), torch.bfloat16)
+    torch.testing.assert_close(lse, ref.naive_attention_lse(q, k, window=window), rtol=0,
+                               atol=LSE_TOL)
+    assert torch.equal(o, FA.flash_attention(q, k, v, window=window))
+    return o, lse
+
+
+@pytest.mark.parametrize("window", [None, 1024, 100])
+@pytest.mark.parametrize("S", [77, 1000, 1536])
+@pytest.mark.parametrize("G", [1, 4, 5, 16])
+def test_flash_ws64_matches_plain(cuda, G, S, window):
+    """flash_ws_kernel<64> at G = 1 (minicpm-2b), 4 (granite), 5 (hymba), 16;
+    S a multiple of no tile (77, 1000) and hymba's 1536, hymba's window of
+    1024 (wider than S = 77's rows, narrower than 1536's), one narrower than
+    a KV tile, and none; the model's strided views."""
+    q, k, v = _flash_views(cuda, 2, 2 * G, 2, S, 64, torch.bfloat16, seed=S + G)
+    _ws_held(q, k, v, window)
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 255, 256, 257])
+def test_flash_ws64_at_tile_edges(cuda, S):
+    """S on both sides of the 64-row warpgroup, 128-row block and 128-row KV
+    tile edges, G = 1."""
+    q, k, v = _flash_views(cuda, 3, 4, 4, S, 64, torch.bfloat16, seed=S + 64)
+    _ws_held(q, k, v, None)
+
+
+def test_flash_ws64_on_model_views_equals_contiguous_copy(cuda):
+    """The strided views and contiguous copies give the same bits (the
+    tensor maps follow the strides), and so do two launches."""
+    q, k, v = _flash_views(cuda, 2, 8, 2, 300, 64, torch.bfloat16, seed=70)
+    assert not (q.is_contiguous() or v.is_contiguous())
+    a = FA.flash_attention(q, k, v, window=50, lse=True)
+    b = FA.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=50, lse=True)
+    c = FA.flash_attention(q, k, v, window=50, lse=True)
+    assert all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(a, b, c))
+
+
+def test_flash_ws64_launches_from_a_fresh_host_thread(cuda):
+    """A thread that has made no CUDA call (the autograd engine's worker)
+    launches flash_ws_kernel<64> with the main thread's bits."""
+    import threading
+    q, k, v = _flash_views(cuda, 2, 4, 4, 200, 64, torch.bfloat16, seed=71)
+    want = FA.flash_attention(q, k, v, window=77, lse=True)
+    got = []
+
+    def run():
+        got.append(FA.flash_attention(q, k, v, window=77, lse=True))
+        torch.cuda.synchronize()
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert torch.equal(got[0][0], want[0]) and torch.equal(got[0][1], want[1])
+
+
+@pytest.mark.parametrize("row,B,H,K,S,D,window", [
+    ("1 granite", 1, 32, 8, 1024, 64, None), ("1h hymba windowed", 1, 25, 5, 1536, 64, 1024),
+    ("1h hymba global", 1, 25, 5, 1536, 64, None), ("1m minicpm", 1, 36, 36, 1024, 64, None),
+    ("1q qwen", 1, 40, 8, 1024, 128, None), ("smoke", 2, 4, 2, 64, 32, None)])
+def test_flash_forward_routes_each_model_to_its_kernel(cuda, row, B, H, K, S, D, window):
+    """One call of the forward (with and without the logsumexp) is one kernel
+    node of a CUDA graph captured around it, and that kernel is the one
+    fwd_kernel names for the row's (D, G, window)."""
+    q, k, v = _flash_views(cuda, B, H, K, S, D, torch.bfloat16, seed=S + H)
+    want = FA.fwd_kernel(torch.bfloat16, D, H // K, window)
+    for lse in (False, True):
+        nodes = graph_kernels(lambda: FA.flash_attention(q, k, v, window=window, lse=lse))
+        assert len(nodes) == 1, nodes
+        assert want in nodes[0][0] and f"{want}ILi{D}" in nodes[0][0], (row, nodes)
+
+
+@pytest.mark.parametrize("D,dq_name", [(64, "dq_bf16_kernel"), (128, "dq_d128_kernel")])
+def test_flash_bwd_is_two_kernel_nodes(cuda, D, dq_name):
+    """One backward call is two kernel nodes of a captured CUDA graph, dQ
+    first (dq_d128_kernel at D = 128), then dK/dV; the wrapper's counts move
+    by one each."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 10, 2, 300, D, torch.bfloat16, seed=73)
+    o, lse = FA.flash_attention(q, k, v, lse=True)
+    nodes = graph_kernels(lambda: FA.flash_attention_bwd(q, k, v, o, lse, do))
+    assert len(nodes) == 2, nodes
+    assert dq_name in nodes[0][0] and "dkdv_bf16_kernel" in nodes[1][0], nodes
+
+
+@pytest.mark.parametrize("window", [None, 64, 1000])
+@pytest.mark.parametrize("S", [65, 100, 129, 300, 1000])
+@pytest.mark.parametrize("G", [1, 5, 8])
+def test_dq128_matches_plain(cuda, G, S, window):
+    """dq_d128_kernel at G = 1, 5 (qwen2.5-14b), 8; S ragged against its
+    128-row tiles and the 64-row K/V tiles; windows narrower than a tile,
+    and wider; the row sums it hands dK/dV against the plain ones."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 2 * G, 2, S, 128, torch.bfloat16, seed=S * G + 5)
+    _bwd_held(q, k, v, do, window, torch.bfloat16)
+
+
+def test_dq128_is_bit_stable_at_qwen_training_shape(cuda):
+    """qwen2.5-14b's training shape, the whole batch (B4 H40 K8 S1024 D128):
+    two backward runs give equal bits, dQ within its tolerance."""
+    q, k, v, do = _bwd_inputs(cuda, 4, 40, 8, 1024, 128, torch.bfloat16, seed=74)
+    o, lse = FA.flash_attention(q, k, v, lse=True)
+    a = FA._bwd(q, k, v, o, lse, do)
+    b = FA._bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    want = ref.attention_bwd_dq(q, k, v, lse, do, ref.attention_bwd_delta(o, do))
+    assert _rel(a[0], want) <= BWD_TOL[torch.bfloat16]

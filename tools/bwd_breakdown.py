@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where K1's bf16 backward kernels' time goes, on one NVIDIA GPU.
 
-    python3 tools/bwd_breakdown.py [--shape granite|qwen]
+    python3 tools/bwd_breakdown.py [--shape granite|qwen] [--only base,noload,...]
 
 Builds ``src/repro_torch/csrc/flash_attention_bwd.cu`` as shipped and with
 each of its diagnostic macros (``-D``; one ``nvcc`` each, in parallel, into
@@ -18,13 +18,21 @@ more than the L2, times each build's dQ launch and dK/dV launch alone
 - ``noexp``: ``BWD_NOEXP``, P taken as its exponent's argument, no mask:
   the exponentials' and the mask's share;
 - ``nosecond``: ``BWD_NOSECOND``, no dQ += dS K and no dV, dK products:
-  the second products' share.
+  the second products' share;
+- ``noload``: ``BWD_NOLOAD``, the head-dim-128 dQ kernel
+  (``dq_d128_kernel``, ``--shape qwen``) loads no K or V tile after each
+  ring slot's first (the slot's data is reused): what the tiles' loads
+  cost it;
+- ``nostore``: ``BWD_NOSTORE``, that kernel stores no dQ (with no output
+  read, ptxas may drop the products behind it, so this overstates the
+  stores' share).
 
 Beside them: ptxas's registers at launch, spills and its notes on wgmma
 (C75xx) for each build's bf16 kernels, and the shipped build's gradients
 against the plain version. The other builds' outputs are wrong by design
-(``dq2`` aside; at head dim 128 dQ always takes two warpgroups, so
-``dq2`` is ``base``). Last, SDPA's backward at the same shape, the
+(``dq2`` aside; it acts on ``dq_bf16_kernel`` at D <= 64 only, so at
+``qwen`` it is ``base``). At head dim 128 dQ is ``dq_d128_kernel``, on
+which ``noexp``, ``nosecond``, ``noload`` and ``nostore`` act as well. Last, SDPA's backward at the same shape, the
 yardstick (``chip_smoke.sdpa_bwd_yardstick``: CUDA events, and the
 profiler in a fresh process). Exits 1 with no CUDA device.
 """
@@ -43,7 +51,8 @@ sys.path.insert(0, str(ROOT))
 
 #: build name -> the macros it defines
 VARIANTS = {"base": (), "dq2": ("BWD_DQ_WGS=2",), "noexp": ("BWD_NOEXP",),
-            "nosecond": ("BWD_NOSECOND",)}
+            "nosecond": ("BWD_NOSECOND",), "noload": ("BWD_NOLOAD",),
+            "nostore": ("BWD_NOSTORE",)}
 #: training shapes: B, H, K, S, D
 SHAPES = {"granite": (4, 32, 8, 1024, 64), "qwen": (4, 40, 8, 1024, 128)}
 
@@ -51,25 +60,33 @@ SHAPES = {"granite": (4, 32, 8, 1024, 64), "qwen": (4, 40, 8, 1024, 128)}
 def ptxas_notes(log: str) -> list[str]:
     """Registers, spills and C75xx notes of the bf16 kernels in a ``-v`` log."""
     out, kernel = [], None
+    # dq_bf16_kernel<D> and dkdv_bf16_kernel<D>, and dq_d128_kernel (D = 128)
+    name = r"(dq|dkdv)_(?:bf16_kernelILi(\d+)|d(128)_kernel)"
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(dq|dkdv)_bf16_kernelILi(\d+)", line)
+        m = re.search(rf"Compiling entry function '\w*?{name}", line)
         if m:
-            kernel = f"{m.group(1)} D{m.group(2)}"
+            kernel = f"{m.group(1)} D{m.group(2) or m.group(3)}"
         elif "Compiling entry function" in line:
             kernel = None
         elif kernel and ("Used" in line or "spill" in line):
             out.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
-        m = re.search(r"\((C75\d\d)\) (.*?) in (?:the )?function "
-                      r"'\w*?(dq|dkdv)_bf16_kernelILi(\d+)", re.sub(r" around line \d+", "", line))
+        m = re.search(rf"\((C75\d\d)\) (.*?) in (?:the )?function '\w*?{name}",
+                      re.sub(r" around line \d+", "", line))
         if m:
-            out.append(f"{m.group(3)} D{m.group(4)}: {m.group(1)} {m.group(2)}")
+            out.append(f"{m.group(3)} D{m.group(4) or m.group(5)}: {m.group(1)} {m.group(2)}")
     return sorted(set(out))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--shape", choices=sorted(SHAPES), default="granite")
+    ap.add_argument("--only", default=",".join(VARIANTS),
+                    help="comma-separated builds to make and time (default: all; "
+                         "base is always built)")
     args = ap.parse_args()
+    names = ["base"] + [n for n in args.only.split(",") if n and n != "base"]
+    if unknown := [n for n in names if n not in VARIANTS]:
+        ap.error(f"unknown builds {unknown}; known: {sorted(VARIANTS)}")
     import torch
     if not torch.cuda.is_available():
         print("bwd_breakdown: no CUDA device", file=sys.stderr)
@@ -83,7 +100,8 @@ def main() -> int:
     out_dir = build.BUILD_ROOT / "breakdown"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, macros in VARIANTS.items():
+    for name in names:
+        macros = VARIANTS[name]
         cmd = build.nvcc_command("flash_attention_bwd", out_dir / f"lib_{name}.so",
                                  build.nvcc_path())
         cmd[1:1] = ["-Xptxas", "-v", *(f"-D{m}" for m in macros)]
@@ -133,9 +151,10 @@ def main() -> int:
         f"{n} {CS.rel(a.float(), b.float()):.3e}" for n, a, b in zip(("dq", "dk", "dv"),
                                                                      (dq, dk, dv), want)))
     for name, fn in fns.items():
+        err = CS.rel(launch(fn, 1)(*sets[0])[0].float(), want[0].float())
         print(f"[time] {name}: dQ {cuda_ms(launch(fn, 1), sets) * 1e3:.1f} us, dK/dV "
               f"{cuda_ms(launch(fn, 2), sets) * 1e3:.1f} us (bf16 B{B} H{H} K{K} S{S} D{D}, "
-              f"causal, CUDA-graph replay)", flush=True)
+              f"causal, CUDA-graph replay); dq max|a-b|/max|b| {err:.3e}", flush=True)
     del sets
     CS.sdpa_bwd_yardstick(B, H, K, S, D)
     return 0

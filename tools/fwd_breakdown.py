@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where K1's bf16 forward spends its time, on one NVIDIA GPU.
 
-    python3 tools/fwd_breakdown.py [--shape qwen|granite|minicpm] [--only base,noexp,...]
+    python3 tools/fwd_breakdown.py [--shape qwen|granite|minicpm|hymba|hymba-global]
+        [--only base,noexp,...]
 
 Builds ``src/repro_torch/csrc/flash_attention.cu`` as shipped and with
 each of its diagnostic macros (``-D``; one ``nvcc`` each, in parallel, into
@@ -15,25 +16,28 @@ causal, inputs rotated through more than the L2, by CUDA-graph replay
 - ``noexp``: ``FWD_NOEXP``, P taken as its exponent's argument, no mask:
   the exponentials' and the mask's share;
 - ``nopv``: ``FWD_NOPV``, no O += P V product: its share;
-- ``bn64``: ``FWD_BN=64``, the head-dim-128 kernel on 64-row KV tiles in
-  a ring of four (its default is 128-row tiles in two);
-- ``pvn64``: ``FWD_PV_N64``, the head-dim-128 kernel's P V as two m64n64
+- ``bn64``: ``FWD_BN=64``, ``flash_ws_kernel`` on 64-row KV tiles in a
+  ring of four (its default is 128-row tiles, two a ring);
+- ``q1``, ``q2``: ``FWD_QBUFS=1`` / ``2``, ``flash_ws_kernel`` with one or
+  two Q buffers (its default is two at D = 128, the next output tile's Q
+  loaded under this one, and one at 64);
+- ``pvn64``: ``FWD_PV_N64``, ``flash_ws_kernel<128>``'s P V as two m64n64
   products a k16 step (its default is one m64n128);
-- ``onetile``: ``FWD_ONE_TILE``, the head-dim-128 kernel's grid one block
-  a tile, as a non-persistent kernel's (its default is one block an SM);
+- ``onetile``: ``FWD_ONE_TILE``, ``flash_ws_kernel``'s grid one block a
+  tile, as a non-persistent kernel's (its default is one block an SM);
 - ``noload``: ``FWD_NOLOAD``, no K or V load after each ring slot's first
   (the slot's data is reused): what the tiles' loads from L2 cost;
 - ``nostore``: ``FWD_NOSTORE``, no O stores: the epilogue's share.
 
-The macros act on the head-dim-128 bf16 kernel only (``qwen``:
-qwen2.5-14b's B4 H40 K8 S1024 D128, the default); at ``granite`` (B4 H32
-K8 S1024 D64) and ``minicpm`` (B4 H36 K36 S1024 D64) every build is the
-shipped D <= 64 kernel, whose time is the check that it did not move.
-Beside the times: ptxas's registers at launch, spills and its notes on
-wgmma (C75xx) for each build's bf16 forward kernels, each build's output
-against the plain version (``noexp``, ``nopv``, ``noload`` and ``nostore``
-are wrong by design),
-and SDPA at the same shape, the yardstick. Exits 1 with no CUDA device.
+The shapes: ``qwen`` (qwen2.5-14b's B4 H40 K8 S1024 D128, the default),
+``granite`` (B4 H32 K8 S1024 D64), ``minicpm`` (B4 H36 K36 S1024 D64),
+``hymba`` (B4 H25 K5 S1536 D64, window 1024) and ``hymba-global`` (the
+same, no window), each on ``flash_ws_kernel``, which every macro acts on.
+Beside the times: ptxas's registers at
+launch, spills and its notes on wgmma (C75xx) for each build's bf16
+forward kernels, each build's output against the plain version
+(``noexp``, ``nopv``, ``noload`` and ``nostore`` are wrong by design), and
+SDPA at the same shape, the yardstick. Exits 1 with no CUDA device.
 """
 from __future__ import annotations
 
@@ -49,13 +53,15 @@ sys.path.insert(0, str(ROOT))
 
 #: build name -> the macros it defines
 VARIANTS = {"base": (), "noexp": ("FWD_NOEXP",), "nopv": ("FWD_NOPV",),
-            "bn64": ("FWD_BN=64",), "pvn64": ("FWD_PV_N64",), "onetile": ("FWD_ONE_TILE",),
+            "bn64": ("FWD_BN=64",), "q1": ("FWD_QBUFS=1",), "q2": ("FWD_QBUFS=2",),
+            "pvn64": ("FWD_PV_N64",), "onetile": ("FWD_ONE_TILE",),
             "noload": ("FWD_NOLOAD",), "nostore": ("FWD_NOSTORE",)}
-#: prefill shapes: B, H, K, S, D
-SHAPES = {"qwen": (4, 40, 8, 1024, 128), "granite": (4, 32, 8, 1024, 64),
-          "minicpm": (4, 36, 36, 1024, 64)}
+#: prefill shapes: B, H, K, S, D, window
+SHAPES = {"qwen": (4, 40, 8, 1024, 128, None), "granite": (4, 32, 8, 1024, 64, None),
+          "minicpm": (4, 36, 36, 1024, 64, None), "hymba": (4, 25, 5, 1536, 64, 1024),
+          "hymba-global": (4, 25, 5, 1536, 64, None)}
 #: the bf16 forward kernels' mangled names hold one of these
-KERNELS = ("flash_bf16_kernel", "flash_d128_kernel")
+KERNELS = ("flash_bf16_kernel", "flash_ws_kernel")
 
 
 def ptxas_notes(log: str) -> list[str]:
@@ -116,7 +122,7 @@ def main() -> int:
         for note in ptxas_notes(log):
             print(f"[ptxas] {name} {note}", flush=True)
 
-    B, H, K, S, D = SHAPES[args.shape]
+    B, H, K, S, D, window = SHAPES[args.shape]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -125,23 +131,35 @@ def main() -> int:
     # 4 sets of the model's [B,S,n,D] projections seen as [B,n,S,D] views
     # (~59 MB each at qwen's shape): each call finds its inputs cold
     sets = [tuple(randn(B, S, n, D).transpose(1, 2) for n in (H, K, K)) for _ in range(4)]
-    shape = f"bf16 B{B} H{H} K{K} S{S} D{D}, causal"
+    shape = (f"bf16 B{B} H{H} K{K} S{S} D{D}, causal, window {window}, "
+             f"{FA.fwd_kernel(torch.bfloat16, D, H // K, window)}")
     q, k, v = sets[0]
-    want = ref.naive_attention(q, k, v).float()
+    want = ref.naive_attention(q, k, v, window=window).float()
+
+    def call(q, k, v):
+        return FA.flash_attention(q, k, v, window=window)
     try:
         for name in names:
             FA.library = out_dir / f"libfwd_{name}.so"
-            got = FA.flash_attention(q, k, v).float()
+            got = call(q, k, v).float()
             err = CS.rel(got, want)
-            ms = cuda_ms(lambda q, k, v: FA.flash_attention(q, k, v), sets, iters=40)
+            ms = cuda_ms(call, sets, iters=40)
             print(f"[time] {name}: {ms * 1e3:.1f} us ({shape}, CUDA-graph replay); "
                   f"max|a-b|/max|b| {err:.3e}", flush=True)
     finally:
         FA.library = None
     del want
-    lib = cuda_ms(lambda q, k, v: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), sets, iters=40)
-    flops = 4 * B * H * S * S * D / 2
+    if window:   # the window as a boolean mask, as chip_smoke.py's hymba rows
+        pos = torch.arange(S, device=dev)
+        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        lib = cuda_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), sets, iters=40)
+        pairs = window * (window + 1) / 2 + (S - window) * window
+    else:
+        lib = cuda_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), sets, iters=40)
+        pairs = S * S / 2
+    flops = 4 * B * H * pairs * D
     bound, by = CS.bound_ms(flops, 2 * (2 * B * H * S * D + 2 * B * K * S * D))
     print(f"[time] sdpa {lib * 1e3:.1f} us (yardstick); bound {bound * 1e3:.2f} us ({by})",
           flush=True)
