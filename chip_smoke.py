@@ -85,6 +85,15 @@ not 0:
      K1 launches per non-empty prefill, 48 K3 per decoded token, no K2, a
      swap), first tokens against the Server's B=1 ones, and the float32
      streams against the float32 Server's at QWEN_F32_LAYERS layers;
+  llava: full-width llava-next-34b (bf16, 60 layers, 56/8 heads of 128, G =
+     7), nothing else on the card: 4 x 1024 prompts whose first 576
+     positions are an image (seeded patch embeddings through mm_proj), 32
+     greedy steps (60 and 60 launches); its bf16 logits held to the plain
+     bf16 path at full depth, then, the whole model freed, the float32
+     distances at LLAVA_F32_LAYERS layers of the same weights;
+  moe: full-depth granite-moe-3b-a800m (bf16, 32 layers, 40 experts of 512,
+     top 8, G = 3) the same (32 and 32 launches; the float32 copy at full
+     depth), and its MoE layers' share of a prefill and a decode step;
   train: full-width granite-3-2b (bf16 params, float32 AdamW state, remat
      on, seeded random weights) through the port's Trainer (world 2,
      mpich), batch 4 x 1024 tokens from the data pipeline: step 1's loss,
@@ -118,8 +127,12 @@ not 0:
      for qwen2.5-14b at QWEN_TRAIN_LAYERS layers (its full depth's training
      state does not fit the card; the peak must leave 10 GB free), without
      the C/R part;
+  train_llava, train_moe: the same for llava-next-34b at LLAVA_TRAIN_LAYERS
+     layers (its batches carry the pipeline's patch embeddings) and for
+     full-depth granite-moe-3b-a800m, whose ``mfu`` counts the experts at
+     top_k of n_experts (the active params);
   7. cli: ``repro_torch.launch.serve`` at smoke size on the card, granite,
-     hymba (both GLA schedules), minicpm and qwen, and
+     hymba (both GLA schedules), minicpm, qwen, llava and granite-moe, and
      ``repro_torch.launch.train`` at smoke size, granite, hymba, minicpm and
      qwen, with a rank killed and the restart under exampi.
 Phase 3 also holds K1's logsumexp output and its backward kernels (dQ,
@@ -143,11 +156,13 @@ once a call by the profiler, with their times) beside its bound and its
 plain version (no PyTorch call computes GLA or its gradient: library
 time null).
 Phase 3 also holds K1 (with and without the logsumexp), its backward (two
-runs bit-equal), K2 and K3 at the dense families' shapes: qwen2.5-14b's at
-head dim 128 (G = 5; a ragged S, a window; K3 over layer 24 of a 48-layer
-store, and bit-equal to K2 over in-order pages) and minicpm-2b's G = 1, in
-bf16 and float32, and times them (CUDA-graph replay and the profiler's time
-per call) beside their plain versions, SDPA (or its backward) and the bound.
+runs bit-equal), K2 and K3 at the attention families' shapes: qwen2.5-14b's
+at head dim 128 (G = 5; a ragged S, a window; K3 over layer 24 of a
+48-layer store, and bit-equal to K2 over in-order pages), minicpm-2b's G =
+1, llava-next-34b's G = 7 at head dim 128 and granite-moe-3b-a800m's G = 3,
+in bf16 and float32, and times them (CUDA-graph replay and the profiler's
+time per call, each with the kernel nodes of a captured call) beside their
+plain versions, SDPA (or its backward) and the bound.
 Phase 3 also holds the GLA kernels (K4; K5's phases apart and together)
 and the ring-window decode to their plain versions: the GLA at the
 serving shape with the mixer's head-broadcast q/k (in bf16 also under
@@ -244,7 +259,9 @@ BWD_SHAPES = ((4, 32, 8, 1024, 64, None), (4, 32, 8, 1000, 64, None),
               # qwen2.5-14b's training shape (D 128, G 5), ragged, a window;
               # minicpm-2b's (G 1)
               (4, 40, 8, 1024, 128, None), (4, 40, 8, 1000, 128, None),
-              (2, 10, 2, 300, 128, 100), (4, 36, 36, 1024, 64, None))
+              (2, 10, 2, 300, 128, 100), (4, 36, 36, 1024, 64, None),
+              # llava-next-34b's (D 128, G 7) and granite-moe-3b-a800m's (D 64, G 3)
+              (4, 56, 8, 1024, 128, None), (4, 24, 8, 1024, 64, None))
 B_MAIN = "bfloat16 B4 H32 K8 S1024 D64 window=None"
 BWD_PARTS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
 # the train phase: batch x tokens, timed steps, and its step 1 held to the
@@ -311,6 +328,22 @@ M_D_MAIN = "bfloat16 B4 H36 K36 S1056 D64 length=1056 window=None"
 # AdamW state and bf16 gradients at 48 layers, ~180 GB, do not fit the card;
 # QWEN_TRAIN_LAYERS is the deepest whose measured peak leaves 10 GB free)
 QWEN_F32_LAYERS, QWEN_TRAIN_LAYERS = 12, 14
+# the new families' shapes in phase 3 (the JSON record's errors): llava-next-34b's
+# prefill and last decode step (G = 7, head dim 128) and granite-moe-3b-a800m's
+# (G = 3, head dim 64)
+L_F_MAIN = "bfloat16 B4 H56 K8 S1024 D128 window=None"
+L_D_MAIN = "bfloat16 B4 H56 K8 S1056 D128 length=1056 window=None"
+E_F_MAIN = "bfloat16 B4 H24 K8 S1024 D64 window=None"
+E_D_MAIN = "bfloat16 B4 H24 K8 S1056 D64 length=1056 window=None"
+# llava-next-34b's cut depths (PERF.md section 4): its bf16 weights (68.8 GB)
+# leave no room for a float32 copy, so the float32 holds run at
+# LLAVA_F32_LAYERS layers after the full-depth weights are freed; the trainer
+# (6.69 GB a layer of bf16 weights and gradients and float32 AdamW state,
+# and AdamW's two float32 temporaries of the stacked MLP leaf, beside 11.1 GB
+# for the embedding, the head and mm_proj) at LLAVA_TRAIN_LAYERS, the deepest
+# whose measured peak leaves 10 GB free (8 layers peaked at 75.13 GB of an
+# 85.02 GB NVIDIA H100 80GB HBM3)
+LLAVA_F32_LAYERS, LLAVA_TRAIN_LAYERS = 12, 7
 
 
 def card_line() -> str:
@@ -327,13 +360,17 @@ def bound_ms(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
-def kernel_us(fn, sets, iters=40, counts=False):
+def kernel_us(fn, sets, iters=40, counts=False, once=False):
     """Device microseconds per call of each CUDA kernel ``fn`` launches, by
     name, from the profiler over ``iters`` calls cycling through ``sets``
     (the profiler reads each kernel's device time, so the host's pace does
     not enter); with ``counts`` also each kernel's launches in those calls.
     A warm-up step comes first: the tracer may drop the records of the
-    first launches after it starts."""
+    first launches after it starts. ``once``: each kernel runs once a call
+    (as a captured call's kernel nodes show), so its time a call is the
+    mean over the launches the tracer recorded, which a dropped record
+    does not bias (it drops more of them in a process whose card has
+    idled, as while the SDPA yardsticks' child processes run)."""
     import torch
     for s in sets:
         fn(*s)
@@ -350,7 +387,7 @@ def kernel_us(fn, sets, iters=40, counts=False):
         prof.step()
     ev = [e for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    us = {e.key: e.self_device_time_total / iters for e in ev}
+    us = {e.key: e.self_device_time_total / (e.count if once else iters) for e in ev}
     return (us, {e.key: e.count for e in ev}) if counts else us
 
 
@@ -490,7 +527,7 @@ def bf16_ties(logits):
 
 
 def hold_to_plain(tag, cfg, model, params, tokens, feed, dev, *, noisy=False, f32=True,
-                  ties=False):
+                  ties=False, patch_embeds=None):
     """The same weights through the plain kernel versions in the same dtype
     and through a float32 copy of the model (plain versions): the prefill
     of ``tokens`` and one teacher-forced decode step per token of ``feed``
@@ -514,10 +551,12 @@ def hold_to_plain(tag, cfg, model, params, tokens, feed, dev, *, noisy=False, f3
     ``f32=False`` (qwen2.5-14b at full depth, whose float32 copy does not fit
     beside the bf16 weights): only kernel-plain within LOGIT_REL_TOL and
     equal first tokens; the caller holds the float32 distances at a cut
-    depth. ``ties=True`` (qwen2.5-14b, whose random-weight top two logits
-    fall within one bf16 ulp on some rows): the first tokens are held equal
-    on every row that is not a bf16 tie (TIE_ULPS) in either path, at least
-    MIN_HELD_SHARE of the rows, as phase 6 holds hymba's two schedules.
+    depth. ``ties=True`` (qwen2.5-14b and llava-next-34b, whose random-weight
+    top two logits fall within one bf16 ulp on some rows): the first tokens
+    are held equal on every row that is not a bf16 tie (TIE_ULPS) in either
+    path, at least MIN_HELD_SHARE of the rows, as phase 6 holds hymba's two
+    schedules.
+    ``patch_embeds`` (llava's image) go into every path's prefill.
 
     Returns (whether every check held, plain-f32 at each step)."""
     import dataclasses
@@ -531,7 +570,8 @@ def hold_to_plain(tag, cfg, model, params, tokens, feed, dev, *, noisy=False, f3
     V = cfg.vocab_size
 
     def run(m, p):
-        lg, caches = m.prefill(p, tokens, max_len=n_prompt + len(feed))
+        lg, caches = m.prefill(p, tokens, max_len=n_prompt + len(feed),
+                               patch_embeds=patch_embeds)
         out = [lg]
         for i, t in enumerate(feed):
             lg, caches = m.decode_step(p, torch.as_tensor(t, device=dev).long(),
@@ -759,7 +799,7 @@ def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms,
     n_q, n_kv, rows, pairs = B * H * S * D, B * K * S * D, B * H * S, S * S / 2
     # q, k, v, o, dO and the logsumexp read once, dq, dk, dv written once
     bound, by = bound_ms(5 * 2 * B * H * pairs * D, 2 * (4 * n_q + 4 * n_kv) + 4 * rows)
-    us = kernel_us(lambda *a: FA.flash_attention_bwd(*a), bsets, iters=20)
+    us = kernel_us(lambda *a: FA.flash_attention_bwd(*a), bsets, iters=20, once=True)
     dq_name = "dq_d128_kernel" if D == 128 else "dq_bf16_kernel"
     graph_launches(f"flash_attention_bwd bf16 B{B} H{H} K{K} S{S} D{D} ({label})",
                    lambda: FA.flash_attention_bwd(*bsets[0]), (dq_name, "dkdv_bf16_kernel"))
@@ -863,13 +903,15 @@ def hymba_step1_hold(cfg, tr, batch, names_, rel_norm):
 
 
 TRAIN_TAGS = {"granite-3-2b": "train", "hymba-1.5b": "train_hymba",
-              "minicpm-2b": "train_minicpm", "qwen2.5-14b": "train_qwen"}
+              "minicpm-2b": "train_minicpm", "qwen2.5-14b": "train_qwen",
+              "llava-next-34b": "train_llava", "granite-moe-3b-a800m": "train_moe"}
 
 
 def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
     """Full-width granite-3-2b (phase ``train``), hymba-1.5b
-    (``train_hymba``), minicpm-2b (``train_minicpm``) or qwen2.5-14b at
-    ``n_layers`` layers (``train_qwen``) through the port's Trainer (see the
+    (``train_hymba``), minicpm-2b (``train_minicpm``), granite-moe-3b-a800m
+    (``train_moe``), or qwen2.5-14b or llava-next-34b at ``n_layers`` layers
+    (``train_qwen``, ``train_llava``) through the port's Trainer (see the
     module docstring); ``cr=False`` leaves the C/R part out. Returns the
     launch counts over the ten timed steps."""
     import shutil
@@ -1061,12 +1103,22 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
             raise AssertionError(f"{tag}: the cut depth leaves {free_gb:.2f} GB free")
     step_ms = statistics.median(times[2:]) * 1e3
     tokens = B_ * S_
-    # model FLOPs: 6 N per token for the matmul params (the embedding table
-    # is a lookup), the attention's 6 products (forward 2, backward 4) of
-    # the (query, key) pairs each layer's mask admits, and for hymba the
-    # GLA's intra-chunk and inter products forward and backward; remat's
-    # recompute not counted
+    # model FLOPs: 6 N per token for the matmul params a token passes
+    # through (the embedding table is a lookup; of the experts top_k of
+    # n_experts, as the reference's active_param_count counts them, the
+    # router whole; llava's mm_proj at the image's positions only), the
+    # attention's 6 products (forward 2, backward 4) of the (query, key)
+    # pairs each layer's mask admits, and for hymba the GLA's intra-chunk
+    # and inter products forward and backward; remat's recompute not counted
     n_matmul = n_params - cfg.padded_vocab * cfg.d_model
+    if cfg.moe is not None:
+        mo = cfg.moe
+        n_matmul -= L * (mo.n_experts - mo.top_k) * 3 * cfg.d_model * mo.expert_d_ff
+    mm_flops = 0
+    if cfg.img_tokens:
+        n_mm = tr.params["mm_proj"].numel()
+        n_matmul -= n_mm
+        mm_flops = 6 * n_mm * B_ * cfg.img_tokens
     if hymba:
         w = cfg.window
         pairs = sum(S_ * (S_ + 1) / 2 if i in cfg.global_layers
@@ -1080,14 +1132,18 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
     else:
         attn_flops = 6 * B_ * cfg.n_heads * S_ * S_ * hd * L
         gla_flops = 0
-    mfu = (6 * n_matmul * tokens + attn_flops + gla_flops) / (step_ms / 1e3) / PEAK_BF16_FLOPS
+    mfu = ((6 * n_matmul * tokens + attn_flops + gla_flops + mm_flops) / (step_ms / 1e3)
+           / PEAK_BF16_FLOPS)
     extra = f" + {gla_flops / 1e12:.2f} TFLOP GLA" if hymba else ""
+    if mm_flops:
+        extra += f" + {mm_flops / 1e12:.3f} TFLOP mm_proj over {cfg.img_tokens} positions a row"
     print(f"[{tag}] {arch} {n_params / 1e9:.3f}B params {cfg.param_dtype}, {L} layers"
           f"{'' if n_layers is None else ' (cut depth)'}, AdamW "
           f"float32 state, remat on, batch {B_} x {S_} tokens ({card}): "
           f"{TRAIN_STEPS} steps, step ms {[round(t * 1e3, 1) for t in times]}; median of "
           f"steps 3-{TRAIN_STEPS} {step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tok/s, "
-          f"mfu {mfu:.3f} (6 x {n_matmul / 1e9:.3f}B matmul params x {tokens} tokens + "
+          f"mfu {mfu:.3f} (6 x {n_matmul / 1e9:.3f}B "
+          f"{'active ' if cfg.moe is not None else ''}matmul params x {tokens} tokens + "
           f"{attn_flops / 1e12:.2f} TFLOP attention{extra}, over 989 TFLOP/s); params + "
           f"AdamW state {state_gb:.2f} GB, peak memory {peak_gb:.2f} GB ({fb_label}: "
           f"{fb_peak_gb:.2f} GB)", flush=True)
@@ -1570,11 +1626,83 @@ def cut_layers(params, n):
     return {**params, "segments": [tree_map(lambda t: t[:n], params["segments"][0])]}
 
 
-def dense_serve_phase(arch, card, dev, seed_prompts, f32_layers=None):
-    """A dense family's Server at full width and depth (see the module
-    docstring): 4 x 1024 prefill, 32 greedy steps, the launch counts, the
-    holds (with ``f32_layers`` the float32 copy's at that cut depth).
-    Returns the params and the launch counts."""
+SERVE_TAGS = {"minicpm-2b": "minicpm", "qwen2.5-14b": "qwen", "llava-next-34b": "llava",
+              "granite-moe-3b-a800m": "moe"}
+
+
+def moe_share(tag, model, params, tokens, first, dev):
+    """The MoE layers' share of a prefill and of a decode step. Unprofiled,
+    each ``layers.moe_apply`` call runs between two CUDA events (its span
+    on the device's clock, from its first launch to its last, its idle
+    gaps included), summed over the layers beside the call's host-clock
+    time; profiled, each runs under a range whose kernels' device time is
+    summed beside the device busy time (the profiler's own cost inflates
+    both)."""
+    import torch
+
+    from repro_torch.models import layers as L
+    spans, orig = [], L.moe_apply
+
+    def timed(*a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with torch.profiler.record_function("moe_apply"):
+            start.record()
+            out = orig(*a, **kw)
+            end.record()
+        spans.append((start, end))
+        return out
+
+    n_prompt = tokens.shape[1]
+    tok = torch.as_tensor(first, device=dev).long()
+    _, caches = model.prefill(params, tokens, max_len=n_prompt + 2)
+    model.decode_step(params, tok, n_prompt, caches)                  # warm-up
+    L.moe_apply = timed
+    try:
+        for what, fn in (("prefill", lambda: model.prefill(params, tokens, max_len=n_prompt + 2)),
+                         ("decode step", lambda: model.decode_step(params, tok, n_prompt + 1,
+                                                                   caches))):
+            torch.cuda.synchronize()
+            spans.clear()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            n_spans, span_ms = len(spans), sum(a.elapsed_time(b) for a, b in spans)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            ev = prof.key_averages()
+            # the range's own record on the device (its span there) is no kernel
+            kern = [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.key != "moe_apply"]
+            busy = sum(e.self_device_time_total for e in kern) / 1e3
+            moe_dev = sum(e.device_time_total for e in ev if e.key == "moe_apply"
+                          and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+            top = sorted(kern, key=lambda e: -e.self_device_time_total)[:3]
+            share = (f"their kernels' device time {moe_dev:.2f} ms of {busy:.2f} ms device "
+                     f"busy ({moe_dev / busy:.1%})" if busy > 0 and moe_dev > 0 else
+                     "their kernels' device time not measured (the profiler attributed no "
+                     "kernels to the range)")
+            print(f"[{tag}] the MoE layers' share of one {what}: {n_spans} layers span "
+                  f"{span_ms:.2f} ms of {host_ms:.2f} ms on the host clock "
+                  f"({span_ms / host_ms:.1%}); profiled, {share}; top: " + "; ".join(
+                      f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
+                      for e in top), flush=True)
+    finally:
+        L.moe_apply = orig
+
+
+def dense_serve_phase(arch, card, dev, seed_prompts, f32_layers=None, keep=False):
+    """An attention family's Server at full width and depth (see the module
+    docstring): 4 x 1024 prefill (llava's first 576 positions its image,
+    seeded patch embeddings drawn after the prompts), 32 greedy steps, the
+    launch counts, the holds (with ``f32_layers`` the float32 copy's at
+    that cut depth; without ``keep`` on copies of the first layers made
+    after the whole model is freed, as llava's float32 copy fits beside no
+    more than 2 of its bf16 layers), and for MoE its layers' share of a prefill and a
+    decode step. Returns the params (``keep``; else None) and the launch
+    counts."""
     import dataclasses
 
     import numpy as np
@@ -1584,23 +1712,30 @@ def dense_serve_phase(arch, card, dev, seed_prompts, f32_layers=None):
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PA
+    from repro_torch.models.params import tree_map
     from repro_torch.serving.engine import Server
 
     t_phase = time.perf_counter()
-    tag = {"minicpm-2b": "minicpm", "qwen2.5-14b": "qwen"}[arch]
+    tag = SERVE_TAGS[arch]
     cfg = get_config(arch)
     L = cfg.n_layers
     n_prompt, n_gen, batch = 1024, 32, 4
-    prompts = np.random.default_rng(seed_prompts).integers(0, cfg.vocab_size, (batch, n_prompt))
+    rng = np.random.default_rng(seed_prompts)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, n_prompt))
+    pe = rng.standard_normal((batch, cfg.img_tokens, 1024)).astype(np.float32) \
+        if cfg.img_tokens else None
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     srv = Server(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     srv.prefill(prompts[:, :64], pad_to=64)          # warm-up: cuBLAS, kernel load
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     FA.launches = DA.launches = PA.launches = 0
     t0 = time.perf_counter()
-    logits = srv.prefill(prompts, pad_to=n_prompt + n_gen)
+    logits = srv.prefill(prompts, pe, pad_to=n_prompt + n_gen)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     after_prefill = (FA.launches, DA.launches)
@@ -1609,12 +1744,18 @@ def dense_serve_phase(arch, card, dev, seed_prompts, f32_layers=None):
     launches = {"flash_attention": FA.launches, "decode_attention": DA.launches,
                 "paged_decode_attention": PA.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[{tag}] {arch} {cfg.param_count() / 1e9:.3f}B params bf16, {L} layers, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}"
-          f"{', q/k/v biases' if cfg.qkv_bias else ''}; prefill {batch}x{n_prompt}: "
-          f"{prefill_ms:.1f} ms; decode {n_gen} steps x {batch}: {n_gen * batch / dt:.1f} "
-          f"tok/s ({dt / n_gen * 1e3:.2f} ms/step); peak memory {peak_gb:.2f} GB; card {card}",
-          flush=True)
+    extra = f", the first {cfg.img_tokens} positions an image" if cfg.img_tokens else ""
+    if cfg.moe is not None:
+        mo = cfg.moe
+        extra += (f", {mo.n_experts} experts of {mo.expert_d_ff} top {mo.top_k} (capacity "
+                  f"factor {mo.capacity_factor:g}, groups of {mo.group_size}), "
+                  f"{cfg.active_param_count() / 1e9:.3f}B active")
+    print(f"[{tag}] {arch} {cfg.param_count() / 1e9:.3f}B params bf16 (seeded init "
+          f"{init_s:.1f} s), {L} layers, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}{', q/k/v biases' if cfg.qkv_bias else ''}{extra}; prefill "
+          f"{batch}x{n_prompt}: {prefill_ms:.1f} ms; decode {n_gen} steps x {batch}: "
+          f"{n_gen * batch / dt:.1f} tok/s ({dt / n_gen * 1e3:.2f} ms/step); peak memory "
+          f"{peak_gb:.2f} GB; card {card}", flush=True)
     print(f"[{tag}] launches after prefill {after_prefill}, after decode {launches} "
           f"(expected {L}, {L * n_gen})", flush=True)
     if after_prefill != (L, 0) or launches != {
@@ -1627,25 +1768,41 @@ def dense_serve_phase(arch, card, dev, seed_prompts, f32_layers=None):
         raise AssertionError(f"{tag}: non-finite prefill logits")
     del logits
     tokens = torch.as_tensor(prompts, device=dev)
+    tpe = None if pe is None else torch.from_numpy(pe).to(dev)
     feed = [first] + toks[:3]
     if f32_layers is None:
-        ok = hold_to_plain(tag, cfg, srv.model, srv.params, tokens, feed, dev)[0]
+        ok = hold_to_plain(tag, cfg, srv.model, srv.params, tokens, feed, dev,
+                           patch_embeds=tpe)[0]
     else:
         # the bf16 paths at full depth; the float32 distances at a cut depth
         ok = hold_to_plain(tag, cfg, srv.model, srv.params, tokens, feed, dev, f32=False,
-                           ties=True)[0]
+                           ties=True, patch_embeds=tpe)[0]
+    decode_idle(tag, srv.model, srv.params, tokens, first, dt / n_gen * 1e3, dev)
+    if cfg.moe is not None:
+        moe_share(tag, srv.model, srv.params, tokens, first, dev)
+    model, params = srv.model, srv.params
+    del srv
+    if f32_layers is not None:
+        cut_params = cut_layers(params, f32_layers)
+        if not keep:
+            # the first layers alone, through the host: the whole model is
+            # freed before their copy comes back
+            cut_params = tree_map(lambda t: t.cpu(), cut_params)
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            cut_params = tree_map(lambda t: t.to(dev), cut_params)
         cut = dataclasses.replace(cfg, n_layers=f32_layers)
         print(f"[{tag}] the holds with a float32 copy at a cut depth of {f32_layers} of {L} "
               "layers (the same weights' first layers)", flush=True)
-        ok = hold_to_plain(f"{tag} {f32_layers} layers", cut,
-                           dataclasses.replace(srv.model, cfg=cut),
-                           cut_layers(srv.params, f32_layers), tokens, feed, dev,
-                           ties=True)[0] and ok
+        ok = hold_to_plain(f"{tag} {f32_layers} layers", cut, dataclasses.replace(model, cfg=cut),
+                           cut_params, tokens, feed, dev, ties=True, patch_embeds=tpe)[0] and ok
+        del cut_params
     if not ok:
         raise AssertionError(f"{tag}: kernel path disagrees with the plain path")
-    decode_idle(tag, srv.model, srv.params, tokens, first, dt / n_gen * 1e3, dev)
-    params = srv.params
-    del srv, tokens
+    if not keep:
+        params = None
+    del tokens, tpe
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[{tag}] phase seconds: {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -1709,6 +1866,10 @@ def qwen_fleet_phase(cfg, params, card, dev):
 
 def main() -> int:
     t_start = time.perf_counter()
+    # the caching allocator maps its segments' pages on demand: after
+    # llava's 68.8 GB of weights come and go, whole-segment reuse left 9.6
+    # GiB reserved but unusable and qwen's trainer ran out of memory
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1828,7 +1989,10 @@ def main() -> int:
                                  # qwen2.5-14b (D 128, G 5): prefill, ragged, a
                                  # window; minicpm-2b (G 1)
                                  (4, 40, 8, 1024, 128, None), (4, 40, 8, 1000, 128, None),
-                                 (2, 10, 2, 300, 128, 100), (4, 36, 36, 1024, 64, None)):
+                                 (2, 10, 2, 300, 128, 100), (4, 36, 36, 1024, 64, None),
+                                 # llava-next-34b (D 128, G 7), granite-moe-3b-a800m
+                                 # (D 64, G 3)
+                                 (4, 56, 8, 1024, 128, None), (4, 24, 8, 1024, 64, None)):
             q, k, v = flash_inputs(B, H, K, S, D, dtype)
             held("flash_attention", f"{dn} B{B} H{H} K{K} S{S} D{D} window={w}",
                  FA.flash_attention(q, k, v, window=w),
@@ -1845,7 +2009,10 @@ def main() -> int:
                                          (4, 40, 8, 1056, 128, DA.split_len(128) + 1, None),
                                          (4, 40, 8, 1056, 128, 1056, None),
                                          (4, 40, 8, 1056, 128, 1056, 300),
-                                         (4, 36, 36, 1056, 64, 1056, None)):
+                                         (4, 36, 36, 1056, 64, 1056, None),
+                                         (4, 56, 8, 1056, 128, 577, None),
+                                         (4, 56, 8, 1056, 128, 1056, None),
+                                         (4, 24, 8, 1056, 64, 1056, None)):
             q, k, v = decode_inputs(B, H, K, S, D, dtype)
             held("decode_attention", f"{dn} B{B} H{H} K{K} S{S} D{D} length={length} "
                  f"window={w}", DA.decode_attention(q, k, v, length, window=w),
@@ -2190,7 +2357,7 @@ def main() -> int:
         if kernel:
             graph_launches(label, lambda: fn(*sets[0]), (kernel,))
         ms = cuda_ms(fn, sets, iters=40)
-        us, n_calls = kernel_us(fn, sets, iters=20, counts=True)
+        us, n_calls = kernel_us(fn, sets, iters=20, counts=True, once=True)
         if key.startswith(("decode", "paged")) and len(n_calls) != 1:
             raise AssertionError(f"{label}: the profiler saw {n_calls} over 20 calls; "
                                  "one kernel expected")
@@ -2203,8 +2370,11 @@ def main() -> int:
               f"{plain * 1e3:.1f} us, sdpa {lib * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
               f"({by}); {card}", flush=True)
 
+    fam_bwd = {}
     for arch, (B, H, K, S, D) in (("qwen2.5-14b", (4, 40, 8, 1024, 128)),
-                                  ("minicpm-2b", (4, 36, 36, 1024, 64))):
+                                  ("minicpm-2b", (4, 36, 36, 1024, 64)),
+                                  ("llava-next-34b", (4, 56, 8, 1024, 128)),
+                                  ("granite-moe-3b-a800m", (4, 24, 8, 1024, 64))):
         sets = [flash_inputs(B, H, K, S, D, bf) for _ in range(4)]
         dense_row(f"flash {arch}", f"flash_attention bf16 B{B} H{H} K{K} S{S} D{D} ({arch}'s "
                   "prefill)", lambda q, k, v: FA.flash_attention(q, k, v), sets,
@@ -2213,11 +2383,14 @@ def main() -> int:
                                                                  enable_gqa=True),
                   4 * B * H * S * S * D / 2, 2 * (2 * B * H * S * D + 2 * B * K * S * D),
                   kernel=FA.fwd_kernel(bf, D, H // K))
-        if arch == "qwen2.5-14b":
-            qbwd = bwd_times(sets, B, H, K, S, D, randn, FA, ref, cuda_ms,
-                             label="qwen2.5-14b's training shape")
+        if arch != "minicpm-2b":
+            fam_bwd[arch] = bwd_times(sets, B, H, K, S, D, randn, FA, ref, cuda_ms,
+                                      label=f"{arch}'s training shape")
         del sets
-    for arch, (B, H, K, D) in (("qwen2.5-14b", (4, 40, 8, 128)), ("minicpm-2b", (4, 36, 36, 64))):
+    qbwd = fam_bwd["qwen2.5-14b"]
+    for arch, (B, H, K, D) in (("qwen2.5-14b", (4, 40, 8, 128)), ("minicpm-2b", (4, 36, 36, 64)),
+                               ("llava-next-34b", (4, 56, 8, 128)),
+                               ("granite-moe-3b-a800m", (4, 24, 8, 64))):
         sets = [decode_inputs(B, H, K, Smax, D, bf) for _ in range(8)]
         dense_row(f"decode {arch}", f"decode_attention bf16 B{B} H{H} K{K} S{Smax} len{length} "
                   f"D{D} ({arch}'s last decode step)",
@@ -2227,7 +2400,9 @@ def main() -> int:
                   lambda q, k, v: F.scaled_dot_product_attention(
                       q[:, :, None], k[:, :length].transpose(1, 2),
                       v[:, :length].transpose(1, 2), enable_gqa=True),
-                  4 * B * H * length * D, 2 * (2 * B * H * D + 2 * B * length * K * D), 20)
+                  4 * B * H * length * D, 2 * (2 * B * H * D + 2 * B * length * K * D), 20,
+                  kernel="decode_mma_kernel" if D == 128
+                  else "decode_g1_kernel" if H == K else "decode_kernel")
         del sets
     # K3 at qwen's fleet decode: one lane at length 1056, each call another
     # layer's strided view of the 48-layer stores (104 MB of K/V rows each);
@@ -2249,7 +2424,7 @@ def main() -> int:
                   q[:, :, None], *gathered[id(kp)], enable_gqa=True),
               4 * H * length * D, 2 * (2 * H * D + 2 * length * K * D) + 4 * (n + 1), 20)
     del sets, gathered, qstores
-    print(f"[kernels] the dense families' timings: {time.perf_counter() - t_dense:.1f} s",
+    print(f"[kernels] the attention families' timings: {time.perf_counter() - t_dense:.1f} s",
           flush=True)
 
     # K4 and K5 at hymba's serving shape, q/k the mixer's head-broadcast
@@ -2292,7 +2467,8 @@ def main() -> int:
             ("K4", lambda q, k, v, lg: GC.gla_chunk(q, k, v, lg, chunk=C), ("gla_chunk",)),
             ("K5", lambda q, k, v, lg: GC.gla_chunk_parallel(q, k, v, lg, chunk=C),
              ("gla_phase_a", "gla_phase_b"))):
-        us = {key: t for key, t in kernel_us(fn, glsets, iters=20).items() if "gla_" in key}
+        us = {key: t for key, t in kernel_us(fn, glsets, iters=20, once=True).items()
+              if "gla_" in key}
         for kname in kernels:
             hits = [t for key, t in us.items() if kname + "_kernel" in key]
             if len(hits) != 1 or len(us) != len(kernels):
@@ -2333,20 +2509,26 @@ def main() -> int:
         2 * qk_bytes + 3 * v_bytes + 2 * lg_bytes + st_bytes)
     ng = -(-H // GC.head_group(B, S, H, C))
     g4b_extra_mb = (st_bytes + 3 * 4 * B * H * S + 2 * 4 * ng * B * S * N) / 1e6
+    # one call is the four kernels once each, in order: the kernel nodes of a
+    # captured call (no tracer); their device times from the profiler, each
+    # the mean over the calls it recorded (its tracer can drop records)
+    graph_launches(f"gla_chunk_bwd bf16 B{B} S{S} H{H} N{N} P{P} chunk {C}, shared rows",
+                   lambda: GC.gla_chunk_bwd(*g4bsets[0], chunk=C), GLA_BWD_KERNELS)
     iters = 20
     us, counts = kernel_us(
         lambda q, k, v, lg, dy, st: GC.gla_chunk_bwd(q, k, v, lg, dy, st, chunk=C), g4bsets,
-        iters=iters, counts=True)
+        iters=iters, counts=True, once=True)
     us = {key: t for key, t in us.items() if "gla_" in key}
     g4b_us = {}
     for kname in GLA_BWD_KERNELS:
         hits = [key for key in us if kname + "<" in key]
-        if len(hits) != 1 or counts[hits[0]] != iters:
-            raise AssertionError(f"gla_chunk_bwd: the profiler saw GLA kernels {list(us)} "
-                                 f"with counts {[counts[k] for k in us]} over {iters} calls")
+        if len(hits) != 1 or len(us) != len(GLA_BWD_KERNELS):
+            raise AssertionError(f"gla_chunk_bwd: the profiler saw GLA kernels {list(us)}")
         g4b_us[kname] = us[hits[0]]
-    if len(us) != len(GLA_BWD_KERNELS):
-        raise AssertionError(f"gla_chunk_bwd: the profiler saw GLA kernels {list(us)}")
+    if any(counts[k] != iters for k in us):
+        print(f"[kernels] gla_chunk_bwd: the profiler recorded {[counts[k] for k in us]} of "
+              f"{iters} launches of each kernel (the tracer dropped the rest; each time "
+              "below is the mean over the recorded ones)", flush=True)
     print(f"[kernels] GLA backward (K4b) bf16 B{B} S{S} H{H} N{N} P{P} chunk {C}, q/k the "
           f"rows the heads share ({card}): {g4b_ms * 1e3:.1f} us (profiler per call, each "
           f"kernel once: " + ", ".join(f"{n} {t:.1f} us" for n, t in g4b_us.items())
@@ -2385,7 +2567,7 @@ def main() -> int:
             ("decode_attention", lambda q, k, v: DA.decode_attention(q, k, v, length), dsets),
             ("paged_decode_attention",
              lambda q, kp, vp, t, ln: PA.paged_decode_attention(q, kp, vp, t, ln), psets)):
-        us = kernel_us(fn, sets)
+        us = kernel_us(fn, sets, once=True)
         if len(us) != 1:
             raise AssertionError(f"{name}: the profiler saw {len(us)} kernels per call: {us}")
         (kname, kus), = us.items()
@@ -2616,16 +2798,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- minicpm. full-width minicpm-2b Server -----------------------------------
-    m_params, m_serve = dense_serve_phase("minicpm-2b", card, dev, 3)
-    del m_params
+    m_serve = dense_serve_phase("minicpm-2b", card, dev, 3)[1]
 
     # -- qwen. full-width qwen2.5-14b Server, then its fleet ------------------------
     qparams, q_serve = dense_serve_phase("qwen2.5-14b", card, dev, 5,
-                                         f32_layers=QWEN_F32_LAYERS)
+                                         f32_layers=QWEN_F32_LAYERS, keep=True)
     q_fleet = qwen_fleet_phase(get_config("qwen2.5-14b"), qparams, card, dev)
     del qparams
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- llava. full-width llava-next-34b Server, nothing else on the card ----------
+    l_serve = dense_serve_phase("llava-next-34b", card, dev, 6, f32_layers=LLAVA_F32_LAYERS)[1]
+
+    # -- moe. full-depth granite-moe-3b-a800m Server --------------------------------
+    e_serve = dense_serve_phase("granite-moe-3b-a800m", card, dev, 7)[1]
 
     # -- train. full-width granite-3-2b through the port's Trainer -------------
     # (last before the CLI: the Trainer turns on deterministic algorithms for
@@ -2639,6 +2826,11 @@ def main() -> int:
     # (minicpm-2b at full depth, qwen2.5-14b at QWEN_TRAIN_LAYERS; no C/R part)
     m_train = train_phase(card, dev, "minicpm-2b", cr=False)
     q_train = train_phase(card, dev, "qwen2.5-14b", n_layers=QWEN_TRAIN_LAYERS, cr=False)
+
+    # -- train_llava, train_moe. llava-next-34b at LLAVA_TRAIN_LAYERS (its batches
+    # carry the patch embeddings), granite-moe-3b-a800m at full depth --------------
+    l_train = train_phase(card, dev, "llava-next-34b", n_layers=LLAVA_TRAIN_LAYERS, cr=False)
+    e_train = train_phase(card, dev, "granite-moe-3b-a800m", cr=False)
 
     # -- 7. the CLI -------------------------------------------------------------
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -2686,7 +2878,8 @@ def main() -> int:
             raise AssertionError(f"{arch} train CLI failed:\n{cli.stdout}\n{cli.stderr}")
     for extra in ([], ["--arch", "hymba-1.5b"],
                   ["--arch", "hymba-1.5b", "--gla-schedule", "parallel"],
-                  ["--arch", "minicpm-2b"], ["--arch", "qwen2.5-14b"]):
+                  ["--arch", "minicpm-2b"], ["--arch", "qwen2.5-14b"],
+                  ["--arch", "llava-next-34b"], ["--arch", "granite-moe-3b-a800m"]):
         cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
                               "--device", "cuda", "--batch", "2", "--prompt-len", "16",
                               "--gen", "8", *extra], env=env, capture_output=True,
@@ -2808,6 +3001,41 @@ def main() -> int:
          "max_abs_err": max(errs[name][Q_F_MAIN] for name in BWD_PARTS),
          "ms": qbwd["whole"][0], "plain_ms": qbwd["whole"][1], "bound_ms": qbwd["whole"][2],
          "bound_by": qbwd["whole"][3], "library_ms": qbwd["whole"][4]})
+    # the new families' shapes: G = 7 at head dim 128 (llava-next-34b) and G = 3
+    # at head dim 64 (granite-moe-3b-a800m)
+    for g, arch, sh, serve, train, f_lab, d_lab in (
+            ("g7", "llava-next-34b", "B4 H56 K8", l_serve, l_train, L_F_MAIN, L_D_MAIN),
+            ("g3", "granite-moe-3b-a800m", "B4 H24 K8", e_serve, e_train, E_F_MAIN,
+             E_D_MAIN)):
+        D = 128 if g == "g7" else 64
+        fb = fam_bwd[arch]
+        for name, shape, file, site, launches_, lab, t in (
+                (f"flash_attention_{g}", f"{arch} prefill {sh} S1024 D{D}", "flash_attention.cu",
+                 "flash_attention.py:45", serve["flash_attention"], f_lab, dense[f"flash {arch}"]),
+                (f"decode_attention_{g}", f"{arch} decode {sh} length 1056 D{D}",
+                 "decode_attention.cu", "decode_attention.py:61", serve["decode_attention"],
+                 d_lab, dense[f"decode {arch}"])):
+            record["kernels"].append(
+                {"name": name, "shape": shape, "route": "cuda", "source": src + file,
+                 "replaces": "src/repro/kernels/" + site, "launches": launches_,
+                 "max_abs_err": errs[name.rsplit("_", 1)[0]][lab], "ms": t[0],
+                 "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3], "library_ms": t[4]})
+        for name in BWD_PARTS:
+            record["kernels"].append(
+                {"name": f"{name}_{g}", "shape": f"{arch} training {sh} S1024 D{D}",
+                 "route": "cuda", "source": src + "flash_attention_bwd.cu", "replaces": bwd_site,
+                 "launches": train[name], "max_abs_err": errs[name][f_lab],
+                 "ms": fb[name][0], "plain_ms": fb[name][1], "bound_ms": fb[name][2],
+                 "bound_by": fb[name][3], "library_ms": None,
+                 "library_note": "no PyTorch call computes this part alone; SDPA's whole "
+                                 f"backward is library_ms of flash_attention_bwd_{g}"})
+        record["kernels"].append(
+            {"name": f"flash_attention_bwd_{g}", "shape": f"{arch} training {sh} S1024 D{D}",
+             "route": "cuda", "source": src + "flash_attention_bwd.cu", "replaces": bwd_site,
+             "launches": train["flash_attention_bwd_dkdv"],
+             "max_abs_err": max(errs[name][f_lab] for name in BWD_PARTS),
+             "ms": fb["whole"][0], "plain_ms": fb["whole"][1], "bound_ms": fb["whole"][2],
+             "bound_by": fb["whole"][3], "library_ms": fb["whole"][4]})
     print(f"[time] chip_smoke.py total {time.perf_counter() - t_start:.1f} s ({card})",
           flush=True)
     print(json.dumps(record))

@@ -166,7 +166,8 @@ class ModelConfig:
         return full - moe_total + moe_active
 
 
-ARCH_IDS = ["granite-3-2b", "hymba-1.5b", "minicpm-2b", "qwen2.5-14b"]
+ARCH_IDS = ["granite-3-2b", "hymba-1.5b", "minicpm-2b", "qwen2.5-14b", "llava-next-34b",
+            "granite-moe-3b-a800m", "arctic-480b"]
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

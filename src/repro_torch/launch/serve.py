@@ -5,6 +5,8 @@ transparent snapshots mid-decode and resume under another MPI flavor.
         --batch 4 --prompt-len 32 --gen 32 --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --gla-schedule parallel --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-34b \
+        --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --gen 10 --ckpt-dir /tmp/svk --snapshot-at 4
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
@@ -87,6 +89,9 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            dtype=np.int32)
+    # llava's image: the stub frontend's patch embeddings, from the same rng
+    pe = rng.standard_normal((args.batch, cfg.img_tokens, 1024)).astype(np.float32) \
+        if cfg.img_tokens else None
     gen, first, done = args.gen, None, []
     # resume runs first, supervised or not: a snapshot carries the cache
     # tree, so a resume skips the prefill
@@ -99,7 +104,7 @@ def main(argv=None):
                   f"{srv.cluster.backend_name}; {gen} tokens left")
     if first is None:
         # cold start, or a snapshot taken before any token was decoded
-        logits = srv.prefill(prompts, pad_to=args.prompt_len + args.gen)
+        logits = srv.prefill(prompts, pe, pad_to=args.prompt_len + args.gen)
         first = np.argmax(logits[..., : cfg.vocab_size].cpu().numpy(), axis=-1)
         first = first.astype(np.int32)
         if args.ckpt_dir and args.snapshot_at and not supervised:

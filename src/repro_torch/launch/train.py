@@ -124,10 +124,13 @@ class Trainer:
         self.step = 0
 
     def _device_batch(self, batch):
-        if self.cfg.img_tokens or self.cfg.n_codebooks > 1:
-            raise NotImplementedError(f"{self.cfg.name}: text batches only")
-        return {k: torch.from_numpy(batch[k]).to(self.device, torch.int64)
-                for k in ("tokens", "targets")}
+        """The pipeline's numpy batch on the device: tokens and targets as
+        int64, llava's patch embeddings as they come (float32)."""
+        out = {k: torch.from_numpy(batch[k]).to(self.device, torch.int64)
+               for k in ("tokens", "targets")}
+        if "patch_embeds" in batch:
+            out["patch_embeds"] = torch.from_numpy(batch["patch_embeds"]).to(self.device)
+        return out
 
     def _placements(self):
         """Where a restore puts each checkpointed params/opt leaf: the

@@ -203,3 +203,143 @@ def mlp_specs(cfg, d_ff=None):
 def mlp_apply(p, x):
     h = F.silu(x @ p["wg"]) * (x @ p["wi"])
     return h @ p["wo"]
+
+
+def moe_specs(cfg):
+    mo = cfg.moe
+    d, f, E = cfg.d_model, mo.expert_d_ff, mo.n_experts
+    sp = {
+        "router": ParamSpec((d, E), ("embed", None)),
+        "wi": ParamSpec((E, d, f), ("expert", "expert_in", "expert_mlp")),
+        "wg": ParamSpec((E, d, f), ("expert", "expert_in", "expert_mlp")),
+        "wo": ParamSpec((E, f, d), ("expert", "expert_mlp", "expert_in")),
+    }
+    if mo.dense_residual:
+        sp["dense"] = mlp_specs(cfg)
+    return sp
+
+
+def _topk_dispatch(gates, k, C):
+    """GShard's top-k slot assignment within each group, as the reference's
+    ``_topk_dispatch`` builds its one-hot dispatch and combine tensors, but
+    as indices. gates: [G,s,E] float32 softmax probabilities.
+
+    Slot ``j`` takes each token's ``j``-th choice (the argmax of the gates
+    not yet taken; the first maximum wins); its place in the expert's
+    buffer is the number of the group's tokens that chose the expert in an
+    earlier slot, or earlier in this slot; a place at or past ``C`` is
+    dropped. Returns (dest [G,s,k] int64: ``expert * C + place``, kept
+    [G,s,k] bool, weights [G,s,k]: each kept choice's gate over the kept
+    gates' sum, differentiable in ``gates``; first [G,s,E]: the one-hot
+    first choices)."""
+    G, s, E = gates.shape
+    g = gates.detach().clone()
+    idx = []
+    for _ in range(k):
+        i = torch.argmax(g, dim=-1)                                  # [G,s]
+        idx.append(i)
+        g.masked_fill_(F.one_hot(i, E).bool(), 0.0)
+    # the choices in slot-major order (slot 0's tokens, then slot 1's, ...):
+    # a choice's place is the count of the same expert's choices before it
+    flat = torch.stack(idx, 1).view(G, k * s)
+    seen = torch.cumsum(F.one_hot(flat, E), dim=1)                   # [G,k*s,E] int64
+    place = torch.gather(seen, -1, flat[..., None])[..., 0] - 1
+    idx, place = (t.view(G, k, s).transpose(1, 2).contiguous() for t in (flat, place))
+    kept = place < C
+    # the chosen gates by a one-hot product (elementwise, and so is its
+    # gradient: a gather's backward sums by index, which deterministic
+    # mode sorts on the card)
+    w = (gates[:, :, None, :] * F.one_hot(idx, E)).sum(-1) * kept
+    weights = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+    first = F.one_hot(idx[..., 0], E).to(gates.dtype)
+    return idx * C + place, kept, weights, first
+
+
+class _Route(torch.autograd.Function):
+    """``out[g, j] = x[g, fwd[g, j]]``, a row index of ``x.shape[1]`` taking
+    a zero row; the backward is a gather too: ``grad_x[g, i]`` sums the
+    ``r`` rows ``grad_out[g, bwd[g, i*r : (i+1)*r]]`` (index
+    ``out.shape[1]``: a zero row) in order. The MoE dispatch and combine
+    move rows between tokens and expert slots, each row to at most ``r``
+    places, so both directions are gathers: no sum by index, which the
+    card's deterministic mode would sort."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd, r):
+        ctx.save_for_backward(bwd)
+        ctx.r = r
+        return _gather_rows(x, fwd)
+
+    @staticmethod
+    def backward(ctx, grad):
+        bwd, = ctx.saved_tensors
+        g = _gather_rows(grad, bwd)
+        n, m, d = g.shape
+        return g.view(n, m // ctx.r, ctx.r, d).sum(2), None, None, None
+
+
+def _gather_rows(x, index):
+    """x [n, m, d], index [n, j] in [0, m] (m: a zero row) -> [n, j, d]."""
+    xpad = torch.cat([x, x.new_zeros(x.shape[0], 1, x.shape[2])], dim=1)
+    return torch.gather(xpad, 1, index[..., None].expand(-1, -1, x.shape[2]))
+
+
+def moe_apply(cfg, p, x, *, mode):
+    """The reference's ``moe_apply``: GShard capacity dispatch over groups
+    of the sequence (train, prefill) or the top-k experts of each row with
+    their weights gathered (decode). x: [B,S,d] or [B,d]. Returns (out,
+    aux): aux the router's load-balance and z losses averaged over the
+    groups (float32 0-d), None in decode.
+
+    The groups are independent, so they run as one batch ``[B*n, gs, d]``
+    where the reference scans them. Dispatch and combine are gathers by the
+    slots' indices (:class:`_Route`), not products with one-hot tensors:
+    each buffer slot holds at most one token, so the gathered values are
+    the products' (the combine sums each token's k weighted outputs in
+    another order)."""
+    mo = cfg.moe
+    E, k = mo.n_experts, mo.top_k
+    dt = x.dtype
+    if mode in ("decode", "paged_decode"):
+        gates = torch.softmax((x @ p["router"]).float(), dim=-1)
+        top_w, top_i = torch.topk(gates, k, dim=-1)                  # [B,k]
+        top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+        wi, wg, wo = p["wi"][top_i], p["wg"][top_i], p["wo"][top_i]  # [B,k,d,f], [B,k,f,d]
+        xr = x[:, None, None, :]                                     # one row per (b, slot)
+        h = F.silu(xr @ wg) * (xr @ wi)
+        out = torch.einsum("bkd,bk->bd", (h @ wo)[:, :, 0], top_w.to(dt))
+        if mo.dense_residual:
+            out = out + mlp_apply(p["dense"], x)
+        return out, None
+
+    B, S, d = x.shape
+    gs = math.gcd(min(mo.group_size, S), S)
+    n = B * (S // gs)
+    C = max(1, math.ceil(gs * k / E * mo.capacity_factor))
+    xg = x.reshape(n, gs, d)
+    logits = (xg @ p["router"]).float()
+    gates = torch.softmax(logits, dim=-1)
+    dest, kept, weights, first = _topk_dispatch(gates, k, C)
+    # each kept choice's buffer slot (a dropped one's: E*C, a zero row), and
+    # each buffer slot's choice (token * k + slot; gs*k: none)
+    choice = torch.where(kept, dest, E * C).view(n, gs * k)
+    spill = E * C + torch.arange(gs * k, device=x.device)
+    owner = torch.full((n, E * C + gs * k), gs * k, dtype=torch.int64, device=x.device)
+    owner.scatter_(1, torch.where(kept.view(n, -1), choice, spill),
+                   torch.arange(gs * k, device=x.device).expand(n, -1))
+    owner = owner[:, :E * C]
+    xe = _Route.apply(xg, owner // k, choice, k)                     # [n, E*C, d]
+    xe = xe.view(n, E, C, d).transpose(0, 1).reshape(E, n * C, d)
+    h = F.silu(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wi"])
+    ye = torch.bmm(h, p["wo"]).view(E, n, C, d).transpose(0, 1).reshape(n, E * C, d)
+    picked = _Route.apply(ye, choice, owner, 1)                      # [n, gs*k, d]
+    y = torch.bmm(weights.to(dt).view(n * gs, 1, k), picked.view(n * gs, k, d))
+    y = y.view(B, S, d)
+    # Switch-style load balance and the router z-loss, each group's then
+    # their mean
+    lb = E * (first.mean(1) * gates.mean(1)).sum(-1).mean()
+    zl = torch.logsumexp(logits, dim=-1).pow(2).mean()
+    aux = mo.load_balance_loss * lb + mo.router_z_loss * zl
+    if mo.dense_residual:
+        y = y + mlp_apply(p["dense"], x)
+    return y, aux

@@ -30,27 +30,32 @@ class Model:
         return T.alloc_caches(self.cfg, batch_size, max_len, device, prompt_len)
 
     def train_logits(self, params, batch):
-        """batch: ``{"tokens": [B,S] int64, ...}`` on the params' device. ->
-        (logits [B,S,Vp] float32, aux loss float32 0-d: 0, no MoE yet).
-        Differentiable: every layer runs in train mode (``T.run_segments``,
-        under ``torch.utils.checkpoint`` when ``cfg.remat``)."""
+        """batch: ``{"tokens": [B,S] int64, ...}`` on the params' device,
+        with ``"patch_embeds"`` [B, img_tokens, 1024] for llava. -> (logits
+        [B,S,Vp] float32, aux loss float32 0-d: the MoE layers' router
+        losses, 0 without experts). Differentiable: every layer runs in
+        train mode (``T.run_segments``, under ``torch.utils.checkpoint``
+        when ``cfg.remat``)."""
         cfg = self.cfg
-        h = T.embed_tokens(cfg, params, batch["tokens"])
-        h, _ = T.run_segments(cfg, params, h, mode="train", caches=None, force=self.force)
+        h = T.embed_tokens(cfg, params, batch["tokens"], batch.get("patch_embeds"))
+        h, _, aux = T.run_segments(cfg, params, h, mode="train", caches=None,
+                                   force=self.force)
         h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-        return T.lm_head(cfg, params, h), torch.zeros((), dtype=torch.float32,
-                                                      device=h.device)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return T.lm_head(cfg, params, h), aux
 
-    def prefill(self, params, tokens, *, max_len: Optional[int] = None):
-        """tokens: [B,S] int64. -> (last-position logits [B, Vp] float32,
-        caches allocated at ``max_len`` (default S) holding the prompt's
-        rows; a window layer's ring is ``T.ring_width`` rows)."""
+    def prefill(self, params, tokens, *, max_len: Optional[int] = None, patch_embeds=None):
+        """tokens: [B,S] int64; ``patch_embeds`` [B, img_tokens, 1024] for
+        llava's image (``T.embed_tokens``). -> (last-position logits [B, Vp]
+        float32, caches allocated at ``max_len`` (default S) holding the
+        prompt's rows; a window layer's ring is ``T.ring_width`` rows)."""
         cfg = self.cfg
         B, S = tokens.shape
         caches = self.alloc_caches(B, max_len or S, tokens.device, prompt_len=S)
-        h = T.embed_tokens(cfg, params, tokens)
-        h, caches = T.run_segments(cfg, params, h, mode="prefill", caches=caches,
-                                   force=self.force, schedule=self.gla_schedule)
+        h = T.embed_tokens(cfg, params, tokens, patch_embeds)
+        h, caches, _ = T.run_segments(cfg, params, h, mode="prefill", caches=caches,
+                                      force=self.force, schedule=self.gla_schedule)
         h_last = rmsnorm(h[:, -1], params["final_norm"], cfg.norm_eps)
         return T.lm_head(cfg, params, h_last), caches
 
@@ -59,8 +64,8 @@ class Model:
         place. -> (logits [B, Vp] float32, caches)."""
         cfg = self.cfg
         h = T.embed_tokens(cfg, params, token)
-        h, caches = T.run_segments(cfg, params, h, mode="decode", caches=caches,
-                                   pos=pos, force=self.force)
+        h, caches, _ = T.run_segments(cfg, params, h, mode="decode", caches=caches,
+                                      pos=pos, force=self.force)
         h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
         return T.lm_head(cfg, params, h), caches
 
@@ -80,7 +85,7 @@ class Model:
         lane = {"table": meta[:-1].view(1, -1), "lengths": meta[-1:],
                 "slot": (pages[pos // page_size], pos % page_size)}
         h = T.embed_tokens(cfg, params, token)
-        h, _ = T.run_segments(cfg, params, h, mode="paged_decode", caches=pool_views,
-                              pos=pos, force=self.force, lane=lane)
+        h, _, _ = T.run_segments(cfg, params, h, mode="paged_decode", caches=pool_views,
+                                 pos=pos, force=self.force, lane=lane)
         h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
         return T.lm_head(cfg, params, h)

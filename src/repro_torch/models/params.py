@@ -46,21 +46,38 @@ def stack_spec(spec_tree, n: int):
         spec_tree)
 
 
+def _scale(spec: ParamSpec) -> float:
+    """The normal init's scale: ``spec.scale``, or 1/sqrt(fan_in), the
+    product of all dims but the last, ignoring a leading layers axis."""
+    if spec.scale:
+        return spec.scale
+    dims = [d for d, a in zip(spec.shape, spec.axes) if a != "layers"]
+    fan_in = int(np.prod(dims[:-1])) if len(dims) > 1 else dims[0]
+    return 1.0 / math.sqrt(max(fan_in, 1))
+
+
+#: elements of the largest leaf drawn whole (16 GiB as float32)
+WHOLE_DRAW_MAX = 1 << 32
+
+
 def _init_one(gen: torch.Generator, spec: ParamSpec, dtype, device):
+    """One leaf, drawn from ``gen``. A stacked leaf of more than
+    ``WHOLE_DRAW_MAX`` elements is drawn one layer slice at a time into the
+    preallocated leaf, so its float32 draw never exceeds one layer (llava's
+    stacked MLP leaves, 8.8e9 elements, would be a 35 GB transient beside
+    68.8 GB of bf16 weights); a smaller leaf is drawn whole, so the seeded
+    weights of the models that ran before stay what they were."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
-    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
-    if spec.init == "embed":
-        return (x * 0.02).to(dtype)
-    scale = spec.scale
-    if not scale:
-        # fan-in = product of all dims except the last, ignoring a leading layers axis
-        dims = [d for d, a in zip(spec.shape, spec.axes) if a != "layers"]
-        fan_in = int(np.prod(dims[:-1])) if len(dims) > 1 else dims[0]
-        scale = 1.0 / math.sqrt(max(fan_in, 1))
-    return (x * scale).to(dtype)
+    scale = 0.02 if spec.init == "embed" else _scale(spec)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    sliced = spec.axes[:1] == ("layers",) and out.numel() > WHOLE_DRAW_MAX
+    for part in (out.unbind(0) if sliced else (out,)):
+        x = torch.randn(part.shape, generator=gen, dtype=torch.float32, device=device)
+        part.copy_(x * scale)
+    return out
 
 
 def tree_unflatten(tree, leaves: list):

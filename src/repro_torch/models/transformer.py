@@ -3,11 +3,13 @@ unstacked exceptional layers), block specs/apply, embeddings, head, and
 the loop over a segment's layers.
 
 Two blocks are here: ``attn`` (GQA attention, with or without q/k/v
-biases, and a SwiGLU MLP, full or sliding-window attention: the dense
-families granite-3-2b, minicpm-2b and qwen2.5-14b) and ``hymba``
-(attention and the SSD mixer in parallel on the same normed input, then the
-MLP). MLA, MoE, xLSTM and the multi-codebook/vision frontends come with
-their own slices and raise until then. Params and caches keep the JAX package's layout: a list with one
+biases, full or sliding-window, then a SwiGLU MLP or a mixture of experts:
+the dense families granite-3-2b, minicpm-2b and qwen2.5-14b, llava-next-34b's
+backbone, granite-moe-3b-a800m and arctic-480b) and ``hymba`` (attention
+and the SSD mixer in parallel on the same normed input, then the MLP).
+llava's vision prefix enters through :func:`embed_tokens`. MLA, xLSTM and
+the multi-codebook frontend come with their own slices and raise until
+then. Params and caches keep the JAX package's layout: a list with one
 entry per segment; a stacked (scanned) segment's leaves carry a leading
 ``[n_layers]`` axis, an unstacked one's (hymba's global-attention layers)
 do not. Cache leaves: attention ``{"k", "v"}`` ``[B, S_max, K*hd]`` (a
@@ -26,6 +28,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import ParamSpec, stack_spec, tree_map
 
+VISION_DIM = 1024  # the stubbed llava frontend's output width
+
 
 @dataclass(frozen=True)
 class Segment:
@@ -37,17 +41,16 @@ class Segment:
 
 def _check_supported(cfg):
     if cfg.block not in ("attn", "hymba") or cfg.mla is not None \
-            or cfg.moe is not None or cfg.n_codebooks > 1 or cfg.img_tokens \
-            or (cfg.block == "hymba" and cfg.ssm is None):
+            or cfg.n_codebooks > 1 or (cfg.block == "hymba" and cfg.ssm is None):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense attention decoders (granite-3-2b, minicpm-2b, "
-            "qwen2.5-14b) and hymba are ported so far")
+            f"{cfg.name}: only the attention decoders (dense, MoE, llava's backbone) "
+            "and hymba are ported so far")
 
 
 def check_trainable(cfg):
-    """Training is ported for the blocks the port serves: the dense
-    attention decoders (granite-3-2b, minicpm-2b, qwen2.5-14b: K1's
-    backward) and hymba (also the GLA backward)."""
+    """Training is ported for the blocks the port serves: the attention
+    decoders (K1's backward; the MoE layer and llava's projection under
+    autograd) and hymba (also the GLA backward)."""
     _check_supported(cfg)
 
 
@@ -72,17 +75,18 @@ def block_specs(cfg, kind):
           "attn": L.attn_specs(cfg)}
     if kind == "hymba":
         sp["ssd"] = SSM.ssd_specs(cfg)
-    if cfg.d_ff:
+    if cfg.moe is not None or cfg.d_ff:
         sp["ln2"] = ParamSpec((d,), ("embed",), init="ones")
-        sp["ffn"] = L.mlp_specs(cfg)
+        sp["ffn"] = L.moe_specs(cfg) if cfg.moe is not None else L.mlp_specs(cfg)
     return sp
 
 
 def block_apply(cfg, kind, p, x, *, mode, window, cache, pos=None, force=None,
                 schedule="chunk"):
-    """Returns (x_out, cache). Block norms use rmsnorm's default eps, as the
-    JAX package does; only the final norm takes ``cfg.norm_eps``. In train
-    mode ``cache`` is None."""
+    """Returns (x_out, cache, aux): aux the MoE layer's router losses
+    (float32 0-d), None without experts or in decode. Block norms use
+    rmsnorm's default eps, as the JAX package does; only the final norm
+    takes ``cfg.norm_eps``. In train mode ``cache`` is None."""
     xn = L.rmsnorm(x, p["ln1"])
     a_out, _ = L.attn_apply(cfg, p["attn"], xn, mode=mode,
                             cache=None if cache is None else cache["attn"],
@@ -94,15 +98,23 @@ def block_apply(cfg, kind, p, x, *, mode, window, cache, pos=None, force=None,
         x = x + 0.5 * (a_out + s_out)
     else:
         x = x + a_out
+    aux = None
     if "ffn" in p:
-        x = x + L.mlp_apply(p["ffn"], L.rmsnorm(x, p["ln2"]))
-    return x, cache
+        xn2 = L.rmsnorm(x, p["ln2"])
+        if cfg.moe is not None:
+            f_out, aux = L.moe_apply(cfg, p["ffn"], xn2, mode=mode)
+        else:
+            f_out = L.mlp_apply(p["ffn"], xn2)
+        x = x + f_out
+    return x, cache, aux
 
 
 def model_specs(cfg):
     d, Vp = cfg.d_model, cfg.padded_vocab
     sp = {"embed": ParamSpec((Vp, d), ("vocab", "embed"), init="embed"),
           "segments": []}
+    if cfg.img_tokens:
+        sp["mm_proj"] = ParamSpec((VISION_DIM, d), (None, "embed"))
     for seg in plan_segments(cfg):
         bs = block_specs(cfg, seg.kind)
         sp["segments"].append(stack_spec(bs, seg.n) if seg.scanned else bs)
@@ -111,8 +123,25 @@ def model_specs(cfg):
     return sp
 
 
-def embed_tokens(cfg, params, tokens):
-    return params["embed"][tokens].to(getattr(torch, cfg.compute_dtype))
+def embed_tokens(cfg, params, tokens, patch_embeds=None):
+    """tokens [B,S] (or [B] in decode) -> [B,S,d] in the compute dtype.
+    With ``patch_embeds`` [B, img_tokens, VISION_DIM] (llava), their
+    projection by ``mm_proj`` takes the first ``img_tokens`` positions, in
+    the table's dtype as the reference computes it. A prompt shorter than
+    the image raises ``ValueError``: the reference's splice would make the
+    sequence longer than the prompt (ROADMAP queue 3, part C)."""
+    h = params["embed"][tokens]
+    if cfg.img_tokens and patch_embeds is not None and h.dim() == 3:
+        n = cfg.img_tokens
+        if tuple(patch_embeds.shape) != (h.shape[0], n, VISION_DIM):
+            raise ValueError(f"patch_embeds {tuple(patch_embeds.shape)}; expected "
+                             f"{(h.shape[0], n, VISION_DIM)}")
+        if h.shape[1] < n:
+            raise ValueError(f"{cfg.name}: a prompt of {h.shape[1]} positions is shorter "
+                             f"than its image's {n}")
+        vis = patch_embeds.to(h.dtype) @ params["mm_proj"]
+        h = torch.cat([vis, h[:, n:]], dim=1)
+    return h.to(getattr(torch, cfg.compute_dtype))
 
 
 def lm_head(cfg, params, h):
@@ -155,7 +184,10 @@ def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None, lane=Non
     """Runs all segments; a Python loop over a stacked segment's layer
     leaves takes the place of ``lax.scan``. Layer ``i`` reads and writes
     its cache (``caches[si]`` at index ``i``, or the whole entry of an
-    unstacked segment) in place. Returns (h, caches).
+    unstacked segment) in place. Returns (h, caches, aux): aux the sum of
+    the MoE layers' router losses (float32 0-d; None without experts or in
+    decode), which the train step adds to the loss and the serving paths
+    drop.
 
     ``mode='paged_decode'``: ``caches[si]`` is ``{"attn": {"k", "v"}}`` of
     the page pool's ``[P, page, n_layers, K, hd]`` views and ``lane`` the
@@ -167,6 +199,7 @@ def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None, lane=Non
     keeps only the layer's input and recomputes the layer in the backward,
     as the reference wraps each scanned layer in ``jax.checkpoint`` with
     ``nothing_saveable``."""
+    aux = None
     if mode == "train":
         check_trainable(cfg)
         for si, seg in enumerate(plan_segments(cfg)):
@@ -179,8 +212,9 @@ def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None, lane=Non
             fn = _train_layer(cfg, seg, force)
             for i in range(seg.n):
                 pi = tree_map(lambda t: t[i], layers) if seg.scanned else p
-                h = checkpoint(fn, pi, h, use_reentrant=False) if cfg.remat else fn(pi, h)
-        return h, caches
+                h, a = checkpoint(fn, pi, h, use_reentrant=False) if cfg.remat else fn(pi, h)
+                aux = _add(aux, a)
+        return h, caches, aux
     for si, seg in enumerate(plan_segments(cfg)):
         p, c = params["segments"][si], caches[si]
         for i in range(seg.n):
@@ -190,13 +224,20 @@ def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None, lane=Non
             else:
                 ci = tree_map(lambda t: t[i], c) if seg.scanned else c
             pi = tree_map(lambda t: t[i], p) if seg.scanned else p
-            h, _ = block_apply(cfg, seg.kind, pi, h, mode=mode, window=seg.window,
-                               cache=ci, pos=pos, force=force, schedule=schedule)
-    return h, caches
+            h, _, a = block_apply(cfg, seg.kind, pi, h, mode=mode, window=seg.window,
+                                  cache=ci, pos=pos, force=force, schedule=schedule)
+            aux = _add(aux, a)
+    return h, caches, aux
+
+
+def _add(total, a):
+    """A running sum that stays None until a layer reports a loss."""
+    return a if total is None else total if a is None else total + a
 
 
 def _train_layer(cfg, seg, force):
     def fn(p, x):
-        return block_apply(cfg, seg.kind, p, x, mode="train", window=seg.window,
-                           cache=None, force=force)[0]
+        x, _, aux = block_apply(cfg, seg.kind, p, x, mode="train", window=seg.window,
+                                cache=None, force=force)
+        return x, aux
     return fn

@@ -126,15 +126,21 @@ class Server:
             raise ValueError(f"token ids must lie in [0, {self.cfg.padded_vocab})")
         return t.to(self.device)
 
-    def prefill(self, tokens, pad_to=None):
-        """tokens: [B,S]. Caches are allocated at ``max(pad_to, S)`` and hold
-        the prompt's rows, each leaf by its kind (a window layer's ring is
-        ``T.ring_width`` rows, as the JAX ``Server`` leaves it). Returns the
-        last position's logits [B, Vp]."""
+    def prefill(self, tokens, patch_embeds=None, pad_to=None):
+        """tokens: [B,S]; ``patch_embeds`` [B, img_tokens, 1024] (llava's
+        image, any float type). Caches are allocated at ``max(pad_to, S)``
+        and hold the prompt's rows, each leaf by its kind (a window layer's
+        ring is ``T.ring_width`` rows, as the JAX ``Server`` leaves it).
+        Returns the last position's logits [B, Vp]."""
         t = self._tokens(tokens)
         S = t.shape[-1]
         self.max_len = max(pad_to or S, S)
-        logits, self.caches = self.prefill_fn(self.params, t, max_len=self.max_len)
+        pe = patch_embeds
+        if pe is not None and not isinstance(pe, torch.Tensor):
+            pe = torch.from_numpy(np.asarray(pe, np.float32))
+        pe = None if pe is None else pe.to(self.device)
+        logits, self.caches = self.prefill_fn(self.params, t, max_len=self.max_len,
+                                              patch_embeds=pe)
         self.pos = S
         return logits
 

@@ -113,8 +113,8 @@ def host_allreduce(cluster, value, op: str = "MPI_SUM", *,
 
 
 def make_prefill_step(model: Model):
-    def prefill_step(params, tokens, max_len=None):
-        return model.prefill(params, tokens, max_len=max_len)
+    def prefill_step(params, tokens, max_len=None, patch_embeds=None):
+        return model.prefill(params, tokens, max_len=max_len, patch_embeds=patch_embeds)
     return prefill_step
 
 

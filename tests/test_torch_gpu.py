@@ -101,7 +101,7 @@ def test_flash_kernel_windows(cuda, window, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("G", [1, 4, 5, 16])
+@pytest.mark.parametrize("G", [1, 3, 4, 5, 7, 16])
 def test_flash_kernel_group_sizes_and_head_dims(cuda, G, D, dtype):
     q, k, v = _flash_views(cuda, 2, 2 * G, 2, 300, D, dtype, seed=G * D)
     _flash_held(q, k, v, None, dtype)
@@ -222,7 +222,7 @@ def test_decode_kernels_are_one_launch_per_call(cuda, kind, D):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("length,window", [(1, None), (S64, None),
                                            (S64 + 1, None), (300, None), (300, 50)])
-@pytest.mark.parametrize("H,K", [(8, 2), (DA.MAX_G, 1), (4, 4)])
+@pytest.mark.parametrize("H,K", [(8, 2), (DA.MAX_G, 1), (4, 4), (6, 2), (14, 2)])
 def test_decode_kernel_matches_plain(cuda, length, window, dtype, H, K):
     B, S, D = 2, 300, 64
     g = torch.Generator(device=cuda).manual_seed(length)
@@ -280,7 +280,8 @@ def _paged_inputs(cuda, B, H, K, D, n_layers, layer, lengths, page, dtype, seed,
                                             ([300, S64 + 1], 50), ([0, 17], None),
                                             ([S128 - 1, S128 + 1], None), ([S128, 0], 20)])
 @pytest.mark.parametrize("H,K,D", [(8, 2, 64), (DA.MAX_G, 1, 32), (4, 4, 64), (10, 2, 128),
-                                   (40, 8, 128)])
+                                   (40, 8, 128), (6, 2, 64), (24, 8, 64), (14, 2, 128),
+                                   (56, 8, 128)])
 def test_paged_decode_kernel_matches_plain(cuda, lengths, window, dtype, H, K, D):
     q, kp, vp, table, lens = _paged_inputs(cuda, 2, H, K, D, 3, 1, lengths, 16, dtype,
                                            seed=sum(lengths) + H)
@@ -915,7 +916,7 @@ def test_flash_lse_matches_plain_and_leaves_the_output_unchanged(cuda, window, d
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("G", [1, 4, 5])
+@pytest.mark.parametrize("G", [1, 3, 4, 5, 7])
 @pytest.mark.parametrize("S,window", [(256, None), (200, None), (77, None), (300, 50),
                                       (130, 64), (127, None), (128, None), (129, None),
                                       (255, None), (257, None), (129, 9), (255, 100),
@@ -1410,7 +1411,7 @@ def test_flash_bwd_at_qwen_shape(cuda, dtype):
 @pytest.mark.parametrize("length,window", [(1, None), (S128 - 1, None), (S128, None),
                                            (S128 + 1, None), (300, None), (300, 50),
                                            (1056, None), (1056, 70)])
-@pytest.mark.parametrize("H,K", [(10, 2), (4, 4), (DA.MAX_G, 1)])
+@pytest.mark.parametrize("H,K", [(10, 2), (4, 4), (DA.MAX_G, 1), (14, 2), (56, 8)])
 def test_decode_kernel_at_head_dim_128(cuda, length, window, dtype, H, K):
     """K2 at D = 128 around its 64-position split (bf16 on the tensor
     cores; a float32 row is the whole warp, its positions in two batches of
@@ -1490,21 +1491,26 @@ def _biased(params):
     return params
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen2.5-14b", "qwen2.5-14b-d128"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen2.5-14b", "qwen2.5-14b-d128",
+                                  "llava-next-34b", "granite-moe-3b-a800m"])
 def test_dense_family_smoke_server_on_card_matches_cpu(cuda, arch):
     """A smoke prefill launches K1 once a layer and a decode step K2 once a
     layer, and the card's logits and greedy stream equal the CPU's plain
-    path's (float32, non-zero biases for qwen)."""
+    path's (float32, non-zero biases for qwen, llava's image, the MoE
+    layer's capacity dispatch and its top-k decode)."""
     cfg = _qwen_d128() if arch.endswith("d128") else smoke_config(arch)
     gpu = Server(cfg, device=cuda, seed=0)
     if cfg.qkv_bias:
         _biased(gpu.params)
     cpu = Server(cfg, device="cpu", params=tree_map(lambda t: t.cpu(), gpu.params))
-    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12))
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, cfg.vocab_size, (2, 12))
+    pe = rng.standard_normal((2, cfg.img_tokens, 1024)).astype(np.float32) \
+        if cfg.img_tokens else None
     n0 = (FA.launches, DA.launches)
-    lg = gpu.prefill(prompt, pad_to=20)
+    lg = gpu.prefill(prompt, pe, pad_to=20)
     assert (FA.launches, DA.launches) == (n0[0] + cfg.n_layers, n0[1])
-    lc = cpu.prefill(prompt, pad_to=20)
+    lc = cpu.prefill(prompt, pe, pad_to=20)
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     first = np.argmax(lc[:, : cfg.vocab_size].numpy(), -1)
     n0 = (FA.launches, DA.launches)
@@ -1515,12 +1521,14 @@ def test_dense_family_smoke_server_on_card_matches_cpu(cuda, arch):
     np.testing.assert_array_equal(np.stack(tg + tg2), np.stack(tc))
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen2.5-14b-d128"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen2.5-14b-d128", "llava-next-34b",
+                                  "granite-moe-3b-a800m"])
 def test_dense_family_smoke_train_step_on_card_matches_plain_path(cuda, deterministic_restored,
                                                                   arch):
-    """One float32 step at D = 128 (qwen, non-zero biases) and at minicpm's
-    G = 1: 2 K1 forwards a layer, one of each backward kernel, the
-    gradients within 1e-4 of the plain path's per leaf."""
+    """One float32 step at D = 128 (qwen, non-zero biases), at minicpm's
+    G = 1, with llava's image and through the MoE layer under
+    deterministic algorithms: 2 K1 forwards a layer, one of each backward
+    kernel, the gradients within 1e-4 of the plain path's per leaf."""
     from repro_torch import steps as ST
     from repro_torch.data import synth_batch
     from repro_torch.launch.train import Trainer
@@ -1887,3 +1895,50 @@ def test_dq128_is_bit_stable_at_qwen_training_shape(cuda):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     want = ref.attention_bwd_dq(q, k, v, lse, do, ref.attention_bwd_delta(o, do))
     assert _rel(a[0], want) <= BWD_TOL[torch.bfloat16]
+
+
+# -- the attention kernels at the shapes of llava-next-34b (G = 7, head dim
+#    128) and granite-moe-3b-a800m (G = 3, head dim 64) ----------------------------
+
+FAMILY_SHAPES = {"llava-next-34b": (4, 56, 8, 128), "granite-moe-3b-a800m": (4, 24, 8, 64)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", FAMILY_SHAPES)
+def test_flash_kernels_at_the_family_prefill_shape(cuda, arch, dtype):
+    """K1 (the route's kernel, one launch), its logsumexp and its backward
+    at the family's prefill and training shape, S 1024."""
+    B, H, K, D = FAMILY_SHAPES[arch]
+    q, k, v, do = _bwd_inputs(cuda, B, H, K, 1024, D, dtype, seed=H)
+    _flash_held(q, k, v, None, dtype)
+    _bwd_held(q, k, v, do, None, dtype)
+    names = [n for n, _, _ in graph_kernels(lambda: FA.flash_attention(q, k, v))]
+    assert len(names) == 1 and FA.fwd_kernel(dtype, D, H // K) in names[0], names
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("length", [1, 577, 1056])
+@pytest.mark.parametrize("arch", FAMILY_SHAPES)
+def test_decode_kernels_at_the_family_decode_shape(cuda, arch, length, dtype):
+    """K2 at the family's decode (caches of 1056 rows, the Server's 1024 +
+    32), and K3 for one lane over a strided store of the family's depth,
+    bit-equal to K2 over in-order pages."""
+    B, H, K, D = FAMILY_SHAPES[arch]
+    g = torch.Generator(device=cuda).manual_seed(length + H)
+    q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, 1056, K, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    n0 = DA.launches
+    out = ops.decode_attention(q, k, v, length)
+    assert DA.launches == n0 + 1
+    _close(out, ref.naive_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2), length),
+           dtype)
+    n = 1056 // 16
+    table = torch.arange(B * n, dtype=torch.int32, device=cuda).view(B, n)
+    lens = torch.full((B,), length, dtype=torch.int32, device=cuda)
+    paged = PA.paged_decode_attention(q, k.view(B * n, 16, K, D), v.view(B * n, 16, K, D),
+                                      table, lens)
+    assert torch.equal(paged, out)
+    qp, kp, vp, table, lens = _paged_inputs(cuda, 1, H, K, D, 4, 2, [length], 16, dtype,
+                                            seed=length)
+    _close(PA.paged_decode_attention(qp, kp, vp, table, lens),
+           ref.naive_paged_decode_attention(qp, kp, vp, table, lens), dtype)

@@ -46,11 +46,10 @@ def test_model_specs_match_jax():
 
 
 def test_unported_blocks_raise():
-    # hymba and sliding-window attention are ported; xLSTM, MoE, MLA and the
-    # multi-codebook frontend are not yet
+    # hymba, sliding-window attention, MoE and llava's vision prefix are
+    # ported; xLSTM, MLA and the multi-codebook frontend are not yet
     cfg = configs.smoke_config(ARCH)
     for change in ({"block": "xlstm"},
-                   {"moe": configs.MoEConfig(n_experts=4, top_k=2, expert_d_ff=64)},
                    {"mla": configs.MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16,
                                              qk_rope_dim=8, v_head_dim=16)},
                    {"n_codebooks": 2}):
