@@ -17,9 +17,11 @@
 
 #include "decode_split.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16. part_o: [B,K,n_splits,G,D] float32;
-// part_ml: [2,B,K,n_splits,G] float32 (m then l), n_splits = ceil(S / split);
-// counters: [B*K] int32, zero (left zero). Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. part_o: [B,K,n_p,G,D] float32;
+// part_ml: [2,B,K,n_p,G] float32 (m then l), n_p = n_splits = ceil(S /
+// split), or on decode_mma_kernel one a tc::L<D>::SPAN positions
+// (kernels/decode_attention.slots); counters: [B*K] int32, zero (left
+// zero). Returns a cudaError_t.
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, void* o, void* part_o,
                                       void* part_ml, void* counters, int B, int H,
@@ -36,7 +38,7 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
 // position p lies in slot p % W (the layout of the reference's
 // layers.window_decode_attention). The decode at position pos attends to
 // the last n = min(window, W, pos + 1) positions; part_o and part_ml are
-// sized for n_splits = ceil(n / split). Returns a cudaError_t.
+// sized as above for n_splits = ceil(n / split). Returns a cudaError_t.
 extern "C" int repro_ring_decode_attention(const void* q, const void* k,
                                            const void* v, void* o, void* part_o,
                                            void* part_ml, void* counters, int B,

@@ -26,21 +26,22 @@
 // Design against that bound:
 //  * One launch. The splits are parallel blocks: one block per (row, KV
 //    head, split of split_len<D>() logical positions: 128 at D <= 64, 64 at
-//    D = 128, whatever B, the length or the addressing). Each block
+//    D = 128, whatever B, the length or the addressing; on the tensor-core
+//    kernel a block takes 128 positions, two splits at D = 128). Each block
 //    writes an unnormalised partial (m, l, o) for the KV head's G query
 //    heads, then takes a ticket from a per-(row, KV head) counter (after
 //    __syncthreads, one atomicAdd with release and acquire semantics, which
 //    also does a __threadfence's work); the block that draws the last
-//    ticket combines the splits in split-index order, as a separate
+//    ticket combines the partials in index order, as a separate
 //    combine kernel did, and sets the counter back to 0. The atomic only
 //    elects the block: every sum runs in a fixed order, so the result is
 //    deterministic and the same whichever block combines. The combine's
 //    loads are batched (up to 16 splits' (m, l, o) per batch, the largest
 //    m taken from the registers when one batch holds every split), so the
 //    tail after the last ticket is one or two round trips to L2. With a
-//    single split the block writes the output.
-//  * Streaming (float32 at every D, bf16 at D <= 64: decode_kernel, 4
-//    warps). Each warp takes split_len<D>() / 4 positions; D * sizeof(T) / 16 lanes read
+//    single partial the block writes the output.
+//  * Streaming (float32 at every D, bf16 at D = 32 for G > 1: decode_kernel,
+//    4 warps). Each warp takes split_len<D>() / 4 positions; D * sizeof(T) / 16 lanes read
 //    one K or V row (8 lanes for a bf16 row of 64), 16 bytes each, so a
 //    warp's load covers one or more whole rows. Every K and V load of a
 //    thread is issued before any is used (up to batch<D>() of each at once), and
@@ -58,33 +59,40 @@
 //    registers; the 4 warps' partials are merged through shared memory in
 //    warp order. Scores are in the log2 domain (q scaled by
 //    log2(e) / sqrt(D)) and exponentiated with ex2.approx.
-//  * bf16 at D = 128 (decode_mma_kernel, 4 warps, redesigned for Hopper):
-//    the G <= 16 query heads of the KV head go through the tensor cores
+//  * bf16 at G > 1 and at D = 128 (decode_mma_kernel<D>, 4 warps,
+//    redesigned for Hopper; the route is mma_route, a rule on (D, G)): the
+//    G <= 16 query heads of the KV head go through the tensor cores
 //    together, so every K/V row is read from shared memory once for all of
-//    them and no shuffle reduces a dot product. The block stages q (G rows,
-//    zeros to 16) and its 64 K rows as one cp.async group and its 64 V rows
-//    as a second (16 bytes a copy, 16 lanes a row, zeros outside the
-//    window; no registers held), so every byte of the split is in flight at
-//    once and the scores run while V lands; each thread computes its four
-//    rows' addresses first (a paged pool: four table reads, issued
-//    together), so no load waits on a table read after that. S = q K^T by
-//    mma.sync m16n8k16 (q the A operand, zero-padded to 16 rows; the K rows
-//    as they lie, [pos][D], the B operand through ldmatrix), each warp 16
-//    positions, scaled to the log2 domain in float32 and masked into
-//    shared memory; then each warp takes 32 of the D columns: the row max
-//    and sum over the split's 64 positions from its A fragments (a quad of
-//    shuffles), P = ex2(s - m) kept in registers as the A fragment of P V
-//    (as FlashAttention-2 does on Ampere), split into a bf16 high and low
-//    part so that P V keeps about 16 bits of P, and V read by
-//    ldmatrix.trans, each k16 step's P V right after its P. 64-position
-//    splits give 17 x 8 = 136 blocks at one lane of qwen2.5-14b's 1056
-//    positions. Its combine copies the splits' partial outputs into the
-//    block's shared memory by cp.async (as many splits a round as fit, up
-//    to 32: all 17 of qwen's G = 5), while one warp a head takes the head's
-//    largest m, weighted l and each split's weight into shared memory: one
-//    round trip to L2 for the whole tail, with no registers held by the
-//    copies, so that five blocks of 128 threads fit an SM and qwen's 544
-//    blocks at B = 4 run in one wave.
+//    them and no shuffle reduces a dot product, and no register holds a
+//    load (at D = 64 decode_kernel's lanes held 16 loads each and reduced
+//    each head's dot products by shuffles, one head after another). A
+//    block takes 128 positions (one split at D = 64, two at 128). It stages
+//    q (G rows, zeros to 16) and its K rows as one cp.async group and its V
+//    rows as a second (16 bytes a copy, 16-byte padded rows so that an
+//    ldmatrix's 8 rows lie in distinct banks; zeros outside the window), so
+//    every byte of the block is in flight at once and the scores run while
+//    V lands; each thread computes its rows' addresses first (a paged pool:
+//    its table reads, issued together), so no load waits on a table read
+//    after that. Each warp takes 32 of the positions: S = q K^T by mma.sync
+//    m16n8k16 (q the A operand, zero-padded to 16 rows; the K rows as they
+//    lie, [pos][D], the B operand through ldmatrix), scaled to the log2
+//    domain and masked in registers; the rows' max over its positions (a
+//    quad of shuffles); P = ex2(s - m) as the A fragments of P V, straight
+//    from S's C fragments (as FlashAttention-2 does on Ampere), split into
+//    a bf16 high and low part so that P V keeps about 16 bits of P; P V
+//    for all D columns, V through ldmatrix.trans. No score goes through
+//    shared memory and each exponential is taken once. The 4 warps' (m, l,
+//    P V) then meet in shared memory where the K rows were and merge in
+//    warp order. Two splits a block at D = 128 leave 9 partials at 1056
+//    positions rather than 17, so the combine stages them all in one round
+//    at every G <= 8 (llava-next-34b's G = 7 took two rounds of 12 and 5)
+//    and reads half the bytes; 288 blocks at B = 4 run in one wave at three
+//    an SM. The combine copies the partial outputs into the block's shared
+//    memory by cp.async while one warp a head takes the head's largest m,
+//    weighted l and each partial's weight: one round trip to L2 for the
+//    whole tail, no registers held by the copies. Clusters of blocks that
+//    merge their partials through distributed shared memory before the
+//    global combine were slower at every size on an H100 (PERF.md).
 //  * bf16 at G = 1, D <= 64 (decode_g1_kernel, 4 warps, redesigned for
 //    Hopper; minicpm-2b's MHA): each K/V row serves one query head, so
 //    nothing is reused and the kernel is pure streaming; what costs is
@@ -440,36 +448,48 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS) decode_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 128: a KV head's query heads on the tensor cores
+// bf16 at G > 1 (D = 64) and at D = 128: a KV head's query heads on the
+// tensor cores
 // ---------------------------------------------------------------------------
-namespace mma128 {
-constexpr int D = 128;
-constexpr int SPLIT = split_len(D);  // positions a block takes (64)
-constexpr int NWARP = 4;             // each 16 positions of S, then 32 columns of P V
+// The bf16 route: which (D, G) run decode_mma_kernel. The rule rests on
+// (D, G) alone, never on B, the length or the addressing, so that K2, K2
+// over a ring and K3 take one kernel at a model's shape
+// (kernels/decode_attention.kernel mirrors it).
+__host__ __device__ constexpr bool mma_route(int D, int G) {
+  return D == 128 || (D == 64 && G > 1);
+}
+
+namespace tc {
+constexpr int NWARP = 4;  // each a quarter of the block's positions: S, P and its P V
 constexpr int THREADS = NWARP * 32;
-constexpr int RESIDENT = 5;          // blocks an SM holds: the registers (<= 96) and
-                                     // shared memory allow it, so that qwen2.5-14b's
-                                     // 544 blocks at B = 4 run in one wave
-constexpr int ROW = D * 2 + 16;      // bytes of a staged row: +16, so that the
-                                     // 8 rows an ldmatrix reads lie in distinct banks
-constexpr int CH = D * 2 / 16;       // 16-byte pieces of a row
-constexpr int RPP = THREADS / CH;    // rows one pass of the block's copies covers
-constexpr int SROW = SPLIT + 4;      // floats of a score row
-constexpr int K_S = 0;               // byte offsets: K rows, V rows, q rows, scores
-constexpr int V_S = K_S + SPLIT * ROW;
-constexpr int Q_S = V_S + SPLIT * ROW;
-constexpr int S_S = Q_S + GMAX * ROW;
-constexpr int MAIN = S_S + GMAX * SROW * 4;  // 43,520 bytes
-constexpr int CMAX = 32;             // splits a round of the combine stages at most
-constexpr int WMAX = 64;             // splits whose weights the combine keeps
-// The combine reuses the block's shared memory: the staged partial outputs
-// of a round of splits from the start, the weights of up to WMAX splits at
-// the end. A little more than the main phase needs, so that one round
-// takes all 17 splits of qwen2.5-14b's 1056 positions at G = 5
-constexpr int COMBINE_QWEN = 17 * 5 * D * 4 + WMAX * 5 * 4;
-constexpr int BYTES = MAIN > COMBINE_QWEN ? MAIN : COMBINE_QWEN;  // 44,800
-static_assert(GMAX * CH % THREADS == 0, "the q rows' copies split evenly");
-}  // namespace mma128
+constexpr int CMAX = 32;     // partials a round of the global combine stages at most
+constexpr int WMAX = 32;     // partials whose weights the global combine keeps
+template <int D>
+struct L {
+  // positions a block takes: one split of split_len(D) at D = 64, two at
+  // 128, so that a row of 1056 positions leaves 9 partials at either
+  static constexpr int SPAN = 128;
+  static constexpr int PER = SPAN / split_len(D);  // splits a block takes
+  // blocks an SM holds: shared memory (and at D = 64 the registers, <= 128)
+  // allow it, so that granite-3-2b's, granite-moe-3b-a800m's,
+  // qwen2.5-14b's and llava-next-34b's 288 blocks at B = 4 (9 a row, 8
+  // KV heads) run in one wave on 132 SMs
+  static constexpr int RESIDENT = D > 64 ? 3 : 4;
+  static constexpr int ROW = D * 2 + 16;  // bytes of a staged row: +16, so that the
+                                          // 8 rows an ldmatrix reads lie in distinct banks
+  static constexpr int CH = D * 2 / 16;   // 16-byte pieces of a row
+  static constexpr int RPP = THREADS / CH;  // rows one pass of the block's copies covers
+  static constexpr int WPOS = SPAN / NWARP;  // positions a warp takes
+  static constexpr int K_S = 0;                // byte offsets: K rows, V rows, q rows
+  static constexpr int V_S = K_S + SPAN * ROW;
+  static constexpr int Q_S = V_S + SPAN * ROW;
+  static constexpr int BYTES = Q_S + GMAX * ROW;  // 39,168 at D = 64, 73,984 at 128
+  static_assert(GMAX * CH % THREADS == 0 && SPAN % RPP == 0, "the copies split evenly");
+  static_assert(WPOS % 16 == 0, "a warp's S tiles pair up into k16 steps");
+  static_assert(NWARP * GMAX * D * 4 <= SPAN * ROW,
+                "the warps' partials fit where the K rows were");
+};
+}  // namespace tc
 
 // 16 bytes from global to shared by cp.async, or zeros (no read) when !full
 __device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool full) {
@@ -509,34 +529,43 @@ __device__ __forceinline__ void split_hi_lo(float x0, float x1, uint32_t& hi, ui
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// Grid (n_splits, K, B); mma128::THREADS threads; mma128::BYTES of dynamic
-// shared memory. Arguments as decode_kernel's.
-template <typename KV>
-__global__ void __launch_bounds__(mma128::THREADS, mma128::RESIDENT) decode_mma_kernel(
+// Grid (n_blocks, K, B): each block tc::L<D>::SPAN positions (PER
+// splits), n_blocks = ceil(n_splits / PER). tc::THREADS threads;
+// tc::L<D>::BYTES of dynamic shared memory. Partials, one a block: part_o
+// [B,K,n_blocks,G,D]; part_m, part_l [B,K,n_blocks,G], unused when
+// n_blocks = 1. Other arguments as decode_kernel's.
+template <int D, typename KV>
+__global__ void __launch_bounds__(tc::THREADS, tc::L<D>::RESIDENT) decode_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ out, float* __restrict__ part_o, float* __restrict__ part_m,
     float* __restrict__ part_l, int* __restrict__ counters, KV kv, int H, int K,
     int window, float scale) {
-  using namespace mma128;
+  using namespace tc;
+  using Ly = L<D>;
+  constexpr int SPAN = Ly::SPAN, ROW = Ly::ROW, CH = Ly::CH, RPP = Ly::RPP;
+  constexpr int WPOS = Ly::WPOS;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int last;
+  // each warp's (m, l) and weight per head; the block's l; the global
+  // combine's largest m and weighted l
+  __shared__ float wm_s[NWARP][GMAX], wl_s[NWARP][GMAX], ww_s[NWARP][GMAX];
+  __shared__ float l_s[GMAX];
   __shared__ float mg_s[GMAX], den_s[GMAX];
-  const int G = H / K;
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const int n_splits = gridDim.x;
-  const int start = split * SPLIT;
+  const int G = H / K, n_pc = G * D / 4;  // float4 pieces of the G x D output
+  const int blk = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int n_p = gridDim.x;  // the row's partials, one a block
+  const int start = blk * SPAN;
   const int length = kv.length(b);
   const int lo = window > 0 ? max(length - window, 0) : 0;
-  const int j0 = max(start, lo), j1 = min(start + SPLIT, length);
+  const int j0 = max(start, lo), j1 = min(start + SPAN, length);
   const bool empty = j0 >= j1;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long pidx = ((long long)(b * K + kh) * n_splits + split) * G;
   bf16* o = out + ((long long)b * H + kh * G) * D;
+  const long long pb = (long long)(b * K + kh) * n_p * G;  // the row's first partial
   const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  float* s_s = reinterpret_cast<float*>(smem + S_S);
 
   if (!empty) {
-    // stage q's G rows (zeros to 16) and the split's K rows as one group,
+    // stage q's G rows (zeros to 16) and the block's K rows as one group,
     // then its V rows: piece ch of rows r0, r0 + RPP, ... (zeros outside
     // [j0, j1)); every row's address first, then every copy
     const int ch = tid % CH, r0 = tid / CH;
@@ -544,101 +573,96 @@ __global__ void __launch_bounds__(mma128::THREADS, mma128::RESIDENT) decode_mma_
 #pragma unroll
     for (int i = 0; i < GMAX / RPP; ++i) {
       const int r = r0 + i * RPP;
-      cp16(base + Q_S + r * ROW + ch * 16, qb + (r < G ? r : 0) * D + ch * 8, r < G);
+      cp16(base + Ly::Q_S + r * ROW + ch * 16, qb + (r < G ? r : 0) * D + ch * 8, r < G);
     }
-    long long off[SPLIT / RPP];
-    bool in[SPLIT / RPP];
+    long long off[SPAN / RPP];
+    bool in[SPAN / RPP];
 #pragma unroll
-    for (int i = 0; i < SPLIT / RPP; ++i) {
+    for (int i = 0; i < SPAN / RPP; ++i) {
       const int j = start + r0 + i * RPP;
       in[i] = j >= j0 && j < j1;
       off[i] = in[i] ? kv.row(b, j, kh) + ch * 8 : 0;
     }
 #pragma unroll
-    for (int i = 0; i < SPLIT / RPP; ++i)
-      cp16(base + K_S + (r0 + i * RPP) * ROW + ch * 16, k + off[i], in[i]);
+    for (int i = 0; i < SPAN / RPP; ++i)
+      cp16(base + Ly::K_S + (r0 + i * RPP) * ROW + ch * 16, k + off[i], in[i]);
     cp_commit();
 #pragma unroll
-    for (int i = 0; i < SPLIT / RPP; ++i)
-      cp16(base + V_S + (r0 + i * RPP) * ROW + ch * 16, v + off[i], in[i]);
+    for (int i = 0; i < SPAN / RPP; ++i)
+      cp16(base + Ly::V_S + (r0 + i * RPP) * ROW + ch * 16, v + off[i], in[i]);
     cp_commit();
     cp_wait<1>();
     __syncthreads();
 
-    // S = q K^T for the warp's 16 positions (two n8 tiles), two k16 steps a
-    // pass; then scaled to the log2 domain and masked into shared memory
-    const int pos0 = warp * 16;
-    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    // S = q K^T for the warp's WPOS positions (NT n8 tiles), two k16 steps
+    // a pass, kept in registers: scaled to the log2 domain and masked
+    constexpr int NT = WPOS / 8;
+    const int pos0 = warp * WPOS;
+    float sc[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) sc[t][0] = sc[t][1] = sc[t][2] = sc[t][3] = 0.f;
 #pragma unroll
     for (int kp = 0; kp < D / 32; ++kp) {
-      uint32_t k0[4], k1[4], qa[4];
-      ldsm(k0, base + K_S + (pos0 + lane % 8) * ROW + (4 * kp + lane / 8) * 16);
-      ldsm(k1, base + K_S + (pos0 + 8 + lane % 8) * ROW + (4 * kp + lane / 8) * 16);
-      ldsm(qa, base + Q_S + (lane % 16) * ROW + (4 * kp + lane / 16) * 16);
-      mma(sc[0], qa, k0[0], k0[1]);
-      mma(sc[1], qa, k1[0], k1[1]);
-      ldsm(qa, base + Q_S + (lane % 16) * ROW + (4 * kp + 2 + lane / 16) * 16);
-      mma(sc[0], qa, k0[2], k0[3]);
-      mma(sc[1], qa, k1[2], k1[3]);
+      uint32_t kf[NT][4], qa[4];
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+        ldsm(kf[t], base + Ly::K_S + (pos0 + 8 * t + lane % 8) * ROW + (4 * kp + lane / 8) * 16);
+      ldsm(qa, base + Ly::Q_S + (lane % 16) * ROW + (4 * kp + lane / 16) * 16);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) mma(sc[t], qa, kf[t][0], kf[t][1]);
+      ldsm(qa, base + Ly::Q_S + (lane % 16) * ROW + (4 * kp + 2 + lane / 16) * 16);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) mma(sc[t], qa, kf[t][2], kf[t][3]);
     }
     const int r = lane / 4, cq = 2 * (lane % 4);
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int c = pos0 + 8 * t + cq, jc = start + c;
-      const bool ok0 = jc >= j0 && jc < j1, ok1 = jc + 1 >= j0 && jc + 1 < j1;
-      *reinterpret_cast<float2*>(s_s + r * SROW + c) =
-          make_float2(ok0 ? sc[t][0] * scale : NEG_INF, ok1 ? sc[t][1] * scale : NEG_INF);
-      *reinterpret_cast<float2*>(s_s + (r + 8) * SROW + c) =
-          make_float2(ok0 ? sc[t][2] * scale : NEG_INF, ok1 ? sc[t][3] * scale : NEG_INF);
-    }
-    cp_wait<0>();
-    __syncthreads();
-
-    // P for the split's 64 positions as the A fragments of four k16 steps:
-    // rows r and r + 8, positions 16 kk + cq (+1) and 16 kk + 8 + cq (+1);
-    // the rows' max over the quad first, then step by step P and its P V
-    // for the warp's 32 columns (four n8 tiles), V through ldmatrix.trans
-    auto frag = [&](int kk, float (&x)[8]) {
-      const float2 a = *reinterpret_cast<const float2*>(s_s + r * SROW + 16 * kk + cq);
-      const float2 c = *reinterpret_cast<const float2*>(s_s + (r + 8) * SROW + 16 * kk + cq);
-      const float2 e = *reinterpret_cast<const float2*>(s_s + r * SROW + 16 * kk + 8 + cq);
-      const float2 f = *reinterpret_cast<const float2*>(s_s + (r + 8) * SROW + 16 * kk + 8 + cq);
-      x[0] = a.x; x[1] = a.y; x[2] = c.x; x[3] = c.y;
-      x[4] = e.x; x[5] = e.y; x[6] = f.x; x[7] = f.y;
-    };
     float m0 = NEG_INF, m1 = NEG_INF;
 #pragma unroll
-    for (int kk = 0; kk < SPLIT / 16; ++kk) {
-      float x[8];
-      frag(kk, x);
-      m0 = fmaxf(fmaxf(m0, fmaxf(x[0], x[1])), fmaxf(x[4], x[5]));
-      m1 = fmaxf(fmaxf(m1, fmaxf(x[2], x[3])), fmaxf(x[6], x[7]));
+    for (int t = 0; t < NT; ++t) {
+      const int jc = start + pos0 + 8 * t + cq;
+      const bool ok0 = jc >= j0 && jc < j1, ok1 = jc + 1 >= j0 && jc + 1 < j1;
+      sc[t][0] = ok0 ? sc[t][0] * scale : NEG_INF;
+      sc[t][1] = ok1 ? sc[t][1] * scale : NEG_INF;
+      sc[t][2] = ok0 ? sc[t][2] * scale : NEG_INF;
+      sc[t][3] = ok1 ? sc[t][3] * scale : NEG_INF;
+      m0 = fmaxf(m0, fmaxf(sc[t][0], sc[t][1]));
+      m1 = fmaxf(m1, fmaxf(sc[t][2], sc[t][3]));
     }
+    // the rows' max over the warp's positions (a quad of shuffles); a warp
+    // whose positions all lie outside [j0, j1) subtracts 0, so its P is 0
 #pragma unroll
     for (int off = 1; off < 4; off *= 2) {
       m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
       m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
     }
+    const float e0 = m0 == NEG_INF ? 0.f : m0, e1 = m1 == NEG_INF ? 0.f : m1;
+    cp_wait<0>();
+    __syncthreads();  // everyone's V rows are in, and every warp has read the K rows
+
+    // P = ex2(s - m) in registers as the A fragments of the warp's k16
+    // steps (the C fragments of S tiles 2 kk and 2 kk + 1, as
+    // FlashAttention-2 reuses them on Ampere), split into a bf16 high and
+    // low part so that P V keeps about 16 bits of P; its P V for all D
+    // columns (NV n8 tiles), V through ldmatrix.trans
+    constexpr int NV = D / 8;
     float l0 = 0.f, l1 = 0.f;
-    float acc[4][4];
+    float acc[NV][4];
 #pragma unroll
-    for (int t = 0; t < 4; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+    for (int t = 0; t < NV; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < SPLIT / 16; ++kk) {
-      float p[8];
-      frag(kk, p);
+    for (int kk = 0; kk < WPOS / 16; ++kk) {
+      float p[8] = {sc[2 * kk][0],     sc[2 * kk][1],     sc[2 * kk][2],     sc[2 * kk][3],
+                    sc[2 * kk + 1][0], sc[2 * kk + 1][1], sc[2 * kk + 1][2], sc[2 * kk + 1][3]};
 #pragma unroll
-      for (int e = 0; e < 8; ++e) p[e] = ex2(p[e] - ((e & 2) ? m1 : m0));
+      for (int e = 0; e < 8; ++e) p[e] = ex2(p[e] - ((e & 2) ? e1 : e0));
       l0 += (p[0] + p[1]) + (p[4] + p[5]);
       l1 += (p[2] + p[3]) + (p[6] + p[7]);
       uint32_t ph[4], pl[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) split_hi_lo(p[2 * i], p[2 * i + 1], ph[i], pl[i]);
 #pragma unroll
-      for (int t2 = 0; t2 < 2; ++t2) {  // n8 tiles 2 t2 and 2 t2 + 1
+      for (int t2 = 0; t2 < NV / 2; ++t2) {  // n8 tiles 2 t2 and 2 t2 + 1
         uint32_t vb[4];
-        ldsm_t(vb, base + V_S + (16 * kk + lane % 16) * ROW +
-                       (4 * warp + 2 * t2 + lane / 16) * 16);
+        ldsm_t(vb, base + Ly::V_S + (pos0 + 16 * kk + lane % 16) * ROW + (2 * t2 + lane / 16) * 16);
         mma(acc[2 * t2], ph, vb[0], vb[1]);
         mma(acc[2 * t2], pl, vb[0], vb[1]);
         mma(acc[2 * t2 + 1], ph, vb[2], vb[3]);
@@ -650,95 +674,136 @@ __global__ void __launch_bounds__(mma128::THREADS, mma128::RESIDENT) decode_mma_
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
+    // the warps' (m, l, P V) merged in warp order through shared memory
+    // where the K rows were: each head's max over the warps, each warp's
+    // weight ex2(m - max) and the weighted l by one thread a head, then the
+    // block's partial output a float4 piece a thread
+    float* red = reinterpret_cast<float*>(smem + Ly::K_S);  // [NWARP][G][D]
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int col = 32 * warp + 8 * t + cq;
+    for (int t = 0; t < NV; ++t) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int g = r + 8 * h;
-        if (g >= G) continue;
-        const float a0 = acc[t][2 * h], a1 = acc[t][2 * h + 1];
-        if (n_splits == 1) {
-          const float inv = 1.f / fmaxf(h ? l1 : l0, 1e-30f);
-          *reinterpret_cast<__nv_bfloat162*>(o + g * D + col) =
-              __floats2bfloat162_rn(a0 * inv, a1 * inv);
-        } else {
-          *reinterpret_cast<float2*>(part_o + (pidx + g) * D + col) = make_float2(a0, a1);
-          if (warp == 0 && t == 0 && cq == 0) {
-            part_m[pidx + g] = h ? m1 : m0;
-            part_l[pidx + g] = h ? l1 : l0;
-          }
-        }
+        if (g < G)
+          *reinterpret_cast<float2*>(red + (warp * G + g) * D + 8 * t + cq) =
+              make_float2(acc[t][2 * h], acc[t][2 * h + 1]);
+      }
+    }
+    if (cq == 0) {
+      if (r < G) {
+        wm_s[warp][r] = m0;
+        wl_s[warp][r] = l0;
+      }
+      if (r + 8 < G) {
+        wm_s[warp][r + 8] = m1;
+        wl_s[warp][r + 8] = l1;
+      }
+    }
+    __syncthreads();
+    if (tid < G) {
+      float mx = NEG_INF, l = 0.f;
+#pragma unroll
+      for (int w = 0; w < NWARP; ++w) mx = fmaxf(mx, wm_s[w][tid]);
+#pragma unroll
+      for (int w = 0; w < NWARP; ++w) {
+        const float wt = ex2(wm_s[w][tid] - mx);
+        ww_s[w][tid] = wt;
+        l += wt * wl_s[w][tid];
+      }
+      l_s[tid] = l;
+      if (n_p > 1) {
+        part_m[pb + (long long)blk * G + tid] = mx;
+        part_l[pb + (long long)blk * G + tid] = l;
+      }
+    }
+    __syncthreads();
+    // the block's partial into its slot (alone, the output)
+    for (int pc = tid; pc < n_pc; pc += THREADS) {
+      const int g = pc * 4 / D;
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int w = 0; w < NWARP; ++w) {
+        const float wt = ww_s[w][g];
+        const float4 y = *reinterpret_cast<const float4*>(red + w * G * D + pc * 4);
+        sum.x += wt * y.x;
+        sum.y += wt * y.y;
+        sum.z += wt * y.z;
+        sum.w += wt * y.w;
+      }
+      if (n_p == 1) {
+        const float den = fmaxf(l_s[g], 1e-30f);
+        __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(o + pc * 4);
+        dst[0] = __floats2bfloat162_rn(sum.x / den, sum.y / den);
+        dst[1] = __floats2bfloat162_rn(sum.z / den, sum.w / den);
+      } else {
+        *reinterpret_cast<float4*>(part_o + (pb + (long long)blk * G) * D + pc * 4) = sum;
       }
     }
   } else {
-    // the empty partial (or, alone, a zero output row)
+    // the empty partial in its slot (alone, a zero output row)
     for (int e = tid; e < G * D; e += THREADS) {
-      if (n_splits == 1)
+      if (n_p == 1)
         o[e] = __float2bfloat16(0.f);
       else
-        part_o[pidx * D + e] = 0.f;
+        part_o[(pb + (long long)blk * G) * D + e] = 0.f;
     }
-    if (n_splits > 1 && tid < G) {
-      part_m[pidx + tid] = NEG_INF;
-      part_l[pidx + tid] = 0.f;
+    if (n_p > 1 && tid < G) {
+      part_m[pb + (long long)blk * G + tid] = NEG_INF;
+      part_l[pb + (long long)blk * G + tid] = 0.f;
     }
   }
-  if (n_splits == 1) return;
+  if (n_p == 1) return;
 
-  // the last split block to finish combines (the ticket as decode_kernel's)
+  // the last of the (row, KV head)'s blocks to finish combines the
+  // partials (the ticket as decode_kernel's, one a block)
   __syncthreads();
-  if (tid == 0) last = ticket(&counters[b * K + kh]) == n_splits - 1;
+  if (tid == 0) last = ticket(&counters[b * K + kh]) == (int)gridDim.x - 1;
   __syncthreads();
   if (!last) return;
-  // The splits' partial outputs come into shared memory (free now) by
-  // cp.async, CS splits a round, while one warp a head takes the head's
-  // largest m and weighted l over the splits (lanes the splits, two a lane
-  // in registers) and, up to WMAX splits, each split's weight
-  // ex2(m - max) into shared memory (past WMAX, each round loads its
-  // splits' weights beside its copies); then each thread sums its float4
-  // pieces of the G x D output over the round's splits in split order.
-  const long long pb = (long long)(b * K + kh) * n_splits * G;
-  const int GD = G * D, n_pc = GD / 4;
-  const bool kept = n_splits <= WMAX;  // the weights in shared memory
-  const int CS = min(CMAX, (BYTES - WMAX * G * 4) / (GD * 4));  // splits a round stages
-  float* o_s = reinterpret_cast<float*>(smem);                    // [CS][G][D]
-  float* w_s = reinterpret_cast<float*>(smem + BYTES) - WMAX * G;  // [WMAX][G]
-  auto stage = [&](int s0) {
+  // The partials' outputs come into shared memory (free now) by cp.async,
+  // CS a round (at 1056 positions every G <= 8 takes one round), while one
+  // warp a head takes the head's largest m and weighted l over the
+  // partials (lanes the partials) and, up to WMAX partials, each one's
+  // weight ex2(m - max) into shared memory (past WMAX, each round loads its
+  // partials' weights beside its copies); then each thread sums its float4
+  // pieces of the G x D output over the round's partials in order.
+  const int GD = G * D;
+  const bool kept = n_p <= WMAX;  // the weights in shared memory
+  const int CS = min(CMAX, (Ly::BYTES - WMAX * G * 4) / (GD * 4));  // partials a round stages
+  float* st_s = reinterpret_cast<float*>(smem);                        // [CS][G][D]
+  float* w_s = reinterpret_cast<float*>(smem + Ly::BYTES) - WMAX * G;  // [WMAX][G]
+  auto stage = [&](int s0, int nc) {
     const float* src = part_o + (pb + (long long)s0 * G) * D;
-    const int n4 = min(CS, n_splits - s0) * n_pc;
-    for (int i = tid; i < n4; i += THREADS) cp16(base + i * 16, src + i * 4, true);
+    for (int i = tid; i < nc * n_pc; i += THREADS) cp16(base + i * 16, src + i * 4, true);
     cp_commit();
   };
-  stage(0);
+  int nc = min(CS, n_p);
+  stage(0, nc);
   if (kept) {
     // every head's m and l loads issued before any is used: warp w takes
-    // heads w, w + NWARP, ..., two splits a lane
+    // heads w, w + NWARP, ..., a partial a lane
     constexpr int HPW = GMAX / NWARP;
-    float ma[HPW], mb[HPW], la[HPW], lb[HPW];
-    const bool i0 = lane < n_splits, i1 = lane + 32 < n_splits;
+    float ma[HPW], la[HPW];
+    const bool i0 = lane < n_p;
 #pragma unroll
     for (int j = 0; j < HPW; ++j) {
       const int g = warp + j * NWARP;
-      const bool h = g < G;
-      ma[j] = h && i0 ? __ldcg(part_m + pb + (long long)lane * G + g) : NEG_INF;
-      mb[j] = h && i1 ? __ldcg(part_m + pb + (long long)(lane + 32) * G + g) : NEG_INF;
-      la[j] = h && i0 ? __ldcg(part_l + pb + (long long)lane * G + g) : 0.f;
-      lb[j] = h && i1 ? __ldcg(part_l + pb + (long long)(lane + 32) * G + g) : 0.f;
+      const bool h = g < G && i0;
+      ma[j] = h ? __ldcg(part_m + pb + (long long)lane * G + g) : NEG_INF;
+      la[j] = h ? __ldcg(part_l + pb + (long long)lane * G + g) : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < HPW; ++j) {
       const int g = warp + j * NWARP;
       if (g >= G) break;
-      float mx = fmaxf(ma[j], mb[j]);
+      float mx = ma[j];
 #pragma unroll
       for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float wa = ex2(ma[j] - mx), wb = ex2(mb[j] - mx);
-      float den = wa * la[j] + wb * lb[j];
+      const float wa = ex2(ma[j] - mx);
+      float den = wa * la[j];
 #pragma unroll
       for (int off = 16; off > 0; off /= 2) den += __shfl_xor_sync(0xffffffffu, den, off);
       if (i0) w_s[lane * G + g] = wa;
-      if (i1) w_s[(lane + 32) * G + g] = wb;
       if (lane == 0) {
         mg_s[g] = mx;
         den_s[g] = den;
@@ -747,11 +812,11 @@ __global__ void __launch_bounds__(mma128::THREADS, mma128::RESIDENT) decode_mma_
   } else {
     for (int g = warp; g < G; g += NWARP) {
       float mx = NEG_INF, den = 0.f;
-      for (int sp = lane; sp < n_splits; sp += 32)
+      for (int sp = lane; sp < n_p; sp += 32)
         mx = fmaxf(mx, __ldcg(part_m + pb + (long long)sp * G + g));
 #pragma unroll
       for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      for (int sp = lane; sp < n_splits; sp += 32)
+      for (int sp = lane; sp < n_p; sp += 32)
         den += ex2(__ldcg(part_m + pb + (long long)sp * G + g) - mx) *
                __ldcg(part_l + pb + (long long)sp * G + g);
 #pragma unroll
@@ -761,39 +826,43 @@ __global__ void __launch_bounds__(mma128::THREADS, mma128::RESIDENT) decode_mma_
         den_s[g] = den;
       }
     }
+    __syncthreads();  // the heads' largest m, for the rounds' weights
   }
   constexpr int NP = GMAX * D / 4 / THREADS;  // pieces a thread sums at most
-  float4 num[NP];
+  float4 sum[NP];
 #pragma unroll
-  for (int i = 0; i < NP; ++i) num[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (!kept) __syncthreads();  // the heads' largest m, for the rounds' weights
-  for (int s0 = 0; s0 < n_splits; s0 += CS) {
-    const int nc = min(CS, n_splits - s0);
-    if (s0 > 0) {
-      __syncthreads();  // the last round's pieces and weights are read
-      stage(s0);
-    }
-    if (!kept)  // the round's weights, loaded beside its copies
-      for (int i = tid; i < nc * G; i += THREADS)
-        w_s[i] = ex2(__ldcg(part_m + pb + (long long)s0 * G + i) - mg_s[i % G]);
-    cp_wait<0>();
-    __syncthreads();  // the round's pieces and weights (first: the heads' m and l)
+  for (int i = 0; i < NP; ++i) sum[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // each thread's pieces summed over n staged partials, in order, their
+  // weights from w (the first partial's, head 0)
+  auto add = [&](int n, const float* w) {
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
       const int pc = tid + i * THREADS;
       if (pc >= n_pc) break;
       const int g = pc * 4 / D;
-      const float* w = w_s + (kept ? s0 * G : 0) + g;
 #pragma unroll 4
-      for (int u = 0; u < nc; ++u) {  // in split order
-        const float wu = w[u * G];
-        const float4 x = *reinterpret_cast<const float4*>(o_s + u * GD + pc * 4);
-        num[i].x += wu * x.x;
-        num[i].y += wu * x.y;
-        num[i].z += wu * x.z;
-        num[i].w += wu * x.w;
+      for (int u = 0; u < n; ++u) {
+        const float wu = w[u * G + g];
+        const float4 y = *reinterpret_cast<const float4*>(st_s + u * GD + pc * 4);
+        sum[i].x += wu * y.x;
+        sum[i].y += wu * y.y;
+        sum[i].z += wu * y.z;
+        sum[i].w += wu * y.w;
       }
     }
+  };
+  for (int s0 = 0;;) {
+    if (!kept)  // the round's weights, loaded beside its copies
+      for (int i = tid; i < nc * G; i += THREADS)
+        w_s[i] = ex2(__ldcg(part_m + pb + (long long)s0 * G + i) - mg_s[i % G]);
+    cp_wait<0>();
+    __syncthreads();  // the round's pieces and weights (first: the heads' m and l)
+    add(nc, w_s + (kept ? s0 * G : 0));
+    s0 += nc;
+    if (s0 >= n_p) break;
+    nc = min(CS, n_p - s0);
+    __syncthreads();  // the last round's pieces and weights are read
+    stage(s0, nc);
   }
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
@@ -801,8 +870,8 @@ __global__ void __launch_bounds__(mma128::THREADS, mma128::RESIDENT) decode_mma_
     if (pc >= n_pc) break;
     const float den = fmaxf(den_s[pc * 4 / D], 1e-30f);
     __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(o + pc * 4);
-    dst[0] = __floats2bfloat162_rn(num[i].x / den, num[i].y / den);
-    dst[1] = __floats2bfloat162_rn(num[i].z / den, num[i].w / den);
+    dst[0] = __floats2bfloat162_rn(sum[i].x / den, sum[i].y / den);
+    dst[1] = __floats2bfloat162_rn(sum[i].z / den, sum[i].w / den);
   }
   if (tid == 0) counters[b * K + kh] = 0;
 }
@@ -1106,18 +1175,43 @@ int launch(const void* q, const void* k, const void* v, void* o, float* part_o,
   return (int)cudaGetLastError();
 }
 
-// The same for decode_mma_kernel (bf16, D = 128).
-template <typename KV>
+namespace {
+// Whether decode_mma_kernel<D, KV> may take its dynamic shared memory on a
+// device (above 48 KB it must be allowed once). In an unnamed namespace,
+// as g1_fit below.
+template <int D, typename KV>
+bool* tc_ready() {
+  static bool ready[64];
+  return ready;
+}
+}  // namespace
+
+// The same for decode_mma_kernel<D> (bf16): tc::L<D>::PER splits a block.
+// part_o: [B,K,n_blk,G,D]; part_ml: [2,B,K,n_blk,G], n_blk the blocks a
+// row takes.
+template <int D, typename KV>
 int launch_mma(const void* q, const void* k, const void* v, void* o, float* part_o,
                float* part_ml, int* counters, const KV& kv, int B, int H, int K,
                int n_splits, int window, cudaStream_t st) {
+  using Ly = tc::L<D>;
   const int G = H / K;
-  const long long n_part = (long long)B * K * n_splits * G;
+  const int n_blk = (n_splits + Ly::PER - 1) / Ly::PER;  // blocks a row takes
+  const long long n_part = (long long)B * K * n_blk * G;
   if (G > GMAX) return (int)cudaErrorInvalidValue;
-  decode_mma_kernel<KV><<<dim3(n_splits, K, B), mma128::THREADS, mma128::BYTES, st>>>(
+  auto kernel = decode_mma_kernel<D, KV>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  bool* ready = tc_ready<D, KV>();
+  if (dev >= 64 || !ready[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ly::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) ready[dev] = true;
+  }
+  kernel<<<dim3(n_blk, K, B), tc::THREADS, Ly::BYTES, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), part_o, part_ml, part_ml + n_part, counters, kv, H, K, window,
-      1.4426950408889634f / sqrtf(128.f));
+      1.4426950408889634f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -1170,9 +1264,10 @@ int launch_g1(const void* q, const void* k, const void* v, void* o, float* part_
 }
 
 // The built instantiations: dtype 0 = float32, 1 = bfloat16; D 32, 64, 128
-// (bf16 at 128 on decode_mma_kernel; bf16 at G = 1 and D <= 64 on
-// decode_g1_kernel). `split` must be split_len(D) (the callers size the
-// partials by it).
+// (bf16 by mma_route on decode_mma_kernel: at D = 128, and at D = 64 for
+// G > 1; bf16 at G = 1 and D <= 64 on decode_g1_kernel). `split` must be
+// split_len(D); the callers size the partials by it, one a split, or one a
+// tc::L<D>::SPAN positions on decode_mma_kernel.
 template <typename KV>
 int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
              void* o, void* part_o, void* part_ml, void* counters, const KV& kv,
@@ -1184,14 +1279,15 @@ int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
   float* pml = static_cast<float*>(part_ml);
   int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 128)
-    return launch_mma(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
+  const bool tc = dtype == 1 && mma_route(D, H / K);
+  if (tc && D == 128)
+    return launch_mma<128>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
+  if (tc && D == 64)
+    return launch_mma<64>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
   if (dtype == 1 && D == 64 && H == K)
     return launch_g1<64>(q, k, v, o, po, pml, cnt, kv, B, K, n_splits, window, st);
   if (dtype == 1 && D == 32 && H == K)
     return launch_g1<32>(q, k, v, o, po, pml, cnt, kv, B, K, n_splits, window, st);
-  if (dtype == 1 && D == 64)
-    return launch<bf16, 64>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
   if (dtype == 1 && D == 32)
     return launch<bf16, 32>(q, k, v, o, po, pml, cnt, kv, B, H, K, n_splits, window, st);
   if (dtype == 0 && D == 128)

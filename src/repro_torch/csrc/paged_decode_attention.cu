@@ -25,10 +25,10 @@
 
 #include "decode_split.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16. part_o: [B,K,n_splits,G,D] float32;
-// part_ml: [2,B,K,n_splits,G] float32 (m then l), with n_splits =
-// ceil(n_tab * page_size / split); counters: [B*K] int32, zero (left
-// zero). Strides are in elements. Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. part_o: [B,K,n_p,G,D] float32;
+// part_ml: [2,B,K,n_p,G] float32 (m then l), n_p as decode_attention.cu's
+// for n_splits = ceil(n_tab * page_size / split); counters: [B*K] int32,
+// zero (left zero). Strides are in elements. Returns a cudaError_t.
 extern "C" int repro_paged_decode_attention(
     const void* q, const void* k, const void* v, void* o, void* part_o,
     void* part_ml, void* counters, const void* page_table, const void* lengths,

@@ -11,10 +11,14 @@ Layout: q ``[B,H,D]``; k/v ``[B,S,K,D]``, which is the decode cache
 ``split_len(D)`` positions (64 at head dim 128, else 128); each (row, KV
 head, split) is read once for the KV head's ``G = H/K`` query heads (at
 most ``MAX_G``), by a block of its own (or, in bf16 at G = 1, by one of a
-one-wave grid's blocks walking such splits), into an unnormalised partial
-in a scratch buffer. In the same launch the last block of each (row, KV
-head) to finish, elected by a ticket counter, combines the partials in
-split order, so the result is deterministic. The
+one-wave grid's blocks walking such splits), into an unnormalised partial.
+Which kernel runs is a rule on (dtype, D, G), :func:`kernel`; a block of
+the tensor-core kernel (bf16 at D = 128, and at D = 64 for G > 1) takes
+``MMA_SPAN`` positions, two splits at D = 128, so a launch writes
+:func:`slots` partials a row and KV head into a scratch buffer. In the
+same launch the last block of each (row, KV head) to finish, elected by a
+ticket counter, combines them in split order, so the result is
+deterministic. The
 counters are this module's, one zeroed int32 buffer per device that every
 launch leaves at zero (so a captured CUDA graph replays correctly); two
 launches that may run at once on different streams must not share it. A
@@ -48,6 +52,9 @@ library = None
 
 HEAD_DIMS = (32, 64, 128)
 MAX_G = 16           # query heads per KV head (GMAX in the source)
+#: cache positions a block of decode_mma_kernel takes (``tc::L<D>::SPAN``
+#: in the source): one split at head dim 64, two at 128
+MMA_SPAN = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _counter_bufs: dict[torch.device, torch.Tensor] = {}
 # buffers a larger launch outgrew, kept alive: a graph that captured a
@@ -98,10 +105,36 @@ def n_splits(S: int, D: int) -> int:
     return -(-S // split_len(D))
 
 
+def kernel(dtype, D: int, G: int) -> str:
+    """The kernel a CUDA call launches at head dim ``D`` with ``G`` query
+    heads a KV head, whatever B, the length or the addressing (K2, K2 over a
+    ring and K3 alike): ``decode_mma_kernel`` (the heads on the tensor
+    cores) in bf16 at D = 128 and at D = 64 for G > 1, ``decode_g1_kernel``
+    in bf16 at G = 1 and D <= 64, else ``decode_kernel``. It mirrors the
+    source's ``mma_route`` and dispatch (``tests/test_torch_split.py``
+    holds it to them)."""
+    if dtype == torch.bfloat16:
+        if D == 128 or (D == 64 and G > 1):
+            return "decode_mma_kernel"
+        if G == 1:
+            return "decode_g1_kernel"
+    return "decode_kernel"
+
+
+def slots(dtype, D: int, G: int, ns: int) -> int:
+    """Partials a launch over ``ns`` splits writes per (row, KV head): on
+    ``decode_mma_kernel`` one a block, which takes ``MMA_SPAN`` positions
+    (the source's grid), else one a split (the G = 1 kernel walks them on a
+    one-wave grid)."""
+    if kernel(dtype, D, G) != "decode_mma_kernel":
+        return ns
+    return -(-ns // (MMA_SPAN // split_len(D)))
+
+
 def partials(B: int, H: int, K: int, D: int, ns: int, device):
-    """The float32 scratch a launch over ``ns`` splits writes: the
-    unnormalised outputs ``[B,K,ns,G,D]`` and each split's (m, l)
-    ``[2,B,K,ns,G]``."""
+    """The float32 scratch a launch with ``ns`` partial slots a (row, KV
+    head) writes (:func:`slots`): the unnormalised outputs ``[B,K,ns,G,D]``
+    and each slot's (m, l) ``[2,B,K,ns,G]``."""
     G = H // K
     return (torch.empty((B, K, ns, G, D), dtype=torch.float32, device=device),
             torch.empty((2, B, K, ns, G), dtype=torch.float32, device=device))
@@ -139,7 +172,8 @@ def _launch(entry, q, k, v, ns, *ints):
     B, H, D = q.shape
     K = k.shape[2]
     o = torch.empty_like(q)
-    part_o, part_ml = partials(B, H, K, D, ns, q.device)
+    sl = slots(q.dtype, D, H // K, ns)
+    part_o, part_ml = partials(B, H, K, D, sl, q.device)
     cnt = counters(q.device, B * K)
     fn = _bind(library, entry)
     with torch.cuda.device(q.device):

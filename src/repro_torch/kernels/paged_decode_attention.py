@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (HEAD_DIMS, MAX_G, counters, partials,
-                                                   split_len)
+                                                   slots, split_len)
 
 #: launches of the CUDA kernel since the count was last set to 0
 launches = 0
@@ -100,7 +100,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *, window=N
         raise ValueError("paged_decode_attention kernel: rows must be 16-byte aligned")
     n_tab = page_table.shape[1]
     o = torch.empty_like(q)
-    part_o, part_ml = partials(B, H, K, D, n_splits(n_tab, page, D), dev)
+    sl = slots(q.dtype, D, H // K, n_splits(n_tab, page, D))
+    part_o, part_ml = partials(B, H, K, D, sl, dev)
     cnt = counters(dev, B * K)
     fn = _bind(library)
     with torch.cuda.device(dev):

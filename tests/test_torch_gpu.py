@@ -201,22 +201,20 @@ def test_decode_graph_replays_after_the_counters_grow(cuda, D):
             DA.decode_attention(q2, k2, k2, S)
 
 
+@pytest.mark.parametrize("G", [4, 3, 7])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("kind", ["decode", "ring", "paged"])
-def test_decode_kernels_are_one_launch_per_call(cuda, kind, D):
-    fn, counter, mod = _decode_calls(cuda, torch.bfloat16, D)[kind]
-    fn()
-    torch.cuda.synchronize()
+def test_decode_kernels_are_one_launch_per_call(cuda, kind, D, G):
+    """One bf16 call is one decode kernel node of a CUDA graph captured
+    around it (the paged call's length clamp is a node of its own), the
+    kernel ``DA.kernel`` names for (D, G) (the tensor-core kernel at every G
+    > 1 here), and the wrapper's count moves by one a call."""
+    fn, counter, mod = _decode_calls(cuda, torch.bfloat16, D, G)[kind]
     n0 = getattr(mod, counter)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-    assert getattr(mod, counter) == n0 + 3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0
-               and re.search(r"decode_(mma_)?kernel", e.key)]
-    assert len(kernels) == 1 and kernels[0].count == 3, [(e.key, e.count) for e in kernels]
+    nodes = [n for n, _, _ in graph_kernels(fn) if re.search(r"decode_(mma_|g1_)?kernel", n)]
+    assert getattr(mod, counter) == n0 + 2        # the warm-up call and the captured one
+    want = DA.kernel(torch.bfloat16, D, G)
+    assert len(nodes) == 1 and re.search(rf"decode_split\d+{want}ILi{D}E", nodes[0]), nodes
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1726,56 +1724,18 @@ def test_decode_g1_graph_replays_after_the_counters_grow(cuda):
     assert torch.equal(DA.decode_attention(q, k, v, S), big)
 
 
-def _decode_g1_one_launch_profile():
-    """The profiled calls of test_decode_g1_kernels_are_one_launch_per_call,
-    run as ``python -c`` in a process of its own: prints, as JSON, for each
-    G = 1 call (K2, K2 over a ring, K3; D 32 and 64) the decode kernels the
-    profiler saw over 3 calls with their counts, and the wrapper's launch
-    count over those calls."""
-    cuda = torch.device("cuda")
-    out = {}
-    for D in (32, 64):
-        for kind, (fn, counter, mod) in _decode_calls(cuda, torch.bfloat16, D, G=1).items():
-            fn()
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
-                                        schedule=torch.profiler.schedule(
-                                            wait=0, warmup=1, active=1, repeat=1)) as prof:
-                fn()
-                torch.cuda.synchronize()
-                prof.step()
-                n0 = getattr(mod, counter)
-                for _ in range(3):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-            seen = {e.key: e.count for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0
-                    and re.search(r"decode_(mma_|g1_)?kernel", e.key)}
-            out[f"{kind}-{D}"] = {"seen": seen, "launches": getattr(mod, counter) - n0}
-    print(json.dumps(out))
-
-
-def test_decode_g1_kernels_are_one_launch_per_call(cuda):
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("kind", ["decode", "ring", "paged"])
+def test_decode_g1_kernels_are_one_launch_per_call(cuda, kind, D):
     """Each G = 1 call is one launch of decode_g1_kernel (the last split's
-    block combines), for K2, K2 over a ring and K3 at D 32 and 64: the
-    profiler sees it 3 times over 3 calls and no other decode kernel. As
-    test_gla_kernels_are_one_launch_per_call, profiled in a fresh process
-    after a warm-up step (the tracer may drop records otherwise)."""
-    here = Path(__file__).resolve().parent
-    code = (f"import sys; sys.path[:0] = [{str(here)!r}, {str(Path(DA.__file__).parents[2])!r}]; "
-            "import test_torch_gpu as T; T._decode_g1_one_launch_profile()")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=300)
-    assert out.returncode == 0, out.stderr[-4000:]
-    got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert sorted(got) == sorted(f"{k}-{D}" for k in ("decode", "ring", "paged")
-                                 for D in (32, 64))
-    for name, r in got.items():
-        assert r["launches"] == 3, (name, r)
-        assert len(r["seen"]) == 1, (name, r)
-        (key, cnt), = r["seen"].items()
-        assert "decode_g1_kernel" in key and cnt == 3, (name, r)
+    block combines), for K2, K2 over a ring and K3 at D 32 and 64: one
+    decode kernel node of a CUDA graph captured around a call, and no other
+    decode kernel; the wrapper's count moves by one a call."""
+    fn, counter, mod = _decode_calls(cuda, torch.bfloat16, D, G=1)[kind]
+    n0 = getattr(mod, counter)
+    nodes = [n for n, _, _ in graph_kernels(fn) if re.search(r"decode_(mma_|g1_)?kernel", n)]
+    assert getattr(mod, counter) == n0 + 2
+    assert len(nodes) == 1 and "decode_g1_kernel" in nodes[0], nodes
 
 
 # -- K1's bf16 forward at D = 64 on flash_ws_kernel (persistent; a producer
@@ -1942,3 +1902,145 @@ def test_decode_kernels_at_the_family_decode_shape(cuda, arch, length, dtype):
                                             seed=length)
     _close(PA.paged_decode_attention(qp, kp, vp, table, lens),
            ref.naive_paged_decode_attention(qp, kp, vp, table, lens), dtype)
+
+
+# -- the bf16 split-KV decode at G > 1 on decode_mma_kernel<D> (D = 64 and
+#    128: the KV head's query heads on mma.sync, K/V staged by cp.async, the
+#    last block's combine in one round), for K2, K2 over a ring and K3 ----------
+
+MMA_G = [2, 3, 4, 5, 7, 8, 16]
+
+
+def _mma_lengths(D):
+    """Lengths at the split edges (split_len(D) positions, and four splits),
+    the serving 1056 and a long 4097."""
+    s = DA.split_len(D)
+    return [1, s - 1, s, s + 1, 4 * s - 1, 4 * s + 1, 1056, 4097]
+
+
+@pytest.mark.parametrize("G", MMA_G)
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_mma_kernel_matches_plain(cuda, D, G):
+    """K2 on the tensor-core kernel at each G and length, with and without
+    a window, against the plain version; two launches give equal bits."""
+    assert DA.kernel(torch.bfloat16, D, G) == "decode_mma_kernel"
+    B, K = 2, 2
+    for length in _mma_lengths(D):
+        for window in (None, 100):
+            g = torch.Generator(device=cuda).manual_seed(length + 17 * G + D)
+            q = torch.randn(B, G * K, D, generator=g, device=cuda).bfloat16()
+            k, v = (torch.randn(B, length, K, D, generator=g, device=cuda).bfloat16()
+                    for _ in range(2))
+            n0 = DA.launches
+            out = ops.decode_attention(q, k, v, length, window=window)
+            assert DA.launches == n0 + 1
+            _close(out, ref.naive_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
+                                                   length, window=window), torch.bfloat16)
+            assert torch.equal(out, ops.decode_attention(q, k, v, length, window=window))
+
+
+@pytest.mark.parametrize("G", MMA_G)
+@pytest.mark.parametrize("D", [64, 128])
+def test_ring_decode_mma_kernel_matches_plain(cuda, D, G):
+    """K2 over a ring on the tensor-core kernel: below, at and past the
+    ring's width, a window narrower than the ring."""
+    for W, window, pos in ((300, 256, 40), (300, 256, 299), (300, 256, 1000),
+                           (1024, 1024, 1567)):
+        g = torch.Generator(device=cuda).manual_seed(pos + G + D)
+        q = torch.randn(2, 2 * G, D, generator=g, device=cuda).bfloat16()
+        k, v = (torch.randn(2, W, 2, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+        out = DA.ring_decode_attention(q, k, v, pos, window=window)
+        _close(out, ref.naive_ring_decode_attention(q, k, v, pos, window=window),
+               torch.bfloat16)
+        assert torch.equal(out, DA.ring_decode_attention(q, k, v, pos, window=window))
+
+
+@pytest.mark.parametrize("G", MMA_G)
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_decode_mma_kernel_over_shuffled_pages(cuda, D, G):
+    """K3 on the tensor-core kernel over a 3-layer store's strided view and
+    a shuffled table, at the split edges and the serving length, windows."""
+    s = DA.split_len(D)
+    for lengths, window in (([1, s - 1], None), ([s, s + 1], None), ([4 * s + 1, 0], None),
+                            ([1056, 300], None), ([1056, 4097], 50)):
+        q, kp, vp, table, lens = _paged_inputs(cuda, 2, 2 * G, 2, D, 3, 1, lengths, 16,
+                                               torch.bfloat16, seed=sum(lengths) + G)
+        n0 = PA.launches
+        out = PA.paged_decode_attention(q, kp, vp, table, lens, window=window)
+        assert PA.launches == n0 + 1
+        _close(out, ref.naive_paged_decode_attention(q, kp, vp, table, lens, window=window),
+               torch.bfloat16)
+        assert torch.equal(out, PA.paged_decode_attention(q, kp, vp, table, lens,
+                                                          window=window))
+
+
+@pytest.mark.parametrize("D,G", [(64, 3), (64, 4), (64, 5), (128, 5), (128, 7)])
+def test_decode_mma_bit_equalities(cuda, D, G):
+    """At the models' (D, G): K3 over pages that lie in order equals K2 bit
+    for bit, a row decoded alone (B = 1, a fleet lane) equals the same row
+    of a batch of 4, and two launches agree, at lengths 1, 500, 1056 and
+    4097, with and without a window."""
+    B, K, page, S = 4, 8, 16, 4112
+    g = torch.Generator(device=cuda).manual_seed(G * D)
+    q = torch.randn(B, G * K, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, S, K, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    n = S // page
+    table = torch.arange(B * n, dtype=torch.int32, device=cuda).view(B, n)
+    for length in (1, 500, 1056, 4097):
+        for window in (None, 300):
+            lens = torch.full((B,), length, dtype=torch.int32, device=cuda)
+            batch = DA.decode_attention(q, k, v, length, window=window)
+            paged = PA.paged_decode_attention(q, k.view(B * n, page, K, D),
+                                              v.view(B * n, page, K, D), table, lens,
+                                              window=window)
+            assert torch.equal(paged, batch), (length, window)
+            assert torch.equal(DA.decode_attention(q, k, v, length, window=window), batch)
+            for b in range(B):
+                lane = DA.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], length,
+                                           window=window)
+                assert torch.equal(lane, batch[b:b + 1]), (length, window, b)
+
+
+@pytest.mark.parametrize("G", [3, 7])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("kind", ["decode", "ring", "paged"])
+def test_decode_mma_kernels_replay_in_a_cuda_graph(cuda, kind, D, G):
+    """Three calls captured in one graph and replayed three times equal the
+    eager calls bit for bit: each launch leaves its ticket counters at 0."""
+    fn, _, _ = _decode_calls(cuda, torch.bfloat16, D, G)[kind]
+    lengths = (300, 129, 1)
+    eager = [fn(L) for L in lengths]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(L) for L in lengths]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, eager):
+            assert torch.equal(got, want)
+    assert torch.equal(fn(300), eager[0])
+
+
+@pytest.mark.parametrize("D,G", [(64, 3), (128, 7)])
+def test_decode_mma_graph_replays_after_the_counters_grow(cuda, D, G):
+    """A G > 1 graph captured before a larger launch grows the ticket
+    counters still replays equal to the eager call."""
+    fn, _, _ = _decode_calls(cuda, torch.bfloat16, D, G)["decode"]
+    want = fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    K, S = 2, 16
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows = DA.counters(dev, 1).numel() // K + 1
+    g = torch.Generator(device=cuda).manual_seed(13 + G)
+    q = torch.randn(rows, G * K, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(rows, S, K, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    big = DA.decode_attention(q, k, v, S)
+    _close(big, ref.naive_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2), S),
+           torch.bfloat16)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(DA.decode_attention(q, k, v, S), big)
