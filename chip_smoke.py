@@ -40,7 +40,8 @@ not 0:
      preemption and readmission; the launch counts are checked (flash per
      non-empty prefill, paged decode per decoded token, no contiguous
      decode), each first token is held to the Server's B=1 one, and a
-     float32 copy's streams are held to the float32 Server's exactly;
+     float32 copy's streams (at GRANITE_F32_FLEET_LAYERS layers) are held
+     to the float32 Server's exactly;
   recover: the supervised recovery plane on phase 5's weights and traffic
      (the high-priority arrival comes with tick 4, so a rewind past it
      sees it arrive again): (a) the fleet snapshotted after tick 6 under
@@ -124,14 +125,25 @@ not 0:
      step beside K1's (K4b's four launches by name) and its count of
      device kernels; the C/R part at 4 layers with global layers 0 and
      3;
-  train_minicpm, train_qwen: the train phase for full-depth minicpm-2b and
-     for qwen2.5-14b at QWEN_TRAIN_LAYERS layers (its full depth's training
+  train_minicpm, train_qwen: the train phase for minicpm-2b at
+     MINICPM_TRAIN_LAYERS layers (a cut for the time limit) and for
+     qwen2.5-14b at QWEN_TRAIN_LAYERS layers (its full depth's training
      state does not fit the card; the peak must leave 10 GB free), without
      the C/R part;
   train_llava, train_moe: the same for llava-next-34b at LLAVA_TRAIN_LAYERS
      layers (its batches carry the pipeline's patch embeddings) and for
      full-depth granite-moe-3b-a800m, whose ``mfu`` counts the experts at
      top_k of n_experts (the active params);
+  minicpm3, minicpm3_fleet, train_minicpm3: full-width minicpm3-4b (MLA:
+     62 layers, 40 heads, the prefill's K1 at qk head dim 96 with V
+     zero-padded from 64, the absorbed decode over one latent row of 288 a
+     position, its first 256 the value) through the Server as phase
+     ``minicpm`` (62 K1 launches a prefill, 62 latent decodes a step; the
+     float32 copy at full depth), phase 5's fleet traffic on its weights
+     (62 paged latent decodes per decoded token; the float32 streams at
+     MINICPM3_F32_FLEET_LAYERS layers), and the train phase at
+     MINICPM3_TRAIN_LAYERS layers, its ``mfu`` counting MLA's attention at
+     qk 96 and v 64;
   7. cli: ``repro_torch.launch.serve`` at smoke size on the card, granite,
      hymba (both GLA schedules), minicpm, qwen, llava and granite-moe, and
      ``repro_torch.launch.train`` at smoke size, granite, hymba, minicpm and
@@ -164,6 +176,17 @@ at head dim 128 (G = 5; a ragged S, a window; K3 over layer 24 of a
 in bf16 and float32, and times them (CUDA-graph replay and the profiler's
 time per call, each with the kernel nodes of a captured call) beside their
 plain versions, SDPA (or its backward) and the bound.
+Phase 3 also holds MLA's kernels, in bf16 and float32: K1 and its
+backward at qk head dim 96 (on head dim 128's kernels and tiles), the
+latent decode contiguous and through a page table (a strided 62-layer
+store, a shuffled table), the paged one over in-order pages bit-equal to
+the contiguous one (each B = 1 lane to its batched row), and times them
+beside their plain versions, the bound and SDPA (for the latent decode
+with q at 288, V the latent's first 256 columns and the scale passed in,
+and the backend that served it named). It holds K4's bf16 output at
+hymba's shape over GLA_SWEEP seeds, each within the kernel's error bound
+(``gla_error_bound``), and prints the spread.
+Each phase ends with a ``[time]`` line; the last names the total.
 Phase 3 also holds the GLA kernels (K4; K5's phases apart and together)
 and the ring-window decode to their plain versions: the GLA at the
 serving shape with the mixer's head-broadcast q/k (in bf16 also under
@@ -185,9 +208,9 @@ kernel ``kernels.decode_attention.kernel`` names for its (dtype, D, G):
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 SDPA's backward, the yardstick of K1's, is read by CUDA events over warmed
-calls and by the profiler in a fresh child process, ``python3
-chip_smoke.py --sdpa-bwd-profile B,H,K,S,D``, which prints only that
-reading.
+calls and by the profiler in one fresh child process for every training
+shape, ``python3 chip_smoke.py --sdpa-bwd-profile B,H,K,S,D;B,H,K,S,D;...``,
+which prints only those readings, one JSON object.
 """
 from __future__ import annotations
 
@@ -201,6 +224,7 @@ import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -349,6 +373,52 @@ E_D_MAIN = "bfloat16 B4 H24 K8 S1056 D64 length=1056 window=None"
 # whose measured peak leaves 10 GB free (8 layers peaked at 75.13 GB of an
 # 85.02 GB NVIDIA H100 80GB HBM3)
 LLAVA_F32_LAYERS, LLAVA_TRAIN_LAYERS = 12, 7
+# minicpm3-4b's shapes in phase 3 (the JSON record's errors): the prefill's
+# K1 at qk head dim 96 (MHA, G = 1), its training shape, the absorbed decode
+# (H40 over one latent row of 288, its first 256 the value) and one fleet
+# lane's through a 62-layer strided store
+C_F_MAIN = "bfloat16 B4 H40 K40 S1024 D96 window=None"
+C_D_MAIN = "bfloat16 B4 H40 S1056 Dk288 Dv256 length=1056"
+C_P_MAIN = "bfloat16 B1 H40 Dk288 Dv256 layer 31/62 lengths=[1056]"
+# MLA's score scale, 1/sqrt(qk_nope + qk_rope), and its qk and v head dims
+C_SCALE, C_DQK, C_DV = 1 / math.sqrt(96), 96, 64
+# minicpm3-4b's depths (PERF.md section 4): its float32 Server copy at full
+# depth (17.0 GB beside the 8.5 GB bf16 one); the float32 fleet streams at
+# MINICPM3_F32_FLEET_LAYERS, as qwen's; the trainer at MINICPM3_TRAIN_LAYERS,
+# held to leave 10 GB free
+MINICPM3_F32_FLEET_LAYERS, MINICPM3_TRAIN_LAYERS = 12, 62
+# K1's backward at qk head dim 96: minicpm3-4b's training shape (V
+# zero-padded from 64) and a ragged S with a window
+C_BWD_SHAPES = ((4, 40, 40, 1024, C_DQK, None), (2, 8, 8, 300, C_DQK, 100))
+# depth cuts that keep chip_smoke.py inside its time limit (PERF.md section
+# 4), each of a path whose kernel shapes phase 3 holds one by one: granite's
+# float32 fleet streams, and minicpm-2b's trainer (its K1 backward at G = 1
+# is held at its training shape in BWD_SHAPES)
+GRANITE_F32_FLEET_LAYERS, MINICPM_TRAIN_LAYERS = 12, 10
+# K4's bf16 hold at hymba's serving shape over this many seeds, each within
+# the kernel's error bound (gla_error_bound)
+GLA_SWEEP = 16
+
+
+def phase_time(phase, t0):
+    """Print the phase's ``[time]`` line (seconds since ``t0``); returns now."""
+    now = time.perf_counter()
+    print(f"[time] {phase} {now - t0:.1f} s", flush=True)
+    return now
+
+
+def gla_error_bound(ref, q, k, v, lg, y, chunk):
+    """K4's bf16 error bound against its plain version ``y`` (float32),
+    elementwise. Beyond its float32 sums the kernel rounds two things to
+    bf16, each within a relative 2^-8: each decayed score p_ij = (q_i.k_j)
+    exp(cum_i - cum_j), the A fragment of its P V product, and y on output.
+    So |y_kernel - y| <= 2^-8 (sum_j |p_ij| |v_j| + |y|), and sum_j |p_ij|
+    |v_j| is at most the recurrence on |q|, |k|, |v|, whose every term is
+    nonnegative (computed by the plain version in float32). The inter term
+    and the state take the float32 operand as a bf16 hi/lo pair (about 2^-16),
+    and the float32 sums run in another order: 1% on top covers both."""
+    a = ref.chunked_gla(q.abs().float(), k.abs().float(), v.abs().float(), lg, chunk=chunk)[0]
+    return 2.0 ** -8 * (a.float() + y.abs()) * 1.01 + 1e-6
 
 
 def card_line() -> str:
@@ -412,9 +482,10 @@ def graph_launches(label, fn, want):
 
 
 def sdpa_backend(names) -> str:
-    """Which of SDPA's backends ran, from its backward's kernel names."""
+    """Which of SDPA's backends ran, from its forward's or backward's kernel
+    names."""
     low = " ".join(names).lower()
-    for key, backend in (("cudnn", "cudnn"), ("fmha_cutlassb", "efficient"),
+    for key, backend in (("cudnn", "cudnn"), ("fmha_cutlass", "efficient"),
                          ("flash", "flash")):
         if key in low:
             return backend
@@ -461,36 +532,56 @@ def events_ms(fn, sets, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def sdpa_bwd_child(shape) -> int:
-    """``chip_smoke.py --sdpa-bwd-profile B,H,K,S,D``: SDPA's backward in a
-    process whose card has not idled, by the profiler (each kernel's device
-    time per call, summed), printed as one JSON line."""
+#: SDPA's backward by the profiler in the child process, by (B, H, K, S, D)
+SDPA_BWD = {}
+
+
+def sdpa_bwd_child(shapes) -> int:
+    """``chip_smoke.py --sdpa-bwd-profile B,H,K,S,D;B,H,K,S,D;...``: SDPA's
+    backward at each shape in turn in a process whose card has not idled,
+    by the profiler (each kernel's device time per call, summed), printed
+    as one JSON line keyed by the shapes."""
     import torch
-    B, H, K, S, D = (int(x) for x in shape.split(","))
-    sets = _sdpa_bwd_sets(B, H, K, S, D)
-    us, counts = kernel_us(_sdpa_bwd, sets, iters=20, counts=True)
-    print(json.dumps({"us": sum(us.values()), "kernels": us, "counts": counts,
-                      "backend": sdpa_backend(us)}))
-    del sets
-    torch.cuda.synchronize()
+    out = {}
+    for shape in shapes.split(";"):
+        B, H, K, S, D = (int(x) for x in shape.split(","))
+        sets = _sdpa_bwd_sets(B, H, K, S, D)
+        us, counts = kernel_us(_sdpa_bwd, sets, iters=20, counts=True)
+        out[shape] = {"us": sum(us.values()), "kernels": us, "counts": counts,
+                      "backend": sdpa_backend(us)}
+        del sets
+        torch.cuda.synchronize()
+    print(json.dumps(out))
     return 0
+
+
+def sdpa_bwd_profiles(shapes):
+    """Every SDPA backward yardstick's profiler reading, in one fresh child
+    process (its start and its CUDA context paid once), into ``SDPA_BWD``."""
+    arg = ";".join(",".join(str(x) for x in sh) for sh in shapes)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--sdpa-bwd-profile",
+                          arg], capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        raise RuntimeError(f"SDPA backward profile child failed:\n{out.stderr[-3000:]}")
+    for key, reading in json.loads(out.stdout.strip().splitlines()[-1]).items():
+        SDPA_BWD[tuple(int(x) for x in key.split(","))] = reading
+    print(f"[kernels] SDPA backward yardsticks by the profiler, {len(shapes)} shapes in one "
+          f"child process: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def sdpa_bwd_yardstick(B, H, K, S, D, iters=20):
     """SDPA's backward at a causal GQA training shape (bf16), the library
     yardstick of K1's backward, read two ways: the profiler's summed device
     time per call in a fresh child process (the tracer keeps every record
-    in a process whose card has not idled), and CUDA events over warmed
-    calls here; with the backend SDPA chose (from its kernel names) and
-    each backend's events time when forced. Returns (events ms, profiler
-    ms, backend, {forced backend: ms or None})."""
+    in a process whose card has not idled; ``sdpa_bwd_profiles`` read every
+    shape there beforehand), and CUDA events over warmed calls here; with
+    the backend SDPA chose (from its kernel names) and each backend's
+    events time when forced. Returns (events ms, profiler ms, backend,
+    {forced backend: ms or None})."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--sdpa-bwd-profile",
-                          f"{B},{H},{K},{S},{D}"], capture_output=True, text=True, timeout=300)
-    if out.returncode:
-        raise RuntimeError(f"SDPA backward profile child failed:\n{out.stderr[-3000:]}")
-    child = json.loads(out.stdout.strip().splitlines()[-1])
+    child = SDPA_BWD[(B, H, K, S, D)]
     forced = {}
     for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"):
         try:
@@ -779,7 +870,7 @@ def ckpt_phase(cfg, params, prompts, n_gen, card, dev, DA, FA):
 
 
 def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms,
-              label="the train path's shape"):
+              label="the train path's shape", dv=None):
     """K1's backward at a training shape (granite's; qwen2.5-14b's), bf16, on the forward's
     own output and logsumexp: the whole backward's CUDA-graph time against
     its operations bound (five products of the forward's size), the plain
@@ -788,8 +879,10 @@ def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms,
     over warmed calls, beside the profiler's summed device time per call in
     a fresh process, ``sdpa_bwd_yardstick``); then each of the two kernels' profiler
     time per call beside its own bound and its plain version's CUDA-graph
-    time (the dQ kernel's with the row sums it writes). Returns {kernel:
-    (ms, plain_ms, bound_ms, bound_by)}."""
+    time (the dQ kernel's with the row sums it writes). ``dv``: the width of
+    V's and O's columns that carry the function (MLA's 64 of its zero-padded
+    96), by which the bound counts dP, dV and the bytes of v, o and dO.
+    Returns {kernel: (ms, plain_ms, bound_ms, bound_by)}."""
     import torch
     bf = torch.bfloat16
     bsets, dsets = [], []
@@ -801,11 +894,15 @@ def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms,
     ms = cuda_ms(lambda *a: FA.flash_attention_bwd(*a), bsets)
     plain = cuda_ms(lambda *a: ref.flash_attention_bwd(*a), bsets, iters=5)
     lib, lib_prof, backend, _ = sdpa_bwd_yardstick(B, H, K, S, D)
+    Dv = dv or D
     n_q, n_kv, rows, pairs = B * H * S * D, B * K * S * D, B * H * S, S * S / 2
-    # q, k, v, o, dO and the logsumexp read once, dq, dk, dv written once
-    bound, by = bound_ms(5 * 2 * B * H * pairs * D, 2 * (4 * n_q + 4 * n_kv) + 4 * rows)
+    n_qv, n_kvv = B * H * S * Dv, B * K * S * Dv
+    # q, k, v, o, dO and the logsumexp read once, dq, dk, dv written once;
+    # S, dK and dQ over D columns, dP and dV over Dv
+    bound, by = bound_ms(2 * B * H * pairs * (3 * D + 2 * Dv),
+                         2 * (2 * n_q + 2 * n_qv + 2 * n_kv + 2 * n_kvv) + 4 * rows)
     us = kernel_us(lambda *a: FA.flash_attention_bwd(*a), bsets, iters=20, once=True)
-    dq_name = "dq_d128_kernel" if D == 128 else "dq_bf16_kernel"
+    dq_name = "dq_d128_kernel" if D > 64 else "dq_bf16_kernel"
     graph_launches(f"flash_attention_bwd bf16 B{B} H{H} K{K} S{S} D{D} ({label})",
                    lambda: FA.flash_attention_bwd(*bsets[0]), (dq_name, "dkdv_bf16_kernel"))
 
@@ -824,19 +921,22 @@ def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms,
         "flash_attention_bwd_dq": (
             one(dq_name),
             cuda_ms(plain_dq, bsets, iters=5),
-            *bound_ms(3 * 2 * B * H * pairs * D + 2 * n_q * PEAK_BF16_FLOPS / PEAK_F32_FLOPS,
-                      2 * (4 * n_q + 2 * n_kv) + 8 * rows)),
+            *bound_ms(2 * B * H * pairs * (2 * D + Dv)
+                      + 2 * n_qv * PEAK_BF16_FLOPS / PEAK_F32_FLOPS,
+                      2 * (2 * n_q + 2 * n_qv + n_kv + n_kvv) + 8 * rows)),
         # S, dP, dV, dK: four products; q, k, v, dO, lse, Dr read, dk, dv written
         "flash_attention_bwd_dkdv": (
             one("dkdv_bf16_kernel"),
             cuda_ms(lambda *a: ref.attention_bwd_dkdv(*a), dsets, iters=5),
-            *bound_ms(4 * 2 * B * H * pairs * D, 2 * (2 * n_q + 4 * n_kv) + 8 * rows)),
+            *bound_ms(2 * B * H * pairs * (2 * D + 2 * Dv),
+                      2 * (n_q + n_qv + 2 * n_kv + 2 * n_kvv) + 8 * rows)),
     }
     print(f"[kernels] flash_attention_bwd bf16 B{B} H{H} K{K} S{S} D{D} causal ({label}): "
           f"{ms * 1e3:.1f} us (dQ + dK/dV), plain "
           f"{plain * 1e3:.1f} us, sdpa backward (yardstick, {backend}) {lib * 1e3:.1f} us by "
           f"CUDA events ({lib_prof * 1e3:.1f} us by the profiler in a fresh process), bound "
-          f"{bound * 1e3:.2f} us ({by}: 5 products of the forward's size); per kernel "
+          f"{bound * 1e3:.2f} us ({by}: 5 products of the forward's size"
+          + (f", dP and dV over V's {Dv} columns" if Dv != D else "") + "); per kernel "
           f"(profiler): " + "; ".join(
               f"{n[20:]} {t[0] * 1e3:.1f} us (plain {t[1] * 1e3:.1f} us, bound "
               f"{t[2] * 1e3:.2f} us {t[3]})" for n, t in out.items()), flush=True)
@@ -909,7 +1009,8 @@ def hymba_step1_hold(cfg, tr, batch, names_, rel_norm):
 
 TRAIN_TAGS = {"granite-3-2b": "train", "hymba-1.5b": "train_hymba",
               "minicpm-2b": "train_minicpm", "qwen2.5-14b": "train_qwen",
-              "llava-next-34b": "train_llava", "granite-moe-3b-a800m": "train_moe"}
+              "llava-next-34b": "train_llava", "granite-moe-3b-a800m": "train_moe",
+              "minicpm3-4b": "train_minicpm3"}
 
 
 def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
@@ -1100,7 +1201,7 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
     if n_layers is not None:
         total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
         free_gb = total_gb - max(peak_gb, fb_peak_gb)
-        print(f"[{tag}] cut depth {L} of {get_config(arch).n_layers} layers: peak "
+        print(f"[{tag}] depth {L} of {get_config(arch).n_layers} layers: peak "
               f"{max(peak_gb, fb_peak_gb):.2f} GB of the card's {total_gb:.2f} GB, "
               f"{free_gb:.2f} GB free (at least 10 GB must be) "
               f"{'ok' if free_gb >= 10 else 'FAIL'}", flush=True)
@@ -1134,6 +1235,14 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
         # forward c(c+1)(N+P) + 4cNP, backward c(c+1)(3N+2P) + 8cNP a chunk
         gla_flops = (B_ * sm.n_ssm_heads * (S_ // c) * L
                      * (c * (c + 1) * (4 * N + 3 * P) + 12 * c * N * P))
+    elif cfg.mla is not None:
+        # MLA: S = Q K^T, dS's products into dQ and dK over qk_nope + qk_rope
+        # columns, P V, dP and dV over v_head_dim (the model's work, not V's
+        # zero padding), each over the S^2 / 2 causal pairs
+        m = cfg.mla
+        attn_flops = 3 * B_ * cfg.n_heads * S_ * S_ * (
+            m.qk_nope_dim + m.qk_rope_dim + m.v_head_dim) * L
+        gla_flops = 0
     else:
         attn_flops = 6 * B_ * cfg.n_heads * S_ * S_ * hd * L
         gla_flops = 0
@@ -1143,7 +1252,7 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
     if mm_flops:
         extra += f" + {mm_flops / 1e12:.3f} TFLOP mm_proj over {cfg.img_tokens} positions a row"
     print(f"[{tag}] {arch} {n_params / 1e9:.3f}B params {cfg.param_dtype}, {L} layers"
-          f"{'' if n_layers is None else ' (cut depth)'}, AdamW "
+          f"{'' if n_layers in (None, get_config(arch).n_layers) else ' (cut depth)'}, AdamW "
           f"float32 state, remat on, batch {B_} x {S_} tokens ({card}): "
           f"{TRAIN_STEPS} steps, step ms {[round(t * 1e3, 1) for t in times]}; median of "
           f"steps 3-{TRAIN_STEPS} {step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tok/s, "
@@ -1568,12 +1677,13 @@ def run_fleet(model_cfg, model_params, prompts, max_len):
 
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import latent_decode_attention as LA
     from repro_torch.kernels import paged_decode_attention as PA
     from repro_torch.serving.engine import ServeEngine
     eng = ServeEngine(model_cfg, params=model_params, device="cuda", max_len=max_len,
                       page_size=FLEET_PAGE, n_pages=FLEET_PAGES, max_running=FLEET_LANES)
     torch.cuda.synchronize()
-    FA.launches = DA.launches = PA.launches = 0
+    FA.launches = DA.launches = PA.launches = LA.launches = LA.paged_launches = 0
     t0 = time.perf_counter()
     sids = [eng.submit(p, max_new_tokens=FLEET_NEW) for p in prompts[:-1]]
     for _ in range(FLEET_LATE_AT):
@@ -1583,7 +1693,9 @@ def run_fleet(model_cfg, model_params, prompts, max_len):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     return eng, sids, {"flash_attention": FA.launches, "decode_attention": DA.launches,
-                       "paged_decode_attention": PA.launches}, secs
+                       "paged_decode_attention": PA.launches,
+                       "latent_decode_attention": LA.launches,
+                       "paged_latent_decode_attention": LA.paged_launches}, secs
 
 
 def server_stream(srv, prompt, n, dev):
@@ -1604,12 +1716,15 @@ def server_stream(srv, prompt, n, dev):
 
 def check_fleet(eng, sids, got, label, model_cfg, prompts, tag="fleet"):
     """The main path's launch counts (K1 a layer per non-empty prefill, K3 a
-    layer per decoded token, no K2), the tickets and the streams' shape."""
+    layer per decoded token, or MLA's paged latent decode, no contiguous
+    decode), the tickets and the streams' shape."""
     L = model_cfg.n_layers
     n_full = sum(1 for p in prompts if len(p))
     decoded = sum(len(eng.stream(s)) for s in sids) - n_full
-    want = {"flash_attention": L * n_full, "decode_attention": 0,
-            "paged_decode_attention": L * decoded}
+    paged = "paged_latent_decode_attention" if model_cfg.mla is not None \
+        else "paged_decode_attention"
+    want = dict.fromkeys(got, 0)
+    want.update({"flash_attention": L * n_full, paged: L * decoded})
     swapped = [s for s in sids if eng.sched.tickets[s].preemptions]
     print(f"[{tag}] {label}: launches {got} (expected {want}: {n_full} non-empty "
           f"prefills x {L}, {decoded} decoded tokens x {L}); "
@@ -1632,6 +1747,7 @@ def cut_layers(params, n):
 
 
 SERVE_TAGS = {"minicpm-2b": "minicpm", "qwen2.5-14b": "qwen", "llava-next-34b": "llava",
+              "minicpm3-4b": "minicpm3",
               "granite-moe-3b-a800m": "moe"}
 
 
@@ -1698,7 +1814,8 @@ def moe_share(tag, model, params, tokens, first, dev):
         L.moe_apply = orig
 
 
-def dense_serve_phase(arch, card, dev, seed_prompts, f32_layers=None, keep=False):
+def dense_serve_phase(arch, card, dev, seed_prompts, f32_layers=None, keep=False,
+                      ties=False):
     """An attention family's Server at full width and depth (see the module
     docstring): 4 x 1024 prefill (llava's first 576 positions its image,
     seeded patch embeddings drawn after the prompts), 32 greedy steps, the
@@ -1706,8 +1823,9 @@ def dense_serve_phase(arch, card, dev, seed_prompts, f32_layers=None, keep=False
     that cut depth; without ``keep`` on copies of the first layers made
     after the whole model is freed, as llava's float32 copy fits beside no
     more than 2 of its bf16 layers), and for MoE its layers' share of a prefill and a
-    decode step. Returns the params (``keep``; else None) and the launch
-    counts."""
+    decode step. ``ties``: the first tokens held on the rows that are not
+    bf16 ties (``hold_to_plain``), as at the cut depths. Returns the params
+    (``keep``; else None) and the launch counts."""
     import dataclasses
 
     import numpy as np
@@ -1716,8 +1834,9 @@ def dense_serve_phase(arch, card, dev, seed_prompts, f32_layers=None, keep=False
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import latent_decode_attention as LA
     from repro_torch.kernels import paged_decode_attention as PA
-    from repro_torch.models.params import tree_map
+    from repro_torch.models.params import tree_leaves, tree_map
     from repro_torch.serving.engine import Server
 
     t_phase = time.perf_counter()
@@ -1738,33 +1857,43 @@ def dense_serve_phase(arch, card, dev, seed_prompts, f32_layers=None, keep=False
     srv.prefill(prompts[:, :64], pad_to=64)          # warm-up: cuBLAS, kernel load
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    FA.launches = DA.launches = PA.launches = 0
+    FA.launches = DA.launches = PA.launches = LA.launches = LA.paged_launches = 0
     t0 = time.perf_counter()
     logits = srv.prefill(prompts, pe, pad_to=n_prompt + n_gen)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    after_prefill = (FA.launches, DA.launches)
+    after_prefill = (FA.launches, DA.launches + LA.launches)
     first = torch.argmax(logits[:, : cfg.vocab_size], dim=-1).cpu().numpy()
     toks, dt = srv.decode(n_gen, first)
     launches = {"flash_attention": FA.launches, "decode_attention": DA.launches,
-                "paged_decode_attention": PA.launches}
+                "paged_decode_attention": PA.launches, "latent_decode_attention": LA.launches,
+                "paged_latent_decode_attention": LA.paged_launches}
+    # MLA's decode is the latent decode; every other family's K2
+    decoder = "latent_decode_attention" if cfg.mla is not None else "decode_attention"
+    want = dict.fromkeys(launches, 0)
+    want.update({"flash_attention": L, decoder: L * n_gen})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     extra = f", the first {cfg.img_tokens} positions an image" if cfg.img_tokens else ""
+    if cfg.mla is not None:
+        m = cfg.mla
+        extra += (f", MLA: q_lora {m.q_lora_rank}, kv_lora {m.kv_lora_rank}, qk "
+                  f"{m.qk_nope_dim} + {m.qk_rope_dim}, v {m.v_head_dim}, one latent row of "
+                  f"{cfg.kv_cache_width} a position")
     if cfg.moe is not None:
         mo = cfg.moe
         extra += (f", {mo.n_experts} experts of {mo.expert_d_ff} top {mo.top_k} (capacity "
                   f"factor {mo.capacity_factor:g}, groups of {mo.group_size}), "
                   f"{cfg.active_param_count() / 1e9:.3f}B active")
-    print(f"[{tag}] {arch} {cfg.param_count() / 1e9:.3f}B params bf16 (seeded init "
+    n_params = sum(t.numel() for t in tree_leaves(srv.params))
+    print(f"[{tag}] {arch} {n_params / 1e9:.3f}B params bf16 (seeded init "
           f"{init_s:.1f} s), {L} layers, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
           f"{cfg.resolved_head_dim}{', q/k/v biases' if cfg.qkv_bias else ''}{extra}; prefill "
           f"{batch}x{n_prompt}: {prefill_ms:.1f} ms; decode {n_gen} steps x {batch}: "
           f"{n_gen * batch / dt:.1f} tok/s ({dt / n_gen * 1e3:.2f} ms/step); peak memory "
           f"{peak_gb:.2f} GB; card {card}", flush=True)
     print(f"[{tag}] launches after prefill {after_prefill}, after decode {launches} "
-          f"(expected {L}, {L * n_gen})", flush=True)
-    if after_prefill != (L, 0) or launches != {
-            "flash_attention": L, "decode_attention": L * n_gen, "paged_decode_attention": 0}:
+          f"(expected {L} K1, {L * n_gen} {decoder})", flush=True)
+    if after_prefill != (L, 0) or launches != want:
         raise AssertionError(f"{tag}: main path launch counts {after_prefill} / {launches}")
     stream = np.stack(toks, axis=1)
     if stream.shape != (batch, n_gen) or stream.min() < 0 or stream.max() >= cfg.vocab_size:
@@ -1777,7 +1906,7 @@ def dense_serve_phase(arch, card, dev, seed_prompts, f32_layers=None, keep=False
     feed = [first] + toks[:3]
     if f32_layers is None:
         ok = hold_to_plain(tag, cfg, srv.model, srv.params, tokens, feed, dev,
-                           patch_embeds=tpe)[0]
+                           ties=ties, patch_embeds=tpe)[0]
     else:
         # the bf16 paths at full depth; the float32 distances at a cut depth
         ok = hold_to_plain(tag, cfg, srv.model, srv.params, tokens, feed, dev, f32=False,
@@ -1814,11 +1943,11 @@ def dense_serve_phase(arch, card, dev, seed_prompts, f32_layers=None, keep=False
     return params, launches
 
 
-def qwen_fleet_phase(cfg, params, card, dev):
-    """qwen2.5-14b's fleet at full depth on phase ``qwen``'s weights, with
-    granite's fleet traffic; its float32 streams held to the float32
-    Server's at QWEN_F32_LAYERS layers. Returns the bf16 run's launch
-    counts."""
+def fleet_phase(cfg, params, card, dev, f32_layers, seed):
+    """An attention family's fleet at full depth on its Server phase's
+    weights (qwen2.5-14b's, minicpm3-4b's), with granite's fleet traffic;
+    its float32 streams held to the float32 Server's at ``f32_layers``
+    layers. Returns the bf16 run's launch counts."""
     import dataclasses
 
     import numpy as np
@@ -1828,16 +1957,17 @@ def qwen_fleet_phase(cfg, params, card, dev):
     from repro_torch.serving.engine import Server
 
     t_phase = time.perf_counter()
-    tag = "qwen_fleet"
+    tag = SERVE_TAGS[cfg.name] + "_fleet"
     all_prompts = FLEET_PROMPTS + (FLEET_LATE,)
-    prompts = [np.random.default_rng(4).integers(0, cfg.vocab_size, n) for n in all_prompts]
+    prompts = [np.random.default_rng(seed).integers(0, cfg.vocab_size, n) for n in all_prompts]
     max_len = max(all_prompts) + FLEET_NEW
-    row_bytes = cfg.n_layers * cfg.kv_cache_width * 2 * 2    # K and V, bf16
+    # bf16 cache bytes a token: K and V rows, or MLA's one latent row
+    row_bytes = cfg.n_layers * cfg.kv_cache_width * 2 * (1 if cfg.mla is not None else 2)
     eng, sids, launches, secs = run_fleet(cfg, params, prompts, max_len)
     n_tok = sum(len(eng.stream(s)) for s in sids)
-    print(f"[{tag}] qwen2.5-14b bf16, {cfg.n_layers} layers; {len(sids)} sessions, prompts "
+    print(f"[{tag}] {cfg.name} bf16, {cfg.n_layers} layers; {len(sids)} sessions, prompts "
           f"{list(all_prompts)}, {FLEET_NEW} new tokens each; pool {FLEET_PAGES} pages x "
-          f"{FLEET_PAGE} ({row_bytes} bytes of K/V a token, "
+          f"{FLEET_PAGE} ({row_bytes} bytes of cache a token, "
           f"{FLEET_PAGES * FLEET_PAGE * row_bytes / 1e6:.1f} MB), {FLEET_LANES} lanes: "
           f"{n_tok} tokens in {secs:.2f} s: {n_tok / secs:.1f} tok/s, "
           f"{secs / eng.tick * 1e3:.1f} ms/tick over {eng.tick} ticks; card {card}", flush=True)
@@ -1850,14 +1980,14 @@ def qwen_fleet_phase(cfg, params, card, dev):
     del eng, srv
     gc.collect()
     torch.cuda.empty_cache()
-    cfg32 = dataclasses.replace(cfg, n_layers=QWEN_F32_LAYERS, param_dtype="float32",
+    cfg32 = dataclasses.replace(cfg, n_layers=f32_layers, param_dtype="float32",
                                 compute_dtype="float32", cache_dtype="float32")
-    p32 = tree_map(lambda t: t.float(), cut_layers(params, QWEN_F32_LAYERS))
+    p32 = tree_map(lambda t: t.float(), cut_layers(params, f32_layers))
     eng, sids, got32, secs32 = run_fleet(cfg32, p32, prompts, max_len)
-    check_fleet(eng, sids, got32, f"float32, {QWEN_F32_LAYERS} layers", cfg32, prompts, tag)
+    check_fleet(eng, sids, got32, f"float32, {f32_layers} layers", cfg32, prompts, tag)
     srv = Server(cfg32, params=p32, device="cuda")
     same = [server_stream(srv, p, FLEET_NEW, dev) == eng.stream(s) for p, s in zip(prompts, sids)]
-    print(f"[{tag}] float32, {QWEN_F32_LAYERS} of {cfg.n_layers} layers: {sum(same)}/"
+    print(f"[{tag}] float32, {f32_layers} of {cfg.n_layers} layers: {sum(same)}/"
           f"{len(same)} streams equal the float32 Server's B=1 greedy streams exactly "
           f"({secs32:.2f} s)", flush=True)
     if not all(same):
@@ -1890,6 +2020,7 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gla_chunk as GC
+    from repro_torch.kernels import latent_decode_attention as LA
     from repro_torch.kernels import paged_decode_attention as PA
     from repro_torch.kernels.timing import cuda_ms
     from repro_torch.models.params import tree_map
@@ -1907,6 +2038,11 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------------
     secs = build.build_all()
     print(f"[build] {', '.join(build.SOURCES)} for sm_90a in {secs:.1f}s", flush=True)
+    t_mark = phase_time("build", t_start)
+    # SDPA's backward at every training shape phase 3 times K1's backward at
+    # (granite, qwen, llava, granite-moe, minicpm3), in one child process
+    sdpa_bwd_profiles(((4, 32, 8, 1024, 64), (4, 40, 8, 1024, 128), (4, 56, 8, 1024, 128),
+                       (4, 24, 8, 1024, 64), (4, 40, 40, 1024, C_DQK)))
 
     # -- 3. each kernel against its plain version ----------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1914,13 +2050,36 @@ def main() -> int:
     print(f"[kernels] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
     gen = torch.Generator(device=dev).manual_seed(0)
+    # MLA's shapes draw from a generator of their own, so that the earlier
+    # shapes' inputs (and the holds that read them) are the ones they were
+    mla_gen = torch.Generator(device=dev).manual_seed(96)
 
-    def randn(*shape, dtype):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    def randn(*shape, dtype, g=None):
+        return torch.randn(shape, generator=g or gen, device=dev).to(dtype)
 
-    def flash_inputs(B, H, K, S, D, dtype):
-        # the model's [B,S,H,D] projections, seen as [B,H,S,D] views
-        return tuple(randn(B, S, n, D, dtype=dtype).transpose(1, 2) for n in (H, K, K))
+    def flash_inputs(B, H, K, S, D, dtype, g=None):
+        # the model's [B,S,H,D] projections, seen as [B,H,S,D] views; at
+        # MLA's qk head dim 96, V is zero-padded from 64 as the model pads it
+        q, k, v = (randn(B, S, n, D, dtype=dtype, g=g).transpose(1, 2) for n in (H, K, K))
+        if D == C_DQK:
+            v = F.pad(v[..., :C_DV], (0, C_DQK - C_DV))
+        return q, k, v
+
+    def latent_pages(B, lengths, dtype, layer=31, n_layers=62, H=40, stores=1):
+        """q, then layer ``layer``'s strided [P, page, 288] view of a stacked
+        latent pool store [P, page, n_layers*288] (the fleet's layout), a
+        table of distinct shuffled pages with the entries past each length
+        set to 0, and the int32 lengths."""
+        n = max(-(-max(lengths) // FLEET_PAGE), 1)
+        P = B * n + 3
+        st = randn(P, FLEET_PAGE, n_layers * LA.DK, dtype=dtype, g=mla_gen)
+        pages = st.view(P, FLEET_PAGE, n_layers, LA.DK)[:, :, layer]
+        order = torch.randperm(P, generator=torch.Generator().manual_seed(P * B))
+        table = order[: B * n].view(B, n).to(torch.int32)
+        for b, L in enumerate(lengths):
+            table[b, -(-L // FLEET_PAGE):] = 0
+        return (randn(B, H, LA.DK, dtype=dtype, g=mla_gen), pages, table.to(dev),
+                torch.tensor(lengths, dtype=torch.int32, device=dev))
 
     def decode_inputs(B, H, K, S, D, dtype):
         return randn(B, H, D, dtype=dtype), randn(B, S, K, D, dtype=dtype), \
@@ -1942,20 +2101,20 @@ def main() -> int:
         return (randn(B, H, D, dtype=dtype), kp, vp, table.to(dev),
                 torch.tensor(lengths, dtype=torch.int32, device=dev))
 
-    def gla_inputs(B, S, H, N, P, dtype, bcast, steep=False):
+    def gla_inputs(B, S, H, N, P, dtype, bcast, steep=False, g=None):
         """tests/test_kernels.py's GLA distributions. ``bcast``: q and k as
         the SSD mixer passes them, head-broadcast views (head stride 0) of
         the C and B columns of a projection row [B, S, H*P + 2N]. ``steep``:
         log decays uniform in [-20, 0] a step (hymba's -exp(a_log) dt can
         reach them), so a chunk's cum falls to about -2500."""
-        v = randn(B, S, H, P, dtype=dtype)
-        lg = -F.softplus(randn(B, S, H, dtype=torch.float32)) * 0.3
+        v = randn(B, S, H, P, dtype=dtype, g=g)
+        lg = -F.softplus(randn(B, S, H, dtype=torch.float32, g=g)) * 0.3
         if steep:
-            lg = -20 * torch.rand(B, S, H, generator=gen, device=dev)
+            lg = -20 * torch.rand(B, S, H, generator=g or gen, device=dev)
         if not bcast:
-            return (randn(B, S, H, N, dtype=dtype),
-                    (randn(B, S, H, N, dtype=torch.float32) * 0.3).to(dtype), v, lg)
-        row = randn(B, S, H * P + 2 * N, dtype=torch.float32)
+            return (randn(B, S, H, N, dtype=dtype, g=g),
+                    (randn(B, S, H, N, dtype=torch.float32, g=g) * 0.3).to(dtype), v, lg)
+        row = randn(B, S, H * P + 2 * N, dtype=torch.float32, g=g)
         row[..., H * P:H * P + N] *= 0.3
         row = row.to(dtype)
         k = row[..., H * P:H * P + N, None].transpose(-1, -2).expand(B, S, H, N)
@@ -2136,10 +2295,86 @@ def main() -> int:
             held("decode_attention_ring", f"{dn} B{B} H{H} K{K} D{D} W_ring={W} "
                  f"window={w} pos={pos}", DA.ring_decode_attention(q, k, v, pos, window=w),
                  ref.naive_ring_decode_attention(q, k, v, pos, window=w), dtype)
+        # MLA (minicpm3-4b): K1 at qk head dim 96, its prefill shape (MHA, V
+        # zero-padded from 64) and a ragged S with a window; the latent
+        # decode (lengths 1, a block's edge either side, the full 1056; 48
+        # heads, the most a launch takes) contiguous, and through layer 31 of
+        # a 62-layer strided store with a shuffled table (one lane, four)
+        for B, H, S, w in ((4, 40, 1024, None), (2, 8, 300, 100)):
+            q, k, v = flash_inputs(B, H, H, S, C_DQK, dtype, g=mla_gen)
+            held("flash_attention", f"{dn} B{B} H{H} K{H} S{S} D{C_DQK} window={w}",
+                 FA.flash_attention(q, k, v, window=w), ref.naive_attention(q, k, v, window=w),
+                 dtype)
+        for B, H, S, length in ((4, 40, 1056, 1), (4, 40, 1056, LA.SPAN),
+                                (4, 40, 1056, LA.SPAN + 1), (4, 40, 1056, 1056),
+                                (2, 48, 300, 257)):
+            q, lat = (randn(B, n, LA.DK, dtype=dtype, g=mla_gen) for n in (H, S))
+            held("latent_decode_attention", f"{dn} B{B} H{H} S{S} Dk{LA.DK} Dv{LA.DV} "
+                 f"length={length}", LA.latent_decode_attention(q, lat, length, v_dim=LA.DV,
+                                                                scale=C_SCALE),
+                 ref.naive_latent_decode_attention(q, lat, length, v_dim=LA.DV, scale=C_SCALE),
+                 dtype)
+        for B, lengths in ((1, [1]), (1, [1056]), (4, [1, FLEET_PAGE, LA.SPAN + 1, 1056])):
+            q, pages, table, lens = latent_pages(B, lengths, dtype)
+            held("paged_latent_decode_attention", f"{dn} B{B} H40 Dk{LA.DK} Dv{LA.DV} layer "
+                 f"31/62 lengths={lengths}",
+                 LA.paged_latent_decode_attention(q, pages, table, lens, v_dim=LA.DV,
+                                                  scale=C_SCALE),
+                 ref.naive_paged_latent_decode_attention(q, pages, table, lens, v_dim=LA.DV,
+                                                         scale=C_SCALE), dtype)
+        # over pages in order the paged latent decode runs the contiguous
+        # one's blocks on the same rows: equal bit for bit, and so are each
+        # B = 1 lane and its batched row, and two launches
+        n = 1056 // FLEET_PAGE
+        table = torch.arange(4 * n, dtype=torch.int32, device=dev).view(4, n)
+        q, lat = (randn(4, m, LA.DK, dtype=dtype, g=mla_gen) for m in (40, 1056))
+        for length in (1, 500, 1056):
+            lens = torch.full((4,), length, dtype=torch.int32, device=dev)
+            kw = dict(v_dim=LA.DV, scale=C_SCALE)
+            a = LA.paged_latent_decode_attention(q, lat.view(4 * n, FLEET_PAGE, LA.DK), table,
+                                                 lens, **kw)
+            b = LA.latent_decode_attention(q, lat, length, **kw)
+            same = torch.equal(a, b)
+            lane = all(torch.equal(LA.paged_latent_decode_attention(
+                q[i:i + 1], lat[i].view(n, FLEET_PAGE, LA.DK), table[:1], lens[:1], **kw),
+                b[i:i + 1]) for i in range(4))
+            again = torch.equal(LA.latent_decode_attention(q, lat, length, **kw), b)
+            bitwise[f"{dn} latent H40 length={length}"] = same and lane and again
+            print(f"[kernels] paged_latent_decode_attention over in-order pages vs "
+                  f"latent_decode_attention {dn} B4 H40 S1056 length={length}: "
+                  + ("equal bit for bit" if same else
+                     f"NOT bit-equal, max |diff| {(a.float() - b.float()).abs().max().item():.3e}")
+                  + f"; each B = 1 lane equals its batched row {lane}; two launches agree "
+                  f"{again}", flush=True)
     if not all(bitwise.values()):
         raise AssertionError(f"the paged decode over in-order pages differs from the "
                              f"contiguous decode, or a lane from its batched row: {bitwise}")
     del q, k, v, kp, vp, a, b, lg, yn, yc, y4, ya, pa, pd, d, start, y5   # phase 4's peak
+    del lat, pages
+
+    # K4's bf16 hold at hymba's serving shape (head-stride-0 q/k) over
+    # GLA_SWEEP seeds, each input drawn from a generator of its own, each
+    # held elementwise to the kernel's error bound (gla_error_bound)
+    sweep = []
+    for seed in range(GLA_SWEEP):
+        sg = torch.Generator(device=dev).manual_seed(1000 + seed)
+        q, k, v, lg = gla_inputs(*G_SHAPE[:5], torch.bfloat16, True, g=sg)
+        y4 = GC.gla_chunk(q, k, v, lg, chunk=G_SHAPE[5])[0]
+        yc = ref.chunked_gla(q, k, v, lg, chunk=G_SHAPE[5])[0].float()
+        bound = gla_error_bound(ref, q, k, v, lg, yc, G_SHAPE[5])
+        diff = (y4.float() - yc).abs()
+        sweep.append(((diff / bound).max().item(), (diff / (1 + yc.abs())).max().item(),
+                      diff.max().item()))
+    del q, k, v, lg, y4, yc, bound, diff
+    worst = [max(x[i] for x in sweep) for i in range(3)]
+    ok = all(math.isfinite(x[0]) and x[0] <= 1 for x in sweep)
+    print(f"[kernels] gla_chunk {G_MAIN} over {GLA_SWEEP} seeds: max |a-b| / the kernel's error "
+          f"bound min {min(x[0] for x in sweep):.3f} median "
+          f"{sorted(x[0] for x in sweep)[GLA_SWEEP // 2]:.3f} max {worst[0]:.3f} (tol 1); "
+          f"max |a-b|/(1+|b|) min {min(x[1] for x in sweep):.3e} max {worst[1]:.3e}; "
+          f"max_abs_err max {worst[2]:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("gla_chunk: a seed's bf16 output exceeds the kernel's error bound")
 
     # K1's logsumexp and the backward's two kernels, the train phase's
     # path: the prefill's output with the logsumexp write on equals it
@@ -2147,13 +2382,14 @@ def main() -> int:
     # plain ones, and two backward runs agree bit for bit
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
-        for B, H, K, S, D, w in BWD_SHAPES:
+        for B, H, K, S, D, w in BWD_SHAPES + C_BWD_SHAPES:
             lab = f"{dn} B{B} H{H} K{K} S{S} D{D} window={w}"
-            q, k, v = flash_inputs(B, H, K, S, D, dtype)
+            g = mla_gen if D == C_DQK else None
+            q, k, v = flash_inputs(B, H, K, S, D, dtype, g=g)
             o, lse = FA.flash_attention(q, k, v, window=w, lse=True)
             same = torch.equal(o, FA.flash_attention(q, k, v, window=w))
             lse_err = (lse - ref.naive_attention_lse(q, k, window=w)).abs().max().item()
-            do = randn(B, H, S, D, dtype=dtype)
+            do = randn(B, H, S, D, dtype=dtype, g=g)
             *got, delta = FA._bwd(q, k, v, o, lse, do, window=w)
             dr_err = (delta - ref.attention_bwd_delta(o, do)).abs().max().item()
             again = FA.flash_attention_bwd(q, k, v, o, lse, do, window=w)
@@ -2372,10 +2608,10 @@ def main() -> int:
     # decode shapes, K3 over qwen's 48-layer strided store. Each time is a
     # CUDA graph's replay beside the profiler's device time per call
     t_dense = time.perf_counter()
-    dense = {}
+    dense, backends = {}, {}
 
     def dense_row(key, label, fn, sets, plain_fn, lib_fn, flops, nbytes, plain_iters=5,
-                  kernel=None):
+                  kernel=None, backend=False):
         if kernel:
             graph_launches(label, lambda: fn(*sets[0]), (kernel,))
         ms = cuda_ms(fn, sets, iters=40)
@@ -2383,11 +2619,15 @@ def main() -> int:
         prof = sum(us.values())
         plain = cuda_ms(plain_fn, sets, iters=plain_iters)
         lib = cuda_ms(lib_fn, sets, iters=40)
+        served = ""
+        if backend:   # the SDPA backend that served lib_fn, from its kernels' names
+            backends[key] = sdpa_backend(kernel_us(lib_fn, sets[:2], iters=4))
+            served = f" ({backends[key]} backend)"
         bound, by = bound_ms(flops, nbytes)
         dense[key] = (ms, plain, bound, by, lib)
         print(f"[kernels] {label}: {ms * 1e3:.1f} us (profiler {prof:.1f} us a call), plain "
-              f"{plain * 1e3:.1f} us, sdpa {lib * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
-              f"({by}); {card}", flush=True)
+              f"{plain * 1e3:.1f} us, sdpa{served} {lib * 1e3:.1f} us, bound "
+              f"{bound * 1e3:.2f} us ({by}); {card}", flush=True)
 
     fam_bwd = {}
     for arch, (B, H, K, S, D) in (("qwen2.5-14b", (4, 40, 8, 1024, 128)),
@@ -2443,6 +2683,71 @@ def main() -> int:
               4 * H * length * D, 2 * (2 * H * D + 2 * length * K * D) + 4 * (n + 1), 20,
               kernel=DA.kernel(bf, D, H // K))
     del sets, gathered, qstores
+    # minicpm3-4b (MLA): K1 at qk head dim 96 and its backward at the prefill's
+    # and the training's shape (B4 H40 K40 S1024; the bound counts V and O at
+    # their 64 columns, not the zero padding), the latent decode at the last
+    # decode step (B4 H40 over 1056 latent rows of 288, the first 256 the
+    # value), and one fleet lane through a 62-layer strided store: each call
+    # another layer of one of two stores (74 MB of rows in all). SDPA's
+    # yardstick of the decode takes q at 288, V the latent's first 256
+    # columns and the scale passed in; for the paged one, over each set's
+    # gathered cache
+    def mrandn(*shape, dtype):
+        return randn(*shape, dtype=dtype, g=mla_gen)
+    B, H, S = 4, 40, 1024
+    sets = [flash_inputs(B, H, H, S, C_DQK, bf, g=mla_gen) for _ in range(4)]
+    pairs = S * S / 2
+    dense_row("flash minicpm3-4b", f"flash_attention bf16 B{B} H{H} K{H} S{S} D{C_DQK} "
+              "(minicpm3-4b's prefill, V zero-padded from 64)",
+              lambda q, k, v: FA.flash_attention(q, k, v), sets,
+              lambda q, k, v: ref.naive_attention(q, k, v),
+              lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+              2 * B * H * pairs * (C_DQK + C_DV),
+              2 * (2 * B * H * S * C_DQK + 2 * B * H * S * C_DV),
+              kernel=FA.fwd_kernel(bf, C_DQK, 1))
+    fam_bwd["minicpm3-4b"] = bwd_times(sets, B, H, H, S, C_DQK, mrandn, FA, ref, cuda_ms,
+                                       label="minicpm3-4b's training shape", dv=C_DV)
+    del sets
+    length = Smax
+    sets = [tuple(mrandn(B, n, LA.DK, dtype=bf) for n in (H, Smax)) for _ in range(8)]
+    dense_row("latent minicpm3-4b", f"latent_decode_attention bf16 B{B} H{H} S{Smax} "
+              f"len{length} Dk{LA.DK} Dv{LA.DV} (minicpm3-4b's last decode step)",
+              lambda q, lat: LA.latent_decode_attention(q, lat, length, v_dim=LA.DV,
+                                                        scale=C_SCALE), sets,
+              lambda q, lat: ref.naive_latent_decode_attention(q, lat, length, v_dim=LA.DV,
+                                                               scale=C_SCALE),
+              lambda q, lat: F.scaled_dot_product_attention(
+                  q[:, :, None], lat[:, None, :length], lat[:, None, :length, :LA.DV],
+                  scale=C_SCALE, enable_gqa=True),
+              2 * B * H * length * (LA.DK + LA.DV),
+              2 * (B * length * LA.DK + B * H * LA.DK + B * H * LA.DV), 20,
+              kernel="latent_mma_kernel", backend=True)
+    del sets
+    n = length // FLEET_PAGE
+    P = n + 3
+    lstores = [mrandn(P, FLEET_PAGE, 62 * LA.DK, dtype=bf).view(P, FLEET_PAGE, 62, LA.DK)
+               for _ in range(2)]
+    table = torch.randperm(P, generator=torch.Generator().manual_seed(P))[:n]
+    table = table.view(1, n).to(torch.int32).to(dev)
+    lens = torch.tensor([length], dtype=torch.int32, device=dev)
+    sets = [(mrandn(1, H, LA.DK, dtype=bf), lstores[i % 2][:, :, i // 2], table, lens)
+            for i in range(124)]
+    gathered = {id(s_[1]): s_[1][table[0].long()].reshape(1, 1, n * FLEET_PAGE, LA.DK)
+                for s_ in sets}
+    dense_row("paged latent minicpm3-4b", f"paged_latent_decode_attention bf16 B1 H{H} "
+              f"len{length} Dk{LA.DK} Dv{LA.DV} page {FLEET_PAGE}, 62-layer strided pool "
+              "(minicpm3-4b's fleet decode)",
+              lambda q, pg, t, ln: LA.paged_latent_decode_attention(q, pg, t, ln, v_dim=LA.DV,
+                                                                    scale=C_SCALE), sets,
+              lambda q, pg, t, ln: ref.naive_paged_latent_decode_attention(
+                  q, pg, t, ln, v_dim=LA.DV, scale=C_SCALE),
+              lambda q, pg, t, ln: F.scaled_dot_product_attention(
+                  q[:, :, None], gathered[id(pg)], gathered[id(pg)][..., :LA.DV],
+                  scale=C_SCALE, enable_gqa=True),
+              2 * H * length * (LA.DK + LA.DV),
+              2 * (length * LA.DK + H * LA.DK + H * LA.DV) + 4 * (n + 1), 20,
+              kernel="latent_mma_kernel", backend=True)
+    del sets, gathered, lstores
     print(f"[kernels] the attention families' timings: {time.perf_counter() - t_dense:.1f} s",
           flush=True)
 
@@ -2599,6 +2904,8 @@ def main() -> int:
                  "no record (the tracer dropped them)"), flush=True)
     del fsets, dsets, psets, gsets, stores
 
+    t_mark = phase_time("kernels", t_mark)
+
     # -- 4. full-width granite-3-2b Server ------------------------------------
     cfg = get_config("granite-3-2b")
     n_prompt, n_gen, batch = 1024, 32, 4
@@ -2644,8 +2951,11 @@ def main() -> int:
     del srv, tokens
     torch.cuda.empty_cache()
 
+    t_mark = phase_time("serve", t_mark)
+
     # -- ckpt. snapshot mid-decode, restore under another flavor --------------
     ckpt_phase(cfg, params, prompts, 16, card, dev, DA, FA)
+    t_mark = phase_time("ckpt", t_mark)
 
     # -- 5. the continuous-batching fleet on a device page pool -----------------
     all_prompts = FLEET_PROMPTS + (FLEET_LATE,)
@@ -2697,9 +3007,11 @@ def main() -> int:
 
     # the same traffic through a float32 copy: every stream, the preempted
     # ones' included, equals the float32 Server's B=1 greedy stream exactly
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32",
-                                cache_dtype="float32")
-    p32 = tree_map(lambda t: t.float(), params)
+    # (at GRANITE_F32_FLEET_LAYERS of its 40 layers: the float32 kernels at
+    # these shapes are held one by one in phase 3)
+    cfg32 = dataclasses.replace(cfg, n_layers=GRANITE_F32_FLEET_LAYERS, param_dtype="float32",
+                                compute_dtype="float32", cache_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), cut_layers(params, GRANITE_F32_FLEET_LAYERS))
     eng, sids, got32, secs32 = run_fleet(cfg32, p32, fleet_prompts, max_len)
     check_fleet(eng, sids, got32, "float32", cfg32, fleet_prompts)
     srv = Server(cfg32, params=p32, device="cuda")
@@ -2713,11 +3025,14 @@ def main() -> int:
     del eng, srv, p32
     torch.cuda.empty_cache()
 
+    t_mark = phase_time("fleet", t_mark)
+
     # -- recover. the supervised recovery plane on phase 5's fleet -------------
     recover_phase(cfg, params, fleet_prompts, max_len, base, prompts, stream, card, dev,
                   FA, DA, PA)
     del params
     torch.cuda.empty_cache()
+    t_mark = phase_time("recover", t_mark)
 
     # -- 6. full-width hymba-1.5b Server ---------------------------------------
     hcfg = get_config("hymba-1.5b")
@@ -2820,98 +3135,107 @@ def main() -> int:
     decode_idle("hymba", srv.model, srv.params, htokens, h_first, h_dt / n_gen * 1e3, dev)
     del srv, htokens
     torch.cuda.empty_cache()
+    t_mark = phase_time("hymba", t_mark)
 
     # -- minicpm. full-width minicpm-2b Server -----------------------------------
     m_serve = dense_serve_phase("minicpm-2b", card, dev, 3)[1]
+    t_mark = phase_time("minicpm", t_mark)
 
     # -- qwen. full-width qwen2.5-14b Server, then its fleet ------------------------
     qparams, q_serve = dense_serve_phase("qwen2.5-14b", card, dev, 5,
                                          f32_layers=QWEN_F32_LAYERS, keep=True)
-    q_fleet = qwen_fleet_phase(get_config("qwen2.5-14b"), qparams, card, dev)
+    t_mark = phase_time("qwen", t_mark)
+    q_fleet = fleet_phase(get_config("qwen2.5-14b"), qparams, card, dev, QWEN_F32_LAYERS, 4)
     del qparams
     gc.collect()
     torch.cuda.empty_cache()
+    t_mark = phase_time("qwen_fleet", t_mark)
 
     # -- llava. full-width llava-next-34b Server, nothing else on the card ----------
     l_serve = dense_serve_phase("llava-next-34b", card, dev, 6, f32_layers=LLAVA_F32_LAYERS)[1]
+    t_mark = phase_time("llava", t_mark)
 
     # -- moe. full-depth granite-moe-3b-a800m Server --------------------------------
     e_serve = dense_serve_phase("granite-moe-3b-a800m", card, dev, 7)[1]
+    t_mark = phase_time("moe", t_mark)
+
+    # -- minicpm3. full-width minicpm3-4b (MLA) Server, then its fleet ---------------
+    cparams, c_serve = dense_serve_phase("minicpm3-4b", card, dev, 8, keep=True, ties=True)
+    t_mark = phase_time("minicpm3", t_mark)
+    c_fleet = fleet_phase(get_config("minicpm3-4b"), cparams, card, dev,
+                          MINICPM3_F32_FLEET_LAYERS, 9)
+    del cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_mark = phase_time("minicpm3_fleet", t_mark)
 
     # -- train. full-width granite-3-2b through the port's Trainer -------------
     # (last before the CLI: the Trainer turns on deterministic algorithms for
     # the process)
     train_launches = train_phase(card, dev)
+    t_mark = phase_time("train", t_mark)
 
     # -- train_hymba. full-width hymba-1.5b through the port's Trainer -----------
     hymba_launches = train_phase(card, dev, "hymba-1.5b")
+    t_mark = phase_time("train_hymba", t_mark)
 
     # -- train_minicpm, train_qwen. the dense families through the Trainer ---------
-    # (minicpm-2b at full depth, qwen2.5-14b at QWEN_TRAIN_LAYERS; no C/R part)
-    m_train = train_phase(card, dev, "minicpm-2b", cr=False)
+    # (minicpm-2b at MINICPM_TRAIN_LAYERS, qwen2.5-14b at QWEN_TRAIN_LAYERS; no
+    # C/R part)
+    m_train = train_phase(card, dev, "minicpm-2b", n_layers=MINICPM_TRAIN_LAYERS, cr=False)
+    t_mark = phase_time("train_minicpm", t_mark)
     q_train = train_phase(card, dev, "qwen2.5-14b", n_layers=QWEN_TRAIN_LAYERS, cr=False)
+    t_mark = phase_time("train_qwen", t_mark)
 
     # -- train_llava, train_moe. llava-next-34b at LLAVA_TRAIN_LAYERS (its batches
     # carry the patch embeddings), granite-moe-3b-a800m at full depth --------------
     l_train = train_phase(card, dev, "llava-next-34b", n_layers=LLAVA_TRAIN_LAYERS, cr=False)
+    t_mark = phase_time("train_llava", t_mark)
     e_train = train_phase(card, dev, "granite-moe-3b-a800m", cr=False)
+    t_mark = phase_time("train_moe", t_mark)
 
-    # -- 7. the CLI -------------------------------------------------------------
+    # -- train_minicpm3. minicpm3-4b (MLA) at MINICPM3_TRAIN_LAYERS --------------
+    c_train = train_phase(card, dev, "minicpm3-4b", n_layers=MINICPM3_TRAIN_LAYERS, cr=False)
+    t_mark = phase_time("train_minicpm3", t_mark)
+
+    # -- 7. the CLI: its smoke-size runs in parallel, six at a time (each its
+    # own process on the card and its own checkpoint directory)
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli") as ck:
-        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                              "--device", "cuda", "--steps", "8", "--ckpt-every", "4",
-                              "--kill-rank-at", "6", "--restart-backend", "exampi",
-                              "--batch-size", "2", "--seq-len", "64", "--ckpt-dir", ck],
-                             env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
-    lines = [ln for ln in cli.stdout.splitlines() if ln.startswith(("!!", "done:"))]
-    print(f"[cli] train --device cuda --kill-rank-at 6 --restart-backend exampi: rc "
-          f"{cli.returncode}: {' | '.join(lines)}", flush=True)
-    if cli.returncode != 0 or not any(ln.startswith("!! recovered from step_00000004")
-                                      for ln in lines) \
-            or not any(ln.startswith("done: loss ") for ln in lines):
-        raise AssertionError(f"train CLI failed:\n{cli.stdout}\n{cli.stderr}")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli") as ck:
-        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                              "--arch", "hymba-1.5b", "--device", "cuda", "--steps", "8",
-                              "--ckpt-every", "4", "--kill-rank-at", "6", "--restart-backend",
-                              "exampi", "--batch-size", "2", "--seq-len", "64", "--ckpt-dir",
-                              ck], env=env, capture_output=True, text=True, timeout=300,
-                             cwd=ROOT)
-    lines = [ln for ln in cli.stdout.splitlines() if ln.startswith(("!!", "done:"))]
-    print(f"[cli] train --arch hymba-1.5b --device cuda --kill-rank-at 6 --restart-backend "
-          f"exampi: rc {cli.returncode}: {' | '.join(lines)}", flush=True)
-    if cli.returncode != 0 or not any(ln.startswith("!! recovered from step_00000004")
-                                      for ln in lines) \
-            or not any(ln.startswith("done: loss ") for ln in lines):
-        raise AssertionError(f"hymba train CLI failed:\n{cli.stdout}\n{cli.stderr}")
-    for arch in ("minicpm-2b", "qwen2.5-14b"):
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_cli") as ck:
-            cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                                  "--arch", arch, "--device", "cuda", "--steps", "8",
-                                  "--ckpt-every", "4", "--kill-rank-at", "6",
-                                  "--restart-backend", "exampi", "--batch-size", "2",
-                                  "--seq-len", "64", "--ckpt-dir", ck], env=env,
-                                 capture_output=True, text=True, timeout=300, cwd=ROOT)
-        lines = [ln for ln in cli.stdout.splitlines() if ln.startswith(("!!", "done:"))]
-        print(f"[cli] train --arch {arch} --device cuda --kill-rank-at 6 --restart-backend "
-              f"exampi: rc {cli.returncode}: {' | '.join(lines)}", flush=True)
-        if cli.returncode != 0 or not any(ln.startswith("!! recovered from step_00000004")
-                                          for ln in lines) \
-                or not any(ln.startswith("done: loss ") for ln in lines):
-            raise AssertionError(f"{arch} train CLI failed:\n{cli.stdout}\n{cli.stderr}")
-    for extra in ([], ["--arch", "hymba-1.5b"],
-                  ["--arch", "hymba-1.5b", "--gla-schedule", "parallel"],
-                  ["--arch", "minicpm-2b"], ["--arch", "qwen2.5-14b"],
-                  ["--arch", "llava-next-34b"], ["--arch", "granite-moe-3b-a800m"]):
-        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                              "--device", "cuda", "--batch", "2", "--prompt-len", "16",
-                              "--gen", "8", *extra], env=env, capture_output=True,
-                             text=True, timeout=300, cwd=ROOT)
-        print(f"[cli] {' '.join(extra) or 'granite-3-2b'}: rc {cli.returncode}: "
-              f"{cli.stdout.strip()}", flush=True)
-        if cli.returncode != 0:
-            raise AssertionError(f"CLI failed:\n{cli.stderr}")
+
+    def run_cli(args):
+        return subprocess.run([sys.executable, "-m", *args], env=env, capture_output=True,
+                              text=True, timeout=300, cwd=ROOT)
+    serve_extras = ([], ["--arch", "hymba-1.5b"],
+                    ["--arch", "hymba-1.5b", "--gla-schedule", "parallel"],
+                    ["--arch", "minicpm-2b"], ["--arch", "qwen2.5-14b"],
+                    ["--arch", "llava-next-34b"], ["--arch", "granite-moe-3b-a800m"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli") as ck, \
+            ThreadPoolExecutor(max_workers=6) as pool:
+        trains = {arch: pool.submit(run_cli, [
+            "repro_torch.launch.train", *([] if arch == "granite-3-2b" else ["--arch", arch]),
+            "--device", "cuda", "--steps", "8", "--ckpt-every", "4", "--kill-rank-at", "6",
+            "--restart-backend", "exampi", "--batch-size", "2", "--seq-len", "64",
+            "--ckpt-dir", os.path.join(ck, arch)])
+            for arch in ("granite-3-2b", "hymba-1.5b", "minicpm-2b", "qwen2.5-14b")}
+        serves = [(extra, pool.submit(run_cli, [
+            "repro_torch.launch.serve", "--device", "cuda", "--batch", "2", "--prompt-len",
+            "16", "--gen", "8", *extra])) for extra in serve_extras]
+        for arch, fut in trains.items():
+            cli = fut.result()
+            lines = [ln for ln in cli.stdout.splitlines() if ln.startswith(("!!", "done:"))]
+            print(f"[cli] train --arch {arch} --device cuda --kill-rank-at 6 --restart-backend "
+                  f"exampi: rc {cli.returncode}: {' | '.join(lines)}", flush=True)
+            if cli.returncode != 0 or not any(ln.startswith("!! recovered from step_00000004")
+                                              for ln in lines) \
+                    or not any(ln.startswith("done: loss ") for ln in lines):
+                raise AssertionError(f"{arch} train CLI failed:\n{cli.stdout}\n{cli.stderr}")
+        for extra, fut in serves:
+            cli = fut.result()
+            print(f"[cli] {' '.join(extra) or 'granite-3-2b'}: rc {cli.returncode}: "
+                  f"{cli.stdout.strip()}", flush=True)
+            if cli.returncode != 0:
+                raise AssertionError(f"CLI failed:\n{cli.stderr}")
+    t_mark = phase_time("cli", t_mark)
 
     src = "src/repro_torch/csrc/"
     record = {"kernels": [
@@ -3060,6 +3384,47 @@ def main() -> int:
              "max_abs_err": max(errs[name][f_lab] for name in BWD_PARTS),
              "ms": fb["whole"][0], "plain_ms": fb["whole"][1], "bound_ms": fb["whole"][2],
              "bound_by": fb["whole"][3], "library_ms": fb["whole"][4]})
+    # minicpm3-4b (MLA): K1 and its backward at qk head dim 96, the latent
+    # decode and its paged form through the fleet's page table
+    cb = fam_bwd["minicpm3-4b"]
+    for name, shape, file, site, launches_, err_key, lab, t, note in (
+            ("flash_attention_d96", "minicpm3-4b prefill B4 H40 K40 S1024 D96, V zero-padded "
+             "from 64", "flash_attention.cu", "flash_attention.py:45",
+             c_serve["flash_attention"], "flash_attention", C_F_MAIN,
+             dense["flash minicpm3-4b"], None),
+            ("latent_decode_attention", "minicpm3-4b decode B4 H40 length 1056, one latent "
+             "head Dk 288 Dv 256", "latent_decode_attention.cu", "decode_attention.py:61",
+             c_serve["latent_decode_attention"], "latent_decode_attention", C_D_MAIN,
+             dense["latent minicpm3-4b"], backends.get("latent minicpm3-4b")),
+            ("paged_latent_decode_attention", "minicpm3-4b fleet decode B1 H40 length 1056, "
+             "62-layer strided pool", "latent_decode_attention.cu", "decode_attention.py:137",
+             c_fleet["paged_latent_decode_attention"], "paged_latent_decode_attention",
+             C_P_MAIN, dense["paged latent minicpm3-4b"],
+             backends.get("paged latent minicpm3-4b"))):
+        row = {"name": name, "shape": shape, "route": "cuda", "source": src + file,
+               "replaces": "src/repro/kernels/" + site, "launches": launches_,
+               "max_abs_err": errs[err_key][lab], "ms": t[0], "plain_ms": t[1],
+               "bound_ms": t[2], "bound_by": t[3], "library_ms": t[4]}
+        if note:
+            row["library_note"] = (f"SDPA ({note} backend), q at 288, V the latent's first "
+                                   "256 columns, the scale passed in")
+        record["kernels"].append(row)
+    for name in BWD_PARTS:
+        record["kernels"].append(
+            {"name": name + "_d96", "shape": "minicpm3-4b training B4 H40 K40 S1024 D96",
+             "route": "cuda", "source": src + "flash_attention_bwd.cu", "replaces": bwd_site,
+             "launches": c_train[name], "max_abs_err": errs[name][C_F_MAIN],
+             "ms": cb[name][0], "plain_ms": cb[name][1], "bound_ms": cb[name][2],
+             "bound_by": cb[name][3], "library_ms": None,
+             "library_note": "no PyTorch call computes this part alone; SDPA's whole "
+                             "backward is library_ms of flash_attention_bwd_d96"})
+    record["kernels"].append(
+        {"name": "flash_attention_bwd_d96", "shape": "minicpm3-4b training B4 H40 K40 S1024 D96",
+         "route": "cuda", "source": src + "flash_attention_bwd.cu", "replaces": bwd_site,
+         "launches": c_train["flash_attention_bwd_dkdv"],
+         "max_abs_err": max(errs[name][C_F_MAIN] for name in BWD_PARTS),
+         "ms": cb["whole"][0], "plain_ms": cb["whole"][1], "bound_ms": cb["whole"][2],
+         "bound_by": cb["whole"][3], "library_ms": cb["whole"][4]})
     print(f"[time] chip_smoke.py total {time.perf_counter() - t_start:.1f} s ({card})",
           flush=True)
     print(json.dumps(record))

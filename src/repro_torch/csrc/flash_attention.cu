@@ -19,7 +19,8 @@
 // between the two products, and the softmax's exponentials on the critical
 // path of every warpgroup at once.
 // Design against that bound (bf16). Which kernel runs is a rule on
-// (D, G, window), ws_route: flash_ws_kernel<D> at D = 64 and 128,
+// (D, G, window), ws_route: flash_ws_kernel<D> at D = 64 and 128 (and at 96,
+// MLA's qk head dim, on D = 128's tiles: flash_ws_kernel<128, 96>),
 // flash_bf16_kernel<32> at 32.
 //  * Common to both: TMA loads of Q, K and V tiles into shared memory, each
 //    slot with a "full" mbarrier (the TMA's byte count) and an "empty" one
@@ -33,7 +34,12 @@
 //    swizzle's span: each tile arrives as two 64-column boxes, two TMA
 //    loads into the tile's two halves ([rows][64] each), and the k16 steps
 //    of S = Q K^T walk into the second half after four (hopper.cuh:
-//    tma_tile, k_step). S = Q K^T is wgmma with both operands read from
+//    tma_tile, k_step). A row of 96 (192 B) takes D = 128's tiles: its maps
+//    are 96 columns wide, so the second box is half out of bounds and the
+//    TMA fills its last 32 columns with zeros (and stores none of them);
+//    S = Q K^T skips the two zero k16 steps, P V runs over all 128 columns,
+//    a quarter of them zeros (a first version; a 32-column box would spare
+//    them). S = Q K^T is wgmma with both operands read from
 //    shared memory through descriptors (Q and K are K-major as they lie);
 //    O += P V is wgmma with A = P from registers (the float32 accumulator
 //    fragment of S, rounded to bf16 pairs, has the layout of the A register
@@ -91,7 +97,7 @@
 //    no store ptxas may drop the products no output reads).
 //  * float32 inputs have no exact tensor-core path (TF32 would round
 //    them), so they take a scalar kernel: one thread per query row (two at
-//    D = 128, each holding half of the row's q and o, their dot products
+//    D = 96 and 128, each holding half of the row's q and o, their dot products
 //    joined by a shuffle), K/V tiles in shared memory read as broadcasts.
 //
 // Layout: every tensor is addressed by (batch, head, seq) strides with a
@@ -453,13 +459,14 @@ __device__ __forceinline__ void fence_frag(uint32_t (&r)[KS][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
-// S = Q K^T for one warpgroup: 64 x BN over D / 16 k16 steps, both operands
+// S = Q K^T for one warpgroup: 64 x BN over DK / 16 k16 steps, both operands
 // K-major in shared memory (at D = 128 their halves BM and BN rows on,
-// hopper.cuh k_step).
-template <int D>
+// hopper.cuh k_step). DK < D: the tiles' columns past DK are zeros (head
+// dim 96 on D = 128's tiles), so their steps are skipped.
+template <int D, int DK = D>
 __device__ __forceinline__ void ws_qk(float* s, uint64_t dq, uint64_t dk) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DK / 16; ++kk) {
     if constexpr (ws::BN == 128)
       wgmma_ss_n128(s, k_step<D>(dq, BM, kk), k_step<D>(dk, ws::BN, kk), kk > 0);
     else
@@ -600,13 +607,16 @@ struct WsTile {
 
 // Grid: one block an SM (at most one a tile), each walking its tiles
 // ws_tile(0), ws_tile(1), ... of the B H ceil(S / BM) output tiles;
-// ws::NTHREADS threads; ws::Layout<D>::BYTES of dynamic shared memory. Warpgroups
+// ws::NTHREADS threads; ws::Layout<D>::BYTES of dynamic shared memory. D is
+// the tiles' width and DK the head dim (DK = 96 on D = 128: the maps' rows
+// are 96 wide, so the TMA fills each tile's columns 96-127 with zeros and
+// stores only the first 96 of O's). Warpgroups
 // 0 and 1 consume query rows [q0 + 64 wg, + 64) of each tile; warpgroup 2
 // is the producer, whose first thread issues the TMA loads. The K and V
 // rings run on across the block's tiles, and the next tile's Q is loaded
 // once the consumers' last S = Q K^T of this one is done, so that the
 // next tile's loads run under this tile's last P V and its epilogue.
-template <int D>
+template <int D, int DK = D>
 __global__ void __launch_bounds__(ws::NTHREADS, 1)
     flash_ws_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -809,7 +819,7 @@ __global__ void __launch_bounds__(ws::NTHREADS, 1)
       bar_sync(mine, 256);
       fence_regs<NS>(s);
       wg_fence();
-      ws_qk<D>(s, dq, dk0 + (uint64_t)((st * TILE) >> 4));
+      ws_qk<D, DK>(s, dq, dk0 + (uint64_t)((st * TILE) >> 4));
       wg_commit();
       if (wg == 0 || !(last_tile && t.n == 1)) bar_arrive(theirs, 256);
       wg_wait<0>();
@@ -827,7 +837,7 @@ __global__ void __launch_bounds__(ws::NTHREADS, 1)
       bar_sync(mine, 256);
       fence_regs<NS>(s);
       wg_fence();
-      ws_qk<D>(s, dq, dk0 + (uint64_t)((sk * TILE) >> 4));
+      ws_qk<D, DK>(s, dq, dk0 + (uint64_t)((sk * TILE) >> 4));
       wg_commit();
       rescale<NO>(o, al0, al1);  // under S: tile it - 1's factor
       mbar_wait(&full_v[sv], ((kv + it - 1) / SLOTS) & 1);
@@ -871,7 +881,7 @@ __global__ void __launch_bounds__(ws::NTHREADS, 1)
 // ---------------------------------------------------------------------------
 template <int D>
 __host__ __device__ constexpr int f32_tpr() {
-  return D > 64 ? D / 64 : 1;
+  return D > 64 ? 2 : 1;
 }
 
 template <int D>
@@ -1005,11 +1015,12 @@ int launch_bf16(const Args& a, int B, cudaStream_t st) {
 }
 
 // The warp-specialized bf16 forward: tensor maps of 128-row Q boxes,
-// BN-row K and V boxes and 64-row O boxes. Once per device: its shared
-// memory above 48 KB, and the check that its register count at launch
-// leaves room for the consumers' setmaxnreg.inc from what the producer
-// gives up (an increase the pool cannot serve would never return).
-template <int D>
+// BN-row K and V boxes and 64-row O boxes, DK columns wide (the head dim;
+// D the tiles' width). Once per device: its shared memory above 48 KB, and
+// the check that its register count at launch leaves room for the
+// consumers' setmaxnreg.inc from what the producer gives up (an increase
+// the pool cannot serve would never return).
+template <int D, int DK = D>
 int launch_ws(const Args& a, int B, cudaStream_t st) {
   using namespace ws;
   constexpr int BYTES = Layout<D>::BYTES;
@@ -1019,12 +1030,12 @@ int launch_ws(const Args& a, int B, cudaStream_t st) {
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv;
   TmaArgs t;
-  int rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BM, &t.q_slots);
-  if (!rc) rc = encode(&tk, a.k, D, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BN, &t.k_slots);
-  if (!rc) rc = encode(&tv, a.v, D, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BN, &t.v_slots);
+  int rc = encode(&tq, a.q, DK, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BM, &t.q_slots);
+  if (!rc) rc = encode(&tk, a.k, DK, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BN, &t.k_slots);
+  if (!rc) rc = encode(&tv, a.v, DK, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BN, &t.v_slots);
   CUtensorMap to;
   int o_slots = 0;
-  if (!rc) rc = encode(&to, a.o, D, a.S, a.H, B, a.os.s, a.os.h, a.os.b, BQ, &o_slots);
+  if (!rc) rc = encode(&to, a.o, DK, a.S, a.H, B, a.os.s, a.os.h, a.os.b, BQ, &o_slots);
   if (rc) return rc;
   t.o = static_cast<bf16*>(a.o);
   t.lse = a.lse;
@@ -1041,11 +1052,12 @@ int launch_ws(const Args& a, int B, cudaStream_t st) {
     if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return (int)err;
     sms[dev < 64 ? dev : 0] = n;
-    err = cudaFuncSetAttribute(flash_ws_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               BYTES);
+    err = cudaFuncSetAttribute(flash_ws_kernel<D, DK>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
     if (err != cudaSuccess) return (int)err;
     cudaFuncAttributes attr;
-    if ((err = cudaFuncGetAttributes(&attr, flash_ws_kernel<D>)) != cudaSuccess) return (int)err;
+    if ((err = cudaFuncGetAttributes(&attr, flash_ws_kernel<D, DK>)) != cudaSuccess)
+      return (int)err;
     const int r = attr.numRegs;
     if (r > CONSUMER_REGS || r < PRODUCER_REGS ||
         (r - PRODUCER_REGS) * 128 < (CONSUMER_REGS - r) * 128 * CONSUMERS)
@@ -1058,18 +1070,18 @@ int launch_ws(const Args& a, int B, cudaStream_t st) {
 #else
   const int grid = tiles < sms[dev < 64 ? dev : 0] ? tiles : sms[dev < 64 ? dev : 0];
 #endif
-  flash_ws_kernel<D><<<grid, NTHREADS, BYTES, st>>>(tq, tk, tv, to, t, o_slots, B);
+  flash_ws_kernel<D, DK><<<grid, NTHREADS, BYTES, st>>>(tq, tk, tv, to, t, o_slots, B);
   return (int)cudaGetLastError();
 }
 
 // Which bf16 kernel runs at head dim D with G = H / K query heads a KV
-// head and a window (0: none): flash_ws_kernel<D> where this holds,
-// flash_bf16_kernel<D> elsewhere (kernels/flash_attention.py fwd_kernel
-// mirrors it). At D = 64 flash_ws_kernel was measured faster than
-// flash_bf16_kernel at every G and window the models run (PERF.md), so the
-// rule rests on D alone.
+// head and a window (0: none): flash_ws_kernel where this holds (at D = 96,
+// MLA's qk head dim, on D = 128's tiles), flash_bf16_kernel<D> elsewhere
+// (kernels/flash_attention.py fwd_kernel mirrors it). At D = 64
+// flash_ws_kernel was measured faster than flash_bf16_kernel at every G and
+// window the models run (PERF.md), so the rule rests on D alone.
 bool ws_route(int D, int G, int window) {
-  return D == 128 || D == 64;
+  return D == 128 || D == 96 || D == 64;
 }
 
 }  // namespace
@@ -1099,11 +1111,14 @@ extern "C" int repro_flash_attention_lse(
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   const bool ws = dtype == 1 && ws_route(D, H / K, window);
   if (ws && D == 128) return launch_ws<128>(a, B, st);
+  if (ws && D == 96) return launch_ws<128, 96>(a, B, st);
   if (ws && D == 64) return launch_ws<64>(a, B, st);
   if (dtype == 1 && !ws && D == 32) return launch_bf16<32>(a, B, st);
   constexpr int wide = BQ * f32_tpr<128>();  // threads a float32 block at D = 128
   if (dtype == 0 && D == 128) {
     flash_f32_kernel<128><<<grid, wide, 0, st>>>(a);
+  } else if (dtype == 0 && D == 96) {
+    flash_f32_kernel<96><<<grid, wide, 0, st>>>(a);
   } else if (dtype == 0 && D == 64) {
     flash_f32_kernel<64><<<grid, BQ, 0, st>>>(a);
   } else if (dtype == 0 && D == 32) {

@@ -115,6 +115,12 @@
 //    64-row tiles, 250 registers at launch, had ptxas serialize its wgmma,
 //    C7511, and left the SM's tensor cores to one chain.) K and V of 128
 //    rows take 64 KB, the ring 64 KB.
+//  * Head dim 96 (MLA's qk head dim, minicpm3-4b) runs on D = 128's kernels
+//    and tiles (dq_d128_kernel<96>, dkdv_bf16_kernel<128, 96>): the tensor
+//    maps are 96 columns wide, so the TMA fills each tile's last 32 columns
+//    with zeros and stores none of dQ's; S and dP skip the two zero k16
+//    steps; dQ, dK and dV run over all 128 columns, the last 32 zeros, and
+//    dK/dV writes the first 96. A first version: it does D = 128's work.
 //  * Diagnostic macros (tools/bwd_breakdown.py): BWD_DQ_WGS (dQ's consumer
 //    warpgroups at D <= 64), BWD_NOEXP (P = its exponent's argument, no
 //    mask), BWD_NOSECOND (no dQ, dV, dK products), BWD_NOLOAD (dq_d128_kernel
@@ -123,7 +129,7 @@
 //    the last four give wrong gradients by design (and with no store ptxas
 //    may drop the products no output reads).
 // float32 inputs have no exact tensor-core path (TF32 would round them), so
-// they take scalar kernels (one thread a row, two at D = 128, each with half
+// they take scalar kernels (one thread a row, two at D = 96 and 128, each with half
 // the row's columns; the other side's rows read
 // from shared memory as broadcasts); their dQ kernel also computes each
 // row's Dr from its own O and dO row, writes it, and runs first.
@@ -610,6 +616,7 @@ __device__ __forceinline__ void dq128_wait(int it, int it_lo, int j0, float* s, 
   if (it > it_lo) mbar_arrive(&empty[(j0 + it - 1) % SLOTS]);
 }
 
+template <int DK>
 __device__ __forceinline__ void dq128_issue(int it, int it_lo, int it_hi, int lo, int j0, float* s,
                                             float* dp, float* dq, uint64_t* full,
                                             uint64_t desc_q, uint64_t desc_do, uint64_t desc_k0,
@@ -644,7 +651,8 @@ __device__ __forceinline__ void dq128_issue(int it, int it_lo, int it_hi, int lo
   if (it + 1 < it_hi) {  // S = Q K^T and dP = dO V^T (64 x 64 each) of the next tile
     const int nx = (j0 + it + 1) % SLOTS;
     mbar_wait(&full[nx], ((j0 + it + 1) / SLOTS) & 1);
-    issue_two<D>(s, dp, desc_q, desc_k0 + SLOT * nx, desc_do, desc_v0 + SLOT * nx, BM, BN);
+    issue_two<D, 64, DK>(s, dp, desc_q, desc_k0 + SLOT * nx, desc_do, desc_v0 + SLOT * nx, BM,
+                         BN);
   }
 #ifndef BWD_NOSECOND
   // dQ (+)= dS K: K read MN-major, BN / 16 k16 steps of 16 key rows. The
@@ -662,7 +670,10 @@ __device__ __forceinline__ void dq128_issue(int it, int it_lo, int it_hi, int lo
 // Grid: min(tiles, SMs) blocks of dq128::THREADS threads and dq128::BYTES
 // of dynamic shared memory, over the B H ceil(S / 128) output tiles.
 // `o`/`os`: O and its strides, read by the Dr pass; `tdq`: dQ's map, 64-row
-// boxes.
+// boxes. DK: the head dim, 128 or 96 (the maps 96 columns wide: the TMA
+// fills the tiles' last 32 columns with zeros and stores none of dQ's, S
+// and dP skip their two zero k16 steps, and the Dr pass reads O's 96).
+template <int DK>
 __global__ void __launch_bounds__(dq128::THREADS, 1)
     dq_d128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
@@ -776,6 +787,7 @@ __global__ void __launch_bounds__(dq128::THREADS, 1)
                   reinterpret_cast<const uint4*>(smem + DO + buf * ROWS + hf * BM * 128 + rr * 128);
 #pragma unroll 4
               for (int c = 0; c < 8; ++c) {
+                if (hf * 64 + (c ^ (rr % 8)) * 8 >= DK) continue;  // dO's zero columns
                 const uint4 x = __ldg(reinterpret_cast<const uint4*>(orow + hf * 64) + (c ^ (rr % 8)));
                 const uint4 y = pd[c];
                 const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
@@ -848,8 +860,8 @@ __global__ void __launch_bounds__(dq128::THREADS, 1)
       const int j = kv + it_lo;
       mbar_wait(&full[j % SLOTS], (j / SLOTS) & 1);
       wg_fence();
-      issue_two<D>(s, dp, desc_q, desc_k0 + (TILE >> 4) * (j % SLOTS), desc_do,
-                   desc_v0 + (TILE >> 4) * (j % SLOTS), BM, BN);
+      issue_two<D, 64, DK>(s, dp, desc_q, desc_k0 + (TILE >> 4) * (j % SLOTS), desc_do,
+                           desc_v0 + (TILE >> 4) * (j % SLOTS), BM, BN);
       wg_commit();
     }
     mbar_wait(&dr_full[buf], (k >> 1) & 1);
@@ -859,8 +871,8 @@ __global__ void __launch_bounds__(dq128::THREADS, 1)
 
     for (int it = it_lo; it < it_hi; ++it) {
       dq128_wait(it, it_lo, kv, s, dp, dq, empty);
-      dq128_issue(it, it_lo, it_hi, t.lo, kv, s, dp, dq, full, desc_q, desc_do, desc_k0,
-                  desc_v0, r, a);
+      dq128_issue<DK>(it, it_lo, it_hi, t.lo, kv, s, dp, dq, full, desc_q, desc_do, desc_k0,
+                      desc_v0, r, a);
     }
     // (unconditional: ptxas then knows no product is in flight when dQ is
     // read for the store)
@@ -928,8 +940,8 @@ struct KvCols {
 // One tile of a dK/dV warpgroup's run [it_lo, it_hi) of the block's tiles
 // (one head's query tiles that its keys see), with one tile of look-ahead
 // as dq_step: tile it's dV and dK products go in one group behind tile
-// it + 1's S^T and dP^T.
-template <int D>
+// it + 1's S^T and dP^T (over DK of the tiles' D columns).
+template <int D, int DK = D>
 __device__ __forceinline__ void kv_step(int it, int it_lo, int it_hi, float* s, float* dp,
                                         float* dk, float* dv, uint64_t* full, uint64_t* empty,
                                         const float* lse_s, const float* dr_s, uint64_t desc_k,
@@ -983,8 +995,8 @@ __device__ __forceinline__ void kv_step(int it, int it_lo, int it_hi, float* s, 
   if (it + 1 < it_hi) {  // S^T = K Q^T and dP^T = V dO^T of the next tile
     const int nx = (it + 1) % STAGES;
     mbar_wait(&full[nx], ((it + 1) / STAGES) & 1);
-    issue_two<D, BN>(s, dp, desc_k, desc_q0 + SLOT * nx, desc_v, desc_do0 + SLOT * nx,
-                     KvSmem<D>::BM, BN);
+    issue_two<D, BN, DK>(s, dp, desc_k, desc_q0 + SLOT * nx, desc_v, desc_do0 + SLOT * nx,
+                         KvSmem<D>::BM, BN);
   }
 #ifndef BWD_NOSECOND
   // dV += P^T dO, dK += dS^T Q: dO and Q read MN-major, BN / 16 k16 steps
@@ -999,7 +1011,9 @@ __device__ __forceinline__ void kv_step(int it, int it_lo, int it_hi, float* s, 
   wg_commit();
 }
 
-template <int D>
+// D: the tiles' width; DK: the head dim (96 on D = 128's tiles, as
+// dq_d128_kernel<96>: dK and dV written for the first 96 columns).
+template <int D, int DK = D>
 __global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
     dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap tq,
@@ -1110,17 +1124,17 @@ __global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
         const int st = lo_it % STAGES;
         mbar_wait(&full[st], (lo_it / STAGES) & 1);
         wg_fence();
-        issue_two<D, BN>(s, dp, desc_k, desc_q0 + (L::TILE >> 4) * st, desc_v,
-                         desc_do0 + (L::TILE >> 4) * st, L::BM, BN);
+        issue_two<D, BN, DK>(s, dp, desc_k, desc_q0 + (L::TILE >> 4) * st, desc_v,
+                             desc_do0 + (L::TILE >> 4) * st, L::BM, BN);
         wg_commit();
         // two steps a trip: ptxas schedules dK/dV's better so (dQ's, on
         // three warpgroups, worse), as measured on an H100
         for (int it = lo_it;;) {
-          kv_step<D>(it, lo_it, hi_it, s, dp, dk, dv, full, empty, lse_s, dr_s, desc_k, desc_v,
-                     desc_q0, desc_do0, c, a);
+          kv_step<D, DK>(it, lo_it, hi_it, s, dp, dk, dv, full, empty, lse_s, dr_s, desc_k,
+                         desc_v, desc_q0, desc_do0, c, a);
           if (++it == hi_it) break;
-          kv_step<D>(it, lo_it, hi_it, s, dp, dk, dv, full, empty, lse_s, dr_s, desc_k, desc_v,
-                     desc_q0, desc_do0, c, a);
+          kv_step<D, DK>(it, lo_it, hi_it, s, dp, dk, dv, full, empty, lse_s, dr_s, desc_k,
+                         desc_v, desc_q0, desc_do0, c, a);
           if (++it == hi_it) break;
         }
         wg_wait<0>();
@@ -1130,8 +1144,8 @@ __global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
       }
       for (int it = hi_it; it < base + n_qt; ++it) skip(it);
     }
-    store_acc<D>(dk, a.scale, a.dk, a.dks, b, kh, kp0, c0, a.S);
-    store_acc<D>(dv, 1.f, a.dv, a.dvs, b, kh, kp0, c0, a.S);
+    store_acc<DK>(dk, a.scale, a.dk, a.dks, b, kh, kp0, c0, a.S);
+    store_acc<DK>(dv, 1.f, a.dv, a.dvs, b, kh, kp0, c0, a.S);
   }
 }
 
@@ -1314,19 +1328,22 @@ int prepare(Kernel kernel, int smem, unsigned long long* done) {
   return 0;
 }
 
-// dq_d128_kernel: tensor maps of 128-row Q and dO boxes, 64-row K, V and
-// dQ boxes; a persistent grid of one block an SM (at most one a tile).
-// Once per device: its shared memory above 48 KB, and the check that its
-// register count at launch leaves room for the consumers' setmaxnreg.inc.
+// dq_d128_kernel<DK>: tensor maps of 128-row Q and dO boxes, 64-row K, V
+// and dQ boxes, DK columns wide; a persistent grid of one block an SM (at
+// most one a tile). Once per device: its shared memory above 48 KB, and
+// the check that its register count at launch leaves room for the
+// consumers' setmaxnreg.inc.
+template <int DK>
 int launch_dq128(const Args& a, int B, TmaArgs t, cudaStream_t st) {
   using namespace dq128;
   CUtensorMap tq, tdo, tk, tv, tdq;
   int dq_slots = 0;
-  int rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BM, &t.q_slots);
-  if (!rc) rc = encode(&tdo, a.dout, D, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, BM, &t.do_slots);
-  if (!rc) rc = encode(&tk, a.k, D, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BN, &t.k_slots);
-  if (!rc) rc = encode(&tv, a.v, D, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BN, &t.v_slots);
-  if (!rc) rc = encode(&tdq, a.dq, D, a.S, a.H, B, a.dqs.s, a.dqs.h, a.dqs.b, WG_ROWS, &dq_slots);
+  int rc = encode(&tq, a.q, DK, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BM, &t.q_slots);
+  if (!rc) rc = encode(&tdo, a.dout, DK, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, BM, &t.do_slots);
+  if (!rc) rc = encode(&tk, a.k, DK, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BN, &t.k_slots);
+  if (!rc) rc = encode(&tv, a.v, DK, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BN, &t.v_slots);
+  if (!rc)
+    rc = encode(&tdq, a.dq, DK, a.S, a.H, B, a.dqs.s, a.dqs.h, a.dqs.b, WG_ROWS, &dq_slots);
   if (rc) return rc;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1338,22 +1355,24 @@ int launch_dq128(const Args& a, int B, TmaArgs t, cudaStream_t st) {
     if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return (int)err;
     sms[dev < 64 ? dev : 0] = n;
-    err = cudaFuncSetAttribute(dq_d128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+    err = cudaFuncSetAttribute(dq_d128_kernel<DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               BYTES);
     if (err != cudaSuccess) return (int)err;
     cudaFuncAttributes attr;
-    if ((err = cudaFuncGetAttributes(&attr, dq_d128_kernel)) != cudaSuccess) return (int)err;
+    if ((err = cudaFuncGetAttributes(&attr, dq_d128_kernel<DK>)) != cudaSuccess) return (int)err;
     const int r = attr.numRegs, prod = dq128::PRODUCER_REGS, cons = dq128::CONSUMER_REGS;
     if (r > cons || r < prod || (r - prod) * 128 < (cons - r) * 128 * NC)
       return (int)cudaErrorInvalidConfiguration;
     if (dev < 64) ready |= 1ull << dev;
   }
   const int tiles = (a.S + BM - 1) / BM * a.H * B, n_sm = sms[dev < 64 ? dev : 0];
-  dq_d128_kernel<<<tiles < n_sm ? tiles : n_sm, THREADS, BYTES, st>>>(
+  dq_d128_kernel<DK><<<tiles < n_sm ? tiles : n_sm, THREADS, BYTES, st>>>(
       tq, tdo, tk, tv, tdq, t, static_cast<const bf16*>(a.o), a.os, dq_slots, B);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+// D: the tiles' width; DK: the head dim (96 on D = 128's tiles).
+template <int D, int DK = D>
 int launch_bf16(int kernel, const Args& a, int B, cudaStream_t st) {
   // Encoding a tensor map needs a current context, and a host thread that
   // has made no CUDA call yet (the autograd engine's worker, when this is
@@ -1379,7 +1398,7 @@ int launch_bf16(int kernel, const Args& a, int B, cudaStream_t st) {
   t.scale_log2 = a.scale * LOG2E;
   int rc;
   if (kernel == 1 && D == 128) {
-    return launch_dq128(a, B, t, st);
+    return launch_dq128<DK>(a, B, t, st);
   } else if (kernel == 1) {
     CUtensorMap tq, tdo, to, tk, tv;
     constexpr int BM = DqSmem<D>::BM;
@@ -1400,29 +1419,32 @@ int launch_bf16(int kernel, const Args& a, int B, cudaStream_t st) {
   } else {
     CUtensorMap tk, tv, tq, tdo;
     constexpr int BM = KvSmem<D>::BM;
-    rc = encode(&tk, a.k, D, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BM, &t.k_slots);
-    if (!rc) rc = encode(&tv, a.v, D, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BM, &t.v_slots);
+    rc = encode(&tk, a.k, DK, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BM, &t.k_slots);
+    if (!rc) rc = encode(&tv, a.v, DK, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BM, &t.v_slots);
     constexpr int QR = KvSmem<D>::BN;
-    if (!rc) rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, QR, &t.q_slots);
-    if (!rc) rc = encode(&tdo, a.dout, D, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, QR, &t.do_slots);
+    if (!rc) rc = encode(&tq, a.q, DK, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, QR, &t.q_slots);
+    if (!rc)
+      rc = encode(&tdo, a.dout, DK, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, QR, &t.do_slots);
     static unsigned long long done = 0;
-    if (!rc) rc = prepare<KV_WGS>(dkdv_bf16_kernel<D>, KvSmem<D>::BYTES, &done);
+    if (!rc) rc = prepare<KV_WGS>(dkdv_bf16_kernel<D, DK>, KvSmem<D>::BYTES, &done);
     if (rc) return rc;
-    dkdv_bf16_kernel<D><<<dim3(a.K, B, (a.S + BM - 1) / BM), Shape<KV_WGS>::THREADS,
-                          KvSmem<D>::BYTES, st>>>(
+    dkdv_bf16_kernel<D, DK><<<dim3(a.K, B, (a.S + BM - 1) / BM), Shape<KV_WGS>::THREADS,
+                              KvSmem<D>::BYTES, st>>>(
         tk, tv, tq, tdo, t);
   }
   return (int)cudaGetLastError();
 }
 
-template <int D>
+// D: the bf16 tiles' width; DK: the head dim (96 on D = 128's tiles; the
+// float32 kernels take it as it is).
+template <int D, int DK = D>
 int launch(int kernel, const Args& a, int B, int dtype, cudaStream_t st) {
-  if (dtype == 1) return launch_bf16<D>(kernel, a, B, st);
-  constexpr int rows = F32<D>::FT, threads = F32<D>::FT * F32<D>::TPR;
+  if (dtype == 1) return launch_bf16<D, DK>(kernel, a, B, st);
+  constexpr int rows = F32<DK>::FT, threads = F32<DK>::FT * F32<DK>::TPR;
   if (kernel == 1)
-    dq_f32_kernel<D><<<dim3((a.S + rows - 1) / rows, a.H, B), threads, 0, st>>>(a);
+    dq_f32_kernel<DK><<<dim3((a.S + rows - 1) / rows, a.H, B), threads, 0, st>>>(a);
   else
-    dkdv_f32_kernel<D><<<dim3((a.S + rows - 1) / rows, a.K, B), threads, 0, st>>>(a);
+    dkdv_f32_kernel<DK><<<dim3((a.S + rows - 1) / rows, a.K, B), threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1453,6 +1475,7 @@ extern "C" int repro_flash_attention_bwd(int kernel, const void* q, const void* 
   a.scale = 1.0f / sqrtf((float)D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128) return launch<128>(kernel, a, B, dtype, st);
+  if (D == 96) return launch<128, 96>(kernel, a, B, dtype, st);
   if (D == 64) return launch<64>(kernel, a, B, dtype, st);
   if (D == 32) return launch<32>(kernel, a, B, dtype, st);
   return (int)cudaErrorInvalidValue;

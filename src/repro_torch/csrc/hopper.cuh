@@ -210,23 +210,24 @@ __device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// s = A_s B_s^T and dp = A_p B_p^T, 64 x N each (N 64 or 32) over D: every
-// operand K-major in shared memory (descriptors of its first k16 step); the
-// A operands' tiles have ra rows, the B operands' rb (their halves' offset
-// at D = 128)
-template <int D, int N = 64>
+// s = A_s B_s^T and dp = A_p B_p^T, 64 x N each (N 64 or 32) over DK of the
+// tiles' D columns (DK < D: the rest are zeros, head dim 96 on D = 128's
+// tiles): every operand K-major in shared memory (descriptors of its first
+// k16 step); the A operands' tiles have ra rows, the B operands' rb (their
+// halves' offset at D = 128)
+template <int D, int N = 64, int DK = D>
 __device__ __forceinline__ void issue_two(float* s, float* dp, uint64_t as, uint64_t bs,
                                           uint64_t ap, uint64_t bp, int ra, int rb) {
   static_assert(N == 64 || N == 32, "issue_two: N is 64 or 32");
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DK / 16; ++kk) {
     if constexpr (N == 64)
       wgmma_ss_n64(s, k_step<D>(as, ra, kk), k_step<D>(bs, rb, kk), kk > 0);
     else
       wgmma_ss_n32(s, k_step<D>(as, ra, kk), k_step<D>(bs, rb, kk), kk > 0);
   }
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DK / 16; ++kk) {
     if constexpr (N == 64)
       wgmma_ss_n64(dp, k_step<D>(ap, ra, kk), k_step<D>(bp, rb, kk), kk > 0);
     else

@@ -38,7 +38,7 @@ bwd_dkdv_launches = 0
 #: earlier or altered version on the same calls (``tools/k1_witness.py``)
 library = None
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _I64 = ctypes.c_longlong
 
@@ -47,13 +47,14 @@ def fwd_kernel(dtype, D, G, window=None):
     """The forward kernel a CUDA call launches at head dim ``D`` with ``G``
     query heads a KV head and ``window``: ``flash_f32_kernel`` in float32;
     in bf16 ``flash_ws_kernel`` (warp-specialized, persistent) at D = 64 and
-    128, ``flash_bf16_kernel`` at 32. It mirrors the C entry's ``ws_route``
+    128, and at 96 (MLA's qk head dim) on 128's tiles, ``flash_bf16_kernel``
+    at 32. It mirrors the C entry's ``ws_route``
     (``csrc/flash_attention.cu``), a rule on (D, G, window) that
     ``tests/test_torch_flash_route.py`` holds it to; no route depends on G
     or the window today."""
     if dtype == torch.float32:
         return "flash_f32_kernel"
-    return "flash_ws_kernel" if D in (64, 128) else "flash_bf16_kernel"
+    return "flash_ws_kernel" if D in (64, 96, 128) else "flash_bf16_kernel"
 
 
 @functools.cache

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gla_chunk as _gla
+from repro_torch.kernels import latent_decode_attention as _latent
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import ref
 
@@ -117,3 +118,23 @@ def paged_attention_pool_view(q, view, *, window=None, force=None):
     k_pages, v_pages, page_table, lengths = view
     return paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
                                   window=window, force=force)
+
+
+def latent_decode_attention(q, lat, length, *, v_dim, scale, force=None):
+    """MLA's absorbed decode: one latent row a position is each query head's
+    key, and its first ``v_dim`` columns the value. q: [B,H,Dk]; lat:
+    [B,S,Dk]; positions < length; scores scaled by ``scale``."""
+    if _use_kernel(q, force):
+        return _latent.latent_decode_attention(q, lat, length, v_dim=v_dim, scale=scale)
+    return ref.naive_latent_decode_attention(q, lat, length, v_dim=v_dim, scale=scale)
+
+
+def paged_latent_decode_attention(q, lat_pages, page_table, lengths, *, v_dim, scale,
+                                  force=None):
+    """:func:`latent_decode_attention` over a page pool. q: [B,H,Dk];
+    lat_pages: [P, page, Dk]; page_table: [B, n] int32; lengths: [B] int32."""
+    if _use_kernel(q, force):
+        return _latent.paged_latent_decode_attention(q, lat_pages, page_table, lengths,
+                                                     v_dim=v_dim, scale=scale)
+    return ref.naive_paged_latent_decode_attention(q, lat_pages, page_table, lengths,
+                                                   v_dim=v_dim, scale=scale)

@@ -154,6 +154,35 @@ def naive_ring_decode_attention(q, k, v, pos, *, window):
     return torch.einsum("bhk,bhkd->bhd", p, vr.float()).to(q.dtype)
 
 
+def naive_latent_decode_attention(q, lat, length, *, v_dim, scale):
+    """MLA's absorbed decode: every query head attends to one latent row a
+    position, which is both its key and (its first ``v_dim`` columns) its
+    value. q: [B,H,Dk]; lat: [B,S,Dk]; attend to positions < length with
+    the scores scaled by ``scale``. Returns [B,H,v_dim] in q's type."""
+    s = torch.einsum("bhd,bsd->bhs", _acc(q), _acc(lat)) * scale
+    valid = torch.arange(lat.shape[1], device=q.device) < length
+    p = torch.softmax(s.masked_fill(~valid, -math.inf), dim=-1)
+    return torch.einsum("bhs,bsv->bhv", p, _acc(lat[..., :v_dim])).to(q.dtype)
+
+
+def naive_paged_latent_decode_attention(q, lat_pages, page_table, lengths, *, v_dim,
+                                        scale):
+    """:func:`naive_latent_decode_attention` through a page table. q:
+    [B,H,Dk]; lat_pages: [P, page, Dk] (any strides); page_table: [B, n]
+    int; lengths: [B] int. Each row's pages are gathered into a contiguous
+    cache; a length of 0 gives zeros, as the kernel does. Tensor ops only
+    (no host sync)."""
+    B, n = page_table.shape
+    _, page, Dk = lat_pages.shape
+    out = []
+    for b in range(B):
+        lat = lat_pages[page_table[b].long()].reshape(1, n * page, Dk)
+        o = naive_latent_decode_attention(q[b : b + 1], lat, lengths[b], v_dim=v_dim,
+                                          scale=scale)
+        out.append(torch.where(lengths[b] > 0, o, torch.zeros_like(o)))
+    return torch.cat(out)
+
+
 # ---------------------------------------------------------------------------
 # gated linear attention: h_t = exp(lg_t) h_{t-1} + k_t v_t^T ; y_t = q_t . h_t
 # q, k: [B,S,H,N]; v: [B,S,H,P]; lg: [B,S,H] log decays (<= 0). Sums float32.

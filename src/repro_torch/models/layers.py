@@ -191,6 +191,109 @@ def attn_apply(cfg, p, x, *, mode, cache, window=None, pos=None, force=None):
     return out, cache
 
 
+def mla_specs(cfg):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    return {
+        "wq_a": ParamSpec((d, m.q_lora_rank), ("embed", "lora")),
+        "q_ln": ParamSpec((m.q_lora_rank,), ("lora",), init="ones"),
+        "wq_b": ParamSpec((m.q_lora_rank, H * (m.qk_nope_dim + m.qk_rope_dim)),
+                          ("lora", "heads")),
+        "wkv_a": ParamSpec((d, m.kv_lora_rank + m.qk_rope_dim), ("embed", "lora")),
+        "kv_ln": ParamSpec((m.kv_lora_rank,), ("lora",), init="ones"),
+        "wkv_b": ParamSpec((m.kv_lora_rank, H * (m.qk_nope_dim + m.v_head_dim)),
+                           ("lora", "heads")),
+        "wo": ParamSpec((H * m.v_head_dim, d), ("heads", "embed")),
+    }
+
+
+def mla_scale(cfg):
+    """MLA's score scale, 1/sqrt(qk_nope + qk_rope): its prefill's and its
+    decode's. (The reference's absorbed decode scales by the latent row's
+    width, 1/sqrt(kv_lora + qk_rope), which differs from its own prefill
+    wherever kv_lora != qk_nope: ROADMAP queue 3, part C.)"""
+    return 1.0 / math.sqrt(cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim)
+
+
+def mla_apply(cfg, p, x, *, mode, cache, pos=None, force=None):
+    """Multi-head latent attention (minicpm3-4b), the reference's
+    ``mla_apply``: queries through a low-rank ``wq_a``/``wq_b``, keys and
+    values from one normed latent ``c`` of ``kv_lora_rank`` columns (through
+    ``wkv_b``) plus one rope key shared by the heads.
+
+    train / prefill: x [B,S,d]. K is [k_nope ‖ k_rope] per head and V is
+    zero-padded to the qk head dim (qk_nope + qk_rope), so K1 runs at that
+    head dim; O is sliced back to ``v_head_dim``. The prefill writes each
+    position's latent row [c ‖ k_rope] (kv_lora + rope columns) into
+    ``cache['lat']`` [B,S_max,kv_lora+rope].
+    decode: x [B,d]; the absorbed form: ``wkv_b``'s key half is folded into
+    q (q_eff = [q_nope wk_b ‖ q_rope]), the row of ``pos`` goes into the
+    cache in place, and every head attends to the latent rows below
+    ``pos + 1`` (its value their first kv_lora columns,
+    ``ops.latent_decode_attention``); ``wkv_b``'s value half and ``wo``
+    follow. paged_decode: one lane over the page pool, ``cache['lat']`` the
+    layer's pages [P, page, 1, kv_lora+rope] beside the lane's ``table``,
+    ``lengths`` and ``slot`` (as ``attn_apply`` takes them).
+    Returns (out, cache)."""
+    m = cfg.mla
+    H = cfg.n_heads
+    nope, rd, vd, r = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, m.kv_lora_rank
+    theta = cfg.rope_theta
+    wkv_b = p["wkv_b"].view(r, H, nope + vd)
+    wk_b, wv_b = wkv_b[..., :nope], wkv_b[..., nope:]
+
+    if mode in ("train", "prefill"):
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)
+        cq = rmsnorm(x @ p["wq_a"], p["q_ln"])
+        q = (cq @ p["wq_b"]).view(B, S, H, nope + rd)
+        q = torch.cat([q[..., :nope], rope(q[..., nope:], positions, theta)], dim=-1)
+        ckv = x @ p["wkv_a"]
+        c = rmsnorm(ckv[..., :r], p["kv_ln"])
+        k_rope = rope(ckv[..., None, r:], positions, theta)             # [B,S,1,rd]
+        k_nope = torch.einsum("bsr,rhn->bshn", c, wk_b)
+        v = torch.einsum("bsr,rhv->bshv", c, wv_b)
+        k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
+        vpad = F.pad(v, (0, nope + rd - vd))
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), vpad.transpose(1, 2),
+                                force=force)
+        o = o.transpose(1, 2)[..., :vd].reshape(B, S, H * vd)
+        out = o @ p["wo"]
+        if mode == "prefill":
+            cache["lat"][:, :S] = torch.cat([c, k_rope[:, :, 0]], dim=-1)
+        return out, cache
+
+    if mode not in ("decode", "paged_decode"):
+        raise ValueError(f"mode {mode!r}; expected 'train', 'prefill', 'decode' "
+                         "or 'paged_decode'")
+    B, _ = x.shape
+    posv = torch.full((B,), pos, device=x.device)
+    cq = rmsnorm(x @ p["wq_a"], p["q_ln"])
+    q = (cq @ p["wq_b"]).view(B, H, nope + rd)
+    q_lat = torch.einsum("bhn,rhn->bhr", q[..., :nope], wk_b)
+    q_eff = torch.cat([q_lat, rope(q[..., nope:], posv, theta)], dim=-1)   # [B,H,r+rd]
+    ckv = x @ p["wkv_a"]
+    c = rmsnorm(ckv[..., :r], p["kv_ln"])
+    row = torch.cat([c, rope(ckv[:, None, r:], posv, theta)[:, 0]], dim=-1)
+    lat = cache["lat"]
+    # in place, where the JAX package returns an updated copy of the cache
+    if mode == "paged_decode":
+        if B != 1:
+            raise ValueError(f"paged_decode takes one lane; got {B} rows")
+        pages = lat[:, :, 0]                                            # [P, page, r+rd]
+        page, off = cache["slot"]
+        pages[page, off] = row[0]
+        o_lat = ops.paged_latent_decode_attention(q_eff, pages, cache["table"],
+                                                  cache["lengths"], v_dim=r,
+                                                  scale=mla_scale(cfg), force=force)
+    else:
+        lat[:, pos] = row
+        o_lat = ops.latent_decode_attention(q_eff, lat, pos + 1, v_dim=r,
+                                            scale=mla_scale(cfg), force=force)
+    o = torch.einsum("bhr,rhv->bhv", o_lat, wv_b).reshape(B, H * vd)
+    return o @ p["wo"], cache
+
+
 def mlp_specs(cfg, d_ff=None):
     d, f = cfg.d_model, d_ff or cfg.d_ff
     return {

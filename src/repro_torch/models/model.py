@@ -72,14 +72,15 @@ class Model:
     def decode_step_paged(self, params, token, pos: int, pool_views, pages):
         """One lane over the serving page pool. token: [1] int64; pos: index
         of the token; pool_views: per segment ``{"attn": {"k", "v"}}`` views
-        ``[P, page, n_layers, K, hd]`` of the pool's stores
+        ``[P, page, n_layers, K, hd]`` of the pool's stores (MLA's
+        ``{"lat"}``, K = 1 and hd the latent row)
         (``PagePool.layer_view``); pages: the lane's page list (host ints),
         which must already cover ``pos``. Each layer's K/V row is written
         into the page slot of ``pos`` in place, and attention covers
         positions ``< pos + 1`` through the page table.
         -> logits [1, Vp] float32."""
         cfg = self.cfg
-        page_size = pool_views[0]["attn"]["k"].shape[1]
+        page_size = next(iter(pool_views[0]["attn"].values())).shape[1]
         # the table and the length in one host-to-device copy
         meta = torch.tensor([*pages, pos + 1], dtype=torch.int32, device=token.device)
         lane = {"table": meta[:-1].view(1, -1), "lengths": meta[-1:],

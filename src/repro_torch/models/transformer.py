@@ -3,17 +3,19 @@ unstacked exceptional layers), block specs/apply, embeddings, head, and
 the loop over a segment's layers.
 
 Two blocks are here: ``attn`` (GQA attention, with or without q/k/v
-biases, full or sliding-window, then a SwiGLU MLP or a mixture of experts:
-the dense families granite-3-2b, minicpm-2b and qwen2.5-14b, llava-next-34b's
-backbone, granite-moe-3b-a800m and arctic-480b) and ``hymba`` (attention
-and the SSD mixer in parallel on the same normed input, then the MLP).
-llava's vision prefix enters through :func:`embed_tokens`. MLA, xLSTM and
-the multi-codebook frontend come with their own slices and raise until
-then. Params and caches keep the JAX package's layout: a list with one
+biases, full or sliding-window, or MLA (multi-head latent attention,
+minicpm3-4b), then a SwiGLU MLP or a mixture of experts: the dense
+families granite-3-2b, minicpm-2b, qwen2.5-14b and minicpm3-4b,
+llava-next-34b's backbone, granite-moe-3b-a800m and arctic-480b) and
+``hymba`` (attention and the SSD mixer in parallel on the same normed
+input, then the MLP). llava's vision prefix enters through
+:func:`embed_tokens`. xLSTM and the multi-codebook frontend come with their
+own slices and raise until then. Params and caches keep the JAX package's layout: a list with one
 entry per segment; a stacked (scanned) segment's leaves carry a leading
 ``[n_layers]`` axis, an unstacked one's (hymba's global-attention layers)
 do not. Cache leaves: attention ``{"k", "v"}`` ``[B, S_max, K*hd]`` (a
-window layer's ring ``[B, W_ring, K*hd]``) in ``cache_dtype``; hymba's
+window layer's ring ``[B, W_ring, K*hd]``), MLA's one latent leaf
+``{"lat"}`` ``[B, S_max, kv_lora + rope]``, in ``cache_dtype``; hymba's
 ``"ssd"`` ``{"state", "conv"}`` (``models/ssm.py``).
 """
 from __future__ import annotations
@@ -40,17 +42,17 @@ class Segment:
 
 
 def _check_supported(cfg):
-    if cfg.block not in ("attn", "hymba") or cfg.mla is not None \
-            or cfg.n_codebooks > 1 or (cfg.block == "hymba" and cfg.ssm is None):
+    if cfg.block not in ("attn", "hymba") or cfg.n_codebooks > 1 \
+            or (cfg.block == "hymba" and (cfg.ssm is None or cfg.mla is not None)):
         raise NotImplementedError(
-            f"{cfg.name}: only the attention decoders (dense, MoE, llava's backbone) "
-            "and hymba are ported so far")
+            f"{cfg.name}: only the attention decoders (dense, MLA, MoE, llava's "
+            "backbone) and hymba are ported so far")
 
 
 def check_trainable(cfg):
     """Training is ported for the blocks the port serves: the attention
-    decoders (K1's backward; the MoE layer and llava's projection under
-    autograd) and hymba (also the GLA backward)."""
+    decoders (K1's backward, MLA's at its qk head dim; the MoE layer and
+    llava's projection under autograd) and hymba (also the GLA backward)."""
     _check_supported(cfg)
 
 
@@ -72,7 +74,7 @@ def plan_segments(cfg):
 def block_specs(cfg, kind):
     d = cfg.d_model
     sp = {"ln1": ParamSpec((d,), ("embed",), init="ones"),
-          "attn": L.attn_specs(cfg)}
+          "attn": L.mla_specs(cfg) if cfg.mla is not None else L.attn_specs(cfg)}
     if kind == "hymba":
         sp["ssd"] = SSM.ssd_specs(cfg)
     if cfg.moe is not None or cfg.d_ff:
@@ -88,9 +90,13 @@ def block_apply(cfg, kind, p, x, *, mode, window, cache, pos=None, force=None,
     rmsnorm's default eps, as the JAX package does; only the final norm
     takes ``cfg.norm_eps``. In train mode ``cache`` is None."""
     xn = L.rmsnorm(x, p["ln1"])
-    a_out, _ = L.attn_apply(cfg, p["attn"], xn, mode=mode,
-                            cache=None if cache is None else cache["attn"],
-                            window=window, pos=pos, force=force)
+    a_cache = None if cache is None else cache["attn"]
+    if cfg.mla is not None:
+        a_out, _ = L.mla_apply(cfg, p["attn"], xn, mode=mode, cache=a_cache, pos=pos,
+                               force=force)
+    else:
+        a_out, _ = L.attn_apply(cfg, p["attn"], xn, mode=mode, cache=a_cache,
+                                window=window, pos=pos, force=force)
     if kind == "hymba":
         s_out, _ = SSM.ssd_apply(cfg, p["ssd"], xn, mode=mode,
                                  cache=None if cache is None else cache["ssd"],
@@ -170,8 +176,9 @@ def alloc_caches(cfg, batch_size, max_len, device, prompt_len=None):
     for seg in plan_segments(cfg):
         lead = (seg.n, batch_size) if seg.scanned else (batch_size,)
         rows = max_len if seg.window is None else ring_width(seg.window, prompt_len, max_len)
+        names = ("lat",) if cfg.mla is not None else ("k", "v")
         c = {"attn": {k: zeros((*lead, rows, cfg.kv_cache_width), kv_dtype)
-                      for k in ("k", "v")}}
+                      for k in names}}
         if seg.kind == "hymba":
             c["ssd"] = {k: zeros((*lead, *shape), getattr(torch, dt))
                         for k, (shape, dt) in SSM.cache_shapes(cfg).items()}
@@ -190,9 +197,10 @@ def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None, lane=Non
     drop.
 
     ``mode='paged_decode'``: ``caches[si]`` is ``{"attn": {"k", "v"}}`` of
-    the page pool's ``[P, page, n_layers, K, hd]`` views and ``lane`` the
-    lane's ``table`` / ``lengths`` / ``slot`` (see ``layers.attn_apply``);
-    layer ``i`` takes the strided view ``[:, :, i]``, nothing is copied.
+    the page pool's ``[P, page, n_layers, K, hd]`` views (MLA's ``{"lat"}``
+    ``[P, page, n_layers, 1, kv_lora + rope]``) and ``lane`` the lane's
+    ``table`` / ``lengths`` / ``slot`` (see ``layers.attn_apply``); layer
+    ``i`` takes the strided view ``[:, :, i]``, nothing is copied.
 
     ``mode='train'``: no caches (``caches`` is None); with ``cfg.remat``
     each layer runs under ``torch.utils.checkpoint`` (non-reentrant), which
@@ -219,8 +227,7 @@ def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None, lane=Non
         p, c = params["segments"][si], caches[si]
         for i in range(seg.n):
             if mode == "paged_decode":
-                ci = {"attn": {"k": c["attn"]["k"][:, :, i],
-                               "v": c["attn"]["v"][:, :, i], **lane}}
+                ci = {"attn": {**{k: t[:, :, i] for k, t in c["attn"].items()}, **lane}}
             else:
                 ci = tree_map(lambda t: t[i], c) if seg.scanned else c
             pi = tree_map(lambda t: t[i], p) if seg.scanned else p

@@ -90,7 +90,7 @@ class Server:
         capacity (``max_len``), so a restored server needs no prefill."""
         self.caches = tree
         if tree is not None:
-            self.max_len = max(c["attn"]["k"].shape[-2] for c in tree)
+            self.max_len = max(next(iter(c["attn"].values())).shape[-2] for c in tree)
 
     def _set_rng(self, key):
         self.rng_key = key
@@ -441,9 +441,11 @@ class ServeEngine:
 
     def _pool_views(self) -> list:
         """Per segment ``{"attn": {"k", "v"}}``: the pool's stores seen as
-        ``[P, page, n_layers, K, hd]`` (views; layer ``i`` is ``[:, :, i]``)."""
+        ``[P, page, n_layers, K, hd]`` (views; layer ``i`` is ``[:, :, i]``);
+        MLA's ``{"lat"}`` as ``[P, page, n_layers, 1, kv_lora + rope]``."""
         cfg = self.cfg
-        K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        K, hd = (1, cfg.kv_cache_width) if cfg.mla is not None \
+            else (cfg.n_kv_heads, cfg.resolved_head_dim)
         views = []
         for seg, keys in zip(T.plan_segments(cfg), self._keys):
             seg_views = {}

@@ -38,7 +38,7 @@ def _route_rule():
 
 @pytest.mark.parametrize("window", [None, 1024, 50])
 @pytest.mark.parametrize("G", [1, 2, 4, 5, 8, 16])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 96, 128])
 def test_wrapper_route_mirrors_the_sources(D, G, window):
     """fwd_kernel names the kernel the C entry's ws_route picks, at every
     head dim the forward is built for, G and window."""
@@ -53,6 +53,7 @@ def test_wrapper_route_mirrors_the_sources(D, G, window):
     ("1h hymba-1.5b, global layers", 64, 5, None, "flash_ws_kernel"),
     ("1m minicpm-2b", 64, 1, None, "flash_ws_kernel"),
     ("1q qwen2.5-14b", 128, 5, None, "flash_ws_kernel"),
+    ("1c minicpm3-4b, MLA's qk head dim", 96, 1, None, "flash_ws_kernel"),
     ("the smoke configs' head dim", 32, 4, None, "flash_bf16_kernel"),
 ])
 def test_model_shapes_route(row, D, G, window, kernel):
@@ -63,16 +64,18 @@ def test_model_shapes_route(row, D, G, window, kernel):
 
 def test_entry_dispatch_keeps_float32_and_head_dim_32_on_their_kernels():
     """The bf16 route goes to flash_ws_kernel at 64 and 128 (its only
-    instantiations), flash_bf16_kernel keeps head dim 32 (its only one),
-    and float32 keeps the scalar kernel at every head dim."""
+    tile widths; head dim 96 runs on 128's tiles), flash_bf16_kernel keeps
+    head dim 32 (its only one), and float32 keeps the scalar kernel at every
+    head dim."""
     src = _fwd()
     body = src[src.index('extern "C" int repro_flash_attention_lse('):]
     assert "const bool ws = dtype == 1 && ws_route(D, H / K, window);" in body
     assert sorted(re.findall(r"if \(ws && D == (\d+)\) return launch_ws<(\d+)>", body)) == \
         [("128", "128"), ("64", "64")]
+    assert "if (ws && D == 96) return launch_ws<128, 96>(a, B, st);" in body
     assert re.findall(r"return launch_bf16<(\d+)>", body) == ["32"]
     assert "if (dtype == 1 && !ws && D == 32) return launch_bf16<32>(a, B, st);" in body
-    for D in (32, 64, 128):
+    for D in (32, 64, 96, 128):
         assert re.search(rf"dtype == 0 && D == {D}\) \{{\s*flash_f32_kernel<{D}>", body)
     assert not _route_rule()(32, 1, 0)
 
@@ -177,8 +180,8 @@ def test_flash_ws_shared_memory_plan_fits(D):
 def test_new_kernels_check_their_registers_at_launch():
     """Both launchers read the kernel's register count at launch and refuse
     (cudaErrorInvalidConfiguration) a count the split cannot serve."""
-    for src, fn, kernel in ((_fwd(), "int launch_ws(", "flash_ws_kernel<D>"),
-                            (_bwd(), "int launch_dq128(", "dq_d128_kernel")):
+    for src, fn, kernel in ((_fwd(), "int launch_ws(", "flash_ws_kernel<D, DK>"),
+                            (_bwd(), "int launch_dq128(", "dq_d128_kernel<DK>")):
         body = src[src.index(fn):]
         body = body[:body.index("\n}\n")]
         assert f"cudaFuncGetAttributes(&attr, {kernel})" in body

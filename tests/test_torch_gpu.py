@@ -27,6 +27,7 @@ from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import gla_chunk as GC  # noqa: E402
+from repro_torch.kernels import latent_decode_attention as LA  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as PA  # noqa: E402
 from repro_torch.kernels.timing import graph_kernels  # noqa: E402
@@ -2044,3 +2045,278 @@ def test_decode_mma_graph_replays_after_the_counters_grow(cuda, D, G):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
     assert torch.equal(DA.decode_attention(q, k, v, S), big)
+
+
+# -- MLA (minicpm3-4b): K1 and its backward at qk head dim 96 on D = 128's
+#    tiles; the latent decode, every query head over one latent row of 288
+#    (its first 256 the value), contiguous and through a page table ---------
+
+LAT_SCALE = 1 / 96 ** 0.5     # MLA's 1/sqrt(qk_nope + qk_rope)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 129, 300, 1024])
+@pytest.mark.parametrize("G", [1, 5])
+def test_flash_d96_matches_plain(cuda, G, S, window, dtype):
+    """K1 at head dim 96, the model's strided views; its logsumexp too, and
+    the output with it written equal to the prefill's bit for bit."""
+    q, k, v = _flash_views(cuda, 2, 2 * G, 2, S, 96, dtype, seed=S + G)
+    _flash_held(q, k, v, window, dtype)
+    o, lse = FA.flash_attention(q, k, v, window=window, lse=True)
+    assert torch.equal(o, FA.flash_attention(q, k, v, window=window))
+    torch.testing.assert_close(lse, ref.naive_attention_lse(q, k, window=window), rtol=0,
+                               atol=LSE_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("S", [17, 65, 300, 1024])
+@pytest.mark.parametrize("G", [1, 5])
+def test_flash_bwd_d96_matches_plain(cuda, G, S, window, dtype):
+    """dq_d128_kernel<96> (with the row sums) and dkdv_bf16_kernel<128, 96>
+    against the plain backward; two runs equal bit for bit."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 2 * G, 2, S, 96, dtype, seed=S * G)
+    _bwd_held(q, k, v, do, window, dtype)
+    o, lse = FA.flash_attention(q, k, v, window=window, lse=True)
+    a = FA.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    b = FA.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_d96_at_minicpm3_shape(cuda, dtype):
+    """minicpm3-4b's prefill and training shape: B4 H40 K40 S1024, V
+    zero-padded from 64 to 96 as the model pads it."""
+    q, k, v, do = _bwd_inputs(cuda, 4, 40, 40, 1024, 96, dtype, seed=96)
+    v = torch.nn.functional.pad(v[..., :64], (0, 32))
+    _flash_held(q, k, v, None, dtype)
+    _bwd_held(q, k, v, do, None, dtype)
+
+
+def test_flash_d96_is_one_forward_and_two_backward_kernel_nodes(cuda):
+    """One forward call is one flash_ws_kernel<128, 96> node of a captured
+    CUDA graph (with and without the logsumexp); one backward call is
+    dq_d128_kernel<96>, then dkdv_bf16_kernel<128, 96>."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 8, 8, 300, 96, torch.bfloat16, seed=7)
+    assert FA.fwd_kernel(torch.bfloat16, 96, 1) == "flash_ws_kernel"
+    for lse in (False, True):
+        nodes = graph_kernels(lambda: FA.flash_attention(q, k, v, lse=lse))
+        assert len(nodes) == 1 and "flash_ws_kernelILi128ELi96E" in nodes[0][0], nodes
+    o, lse = FA.flash_attention(q, k, v, lse=True)
+    nodes = graph_kernels(lambda: FA.flash_attention_bwd(q, k, v, o, lse, do))
+    assert len(nodes) == 2, nodes
+    assert "dq_d128_kernelILi96E" in nodes[0][0], nodes
+    assert "dkdv_bf16_kernelILi128ELi96E" in nodes[1][0], nodes
+
+
+def _latent_inputs(cuda, B, H, S, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, H, LA.DK, generator=g, device=cuda).to(dtype)
+    lat = torch.randn(B, S, LA.DK, generator=g, device=cuda).to(dtype)
+    return q, lat
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 577, 1056])
+@pytest.mark.parametrize("H", [1, 16, 40, 48])
+def test_latent_decode_matches_plain(cuda, H, length, dtype):
+    q, lat = _latent_inputs(cuda, 3, H, 1056, dtype, seed=H + length)
+    n0 = LA.launches
+    got = ops.latent_decode_attention(q, lat, length, v_dim=LA.DV, scale=LAT_SCALE)
+    assert LA.launches == n0 + 1 and got.shape == (3, H, LA.DV) and got.dtype == dtype
+    _close(got, ref.naive_latent_decode_attention(q, lat, length, v_dim=LA.DV,
+                                                  scale=LAT_SCALE), dtype)
+
+
+def _latent_pages(cuda, q, lengths, dtype, seed, page=16, n_layers=62, layer=20):
+    """Layer ``layer``'s strided [P, page, 288] view of a stacked pool store
+    [P, page, n_layers * 288] (the fleet's layout) and a table of distinct
+    shuffled pages, the entries past each length 0."""
+    B = q.shape[0]
+    n = max(-(-max(lengths) // page), 1)
+    P = B * n + 3
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    store = torch.randn(P, page, n_layers * LA.DK, generator=g, device=cuda).to(dtype)
+    pages = store.view(P, page, n_layers, 1, LA.DK)[:, :, layer, 0]
+    table = torch.randperm(P, generator=torch.Generator().manual_seed(seed))[:B * n]
+    table = table.view(B, n).to(torch.int32)
+    for b, L in enumerate(lengths):
+        table[b, -(-L // page):] = 0
+    return pages, table.to(cuda), torch.tensor(lengths, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lengths", [[1], [16], [1056], [1, 64, 65, 1056], [0, 300]])
+def test_paged_latent_decode_over_shuffled_pages_matches_plain(cuda, lengths, dtype):
+    q, _ = _latent_inputs(cuda, len(lengths), 40, 1, dtype, seed=len(lengths))
+    pages, table, lens = _latent_pages(cuda, q, lengths, dtype, seed=sum(lengths) + 1)
+    n0 = LA.paged_launches
+    got = ops.paged_latent_decode_attention(q, pages, table, lens, v_dim=LA.DV,
+                                            scale=LAT_SCALE)
+    assert LA.paged_launches == n0 + 1
+    _close(got, ref.naive_paged_latent_decode_attention(q, pages, table, lens, v_dim=LA.DV,
+                                                        scale=LAT_SCALE), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("length", [1, 64, 500, 1056])
+def test_paged_latent_over_in_order_pages_is_the_contiguous_bits(cuda, length, dtype):
+    """Over pages that lie in order the paged form runs the contiguous
+    form's blocks on the same rows: equal bit for bit; so are a row decoded
+    alone (a B = 1 fleet lane) and the same row of the batch, and two
+    launches."""
+    B, S, page = 4, 1056, 16
+    q, lat = _latent_inputs(cuda, B, 40, S, dtype, seed=length)
+    n = S // page
+    table = torch.arange(B * n, dtype=torch.int32, device=cuda).view(B, n)
+    lens = torch.full((B,), length, dtype=torch.int32, device=cuda)
+    batch = LA.latent_decode_attention(q, lat, length, v_dim=LA.DV, scale=LAT_SCALE)
+    paged = LA.paged_latent_decode_attention(q, lat.view(B * n, page, LA.DK), table, lens,
+                                             v_dim=LA.DV, scale=LAT_SCALE)
+    assert torch.equal(paged, batch)
+    assert torch.equal(LA.latent_decode_attention(q, lat, length, v_dim=LA.DV,
+                                                  scale=LAT_SCALE), batch)
+    for b in range(B):
+        lane = LA.paged_latent_decode_attention(q[b:b + 1], lat[b].view(n, page, LA.DK),
+                                                table[:1], lens[:1], v_dim=LA.DV,
+                                                scale=LAT_SCALE)
+        assert torch.equal(lane, batch[b:b + 1]), b
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "paged"])
+def test_latent_decode_is_one_kernel_node(cuda, kind):
+    """One bf16 call is one latent_mma_kernel node of a CUDA graph captured
+    around it (the kernel's last block of a row combines), and the wrapper's
+    count moves by one a call."""
+    q, lat = _latent_inputs(cuda, 4, 40, 1056, torch.bfloat16, seed=3)
+    if kind == "contiguous":
+        def fn():
+            return LA.latent_decode_attention(q, lat, 1056, v_dim=LA.DV, scale=LAT_SCALE)
+        counter = "launches"
+    else:
+        table = torch.arange(4 * 66, dtype=torch.int32, device=cuda).view(4, 66)
+        lens = torch.full((4,), 1056, dtype=torch.int32, device=cuda)
+        pages = lat.view(4 * 66, 16, LA.DK)
+
+        def fn():
+            return LA.paged_latent_decode_attention(q, pages, table, lens, v_dim=LA.DV,
+                                                    scale=LAT_SCALE)
+        counter = "paged_launches"
+    n0 = getattr(LA, counter)
+    nodes = [n for n, _, _ in graph_kernels(fn) if "latent" in n]
+    assert getattr(LA, counter) == n0 + 2          # the warm-up call and the captured one
+    assert len(nodes) == 1 and "latent_mma_kernel" in nodes[0], nodes
+
+
+def test_latent_decode_replays_in_a_cuda_graph(cuda):
+    """Three calls captured in one graph and replayed three times equal the
+    eager calls bit for bit: each launch leaves its ticket counters at 0."""
+    q, lat = _latent_inputs(cuda, 4, 40, 1056, torch.bfloat16, seed=5)
+    lengths = (1056, 300, 1)
+    eager = [LA.latent_decode_attention(q, lat, L, v_dim=LA.DV, scale=LAT_SCALE)
+             for L in lengths]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [LA.latent_decode_attention(q, lat, L, v_dim=LA.DV, scale=LAT_SCALE)
+                for L in lengths]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, eager))
+
+
+def test_latent_decode_refuses_what_it_does_not_take(cuda):
+    q, lat = _latent_inputs(cuda, 2, 40, 64, torch.bfloat16, seed=1)
+    kw = dict(v_dim=LA.DV, scale=LAT_SCALE)
+    for bad in (lambda: LA.latent_decode_attention(q[..., :256], lat[..., :256], 8, **kw),
+                lambda: LA.latent_decode_attention(q, lat, 8, v_dim=128, scale=0.1),
+                lambda: LA.latent_decode_attention(q, lat, 0, **kw),
+                lambda: LA.latent_decode_attention(q, lat, 65, **kw),
+                lambda: LA.latent_decode_attention(q.repeat(1, 2, 1), lat, 8, **kw),
+                lambda: LA.latent_decode_attention(q, lat[:, ::2], 8, **kw)):
+        with pytest.raises(ValueError):
+            bad()
+    with pytest.raises(TypeError):
+        LA.latent_decode_attention(q.float(), lat, 8, **kw)
+
+
+def _mla_cfg():
+    """minicpm3's smoke config at the kernels' head dims: qk 64 + 32, the
+    latent row 256 + 32, v 64; 8 heads, 2 layers, float32."""
+    from dataclasses import replace
+
+    from repro_torch.configs import MLAConfig
+    return replace(smoke_config("minicpm3-4b"), n_layers=2, n_heads=8, n_kv_heads=8,
+                   mla=MLAConfig(q_lora_rank=64, kv_lora_rank=256, qk_nope_dim=64,
+                                 qk_rope_dim=32, v_head_dim=64))
+
+
+def test_mla_server_on_card_matches_cpu(cuda):
+    """A prefill launches K1 (head dim 96) once a layer and a decode step the
+    latent decode once a layer; the card's logits and greedy stream equal
+    the CPU's plain path's."""
+    cfg = _mla_cfg()
+    gpu = Server(cfg, device=cuda, seed=0)
+    cpu = Server(cfg, device="cpu", params=tree_map(lambda t: t.cpu(), gpu.params))
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 70))
+    n0 = (FA.launches, LA.launches)
+    lg = gpu.prefill(prompt, pad_to=80)
+    assert (FA.launches, LA.launches) == (n0[0] + cfg.n_layers, n0[1])
+    lc = cpu.prefill(prompt, pad_to=80)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    first = np.argmax(lc[:, : cfg.vocab_size].numpy(), -1)
+    tg, _ = gpu.decode(6, first)
+    assert (FA.launches, LA.launches) == (n0[0] + cfg.n_layers, n0[1] + 6 * cfg.n_layers)
+    tc, _ = cpu.decode(6, first)
+    np.testing.assert_array_equal(np.stack(tg), np.stack(tc))
+
+
+def test_mla_fleet_on_card_matches_server_streams(cuda):
+    """The fleet on the card through the paged latent decode (a pool small
+    enough to force a swap): every stream equals the Server's B = 1 greedy
+    stream, and no contiguous decode ran."""
+    cfg = _mla_cfg()
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 9, 14)]
+    eng = ServeEngine(cfg, device=cuda, seed=0, max_len=40, page_size=4, n_pages=10,
+                      max_running=3)
+    n0 = (FA.launches, LA.launches, LA.paged_launches)
+    sids = [eng.submit(p, max_new_tokens=8) for p in prompts[:2]]
+    for _ in range(2):
+        eng.step_once()
+    sids.append(eng.submit(prompts[2], max_new_tokens=8, priority=5))
+    eng.run_until_drained(max_ticks=200)
+    assert sum(eng.sched.tickets[s].preemptions for s in sids) >= 1
+    decoded = sum(len(eng.stream(s)) - 1 for s in sids)
+    assert (FA.launches - n0[0], LA.launches - n0[1], LA.paged_launches - n0[2]) == (
+        3 * cfg.n_layers, 0, decoded * cfg.n_layers)
+    for p, sid in zip(prompts, sids):
+        srv = Server(cfg, device=cuda, params=eng.params)
+        first = torch.argmax(srv.prefill(p[None, :], pad_to=len(p) + 8)[:, : cfg.vocab_size],
+                             -1).cpu().numpy()
+        toks, _ = srv.decode(7, first)
+        assert eng.stream(sid) == [int(first[0])] + [int(t[0]) for t in toks]
+
+
+def test_mla_train_step_on_card_matches_plain_path(cuda, deterministic_restored):
+    """One float32 step through MLA on the card: 2 K1 forwards a layer at
+    head dim 96 and one of each backward kernel, the gradients within 1e-4
+    of the plain path's per leaf."""
+    from repro_torch import steps as ST
+    from repro_torch.data import synth_batch
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import Model
+    from repro_torch.models.params import tree_leaves
+    cfg = _mla_cfg()
+    tr = Trainer(cfg, batch_size=2, seq_len=48, device=cuda)
+    tr.pipeline.stop()
+    tr.init_state()
+    batch = tr._device_batch(synth_batch(cfg, 2, 48, 1, 0))
+    n0, L = _counts(), cfg.n_layers
+    grads, total, _, _ = ST.loss_and_grads(tr.model, tr.params, batch)
+    assert _counts() == (n0[0] + 2 * L, n0[1] + L, n0[2] + L, n0[3], n0[4])
+    want, want_total, _, _ = ST.loss_and_grads(Model(cfg, force="ref"), tr.params, batch)
+    assert abs(total.item() - want_total.item()) <= 1e-5 * abs(want_total.item())
+    for a, b in zip(tree_leaves(grads), tree_leaves(want)):
+        assert _rel(a, b) <= 1e-4

@@ -46,13 +46,10 @@ def test_model_specs_match_jax():
 
 
 def test_unported_blocks_raise():
-    # hymba, sliding-window attention, MoE and llava's vision prefix are
-    # ported; xLSTM, MLA and the multi-codebook frontend are not yet
+    # hymba, sliding-window attention, MoE, llava's vision prefix and MLA
+    # are ported; xLSTM and the multi-codebook frontend are not yet
     cfg = configs.smoke_config(ARCH)
-    for change in ({"block": "xlstm"},
-                   {"mla": configs.MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16,
-                                             qk_rope_dim=8, v_head_dim=16)},
-                   {"n_codebooks": 2}):
+    for change in ({"block": "xlstm"}, {"n_codebooks": 2}):
         with pytest.raises(NotImplementedError):
             T.plan_segments(dataclasses.replace(cfg, **change))
 
