@@ -135,8 +135,8 @@ not 0:
      full-depth granite-moe-3b-a800m, whose ``mfu`` counts the experts at
      top_k of n_experts (the active params);
   minicpm3, minicpm3_fleet, train_minicpm3: full-width minicpm3-4b (MLA:
-     62 layers, 40 heads, the prefill's K1 at qk head dim 96 with V
-     zero-padded from 64, the absorbed decode over one latent row of 288 a
+     62 layers, 40 heads, the prefill's K1 at qk head dim 96 beside V at
+     its 64 columns, the absorbed decode over one latent row of 288 a
      position, its first 256 the value) through the Server as phase
      ``minicpm`` (62 K1 launches a prefill, 62 latent decodes a step; the
      float32 copy at full depth), phase 5's fleet traffic on its weights
@@ -387,8 +387,8 @@ C_SCALE, C_DQK, C_DV = 1 / math.sqrt(96), 96, 64
 # MINICPM3_F32_FLEET_LAYERS, as qwen's; the trainer at MINICPM3_TRAIN_LAYERS,
 # held to leave 10 GB free
 MINICPM3_F32_FLEET_LAYERS, MINICPM3_TRAIN_LAYERS = 12, 62
-# K1's backward at qk head dim 96: minicpm3-4b's training shape (V
-# zero-padded from 64) and a ragged S with a window
+# K1's backward at qk head dim 96: minicpm3-4b's training shape (V at its
+# 64 columns) and a ragged S with a window
 C_BWD_SHAPES = ((4, 40, 40, 1024, C_DQK, None), (2, 8, 8, 300, C_DQK, 100))
 # depth cuts that keep chip_smoke.py inside its time limit (PERF.md section
 # 4), each of a path whose kernel shapes phase 3 holds one by one: granite's
@@ -492,19 +492,21 @@ def sdpa_backend(names) -> str:
     return "math"
 
 
-def _sdpa_bwd_sets(B, H, K, S, D, n=4):
+def _sdpa_bwd_sets(B, H, K, S, D, Dv=None, n=4):
     """SDPA's causal GQA forward on seeded bf16 inputs laid out as the
-    model's [B,S,H,D] projections seen as [B,H,S,D], each with a dO:
-    (out, (q, k, v), dO) for ``torch.autograd.grad``."""
+    model's [B,S,H,D] projections seen as [B,H,S,D] (v at ``Dv`` columns,
+    default D, the scale 1/sqrt(D)), each with a dO: (out, (q, k, v), dO)
+    for ``torch.autograd.grad``."""
     import torch
     import torch.nn.functional as F
+    Dv = Dv or D
     gen = torch.Generator(device="cuda").manual_seed(B * S + H)
     sets = []
     for _ in range(n):
-        ins = tuple(torch.randn(B, S, m, D, generator=gen, device="cuda").bfloat16()
-                    .transpose(1, 2).requires_grad_() for m in (H, K, K))
+        ins = tuple(torch.randn(B, S, m, d, generator=gen, device="cuda").bfloat16()
+                    .transpose(1, 2).requires_grad_() for m, d in ((H, D), (K, D), (K, Dv)))
         out = F.scaled_dot_product_attention(*ins, is_causal=True, enable_gqa=True)
-        sets.append((out, ins, torch.randn(B, H, S, D, generator=gen, device="cuda")
+        sets.append((out, ins, torch.randn(B, H, S, Dv, generator=gen, device="cuda")
                      .bfloat16()))
     return sets
 
@@ -537,15 +539,14 @@ SDPA_BWD = {}
 
 
 def sdpa_bwd_child(shapes) -> int:
-    """``chip_smoke.py --sdpa-bwd-profile B,H,K,S,D;B,H,K,S,D;...``: SDPA's
-    backward at each shape in turn in a process whose card has not idled,
-    by the profiler (each kernel's device time per call, summed), printed
-    as one JSON line keyed by the shapes."""
+    """``chip_smoke.py --sdpa-bwd-profile B,H,K,S,D[,Dv];B,H,K,S,D;...``:
+    SDPA's backward at each shape (v at Dv columns where given) in turn in a
+    process whose card has not idled, by the profiler (each kernel's device
+    time per call, summed), printed as one JSON line keyed by the shapes."""
     import torch
     out = {}
     for shape in shapes.split(";"):
-        B, H, K, S, D = (int(x) for x in shape.split(","))
-        sets = _sdpa_bwd_sets(B, H, K, S, D)
+        sets = _sdpa_bwd_sets(*(int(x) for x in shape.split(",")))
         us, counts = kernel_us(_sdpa_bwd, sets, iters=20, counts=True)
         out[shape] = {"us": sum(us.values()), "kernels": us, "counts": counts,
                       "backend": sdpa_backend(us)}
@@ -557,7 +558,9 @@ def sdpa_bwd_child(shapes) -> int:
 
 def sdpa_bwd_profiles(shapes):
     """Every SDPA backward yardstick's profiler reading, in one fresh child
-    process (its start and its CUDA context paid once), into ``SDPA_BWD``."""
+    process (its start and its CUDA context paid once), into ``SDPA_BWD``:
+    (B, H, K, S, D), or (B, H, K, S, D, Dv) with v narrower than q."""
+    shapes = [tuple(sh[:5]) + tuple(x for x in sh[5:] if x != sh[4]) for sh in shapes]
     arg = ";".join(",".join(str(x) for x in sh) for sh in shapes)
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--sdpa-bwd-profile",
@@ -570,8 +573,9 @@ def sdpa_bwd_profiles(shapes):
           f"child process: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def sdpa_bwd_yardstick(B, H, K, S, D, iters=20):
-    """SDPA's backward at a causal GQA training shape (bf16), the library
+def sdpa_bwd_yardstick(B, H, K, S, D, Dv=None, iters=20):
+    """SDPA's backward at a causal GQA training shape (bf16; v at ``Dv``
+    columns, default D), the library
     yardstick of K1's backward, read two ways: the profiler's summed device
     time per call in a fresh child process (the tracer keeps every record
     in a process whose card has not idled; ``sdpa_bwd_profiles`` read every
@@ -581,23 +585,25 @@ def sdpa_bwd_yardstick(B, H, K, S, D, iters=20):
     {forced backend: ms or None})."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    child = SDPA_BWD[(B, H, K, S, D)]
+    shape = (B, H, K, S, D) + ((Dv,) if Dv and Dv != D else ())
+    child = SDPA_BWD[shape]
     forced = {}
     for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"):
         try:
             with sdpa_kernel([getattr(SDPBackend, name)]), warnings.catch_warnings():
                 warnings.simplefilter("ignore")   # why a backend refuses: printed as refused
-                sets = _sdpa_bwd_sets(B, H, K, S, D)
+                sets = _sdpa_bwd_sets(*shape)
             forced[name.lower()] = events_ms(_sdpa_bwd, sets, iters)
         except (RuntimeError, AttributeError):
             forced[name.lower()] = None
         sets = None
-    sets = _sdpa_bwd_sets(B, H, K, S, D)
+    sets = _sdpa_bwd_sets(*shape)
     ev = events_ms(_sdpa_bwd, sets, iters)
     del sets
     torch.cuda.synchronize()
     top = sorted(child["kernels"].items(), key=lambda kv: -kv[1])[:4]
-    print(f"[kernels] sdpa backward bf16 B{B} H{H} K{K} S{S} D{D} causal GQA (yardstick): "
+    print(f"[kernels] sdpa backward bf16 B{B} H{H} K{K} S{S} D{D}"
+          + (f" Dv{shape[5]}" if len(shape) > 5 else "") + " causal GQA (yardstick): "
           f"CUDA events over {iters} warmed calls {ev * 1e3:.1f} us; profiler in a fresh "
           f"process {child['us']:.1f} us a call; backend {child['backend']} ("
           + ", ".join(f"{k[:60]} {t:.1f} us x{child['counts'][k] / 20:g}" for k, t in top)
@@ -880,21 +886,29 @@ def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms,
     a fresh process, ``sdpa_bwd_yardstick``); then each of the two kernels' profiler
     time per call beside its own bound and its plain version's CUDA-graph
     time (the dQ kernel's with the row sums it writes). ``dv``: the width of
-    V's and O's columns that carry the function (MLA's 64 of its zero-padded
-    96), by which the bound counts dP, dV and the bytes of v, o and dO.
-    Returns {kernel: (ms, plain_ms, bound_ms, bound_by)}."""
+    V's, O's and dO's columns (MLA's 64 beside q's 96), at which the inputs
+    are drawn and by which the bound counts dP, dV and the bytes of v, o and
+    dO.
+    SDPA's yardstick with v at ``dv`` columns is read also with v as wide
+    as q (MLA's V zero-padded, as the reference pads it), and the faster by
+    the profiler is the row's. Returns {kernel: (ms, plain_ms, bound_ms,
+    bound_by)}."""
     import torch
     bf = torch.bfloat16
+    Dv = dv or D
     bsets, dsets = [], []
     for q, k, v in fsets:
         o, lse = FA.flash_attention(q, k, v, lse=True)
-        do = randn(B, H, S, D, dtype=bf)
+        do = randn(B, H, S, Dv, dtype=bf)
         bsets.append((q, k, v, o, lse, do))
         dsets.append((q, k, v, lse, do, ref.attention_bwd_delta(o, do)))
     ms = cuda_ms(lambda *a: FA.flash_attention_bwd(*a), bsets)
     plain = cuda_ms(lambda *a: ref.flash_attention_bwd(*a), bsets, iters=5)
-    lib, lib_prof, backend, _ = sdpa_bwd_yardstick(B, H, K, S, D)
-    Dv = dv or D
+    forms = {f"V at {w}": sdpa_bwd_yardstick(B, H, K, S, D, w) for w in sorted({Dv, D})}
+    form = min(forms, key=lambda f: forms[f][1])
+    lib, lib_prof, backend, _ = forms[form]
+    if len(forms) > 1:
+        backend = f"{backend}, {form}"
     n_q, n_kv, rows, pairs = B * H * S * D, B * K * S * D, B * H * S, S * S / 2
     n_qv, n_kvv = B * H * S * Dv, B * K * S * Dv
     # q, k, v, o, dO and the logsumexp read once, dq, dk, dv written once;
@@ -2040,9 +2054,11 @@ def main() -> int:
     print(f"[build] {', '.join(build.SOURCES)} for sm_90a in {secs:.1f}s", flush=True)
     t_mark = phase_time("build", t_start)
     # SDPA's backward at every training shape phase 3 times K1's backward at
-    # (granite, qwen, llava, granite-moe, minicpm3), in one child process
+    # (granite, qwen, llava, granite-moe, minicpm3 with V at its 64 columns
+    # and zero-padded to 96), in one child process
     sdpa_bwd_profiles(((4, 32, 8, 1024, 64), (4, 40, 8, 1024, 128), (4, 56, 8, 1024, 128),
-                       (4, 24, 8, 1024, 64), (4, 40, 40, 1024, C_DQK)))
+                       (4, 24, 8, 1024, 64), (4, 40, 40, 1024, C_DQK, C_DV),
+                       (4, 40, 40, 1024, C_DQK)))
 
     # -- 3. each kernel against its plain version ----------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2059,10 +2075,10 @@ def main() -> int:
 
     def flash_inputs(B, H, K, S, D, dtype, g=None):
         # the model's [B,S,H,D] projections, seen as [B,H,S,D] views; at
-        # MLA's qk head dim 96, V is zero-padded from 64 as the model pads it
-        q, k, v = (randn(B, S, n, D, dtype=dtype, g=g).transpose(1, 2) for n in (H, K, K))
-        if D == C_DQK:
-            v = F.pad(v[..., :C_DV], (0, C_DQK - C_DV))
+        # MLA's qk head dim 96, V at its own 64 columns as the model lays it
+        # out
+        q, k, v = (randn(B, S, n, d, dtype=dtype, g=g).transpose(1, 2)
+                   for n, d in ((H, D), (K, D), (K, C_DV if D == C_DQK else D)))
         return q, k, v
 
     def latent_pages(B, lengths, dtype, layer=31, n_layers=62, H=40, stores=1):
@@ -2296,7 +2312,7 @@ def main() -> int:
                  f"window={w} pos={pos}", DA.ring_decode_attention(q, k, v, pos, window=w),
                  ref.naive_ring_decode_attention(q, k, v, pos, window=w), dtype)
         # MLA (minicpm3-4b): K1 at qk head dim 96, its prefill shape (MHA, V
-        # zero-padded from 64) and a ragged S with a window; the latent
+        # at its 64 columns) and a ragged S with a window; the latent
         # decode (lengths 1, a block's edge either side, the full 1056; 48
         # heads, the most a launch takes) contiguous, and through layer 31 of
         # a 62-layer strided store with a shuffled table (one lane, four)
@@ -2389,7 +2405,7 @@ def main() -> int:
             o, lse = FA.flash_attention(q, k, v, window=w, lse=True)
             same = torch.equal(o, FA.flash_attention(q, k, v, window=w))
             lse_err = (lse - ref.naive_attention_lse(q, k, window=w)).abs().max().item()
-            do = randn(B, H, S, D, dtype=dtype, g=g)
+            do = randn(B, H, S, v.shape[-1], dtype=dtype, g=g)
             *got, delta = FA._bwd(q, k, v, o, lse, do, window=w)
             dr_err = (delta - ref.attention_bwd_delta(o, do)).abs().max().item()
             again = FA.flash_attention_bwd(q, k, v, o, lse, do, window=w)
@@ -2611,18 +2627,28 @@ def main() -> int:
     dense, backends = {}, {}
 
     def dense_row(key, label, fn, sets, plain_fn, lib_fn, flops, nbytes, plain_iters=5,
-                  kernel=None, backend=False):
+                  kernel=None, backend=False, lib_forms=None):
+        # lib_forms: {form: SDPA on the same function's inputs in another
+        # form}; the row's library time is the fastest form's
         if kernel:
             graph_launches(label, lambda: fn(*sets[0]), (kernel,))
         ms = cuda_ms(fn, sets, iters=40)
         us = kernel_us(fn, sets, iters=20, once=True)
         prof = sum(us.values())
         plain = cuda_ms(plain_fn, sets, iters=plain_iters)
-        lib = cuda_ms(lib_fn, sets, iters=40)
+        forms = {"": lib_fn, **(lib_forms or {})}
+        libs = {f: cuda_ms(g, sets, iters=40) for f, g in forms.items()}
+        form = min(libs, key=libs.get)
+        lib, lib_fn = libs[form], forms[form]
         served = ""
         if backend:   # the SDPA backend that served lib_fn, from its kernels' names
             backends[key] = sdpa_backend(kernel_us(lib_fn, sets[:2], iters=4))
+            if lib_forms:
+                backends[key] += f", {form or 'as the kernel takes them'}"
             served = f" ({backends[key]} backend)"
+        if lib_forms:
+            served += " [" + ", ".join(f"{f or 'as the kernel takes them'} {t * 1e3:.1f} us"
+                                       for f, t in libs.items()) + "]"
         bound, by = bound_ms(flops, nbytes)
         dense[key] = (ms, plain, bound, by, lib)
         print(f"[kernels] {label}: {ms * 1e3:.1f} us (profiler {prof:.1f} us a call), plain "
@@ -2696,18 +2722,21 @@ def main() -> int:
         return randn(*shape, dtype=dtype, g=mla_gen)
     B, H, S = 4, 40, 1024
     sets = [flash_inputs(B, H, H, S, C_DQK, bf, g=mla_gen) for _ in range(4)]
+    vpad = {id(s_[2]): F.pad(s_[2], (0, C_DQK - C_DV)) for s_ in sets}
     pairs = S * S / 2
     dense_row("flash minicpm3-4b", f"flash_attention bf16 B{B} H{H} K{H} S{S} D{C_DQK} "
-              "(minicpm3-4b's prefill, V zero-padded from 64)",
+              f"Dv{C_DV} (minicpm3-4b's prefill)",
               lambda q, k, v: FA.flash_attention(q, k, v), sets,
               lambda q, k, v: ref.naive_attention(q, k, v),
               lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True),
               2 * B * H * pairs * (C_DQK + C_DV),
               2 * (2 * B * H * S * C_DQK + 2 * B * H * S * C_DV),
-              kernel=FA.fwd_kernel(bf, C_DQK, 1))
+              kernel=FA.fwd_kernel(bf, C_DQK, 1), backend=True,
+              lib_forms={f"V zero-padded to {C_DQK}": lambda q, k, v: (
+                  F.scaled_dot_product_attention(q, k, vpad[id(v)], is_causal=True))})
     fam_bwd["minicpm3-4b"] = bwd_times(sets, B, H, H, S, C_DQK, mrandn, FA, ref, cuda_ms,
                                        label="minicpm3-4b's training shape", dv=C_DV)
-    del sets
+    del sets, vpad
     length = Smax
     sets = [tuple(mrandn(B, n, LA.DK, dtype=bf) for n in (H, Smax)) for _ in range(8)]
     dense_row("latent minicpm3-4b", f"latent_decode_attention bf16 B{B} H{H} S{Smax} "
@@ -3387,31 +3416,32 @@ def main() -> int:
     # minicpm3-4b (MLA): K1 and its backward at qk head dim 96, the latent
     # decode and its paged form through the fleet's page table
     cb = fam_bwd["minicpm3-4b"]
+    latent_note = "q at 288, V the latent's first 256 columns, the scale passed in"
     for name, shape, file, site, launches_, err_key, lab, t, note in (
-            ("flash_attention_d96", "minicpm3-4b prefill B4 H40 K40 S1024 D96, V zero-padded "
-             "from 64", "flash_attention.cu", "flash_attention.py:45",
+            ("flash_attention_d96", "minicpm3-4b prefill B4 H40 K40 S1024 D96, V at its 64 "
+             "columns", "flash_attention.cu", "flash_attention.py:45",
              c_serve["flash_attention"], "flash_attention", C_F_MAIN,
-             dense["flash minicpm3-4b"], None),
+             dense["flash minicpm3-4b"],
+             f"SDPA ({backends.get('flash minicpm3-4b')} backend), the faster of V at 64 and "
+             "V zero-padded to 96"),
             ("latent_decode_attention", "minicpm3-4b decode B4 H40 length 1056, one latent "
              "head Dk 288 Dv 256", "latent_decode_attention.cu", "decode_attention.py:61",
              c_serve["latent_decode_attention"], "latent_decode_attention", C_D_MAIN,
-             dense["latent minicpm3-4b"], backends.get("latent minicpm3-4b")),
+             dense["latent minicpm3-4b"],
+             f"SDPA ({backends.get('latent minicpm3-4b')} backend), {latent_note}"),
             ("paged_latent_decode_attention", "minicpm3-4b fleet decode B1 H40 length 1056, "
              "62-layer strided pool", "latent_decode_attention.cu", "decode_attention.py:137",
              c_fleet["paged_latent_decode_attention"], "paged_latent_decode_attention",
              C_P_MAIN, dense["paged latent minicpm3-4b"],
-             backends.get("paged latent minicpm3-4b"))):
+             f"SDPA ({backends.get('paged latent minicpm3-4b')} backend), {latent_note}")):
         row = {"name": name, "shape": shape, "route": "cuda", "source": src + file,
                "replaces": "src/repro/kernels/" + site, "launches": launches_,
                "max_abs_err": errs[err_key][lab], "ms": t[0], "plain_ms": t[1],
-               "bound_ms": t[2], "bound_by": t[3], "library_ms": t[4]}
-        if note:
-            row["library_note"] = (f"SDPA ({note} backend), q at 288, V the latent's first "
-                                   "256 columns, the scale passed in")
+               "bound_ms": t[2], "bound_by": t[3], "library_ms": t[4], "library_note": note}
         record["kernels"].append(row)
     for name in BWD_PARTS:
         record["kernels"].append(
-            {"name": name + "_d96", "shape": "minicpm3-4b training B4 H40 K40 S1024 D96",
+            {"name": name + "_d96", "shape": "minicpm3-4b training B4 H40 K40 S1024 D96 Dv64",
              "route": "cuda", "source": src + "flash_attention_bwd.cu", "replaces": bwd_site,
              "launches": c_train[name], "max_abs_err": errs[name][C_F_MAIN],
              "ms": cb[name][0], "plain_ms": cb[name][1], "bound_ms": cb[name][2],
@@ -3419,7 +3449,7 @@ def main() -> int:
              "library_note": "no PyTorch call computes this part alone; SDPA's whole "
                              "backward is library_ms of flash_attention_bwd_d96"})
     record["kernels"].append(
-        {"name": "flash_attention_bwd_d96", "shape": "minicpm3-4b training B4 H40 K40 S1024 D96",
+        {"name": "flash_attention_bwd_d96", "shape": "minicpm3-4b training B4 H40 K40 S1024 D96 Dv64",
          "route": "cuda", "source": src + "flash_attention_bwd.cu", "replaces": bwd_site,
          "launches": c_train["flash_attention_bwd_dkdv"],
          "max_abs_err": max(errs[name][C_F_MAIN] for name in BWD_PARTS),

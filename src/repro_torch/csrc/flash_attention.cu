@@ -20,8 +20,11 @@
 // path of every warpgroup at once.
 // Design against that bound (bf16). Which kernel runs is a rule on
 // (D, G, window), ws_route: flash_ws_kernel<D> at D = 64 and 128 (and at 96,
-// MLA's qk head dim, on D = 128's tiles: flash_ws_kernel<128, 96>),
-// flash_bf16_kernel<32> at 32.
+// MLA's qk head dim, on D = 128's tiles: flash_ws_kernel<128, 96, 64> beside
+// V at its own 64 columns, flash_ws_kernel<128, 96> beside a V padded to
+// 96), flash_bf16_kernel<32> at 32. V and O may be narrower than q and k:
+// the pairs (D, Dv) the entry takes are pair_ok's (hopper.cuh), Dv = D and
+// MLA's (96, 64).
 //  * Common to both: TMA loads of Q, K and V tiles into shared memory, each
 //    slot with a "full" mbarrier (the TMA's byte count) and an "empty" one
 //    (every consumer thread arrives when its products have read the slot),
@@ -34,12 +37,15 @@
 //    swizzle's span: each tile arrives as two 64-column boxes, two TMA
 //    loads into the tile's two halves ([rows][64] each), and the k16 steps
 //    of S = Q K^T walk into the second half after four (hopper.cuh:
-//    tma_tile, k_step). A row of 96 (192 B) takes D = 128's tiles: its maps
-//    are 96 columns wide, so the second box is half out of bounds and the
-//    TMA fills its last 32 columns with zeros (and stores none of them);
-//    S = Q K^T skips the two zero k16 steps, P V runs over all 128 columns,
-//    a quarter of them zeros (a first version; a 32-column box would spare
-//    them). S = Q K^T is wgmma with both operands read from
+//    tma_tile, k_step). A q/k row of 96 (192 B) takes D = 128's tiles: its
+//    maps are 96 columns wide, so the second box is half out of bounds and
+//    the TMA fills its last 32 columns with zeros (no bytes read, only
+//    shared memory spent); S = Q K^T skips the two zero k16 steps. V and O
+//    at MLA's 64 columns are one 64-column box each (redesigned for Hopper,
+//    with the tile order below: the first version padded V to 96 and ran
+//    P V over 128 columns, 64 of them zeros, 224 column passes a tile
+//    where 160 carry the function): P V is one m64n64 wgmma a step, O 32
+//    floats a thread, stored as one box. S = Q K^T is wgmma with both operands read from
 //    shared memory through descriptors (Q and K are K-major as they lie);
 //    O += P V is wgmma with A = P from registers (the float32 accumulator
 //    fragment of S, rounded to bf16 pairs, has the layout of the A register
@@ -77,6 +83,14 @@
 //    evenly. The grid is persistent, one block an SM, each walking output
 //    tiles in heaviest-first order dealt out as a snake over the blocks,
 //    so that the next tile's loads run under this tile's last products. At
+//    G = 1 (grouped_order, hopper.cuh) no two heads share K and V, and that
+//    order puts 132 heads' K/V in flight at once (52 MB at minicpm3-4b's
+//    shape, the L2's size), each head's tiles rounds apart: there the tiles
+//    go grouped by head (TileOrder: pairs of ranks p and n - 1 - p of one
+//    head, equal work, head after head, then the last heads heaviest
+//    first), 33 heads in flight (at 8 tiles a head), every head's tiles at
+//    once (minicpm3-4b's prefill 87.7 -> 73.7 us on an H100; the instance
+//    is a template parameter, so the G > 1 launches keep their code). At
 //    D = 128 Q has two buffers (the next tile's Q lands under this one); at
 //    D = 64 one measured faster. O leaves through shared memory (in the
 //    map's 128-byte swizzle) by TMA stores that the producer's warp 1
@@ -94,7 +108,8 @@
 //    two Q buffers, two n64 products at D = 128, one block a tile (no
 //    persistence), no exponentials or mask, no P V, no K/V loads after
 //    each slot's first, no O stores (the last four wrong by design; with
-//    no store ptxas may drop the products no output reads).
+//    no store ptxas may drop the products no output reads); K1_ORDER=0 / 2
+//    (hopper.cuh) the heaviest-first walk at every G, or the grouped one.
 //  * float32 inputs have no exact tensor-core path (TF32 would round
 //    them), so they take a scalar kernel: one thread per query row (two at
 //    D = 96 and 128, each holding half of the row's q and o, their dot products
@@ -429,17 +444,19 @@ __host__ __device__ constexpr int qbufs() {
 
 // Shared memory from a 1024-byte aligned base: the Q buffers (the block's
 // 128 rows each), the K ring, the V ring, O (each warpgroup's 64 rows, at
-// D = 128 as two [64][64] halves, for the TMA store), then the barriers
-template <int D>
+// DV = 128 as two [64][64] halves, for the TMA store), then the barriers.
+// D: Q's and K's tiles' width; DV: V's and O's (MLA's 64 beside 96)
+template <int D, int DV = D>
 struct Layout {
   static constexpr int QBUFS = qbufs<D>();
-  static constexpr int TILE = BN * D * 2;  // bytes of one K or V tile
+  static constexpr int TILE = BN * D * 2;     // bytes of one K tile
+  static constexpr int V_TILE = BN * DV * 2;  // bytes of one V tile
   static constexpr int Q_TILE = BM * D * 2;
   static constexpr int Q = 0;
   static constexpr int K = Q + QBUFS * Q_TILE;
   static constexpr int V = K + SLOTS * TILE;
-  static constexpr int O = V + SLOTS * TILE;
-  static constexpr int O_WG = BQ * D * 2;  // bytes of a warpgroup's rows of O
+  static constexpr int O = V + SLOTS * V_TILE;
+  static constexpr int O_WG = BQ * DV * 2;  // bytes of a warpgroup's rows of O
   static constexpr int BAR = O + CONSUMERS * O_WG;
   // full/empty of each K and V slot, q_full/q_empty of each Q buffer,
   // o_full/o_free of each warpgroup's O
@@ -577,27 +594,27 @@ __device__ __forceinline__ void rescale(float* o, float al0, float al1) {
   }
 }
 
-// The k-th output tile (k = 0, 1, ...) of block x of a grid of g blocks
-// over `total` tiles: index k g + x in even rounds, k g + g - 1 - x in odd
-// ones (a snake, so that the heaviest-first order leaves the blocks' sums
-// of work close); -1 past the last.
-__device__ __forceinline__ int ws_tile(int k, int total) {
-  const int g = gridDim.x, x = blockIdx.x;
-  const int i = k * g + ((k & 1) ? g - 1 - x : x);
-  return i < total ? i : -1;
-}
-
-// A tile's place: tile index i counts from the heaviest (the last query
-// rows of each (row, head), which walk the most KV tiles) down; the KV
-// tiles [lo, lo + n BN) both warpgroups walk, from the window's edge of
-// the block's first row to the diagonal of its last.
+// A tile's place: tile i of the walk over the B H heads (head b H + h)
+// and their n_qt query tiles, rank 0 the heaviest (the last query rows of
+// each (row, head), which walk the most KV tiles): heaviest first (rank i
+// / (B H)) or grouped by head (TileOrder, hopper.cuh); the KV tiles [lo,
+// lo + n BN) both warpgroups walk, from the window's edge of the block's
+// first row to the diagonal of its last.
+template <bool GROUPED>
 struct WsTile {
   int q0, h, b, lo, n;
-  __device__ __forceinline__ WsTile(int i, int B, int n_qt, const TmaArgs& a) {
-    const int hb = a.H * B;
-    q0 = (n_qt - 1 - i / hb) * BM;
-    h = (i % hb) % a.H;
-    b = (i % hb) / a.H;
+  __device__ __forceinline__ WsTile(int i, const TileOrder& ord, int B, int n_qt,
+                                    const TmaArgs& a) {
+    int head, rank;
+    if constexpr (GROUPED) {
+      ord.at(i, &head, &rank);
+    } else {
+      rank = i / (a.H * B);
+      head = i % (a.H * B);
+    }
+    q0 = (n_qt - 1 - rank) * BM;
+    h = head % a.H;
+    b = head / a.H;
     int hi;
     kv_range(q0, a.S, a.window, ws::BN, &lo, &hi);
     hi = min(q0 + BM, a.S);
@@ -605,26 +622,30 @@ struct WsTile {
   }
 };
 
-// Grid: one block an SM (at most one a tile), each walking its tiles
-// ws_tile(0), ws_tile(1), ... of the B H ceil(S / BM) output tiles;
-// ws::NTHREADS threads; ws::Layout<D>::BYTES of dynamic shared memory. D is
-// the tiles' width and DK the head dim (DK = 96 on D = 128: the maps' rows
-// are 96 wide, so the TMA fills each tile's columns 96-127 with zeros and
-// stores only the first 96 of O's). Warpgroups
+// Grid: one block an SM (at most one a tile), each walking its share of
+// the B H ceil(S / BM) output tiles heaviest first (snake_tile) or, with
+// GROUPED (at grouped_order(G)), grouped by head (TileOrder);
+// ws::NTHREADS threads; ws::Layout<D, DV>::BYTES of dynamic shared memory.
+// D is Q's and K's tiles' width and DK the head dim (DK = 96 on D = 128:
+// the maps' rows are 96 wide, so the TMA fills each tile's columns 96-127
+// with zeros); DV is V's and O's tiles' width, 64 for MLA's V (one
+// 64-column box: P V one m64n64 product a step, O 32 floats a thread,
+// stored as one box), or D (at DK = 96 the zero-filled columns of a padded
+// V, of which O stores the first 96). Warpgroups
 // 0 and 1 consume query rows [q0 + 64 wg, + 64) of each tile; warpgroup 2
 // is the producer, whose first thread issues the TMA loads. The K and V
 // rings run on across the block's tiles, and the next tile's Q is loaded
 // once the consumers' last S = Q K^T of this one is done, so that the
 // next tile's loads run under this tile's last P V and its epilogue.
-template <int D, int DK = D>
+template <int D, int DK = D, int DV = D, bool GROUPED = false>
 __global__ void __launch_bounds__(ws::NTHREADS, 1)
     flash_ws_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     const __grid_constant__ CUtensorMap to, TmaArgs a, int o_slots, int B) {
   using namespace ws;
-  using L = Layout<D>;
-  constexpr int TILE = L::TILE, Q = L::Q, K = L::K, V = L::V, O = L::O,
+  using L = Layout<D, DV>;
+  constexpr int TILE = L::TILE, V_TILE = L::V_TILE, Q = L::Q, K = L::K, V = L::V, O = L::O,
                 O_WG = L::O_WG, BAR = L::BAR, Q_TILE = L::Q_TILE, QBUFS = L::QBUFS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -638,6 +659,14 @@ __global__ void __launch_bounds__(ws::NTHREADS, 1)
   uint64_t* o_free = o_full + CONSUMERS;    // its store has read it
   const int n_qt = (a.S + BM - 1) / BM;
   const int total = n_qt * a.H * B;
+  const TileOrder ord(a.H * B, n_qt, gridDim.x, blockIdx.x);  // (GROUPED)
+  // the block's k-th output tile, -1 past its last
+  auto tile_of = [&](int k) {
+    if constexpr (GROUPED)
+      return ord.of_block(k);
+    else
+      return snake_tile(k, total);
+  };
   const int warp = warp_index();
 
   if (threadIdx.x == 0) {
@@ -662,14 +691,14 @@ __global__ void __launch_bounds__(ws::NTHREADS, 1)
   if (warp >= 4 * CONSUMERS) {  // producer warpgroup
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 128 * CONSUMERS + 32) {  // warp 1: each tile's O, as TMA stores
-      for (int k = 0, i; (i = ws_tile(k, total)) >= 0; ++k) {
-        const WsTile t(i, B, n_qt, a);
+      for (int k = 0, i; (i = tile_of(k)) >= 0; ++k) {
+        const WsTile<GROUPED> t(i, ord, B, n_qt, a);
         for (int wg = 0; wg < CONSUMERS; ++wg) {
           mbar_wait(&o_full[wg], k & 1);
 #ifndef FWD_NOSTORE
           if (t.q0 + wg * BQ < a.S) {  // (rows past S are not written)
 #pragma unroll
-            for (int c = 0; c < D; c += 64)
+            for (int c = 0; c < DV; c += 64)
               tma_store(&to, smem + O + wg * O_WG + (c / 64) * (BQ * 128), o_slots,
                         t.q0 + wg * BQ, t.h, t.b, c);
           }
@@ -686,8 +715,8 @@ __global__ void __launch_bounds__(ws::NTHREADS, 1)
     // warp 0: per tile Q, then K_0, then K_it and V_(it-1) in turn
     if (threadIdx.x == 128 * CONSUMERS) {
       int kv = 0;  // K (and V) tiles loaded before this output tile
-      for (int k = 0, i; (i = ws_tile(k, total)) >= 0; ++k) {
-        const WsTile t(i, B, n_qt, a);
+      for (int k = 0, i; (i = tile_of(k)) >= 0; ++k) {
+        const WsTile<GROUPED> t(i, ord, B, n_qt, a);
         const int kh = t.h / (a.H / a.K);
         const int qb = k % QBUFS;
         if (k >= QBUFS) mbar_wait(&q_empty[qb], ((k / QBUFS) - 1) & 1);
@@ -717,9 +746,9 @@ __global__ void __launch_bounds__(ws::NTHREADS, 1)
             } else
 #endif
             {
-              mbar_expect_tx(&full_v[st], TILE);
-              tma_tile<D>(smem + V + st * TILE, &tv, &full_v[st], a.v_slots, BN,
-                          t.lo + (it - 1) * BN, kh, t.b);
+              mbar_expect_tx(&full_v[st], V_TILE);
+              tma_tile<DV>(smem + V + st * V_TILE, &tv, &full_v[st], a.v_slots, BN,
+                           t.lo + (it - 1) * BN, kh, t.b);
             }
           }
         }
@@ -739,7 +768,7 @@ __global__ void __launch_bounds__(ws::NTHREADS, 1)
   // it - 1's O += P V, and tile it's softmax runs while that product is in
   // flight.
   constexpr int NS = BN / 2;  // S accumulator floats a thread
-  constexpr int NO = D / 2;   // O accumulator floats a thread
+  constexpr int NO = DV / 2;  // O accumulator floats a thread
   constexpr int KS = BN / 16; // k16 steps of P V
   const int wg = warp / 4, t128 = threadIdx.x % 128, lane = threadIdx.x % 32;
   // this thread's rows (of the warpgroup's 64) and its first key column:
@@ -767,7 +796,7 @@ __global__ void __launch_bounds__(ws::NTHREADS, 1)
   // banks). The producer's warp 1 stores them by TMA once every thread has
   // arrived on o_full, and frees the buffer (o_free) when its store has
   // read it: no thread of the consumers waits on a store.
-  auto epilogue = [&](int k, const WsTile& t, float m0, float m1, float l0, float l1) {
+  auto epilogue = [&](int k, const WsTile<GROUPED>& t, float m0, float m1, float l0, float l1) {
     const int qp0 = t.q0 + wg * BQ + r0, qp1 = qp0 + 8;
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -784,7 +813,7 @@ __global__ void __launch_bounds__(ws::NTHREADS, 1)
     if (k > 0) mbar_wait(&o_free[wg], (k - 1) & 1);
 #ifndef FWD_NOSTORE
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       uint8_t* half = ow + (n / 8) * (BQ * 128);
       const int piece = n % 8, off = c0 * 2;
       *reinterpret_cast<uint32_t*>(half + r0 * 128 + ((piece ^ (r0 % 8)) * 16) + off) =
@@ -799,10 +828,10 @@ __global__ void __launch_bounds__(ws::NTHREADS, 1)
 
   if (wg == 1) bar_arrive(1, 256);  // warpgroup 0 goes first
   int kv = 0;  // K (and V) tiles consumed before this output tile
-  for (int k = 0, i; (i = ws_tile(k, total)) >= 0; ++k) {
-    const WsTile t(i, B, n_qt, a);
+  for (int k = 0, i; (i = tile_of(k)) >= 0; ++k) {
+    const WsTile<GROUPED> t(i, ord, B, n_qt, a);
     // warpgroup 1's last turn of the block hands on nothing
-    const bool last_tile = ws_tile(k + 1, total) < 0;
+    const bool last_tile = tile_of(k + 1) < 0;
     const int q0w = t.q0 + wg * BQ;
     const int qp0 = q0w + r0, qp1 = qp0 + 8;
     const int qb = k % QBUFS;
@@ -844,7 +873,7 @@ __global__ void __launch_bounds__(ws::NTHREADS, 1)
       fence_regs<NO>(o);
       fence_frag(p);
       wg_fence();
-      ws_pv<D>(o, p, smem + V + sv * TILE);
+      ws_pv<DV>(o, p, smem + V + sv * V_TILE);
       wg_commit();
       if (wg == 0 || !(last_tile && it == t.n - 1)) bar_arrive(theirs, 256);
       wg_wait<1>();  // S of tile it is in; its P V in flight
@@ -865,7 +894,7 @@ __global__ void __launch_bounds__(ws::NTHREADS, 1)
     fence_regs<NO>(o);
     fence_frag(p);
     wg_fence();
-    ws_pv<D>(o, p, smem + V + sv * TILE);
+    ws_pv<DV>(o, p, smem + V + sv * V_TILE);
     wg_commit();
     wg_wait<0>();
     fence_regs<NO>(o);
@@ -877,37 +906,39 @@ __global__ void __launch_bounds__(ws::NTHREADS, 1)
 
 // ---------------------------------------------------------------------------
 // float32: scalar FMA, one thread per query row (f32_tpr<D>() threads: each
-// holds DP = D / f32_tpr<D>() columns of the row's q and o), 64 rows a block.
+// holds DP = D / f32_tpr<D>() columns of the row's q and VP = DV /
+// f32_tpr<D>() of its o; DV, V's width, is D or MLA's 64 beside 96), 64
+// rows a block.
 // ---------------------------------------------------------------------------
 template <int D>
 __host__ __device__ constexpr int f32_tpr() {
   return D > 64 ? 2 : 1;
 }
 
-template <int D>
+template <int D, int DV = D>
 __global__ void __launch_bounds__(BQ * f32_tpr<D>()) flash_f32_kernel(Args a) {
-  constexpr int TPR = f32_tpr<D>(), DP = D / TPR;
+  constexpr int TPR = f32_tpr<D>(), DP = D / TPR, VP = DV / TPR;
   __shared__ __align__(16) float k_s[BKS][D];
-  __shared__ __align__(16) float v_s[BKS][D];
+  __shared__ __align__(16) float v_s[BKS][DV];
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (a.H / a.K);
   const int q0 = qt * BQ;
   const int qpos = q0 + threadIdx.x / TPR;
-  const int d0 = (threadIdx.x % TPR) * DP;  // this thread's first column
+  const int d0 = (threadIdx.x % TPR) * DP;  // this thread's first column of q
+  const int v0 = (threadIdx.x % TPR) * VP;  // and of v and o
   const bool active = qpos < a.S;
   const float* q = static_cast<const float*>(a.q) + b * a.qs.b + h * a.qs.h;
   const float* k = static_cast<const float*>(a.k) + b * a.ks.b + kh * a.ks.h;
   const float* v = static_cast<const float*>(a.v) + b * a.vs.b + kh * a.vs.h;
   float* o = static_cast<float*>(a.o) + b * a.os.b + h * a.os.h;
 
-  float qr[DP], acc[DP];
+  float qr[DP], acc[VP];
 #pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    qr[d] = active ? q[qpos * a.qs.s + d0 + d] * a.scale : 0.f;
-    acc[d] = 0.f;
-  }
+  for (int d = 0; d < DP; ++d) qr[d] = active ? q[qpos * a.qs.s + d0 + d] * a.scale : 0.f;
+#pragma unroll
+  for (int d = 0; d < VP; ++d) acc[d] = 0.f;
   float m_run = NEG_INF, l_run = 0.f;
 
   int lo, hi;
@@ -916,12 +947,14 @@ __global__ void __launch_bounds__(BQ * f32_tpr<D>()) flash_f32_kernel(Args a) {
     __syncthreads();
     for (int i = threadIdx.x; i < BKS * D / 4; i += blockDim.x) {
       const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (k0 + r < a.S) {
-        kv = *reinterpret_cast<const float4*>(k + (k0 + r) * a.ks.s + c);
-        vv = *reinterpret_cast<const float4*>(v + (k0 + r) * a.vs.s + c);
-      }
+      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + r < a.S) kv = *reinterpret_cast<const float4*>(k + (k0 + r) * a.ks.s + c);
       *reinterpret_cast<float4*>(&k_s[r][c]) = kv;
+    }
+    for (int i = threadIdx.x; i < BKS * DV / 4; i += blockDim.x) {
+      const int r = i / (DV / 4), c = (i % (DV / 4)) * 4;
+      float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + r < a.S) vv = *reinterpret_cast<const float4*>(v + (k0 + r) * a.vs.s + c);
       *reinterpret_cast<float4*>(&v_s[r][c]) = vv;
     }
     __syncthreads();
@@ -949,15 +982,15 @@ __global__ void __launch_bounds__(BQ * f32_tpr<D>()) flash_f32_kernel(Args a) {
     const float alpha = expf(m_run - m_new);
     l_run *= alpha;
 #pragma unroll
-    for (int d = 0; d < DP; ++d) acc[d] *= alpha;
+    for (int d = 0; d < VP; ++d) acc[d] *= alpha;
 #pragma unroll
     for (int j = 0; j < BKS; ++j) {
       const bool ok = full || valid_pair(qpos, k0 + j, a.window);
       const float p = ok ? expf(s[j] - m_new) : 0.f;
       l_run += p;
 #pragma unroll
-      for (int d = 0; d < DP; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&v_s[j][d0 + d]);
+      for (int d = 0; d < VP; d += 4) {
+        const float4 vv = *reinterpret_cast<const float4*>(&v_s[j][v0 + d]);
         acc[d] += p * vv.x;
         acc[d + 1] += p * vv.y;
         acc[d + 2] += p * vv.z;
@@ -969,7 +1002,7 @@ __global__ void __launch_bounds__(BQ * f32_tpr<D>()) flash_f32_kernel(Args a) {
   if (active) {
     const float inv = 1.f / fmaxf(l_run, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < DP; ++d) o[qpos * a.os.s + d0 + d] = acc[d] * inv;
+    for (int d = 0; d < VP; ++d) o[qpos * a.os.s + v0 + d] = acc[d] * inv;
     if (a.lse != nullptr && d0 == 0)
       a.lse[((long long)b * a.H + h) * a.S + qpos] = m_run + logf(fmaxf(l_run, 1e-30f));
   }
@@ -1014,16 +1047,17 @@ int launch_bf16(const Args& a, int B, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// The warp-specialized bf16 forward: tensor maps of 128-row Q boxes,
-// BN-row K and V boxes and 64-row O boxes, DK columns wide (the head dim;
-// D the tiles' width). Once per device: its shared memory above 48 KB, and
-// the check that its register count at launch leaves room for the
-// consumers' setmaxnreg.inc from what the producer gives up (an increase
-// the pool cannot serve would never return).
-template <int D, int DK = D>
+// The warp-specialized bf16 forward: tensor maps of 128-row Q boxes and
+// BN-row K boxes DK columns wide (the head dim; D the tiles' width), BN-row
+// V and 64-row O boxes as wide as V's rows (DV's tiles; DK where DV is D's
+// padded width). Once per device: its shared memory above 48 KB, and the
+// check that its register count at launch leaves room for the consumers'
+// setmaxnreg.inc from what the producer gives up (an increase the pool
+// cannot serve would never return).
+template <int D, int DK = D, int DV = D, bool GROUPED = false>
 int launch_ws(const Args& a, int B, cudaStream_t st) {
   using namespace ws;
-  constexpr int BYTES = Layout<D>::BYTES;
+  constexpr int BYTES = Layout<D, DV>::BYTES, VW = DV < DK ? DV : DK;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaSetDevice(dev);  // bind the primary context
@@ -1032,10 +1066,10 @@ int launch_ws(const Args& a, int B, cudaStream_t st) {
   TmaArgs t;
   int rc = encode(&tq, a.q, DK, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BM, &t.q_slots);
   if (!rc) rc = encode(&tk, a.k, DK, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BN, &t.k_slots);
-  if (!rc) rc = encode(&tv, a.v, DK, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BN, &t.v_slots);
+  if (!rc) rc = encode(&tv, a.v, VW, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BN, &t.v_slots);
   CUtensorMap to;
   int o_slots = 0;
-  if (!rc) rc = encode(&to, a.o, DK, a.S, a.H, B, a.os.s, a.os.h, a.os.b, BQ, &o_slots);
+  if (!rc) rc = encode(&to, a.o, VW, a.S, a.H, B, a.os.s, a.os.h, a.os.b, BQ, &o_slots);
   if (rc) return rc;
   t.o = static_cast<bf16*>(a.o);
   t.lse = a.lse;
@@ -1052,11 +1086,11 @@ int launch_ws(const Args& a, int B, cudaStream_t st) {
     if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return (int)err;
     sms[dev < 64 ? dev : 0] = n;
-    err = cudaFuncSetAttribute(flash_ws_kernel<D, DK>,
+    err = cudaFuncSetAttribute(flash_ws_kernel<D, DK, DV, GROUPED>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
     if (err != cudaSuccess) return (int)err;
     cudaFuncAttributes attr;
-    if ((err = cudaFuncGetAttributes(&attr, flash_ws_kernel<D, DK>)) != cudaSuccess)
+    if ((err = cudaFuncGetAttributes(&attr, flash_ws_kernel<D, DK, DV, GROUPED>)) != cudaSuccess)
       return (int)err;
     const int r = attr.numRegs;
     if (r > CONSUMER_REGS || r < PRODUCER_REGS ||
@@ -1070,8 +1104,23 @@ int launch_ws(const Args& a, int B, cudaStream_t st) {
 #else
   const int grid = tiles < sms[dev < 64 ? dev : 0] ? tiles : sms[dev < 64 ? dev : 0];
 #endif
-  flash_ws_kernel<D, DK><<<grid, NTHREADS, BYTES, st>>>(tq, tk, tv, to, t, o_slots, B);
+  flash_ws_kernel<D, DK, DV, GROUPED><<<grid, NTHREADS, BYTES, st>>>(tq, tk, tv, to, t, o_slots, B);
   return (int)cudaGetLastError();
+}
+
+// flash_ws_kernel at (D, Dv), its tiles grouped by head or not: <128> at
+// 128, <128, 96, 64> at MLA's (96, 64), <128, 96> at 96 (V padded to 96, on
+// 128's tiles), <64> at 64.
+template <bool GROUPED>
+int launch_ws_as(int D, int Dv, const Args& a, int B, cudaStream_t st) {
+  if (D == 128) return launch_ws<128, 128, 128, GROUPED>(a, B, st);
+  if (D == 96 && Dv == 64) return launch_ws<128, 96, 64, GROUPED>(a, B, st);
+  if (D == 96) return launch_ws<128, 96, 128, GROUPED>(a, B, st);
+  if (D == 64) return launch_ws<64, 64, 64, GROUPED>(a, B, st);
+  return (int)cudaErrorInvalidValue;
+}
+int launch_ws_at(int D, int Dv, bool grouped, const Args& a, int B, cudaStream_t st) {
+  return grouped ? launch_ws_as<true>(D, Dv, a, B, st) : launch_ws_as<false>(D, Dv, a, B, st);
 }
 
 // Which bf16 kernel runs at head dim D with G = H / K query heads a KV
@@ -1086,17 +1135,19 @@ bool ws_route(int D, int G, int window) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. lse: float32 [B,H,S] (contiguous) for
-// the rows' logsumexp, or null. Returns a cudaError_t.
-extern "C" int repro_flash_attention_lse(
+// dtype: 0 = float32, 1 = bfloat16. v and o are Dv columns wide, the scale
+// 1 / sqrt(D). lse: float32 [B,H,S] (contiguous) for the rows'
+// logsumexp, or null. Returns a cudaError_t.
+extern "C" int repro_flash_attention_v(
     const void* q, const void* k, const void* v, void* o, float* lse,
-    int B, int H, int K, int S, int D,
+    int B, int H, int K, int S, int D, int Dv,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     int window, int dtype, void* stream) {
-  if (B < 1 || S < 1 || K < 1 || H % K != 0) return (int)cudaErrorInvalidValue;
+  if (B < 1 || S < 1 || K < 1 || H % K != 0 || !pair_ok(D, Dv))
+    return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
   a.lse = lse;
@@ -1110,13 +1161,13 @@ extern "C" int repro_flash_attention_lse(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   const bool ws = dtype == 1 && ws_route(D, H / K, window);
-  if (ws && D == 128) return launch_ws<128>(a, B, st);
-  if (ws && D == 96) return launch_ws<128, 96>(a, B, st);
-  if (ws && D == 64) return launch_ws<64>(a, B, st);
+  if (ws) return launch_ws_at(D, Dv, grouped_order(H / K), a, B, st);
   if (dtype == 1 && !ws && D == 32) return launch_bf16<32>(a, B, st);
-  constexpr int wide = BQ * f32_tpr<128>();  // threads a float32 block at D = 128
+  constexpr int wide = BQ * f32_tpr<128>();  // threads a float32 block at D = 96 and 128
   if (dtype == 0 && D == 128) {
     flash_f32_kernel<128><<<grid, wide, 0, st>>>(a);
+  } else if (dtype == 0 && D == 96 && Dv == 64) {
+    flash_f32_kernel<96, 64><<<grid, wide, 0, st>>>(a);
   } else if (dtype == 0 && D == 96) {
     flash_f32_kernel<96><<<grid, wide, 0, st>>>(a);
   } else if (dtype == 0 && D == 64) {
@@ -1129,7 +1180,21 @@ extern "C" int repro_flash_attention_lse(
   return (int)cudaGetLastError();
 }
 
-// The forward alone (no logsumexp): the prefill's entry.
+// The entry with v as wide as q (Dv = D), and the logsumexp.
+extern "C" int repro_flash_attention_lse(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int B, int H, int K, int S, int D,
+    long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss,
+    int window, int dtype, void* stream) {
+  return repro_flash_attention_v(q, k, v, o, lse, B, H, K, S, D, D, q_sb, q_sh, q_ss, k_sb,
+                                 k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, window, dtype,
+                                 stream);
+}
+
+// The forward alone (no logsumexp), v as wide as q: the prefill's entry.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o,
     int B, int H, int K, int S, int D,

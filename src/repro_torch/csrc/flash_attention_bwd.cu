@@ -115,19 +115,38 @@
 //    64-row tiles, 250 registers at launch, had ptxas serialize its wgmma,
 //    C7511, and left the SM's tensor cores to one chain.) K and V of 128
 //    rows take 64 KB, the ring 64 KB.
-//  * Head dim 96 (MLA's qk head dim, minicpm3-4b) runs on D = 128's kernels
-//    and tiles (dq_d128_kernel<96>, dkdv_bf16_kernel<128, 96>): the tensor
-//    maps are 96 columns wide, so the TMA fills each tile's last 32 columns
-//    with zeros and stores none of dQ's; S and dP skip the two zero k16
-//    steps; dQ, dK and dV run over all 128 columns, the last 32 zeros, and
-//    dK/dV writes the first 96. A first version: it does D = 128's work.
+//  * MLA's pair (minicpm3-4b: q and k at 96, V, O and dO at 64; redesigned
+//    for Hopper, the first version padded V to 96 and ran D = 128's tiles,
+//    768 column passes of the seven products where 576 carry the function)
+//    runs dq_d128_kernel<96, 96, 64> and dkdv_bf16_kernel<96, 96, 64>. A
+//    96-column row is three 32-column boxes in the 64-byte swizzle
+//    (hopper.cuh box_cols, as CUTLASS lays out a 96-wide operand): S = Q K^T
+//    and S^T = K Q^T run six k16 steps, dQ += dS K and dK += dS^T Q one
+//    m64n96 wgmma a step (B MN-major, the boxes the descriptor's leading
+//    byte offset apart); dO and V are one 64-column box, so dP runs four k16
+//    steps and dV += P^T dO one m64n64 product a step. dK/dV's 48 + 32
+//    accumulator floats leave room for 64-row query tiles (4 slots), where
+//    D = 128 streams 32. The pair (96, 96) (V padded) keeps D = 128's
+//    tiles (dq_d128_kernel<128, 96>, dkdv_bf16_kernel<128, 96>: maps 96
+//    columns wide, the TMA zero-filling the rest; S and dP skip the zero
+//    k16 steps). minicpm3-4b's training shape on an H100: dQ 177.9 ->
+//    141.3 us, dK/dV 255.4 -> 180.7 us.
+//  * At G = 1 (grouped_order, hopper.cuh) the persistent dQ grid walks its
+//    tiles grouped by head (TileOrder), as the forward does, and the dK/dV
+//    grid becomes one-dimensional, block i taking tile i of the grouped
+//    order over the (b, KV head) pairs and their KV tiles, so that the
+//    blocks in flight read few heads' Q and dO; the heaviest-first walk
+//    (the first KV tiles of every head first) keeps a 3-D grid elsewhere.
+//    Each kernel is built both ways (a template parameter GROUPED), so the
+//    G > 1 launches keep their code.
 //  * Diagnostic macros (tools/bwd_breakdown.py): BWD_DQ_WGS (dQ's consumer
 //    warpgroups at D <= 64), BWD_NOEXP (P = its exponent's argument, no
 //    mask), BWD_NOSECOND (no dQ, dV, dK products), BWD_NOLOAD (dq_d128_kernel
 //    loads no K/V tile after each ring slot's first) and BWD_NOSTORE
-//    (dq_d128_kernel stores no dQ);
-//    the last four give wrong gradients by design (and with no store ptxas
-//    may drop the products no output reads).
+//    (dq_d128_kernel stores no dQ), the last four giving wrong gradients by
+//    design (and with no store ptxas may drop the products no output
+//    reads); K1_ORDER=0 / 2 (hopper.cuh): the heaviest-first walk at every
+//    G, or the grouped one.
 // float32 inputs have no exact tensor-core path (TF32 would round them), so
 // they take scalar kernels (one thread a row, two at D = 96 and 128, each with half
 // the row's columns; the other side's rows read
@@ -136,8 +155,10 @@
 //
 // Layout: every tensor is addressed by (batch, head, seq) strides with a
 // contiguous head dim; lse and Dr are float32 [B,H,S] contiguous. One C
-// entry launches either kernel and returns cudaGetLastError() after its
-// launch (or the error of encoding a tensor map).
+// entry (repro_flash_attention_bwd_v: D and V's Dv; repro_flash_attention_bwd
+// with Dv = D keeps the earlier signature) launches either kernel and
+// returns cudaGetLastError() after its launch (or the error of encoding a
+// tensor map).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -176,10 +197,12 @@ constexpr int STAGES = 3;                      // slots of dQ's ring
 // dK/dV's streamed query tiles: 64 rows in 3 slots at D <= 64; 32 rows in
 // 4 slots at D = 128, so that S^T and dP^T (64 x 32, 16 floats a thread
 // each) and their A fragments fit beside dK and dV (128 floats) under the
-// 240 registers a consumer of two warpgroups rises to
+// 240 registers a consumer of two warpgroups rises to; 64 rows in 4 slots
+// at D = 96 beside V's 64 (MLA's pair: dK and dV 48 + 32 floats, so S^T
+// and dP^T of 64 x 64 fit with their fragments)
 template <int D>
 __host__ __device__ constexpr int kv_bn() {
-  return D > 64 ? 32 : 64;
+  return D == 128 ? 32 : 64;
 }
 template <int D>
 __host__ __device__ constexpr int kv_stages() {
@@ -548,42 +571,59 @@ __global__ void __launch_bounds__(Shape<dq_wgs<D>()>::THREADS, 1)
 // one a 64-column half.
 // ---------------------------------------------------------------------------
 namespace dq128 {
-constexpr int D = 128;
 constexpr int NC = 2;                       // consumer warpgroups
 constexpr int BM = WG_ROWS * NC;            // 128 query rows a tile
 constexpr int THREADS = 128 * (NC + 1);
 constexpr int SLOTS = 3;                    // K/V ring slots of BN rows
-constexpr int ROWS = BM * D * 2;            // 32 KB: a tile's Q (or dO) rows
-constexpr int TILE = BN * D * 2;            // 16 KB: a K (or V) tile
 constexpr int DR_THREADS = 64;              // the producer's warps 2-3
 // At launch ptxas gives a thread 65536 / 384 = 168 registers; the producer
 // warpgroup keeps 56 (its Dr pass holds a 16-byte load of O and one of dO
 // in flight) and the consumers rise to 224: (168 - 56) x 128 = (224 - 168) x 256
 constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
-// Shared memory from a 1024-byte aligned base: Q[2], dO[2] (each two
-// [BM][64] halves), the K and V rings, Dr[2][BM], the barriers
-constexpr int Q = 0;
-constexpr int DO = Q + 2 * ROWS;
-constexpr int K = DO + 2 * ROWS;
-constexpr int V = K + SLOTS * TILE;
-constexpr int DR = V + SLOTS * TILE;
-constexpr int BAR = DR + 2 * BM * 4;
-// full[SLOTS], empty[SLOTS], rows_full[2], dq_ready[2], dr_full[2], dr_free[2]
-constexpr int BYTES = BAR + (2 * SLOTS + 8) * 8 + 1024;  // + alignment slack
-static_assert(BYTES <= 232448, "the block's shared memory exceeds the SM's");
 static_assert((224 - 168) * 128 * NC == (168 - 56) * 128, "the register split");
 }  // namespace dq128
 
-// Output tile i counts from the heaviest (the last query rows of each (row,
-// head)) down; the KV tiles [lo, lo + n BN) the block streams for it: from
-// the window's edge of its first row to the diagonal of its last.
+// dq_d128_kernel's shared memory from a 1024-byte aligned base, for Q's and
+// K's tiles D columns wide and dO's and V's DV: Q[2], dO[2] (each as its
+// boxes: two [BM][64] halves at 128, three [BM][32] at 96, one [BM][64] at
+// 64), the K and V rings, Dr[2][BM], the barriers
+template <int D, int DV>
+struct Dq128Smem {
+  static constexpr int ROWS = dq128::BM * D * 2;      // a tile's Q rows (32 KB at 128)
+  static constexpr int DO_ROWS = dq128::BM * DV * 2;  // its dO rows
+  static constexpr int TILE = BN * D * 2;             // a K tile (16 KB at 128)
+  static constexpr int V_TILE = BN * DV * 2;          // a V tile
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + 2 * ROWS;
+  static constexpr int K = DO + 2 * DO_ROWS;
+  static constexpr int V = K + dq128::SLOTS * TILE;
+  static constexpr int DR = V + dq128::SLOTS * V_TILE;
+  static constexpr int BAR = DR + 2 * dq128::BM * 4;
+  // full[SLOTS], empty[SLOTS], rows_full[2], dq_ready[2], dr_full[2], dr_free[2]
+  static constexpr int BYTES = BAR + (2 * dq128::SLOTS + 8) * 8 + 1024;  // + alignment slack
+  static_assert(BYTES <= 232448, "the block's shared memory exceeds the SM's");
+};
+
+// Output tile i of the walk over the B H heads (head b H + h), rank 0 the
+// heaviest (the last query rows of each (row, head)): heaviest first (rank
+// i / (B H)) or grouped by head (TileOrder, hopper.cuh); the KV tiles [lo,
+// lo + n BN) the block streams for it: from the window's edge of its first
+// row to the diagonal of its last.
+template <bool GROUPED>
 struct Dq128Tile {
   int q0, h, b, lo, n;
-  __device__ __forceinline__ Dq128Tile(int i, int B, int n_qt, const TmaArgs& a) {
-    const int hb = a.H * B;
-    q0 = (n_qt - 1 - i / hb) * dq128::BM;
-    h = (i % hb) % a.H;
-    b = (i % hb) / a.H;
+  __device__ __forceinline__ Dq128Tile(int i, const TileOrder& ord, int B, int n_qt,
+                                       const TmaArgs& a) {
+    int head, rank;
+    if constexpr (GROUPED) {
+      ord.at(i, &head, &rank);
+    } else {
+      rank = i / (a.H * B);
+      head = i % (a.H * B);
+    }
+    q0 = (n_qt - 1 - rank) * dq128::BM;
+    h = head % a.H;
+    b = head / a.H;
     int hi;
     kv_range(q0, a.S, a.window, &lo, &hi);
     hi = min(q0 + dq128::BM, a.S);
@@ -591,21 +631,12 @@ struct Dq128Tile {
   }
 };
 
-// The k-th output tile (k = 0, 1, ...) of this block of a grid over
-// `total` tiles: index k g + x in even rounds, k g + g - 1 - x in odd ones
-// (a snake, so that heaviest-first leaves the blocks' sums of work close);
-// -1 past the last.
-__device__ __forceinline__ int dq128_tile(int k, int total) {
-  const int g = gridDim.x, x = blockIdx.x;
-  const int i = k * g + ((k & 1) ? g - 1 - x : x);
-  return i < total ? i : -1;
-}
-
 // dq_step on the persistent ring, in two halves: KV tile it of the output
 // tile sits in ring slot (j0 + it) % SLOTS, j0 the ring's count of tiles
 // before it. dq128_wait waits for the group in flight (tile it's S and dP,
 // and tile it - 1's dS K) and releases tile it - 1's slot; dq128_issue
 // then commits the next group.
+template <int D>
 __device__ __forceinline__ void dq128_wait(int it, int it_lo, int j0, float* s, float* dp,
                                            float* dq, uint64_t* empty) {
   using namespace dq128;
@@ -616,13 +647,16 @@ __device__ __forceinline__ void dq128_wait(int it, int it_lo, int j0, float* s, 
   if (it > it_lo) mbar_arrive(&empty[(j0 + it - 1) % SLOTS]);
 }
 
-template <int DK>
+// D, DK, DV: as dq_d128_kernel's
+template <int D, int DK, int DV>
 __device__ __forceinline__ void dq128_issue(int it, int it_lo, int it_hi, int lo, int j0, float* s,
                                             float* dp, float* dq, uint64_t* full,
                                             uint64_t desc_q, uint64_t desc_do, uint64_t desc_k0,
                                             uint64_t desc_v0, const DqRows& r, const TmaArgs& a) {
   using namespace dq128;
-  constexpr uint64_t SLOT = TILE >> 4;  // a ring slot in descriptor units
+  using L = Dq128Smem<D, DV>;
+  constexpr int VW = DV < DK ? DV : DK;  // V's columns
+  constexpr uint64_t SLOT = L::TILE >> 4, V_SLOT = L::V_TILE >> 4;  // ring slots, descriptor units
   // P under K1's mask, then dS = P (dP - Dr) in place of dP
   const int k0 = lo + it * BN;
   const bool whole =
@@ -651,8 +685,8 @@ __device__ __forceinline__ void dq128_issue(int it, int it_lo, int it_hi, int lo
   if (it + 1 < it_hi) {  // S = Q K^T and dP = dO V^T (64 x 64 each) of the next tile
     const int nx = (j0 + it + 1) % SLOTS;
     mbar_wait(&full[nx], ((j0 + it + 1) / SLOTS) & 1);
-    issue_two<D, 64, DK>(s, dp, desc_q, desc_k0 + SLOT * nx, desc_do, desc_v0 + SLOT * nx, BM,
-                         BN);
+    issue_two<D, 64, DK, DV, VW>(s, dp, desc_q, desc_k0 + SLOT * nx, desc_do,
+                                 desc_v0 + V_SLOT * nx, BM, BN);
   }
 #ifndef BWD_NOSECOND
   // dQ (+)= dS K: K read MN-major, BN / 16 k16 steps of 16 key rows. The
@@ -667,19 +701,32 @@ __device__ __forceinline__ void dq128_issue(int it, int it_lo, int it_hi, int lo
   wg_commit();
 }
 
-// Grid: min(tiles, SMs) blocks of dq128::THREADS threads and dq128::BYTES
-// of dynamic shared memory, over the B H ceil(S / 128) output tiles.
-// `o`/`os`: O and its strides, read by the Dr pass; `tdq`: dQ's map, 64-row
-// boxes. DK: the head dim, 128 or 96 (the maps 96 columns wide: the TMA
-// fills the tiles' last 32 columns with zeros and stores none of dQ's, S
-// and dP skip their two zero k16 steps, and the Dr pass reads O's 96).
-template <int DK>
+// Grid: min(tiles, SMs) blocks of dq128::THREADS threads and
+// Dq128Smem<D, DV>::BYTES of dynamic shared memory, over the B H ceil(S /
+// 128) output tiles, each block walking its share heaviest first
+// (snake_tile) or, with GROUPED (at grouped_order(G)), grouped by head
+// (TileOrder). `o`/`os`: O and its
+// strides, read by the Dr pass; `tdq`: dQ's map, 64-row boxes. D: Q's and
+// K's tiles' width, DK the head dim, DV dO's and V's tiles' width:
+// <128, 128, 128>; <128, 96, 128> (head dim 96 and a V padded to it, on
+// 128's tiles: the maps 96 columns wide, so the TMA fills the tiles' last
+// 32 columns with zeros and stores none of dQ's, S and dP skip their two
+// zero k16 steps, and the Dr pass reads O's 96); <96, 96, 64> (MLA's pair:
+// Q, K and dQ as three 32-column boxes in the 64-byte swizzle, dQ += dS K
+// one m64n96 product a step; dO and V one 64-column box, dP over its four
+// k16 steps).
+template <int D, int DK = D, int DV = D, bool GROUPED = false>
 __global__ void __launch_bounds__(dq128::THREADS, 1)
     dq_d128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                    const __grid_constant__ CUtensorMap tdq, TmaArgs a, const bf16* o, Strides os,
                    int dq_slots, int B) {
   using namespace dq128;
+  using L = Dq128Smem<D, DV>;
+  constexpr int ROWS = L::ROWS, DO_ROWS = L::DO_ROWS, TILE = L::TILE, V_TILE = L::V_TILE,
+                Q = L::Q, DO = L::DO, K = L::K, V = L::V, DR = L::DR, BAR = L::BAR;
+  constexpr int VW = DV < DK ? DV : DK;  // O's columns
+  constexpr int QW = box_cols<D>(), VB = box_cols<DV>();  // a box's columns
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR);
@@ -691,6 +738,14 @@ __global__ void __launch_bounds__(dq128::THREADS, 1)
   float* dr_s = reinterpret_cast<float*>(smem + DR);
   const int n_qt = (a.S + BM - 1) / BM;
   const int total = n_qt * a.H * B;
+  const TileOrder ord(a.H * B, n_qt, gridDim.x, blockIdx.x);  // (GROUPED)
+  // the block's k-th output tile, -1 past its last
+  auto tile_of = [&](int k) {
+    if constexpr (GROUPED)
+      return ord.of_block(k);
+    else
+      return snake_tile(k, total);
+  };
   const int warp = warp_index();
 
   if (threadIdx.x == 0) {
@@ -713,8 +768,8 @@ __global__ void __launch_bounds__(dq128::THREADS, 1)
     const int pw = warp - 4 * NC, lane = threadIdx.x % 32;
     if (pw == 0 && lane == 0) {  // the K/V ring, on across the block's tiles
       int kv = 0;
-      for (int k = 0, i; (i = dq128_tile(k, total)) >= 0; ++k) {
-        const Dq128Tile t(i, B, n_qt, a);
+      for (int k = 0, i; (i = tile_of(k)) >= 0; ++k) {
+        const Dq128Tile<GROUPED> t(i, ord, B, n_qt, a);
         const int kh = t.h / (a.H / a.K);
         for (int it = 0; it < t.n; ++it) {
           const int j = kv + it, st = j % SLOTS;
@@ -725,49 +780,52 @@ __global__ void __launch_bounds__(dq128::THREADS, 1)
             continue;
           }
 #endif
-          mbar_expect_tx(&full[st], 2 * TILE);
+          mbar_expect_tx(&full[st], TILE + V_TILE);
           tma_tile<D>(smem + K + st * TILE, &tk, &full[st], a.k_slots, BN, t.lo + it * BN, kh, t.b);
-          tma_tile<D>(smem + V + st * TILE, &tv, &full[st], a.v_slots, BN, t.lo + it * BN, kh, t.b);
+          tma_tile<DV>(smem + V + st * V_TILE, &tv, &full[st], a.v_slots, BN, t.lo + it * BN, kh,
+                       t.b);
         }
         kv += t.n;
       }
     } else if (pw == 1 && lane == 0) {
       // each tile's Q and dO into buffer k % 2; once tile k - 2 staged its
-      // dQ in that buffer, dQ out by TMA stores first (two a warpgroup, one
-      // a 64-column half; rows past S are not written)
+      // dQ in that buffer, dQ out by TMA stores first (a warpgroup's rows
+      // of each of its boxes; rows past S are not written)
       auto store = [&](int k) {
-        const Dq128Tile t(dq128_tile(k, total), B, n_qt, a);
+        const Dq128Tile<GROUPED> t(tile_of(k), ord, B, n_qt, a);
         const int buf = k & 1;
         mbar_wait(&dq_ready[buf], (k >> 1) & 1);
 #ifndef BWD_NOSTORE
         for (int wg = 0; wg < NC; ++wg) {
           const int q0w = t.q0 + wg * WG_ROWS;
           if (q0w >= a.S) continue;
-          uint8_t* rows = smem + Q + buf * ROWS + wg * WG_ROWS * 128;
-          tma_store(&tdq, rows, dq_slots, q0w, t.h, t.b, 0);
-          tma_store(&tdq, rows + BM * 128, dq_slots, q0w, t.h, t.b, 64);
+          uint8_t* rows = smem + Q + buf * ROWS + wg * WG_ROWS * QW * 2;
+#pragma unroll
+          for (int c = 0; c < D; c += QW)
+            tma_store(&tdq, rows + c * BM * 2, dq_slots, q0w, t.h, t.b, c);
         }
 #endif
         bulk_commit();
       };
       int k = 0;
-      for (int i; (i = dq128_tile(k, total)) >= 0; ++k) {
-        const Dq128Tile t(i, B, n_qt, a);
+      for (int i; (i = tile_of(k)) >= 0; ++k) {
+        const Dq128Tile<GROUPED> t(i, ord, B, n_qt, a);
         const int buf = k & 1;
         if (k >= 2) {
           store(k - 2);
           bulk_wait_read<0>();
         }
-        mbar_expect_tx(&rows_full[buf], 2 * ROWS);
+        mbar_expect_tx(&rows_full[buf], ROWS + DO_ROWS);
         tma_tile<D>(smem + Q + buf * ROWS, &tq, &rows_full[buf], a.q_slots, BM, t.q0, t.h, t.b);
-        tma_tile<D>(smem + DO + buf * ROWS, &tdo, &rows_full[buf], a.do_slots, BM, t.q0, t.h, t.b);
+        tma_tile<DV>(smem + DO + buf * DO_ROWS, &tdo, &rows_full[buf], a.do_slots, BM, t.q0, t.h,
+                     t.b);
       }
       for (int j = k >= 2 ? k - 2 : 0; j < k; ++j) store(j);
       bulk_wait<0>();  // the last stores are done before the block leaves
     } else if (pw >= 2) {  // Dr = rowsum(dO o): rows u and u + 64 of each tile
       const int u = threadIdx.x - 128 * NC - 64;
-      for (int k = 0, i; (i = dq128_tile(k, total)) >= 0; ++k) {
-        const Dq128Tile t(i, B, n_qt, a);
+      for (int k = 0, i; (i = tile_of(k)) >= 0; ++k) {
+        const Dq128Tile<GROUPED> t(i, ord, B, n_qt, a);
         const int buf = k & 1;
         mbar_wait(&rows_full[buf], (k >> 1) & 1);
         if (k >= 2) mbar_wait(&dr_free[buf], ((k - 2) >> 1) & 1);
@@ -775,19 +833,20 @@ __global__ void __launch_bounds__(dq128::THREADS, 1)
 #pragma unroll 1
         for (int rr = u; rr < BM; rr += DR_THREADS) {
           const int qp = t.q0 + rr;
-          // the row's halves in turn, each over the 16-byte chunks in the
-          // order the swizzled tile holds them (chunk c ^ (rr % 8) at
-          // place c), as the two-thread pass of dq_bf16_kernel sums them
+          // the row's 64-column halves (one at DV = 64) in turn, each over
+          // the 16-byte chunks in the order the swizzled tile holds them
+          // (chunk c ^ (rr % 8) at place c), as the two-thread pass of
+          // dq_bf16_kernel sums them
           float acc[2] = {0.f, 0.f};
           if (qp < a.S) {
             const bf16* orow = o + t.b * os.b + t.h * os.h + qp * os.s;
 #pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-              const uint4* pd =
-                  reinterpret_cast<const uint4*>(smem + DO + buf * ROWS + hf * BM * 128 + rr * 128);
+            for (int hf = 0; hf < DV / VB; ++hf) {
+              const uint4* pd = reinterpret_cast<const uint4*>(smem + DO + buf * DO_ROWS +
+                                                               hf * BM * 128 + rr * 128);
 #pragma unroll 4
               for (int c = 0; c < 8; ++c) {
-                if (hf * 64 + (c ^ (rr % 8)) * 8 >= DK) continue;  // dO's zero columns
+                if (hf * 64 + (c ^ (rr % 8)) * 8 >= VW) continue;  // dO's zero columns
                 const uint4 x = __ldg(reinterpret_cast<const uint4*>(orow + hf * 64) + (c ^ (rr % 8)));
                 const uint4 y = pd[c];
                 const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
@@ -820,7 +879,7 @@ __global__ void __launch_bounds__(dq128::THREADS, 1)
   // s[n*4 + i*2 + j] is row r0 + 8i, key k0 + 8n + c0 + j
   const int r0 = (t128 / 32) * 16 + lane / 4;
   const int c0 = 2 * (lane % 4);
-  const uint64_t desc_k0 = smem_desc<D>(smem + K), desc_v0 = smem_desc<D>(smem + V);
+  const uint64_t desc_k0 = smem_desc<D>(smem + K), desc_v0 = smem_desc<DV>(smem + V);
   float dq[NQ], s[NS], dp[NS];
 #pragma unroll
   for (int i = 0; i < NQ; ++i) dq[i] = 0.f;
@@ -831,8 +890,8 @@ __global__ void __launch_bounds__(dq128::THREADS, 1)
     mbar_arrive(&empty[j % SLOTS]);
   };
   int kv = 0;  // ring tiles before this output tile
-  for (int k = 0, i; (i = dq128_tile(k, total)) >= 0; ++k) {
-    const Dq128Tile t(i, B, n_qt, a);
+  for (int k = 0, i; (i = tile_of(k)) >= 0; ++k) {
+    const Dq128Tile<GROUPED> t(i, ord, B, n_qt, a);
     const int buf = k & 1;
     const int q0w = t.q0 + wg * WG_ROWS;
     int it_lo = 0, it_hi = 0;  // no rows below S: compute nothing
@@ -851,8 +910,8 @@ __global__ void __launch_bounds__(dq128::THREADS, 1)
     r.l0 = r.qp0 < a.S ? a.lse[row + r.qp0] * LOG2E : 0.f;
     r.l1 = r.qp1 < a.S ? a.lse[row + r.qp1] * LOG2E : 0.f;
     uint8_t* qb = smem + Q + buf * ROWS;
-    const uint64_t desc_q = smem_desc<D>(qb + wg * WG_ROWS * 128);
-    const uint64_t desc_do = smem_desc<D>(smem + DO + buf * ROWS + wg * WG_ROWS * 128);
+    const uint64_t desc_q = smem_desc<D>(qb + wg * WG_ROWS * QW * 2);
+    const uint64_t desc_do = smem_desc<DV>(smem + DO + buf * DO_ROWS + wg * WG_ROWS * VB * 2);
 
     mbar_wait(&rows_full[buf], (k >> 1) & 1);
     for (int it = 0; it < it_lo; ++it) skip(kv + it);
@@ -860,8 +919,8 @@ __global__ void __launch_bounds__(dq128::THREADS, 1)
       const int j = kv + it_lo;
       mbar_wait(&full[j % SLOTS], (j / SLOTS) & 1);
       wg_fence();
-      issue_two<D, 64, DK>(s, dp, desc_q, desc_k0 + (TILE >> 4) * (j % SLOTS), desc_do,
-                           desc_v0 + (TILE >> 4) * (j % SLOTS), BM, BN);
+      issue_two<D, 64, DK, DV, VW>(s, dp, desc_q, desc_k0 + (TILE >> 4) * (j % SLOTS), desc_do,
+                                   desc_v0 + (V_TILE >> 4) * (j % SLOTS), BM, BN);
       wg_commit();
     }
     mbar_wait(&dr_full[buf], (k >> 1) & 1);
@@ -870,9 +929,9 @@ __global__ void __launch_bounds__(dq128::THREADS, 1)
     mbar_arrive(&dr_free[buf]);
 
     for (int it = it_lo; it < it_hi; ++it) {
-      dq128_wait(it, it_lo, kv, s, dp, dq, empty);
-      dq128_issue<DK>(it, it_lo, it_hi, t.lo, kv, s, dp, dq, full, desc_q, desc_do, desc_k0,
-                      desc_v0, r, a);
+      dq128_wait<D>(it, it_lo, kv, s, dp, dq, empty);
+      dq128_issue<D, DK, DV>(it, it_lo, it_hi, t.lo, kv, s, dp, dq, full, desc_q, desc_do,
+                             desc_k0, desc_v0, r, a);
     }
     // (unconditional: ptxas then knows no product is in flight when dQ is
     // read for the store)
@@ -885,19 +944,18 @@ __global__ void __launch_bounds__(dq128::THREADS, 1)
     kv += t.n;
 
     // dQ into the warpgroup's rows of this tile's Q buffer (every S of the
-    // warpgroup is done), as the map's 128-byte swizzle lays them: 16-byte
-    // piece c of row r at piece c ^ (r % 8). The producer's warp 1 stores
-    // them once every consumer thread has arrived on dq_ready (which also
-    // frees the buffer's Q and dO): no consumer waits on a store.
+    // warpgroup is done), as the map's swizzle lays them (swizzled). The
+    // producer's warp 1 stores them once every consumer thread has arrived
+    // on dq_ready (which also frees the buffer's Q and dO): no consumer
+    // waits on a store.
 #ifndef BWD_NOSTORE
     if (q0w < a.S) {
+      uint8_t* rows = qb + wg * WG_ROWS * QW * 2;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
-        uint8_t* half = qb + (n / 8) * (BM * 128) + wg * WG_ROWS * 128;
-        const int piece = n % 8, off = c0 * 2;
-        *reinterpret_cast<uint32_t*>(half + r0 * 128 + ((piece ^ (r0 % 8)) * 16) + off) =
+        *reinterpret_cast<uint32_t*>(rows + swizzled<QW>(BM, r0, 8 * n + c0)) =
             pack_bf16(dq[n * 4 + 0] * a.scale, dq[n * 4 + 1] * a.scale);
-        *reinterpret_cast<uint32_t*>(half + (r0 + 8) * 128 + ((piece ^ ((r0 + 8) % 8)) * 16) + off) =
+        *reinterpret_cast<uint32_t*>(rows + swizzled<QW>(BM, r0 + 8, 8 * n + c0)) =
             pack_bf16(dq[n * 4 + 2] * a.scale, dq[n * 4 + 3] * a.scale);
       }
     }
@@ -913,18 +971,21 @@ __global__ void __launch_bounds__(dq128::THREADS, 1)
 // ---------------------------------------------------------------------------
 // Shared memory from a 1024-byte aligned base: K, V (128 rows each), the Q
 // and dO rings, the per-slot lse (log2 units) and Dr vectors, the barriers.
-template <int D>
+// D: K's and Q's tiles' width; DV: V's and dO's (MLA's 64 beside 96).
+template <int D, int DV = D>
 struct KvSmem {
   static constexpr int BN = kv_bn<D>();         // rows of a streamed tile
   static constexpr int STAGES = kv_stages<D>();  // slots of the ring
   static constexpr int BM = Shape<KV_WGS>::ROWS;
-  static constexpr int ROWS = BM * D * 2;
-  static constexpr int TILE = BN * D * 2;
+  static constexpr int ROWS = BM * D * 2;     // K
+  static constexpr int V_ROWS = BM * DV * 2;  // V
+  static constexpr int TILE = BN * D * 2;     // a ring slot's Q
+  static constexpr int DO_TILE = BN * DV * 2; // its dO
   static constexpr int K = 0;
   static constexpr int V = K + ROWS;
-  static constexpr int Q = V + ROWS;
+  static constexpr int Q = V + V_ROWS;
   static constexpr int DO = Q + STAGES * TILE;
-  static constexpr int LSE = DO + STAGES * TILE;  // float [STAGES][BN]
+  static constexpr int LSE = DO + STAGES * DO_TILE;  // float [STAGES][BN]
   static constexpr int DR = LSE + STAGES * BN * 4;  // float [STAGES][BN]
   static constexpr int BAR = DR + STAGES * BN * 4;
   static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
@@ -940,20 +1001,21 @@ struct KvCols {
 // One tile of a dK/dV warpgroup's run [it_lo, it_hi) of the block's tiles
 // (one head's query tiles that its keys see), with one tile of look-ahead
 // as dq_step: tile it's dV and dK products go in one group behind tile
-// it + 1's S^T and dP^T (over DK of the tiles' D columns).
-template <int D, int DK = D>
+// it + 1's S^T (over DK of the tiles' D columns) and dP^T (over V's).
+template <int D, int DK = D, int DV = D>
 __device__ __forceinline__ void kv_step(int it, int it_lo, int it_hi, float* s, float* dp,
                                         float* dk, float* dv, uint64_t* full, uint64_t* empty,
                                         const float* lse_s, const float* dr_s, uint64_t desc_k,
                                         uint64_t desc_v, uint64_t desc_q0, uint64_t desc_do0,
                                         const KvCols& c, const TmaArgs& a) {
-  constexpr int BN = KvSmem<D>::BN, STAGES = KvSmem<D>::STAGES;
-  constexpr uint64_t SLOT = (BN * D * 2) >> 4;  // a ring slot in descriptor units
+  using L = KvSmem<D, DV>;
+  constexpr int BN = L::BN, STAGES = L::STAGES, VW = DV < DK ? DV : DK;
+  constexpr uint64_t SLOT = L::TILE >> 4, DO_SLOT = L::DO_TILE >> 4;  // descriptor units
   wg_wait<0>();
   fence_regs<BN / 2>(s);
   fence_regs<BN / 2>(dp);
   fence_regs<D / 2>(dk);
-  fence_regs<D / 2>(dv);
+  fence_regs<DV / 2>(dv);
   if (it > it_lo) mbar_arrive(&empty[(it - 1) % STAGES]);
 
   // P^T under K1's mask (queries past S dropped), then dS^T = P^T (dP^T -
@@ -995,15 +1057,15 @@ __device__ __forceinline__ void kv_step(int it, int it_lo, int it_hi, float* s, 
   if (it + 1 < it_hi) {  // S^T = K Q^T and dP^T = V dO^T of the next tile
     const int nx = (it + 1) % STAGES;
     mbar_wait(&full[nx], ((it + 1) / STAGES) & 1);
-    issue_two<D, BN, DK>(s, dp, desc_k, desc_q0 + SLOT * nx, desc_v, desc_do0 + SLOT * nx,
-                         KvSmem<D>::BM, BN);
+    issue_two<D, BN, DK, DV, VW>(s, dp, desc_k, desc_q0 + SLOT * nx, desc_v,
+                                 desc_do0 + DO_SLOT * nx, L::BM, BN);
   }
 #ifndef BWD_NOSECOND
   // dV += P^T dO, dK += dS^T Q: dO and Q read MN-major, BN / 16 k16 steps
   // of 16 query rows
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
-    mma_rs<D>(dv, pa[kk], desc_do0 + SLOT * st + mn_step<D>() * kk, BN);
+    mma_rs<DV>(dv, pa[kk], desc_do0 + DO_SLOT * st + mn_step<DV>() * kk, BN);
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
     mma_rs<D>(dk, sa[kk], desc_q0 + SLOT * st + mn_step<D>() * kk, BN);
@@ -1011,15 +1073,23 @@ __device__ __forceinline__ void kv_step(int it, int it_lo, int it_hi, float* s, 
   wg_commit();
 }
 
-// D: the tiles' width; DK: the head dim (96 on D = 128's tiles, as
-// dq_d128_kernel<96>: dK and dV written for the first 96 columns).
-template <int D, int DK = D>
+// D: K's and Q's tiles' width; DK: the head dim (96 on D = 128's tiles, as
+// dq_d128_kernel<128, 96>: dK written for the first 96 columns; or on
+// 96's, three 32-column boxes, dK += dS^T Q one m64n96 product a step);
+// DV: V's and dO's tiles' width (D, or MLA's 64: dP^T over its four k16
+// steps, dV += P^T dO one m64n64 product a step). The grid: (K, B,
+// ceil(S / 128)) blocks, blockIdx.z slowest, so the first KV tiles (the
+// heaviest under the causal mask) start first; or, with GROUPED (at
+// grouped_order(G)), a 1-D grid of as many, block i taking tile i of the
+// TileOrder over the B K heads (head b K + kh) and their KV tiles, rank 0
+// the first, its rounds counted in `sms` SMs.
+template <int D, int DK = D, int DV = D, bool GROUPED = false>
 __global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
     dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap tq,
-                     const __grid_constant__ CUtensorMap tdo, TmaArgs a) {
-  using L = KvSmem<D>;
-  constexpr int BN = L::BN, STAGES = L::STAGES;
+                     const __grid_constant__ CUtensorMap tdo, TmaArgs a, int B, int sms) {
+  using L = KvSmem<D, DV>;
+  constexpr int BN = L::BN, STAGES = L::STAGES, VW = DV < DK ? DV : DK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
@@ -1028,9 +1098,15 @@ __global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
   float* lse_s = reinterpret_cast<float*>(smem + L::LSE);
   float* dr_s = reinterpret_cast<float*>(smem + L::DR);
 
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * L::BM;  // the low KV tiles, heaviest under causal, first
   const int G = a.H / a.K;
+  int kh = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * L::BM;
+  if constexpr (GROUPED) {
+    int head, rank;
+    TileOrder(a.K * B, (a.S + L::BM - 1) / L::BM, sms).at(blockIdx.x, &head, &rank);
+    kh = head % a.K;
+    b = head / a.K;
+    k0 = rank * L::BM;
+  }
   const int warp = warp_index(), lane = threadIdx.x % 32;
 
   // the query tiles the block loads for each head: from the tile of its
@@ -1054,9 +1130,9 @@ __global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
     setmaxnreg_dec<PRODUCER_REGS>();
     if (warp > 4 * KV_WGS) return;
     if (lane == 0) {
-      mbar_expect_tx(kv_full, 2 * L::ROWS);
+      mbar_expect_tx(kv_full, L::ROWS + L::V_ROWS);
       tma_tile<D>(smem + L::K, &tk, kv_full, a.k_slots, L::BM, k0, kh, b);
-      tma_tile<D>(smem + L::V, &tv, kv_full, a.v_slots, L::BM, k0, kh, b);
+      tma_tile<DV>(smem + L::V, &tv, kv_full, a.v_slots, L::BM, k0, kh, b);
     }
     for (int it = 0; it < n_it; ++it) {
       const int st = it % STAGES;
@@ -1070,9 +1146,9 @@ __global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
         dr_s[st * BN + i] = qp < a.S ? a.delta[row + qp] : 0.f;
       }
       if (lane == 0) {
-        mbar_expect_tx(&full[st], 2 * L::TILE);
+        mbar_expect_tx(&full[st], L::TILE + L::DO_TILE);
         tma_tile<D>(smem + L::Q + st * L::TILE, &tq, &full[st], a.q_slots, BN, q0, h, b);
-        tma_tile<D>(smem + L::DO + st * L::TILE, &tdo, &full[st], a.do_slots, BN, q0, h, b);
+        tma_tile<DV>(smem + L::DO + st * L::DO_TILE, &tdo, &full[st], a.do_slots, BN, q0, h, b);
       } else {
         mbar_arrive(&full[st]);
       }
@@ -1080,7 +1156,8 @@ __global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
   } else {  // consumer warpgroup wg: KV rows [k0w, k0w + 64)
     setmaxnreg_inc<Shape<KV_WGS>::REGS>();
     constexpr int NS = BN / 2;  // S^T and dP^T accumulator floats a thread
-    constexpr int NK = D / 2;   // dK, dV accumulator floats a thread
+    constexpr int NK = D / 2;   // dK accumulator floats a thread
+    constexpr int NV = DV / 2;  // dV accumulator floats a thread
     const int wg = warp / 4, t = threadIdx.x % 128;
     const int k0w = k0 + wg * WG_ROWS;
     // the query tiles [j_lo, j_hi) of each head's n_qt that these rows see
@@ -1096,15 +1173,17 @@ __global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
     const int kp0 = k0w + (t / 32) * 16 + lane / 4;
     const int c0 = 2 * (lane % 4);
 
-    float dk[NK], dv[NK], s[NS], dp[NS];
+    float dk[NK], dv[NV], s[NS], dp[NS];
 #pragma unroll
-    for (int i = 0; i < NK; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < NK; ++i) dk[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) dv[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
     const uint64_t desc_k = smem_desc<D>(smem + L::K + wg * WG_ROWS * box_cols<D>() * 2);
-    const uint64_t desc_v = smem_desc<D>(smem + L::V + wg * WG_ROWS * box_cols<D>() * 2);
+    const uint64_t desc_v = smem_desc<DV>(smem + L::V + wg * WG_ROWS * box_cols<DV>() * 2);
 
-    const uint64_t desc_q0 = smem_desc<D>(smem + L::Q), desc_do0 = smem_desc<D>(smem + L::DO);
+    const uint64_t desc_q0 = smem_desc<D>(smem + L::Q), desc_do0 = smem_desc<DV>(smem + L::DO);
     KvCols c;
     c.k0w = k0w;
     c.kp0 = kp0;
@@ -1124,35 +1203,36 @@ __global__ void __launch_bounds__(Shape<KV_WGS>::THREADS, 1)
         const int st = lo_it % STAGES;
         mbar_wait(&full[st], (lo_it / STAGES) & 1);
         wg_fence();
-        issue_two<D, BN, DK>(s, dp, desc_k, desc_q0 + (L::TILE >> 4) * st, desc_v,
-                             desc_do0 + (L::TILE >> 4) * st, L::BM, BN);
+        issue_two<D, BN, DK, DV, VW>(s, dp, desc_k, desc_q0 + (L::TILE >> 4) * st, desc_v,
+                                     desc_do0 + (L::DO_TILE >> 4) * st, L::BM, BN);
         wg_commit();
         // two steps a trip: ptxas schedules dK/dV's better so (dQ's, on
         // three warpgroups, worse), as measured on an H100
         for (int it = lo_it;;) {
-          kv_step<D, DK>(it, lo_it, hi_it, s, dp, dk, dv, full, empty, lse_s, dr_s, desc_k,
-                         desc_v, desc_q0, desc_do0, c, a);
+          kv_step<D, DK, DV>(it, lo_it, hi_it, s, dp, dk, dv, full, empty, lse_s, dr_s, desc_k,
+                             desc_v, desc_q0, desc_do0, c, a);
           if (++it == hi_it) break;
-          kv_step<D, DK>(it, lo_it, hi_it, s, dp, dk, dv, full, empty, lse_s, dr_s, desc_k,
-                         desc_v, desc_q0, desc_do0, c, a);
+          kv_step<D, DK, DV>(it, lo_it, hi_it, s, dp, dk, dv, full, empty, lse_s, dr_s, desc_k,
+                             desc_v, desc_q0, desc_do0, c, a);
           if (++it == hi_it) break;
         }
         wg_wait<0>();
-        fence_regs<NK>(dv);
+        fence_regs<NV>(dv);
         fence_regs<NK>(dk);
         mbar_arrive(&empty[(hi_it - 1) % STAGES]);
       }
       for (int it = hi_it; it < base + n_qt; ++it) skip(it);
     }
     store_acc<DK>(dk, a.scale, a.dk, a.dks, b, kh, kp0, c0, a.S);
-    store_acc<DK>(dv, 1.f, a.dv, a.dvs, b, kh, kp0, c0, a.S);
+    store_acc<VW>(dv, 1.f, a.dv, a.dvs, b, kh, kp0, c0, a.S);
   }
 }
 
 // ---------------------------------------------------------------------------
 // float32: scalar FMA. A block owns F32<D>::FT rows (TPR threads each, the
 // row in shared memory with a padded stride, the sums in registers) and
-// walks the other side in FB-row tiles read as broadcasts.
+// walks the other side in FB-row tiles read as broadcasts. DV: V's, O's and
+// dO's width (D, or MLA's 64 beside 96), of which a thread holds DV / TPR.
 // ---------------------------------------------------------------------------
 template <int D>
 __device__ __forceinline__ void load_rows_f32(float (*dst)[D + 1], const void* src,
@@ -1174,22 +1254,26 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <int D>
+template <int D, int DV = D>
 __global__ void __launch_bounds__(F32<D>::FT * F32<D>::TPR) dkdv_f32_kernel(Args a) {
   constexpr int FT = F32<D>::FT, FB = F32<D>::FB, TPR = F32<D>::TPR, DP = F32<D>::DP;
-  __shared__ float k_s[FT][D + 1], v_s[FT][D + 1];
-  __shared__ float q_s[FB][D + 1], do_s[FB][D + 1];
+  constexpr int VP = DV / TPR;
+  __shared__ float k_s[FT][D + 1], v_s[FT][DV + 1];
+  __shared__ float q_s[FB][D + 1], do_s[FB][DV + 1];
   __shared__ float lse_s[FB], dr_s[FB];
 
   const int kt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.K;
   const int k0 = kt * FT, j = threadIdx.x / TPR, kp = k0 + j;
-  const int d0 = (threadIdx.x % TPR) * DP;  // this thread's first column
+  const int d0 = (threadIdx.x % TPR) * DP;  // this thread's first column of q and k
+  const int e0 = (threadIdx.x % TPR) * VP;  // and of v and dO
   load_rows_f32<D>(k_s, a.k, a.ks, b, kh, k0, FT, a.S);
-  load_rows_f32<D>(v_s, a.v, a.vs, b, kh, k0, FT, a.S);
-  float dk[DP], dv[DP];
+  load_rows_f32<DV>(v_s, a.v, a.vs, b, kh, k0, FT, a.S);
+  float dk[DP], dv[VP];
 #pragma unroll
-  for (int d = 0; d < DP; ++d) dk[d] = dv[d] = 0.f;
+  for (int d = 0; d < DP; ++d) dk[d] = 0.f;
+#pragma unroll
+  for (int d = 0; d < VP; ++d) dv[d] = 0.f;
 
   const int q_hi = a.window > 0 ? min(a.S, k0 + FT - 1 + a.window) : a.S;
   for (int gi = 0; gi < G; ++gi) {
@@ -1199,7 +1283,7 @@ __global__ void __launch_bounds__(F32<D>::FT * F32<D>::TPR) dkdv_f32_kernel(Args
     for (int q0 = (k0 / FB) * FB; q0 < q_hi; q0 += FB) {
       __syncthreads();
       load_rows_f32<D>(q_s, a.q, a.qs, b, h, q0, FB, a.S);
-      load_rows_f32<D>(do_s, a.dout, a.dos, b, h, q0, FB, a.S);
+      load_rows_f32<DV>(do_s, a.dout, a.dos, b, h, q0, FB, a.S);
       if (threadIdx.x < FB) {
         const int qp = q0 + threadIdx.x;
         lse_s[threadIdx.x] = qp < a.S ? lse[qp] : 0.f;
@@ -1212,55 +1296,54 @@ __global__ void __launch_bounds__(F32<D>::FT * F32<D>::TPR) dkdv_f32_kernel(Args
         if (TPR == 1 && !ok) continue;
         float s = 0.f, dp = 0.f;
 #pragma unroll
-        for (int d = 0; d < DP; ++d) {
-          s += q_s[i][d0 + d] * k_s[j][d0 + d];
-          dp += do_s[i][d0 + d] * v_s[j][d0 + d];
-        }
+        for (int d = 0; d < DP; ++d) s += q_s[i][d0 + d] * k_s[j][d0 + d];
+#pragma unroll
+        for (int d = 0; d < VP; ++d) dp += do_s[i][e0 + d] * v_s[j][e0 + d];
         s = row_sum<TPR>(s);
         dp = row_sum<TPR>(dp);
         if (!ok) continue;
         const float p = expf(s * a.scale - lse_s[i]);
         const float ds = p * (dp - dr_s[i]);
 #pragma unroll
-        for (int d = 0; d < DP; ++d) {
-          dv[d] += p * do_s[i][d0 + d];
-          dk[d] += ds * q_s[i][d0 + d];
-        }
+        for (int d = 0; d < VP; ++d) dv[d] += p * do_s[i][e0 + d];
+#pragma unroll
+        for (int d = 0; d < DP; ++d) dk[d] += ds * q_s[i][d0 + d];
       }
     }
   }
   if (kp < a.S) {
     float* dkr = static_cast<float*>(a.dk) + b * a.dks.b + kh * a.dks.h + kp * a.dks.s + d0;
-    float* dvr = static_cast<float*>(a.dv) + b * a.dvs.b + kh * a.dvs.h + kp * a.dvs.s + d0;
+    float* dvr = static_cast<float*>(a.dv) + b * a.dvs.b + kh * a.dvs.h + kp * a.dvs.s + e0;
 #pragma unroll
-    for (int d = 0; d < DP; ++d) {
-      dkr[d] = dk[d] * a.scale;
-      dvr[d] = dv[d];
-    }
+    for (int d = 0; d < DP; ++d) dkr[d] = dk[d] * a.scale;
+#pragma unroll
+    for (int d = 0; d < VP; ++d) dvr[d] = dv[d];
   }
 }
 
 // dQ of FT query rows, and their Dr = rowsum(dO o), written for dK/dV
-template <int D>
+template <int D, int DV = D>
 __global__ void __launch_bounds__(F32<D>::FT * F32<D>::TPR) dq_f32_kernel(Args a) {
   constexpr int FT = F32<D>::FT, FB = F32<D>::FB, TPR = F32<D>::TPR, DP = F32<D>::DP;
-  __shared__ float q_s[FT][D + 1], do_s[FT][D + 1];
-  __shared__ float k_s[FB][D + 1], v_s[FB][D + 1];
+  constexpr int VP = DV / TPR;
+  __shared__ float q_s[FT][D + 1], do_s[FT][DV + 1];
+  __shared__ float k_s[FB][D + 1], v_s[FB][DV + 1];
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (a.H / a.K);
   const int q0 = qt * FT, i = threadIdx.x / TPR, qp = q0 + i;
-  const int d0 = (threadIdx.x % TPR) * DP;  // this thread's first column
+  const int d0 = (threadIdx.x % TPR) * DP;  // this thread's first column of q and k
+  const int e0 = (threadIdx.x % TPR) * VP;  // and of v, o and dO
   load_rows_f32<D>(q_s, a.q, a.qs, b, h, q0, FT, a.S);
-  load_rows_f32<D>(do_s, a.dout, a.dos, b, h, q0, FT, a.S);
+  load_rows_f32<DV>(do_s, a.dout, a.dos, b, h, q0, FT, a.S);
   __syncthreads();
   const long long row = ((long long)b * a.H + h) * a.S + qp;
   float lse = 0.f, dr = 0.f;
   if (qp < a.S) {
     const float* o = static_cast<const float*>(a.o) + b * a.os.b + h * a.os.h + qp * a.os.s;
 #pragma unroll
-    for (int d = 0; d < DP; ++d) dr += do_s[i][d0 + d] * o[d0 + d];
+    for (int d = 0; d < VP; ++d) dr += do_s[i][e0 + d] * o[e0 + d];
   }
   dr = row_sum<TPR>(dr);  // (a row past S: both threads hold 0)
   if (qp < a.S) {
@@ -1276,17 +1359,16 @@ __global__ void __launch_bounds__(F32<D>::FT * F32<D>::TPR) dq_f32_kernel(Args a
   for (int k0 = (k_lo / FB) * FB; k0 < k_hi; k0 += FB) {
     __syncthreads();
     load_rows_f32<D>(k_s, a.k, a.ks, b, kh, k0, FB, a.S);
-    load_rows_f32<D>(v_s, a.v, a.vs, b, kh, k0, FB, a.S);
+    load_rows_f32<DV>(v_s, a.v, a.vs, b, kh, k0, FB, a.S);
     __syncthreads();
     for (int j = 0; j < FB; ++j) {
       const bool ok = valid_pair(qp, k0 + j, a.S, a.window);
       if (TPR == 1 && !ok) continue;
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < DP; ++d) {
-        s += q_s[i][d0 + d] * k_s[j][d0 + d];
-        dp += do_s[i][d0 + d] * v_s[j][d0 + d];
-      }
+      for (int d = 0; d < DP; ++d) s += q_s[i][d0 + d] * k_s[j][d0 + d];
+#pragma unroll
+      for (int d = 0; d < VP; ++d) dp += do_s[i][e0 + d] * v_s[j][e0 + d];
       s = row_sum<TPR>(s);
       dp = row_sum<TPR>(dp);
       if (!ok) continue;
@@ -1305,6 +1387,19 @@ __global__ void __launch_bounds__(F32<D>::FT * F32<D>::TPR) dq_f32_kernel(Args a
 // ---------------------------------------------------------------------------
 // Host side: tensor maps and launches.
 // ---------------------------------------------------------------------------
+// The SMs of device `dev`: the persistent dQ grid's blocks, and the rounds
+// the dK/dV grid's TileOrder counts.
+int sm_count(int dev, int* n) {
+  static int sms[64];
+  if (dev < 64 && sms[dev]) {
+    *n = sms[dev];
+    return 0;
+  }
+  const cudaError_t err = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < 64) sms[dev] = *n;
+  return (int)err;
+}
+
 // Once per kernel and device: allow its dynamic shared memory above 48 KB,
 // and check that its register count at launch leaves room for the
 // consumers' setmaxnreg.inc from the registers the producer warpgroup
@@ -1328,51 +1423,53 @@ int prepare(Kernel kernel, int smem, unsigned long long* done) {
   return 0;
 }
 
-// dq_d128_kernel<DK>: tensor maps of 128-row Q and dO boxes, 64-row K, V
-// and dQ boxes, DK columns wide; a persistent grid of one block an SM (at
-// most one a tile). Once per device: its shared memory above 48 KB, and
-// the check that its register count at launch leaves room for the
+// dq_d128_kernel<D, DK, DV, GROUPED>: tensor maps of 128-row Q and dO boxes, 64-row
+// K, V and dQ boxes, Q's, K's and dQ's DK columns wide and dO's and V's
+// VW, each in its tiles' boxes (box_cols); a persistent grid of one block
+// an SM (at most one a tile). Once per device: its shared memory above 48
+// KB, and the check that its register count at launch leaves room for the
 // consumers' setmaxnreg.inc.
-template <int DK>
+template <int D, int DK, int DV, bool GROUPED>
 int launch_dq128(const Args& a, int B, TmaArgs t, cudaStream_t st) {
   using namespace dq128;
+  constexpr int VW = DV < DK ? DV : DK, BYTES = Dq128Smem<D, DV>::BYTES;
+  constexpr int QW = box_cols<D>(), VB = box_cols<DV>();
   CUtensorMap tq, tdo, tk, tv, tdq;
   int dq_slots = 0;
-  int rc = encode(&tq, a.q, DK, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BM, &t.q_slots);
-  if (!rc) rc = encode(&tdo, a.dout, DK, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, BM, &t.do_slots);
-  if (!rc) rc = encode(&tk, a.k, DK, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BN, &t.k_slots);
-  if (!rc) rc = encode(&tv, a.v, DK, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BN, &t.v_slots);
+  int rc = encode(&tq, a.q, DK, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BM, &t.q_slots, QW);
   if (!rc)
-    rc = encode(&tdq, a.dq, DK, a.S, a.H, B, a.dqs.s, a.dqs.h, a.dqs.b, WG_ROWS, &dq_slots);
+    rc = encode(&tdo, a.dout, VW, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, BM, &t.do_slots, VB);
+  if (!rc) rc = encode(&tk, a.k, DK, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BN, &t.k_slots, QW);
+  if (!rc) rc = encode(&tv, a.v, VW, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BN, &t.v_slots, VB);
+  if (!rc)
+    rc = encode(&tdq, a.dq, DK, a.S, a.H, B, a.dqs.s, a.dqs.h, a.dqs.b, WG_ROWS, &dq_slots, QW);
   if (rc) return rc;
-  int dev = 0;
+  int dev = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if ((rc = sm_count(dev, &n_sm))) return rc;
   static unsigned long long ready = 0;
-  static int sms[64];  // SMs of each device: the persistent grid's blocks
   if (dev >= 64 || !(ready >> dev & 1)) {
-    int n = 0;
-    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return (int)err;
-    sms[dev < 64 ? dev : 0] = n;
-    err = cudaFuncSetAttribute(dq_d128_kernel<DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               BYTES);
+    err = cudaFuncSetAttribute(dq_d128_kernel<D, DK, DV, GROUPED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
     if (err != cudaSuccess) return (int)err;
     cudaFuncAttributes attr;
-    if ((err = cudaFuncGetAttributes(&attr, dq_d128_kernel<DK>)) != cudaSuccess) return (int)err;
+    if ((err = cudaFuncGetAttributes(&attr, dq_d128_kernel<D, DK, DV, GROUPED>)) != cudaSuccess)
+      return (int)err;
     const int r = attr.numRegs, prod = dq128::PRODUCER_REGS, cons = dq128::CONSUMER_REGS;
     if (r > cons || r < prod || (r - prod) * 128 < (cons - r) * 128 * NC)
       return (int)cudaErrorInvalidConfiguration;
     if (dev < 64) ready |= 1ull << dev;
   }
-  const int tiles = (a.S + BM - 1) / BM * a.H * B, n_sm = sms[dev < 64 ? dev : 0];
-  dq_d128_kernel<DK><<<tiles < n_sm ? tiles : n_sm, THREADS, BYTES, st>>>(
+  const int tiles = (a.S + BM - 1) / BM * a.H * B;
+  dq_d128_kernel<D, DK, DV, GROUPED><<<tiles < n_sm ? tiles : n_sm, THREADS, BYTES, st>>>(
       tq, tdo, tk, tv, tdq, t, static_cast<const bf16*>(a.o), a.os, dq_slots, B);
   return (int)cudaGetLastError();
 }
 
-// D: the tiles' width; DK: the head dim (96 on D = 128's tiles).
-template <int D, int DK = D>
+// D: K's and Q's tiles' width, DK the head dim (96 on D = 128's tiles or on
+// 96's), DV V's and dO's tiles' width.
+template <int D, int DK = D, int DV = D, bool GROUPED = false>
 int launch_bf16(int kernel, const Args& a, int B, cudaStream_t st) {
   // Encoding a tensor map needs a current context, and a host thread that
   // has made no CUDA call yet (the autograd engine's worker, when this is
@@ -1397,19 +1494,20 @@ int launch_bf16(int kernel, const Args& a, int B, cudaStream_t st) {
   t.scale = a.scale;
   t.scale_log2 = a.scale * LOG2E;
   int rc;
-  if (kernel == 1 && D == 128) {
-    return launch_dq128<DK>(a, B, t, st);
-  } else if (kernel == 1) {
-    CUtensorMap tq, tdo, to, tk, tv;
-    constexpr int BM = DqSmem<D>::BM;
-    rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BM, &t.q_slots);
-    if (!rc) rc = encode(&tdo, a.dout, D, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, BM, &t.do_slots);
-    if (!rc) rc = encode(&to, a.o, D, a.S, a.H, B, a.os.s, a.os.h, a.os.b, BM, &t.o_slots);
-    if (!rc) rc = encode(&tk, a.k, D, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BN, &t.k_slots);
-    if (!rc) rc = encode(&tv, a.v, D, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BN, &t.v_slots);
-    static unsigned long long done = 0;
-    constexpr int NC = dq_wgs<D>();
-    if constexpr (D <= 64) {  // D = 128 is dq_d128_kernel's
+  if (kernel == 1) {
+    if constexpr (D > 64) {  // 96 and 128: dq_d128_kernel
+      return launch_dq128<D, DK, DV, GROUPED>(a, B, t, st);
+    } else {
+      CUtensorMap tq, tdo, to, tk, tv;
+      constexpr int BM = DqSmem<D>::BM;
+      rc = encode(&tq, a.q, D, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, BM, &t.q_slots);
+      if (!rc)
+        rc = encode(&tdo, a.dout, D, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, BM, &t.do_slots);
+      if (!rc) rc = encode(&to, a.o, D, a.S, a.H, B, a.os.s, a.os.h, a.os.b, BM, &t.o_slots);
+      if (!rc) rc = encode(&tk, a.k, D, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BN, &t.k_slots);
+      if (!rc) rc = encode(&tv, a.v, D, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BN, &t.v_slots);
+      static unsigned long long done = 0;
+      constexpr int NC = dq_wgs<D>();
       if (!rc) rc = prepare<NC>(dq_bf16_kernel<D>, DqSmem<D>::BYTES, &done);
       if (rc) return rc;
       dq_bf16_kernel<D><<<dim3(a.H, B, (a.S + BM - 1) / BM), Shape<NC>::THREADS,
@@ -1418,51 +1516,59 @@ int launch_bf16(int kernel, const Args& a, int B, cudaStream_t st) {
     }
   } else {
     CUtensorMap tk, tv, tq, tdo;
-    constexpr int BM = KvSmem<D>::BM;
-    rc = encode(&tk, a.k, DK, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BM, &t.k_slots);
-    if (!rc) rc = encode(&tv, a.v, DK, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BM, &t.v_slots);
-    constexpr int QR = KvSmem<D>::BN;
-    if (!rc) rc = encode(&tq, a.q, DK, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, QR, &t.q_slots);
+    using L = KvSmem<D, DV>;
+    constexpr int BM = L::BM, QR = L::BN, VW = DV < DK ? DV : DK;
+    constexpr int KB = box_cols<D>(), VB = box_cols<DV>();
+    rc = encode(&tk, a.k, DK, a.S, a.K, B, a.ks.s, a.ks.h, a.ks.b, BM, &t.k_slots, KB);
+    if (!rc) rc = encode(&tv, a.v, VW, a.S, a.K, B, a.vs.s, a.vs.h, a.vs.b, BM, &t.v_slots, VB);
+    if (!rc) rc = encode(&tq, a.q, DK, a.S, a.H, B, a.qs.s, a.qs.h, a.qs.b, QR, &t.q_slots, KB);
     if (!rc)
-      rc = encode(&tdo, a.dout, DK, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, QR, &t.do_slots);
+      rc = encode(&tdo, a.dout, VW, a.S, a.H, B, a.dos.s, a.dos.h, a.dos.b, QR, &t.do_slots, VB);
+    int n_sm = 0;  // (the grouped order's rounds)
+    if (!rc && GROUPED) rc = sm_count(dev, &n_sm);
     static unsigned long long done = 0;
-    if (!rc) rc = prepare<KV_WGS>(dkdv_bf16_kernel<D, DK>, KvSmem<D>::BYTES, &done);
+    if (!rc) rc = prepare<KV_WGS>(dkdv_bf16_kernel<D, DK, DV, GROUPED>, L::BYTES, &done);
     if (rc) return rc;
-    dkdv_bf16_kernel<D, DK><<<dim3(a.K, B, (a.S + BM - 1) / BM), Shape<KV_WGS>::THREADS,
-                              KvSmem<D>::BYTES, st>>>(
-        tk, tv, tq, tdo, t);
+    const dim3 grid = GROUPED ? dim3(a.K * B * ((a.S + BM - 1) / BM))
+                              : dim3(a.K, B, (a.S + BM - 1) / BM);
+    dkdv_bf16_kernel<D, DK, DV, GROUPED><<<grid, Shape<KV_WGS>::THREADS, L::BYTES, st>>>(
+        tk, tv, tq, tdo, t, B, n_sm);
   }
   return (int)cudaGetLastError();
 }
 
-// D: the bf16 tiles' width; DK: the head dim (96 on D = 128's tiles; the
-// float32 kernels take it as it is).
-template <int D, int DK = D>
+// D: the bf16 tiles' width of q and k, DK their head dim, DV v's tiles'
+// width (the float32 kernels take DK and V's VW columns as they are).
+template <int D, int DK = D, int DV = D>
 int launch(int kernel, const Args& a, int B, int dtype, cudaStream_t st) {
-  if (dtype == 1) return launch_bf16<D, DK>(kernel, a, B, st);
+  if (dtype == 1)
+    return grouped_order(a.H / a.K) ? launch_bf16<D, DK, DV, true>(kernel, a, B, st)
+                                    : launch_bf16<D, DK, DV, false>(kernel, a, B, st);
+  constexpr int VW = DV < DK ? DV : DK;
   constexpr int rows = F32<DK>::FT, threads = F32<DK>::FT * F32<DK>::TPR;
   if (kernel == 1)
-    dq_f32_kernel<DK><<<dim3((a.S + rows - 1) / rows, a.H, B), threads, 0, st>>>(a);
+    dq_f32_kernel<DK, VW><<<dim3((a.S + rows - 1) / rows, a.H, B), threads, 0, st>>>(a);
   else
-    dkdv_f32_kernel<DK><<<dim3((a.S + rows - 1) / rows, a.K, B), threads, 0, st>>>(a);
+    dkdv_f32_kernel<DK, VW><<<dim3((a.S + rows - 1) / rows, a.K, B), threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // kernel: 1 = dQ (it also writes delta = rowsum(dO o)), 2 = dK/dV (it reads
-// that delta, so it runs after kernel 1 on the same stream). strides: the
-// (batch, head, seq) element strides of q, k, v, o, dO, dq, dk, dv in that
-// order (24 values). lse and delta: float32 [B,H,S] contiguous. dtype: 0 =
-// float32, 1 = bfloat16. Returns a cudaError_t.
-extern "C" int repro_flash_attention_bwd(int kernel, const void* q, const void* k,
-                                         const void* v, const void* o, const void* dout,
-                                         const float* lse, float* delta, void* dq, void* dk,
-                                         void* dv, int B, int H, int K, int S, int D,
-                                         const long long* strides, int window, int dtype,
-                                         void* stream) {
+// that delta, so it runs after kernel 1 on the same stream). D: q's and k's
+// head dim (the scale 1 / sqrt(D)); Dv: v's, o's and dO's (pair_ok).
+// strides: the (batch, head, seq) element strides of q, k, v, o, dO, dq,
+// dk, dv in that order (24 values). lse and delta: float32 [B,H,S]
+// contiguous. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+extern "C" int repro_flash_attention_bwd_v(int kernel, const void* q, const void* k,
+                                           const void* v, const void* o, const void* dout,
+                                           const float* lse, float* delta, void* dq, void* dk,
+                                           void* dv, int B, int H, int K, int S, int D, int Dv,
+                                           const long long* strides, int window, int dtype,
+                                           void* stream) {
   if (B < 1 || S < 1 || K < 1 || H % K != 0 || kernel < 1 || kernel > 2 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || !pair_ok(D, Dv))
     return (int)cudaErrorInvalidValue;
   Args a = {};
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
@@ -1475,8 +1581,20 @@ extern "C" int repro_flash_attention_bwd(int kernel, const void* q, const void* 
   a.scale = 1.0f / sqrtf((float)D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128) return launch<128>(kernel, a, B, dtype, st);
+  if (D == 96 && Dv == 64) return launch<96, 96, 64>(kernel, a, B, dtype, st);
   if (D == 96) return launch<128, 96>(kernel, a, B, dtype, st);
   if (D == 64) return launch<64>(kernel, a, B, dtype, st);
   if (D == 32) return launch<32>(kernel, a, B, dtype, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The entry with v, o and dO as wide as q (Dv = D).
+extern "C" int repro_flash_attention_bwd(int kernel, const void* q, const void* k,
+                                         const void* v, const void* o, const void* dout,
+                                         const float* lse, float* delta, void* dq, void* dk,
+                                         void* dv, int B, int H, int K, int S, int D,
+                                         const long long* strides, int window, int dtype,
+                                         void* stream) {
+  return repro_flash_attention_bwd_v(kernel, q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, K,
+                                     S, D, D, strides, window, dtype, stream);
 }

@@ -68,10 +68,13 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 // The bf16 columns of one swizzled box. A row of D <= 64 (at most 128
 // bytes) is one box; a row of 128 (256 bytes, wider than the 128-byte
 // swizzle's span) is two boxes of 64 columns, and a tile of such rows lies
-// as two halves, [rows][64] each, the second after the first.
+// as two halves, [rows][64] each, the second after the first. A row of 96
+// (192 bytes: no whole number of 128-byte spans) is three boxes of 32
+// columns in the 64-byte swizzle, [rows][32] each (as CUTLASS lays out a
+// 96-wide wgmma operand), so that no zero column is loaded or multiplied.
 template <int D>
 __host__ __device__ constexpr int box_cols() {
-  return D > 64 ? 64 : D;
+  return D == 96 ? 32 : D > 64 ? 64 : D;
 }
 
 // A wgmma shared-memory matrix descriptor for a tile whose box rows are
@@ -101,8 +104,22 @@ __device__ __forceinline__ uint64_t k_step(uint64_t desc, int rows, int kk) {
   return desc + (uint64_t)((kk / PER) * ((rows * box_cols<D>() * 2) >> 4) + 2 * (kk % PER));
 }
 
+// The byte offset, in a tile of `rows`-row boxes W (64 or 32) bf16 columns
+// wide as the TMA lays them in W's swizzle (128 or 64 bytes), of row r's
+// column col (even; the 4 bytes from there lie in one 16-byte piece): box
+// col / W, then the row's piece p at p ^ (r % 8) (128-byte swizzle) or
+// p ^ (r / 2 % 4) (64-byte), as the address bits 7-9 (7-8) permute bits 4-6
+// (4-5) from a 1024-byte aligned tile.
+template <int W>
+__device__ __forceinline__ int swizzled(int rows, int r, int col) {
+  const int c = col % W, p = c / 8;
+  const int sp = W == 64 ? p ^ (r % 8) : p ^ ((r >> 1) % 4);
+  return (col / W) * rows * W * 2 + r * W * 2 + sp * 16 + (c % 8) * 2;
+}
+
 // A tile of `rows` rows of a D-column map at (s, h, b): one box, or for
-// D = 128 two 64-column boxes into the tile's two halves.
+// D = 128 two 64-column boxes into the tile's two halves (three 32-column
+// boxes for D = 96).
 template <int D>
 __device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
                                          int slots, int rows, int s, int h, int b) {
@@ -210,42 +227,80 @@ __device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// s = A_s B_s^T and dp = A_p B_p^T, 64 x N each (N 64 or 32) over DK of the
-// tiles' D columns (DK < D: the rest are zeros, head dim 96 on D = 128's
-// tiles): every operand K-major in shared memory (descriptors of its first
-// k16 step); the A operands' tiles have ra rows, the B operands' rb (their
-// halves' offset at D = 128)
-template <int D, int N = 64, int DK = D>
+// s = A_s B_s^T and dp = A_p B_p^T, 64 x N each (N 64 or 32): s over KS of
+// its tiles' DS columns and dp over KP of its tiles' DP columns (KS < DS:
+// the rest are zeros, head dim 96 on D = 128's tiles; DP < DS where V is
+// narrower than the qk head dim, MLA's 64 beside 96): every operand K-major
+// in shared memory (descriptors of its first k16 step); the A operands'
+// tiles have ra rows, the B operands' rb (their boxes' offsets)
+template <int DS, int N = 64, int KS = DS, int DP = DS, int KP = KS>
 __device__ __forceinline__ void issue_two(float* s, float* dp, uint64_t as, uint64_t bs,
                                           uint64_t ap, uint64_t bp, int ra, int rb) {
   static_assert(N == 64 || N == 32, "issue_two: N is 64 or 32");
 #pragma unroll
-  for (int kk = 0; kk < DK / 16; ++kk) {
+  for (int kk = 0; kk < KS / 16; ++kk) {
     if constexpr (N == 64)
-      wgmma_ss_n64(s, k_step<D>(as, ra, kk), k_step<D>(bs, rb, kk), kk > 0);
+      wgmma_ss_n64(s, k_step<DS>(as, ra, kk), k_step<DS>(bs, rb, kk), kk > 0);
     else
-      wgmma_ss_n32(s, k_step<D>(as, ra, kk), k_step<D>(bs, rb, kk), kk > 0);
+      wgmma_ss_n32(s, k_step<DS>(as, ra, kk), k_step<DS>(bs, rb, kk), kk > 0);
   }
 #pragma unroll
-  for (int kk = 0; kk < DK / 16; ++kk) {
+  for (int kk = 0; kk < KP / 16; ++kk) {
     if constexpr (N == 64)
-      wgmma_ss_n64(dp, k_step<D>(ap, ra, kk), k_step<D>(bp, rb, kk), kk > 0);
+      wgmma_ss_n64(dp, k_step<DP>(ap, ra, kk), k_step<DP>(bp, rb, kk), kk > 0);
     else
-      wgmma_ss_n32(dp, k_step<D>(ap, ra, kk), k_step<D>(bp, rb, kk), kk > 0);
+      wgmma_ss_n32(dp, k_step<DP>(ap, ra, kk), k_step<DP>(bp, rb, kk), kk > 0);
   }
+}
+
+// D[64 x 96] (+)= A[64 x 16] (registers, bf16 pairs) * B[16 x 96], B
+// MN-major in shared memory (the transpose bit set) as three 32-column
+// boxes in the 64-byte swizzle, the descriptor's leading byte offset apart
+// (mma_rs<96>). d[4n + e] is column 8n + ..., as for every width.
+__device__ __forceinline__ void wgmma_rs_n96(float* d, const uint32_t* a, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // acc[64 x D] += A[64 x 16] (registers) * B[16 x D] (MN-major). At D = 128
 // the B tile (of `rows` rows) lies in two 64-column halves: two n64
 // products, acc[0..31] the first half's columns and acc[32..63] the second's,
-// so acc[4n + e] is column 8n + ... for every D. accumulate 0 overwrites
-// acc (D = 64 and 128).
+// so acc[4n + e] is column 8n + ... for every D. At D = 96 one n96 product
+// over the tile's three 32-column boxes (`rows` x 64 bytes apart: the
+// descriptor's leading byte offset). accumulate 0 overwrites acc (D = 64,
+// 96 and 128).
 template <int D>
 __device__ __forceinline__ void mma_rs(float* d, const uint32_t* a, uint64_t db, int rows = 0,
                                        int accumulate = 1) {
   if constexpr (D == 128) {
     wgmma_rs_n64(d, a, db, accumulate);
     wgmma_rs_n64(d + 32, a, db + (uint64_t)((rows * 128) >> 4), accumulate);
+  } else if constexpr (D == 96) {
+    wgmma_rs_n96(d, a, (db & ~((uint64_t)0x3FFF << 16)) | ((uint64_t)((rows * 64) >> 4) << 16),
+                 accumulate);
   } else if constexpr (D == 64) {
     wgmma_rs_n64(d, a, db, accumulate);
   } else {
@@ -420,6 +475,109 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 }
 
 // ---------------------------------------------------------------------------
+// The order of K1's output tiles (flash_attention.cu, flash_attention_bwd.cu).
+// ---------------------------------------------------------------------------
+// The pairs of q's and k's head dim D and v's (and o's) Dv that K1's
+// kernels take (kernels/flash_attention.py pair_ok mirrors it): Dv = D, and
+// MLA's (96, 64) (minicpm3-4b: qk_nope 64 + qk_rope 32 beside v 64).
+__host__ __device__ constexpr bool pair_ok(int D, int Dv) {
+  return Dv == D || (D == 96 && Dv == 64);
+}
+
+// K1_ORDER: 0 heaviest first over every head (each head's tiles far apart
+// in time); 1 grouped by head (below) where a KV head has one query head
+// (G = 1: no two heads share K and V, so the heaviest-first order's wave
+// of 132 tiles holds 132 heads' rows in the L2); 2 grouped at every G.
+#ifndef K1_ORDER
+#define K1_ORDER 1
+#endif
+// Whether a launch at G query heads a KV head walks its tiles grouped by
+// head (TileOrder; kernels/flash_attention.py grouped_order mirrors it).
+// Each kernel is built both ways (a template parameter): the heaviest-first
+// walk is the arithmetic it always had, so the G > 1 launches run the code
+// they ran before the grouped order was added.
+__host__ __device__ constexpr bool grouped_order(int G) {
+  return K1_ORDER == 2 || (K1_ORDER == 1 && G == 1);
+}
+
+// The heaviest-first walk of a persistent grid of g blocks over `total`
+// tiles (tile index i counts from the heaviest down): block x's k-th tile
+// (k = 0, 1, ...) is k g + x in even rounds, k g + g - 1 - x in odd ones (a
+// snake, which leaves the blocks' sums of work close); -1 past the last.
+// But each head's tiles are then rounds apart, and each reads the head's
+// rows from memory again.
+__device__ __forceinline__ int snake_tile(int k, int total) {
+  const int g = gridDim.x, x = blockIdx.x;
+  const int i = k * g + ((k & 1) ? g - 1 - x : x);
+  return i < total ? i : -1;
+}
+
+// The walk grouped by head, over the n tiles of each of `heads` heads,
+// rank 0 the heaviest (a causal output tile's work grows with its distance
+// from the first row), for a grid of g blocks: first whole heads as items
+// of two tiles, ranks p and n - 1 - p (p < n / 2: each item the same work
+// under the causal mask), head after head, dealt to the blocks as the same
+// snake for all but the last round of items; so a round's blocks cover
+// g / (n / 2) heads, each head's tiles at once. Then the other heads'
+// tiles (and the middle rank of every head for odd n) heaviest first, so
+// that the last rounds are the lightest tiles. The order moves no output
+// row's sums: a tile is computed as in any order.
+struct TileOrder {
+  int heads, n, g, x, per, hp, n1, ht, tail, items;
+  // of a grid of g blocks, block x's walk (of_block; at() needs no x)
+  __host__ __device__ TileOrder(int heads_, int n_, int g_, int x_ = 0)
+      : heads(heads_), n(n_), g(g_), x(x_) {
+    per = n / 2;                                     // items a head
+    const int rounds = per ? heads * per / g : 0;    // full rounds of items
+    const int pair_rounds = rounds > 1 ? rounds - 1 : 0;
+    hp = per ? pair_rounds * g / per : 0;            // heads taken as items
+    if (hp > heads) hp = heads;
+    n1 = hp * per;                                   // items, two tiles each
+    ht = heads - hp;                                 // heads of the tail
+    tail = ht * n + (n % 2 ? hp : 0);
+    const int r1 = (n1 + g - 1) / g;                 // rounds of items
+    const int last = (r1 - 1) * g + ((r1 - 1) % 2 ? g - 1 - x : x);
+    items = r1 ? r1 - 1 + (last < n1) : 0;           // block x's items
+  }
+  // Tile i (0 <= i < heads n) of the sequence: its head and rank.
+  __host__ __device__ void at(int i, int* head, int* rank) const {
+    if (i < 2 * n1) {
+      const int p = (i / 2) % per;
+      *head = i / 2 / per;
+      *rank = i % 2 ? n - 1 - p : p;
+      return;
+    }
+    int j = i - 2 * n1;
+    const int m = n / 2;  // the middle rank, for odd n
+    if (n % 2 == 0 || j < m * ht) {
+      *rank = j / ht;
+      *head = hp + j % ht;
+      return;
+    }
+    j -= m * ht;
+    if (j < heads) {
+      *rank = m;
+      *head = j;
+      return;
+    }
+    j -= heads;
+    *rank = m + 1 + j / ht;
+    *head = hp + j % ht;
+  }
+  // The k-th tile (k = 0, 1, ...) of block x: an index of the sequence, or
+  // -1 past its last.
+  __host__ __device__ int of_block(int k) const {
+    if (k < 2 * items) {
+      const int r = k / 2;
+      return 2 * (r * g + (r % 2 ? g - 1 - x : x)) + k % 2;
+    }
+    k -= 2 * items;
+    const int t = k * g + (k % 2 ? g - 1 - x : x);
+    return t < tail ? 2 * n1 + t : -1;
+  }
+};
+
+// ---------------------------------------------------------------------------
 // Host side: tensor maps.
 // ---------------------------------------------------------------------------
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -450,11 +608,12 @@ EncodeTiled encode_fn() {
 // A 4-D bf16 tensor map over a [.., seq, .., D] strided view: dim 0 the
 // head dim, dims 1-3 the seq, head and batch axes in order of their
 // strides (element strides s, h, b; extents S, n_heads, B). The box is
-// `rows` seq positions of one (batch, head) and box_cols(D) columns (at
-// D = 128 a tile takes two boxes: tma_tile). Returns a cudaError_t and
-// the axes' map dims packed as tma_load() reads them.
+// `rows` seq positions of one (batch, head) and `w` columns (0: 64 for
+// D > 64, else D; a tile of several boxes is tma_tile's), in the 128-byte
+// swizzle for 64 columns and the 64-byte one for 32. Returns a cudaError_t
+// and the axes' map dims packed as tma_load() reads them.
 int encode(CUtensorMap* map, const void* base, int D, int S, int n_heads, int B,
-           long long ss, long long sh, long long sb, int rows, int* slots) {
+           long long ss, long long sh, long long sb, int rows, int* slots, int w = 0) {
   EncodeTiled fn = encode_fn();
   if (!fn) return (int)cudaErrorNotSupported;
   const long long stride[3] = {ss, sh, sb};
@@ -468,7 +627,7 @@ int encode(CUtensorMap* map, const void* base, int D, int S, int n_heads, int B,
     }
   cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
   cuuint64_t strides[3];
-  const int W = D > 64 ? 64 : D;  // box_cols<D>()
+  const int W = w ? w : D > 64 ? 64 : D;
   cuuint32_t box[4] = {(cuuint32_t)W, 1, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   int slot[3];

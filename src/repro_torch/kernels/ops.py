@@ -39,7 +39,9 @@ def _use_kernel(x, force) -> bool:
 
 
 def flash_attention(q, k, v, *, window=None, force=None):
-    """Causal attention. q: [B,H,S,D]; k,v: [B,K,S,D]. Differentiable on
+    """Causal attention. q: [B,H,S,D]; k: [B,K,S,D]; v: [B,K,S,Dv], as wide
+    as q or at MLA's (96, 64) (the scale 1/sqrt(D)); returns [B,H,S,Dv].
+    Differentiable on
     both routes: on the kernel route, when an input requires a gradient,
     through :class:`~repro_torch.kernels.flash_attention.FlashAttention`
     (the forward writes its logsumexp and the gradient is the backward

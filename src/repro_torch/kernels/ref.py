@@ -32,7 +32,9 @@ def _scores(q, k, causal, window):
 
 
 def naive_attention(q, k, v, *, causal=True, window=None):
-    """q: [B,H,S,D]; k,v: [B,K,S,D] with H % K == 0. Returns [B,H,S,D]."""
+    """q: [B,H,S,D]; k: [B,K,S,D], v: [B,K,S,Dv] with H % K == 0 (Dv may
+    differ from D, MLA's 64 beside 96; the scale is 1/sqrt(D)). Returns
+    [B,H,S,Dv]."""
     G = q.shape[1] // k.shape[1]
     vr = v.repeat_interleave(G, dim=1)
     p = torch.softmax(_scores(q, k, causal, window), dim=-1)
@@ -60,9 +62,10 @@ def _bwd_p(q, k, lse, window):
 def attention_bwd_dkdv(q, k, v, lse, do, delta, *, window=None):
     """dK, dV of the causal attention (the dK/dV kernel's function): dV =
     P^T dO, dK = (P (dO V^T - Dr))^T Q / sqrt(D), each summed over its KV
-    head's query heads. Returns (dk, dv) in k's and v's types."""
+    head's query heads (dV at v's width Dv, dO [B,H,S,Dv]). Returns (dk, dv)
+    in k's and v's types."""
     B, H, S, D = q.shape
-    K = k.shape[1]
+    K, Dv = k.shape[1], v.shape[-1]
     G = H // K
     p = _bwd_p(q, k, lse, window)
     vr = _acc(v.repeat_interleave(G, dim=1))
@@ -71,7 +74,7 @@ def attention_bwd_dkdv(q, k, v, lse, do, delta, *, window=None):
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vr) - _acc(delta)[..., None])
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, _acc(q)) / math.sqrt(D)
     return (dk.view(B, K, G, S, D).sum(2).to(k.dtype),
-            dv.view(B, K, G, S, D).sum(2).to(v.dtype))
+            dv.view(B, K, G, S, Dv).sum(2).to(v.dtype))
 
 
 def attention_bwd_dq(q, k, v, lse, do, delta, *, window=None):
@@ -88,7 +91,8 @@ def attention_bwd_dq(q, k, v, lse, do, delta, *, window=None):
 def flash_attention_bwd(q, k, v, o, lse, do, *, window=None):
     """The causal attention's gradient, as the backward kernels compute it
     from the forward's output ``o`` and logsumexp ``lse`` [B,H,S] and the
-    output's gradient ``do`` (q, o, do: [B,H,S,D]; k, v: [B,K,S,D]):
+    output's gradient ``do`` (q: [B,H,S,D]; o, do: [B,H,S,Dv]; k: [B,K,S,D];
+    v: [B,K,S,Dv]):
     P = exp(s - lse), dV = P^T dO, dP = dO V^T, Dr = rowsum(dO o),
     dS = P (dP - Dr), dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D); dK and dV
     summed over each KV head's query heads. Returns (dq, dk, dv) in the

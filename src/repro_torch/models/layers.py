@@ -221,11 +221,12 @@ def mla_apply(cfg, p, x, *, mode, cache, pos=None, force=None):
     values from one normed latent ``c`` of ``kv_lora_rank`` columns (through
     ``wkv_b``) plus one rope key shared by the heads.
 
-    train / prefill: x [B,S,d]. K is [k_nope ‖ k_rope] per head and V is
-    zero-padded to the qk head dim (qk_nope + qk_rope), so K1 runs at that
-    head dim; O is sliced back to ``v_head_dim``. The prefill writes each
-    position's latent row [c ‖ k_rope] (kv_lora + rope columns) into
-    ``cache['lat']`` [B,S_max,kv_lora+rope].
+    train / prefill: x [B,S,d]. K is [k_nope ‖ k_rope] per head, and K1
+    takes V at its own ``v_head_dim`` beside q's and k's qk head dim
+    (qk_nope + qk_rope; the reference zero-pads V to it and slices O back,
+    the same function), so O comes back ``[B,S,H,v_head_dim]``. The
+    prefill writes each position's latent row [c ‖ k_rope] (kv_lora + rope
+    columns) into ``cache['lat']`` [B,S_max,kv_lora+rope].
     decode: x [B,d]; the absorbed form: ``wkv_b``'s key half is folded into
     q (q_eff = [q_nope wk_b ‖ q_rope]), the row of ``pos`` goes into the
     cache in place, and every head attends to the latent rows below
@@ -254,10 +255,9 @@ def mla_apply(cfg, p, x, *, mode, cache, pos=None, force=None):
         k_nope = torch.einsum("bsr,rhn->bshn", c, wk_b)
         v = torch.einsum("bsr,rhv->bshv", c, wv_b)
         k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
-        vpad = F.pad(v, (0, nope + rd - vd))
-        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), vpad.transpose(1, 2),
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                 force=force)
-        o = o.transpose(1, 2)[..., :vd].reshape(B, S, H * vd)
+        o = o.transpose(1, 2).reshape(B, S, H * vd)
         out = o @ p["wo"]
         if mode == "prefill":
             cache["lat"][:, :S] = torch.cat([c, k_rope[:, :, 0]], dim=-1)

@@ -82,7 +82,8 @@ def _flash_held(q, k, v, window, dtype):
     n0 = FA.launches
     out = ops.flash_attention(q, k, v, window=window)
     assert FA.launches == n0 + 1
-    assert out.stride() == q.stride()
+    # q's strides, or at v's narrower width q's dimension order
+    assert out.stride() == FA._empty_rows(q, v.shape[-1]).stride()
     _close(out, ref.naive_attention(q, k, v, window=window), dtype)
 
 
@@ -2047,11 +2048,20 @@ def test_decode_mma_graph_replays_after_the_counters_grow(cuda, D, G):
     assert torch.equal(DA.decode_attention(q, k, v, S), big)
 
 
-# -- MLA (minicpm3-4b): K1 and its backward at qk head dim 96 on D = 128's
-#    tiles; the latent decode, every query head over one latent row of 288
-#    (its first 256 the value), contiguous and through a page table ---------
+# -- MLA (minicpm3-4b): K1 and its backward at qk head dim 96 beside V at
+#    its 64 columns; the latent decode, every query head over one latent row
+#    of 288 (its first 256 the value), contiguous and through a page table --
 
 LAT_SCALE = 1 / 96 ** 0.5     # MLA's 1/sqrt(qk_nope + qk_rope)
+
+
+def _mla_inputs(cuda, B, H, K, S, dtype, seed, Dv=64):
+    """q, k at 96 and v, dO at Dv (MLA's 64), as the model lays them out:
+    [B,S,n,width] projections seen as [B,n,S,width] views."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v, do = (torch.randn(B, S, n, d, generator=g, device=cuda).to(dtype).transpose(1, 2)
+                   for n, d in ((H, 96), (K, 96), (K, Dv), (H, Dv)))
+    return q, k, v, do
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -2059,11 +2069,13 @@ LAT_SCALE = 1 / 96 ** 0.5     # MLA's 1/sqrt(qk_nope + qk_rope)
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 129, 300, 1024])
 @pytest.mark.parametrize("G", [1, 5])
 def test_flash_d96_matches_plain(cuda, G, S, window, dtype):
-    """K1 at head dim 96, the model's strided views; its logsumexp too, and
-    the output with it written equal to the prefill's bit for bit."""
-    q, k, v = _flash_views(cuda, 2, 2 * G, 2, S, 96, dtype, seed=S + G)
+    """K1 at head dim 96 beside V at 64, the model's strided views; its
+    logsumexp too, and the output with it written equal to the prefill's
+    bit for bit."""
+    q, k, v, _ = _mla_inputs(cuda, 2, 2 * G, 2, S, dtype, seed=S + G)
     _flash_held(q, k, v, window, dtype)
     o, lse = FA.flash_attention(q, k, v, window=window, lse=True)
+    assert o.shape == (2, 2 * G, S, 64)
     assert torch.equal(o, FA.flash_attention(q, k, v, window=window))
     torch.testing.assert_close(lse, ref.naive_attention_lse(q, k, window=window), rtol=0,
                                atol=LSE_TOL)
@@ -2074,9 +2086,10 @@ def test_flash_d96_matches_plain(cuda, G, S, window, dtype):
 @pytest.mark.parametrize("S", [17, 65, 300, 1024])
 @pytest.mark.parametrize("G", [1, 5])
 def test_flash_bwd_d96_matches_plain(cuda, G, S, window, dtype):
-    """dq_d128_kernel<96> (with the row sums) and dkdv_bf16_kernel<128, 96>
-    against the plain backward; two runs equal bit for bit."""
-    q, k, v, do = _bwd_inputs(cuda, 2, 2 * G, 2, S, 96, dtype, seed=S * G)
+    """dq_d128_kernel<96, 96, 64> (with the row sums) and
+    dkdv_bf16_kernel<96, 96, 64> against the plain backward, dO at V's 64
+    columns; two runs equal bit for bit."""
+    q, k, v, do = _mla_inputs(cuda, 2, 2 * G, 2, S, dtype, seed=S * G)
     _bwd_held(q, k, v, do, window, dtype)
     o, lse = FA.flash_attention(q, k, v, window=window, lse=True)
     a = FA.flash_attention_bwd(q, k, v, o, lse, do, window=window)
@@ -2086,28 +2099,61 @@ def test_flash_bwd_d96_matches_plain(cuda, G, S, window, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_d96_at_minicpm3_shape(cuda, dtype):
-    """minicpm3-4b's prefill and training shape: B4 H40 K40 S1024, V
-    zero-padded from 64 to 96 as the model pads it."""
-    q, k, v, do = _bwd_inputs(cuda, 4, 40, 40, 1024, 96, dtype, seed=96)
-    v = torch.nn.functional.pad(v[..., :64], (0, 32))
+    """minicpm3-4b's prefill and training shape: B4 H40 K40 S1024, V at its
+    64 columns as the model lays it out."""
+    q, k, v, do = _mla_inputs(cuda, 4, 40, 40, 1024, dtype, seed=96)
     _flash_held(q, k, v, None, dtype)
     _bwd_held(q, k, v, do, None, dtype)
 
 
+@pytest.mark.parametrize("G", [1, 5])
+def test_flash_d96_padded_v_still_runs_on_128s_tiles(cuda, G):
+    """V zero-padded to 96 (the pair (96, 96)) keeps the kernels on D =
+    128's tiles, and their outputs' first 64 columns equal the (96, 64)
+    kernels' bit for bit: the same sums, the padding's zero products added
+    or not."""
+    q, k, v, do = _mla_inputs(cuda, 2, 2 * G, 2, 300, torch.bfloat16, seed=G + 9)
+    vp, dop = (torch.nn.functional.pad(x, (0, 32)) for x in (v, do))
+    _flash_held(q, k, vp, 100, torch.bfloat16)
+    _bwd_held(q, k, vp, dop, 100, torch.bfloat16)
+    o, lse = FA.flash_attention(q, k, v, window=100, lse=True)
+    op, lsep = FA.flash_attention(q, k, vp, window=100, lse=True)
+    assert torch.equal(o, op[..., :64]) and torch.equal(lse, lsep)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, window=100)
+    pad = FA.flash_attention_bwd(q, k, vp, op, lsep, dop, window=100)
+    assert torch.equal(got[0], pad[0]) and torch.equal(got[1], pad[1])
+    assert torch.equal(got[2], pad[2][..., :64])
+    nodes = graph_kernels(lambda: FA.flash_attention(q, k, vp))
+    assert len(nodes) == 1 and "flash_ws_kernelILi128ELi96ELi128E" in nodes[0][0], nodes
+
+
+def test_flash_refuses_unpaired_head_dims(cuda):
+    """v's width must be q's, or 64 beside 96: (64, 32), (128, 64) and (96,
+    32) raise before any launch."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for D, Dv in ((64, 32), (128, 64), (96, 32)):
+        q, k = (torch.randn(1, 2, 64, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+        v = torch.randn(1, 2, 64, Dv, generator=g, device=cuda).bfloat16()
+        n0 = FA.launches
+        with pytest.raises(ValueError, match="head dim"):
+            FA.flash_attention(q, k, v)
+        assert FA.launches == n0
+
+
 def test_flash_d96_is_one_forward_and_two_backward_kernel_nodes(cuda):
-    """One forward call is one flash_ws_kernel<128, 96> node of a captured
-    CUDA graph (with and without the logsumexp); one backward call is
-    dq_d128_kernel<96>, then dkdv_bf16_kernel<128, 96>."""
-    q, k, v, do = _bwd_inputs(cuda, 2, 8, 8, 300, 96, torch.bfloat16, seed=7)
+    """One forward call is one flash_ws_kernel<128, 96, 64> node of a
+    captured CUDA graph (with and without the logsumexp); one backward call
+    is dq_d128_kernel<96, 96, 64>, then dkdv_bf16_kernel<96, 96, 64>."""
+    q, k, v, do = _mla_inputs(cuda, 2, 8, 8, 300, torch.bfloat16, seed=7)
     assert FA.fwd_kernel(torch.bfloat16, 96, 1) == "flash_ws_kernel"
     for lse in (False, True):
         nodes = graph_kernels(lambda: FA.flash_attention(q, k, v, lse=lse))
-        assert len(nodes) == 1 and "flash_ws_kernelILi128ELi96E" in nodes[0][0], nodes
+        assert len(nodes) == 1 and "flash_ws_kernelILi128ELi96ELi64E" in nodes[0][0], nodes
     o, lse = FA.flash_attention(q, k, v, lse=True)
     nodes = graph_kernels(lambda: FA.flash_attention_bwd(q, k, v, o, lse, do))
     assert len(nodes) == 2, nodes
-    assert "dq_d128_kernelILi96E" in nodes[0][0], nodes
-    assert "dkdv_bf16_kernelILi128ELi96E" in nodes[1][0], nodes
+    assert "dq_d128_kernelILi96ELi96ELi64E" in nodes[0][0], nodes
+    assert "dkdv_bf16_kernelILi96ELi96ELi64E" in nodes[1][0], nodes
 
 
 def _latent_inputs(cuda, B, H, S, dtype, seed):

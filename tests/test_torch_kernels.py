@@ -194,7 +194,8 @@ def test_backward_source_is_deterministic_and_on_wgmma_and_tma():
     assert "mma.sync" not in code
     assert {"dq_bf16_kernel", "dkdv_bf16_kernel", "dq_f32_kernel", "dkdv_f32_kernel"} <= set(
         re.findall(r"\b(\w+_kernel)\b", code))
-    assert re.findall(r'extern "C" int (\w+)', code) == ["repro_flash_attention_bwd"]
+    assert re.findall(r'extern "C" int (\w+)', code) == ["repro_flash_attention_bwd_v",
+                                                          "repro_flash_attention_bwd"]
 
 
 @pytest.mark.parametrize("name", build.SOURCES)

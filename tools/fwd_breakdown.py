@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where K1's bf16 forward spends its time, on one NVIDIA GPU.
 
-    python3 tools/fwd_breakdown.py [--shape qwen|granite|minicpm|hymba|hymba-global]
+    python3 tools/fwd_breakdown.py [--shape qwen|granite|minicpm|hymba|hymba-global|minicpm3]
         [--only base,noexp,...]
 
 Builds ``src/repro_torch/csrc/flash_attention.cu`` as shipped and with
@@ -27,12 +27,20 @@ causal, inputs rotated through more than the L2, by CUDA-graph replay
   tile, as a non-persistent kernel's (its default is one block an SM);
 - ``noload``: ``FWD_NOLOAD``, no K or V load after each ring slot's first
   (the slot's data is reused): what the tiles' loads from L2 cost;
-- ``nostore``: ``FWD_NOSTORE``, no O stores: the epilogue's share.
+- ``nostore``: ``FWD_NOSTORE``, no O stores: the epilogue's share;
+- ``order0``, ``order2``: ``K1_ORDER=0`` / ``2``, the output tiles
+  heaviest first over every head, or grouped by head at every G
+  (``csrc/hopper.cuh``: the shipped rule groups them at G = 1 only).
 
 The shapes: ``qwen`` (qwen2.5-14b's B4 H40 K8 S1024 D128, the default),
 ``granite`` (B4 H32 K8 S1024 D64), ``minicpm`` (B4 H36 K36 S1024 D64),
-``hymba`` (B4 H25 K5 S1536 D64, window 1024) and ``hymba-global`` (the
-same, no window), each on ``flash_ws_kernel``, which every macro acts on.
+``hymba`` (B4 H25 K5 S1536 D64, window 1024), ``hymba-global`` (the
+same, no window) and ``minicpm3`` (minicpm3-4b's B4 H40 K40 S1024, q and k
+at 96; each build timed twice, V at its 64 columns and V zero-padded to
+96, the design of head dim 96 on 128's tiles: ``order0`` with V padded is
+the design before this tree's widths and order, ``base`` with V padded
+the order alone, ``order0`` with V at 64 the widths alone), each on
+``flash_ws_kernel``, which every macro acts on.
 Beside the times: ptxas's registers at
 launch, spills and its notes on wgmma (C75xx) for each build's bf16
 forward kernels, each build's output against the plain version
@@ -55,33 +63,40 @@ sys.path.insert(0, str(ROOT))
 VARIANTS = {"base": (), "noexp": ("FWD_NOEXP",), "nopv": ("FWD_NOPV",),
             "bn64": ("FWD_BN=64",), "q1": ("FWD_QBUFS=1",), "q2": ("FWD_QBUFS=2",),
             "pvn64": ("FWD_PV_N64",), "onetile": ("FWD_ONE_TILE",),
-            "noload": ("FWD_NOLOAD",), "nostore": ("FWD_NOSTORE",)}
-#: prefill shapes: B, H, K, S, D, window
-SHAPES = {"qwen": (4, 40, 8, 1024, 128, None), "granite": (4, 32, 8, 1024, 64, None),
-          "minicpm": (4, 36, 36, 1024, 64, None), "hymba": (4, 25, 5, 1536, 64, 1024),
-          "hymba-global": (4, 25, 5, 1536, 64, None)}
-#: the bf16 forward kernels' mangled names hold one of these
-KERNELS = ("flash_bf16_kernel", "flash_ws_kernel")
+            "noload": ("FWD_NOLOAD",), "nostore": ("FWD_NOSTORE",),
+            "order0": ("K1_ORDER=0",), "order2": ("K1_ORDER=2",)}
+#: prefill shapes: B, H, K, S, D, window, and V's widths each build is timed at
+SHAPES = {"qwen": (4, 40, 8, 1024, 128, None, (128,)),
+          "granite": (4, 32, 8, 1024, 64, None, (64,)),
+          "minicpm": (4, 36, 36, 1024, 64, None, (64,)),
+          "hymba": (4, 25, 5, 1536, 64, 1024, (64,)),
+          "hymba-global": (4, 25, 5, 1536, 64, None, (64,)),
+          "minicpm3": (4, 40, 40, 1024, 96, None, (64, 96))}
+#: the bf16 forward kernels, by their mangled names' stems
+KERNELS = r"(flash_bf16_kernel|flash_ws_kernel)((?:I?Li\d+E)*)"
+
+
+def _name(m) -> str:
+    return m.group(1) + ("<" + ", ".join(re.findall(r"Li(\d+)E", m.group(2))) + ">"
+                         if m.group(2) else "")
 
 
 def ptxas_notes(log: str) -> list[str]:
     """Registers, spills and C75xx notes of the bf16 forward kernels in a
     ``-v`` log."""
     out, kernel = [], None
-    names = "|".join(KERNELS)
     for line in log.splitlines():
-        m = re.search(rf"Compiling entry function '\w*?({names})(?:ILi(\d+))?", line)
+        m = re.search(rf"Compiling entry function '\w*?{KERNELS}", line)
         if m:
-            kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            kernel = _name(m)
         elif "Compiling entry function" in line:
             kernel = None
         elif kernel and ("Used" in line or "spill" in line):
             out.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
-        m = re.search(rf"\((C75\d\d)\) (.*?) in (?:the )?function '\w*?({names})(?:ILi(\d+))?",
+        m = re.search(rf"\((C75\d\d)\) (.*?) in (?:the )?function '\w*?{KERNELS}",
                       re.sub(r" around line \d+", "", line))
         if m:
-            name = m.group(3) + (f"<{m.group(4)}>" if m.group(4) else "")
-            out.append(f"{name}: {m.group(1)} {m.group(2)}")
+            out.append(f"{_name(re.search(KERNELS, m.group(0)))}: {m.group(1)} {m.group(2)}")
     return sorted(set(out))
 
 
@@ -122,47 +137,53 @@ def main() -> int:
         for note in ptxas_notes(log):
             print(f"[ptxas] {name} {note}", flush=True)
 
-    B, H, K, S, D, window = SHAPES[args.shape]
+    B, H, K, S, D, window, widths = SHAPES[args.shape]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
     # 4 sets of the model's [B,S,n,D] projections seen as [B,n,S,D] views
-    # (~59 MB each at qwen's shape): each call finds its inputs cold
-    sets = [tuple(randn(B, S, n, D).transpose(1, 2) for n in (H, K, K)) for _ in range(4)]
-    shape = (f"bf16 B{B} H{H} K{K} S{S} D{D}, causal, window {window}, "
-             f"{FA.fwd_kernel(torch.bfloat16, D, H // K, window)}")
-    q, k, v = sets[0]
-    want = ref.naive_attention(q, k, v, window=window).float()
+    # (~59 MB each at qwen's shape): each call finds its inputs cold; V at
+    # its first width, or zero-padded from there to the next
+    base = [(randn(B, S, H, D).transpose(1, 2), randn(B, S, K, D).transpose(1, 2),
+             randn(B, S, K, widths[0]).transpose(1, 2)) for _ in range(4)]
+    if window:   # the window as a boolean mask, as chip_smoke.py's hymba rows
+        pos = torch.arange(S, device=dev)
+        kw = {"attn_mask": (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)}
+        pairs = window * (window + 1) / 2 + (S - window) * window
+    else:
+        kw = {"is_causal": True}
+        pairs = S * S / 2
 
     def call(q, k, v):
         return FA.flash_attention(q, k, v, window=window)
-    try:
-        for name in names:
-            FA.library = out_dir / f"libfwd_{name}.so"
-            got = call(q, k, v).float()
-            err = CS.rel(got, want)
-            ms = cuda_ms(call, sets, iters=40)
-            print(f"[time] {name}: {ms * 1e3:.1f} us ({shape}, CUDA-graph replay); "
-                  f"max|a-b|/max|b| {err:.3e}", flush=True)
-    finally:
-        FA.library = None
-    del want
-    if window:   # the window as a boolean mask, as chip_smoke.py's hymba rows
-        pos = torch.arange(S, device=dev)
-        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+    for Dv in widths:
+        sets = [(q, k, torch.nn.functional.pad(v, (0, Dv - v.shape[-1]))) for q, k, v in base]
+        shape = (f"bf16 B{B} H{H} K{K} S{S} D{D} Dv{Dv}, causal, window {window}, "
+                 f"{FA.fwd_kernel(torch.bfloat16, D, H // K, window)}")
+        q, k, v = sets[0]
+        want = ref.naive_attention(q, k, v, window=window).float()
+        try:
+            for name in names:
+                FA.library = out_dir / f"libfwd_{name}.so"
+                got = call(q, k, v).float()
+                err = CS.rel(got, want)
+                ms = cuda_ms(call, sets, iters=40)
+                print(f"[time] {name}: {ms * 1e3:.1f} us ({shape}, CUDA-graph replay); "
+                      f"max|a-b|/max|b| {err:.3e}", flush=True)
+        finally:
+            FA.library = None
+        del want
         lib = cuda_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True), sets, iters=40)
-        pairs = window * (window + 1) / 2 + (S - window) * window
-    else:
-        lib = cuda_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), sets, iters=40)
-        pairs = S * S / 2
-    flops = 4 * B * H * pairs * D
-    bound, by = CS.bound_ms(flops, 2 * (2 * B * H * S * D + 2 * B * K * S * D))
-    print(f"[time] sdpa {lib * 1e3:.1f} us (yardstick); bound {bound * 1e3:.2f} us ({by})",
-          flush=True)
+            q, k, v, enable_gqa=True, **kw), sets, iters=40)
+        bound, by = CS.bound_ms(2 * B * H * pairs * (D + widths[0]),
+                                2 * (2 * B * H * S * D + 2 * B * K * S * D) if widths[0] == D
+                                else 2 * (B * H * S * D + B * K * S * D + B * K * S * widths[0]
+                                          + B * H * S * widths[0]))
+        print(f"[time] sdpa V at {Dv} {lib * 1e3:.1f} us (yardstick); bound {bound * 1e3:.2f} us "
+              f"({by})", flush=True)
+        del sets
     return 0
 
 
