@@ -2321,8 +2321,8 @@ def main() -> int:
             held("flash_attention", f"{dn} B{B} H{H} K{H} S{S} D{C_DQK} window={w}",
                  FA.flash_attention(q, k, v, window=w), ref.naive_attention(q, k, v, window=w),
                  dtype)
-        for B, H, S, length in ((4, 40, 1056, 1), (4, 40, 1056, LA.SPAN),
-                                (4, 40, 1056, LA.SPAN + 1), (4, 40, 1056, 1056),
+        for B, H, S, length in ((4, 40, 1056, 1), (4, 40, 1056, LA.CHUNK),
+                                (4, 40, 1056, LA.CHUNK + 1), (4, 40, 1056, 1056),
                                 (2, 48, 300, 257)):
             q, lat = (randn(B, n, LA.DK, dtype=dtype, g=mla_gen) for n in (H, S))
             held("latent_decode_attention", f"{dn} B{B} H{H} S{S} Dk{LA.DK} Dv{LA.DV} "
@@ -2330,7 +2330,7 @@ def main() -> int:
                                                                 scale=C_SCALE),
                  ref.naive_latent_decode_attention(q, lat, length, v_dim=LA.DV, scale=C_SCALE),
                  dtype)
-        for B, lengths in ((1, [1]), (1, [1056]), (4, [1, FLEET_PAGE, LA.SPAN + 1, 1056])):
+        for B, lengths in ((1, [1]), (1, [1056]), (4, [1, FLEET_PAGE, LA.CHUNK + 1, 1056])):
             q, pages, table, lens = latent_pages(B, lengths, dtype)
             held("paged_latent_decode_attention", f"{dn} B{B} H40 Dk{LA.DK} Dv{LA.DV} layer "
                  f"31/62 lengths={lengths}",
@@ -2340,28 +2340,38 @@ def main() -> int:
                                                          scale=C_SCALE), dtype)
         # over pages in order the paged latent decode runs the contiguous
         # one's blocks on the same rows: equal bit for bit, and so are each
-        # B = 1 lane and its batched row, and two launches
+        # B = 1 lane and its batched row, and two launches; and since a
+        # row's plan depends on its length alone, a cache of 2048 positions
+        # and a table twice as wide give the exact fit's bits
         n = 1056 // FLEET_PAGE
         table = torch.arange(4 * n, dtype=torch.int32, device=dev).view(4, n)
         q, lat = (randn(4, m, LA.DK, dtype=dtype, g=mla_gen) for m in (40, 1056))
-        for length in (1, 500, 1056):
+        wide_lat = torch.zeros(4, 2048, LA.DK, dtype=dtype, device=dev)
+        wide_lat[:, :1056] = lat
+        wide_tab = torch.cat([table, torch.zeros_like(table)], 1)
+        for length in (1, 64, 65, 500, 1056):
             lens = torch.full((4,), length, dtype=torch.int32, device=dev)
             kw = dict(v_dim=LA.DV, scale=C_SCALE)
-            a = LA.paged_latent_decode_attention(q, lat.view(4 * n, FLEET_PAGE, LA.DK), table,
-                                                 lens, **kw)
+            pages = lat.view(4 * n, FLEET_PAGE, LA.DK)
+            a = LA.paged_latent_decode_attention(q, pages, table, lens, **kw)
             b = LA.latent_decode_attention(q, lat, length, **kw)
             same = torch.equal(a, b)
             lane = all(torch.equal(LA.paged_latent_decode_attention(
                 q[i:i + 1], lat[i].view(n, FLEET_PAGE, LA.DK), table[:1], lens[:1], **kw),
                 b[i:i + 1]) for i in range(4))
             again = torch.equal(LA.latent_decode_attention(q, lat, length, **kw), b)
-            bitwise[f"{dn} latent H40 length={length}"] = same and lane and again
+            cap = (torch.equal(LA.latent_decode_attention(q, wide_lat, length, **kw), b)
+                   and torch.equal(LA.paged_latent_decode_attention(q, pages, wide_tab, lens,
+                                                                    **kw), a))
+            bitwise[f"{dn} latent H40 length={length}"] = same and lane and again and cap
             print(f"[kernels] paged_latent_decode_attention over in-order pages vs "
                   f"latent_decode_attention {dn} B4 H40 S1056 length={length}: "
                   + ("equal bit for bit" if same else
                      f"NOT bit-equal, max |diff| {(a.float() - b.float()).abs().max().item():.3e}")
                   + f"; each B = 1 lane equals its batched row {lane}; two launches agree "
-                  f"{again}", flush=True)
+                  f"{again}; a cache of 2048 and a table of {2 * n} pages give the exact "
+                  f"fit's bits {cap}", flush=True)
+        del wide_lat
     if not all(bitwise.values()):
         raise AssertionError(f"the paged decode over in-order pages differs from the "
                              f"contiguous decode, or a lane from its batched row: {bitwise}")

@@ -13,13 +13,20 @@ the fleet's page table. The kernel and its design notes are in
 Layout: q ``[B,H,Dk]`` contiguous; the latent cache ``[B,S,Dk]``
 contiguous (the decode cache as it lies), or pages ``[P, page, Dk]`` with
 any strides whose rows are contiguous and start on 16 bytes (a layer's
-strided view of the fleet's stacked store); the output ``[B,H,Dv]``. A
-block takes ``SPAN`` positions of a row, whatever B, the length or the
-addressing, and writes an unnormalised partial; the last block of the row
-to finish (a ticket from :func:`decode_attention.counters`, shared with the
-split-KV decode) combines them in block order. So the paged form over
-in-order pages gives the contiguous form's bits, and a B = 1 lane a batched
-row's.
+strided view of the fleet's stacked store); the output ``[B,H,Dv]``.
+
+The bf16 kernel's plan is mirrored here (:func:`row_plan`,
+:func:`launch_plan`; ``tests/test_torch_latent_route.py`` holds it to the
+source's constants and checks its properties): a row of length L is cut
+into :func:`n_spans` spans of whole ``CHUNK``\\ s and its heads into tiles of
+``TILE``; an item is a (row, span, head tile) and writes an unnormalised
+partial, and once a (row, tile) has all of its spans' partials (a ticket
+counter from :func:`decode_attention.counters`, shared with the split-KV
+decode) each item's block combines its own slice of the tile's outputs in
+span order. The plan depends on L alone, so the paged form over in-order
+pages gives the contiguous form's bits, a B = 1 lane a batched row's, and
+a cache or table wider than the length the exact fit's. The float32
+kernel keeps one block a (row, CHUNK) and the last block's combine.
 """
 from __future__ import annotations
 
@@ -36,18 +43,28 @@ from repro_torch.kernels.decode_attention import counters
 launches = 0
 #: launches of the kernel through a page table, likewise
 paged_launches = 0
+#: the shared library whose C entries the wrappers launch: None for the one
+#: built from ``csrc/latent_decode_attention.cu``; the path of another build
+#: of it (``tools/latent_breakdown.py``: diagnostic macros, another tree's
+#: source) runs that one
+library = None
 
 DK, DV = 288, 256    # the built shape: minicpm3-4b's r + rope and r
-MAX_H = 48           # query heads a launch takes (three m16 tiles)
-SPAN = 64            # positions a block takes (``SPAN`` in the source)
+MAX_H = 48           # query heads a launch takes (``HMAX`` in the source)
+CHUNK = 64           # positions a block stages at once; spans are whole chunks
+NSMAX = 32           # spans a row is cut into at most
+TILE = 16            # query heads an item takes (``HT``)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _I64 = ctypes.c_longlong
 
 
 @functools.cache
-def _bind(entry):
-    fn = getattr(build.load("latent_decode_attention"), entry)
-    if entry.startswith("repro_paged"):
+def _bind(path, entry):
+    lib = build.load("latent_decode_attention") if path is None else ctypes.CDLL(str(path))
+    fn = getattr(lib, entry)
+    if entry == "repro_latent_wave":
+        fn.argtypes = [ctypes.c_int]
+    elif entry.startswith("repro_paged"):
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [_I64] * 2
                        + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     else:
@@ -57,17 +74,100 @@ def _bind(entry):
     return fn
 
 
-def n_blocks(positions: int) -> int:
-    """Blocks (and partials) of a row over ``positions`` cache positions."""
-    return -(-positions // SPAN)
+# -- the plan (the source's n_chunks, span_chunks, n_spans, span_slots) -------
+
+def n_chunks(positions: int) -> int:
+    """Chunks of ``CHUNK`` positions over ``positions``."""
+    return -(-positions // CHUNK)
 
 
-def partials(B: int, H: int, n_p: int, device):
-    """The float32 scratch of a launch with ``n_p`` blocks a row: the
-    unnormalised outputs ``[B,n_p,H,DV]`` and each block's (m, l)
-    ``[2,B,n_p,H]``."""
-    return (torch.empty((B, n_p, H, DV), dtype=torch.float32, device=device),
-            torch.empty((2, B, n_p, H), dtype=torch.float32, device=device))
+def span_chunks(L: int) -> int:
+    """Chunks a span of a row of length L takes: as few as keep the spans
+    at most ``NSMAX``."""
+    return -(-n_chunks(L) // NSMAX) if n_chunks(L) > NSMAX else 1
+
+
+def n_spans(L: int) -> int:
+    """Spans of a row of length L; a row of no position is one span, which
+    writes zeros."""
+    return 1 if L < 1 else -(-n_chunks(L) // span_chunks(L))
+
+
+def span_slots(positions: int) -> int:
+    """Partial slots a (row, head tile) keeps over ``positions`` cache
+    positions: at least :func:`n_spans` of every length up to them."""
+    return min(max(n_chunks(positions), 1), NSMAX)
+
+
+def n_tiles(H: int) -> int:
+    """Head tiles of ``TILE`` over H query heads."""
+    return -(-H // TILE)
+
+
+def row_plan(L: int, H: int) -> list[dict]:
+    """The items of a row of length L at H heads, in span order then tile
+    order: each its span ``s`` and tile ``t``, the positions ``[j0, j1)`` it
+    stages and computes, whether it writes the output ``direct``\\ ly (one
+    span), and the (head, 4-column piece) slice ``[pc0, pc1)`` of its tile's
+    outputs it combines (``None`` when direct), where piece ``pc`` is head
+    ``pc // (DV // 4)`` of the tile, columns ``4 (pc % (DV // 4))`` on."""
+    ns, span = n_spans(L), span_chunks(L) * CHUNK
+    items = []
+    for s in range(ns):
+        for t in range(n_tiles(H)):
+            pieces = min(TILE, H - TILE * t) * (DV // 4)
+            items.append({"s": s, "t": t, "j0": min(s * span, L), "j1": min((s + 1) * span, L),
+                          "direct": ns == 1,
+                          "slice": None if ns == 1 else (s * pieces // ns, (s + 1) * pieces // ns)})
+    return items
+
+
+def launch_plan(lengths, H: int, n_slot: int, wave: int) -> dict:
+    """A launch's grid and each block's walk as the kernel runs them: items
+    ``i = ((b n_slot) + s) n_tiles + t`` for each row b of ``lengths`` and
+    span slot s < ``n_slot``, a grid of ``min(items, wave)`` blocks, block k
+    taking items k, k + grid, ...: first each live item's products
+    (``compute``, in walk order), then each live item's combine
+    (``combine``, items of rows of more than one span). Returns ``grid``,
+    ``compute`` and ``combine`` (a list a block of (b, s, t))."""
+    n_t = n_tiles(H)
+    n_items = len(lengths) * n_slot * n_t
+    grid = min(n_items, wave)
+    compute = [[] for _ in range(grid)]
+    combine = [[] for _ in range(grid)]
+    for k in range(grid):
+        for i in range(k, n_items, grid):
+            b, s, t = i // (n_slot * n_t), i // n_t % n_slot, i % n_t
+            ns = n_spans(int(lengths[b]))
+            if s < ns:
+                compute[k].append((b, s, t))
+                if ns > 1:
+                    combine[k].append((b, s, t))
+    return {"grid": grid, "compute": compute, "combine": combine}
+
+
+def scratch_sizes(dtype, B: int, H: int, positions: int, exact: bool) -> tuple[int, int, int]:
+    """Float32 elements of a launch's partial outputs and (m, l), and its
+    int32 ticket counters, over ``positions`` cache positions: each row's
+    length when ``exact`` (the contiguous form), else a capacity (the
+    paged one). bf16: ``[B, n_tiles, slots, TILE, DV]`` and ``[2, B,
+    n_tiles, slots, TILE]``, slots :func:`n_spans` (exact) or
+    :func:`span_slots`, a counter a (row, tile); float32: ``[B, n, H, DV]``
+    and ``[2, B, n, H]``, n :func:`n_chunks`, a counter a row."""
+    if dtype == torch.bfloat16:
+        n = B * n_tiles(H) * (n_spans(positions) if exact else span_slots(positions)) * TILE
+        return n * DV, 2 * n, B * n_tiles(H)
+    n = B * n_chunks(positions) * H
+    return n * DV, 2 * n, B
+
+
+def wave(device=None, paged: bool = False) -> int:
+    """Blocks of the bf16 kernel the card holds at once (its resident
+    blocks an SM times the SMs): the most a launch's grid takes."""
+    with torch.cuda.device(device):
+        n = _bind(library, "repro_latent_wave")(int(paged))
+    build.check(-n if n < 0 else 0, "repro_latent_wave")
+    return n
 
 
 def _check(q, lat, v_dim, what):
@@ -88,16 +188,18 @@ def _check(q, lat, v_dim, what):
     return B, H
 
 
-def _launch(entry, q, lat, n_p, *args):
+def _launch(entry, q, lat, positions, exact, *args):
     B, H = q.shape[:2]
     o = q.new_empty((B, H, DV))
-    part_o, part_ml = partials(B, H, n_p, q.device)
-    cnt = counters(q.device, B)
+    n_o, n_ml, n_cnt = scratch_sizes(q.dtype, B, H, positions, exact)
+    part_o = torch.empty(n_o, dtype=torch.float32, device=q.device)
+    part_ml = torch.empty(n_ml, dtype=torch.float32, device=q.device)
+    cnt = counters(q.device, n_cnt)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _bind(entry)(q.data_ptr(), lat.data_ptr(), o.data_ptr(), part_o.data_ptr(),
-                          part_ml.data_ptr(), cnt.data_ptr(), *args,
-                          _DTYPES[q.dtype], stream)
+        rc = _bind(library, entry)(q.data_ptr(), lat.data_ptr(), o.data_ptr(), part_o.data_ptr(),
+                                   part_ml.data_ptr(), cnt.data_ptr(), *args,
+                                   _DTYPES[q.dtype], stream)
     build.check(rc, entry)
     return o
 
@@ -116,7 +218,7 @@ def latent_decode_attention(q, lat, length, *, v_dim, scale):
     if lat.shape != (B, S, DK) or not 1 <= length <= S:
         raise ValueError(f"latent_decode_attention kernel: cache {tuple(lat.shape)}, length "
                          f"{length}")
-    o = _launch("repro_latent_decode_attention", q, lat, n_blocks(S), B, H, S, length, DK,
+    o = _launch("repro_latent_decode_attention", q, lat, length, True, B, H, S, length, DK,
                 DV, float(scale))
     launches += 1
     return o
@@ -151,7 +253,7 @@ def paged_latent_decode_attention(q, lat_pages, page_table, lengths, *, v_dim, s
         raise ValueError("paged_latent_decode_attention kernel: rows must be contiguous "
                          "and 16-byte aligned")
     n_tab, page = page_table.shape[1], lat_pages.shape[1]
-    o = _launch("repro_paged_latent_decode_attention", q, lat_pages, n_blocks(n_tab * page),
+    o = _launch("repro_paged_latent_decode_attention", q, lat_pages, n_tab * page, False,
                 page_table.data_ptr(), lengths.data_ptr(), B, H, n_tab, page, page_stride,
                 row_stride, DK, DV, float(scale))
     paged_launches += 1

@@ -2233,8 +2233,9 @@ def test_paged_latent_over_in_order_pages_is_the_contiguous_bits(cuda, length, d
 @pytest.mark.parametrize("kind", ["contiguous", "paged"])
 def test_latent_decode_is_one_kernel_node(cuda, kind):
     """One bf16 call is one latent_mma_kernel node of a CUDA graph captured
-    around it (the kernel's last block of a row combines), and the wrapper's
-    count moves by one a call."""
+    around it (the row's blocks combine its partials in the same launch),
+    the wrapper's count moves by one a call, and the grid is at most one
+    wave."""
     q, lat = _latent_inputs(cuda, 4, 40, 1056, torch.bfloat16, seed=3)
     if kind == "contiguous":
         def fn():
@@ -2253,6 +2254,10 @@ def test_latent_decode_is_one_kernel_node(cuda, kind):
     nodes = [n for n, _, _ in graph_kernels(fn) if "latent" in n]
     assert getattr(LA, counter) == n0 + 2          # the warm-up call and the captured one
     assert len(nodes) == 1 and "latent_mma_kernel" in nodes[0], nodes
+    # the grid: one block an item (4 rows x 17 spans x 3 head tiles), within a wave
+    grid = [g for n, g, _ in graph_kernels(fn) if "latent" in n][0]
+    wave = LA.wave(cuda, paged=kind == "paged")
+    assert grid == (min(4 * LA.n_spans(1056) * LA.n_tiles(40), wave), 1, 1), (grid, wave)
 
 
 def test_latent_decode_replays_in_a_cuda_graph(cuda):
@@ -2285,6 +2290,73 @@ def test_latent_decode_refuses_what_it_does_not_take(cuda):
             bad()
     with pytest.raises(TypeError):
         LA.latent_decode_attention(q.float(), lat, 8, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 577, 1056])
+def test_latent_capacity_above_the_length_is_the_exact_fits_bits(cuda, length, dtype):
+    """The plan depends on the row's length alone: a cache of 2048 positions
+    and a table twice the lane's pages give the bits of the cache that holds
+    exactly ``length`` positions, and so does a table of the pages it needs."""
+    B, page, kw = 4, 16, dict(v_dim=LA.DV, scale=LAT_SCALE)
+    q, lat = _latent_inputs(cuda, B, 40, 2048, dtype, seed=length + 7)
+    exact = LA.latent_decode_attention(q, lat[:, :length].contiguous(), length, **kw)
+    assert torch.equal(LA.latent_decode_attention(q, lat, length, **kw), exact)
+    n = -(-length // page)
+    pages = lat.view(B * 128, page, LA.DK)
+    lens = torch.full((B,), length, dtype=torch.int32, device=cuda)
+    tight = torch.arange(B * 128, dtype=torch.int32, device=cuda).view(B, 128)[:, :n]
+    wide = torch.zeros(B, 2 * n, dtype=torch.int32, device=cuda)
+    wide[:, :n] = tight
+    got = LA.paged_latent_decode_attention(q, pages, tight.contiguous(), lens, **kw)
+    assert torch.equal(got, LA.paged_latent_decode_attention(q, pages, wide, lens, **kw))
+    assert torch.equal(got, exact)      # the tables' pages hold each row in order
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_latent_ragged_lengths_in_one_call(cuda, dtype):
+    """Rows of lengths 0 to 1056 in one paged call: each against the plain
+    version, each bit-equal to the same row decoded alone as a B = 1 lane,
+    the empty row zeros."""
+    lengths = [0, 1, 65, 577, 1056, 64, 2, 1000]
+    kw = dict(v_dim=LA.DV, scale=LAT_SCALE)
+    q, _ = _latent_inputs(cuda, len(lengths), 40, 1, dtype, seed=11)
+    pages, table, lens = _latent_pages(cuda, q, lengths, dtype, seed=12)
+    got = LA.paged_latent_decode_attention(q, pages, table, lens, **kw)
+    _close(got, ref.naive_paged_latent_decode_attention(q, pages, table, lens, **kw), dtype)
+    assert not got[0].any()
+    for b in range(len(lengths)):
+        lane = LA.paged_latent_decode_attention(q[b:b + 1], pages, table[b:b + 1],
+                                                lens[b:b + 1], **kw)
+        assert torch.equal(lane, got[b:b + 1]), b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H", [1, 16, 40, 48])
+def test_latent_lane_is_its_batched_rows_bits_at_every_head_count(cuda, H, dtype):
+    """At 1, 16, 40 and 48 heads (one, one, three and three head tiles) a
+    B = 1 call gives its row's bits in a batch of four."""
+    kw = dict(v_dim=LA.DV, scale=LAT_SCALE)
+    q, lat = _latent_inputs(cuda, 4, H, 1056, dtype, seed=H)
+    batch = LA.latent_decode_attention(q, lat, 777, **kw)
+    for b in range(4):
+        assert torch.equal(LA.latent_decode_attention(q[b:b + 1], lat[b:b + 1], 777, **kw),
+                           batch[b:b + 1]), b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_latent_launches_agree_after_a_launch_at_another_length(cuda, dtype):
+    """Two launches at length 1056 are bit-equal with launches at 577 and at
+    3000 positions (another plan, more spans) between them: each launch
+    leaves its ticket counters at zero."""
+    kw = dict(v_dim=LA.DV, scale=LAT_SCALE)
+    q, lat = _latent_inputs(cuda, 4, 40, 3000, dtype, seed=21)
+    first = LA.latent_decode_attention(q, lat, 1056, **kw)
+    LA.latent_decode_attention(q, lat, 577, **kw)
+    LA.latent_decode_attention(q, lat, 3000, **kw)
+    assert torch.equal(LA.latent_decode_attention(q, lat, 1056, **kw), first)
+    torch.cuda.synchronize()
+    assert not DA.counters(cuda, 4 * LA.n_tiles(40)).any()
 
 
 def _mla_cfg():
