@@ -144,8 +144,23 @@ not 0:
      MINICPM3_F32_FLEET_LAYERS layers), and the train phase at
      MINICPM3_TRAIN_LAYERS layers, its ``mfu`` counting MLA's attention at
      qk 96 and v 64;
+  xlstm, xlstm_fleet: full-width xlstm-350m (bf16, seeded random weights:
+     24 layers as 12 mLSTM + sLSTM pairs, d_model 1024, 4 heads, the mLSTM
+     at inner width 2048, the sLSTM at head 256) through the Server (4 x
+     1024 prefill, 32 greedy steps; the sLSTM scan kernel once an sLSTM
+     layer a prefill and a decode step, 12 and 384; the holds as hymba's:
+     the bf16 paths within the plain path's own distance from a float32
+     copy, and the float32 kernel path within 1% of that distance from the
+     float32 plain path with equal first tokens; peak memory, a decode
+     step's idle share), then phase 5's fleet traffic on its weights (the
+     sessions' recurrent blocks on the card; the scan once an sLSTM layer
+     per non-empty prefill and per decoded token, a swap; first tokens
+     against the Server's B=1 ones; the float32 streams at
+     XLSTM_F32_FLEET_LAYERS layers against the float32 Server's; a
+     profiled tick's idle share);
   7. cli: ``repro_torch.launch.serve`` at smoke size on the card, granite,
-     hymba (both GLA schedules), minicpm, qwen, llava and granite-moe, and
+     hymba (both GLA schedules), minicpm, qwen, llava, granite-moe and
+     xlstm (the Server and ``--fleet``), and
      ``repro_torch.launch.train`` at smoke size, granite, hymba, minicpm and
      qwen, with a rank killed and the restart under exampi.
 Phase 3 also holds K1's logsumexp output and its backward kernels (dQ,
@@ -187,6 +202,13 @@ and the backend that served it named). It holds K4's bf16 output at
 hymba's shape over GLA_SWEEP seeds, each within the kernel's error bound
 (``gla_error_bound``), and prints the spread.
 Each phase ends with a ``[time]`` line; the last names the total.
+Phase 3 also holds the sLSTM recurrence's kernel (xlstm-350m's 4 heads of
+256) to its plain version at the prefill's B4 S1024, a decode step's B4 S1
+and a fleet lane's B1 S1, in bf16 and float32 from a prefill's state,
+checks its bit-equalities (two runs; S + 1 positions against S then 1 from
+its final state; each row at B = 4 against it alone) and one kernel node a
+call, and times each bf16 row beside its plain version, its bytes bound and
+its latency floor (the launch's S + 1 cluster barriers alone).
 Phase 3 also holds the GLA kernels (K4; K5's phases apart and together)
 and the ring-window decode to their plain versions: the GLA at the
 serving shape with the mixer's head-broadcast q/k (in bf16 also under
@@ -384,9 +406,10 @@ C_P_MAIN = "bfloat16 B1 H40 Dk288 Dv256 layer 31/62 lengths=[1056]"
 C_SCALE, C_DQK, C_DV = 1 / math.sqrt(96), 96, 64
 # minicpm3-4b's depths (PERF.md section 4): its float32 Server copy at full
 # depth (17.0 GB beside the 8.5 GB bf16 one); the float32 fleet streams at
-# MINICPM3_F32_FLEET_LAYERS, as qwen's; the trainer at MINICPM3_TRAIN_LAYERS,
-# held to leave 10 GB free
-MINICPM3_F32_FLEET_LAYERS, MINICPM3_TRAIN_LAYERS = 12, 62
+# MINICPM3_F32_FLEET_LAYERS, as qwen's; the trainer at MINICPM3_TRAIN_LAYERS
+# of 62 (a cut for the time limit: at full depth it took 60.4 s of the
+# script, and phase 3 holds K1 and its backward at its training shape)
+MINICPM3_F32_FLEET_LAYERS, MINICPM3_TRAIN_LAYERS = 12, 24
 # K1's backward at qk head dim 96: minicpm3-4b's training shape (V at its
 # 64 columns) and a ragged S with a window
 C_BWD_SHAPES = ((4, 40, 40, 1024, C_DQK, None), (2, 8, 8, 300, C_DQK, 100))
@@ -395,6 +418,16 @@ C_BWD_SHAPES = ((4, 40, 40, 1024, C_DQK, None), (2, 8, 8, 300, C_DQK, 100))
 # float32 fleet streams, and minicpm-2b's trainer (its K1 backward at G = 1
 # is held at its training shape in BWD_SHAPES)
 GRANITE_F32_FLEET_LAYERS, MINICPM_TRAIN_LAYERS = 12, 10
+# xlstm-350m's sLSTM recurrence (H 4, dh 256) in phase 3: the kernel held to
+# its plain version at these (B, S): the prefill's, a decode step's, a
+# fleet lane's; the tolerance is the GLA kernels' (a recurrence over up to
+# 1024 steps whose float32 sums run in another order, and in bf16 a one-ulp
+# change of a rounded gate moves the exp gates by about 1%)
+SLSTM_HEADS, SLSTM_DH = 4, 256
+SLSTM_ROWS = ((4, 1024), (4, 1), (1, 1))
+# xlstm-350m's float32 fleet streams at this many of its 24 layers (6 pairs),
+# as the other fleets' (a cut for the time limit)
+XLSTM_F32_FLEET_LAYERS = 12
 # K4's bf16 hold at hymba's serving shape over this many seeds, each within
 # the kernel's error bound (gla_error_bound)
 GLA_SWEEP = 16
@@ -724,17 +757,20 @@ def hold_to_plain(tag, cfg, model, params, tokens, feed, dev, *, noisy=False, f3
     if not noisy:
         ok = ok and same
     else:
-        for schedule in ("chunk", "parallel"):
+        # hymba's float32 kernel path under each GLA schedule; another
+        # model's (xLSTM's) once
+        for schedule in ("chunk", "parallel") if cfg.block == "hymba" else (None,):
             k32 = run(dataclasses.replace(model, cfg=cfg32, force=None,
-                                          gla_schedule=schedule), p32)
+                                          gla_schedule=schedule or "chunk"), p32)
+            path = f" ({schedule} schedule)" if schedule else ""
             for i, (a, t) in enumerate(zip(k32, truth)):
                 r, tol = rel(a, t), F32_NOISE_SHARE * plain_f32[i]
                 good = math.isfinite(r) and r <= tol
                 ok = ok and good
-                print(f"[{tag}] float32 kernel path ({schedule} schedule) {step(i)} logits "
+                print(f"[{tag}] float32 kernel path{path} {step(i)} logits "
                       f"vs float32 plain path: max|a-b|/max|b| {r:.3e} (tol "
                       f"{F32_NOISE_SHARE:g} x plain-f32 = {tol:.3e}) {'ok' if good else 'FAIL'}")
-            ok = firsts(f"float32 ({schedule} schedule)", k32, truth) and ok
+            ok = firsts(f"float32{path}", k32, truth) and ok
             del k32
     del p32
     return ok, plain_f32
@@ -1693,11 +1729,13 @@ def run_fleet(model_cfg, model_params, prompts, max_len):
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import latent_decode_attention as LA
     from repro_torch.kernels import paged_decode_attention as PA
+    from repro_torch.kernels import slstm_scan as SL
     from repro_torch.serving.engine import ServeEngine
     eng = ServeEngine(model_cfg, params=model_params, device="cuda", max_len=max_len,
                       page_size=FLEET_PAGE, n_pages=FLEET_PAGES, max_running=FLEET_LANES)
     torch.cuda.synchronize()
     FA.launches = DA.launches = PA.launches = LA.launches = LA.paged_launches = 0
+    SL.launches = 0
     t0 = time.perf_counter()
     sids = [eng.submit(p, max_new_tokens=FLEET_NEW) for p in prompts[:-1]]
     for _ in range(FLEET_LATE_AT):
@@ -1709,7 +1747,8 @@ def run_fleet(model_cfg, model_params, prompts, max_len):
     return eng, sids, {"flash_attention": FA.launches, "decode_attention": DA.launches,
                        "paged_decode_attention": PA.launches,
                        "latent_decode_attention": LA.launches,
-                       "paged_latent_decode_attention": LA.paged_launches}, secs
+                       "paged_latent_decode_attention": LA.paged_launches,
+                       "slstm_scan": SL.launches}, secs
 
 
 def server_stream(srv, prompt, n, dev):
@@ -1731,17 +1770,23 @@ def server_stream(srv, prompt, n, dev):
 def check_fleet(eng, sids, got, label, model_cfg, prompts, tag="fleet"):
     """The main path's launch counts (K1 a layer per non-empty prefill, K3 a
     layer per decoded token, or MLA's paged latent decode, no contiguous
-    decode), the tickets and the streams' shape."""
+    decode; xLSTM's sLSTM scan once an sLSTM layer per non-empty prefill
+    and per decoded token, nothing else), the tickets and the streams'
+    shape."""
     L = model_cfg.n_layers
     n_full = sum(1 for p in prompts if len(p))
     decoded = sum(len(eng.stream(s)) for s in sids) - n_full
     paged = "paged_latent_decode_attention" if model_cfg.mla is not None \
         else "paged_decode_attention"
     want = dict.fromkeys(got, 0)
-    want.update({"flash_attention": L * n_full, paged: L * decoded})
+    if model_cfg.block == "xlstm":
+        want["slstm_scan"] = L // 2 * (n_full + decoded)
+    else:
+        want.update({"flash_attention": L * n_full, paged: L * decoded})
     swapped = [s for s in sids if eng.sched.tickets[s].preemptions]
+    per = L // 2 if model_cfg.block == "xlstm" else L
     print(f"[{tag}] {label}: launches {got} (expected {want}: {n_full} non-empty "
-          f"prefills x {L}, {decoded} decoded tokens x {L}); "
+          f"prefills x {per}, {decoded} decoded tokens x {per}); "
           f"preempted and readmitted: {swapped}; ticks {eng.tick}", flush=True)
     if got != want:
         raise AssertionError(f"{tag} main path launch counts {got} != {want}")
@@ -1755,13 +1800,14 @@ def check_fleet(eng, sids, got, label, model_cfg, prompts, tag="fleet"):
 
 
 def cut_layers(params, n):
-    """The first ``n`` layers of a one-segment dense model's params (views)."""
+    """The first ``n`` stacked entries of a one-segment model's params
+    (views): layers, or xLSTM's pairs."""
     from repro_torch.models.params import tree_map
     return {**params, "segments": [tree_map(lambda t: t[:n], params["segments"][0])]}
 
 
 SERVE_TAGS = {"minicpm-2b": "minicpm", "qwen2.5-14b": "qwen", "llava-next-34b": "llava",
-              "minicpm3-4b": "minicpm3",
+              "minicpm3-4b": "minicpm3", "xlstm-350m": "xlstm",
               "granite-moe-3b-a800m": "moe"}
 
 
@@ -1957,11 +2003,12 @@ def dense_serve_phase(arch, card, dev, seed_prompts, f32_layers=None, keep=False
     return params, launches
 
 
-def fleet_phase(cfg, params, card, dev, f32_layers, seed):
-    """An attention family's fleet at full depth on its Server phase's
-    weights (qwen2.5-14b's, minicpm3-4b's), with granite's fleet traffic;
-    its float32 streams held to the float32 Server's at ``f32_layers``
-    layers. Returns the bf16 run's launch counts."""
+def fleet_phase(cfg, params, card, dev, f32_layers, seed, idle=False):
+    """A family's fleet at full depth on its Server phase's weights
+    (qwen2.5-14b's, minicpm3-4b's, xlstm-350m's), with granite's fleet
+    traffic; its float32 streams held to the float32 Server's at
+    ``f32_layers`` layers. With ``idle`` also a profiled tick's idle share
+    (``fleet_tick_idle``). Returns the bf16 run's launch counts."""
     import dataclasses
 
     import numpy as np
@@ -1975,14 +2022,21 @@ def fleet_phase(cfg, params, card, dev, f32_layers, seed):
     all_prompts = FLEET_PROMPTS + (FLEET_LATE,)
     prompts = [np.random.default_rng(seed).integers(0, cfg.vocab_size, n) for n in all_prompts]
     max_len = max(all_prompts) + FLEET_NEW
-    # bf16 cache bytes a token: K and V rows, or MLA's one latent row
-    row_bytes = cfg.n_layers * cfg.kv_cache_width * 2 * (1 if cfg.mla is not None else 2)
     eng, sids, launches, secs = run_fleet(cfg, params, prompts, max_len)
     n_tok = sum(len(eng.stream(s)) for s in sids)
+    if cfg.block == "xlstm":
+        # no token rows: each session's recurrent blocks, on the card
+        blk = sum(int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+                  for _, shape, dt in eng._leaf_specs)
+        cache = f"no token rows; {blk / 1e6:.1f} MB of recurrent blocks a session on the card"
+    else:
+        # bf16 cache bytes a token: K and V rows, or MLA's one latent row
+        row_bytes = cfg.n_layers * cfg.kv_cache_width * 2 * (1 if cfg.mla is not None else 2)
+        cache = (f"{row_bytes} bytes of cache a token, "
+                 f"{FLEET_PAGES * FLEET_PAGE * row_bytes / 1e6:.1f} MB")
     print(f"[{tag}] {cfg.name} bf16, {cfg.n_layers} layers; {len(sids)} sessions, prompts "
           f"{list(all_prompts)}, {FLEET_NEW} new tokens each; pool {FLEET_PAGES} pages x "
-          f"{FLEET_PAGE} ({row_bytes} bytes of cache a token, "
-          f"{FLEET_PAGES * FLEET_PAGE * row_bytes / 1e6:.1f} MB), {FLEET_LANES} lanes: "
+          f"{FLEET_PAGE} ({cache}), {FLEET_LANES} lanes: "
           f"{n_tok} tokens in {secs:.2f} s: {n_tok / secs:.1f} tok/s, "
           f"{secs / eng.tick * 1e3:.1f} ms/tick over {eng.tick} ticks; card {card}", flush=True)
     check_fleet(eng, sids, launches, "bf16", cfg, prompts, tag)
@@ -1994,9 +2048,13 @@ def fleet_phase(cfg, params, card, dev, f32_layers, seed):
     del eng, srv
     gc.collect()
     torch.cuda.empty_cache()
+    if idle:
+        fleet_tick_idle(tag, cfg, params, prompts, max_len)
     cfg32 = dataclasses.replace(cfg, n_layers=f32_layers, param_dtype="float32",
                                 compute_dtype="float32", cache_dtype="float32")
-    p32 = tree_map(lambda t: t.float(), cut_layers(params, f32_layers))
+    # xLSTM stacks its layers in pairs
+    stacked = f32_layers // 2 if cfg.block == "xlstm" else f32_layers
+    p32 = tree_map(lambda t: t.float(), cut_layers(params, stacked))
     eng, sids, got32, secs32 = run_fleet(cfg32, p32, prompts, max_len)
     check_fleet(eng, sids, got32, f"float32, {f32_layers} layers", cfg32, prompts, tag)
     srv = Server(cfg32, params=p32, device="cuda")
@@ -2011,6 +2069,214 @@ def fleet_phase(cfg, params, card, dev, f32_layers, seed):
     torch.cuda.empty_cache()
     print(f"[{tag}] phase seconds: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
+
+
+def fleet_tick_idle(tag, cfg, params, prompts, max_len):
+    """Where one fleet tick's time goes: a fresh engine takes the fleet's
+    first sessions and FLEET_LATE_AT ticks (their prefills), then one tick
+    of decode on its running lanes is profiled: its device busy time
+    against the same tick's host-clock time, unprofiled, just before."""
+    import torch
+
+    from repro_torch.serving.engine import ServeEngine
+    eng = ServeEngine(cfg, params=params, device="cuda", max_len=max_len,
+                      page_size=FLEET_PAGE, n_pages=FLEET_PAGES, max_running=FLEET_LANES)
+    for p in prompts[:-1]:
+        eng.submit(p, max_new_tokens=FLEET_NEW)
+    for _ in range(FLEET_LATE_AT):
+        eng.step_once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step_once()
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) * 1e3
+    lanes = len(eng.sched.running)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eng.step_once()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    if busy_ms > 0:
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:4]
+        print(f"[{tag}] one tick of {lanes} decoding lanes: device busy {busy_ms:.3f} ms of "
+              f"{tick_ms:.2f} ms ({1 - busy_ms / tick_ms:.1%} idle); top: "
+              + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                          for e in top), flush=True)
+    else:
+        print(f"[{tag}] one tick: device busy time not measured (the profiler saw no CUDA "
+              "kernels)", flush=True)
+    del eng
+
+
+def slstm_rows(card, dev):
+    """Phase 3's sLSTM recurrence (xlstm-350m's SLSTM_HEADS heads of
+    SLSTM_DH): the kernel held to its plain version at each of SLSTM_ROWS in
+    bf16 and float32 from a prefill's state (GLA_TOL: hs and h absolutely,
+    |h| <= 1; c, n and m relative to their largest entries); its
+    bit-equalities at the prefill's shape (two runs; S + 1 positions
+    against S then 1 from its final state; each row at B = 4 against that
+    row alone); one kernel node a call; and each bf16 row timed (CUDA-graph
+    replay over inputs rotated past the L2, and the profiler's time a call)
+    beside its plain version, its bound and its latency floor (the S + 1
+    cluster barriers of its grid, alone, timed alike). Returns {(B, S):
+    row} for the JSON record."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm_scan as SL
+    from repro_torch.kernels.timing import cuda_ms
+    H, dh = SLSTM_HEADS, SLSTM_DH
+    gen = torch.Generator(device=dev).manual_seed(350)
+
+    def inputs(B, S, dtype):
+        """wx ~ N(0, 1) (the hoisted projection's scale) and r ~ N(0, 1/dh)
+        (50 times the model's init: a recurrence that matters), and the
+        state after 8 positions of a prefill; S positions are left."""
+        wx = torch.randn(B, S + 8, 4 * H * dh, generator=gen, device=dev).to(dtype)
+        r = (torch.randn(H, dh, 4 * dh, generator=gen, device=dev) / dh ** 0.5).to(dtype)
+        start = ref.slstm_scan(wx[:, :8].contiguous(), r, ref.slstm_state0(B, H, dh, dev))[1]
+        return wx[:, 8:].contiguous(), r, start
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and all(torch.equal(u, v) for u, v in zip(a[1], b[1]))
+
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        tol = GLA_TOL[name]
+        for B, S in SLSTM_ROWS:
+            x, r, start = inputs(B, S, dtype)
+            (hs, st), (hs_w, st_w) = SL.slstm_scan(x, r, start), ref.slstm_scan(x, r, start)
+            err = max((hs.float() - hs_w.float()).abs().max().item(),
+                      (st[3] - st_w[3]).abs().max().item())
+            rels = [rel(a, b) for a, b in zip(st[:3], st_w[:3])]
+            ok = math.isfinite(err) and err <= tol and max(rels) <= tol
+            errs[(name, B, S)] = err
+            print(f"[kernels] slstm_scan {name} B{B} S{S} H{H} dh{dh} from a prefill's state: "
+                  f"max|a-b| of hs and h {err:.3e}, c n m max|a-b|/max|b| "
+                  + ", ".join(f"{v:.2e}" for v in rels) + f" (tol {tol:g}) "
+                  + ("ok" if ok else "FAIL"), flush=True)
+            if not ok:
+                raise AssertionError(f"slstm_scan {name} B{B} S{S} disagrees with its plain "
+                                     "version")
+        B, S = SLSTM_ROWS[0]
+        x, r, st0 = inputs(B, S + 1, dtype)
+        whole = SL.slstm_scan(x, r, st0)
+        two = same(whole, SL.slstm_scan(x, r, st0))
+        part = SL.slstm_scan(x[:, :S].contiguous(), r, st0)
+        last = SL.slstm_scan(x[:, S:].contiguous(), r, part[1])
+        split = same((torch.cat([part[0], last[0]], 1), last[1]), whole)
+        lane = all(same(SL.slstm_scan(x[b:b + 1].contiguous(), r,
+                                      tuple(t[b:b + 1].contiguous() for t in st0)),
+                        (whole[0][b:b + 1], tuple(t[b:b + 1] for t in whole[1])))
+                   for b in range(B))
+        print(f"[kernels] slstm_scan {name} B{B} S{S + 1} bit for bit: two runs {two}, S + 1 "
+              f"against S then 1 from its final state {split}, each row at B = {B} against "
+              f"it alone {lane}", flush=True)
+        if not (two and split and lane):
+            raise AssertionError(f"slstm_scan {name}: a bit-equality failed")
+        del x, r, st0, whole, part, last
+    rows = {}
+    bf = torch.bfloat16
+    for B, S in SLSTM_ROWS:
+        # each prefill set is 36 MB (two pass the L2); a decode step's reads
+        # R (2 MB) above all, so 32 sets, as 12 layers' own R would
+        sets = [inputs(B, S, bf) for _ in range(2 if S > 1 else 32)]
+        label = f"slstm_scan bf16 B{B} S{S} H{H} dh{dh}"
+        graph_launches(label, lambda: SL.slstm_scan(*sets[0]), (SL.kernel(bf),))
+        ms = cuda_ms(SL.slstm_scan, sets, iters=10 if S > 1 else 40)
+        prof = sum(kernel_us(SL.slstm_scan, sets, iters=10 if S > 1 else 20, once=True).values())
+        plain = cuda_ms(ref.slstm_scan, sets, iters=2 if S > 1 else 20)
+        floor = cuda_ms(lambda *_: SL.barrier(B, S, H, dh, dev), sets[:1],
+                        iters=10 if S > 1 else 40)
+        # bytes: wx read and hs written in bf16, R read, the float32 state
+        # read and written; operations: the product, 2 dh FLOP a (row,
+        # gate column, position)
+        nbytes = 2 * (B * S * 4 * H * dh + B * S * H * dh + H * dh * 4 * dh) + 8 * 4 * B * H * dh
+        bound, by = bound_ms(2 * B * S * 4 * H * dh * dh, nbytes)
+        rows[(B, S)] = {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                        "latency_floor_ms": floor, "max_abs_err": errs[("bfloat16", B, S)]}
+        print(f"[kernels] {label}: {ms * 1e3:.1f} us (profiler {prof:.1f} us a call), plain "
+              f"{plain * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}; {nbytes / 1e6:.1f} "
+              f"MB), latency floor {floor * 1e3:.1f} us ({S + 1} cluster barriers on the "
+              f"kernel's grid); no PyTorch call computes the sLSTM recurrence; {card}",
+              flush=True)
+        del sets
+    return rows
+
+
+def xlstm_phase(card, dev):
+    """xlstm-350m's Server at full width and depth (the module docstring's
+    ``xlstm``): 4 x 1024 prefill and 32 greedy steps, the sLSTM scan's
+    launches (once an sLSTM layer a prefill and a step), the holds
+    (``hold_to_plain``'s noisy form: the float32 kernel path against the
+    float32 plain path), peak memory and a decode step's idle share.
+    Returns the params and the launch counts of the prefill and the
+    decode."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import slstm_scan as SL
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.engine import Server
+
+    t_phase = time.perf_counter()
+    cfg = get_config("xlstm-350m")
+    L = cfg.n_layers // 2          # sLSTM layers: one a pair
+    n_prompt, n_gen, batch = 1024, 32, 4
+    prompts = np.random.default_rng(10).integers(0, cfg.vocab_size, (batch, n_prompt))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    srv = Server(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    srv.prefill(prompts[:, :256])                 # warm-up: cuBLAS, the kernel's load
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    SL.launches = 0
+    t0 = time.perf_counter()
+    logits = srv.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"prefill": SL.launches}
+    first = torch.argmax(logits[:, : cfg.vocab_size], dim=-1).cpu().numpy()
+    toks, dt = srv.decode(n_gen, first)
+    launches["decode"] = SL.launches - launches["prefill"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    x = cfg.xlstm
+    n_params = sum(t.numel() for t in tree_leaves(srv.params))
+    print(f"[xlstm] xlstm-350m {n_params / 1e9:.3f}B params bf16 (seeded init {init_s:.1f} s), "
+          f"{cfg.n_layers} layers as {L} mLSTM + sLSTM pairs, d_model {cfg.d_model}, {x.n_heads} "
+          f"heads (mLSTM inner {int(cfg.d_model * x.m_proj_factor)}, sLSTM head "
+          f"{cfg.d_model // x.n_heads}), chunk {x.chunk}; prefill {batch}x{n_prompt}: "
+          f"{prefill_ms:.1f} ms; decode {n_gen} steps x {batch}: {n_gen * batch / dt:.1f} tok/s "
+          f"({dt / n_gen * 1e3:.2f} ms/step); peak memory {peak_gb:.2f} GB; card {card}",
+          flush=True)
+    want = {"prefill": L, "decode": L * n_gen}
+    print(f"[xlstm] sLSTM scan launches {launches} (expected {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"xlstm: main path launch counts {launches} != {want}")
+    stream = np.stack(toks, axis=1)
+    if stream.shape != (batch, n_gen) or stream.min() < 0 or stream.max() >= cfg.vocab_size:
+        raise AssertionError(f"xlstm: bad token stream {stream.shape}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("xlstm: non-finite prefill logits")
+    del logits
+    tokens = torch.as_tensor(prompts, device=dev)
+    ok = hold_to_plain("xlstm", cfg, srv.model, srv.params, tokens, [first] + toks[:3], dev,
+                       noisy=True)[0]
+    decode_idle("xlstm", srv.model, srv.params, tokens, first, dt / n_gen * 1e3, dev)
+    if not ok:
+        raise AssertionError("xlstm: kernel path disagrees with the plain path")
+    params = srv.params
+    del srv, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[xlstm] phase seconds: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return params, launches
 
 
 def main() -> int:
@@ -2943,6 +3209,9 @@ def main() -> int:
                  "no record (the tracer dropped them)"), flush=True)
     del fsets, dsets, psets, gsets, stores
 
+    # the sLSTM recurrence at xlstm-350m's shapes
+    sl_rows = slstm_rows(card, dev)
+
     t_mark = phase_time("kernels", t_mark)
 
     # -- 4. full-width granite-3-2b Server ------------------------------------
@@ -3208,6 +3477,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_mark = phase_time("minicpm3_fleet", t_mark)
 
+    # -- xlstm. full-width xlstm-350m Server, then its fleet ------------------------
+    xparams, x_serve = xlstm_phase(card, dev)
+    t_mark = phase_time("xlstm", t_mark)
+    xcfg = get_config("xlstm-350m")
+    x_fleet = fleet_phase(xcfg, xparams, card, dev, XLSTM_F32_FLEET_LAYERS, 11, idle=True)
+    del xparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_mark = phase_time("xlstm_fleet", t_mark)
+
     # -- train. full-width granite-3-2b through the port's Trainer -------------
     # (last before the CLI: the Trainer turns on deterministic algorithms for
     # the process)
@@ -3247,7 +3526,8 @@ def main() -> int:
     serve_extras = ([], ["--arch", "hymba-1.5b"],
                     ["--arch", "hymba-1.5b", "--gla-schedule", "parallel"],
                     ["--arch", "minicpm-2b"], ["--arch", "qwen2.5-14b"],
-                    ["--arch", "llava-next-34b"], ["--arch", "granite-moe-3b-a800m"])
+                    ["--arch", "llava-next-34b"], ["--arch", "granite-moe-3b-a800m"],
+                    ["--arch", "xlstm-350m"], ["--arch", "xlstm-350m", "--fleet"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli") as ck, \
             ThreadPoolExecutor(max_workers=6) as pool:
         trains = {arch: pool.submit(run_cli, [
@@ -3465,6 +3745,19 @@ def main() -> int:
          "max_abs_err": max(errs[name][C_F_MAIN] for name in BWD_PARTS),
          "ms": cb["whole"][0], "plain_ms": cb["whole"][1], "bound_ms": cb["whole"][2],
          "bound_by": cb["whole"][3], "library_ms": cb["whole"][4]})
+    # xlstm-350m: the sLSTM recurrence at its prefill, its decode step and a
+    # fleet lane's token; launches from the xlstm and xlstm_fleet phases
+    for (B, S), shape, launches_ in (
+            ((4, 1024), "xlstm-350m prefill B4 S1024 H4 dh256", x_serve["prefill"]),
+            ((4, 1), "xlstm-350m decode step B4 S1 H4 dh256", x_serve["decode"]),
+            ((1, 1), "xlstm-350m fleet lane B1 S1 H4 dh256", x_fleet["slstm_scan"])):
+        record["kernels"].append(
+            {"name": f"slstm_scan_b{B}_s{S}", "shape": shape, "route": "cuda",
+             "source": src + "slstm_scan.cu",
+             "replaces": "none: the port's own kernel (the reference runs "
+                         "src/repro/models/xlstm.py:145 run_scan as a jax.lax.scan)",
+             "launches": launches_, **sl_rows[(B, S)], "library_ms": None,
+             "library_note": "no PyTorch call computes the sLSTM recurrence"})
     print(f"[time] chip_smoke.py total {time.perf_counter() - t_start:.1f} s ({card})",
           flush=True)
     print(json.dumps(record))

@@ -167,7 +167,7 @@ class ModelConfig:
 
 
 ARCH_IDS = ["granite-3-2b", "hymba-1.5b", "minicpm-2b", "qwen2.5-14b", "llava-next-34b",
-            "granite-moe-3b-a800m", "arctic-480b", "minicpm3-4b"]
+            "granite-moe-3b-a800m", "arctic-480b", "minicpm3-4b", "xlstm-350m"]
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

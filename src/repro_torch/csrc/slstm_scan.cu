@@ -1,0 +1,671 @@
+// The sLSTM recurrence (xLSTM's scalar-memory block) for NVIDIA Hopper
+// (sm_90a): one launch runs a layer's whole scan over S positions.
+//
+// Replaces: no Pallas kernel. The JAX package runs the recurrence as a
+// jax.lax.scan (src/repro/models/xlstm.py slstm_apply, run_scan's body,
+// :153-157), one compiled loop; stepped from Python it would be some 20
+// launches a position. This kernel is that loop: the prefill runs it over
+// the prompt from the start state, each decode step at S = 1 from the
+// cached state.
+//
+// Computes, for each row b and head h, for t = 0..S-1 in order:
+//   rh    = T(h_{t-1} as T  @  R_h)          (float32 sums, rounded to T)
+//   gates = T(wx[b, t, h] + rh)               (the add in the compute type T)
+//   (c, n, m, h)_t = the stabilized exp-gated cell on gates, in float32
+// wx: [B, S, H, 4, dh] (the hoisted input projection, head-major as the
+// reference lays its gates out: i, f, z, o); R: [H, dh, 4 dh] (r_gates);
+// the state c, n, m, h: [B, H, dh] float32. Writes hs [B, S, H, dh] = T(h_t)
+// and the final state. T is bfloat16 or float32 (then nothing rounds).
+//
+// Bound: the function reads wx and R once and writes hs (44 MB at B 4, S
+// 1024, xlstm-350m's H 4 and dh 256, bf16: 13 us at 3.35 TB/s) and does 2
+// dh FLOP a (row, gate column, position). But its positions are a chain:
+// step t needs all of h_{t-1}. So the latency of one step bounds it: a
+// product over dh, the cell, and the exchange of the new h among the
+// blocks that share the head. Nothing of R or h travels through device
+// memory inside the chain.
+//
+// Design. Per (head, group of up to ROWS = 8 rows), a cluster of CLUSTER =
+// 8 blocks. Block `rank` owns units [rank dh / 8, (rank + 1) dh / 8) of the
+// head, 4 dh / 8 gate columns of R_h, and each step:
+//  * computes its columns of h_{t-1} R for the group's rows;
+//  * runs the cell for its (row, unit) pairs, its c, n, m in registers,
+//    with wx loaded one step ahead;
+//  * writes T(h_t) to hs and its new h into every peer block's shared
+//    memory (DSMEM), in the buffer of the next step's parity.
+// bf16 (slstm_mma_kernel<DH>, dh / 32 warps): the product on the tensor
+// cores, mma.sync m16n8k16, h the A operand (the group's rows, padded to
+// 16 with zeros) and R the B operand. Each warp owns 4 units, 16 columns
+// ordered unit-major (column 4 u + g is gate g of unit u), and holds their
+// B fragments in registers for the whole scan (dh / 2 of them at dh 256),
+// built once from R's slice, which the copy engine stages (cp.async, all
+// copies in flight). A step is dh / 16 pairs of mma, in four independent
+// accumulator chains a tile summed in a fixed order, on A fragments read
+// from a 16-byte-padded h buffer (no bank conflicts); a lane's sums then
+// hold two gates of one unit and row, its neighbour lane the other two, so
+// one shuffle pair gives each lane the four gates of its own (row, unit)
+// cell: no shared memory and no block barrier between the product and the
+// cell. The exchange is the Hopper producer/consumer idiom: each lane pair
+// sends its two units' h as one 4-byte st.async into every peer's buffer,
+// counted on that buffer's mbarrier (complete_tx), and a block starts a
+// step by waiting on its own mbarrier for every row's h from all eight
+// blocks, which then expects the step after next (expect_tx). No cluster
+// barrier and no release fence inside the loop: the first step's
+// barrier-and-fence round trip was 0.65 us of 2.18 (tools/slstm_breakdown.py).
+// A block may only overwrite a buffer that every block has finished
+// reading: it writes h_t into the buffer of h_{t-2}, after receiving h_{t-1}
+// from every block's every warp, each of which sent it after its own
+// product over h_{t-2}. A block leaves only once h_{S-1} has all landed.
+// float32 (slstm_f32_kernel<NR>, exact scalar products: no TF32): each
+// block keeps its columns of R in shared memory (128 KB at dh 256), each
+// thread sums one column over half of dh for the group's rows with FMA in
+// k order, the halves add in a fixed order through shared memory, one
+// thread per (row, unit) runs the cell and stores its h into every peer,
+// and one cluster barrier (release/acquire) ends each step.
+// A row's arithmetic is the same whatever the other rows of its group, the
+// group's size or S (a tensor-core product's element depends on its own
+// row and column alone; the FMA sums run in k order), so rows at B = 4
+// equal the same rows at B = 1, and scan(S + 1) equals scan(S) then
+// scan(1) from its final state, bit for bit. Nothing sums across rows or
+// positions, and every sum runs in a fixed order.
+//
+// What bounds it then: the chain of steps, each a product, a cell's
+// exponentials and the exchange's round trip (repro_slstm_barrier times S
+// cluster barriers in a launch of the same shape, a floor of the same
+// kind).
+//
+// Diagnostic macros (tools/slstm_breakdown.py; the bf16 kernel's results
+// are wrong under any of them, they only time what is left): SLSTM_NO_MMA
+// (no product), SLSTM_NO_CELL (h is a gate's sum, no exponentials),
+// SLSTM_NO_HS (hs not written), SLSTM_LOCAL (each block's h pairs sent to
+// itself eight times, the bytes its mbarrier counts: no DSMEM traffic).
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace slstm {
+
+constexpr int CLUSTER = 8;  // blocks a (head, row group)
+constexpr int ROWS = 8;     // rows a group at most
+constexpr int KS = 2;       // the product's dh split in KS ranges a column
+constexpr int MAX_DH = 256; // shared memory: R's slice is dh x dh / 2 elements
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T and back: the value a T tensor holds
+template <typename T>
+__device__ __forceinline__ float round_t(float x) {
+  return to_f<T>(from_f<T>(x));
+}
+
+// log(sigmoid(x)) = min(x, 0) - log1p(exp(-|x|)), the reference's
+// jax.nn.log_sigmoid (= -softplus(-x))
+__device__ __forceinline__ float log_sigmoid(float x) {
+  return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// d += a b: m16n8k16, bf16 in, float32 out
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// one (row, unit) cell: gates in T's rounding (rh = T(sum), gate = T(wx +
+// rh)), the state in float32; returns h. FAST (the bf16 kernel, whose gates
+// carry 8 bits): the exponentials, the logarithm and the divisions by the
+// SFU's approximations (ex2.approx, lg2.approx, rcp; a relative 1e-6 or so,
+// tanh as 1 - 2 / (1 + e^{2z})), which shorten the step's chain; else the
+// accurate library functions (the float32 kernel, exact to its sums).
+template <typename T, bool FAST>
+__device__ __forceinline__ float cell_step(const float (&wg)[4], const float (&sum)[4], float& c,
+                                           float& n, float& m) {
+  float gate[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) gate[g] = round_t<T>(wg[g] + round_t<T>(sum[g]));
+  const float li = gate[0];
+  float lf, fs, is, z, o;
+  if constexpr (FAST) {
+    lf = fminf(gate[1], 0.f) - __logf(1.f + __expf(-fabsf(gate[1])));
+    const float m_new = fmaxf(lf + m, li);
+    fs = __expf(lf + m - m_new);
+    is = __expf(li - m_new);
+    z = 1.f - __fdividef(2.f, 1.f + __expf(2.f * gate[2]));
+    o = __fdividef(1.f, 1.f + __expf(-gate[3]));
+    m = m_new;
+  } else {
+    lf = log_sigmoid(gate[1]);
+    const float m_new = fmaxf(lf + m, li);
+    fs = expf(lf + m - m_new);
+    is = expf(li - m_new);
+    z = tanhf(gate[2]);
+    o = 1.f / (1.f + expf(-gate[3]));
+    m = m_new;
+  }
+  c = fs * c + is * z;
+  n = fs * n + is;
+  return FAST ? __fdividef(o * c, fmaxf(n, 1e-6f)) : o * c / fmaxf(n, 1e-6f);
+}
+
+// ---- bf16: the tensor-core kernel ------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// a copy of BYTES (8 or 16) from global to shared memory by the copy engine
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+// the thread's arrival on `bar`, expecting `bytes` more of its phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed; acquire at cluster
+// scope, so that the peers' stores it counted are seen
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the shared::cluster address of `local` (this block's shared memory) in
+// block `rank` of the cluster
+__device__ __forceinline__ uint32_t map_rank(const void* local, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(local)), "r"(rank));
+  return out;
+}
+
+// 4 bytes into a peer's shared memory, counted on its mbarrier `bar`
+__device__ __forceinline__ void st_async(uint32_t addr, uint32_t v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(
+                   addr),
+               "r"(v), "r"(bar)
+               : "memory");
+}
+
+template <int DH>
+constexpr size_t mma_smem_bytes() {
+  // R's slice [DH][4 gates][DH / 8] bf16, then h [2][ROWS][DH + 8] bf16,
+  // then an mbarrier per h buffer
+  return (size_t)DH * DH + (size_t)2 * ROWS * (DH + 8) * 2 + 2 * sizeof(uint64_t);
+}
+
+template <int DH>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DH)
+    slstm_mma_kernel(const __nv_bfloat16* __restrict__ wx, const __nv_bfloat16* __restrict__ r,
+                     const float* __restrict__ c0, const float* __restrict__ n0,
+                     const float* __restrict__ m0, const float* __restrict__ h0,
+                     __nv_bfloat16* __restrict__ hs, float* __restrict__ c1,
+                     float* __restrict__ n1, float* __restrict__ m1, float* __restrict__ h1,
+                     int B, int S, int H) {
+  constexpr int UPB = DH / CLUSTER;  // units a block; 4 a warp, so DH / 32 warps
+  constexpr int KSTEPS = DH / 16;
+  constexpr int CHAINS = 4;          // independent accumulators a tile (k step mod 4)
+  constexpr int HSTR = DH + 8;       // an h row in the buffer, 16 bytes of pad
+  constexpr int CHE = UPB >= 8 ? 8 : UPB;  // bf16 elements a staging copy
+  static_assert(DH % 32 == 0 && DH <= MAX_DH, "dh: a multiple of 32 up to 256");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int head = blockIdx.y;
+  const int row0 = blockIdx.z * ROWS;
+  const int rows = min(ROWS, B - row0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;  // the mma fragments' row (group) and column pair
+  const int u0 = rank * UPB;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* rs = reinterpret_cast<__nv_bfloat16*>(smem);           // [DH][4][UPB]
+  __nv_bfloat16* hb = rs + DH * 4 * UPB;                                 // [2][ROWS][HSTR]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(hb + 2 * ROWS * HSTR);    // [2]
+
+  // R's columns of this block's units by the copy engine, 8 or 16 bytes a
+  // copy, all in flight: rs[k][gate][u] = R[head][k][gate DH + u0 + u]
+  const __nv_bfloat16* rh = r + (size_t)head * DH * 4 * DH;
+  constexpr int PARTS = UPB / CHE;
+  for (int i = threadIdx.x; i < DH * 4 * PARTS; i += blockDim.x) {
+    const int k = i / (4 * PARTS), gate = i / PARTS % 4, part = i % PARTS;
+    cp_async<CHE * 2>(rs + (k * 4 + gate) * UPB + part * CHE,
+                      rh + (size_t)k * 4 * DH + gate * DH + u0 + part * CHE);
+  }
+  // both h buffers zero (the rows past the group's stay so), then h_{-1}
+  for (int i = threadIdx.x; i < 2 * ROWS * HSTR; i += blockDim.x) hb[i] = __float2bfloat16_rn(0.f);
+  if (threadIdx.x == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * DH; i += blockDim.x) {
+    const int rr = i / DH, k = i % DH;
+    hb[rr * HSTR + k] = __float2bfloat16_rn(h0[((size_t)(row0 + rr) * H + head) * DH + k]);
+  }
+  // the warp's B fragments for the whole scan: tile j holds the block's
+  // columns 16 warp + 8 j + n, column 4 u + gate of the block's unit u; this
+  // lane's are n = g, k = 2q, 2q + 1 (b0) and 2q + 8, 2q + 9 (b1) of each
+  // 16-row k step
+  uint32_t bfr[KSTEPS][2][2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int c = 16 * warp + 8 * j + g;
+    const __nv_bfloat16* col = rs + (c % 4) * UPB + c / 4;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int k = 16 * ks + 8 * half + 2 * q;
+        bfr[ks][j][half] = pack_bf16(col[k * 4 * UPB], col[(k + 1) * 4 * UPB]);
+      }
+    }
+  }
+
+  // this lane's cell: row g of the group, block unit 4 warp + 2 jt + q / 2
+  // with jt = q % 2; its own accumulators of tile jt hold gates (0, 1) when
+  // q is even and (2, 3) when odd, lane q ^ 1's the other two. Lanes q and
+  // q + 2 hold adjacent units (4 warp + 2 jt and + 1), which lane q (q < 2)
+  // sends as one bf16 pair
+  const int jt = q & 1;
+  const int unit = 4 * warp + 2 * jt + (q >> 1);
+  const bool cell = g < rows;
+  const int crow = row0 + (cell ? g : 0);
+  const size_t sidx = ((size_t)crow * H + head) * DH + u0 + unit;
+  float c = 0.f, n = 0.f, m = 0.f, h = 0.f;
+  if (cell) {
+    c = c0[sidx];
+    n = n0[sidx];
+    m = m0[sidx];
+    h = h0[sidx];
+  }
+  const __nv_bfloat16* wx_row = wx + (size_t)crow * S * 4 * H * DH + (size_t)head * 4 * DH + u0 +
+                                unit;
+  __nv_bfloat16* hs_row = hs + (size_t)crow * S * H * DH + (size_t)head * DH + u0 + unit;
+  // where this lane's pair goes in each peer: buffer 0's slot, buffer 1's
+  // a fixed offset on, and the peer's two mbarriers
+  const int pair_slot = g * HSTR + u0 + 4 * warp + 2 * q;
+  uint32_t peer_h[CLUSTER], peer_bar[CLUSTER];
+#pragma unroll
+  for (int p = 0; p < CLUSTER; ++p) {
+    peer_h[p] = map_rank(hb + pair_slot, p);
+    peer_bar[p] = map_rank(&bar[0], p);
+  }
+  // every block receives all rows' h from all eight blocks each step
+  const uint32_t step_bytes = (uint32_t)rows * DH * 2;
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&bar[1], step_bytes);  // h_0
+    if (S > 1) mbar_expect_tx(&bar[0], step_bytes);  // h_1
+  }
+
+  float wn[4] = {0.f, 0.f, 0.f, 0.f};  // the next step's input gates
+  if (cell) {
+#pragma unroll
+    for (int gt = 0; gt < 4; ++gt) wn[gt] = __bfloat162float(wx_row[gt * DH]);
+  }
+  // every block has started, staged h_{-1} and set its mbarriers up before
+  // any block sends
+  cluster.sync();
+
+  for (int t = 0; t < S; ++t) {
+    const int cur = t & 1;
+    if (t > 0) {
+      // h_{t-1}, from every block, is in buffer cur: the phase (t - 1) / 2
+      // of its mbarrier; then that mbarrier expects h_{t+1}
+      mbar_wait(&bar[cur], ((t - 1) >> 1) & 1);
+      if (threadIdx.x == 0 && t + 1 < S) mbar_expect_tx(&bar[cur], step_bytes);
+    }
+    float wg[4];
+#pragma unroll
+    for (int gt = 0; gt < 4; ++gt) wg[gt] = wn[gt];
+    if (cell && t + 1 < S) {
+      const __nv_bfloat16* w = wx_row + (size_t)(t + 1) * 4 * H * DH;
+#pragma unroll
+      for (int gt = 0; gt < 4; ++gt) wn[gt] = __bfloat162float(w[gt * DH]);
+    }
+    const __nv_bfloat16* hrow = hb + cur * ROWS * HSTR + g * HSTR;
+    float acc[2][CHAINS][4] = {};
+#ifndef SLSTM_NO_MMA
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const uint32_t a0 = *reinterpret_cast<const uint32_t*>(hrow + 16 * ks + 2 * q);
+      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(hrow + 16 * ks + 8 + 2 * q);
+      mma_bf16(acc[0][ks % CHAINS], a0, 0u, a2, 0u, bfr[ks][0][0], bfr[ks][0][1]);
+      mma_bf16(acc[1][ks % CHAINS], a0, 0u, a2, 0u, bfr[ks][1][0], bfr[ks][1][1]);
+    }
+#else
+    acc[0][0][0] = __bfloat162float(hrow[2 * q]);
+#endif
+    // the chains in a fixed order, then the partner's two gates
+    float s[2][2], y[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] = (acc[j][0][e] + acc[j][1][e]) + (acc[j][2][e] + acc[j][3][e]);
+        y[j][e] = __shfl_xor_sync(0xffffffffu, s[j][e], 1);
+      }
+    }
+    uint32_t hbits = 0;
+    if (cell) {
+      const float o0 = jt ? s[1][0] : s[0][0], o1 = jt ? s[1][1] : s[0][1];
+      const float p0 = jt ? y[1][0] : y[0][0], p1 = jt ? y[1][1] : y[0][1];
+      const float sum[4] = {jt ? p0 : o0, jt ? p1 : o1, jt ? o0 : p0, jt ? o1 : p1};
+#ifndef SLSTM_NO_CELL
+      h = cell_step<__nv_bfloat16, true>(wg, sum, c, n, m);
+#else
+      h = wg[0] + sum[0];
+#endif
+      const __nv_bfloat16 ht = __float2bfloat16_rn(h);
+#ifndef SLSTM_NO_HS
+      hs_row[(size_t)t * H * DH] = ht;
+#endif
+      hbits = __bfloat16_as_ushort(ht);
+    }
+    // lane q < 2 packs lane q + 2's h (the next unit) above its own
+    const uint32_t up = __shfl_down_sync(0xffffffffu, hbits, 2);
+    if (cell && q < 2) {
+      const uint32_t v = hbits | (up << 16);
+      const uint32_t off = (uint32_t)(((t + 1) & 1) * ROWS * HSTR * 2);
+      const int nxt = (t + 1) & 1;
+#ifndef SLSTM_LOCAL
+#pragma unroll
+      for (int p = 0; p < CLUSTER; ++p) st_async(peer_h[p] + off, v, peer_bar[p] + 8 * nxt);
+#else
+      for (int p = 0; p < CLUSTER; ++p) st_async(peer_h[rank] + off, v, peer_bar[rank] + 8 * nxt);
+#endif
+    }
+  }
+  // h_{S-1} from every block has landed here before this block exits (no
+  // peer's store may reach a block that has gone), and the others likewise
+  mbar_wait(&bar[S & 1], ((S - 1) >> 1) & 1);
+  if (cell) {
+    c1[sidx] = c;
+    n1[sidx] = n;
+    m1[sidx] = m;
+    h1[sidx] = h;
+  }
+  cluster.sync();
+}
+
+// ---- float32: exact scalar products --------------------------------------
+
+// shared memory of one block: R's slice [dh][4 dh / 8] float32, then
+// h_{t-1} [2 parities][dh][NR], then the partial sums [KS][NR][4 dh / 8]
+__host__ __device__ constexpr size_t f32_smem_bytes(int dh, int nr) {
+  return (size_t)dh * (dh / 2) * sizeof(float) + (size_t)2 * dh * nr * sizeof(float) +
+         (size_t)KS * nr * (dh / 2) * sizeof(float);
+}
+
+template <int NR>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_DH)
+    slstm_f32_kernel(const float* __restrict__ wx, const float* __restrict__ r,
+                     const float* __restrict__ c0, const float* __restrict__ n0,
+                     const float* __restrict__ m0, const float* __restrict__ h0,
+                     float* __restrict__ hs, float* __restrict__ c1, float* __restrict__ n1,
+                     float* __restrict__ m1, float* __restrict__ h1, int B, int S, int H,
+                     int dh) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int head = blockIdx.y;
+  const int row0 = blockIdx.z * NR;
+  const int rows = min(NR, B - row0);
+  const int upb = dh / CLUSTER;  // units this block owns
+  const int ncol = 4 * upb;      // its gate columns: column g upb + u is gate g of unit u
+  const int u0 = rank * upb;
+  const int tid = threadIdx.x;   // blockDim.x = KS ncol = dh
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* rs = reinterpret_cast<float*>(smem);
+  float* hb = rs + dh * ncol;
+  float* red = hb + 2 * dh * NR;
+
+  // R's columns of this block's units, once: rs[k][g upb + u] = R[head][k][g
+  // dh + u0 + u], eight loads in flight a thread before their stores
+  const float* rh_src = r + (size_t)head * dh * 4 * dh;
+  for (int i0 = tid; i0 < dh * ncol; i0 += 8 * blockDim.x) {
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int i = i0 + e * blockDim.x;
+      v[e] = i < dh * ncol ? rh_src[(size_t)(i / ncol) * 4 * dh + (i % ncol / upb) * dh + u0 +
+                                    i % ncol % upb]
+                           : 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int i = i0 + e * blockDim.x;
+      if (i < dh * ncol) rs[i] = v[e];
+    }
+  }
+  // h_{-1} of the group's rows (zeros past them: their sums are computed
+  // and never read)
+  for (int i = tid; i < dh * NR; i += blockDim.x) {
+    const int k = i / NR, qq = i % NR;
+    hb[i] = qq < rows ? h0[((size_t)(row0 + qq) * H + head) * dh + k] : 0.f;
+  }
+
+  // the cell this thread runs: row `cr` of the group, unit u0 + `cu`
+  const int cr = tid / upb, cu = tid % upb;
+  const bool cell = cr < rows;
+  const int crow = row0 + (cell ? cr : 0);
+  const size_t sidx = ((size_t)crow * H + head) * dh + u0 + cu;
+  float c = 0.f, n = 0.f, m = 0.f, h = 0.f;
+  if (cell) {
+    c = c0[sidx];
+    n = n0[sidx];
+    m = m0[sidx];
+    h = h0[sidx];
+  }
+  const float* wx_row = wx + (size_t)crow * S * 4 * H * dh + (size_t)head * 4 * dh + u0 + cu;
+  float* hs_row = hs + (size_t)crow * S * H * dh + (size_t)head * dh + u0 + cu;
+  float* peer[CLUSTER];
+#pragma unroll
+  for (int p = 0; p < CLUSTER; ++p) peer[p] = cluster.map_shared_rank(hb, p);
+
+  const int col = tid % ncol, kp = tid / ncol, kl = dh / KS;
+  float wn[4] = {0.f, 0.f, 0.f, 0.f};
+  if (cell) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) wn[g] = wx_row[g * dh];
+  }
+  cluster.sync();
+
+  for (int t = 0; t < S; ++t) {
+    float wg[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) wg[g] = wn[g];
+    if (cell && t + 1 < S) {
+      const float* w = wx_row + (size_t)(t + 1) * 4 * H * dh;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) wn[g] = w[g * dh];
+    }
+    const float* hcur = hb + (t & 1) * dh * NR;
+    float acc[NR];
+#pragma unroll
+    for (int qq = 0; qq < NR; ++qq) acc[qq] = 0.f;
+    for (int k = kp * kl; k < (kp + 1) * kl; ++k) {
+      const float rv = rs[k * ncol + col];
+      const float* hk = hcur + k * NR;
+#pragma unroll
+      for (int qq = 0; qq < NR; ++qq) acc[qq] = fmaf(hk[qq], rv, acc[qq]);
+    }
+#pragma unroll
+    for (int qq = 0; qq < NR; ++qq) red[(kp * NR + qq) * ncol + col] = acc[qq];
+    __syncthreads();
+
+    if (cell) {
+      float sum[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        float s = red[cr * ncol + g * upb + cu];
+#pragma unroll
+        for (int p = 1; p < KS; ++p) s += red[(p * NR + cr) * ncol + g * upb + cu];
+        sum[g] = s;
+      }
+      h = cell_step<float, false>(wg, sum, c, n, m);
+      hs_row[(size_t)t * H * dh] = h;
+      const int slot = ((t + 1) & 1) * dh * NR + (u0 + cu) * NR + cr;
+#pragma unroll
+      for (int p = 0; p < CLUSTER; ++p) peer[p][slot] = h;
+    }
+    // the new h is in every block's buffer, and this step's reads of `red`
+    // and of the old buffer are done, before any block goes on
+    cluster.sync();
+  }
+  if (cell) {
+    c1[sidx] = c;
+    n1[sidx] = n;
+    m1[sidx] = m;
+    h1[sidx] = h;
+  }
+}
+
+// S cluster barriers in a launch of the scan's shape: the latency floor of
+// S steps (what the chain costs with no work in it)
+__global__ void __cluster_dims__(CLUSTER, 1, 1) barrier_kernel(int S) {
+  cg::cluster_group cluster = cg::this_cluster();
+  for (int t = 0; t <= S; ++t) cluster.sync();
+}
+
+// the group's rows of the float32 kernel: the fewest of 1, 2, 4, 8 that
+// hold min(B, ROWS)
+inline int group_rows(int B) {
+  const int rows = B < ROWS ? B : ROWS;
+  return rows <= 1 ? 1 : rows <= 2 ? 2 : rows <= 4 ? 4 : 8;
+}
+
+template <int DH>
+int launch_mma(const void* wx, const void* r, const float* c0, const float* n0, const float* m0,
+               const float* h0, void* hs, float* c1, float* n1, float* m1, float* h1, int B,
+               int S, int H, cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes<DH>();
+  cudaError_t err = cudaFuncSetAttribute(slstm_mma_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(CLUSTER, H, (B + ROWS - 1) / ROWS);
+  slstm_mma_kernel<DH><<<grid, DH, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(wx), static_cast<const __nv_bfloat16*>(r), c0, n0, m0, h0,
+      static_cast<__nv_bfloat16*>(hs), c1, n1, m1, h1, B, S, H);
+  return (int)cudaGetLastError();
+}
+
+template <int NR>
+int launch_f32(const void* wx, const void* r, const float* c0, const float* n0, const float* m0,
+               const float* h0, void* hs, float* c1, float* n1, float* m1, float* h1, int B,
+               int S, int H, int dh, cudaStream_t stream) {
+  const size_t smem = f32_smem_bytes(dh, NR);
+  cudaError_t err = cudaFuncSetAttribute(slstm_f32_kernel<NR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(CLUSTER, H, (B + NR - 1) / NR);
+  slstm_f32_kernel<NR><<<grid, dh, smem, stream>>>(
+      static_cast<const float*>(wx), static_cast<const float*>(r), c0, n0, m0, h0,
+      static_cast<float*>(hs), c1, n1, m1, h1, B, S, H, dh);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace slstm
+
+// wx [B, S, H 4 dh], r [H, dh, 4 dh] (dtype 0: float32, 1: bfloat16), the
+// start state c0, n0, m0, h0 [B, H, dh] float32; writes hs [B, S, H, dh]
+// in wx's dtype and the final state c1, n1, m1, h1 [B, H, dh] float32 (all
+// contiguous; the outputs must not overlap the inputs). dh a multiple of 32
+// up to 256. Returns a cudaError_t.
+extern "C" int repro_slstm_scan(const void* wx, const void* r, const float* c0, const float* n0,
+                                const float* m0, const float* h0, void* hs, float* c1, float* n1,
+                                float* m1, float* h1, int B, int S, int H, int dh, int dtype,
+                                void* stream) {
+  if (B < 1 || S < 1 || H < 1 || dh % 32 || dh < 32 || dh > slstm::MAX_DH || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    switch (dh) {
+#define SLSTM_MMA(D) \
+  case D:            \
+    return slstm::launch_mma<D>(wx, r, c0, n0, m0, h0, hs, c1, n1, m1, h1, B, S, H, st);
+      SLSTM_MMA(32)
+      SLSTM_MMA(64)
+      SLSTM_MMA(96)
+      SLSTM_MMA(128)
+      SLSTM_MMA(160)
+      SLSTM_MMA(192)
+      SLSTM_MMA(224)
+      SLSTM_MMA(256)
+#undef SLSTM_MMA
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  switch (slstm::group_rows(B)) {
+    case 1:
+      return slstm::launch_f32<1>(wx, r, c0, n0, m0, h0, hs, c1, n1, m1, h1, B, S, H, dh, st);
+    case 2:
+      return slstm::launch_f32<2>(wx, r, c0, n0, m0, h0, hs, c1, n1, m1, h1, B, S, H, dh, st);
+    case 4:
+      return slstm::launch_f32<4>(wx, r, c0, n0, m0, h0, hs, c1, n1, m1, h1, B, S, H, dh, st);
+    default:
+      return slstm::launch_f32<8>(wx, r, c0, n0, m0, h0, hs, c1, n1, m1, h1, B, S, H, dh, st);
+  }
+}
+
+// S + 1 cluster barriers (the scan's S and its first) on the bf16 kernel's
+// grid at B rows, H heads and dh threads a block. Returns a cudaError_t.
+extern "C" int repro_slstm_barrier(int B, int S, int H, int dh, void* stream) {
+  if (B < 1 || S < 0 || H < 1 || dh < 32 || dh > slstm::MAX_DH) return (int)cudaErrorInvalidValue;
+  const dim3 grid(slstm::CLUSTER, H, (B + slstm::ROWS - 1) / slstm::ROWS);
+  slstm::barrier_kernel<<<grid, dh, 0, static_cast<cudaStream_t>(stream)>>>(S);
+  return (int)cudaGetLastError();
+}

@@ -25,7 +25,8 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
-           "paged_decode_attention", "gla_chunk", "latent_decode_attention")
+           "paged_decode_attention", "gla_chunk", "latent_decode_attention",
+           "slstm_scan")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -17,6 +17,7 @@ from repro_torch.kernels import gla_chunk as _gla
 from repro_torch.kernels import latent_decode_attention as _latent
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import ref
+from repro_torch.kernels import slstm_scan as _slstm
 
 FORCES = (None, "kernel", "ref")
 #: GLA schedules: 'chunk' (K4, the reference's ``ops.gla`` target) or
@@ -99,6 +100,17 @@ def gla(q, k, v, lg, *, chunk, schedule="chunk", force=None):
         return _gla.gla_chunk(q, k, v, lg, chunk=chunk)
     fn = ref.chunked_gla if schedule == "chunk" else ref.gla_chunk_parallel
     return fn(q, k, v, lg, chunk=chunk)
+
+
+def slstm_scan(wx, r, state, *, force=None):
+    """The sLSTM recurrence over wx's S positions from ``state`` = (c, n,
+    m, h), each [B,H,dh] float32. wx: [B,S,4d] the hoisted input gates
+    (head-major [H,4,dh]); r: [H,dh,4dh] in wx's dtype. Returns (hs
+    [B,S,H,dh] in wx's dtype, the final state). The prefill runs it from
+    ``ref.slstm_state0``, a decode step at S = 1 from the cached state."""
+    if _use_kernel(wx, force):
+        return _slstm.slstm_scan(wx, r, state)
+    return ref.slstm_scan(wx, r, state)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *, window=None,

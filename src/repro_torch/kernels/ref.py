@@ -401,3 +401,51 @@ def gla_chunk_parallel(q, k, v, lg, *, chunk):
     y_intra, g, d = gla_phase_a(q, k, v, lg, chunk=chunk)
     start, final = gla_scan(g, d)
     return gla_phase_b(q, lg, start, y_intra, chunk=chunk), final
+
+
+# ---------------------------------------------------------------------------
+# the sLSTM recurrence (xLSTM's scalar-memory block): stabilized exp gating
+# over gates head-major [H,4,dh] (i, f, z, o); the state (c, n, m, h)
+# [B,H,dh] float32
+# ---------------------------------------------------------------------------
+
+def slstm_state0(B: int, H: int, dh: int, device):
+    """The prefill's start state, the reference's ``state0``: c = 0, n =
+    1e-6, m = -1e30, h = 0, each [B,H,dh] float32."""
+    z = torch.zeros((B, H, dh), dtype=torch.float32, device=device)
+    return z, z + 1e-6, torch.full_like(z, -1e30), z.clone()
+
+
+def slstm_cell(gates, state, H, dh):
+    """One step of the cell (the reference's ``xlstm._slstm_cell``). gates:
+    [B,4d] head-major [H,4,dh]; state (c, n, m, h). Returns the new state,
+    computed in float32 (float64 for float64 gates)."""
+    B = gates.shape[0]
+    g = _acc(gates.reshape(B, H, 4, dh))
+    i_raw, f_raw, z_raw, o_raw = g.unbind(2)
+    c, n, m, _ = state
+    lf = torch.nn.functional.logsigmoid(f_raw)
+    m_new = torch.maximum(lf + m, i_raw)
+    fs = torch.exp(lf + m - m_new)
+    is_ = torch.exp(i_raw - m_new)
+    c_new = fs * c + is_ * torch.tanh(z_raw)
+    n_new = fs * n + is_
+    h_new = torch.sigmoid(o_raw) * c_new / torch.clamp_min(n_new, 1e-6)
+    return c_new, n_new, m_new, h_new
+
+
+def slstm_scan(wx, r, state):
+    """The plain version of the sLSTM scan kernel, the reference's
+    ``run_scan`` body position by position with its rounding: h_{t-1} cast
+    to wx's dtype, the product ``rh`` in that dtype, ``wx + rh`` added in
+    it, the cell in float32. wx: [B,S,4d] (head-major [H,4,dh]); r:
+    [H,dh,4dh]; state (c, n, m, h) [B,H,dh]. Returns (hs [B,S,H,dh] in wx's
+    dtype, the final state)."""
+    B, S, _ = wx.shape
+    H, dh = r.shape[:2]
+    hs = []
+    for t in range(S):
+        rh = torch.einsum("bhj,hjg->bhg", state[3].to(wx.dtype), r).reshape(B, 4 * H * dh)
+        state = slstm_cell(wx[:, t] + rh, state, H, dh)
+        hs.append(state[3])
+    return torch.stack(hs, dim=1).to(wx.dtype), state

@@ -14,6 +14,10 @@ transparent snapshots mid-decode and resume under another MPI flavor.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --batch 1 --prompt-len 4 --gen 10 --ckpt-dir /tmp/ssk \
         --fault-plan '[{"kind": "kill_rank", "at_step": 6}]'
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
+        --fleet --device cpu --gen 10 --ckpt-dir /tmp/fsk --snapshot-at 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
+        --fleet --device cpu --gen 10 --ckpt-dir /tmp/fsk --resume
 
 ``--supervise`` decodes under the auto-recovery supervisor
 (``core/supervisor.py``): a snapshot every ``--snapshot-every`` steps,
@@ -21,6 +25,13 @@ peer-replicated to a partner's RAM unless ``--no-ram-tier``, and each
 failure detected, classified and recovered over the escalation ladder.
 A fault plan's ``at_step`` is the decode position (the prompt length
 after the prefill), not the count of decoded tokens.
+
+``--fleet`` serves the batch's prompts as sessions of the continuous-
+batching ``ServeEngine`` instead (each ``--gen`` new tokens, a page pool
+of FLEET_PAGE-position pages that holds them all, FLEET_LANES running at
+once); ``--snapshot-at N``
+then snapshots the fleet after N ticks, and ``--resume`` restores the
+newest fleet snapshot and drains it.
 """
 from __future__ import annotations
 
@@ -32,7 +43,10 @@ import numpy as np
 from repro_torch.configs import ARCH_IDS, smoke_config
 from repro_torch.core import BACKENDS
 from repro_torch.kernels.ops import GLA_SCHEDULES
-from repro_torch.serving.engine import Server
+from repro_torch.serving.engine import ServeEngine, Server
+
+#: the fleet mode's page size and running sessions
+FLEET_PAGE, FLEET_LANES = 8, 2
 
 
 def main(argv=None):
@@ -79,11 +93,18 @@ def main(argv=None):
                          "that tier first on recovery (default)")
     ap.add_argument("--no-ram-tier", dest="ram_tier", action="store_false",
                     help="disk-only recovery (skip peer replication)")
+    ap.add_argument("--fleet", action="store_true",
+                    help="serve the prompts as sessions of the continuous-batching "
+                         "ServeEngine (--snapshot-at counts its ticks)")
     args = ap.parse_args(argv)
     supervised = args.supervise or args.fault_plan
     if supervised and not args.ckpt_dir:
         raise SystemExit("--supervise requires --ckpt-dir")
+    if supervised and args.fleet:
+        raise SystemExit("--fleet decodes without the supervisor")
     cfg = smoke_config(args.arch)
+    if args.fleet:
+        return _fleet(cfg, args)
     srv = Server(cfg, backend=args.backend, ckpt_dir=args.ckpt_dir,
                  device=args.device, gla_schedule=args.gla_schedule)
     rng = np.random.default_rng(0)
@@ -120,6 +141,36 @@ def main(argv=None):
     print(f"{args.arch}: generated {gen} tokens x batch {args.batch} on {srv.device} "
           f"in {dt:.2f}s ({gen * args.batch / max(dt, 1e-9):.1f} tok/s)")
     return done + toks
+
+
+def _fleet(cfg, args):
+    """The fleet: one session a prompt row, drained; returns {sid: stream}."""
+    max_len = args.prompt_len + args.gen
+    per = -(-max_len // FLEET_PAGE)
+    eng = ServeEngine(cfg, backend=args.backend, ckpt_dir=args.ckpt_dir, device=args.device,
+                      max_len=max_len, page_size=FLEET_PAGE, n_pages=args.batch * per,
+                      max_running=FLEET_LANES)
+    ck = eng.resume_latest(new_backend=args.restore_backend) \
+        if args.resume and args.ckpt_dir else None
+    if ck is not None:
+        print(f"resumed {ck.name} at tick {eng.tick} under {eng.cluster.backend_name}; "
+              f"{len(eng.sched.live())} sessions live")
+    else:
+        rng = np.random.default_rng(0)
+        for i, p in enumerate(rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))):
+            eng.submit(p, sid=f"s{i:04d}", max_new_tokens=args.gen)
+        if args.ckpt_dir and args.snapshot_at:
+            for _ in range(args.snapshot_at):
+                eng.step_once()
+            eng.checkpoint().wait()
+            print(f"fleet snapshot at tick {eng.tick} -> {eng.cluster.writer.latest().name}")
+    t0 = time.perf_counter()
+    ticks = eng.run_until_drained()
+    dt = time.perf_counter() - t0
+    streams = {sid: eng.stream(sid) for sid in sorted(eng.sessions)}
+    print(f"{args.arch} fleet: {len(streams)} sessions x {args.gen} tokens on {eng.device}, "
+          f"{ticks} ticks in {dt:.2f}s")
+    return streams
 
 
 def _supervised(srv, args, gen, first):

@@ -1,7 +1,7 @@
-"""The SSD mixer (Mamba-2 scalar-decay form): Hymba's parallel SSM heads.
+"""The SSD mixer (Mamba-2 scalar-decay form): Hymba's parallel SSM heads;
+and the stabilized mLSTM recurrence (xLSTM's matrix-memory block).
 
-A copy of the SSD half of the JAX package's ``models/ssm.py`` (the mLSTM
-half comes with xLSTM). The prefill's and training's chunked gated linear
+A copy of the JAX package's ``models/ssm.py``. The SSD prefill's and training's chunked gated linear
 attention runs through :func:`repro_torch.kernels.ops.gla`: the CUDA
 kernels (K4, or K5 under ``schedule='parallel'``; in training K4 and its
 backward kernel) for tensors on the card, their plain versions on the
@@ -11,14 +11,22 @@ plain torch, as the reference leaves it to XLA.
 The cache is ``{'state': [B,H,N,P] float32, 'conv': [B,W-1,C]}`` in the
 compute dtype, ``W = d_conv`` and ``C = H*P + 2N``: the recurrent state and
 the last ``W - 1`` pre-conv rows. It is written in place.
+
+The mLSTM's :func:`chunked_mlstm` (prefill) and :func:`mlstm_step`
+(decode) are plain torch, as the reference leaves them to XLA: a loop over
+a handful of 256-position chunks of large products, and one update a
+step.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import causal_conv1d, causal_conv1d_step, rms_groupnorm
+from repro_torch.kernels.ref import chunk_len
+from repro_torch.models.layers import acc_dtype, causal_conv1d, causal_conv1d_step, rms_groupnorm
 from repro_torch.models.params import ParamSpec
 
 
@@ -29,6 +37,84 @@ def gla_step(q, k, v, lg, state):
     sf = sf + torch.einsum("bhn,bhp->bhnp", k.float(), v.float())
     y = torch.einsum("bhn,bhnp->bhp", q.float(), sf)
     return y.to(v.dtype), sf
+
+
+def chunked_mlstm(q, k, v, ig, fg, chunk=256):
+    """The stabilized chunked mLSTM (exp input gates, a normalizer and a
+    max-state). q,k: [B,S,H,N]; v: [B,S,H,P]; ig/fg: [B,S,H] raw gate
+    pre-activations: fg through log-sigmoid, ig kept in log space. Runs the
+    reference's chunks in order (its chunk rule, ``kernels.ref.chunk_len``),
+    in float32 (float64 for float64 inputs) from ``m = -1e30``. Returns (h
+    [B,S,H,P] in v's dtype, (C [B,H,N,P], n [B,H,N], m [B,H]))."""
+    B, S, H, N = q.shape
+    P = v.shape[-1]
+    c = chunk_len(S, chunk)
+    nc = S // c
+    f = acc_dtype(q)
+    scale = 1.0 / math.sqrt(N)
+    qf = (q.to(f) * scale).reshape(B, nc, c, H, N)
+    kf = k.to(f).reshape(B, nc, c, H, N)
+    vf = v.to(f).reshape(B, nc, c, H, P)
+    igf = ig.to(f).reshape(B, nc, c, H)
+    lf = F.logsigmoid(fg.to(f)).reshape(B, nc, c, H)
+    cum = torch.cumsum(lf, dim=2)
+    total = cum[:, :, -1]
+    C = torch.zeros((B, H, N, P), dtype=f, device=q.device)
+    n = torch.zeros((B, H, N), dtype=f, device=q.device)
+    m = torch.full((B, H), -1e30, dtype=f, device=q.device)
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
+    hs = []
+    for z in range(nc):
+        qc, kc, vc, totc = qf[:, z], kf[:, z], vf[:, z], total[:, z]
+        cumh = cum[:, z].transpose(1, 2)                     # [B,H,c]
+        igh = igf[:, z].transpose(1, 2)
+        # intra log-weights a_ij = cum_i - cum_j + ig_j (j <= i)
+        a = cumh[..., :, None] - cumh[..., None, :] + igh[..., None, :]
+        a = a.masked_fill(~mask, -math.inf)
+        # per-row stabilizer: the max over the intra weights and the inter path
+        b_inter = cumh + m[..., None]
+        m_row = torch.clamp_min(torch.maximum(a.amax(-1), b_inter), -1e30)
+        w = torch.exp(a - m_row[..., None])
+        inter_w = torch.exp(b_inter - m_row)
+        s = torch.einsum("bihn,bjhn->bhij", qc, kc)
+        qh = qc.transpose(1, 2)                              # [B,H,c,N]
+        num = torch.einsum("bhij,bjhp->bhip", w * s, vc) \
+            + inter_w[..., None] * torch.einsum("bhin,bhnp->bhip", qh, C)
+        den = torch.einsum("bhij,bhij->bhi", w, s) \
+            + inter_w * torch.einsum("bhin,bhn->bhi", qh, n)
+        h = num / torch.maximum(den.abs(), torch.exp(-m_row))[..., None]
+        # the state update with its own stabilizer
+        kdec = totc[..., None] - cumh + igh                  # [B,H,c]
+        m_new = torch.maximum(totc + m, kdec.amax(-1))
+        kw = torch.exp(kdec - m_new[..., None])
+        carry = torch.exp(totc + m - m_new)
+        kcs = kc.transpose(1, 2) * kw[..., None]             # [B,H,c,N]
+        C = carry[..., None, None] * C + torch.einsum("bhjn,bjhp->bhnp", kcs, vc)
+        n = carry[..., None] * n + kcs.sum(2)
+        m = m_new
+        hs.append(h.transpose(1, 2))                         # [B,c,H,P]
+    h = torch.stack(hs, dim=1).reshape(B, S, H, P)
+    return h.to(v.dtype), (C, n, m)
+
+
+def mlstm_step(q, k, v, ig, fg, state):
+    """One token of the stabilized mLSTM. q,k: [B,H,N]; v: [B,H,P]; ig/fg:
+    [B,H]; state (C, n, m). Returns (h [B,H,P] in v's dtype, new state)."""
+    C, n, m = state
+    f = C.dtype
+    qf = q.to(f) / math.sqrt(q.shape[-1])
+    lf = F.logsigmoid(fg.to(f))
+    igf = ig.to(f)
+    m_new = torch.maximum(lf + m, igf)
+    fscale = torch.exp(lf + m - m_new)
+    iscale = torch.exp(igf - m_new)
+    kf = k.to(f) * iscale[..., None]
+    C_new = fscale[..., None, None] * C + torch.einsum("bhn,bhp->bhnp", kf, v.to(f))
+    n_new = fscale[..., None] * n + kf
+    num = torch.einsum("bhn,bhnp->bhp", qf, C_new)
+    den = torch.einsum("bhn,bhn->bh", qf, n_new)
+    h = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    return h.to(v.dtype), (C_new, n_new, m_new)
 
 
 def ssd_specs(cfg):

@@ -2,21 +2,25 @@
 unstacked exceptional layers), block specs/apply, embeddings, head, and
 the loop over a segment's layers.
 
-Two blocks are here: ``attn`` (GQA attention, with or without q/k/v
+Three blocks are here: ``attn`` (GQA attention, with or without q/k/v
 biases, full or sliding-window, or MLA (multi-head latent attention,
 minicpm3-4b), then a SwiGLU MLP or a mixture of experts: the dense
 families granite-3-2b, minicpm-2b, qwen2.5-14b and minicpm3-4b,
-llava-next-34b's backbone, granite-moe-3b-a800m and arctic-480b) and
+llava-next-34b's backbone, granite-moe-3b-a800m and arctic-480b),
 ``hymba`` (attention and the SSD mixer in parallel on the same normed
-input, then the MLP). llava's vision prefix enters through
-:func:`embed_tokens`. xLSTM and the multi-codebook frontend come with their
-own slices and raise until then. Params and caches keep the JAX package's layout: a list with one
+input, then the MLP) and ``xlstm_pair`` (xlstm-350m: an mLSTM block, then
+an sLSTM block, each a residual half; ``models/xlstm.py``; served, not
+trained yet). llava's vision prefix enters through :func:`embed_tokens`.
+The multi-codebook frontend comes with its own slice and raises until
+then. Params and caches keep the JAX package's layout: a list with one
 entry per segment; a stacked (scanned) segment's leaves carry a leading
 ``[n_layers]`` axis, an unstacked one's (hymba's global-attention layers)
 do not. Cache leaves: attention ``{"k", "v"}`` ``[B, S_max, K*hd]`` (a
 window layer's ring ``[B, W_ring, K*hd]``), MLA's one latent leaf
 ``{"lat"}`` ``[B, S_max, kv_lora + rope]``, in ``cache_dtype``; hymba's
-``"ssd"`` ``{"state", "conv"}`` (``models/ssm.py``).
+``"ssd"`` ``{"state", "conv"}`` (``models/ssm.py``); xLSTM's ``"mlstm"``
+and ``"slstm"`` recurrent states and conv rows (``models/xlstm.py``),
+none of which grows with the sequence.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as X
 from repro_torch.models.params import ParamSpec, stack_spec, tree_map
 
 VISION_DIM = 1024  # the stubbed llava frontend's output width
@@ -35,29 +40,37 @@ VISION_DIM = 1024  # the stubbed llava frontend's output width
 
 @dataclass(frozen=True)
 class Segment:
-    kind: str            # 'attn' | 'hymba'
+    kind: str            # 'attn' | 'hymba' | 'xlstm_pair'
     n: int               # number of block repetitions in this segment
     scanned: bool        # leaves stacked [n, ...] (the reference's lax.scan)
     window: Optional[int]  # None = full attention
 
 
 def _check_supported(cfg):
-    if cfg.block not in ("attn", "hymba") or cfg.n_codebooks > 1 \
-            or (cfg.block == "hymba" and (cfg.ssm is None or cfg.mla is not None)):
+    if cfg.block not in ("attn", "hymba", "xlstm") or cfg.n_codebooks > 1 \
+            or (cfg.block == "hymba" and (cfg.ssm is None or cfg.mla is not None)) \
+            or (cfg.block == "xlstm" and (cfg.xlstm is None or cfg.n_layers % 2)):
         raise NotImplementedError(
             f"{cfg.name}: only the attention decoders (dense, MLA, MoE, llava's "
-            "backbone) and hymba are ported so far")
+            "backbone), hymba and xLSTM are ported so far")
 
 
 def check_trainable(cfg):
-    """Training is ported for the blocks the port serves: the attention
-    decoders (K1's backward, MLA's at its qk head dim; the MoE layer and
-    llava's projection under autograd) and hymba (also the GLA backward)."""
+    """Training is ported for the attention decoders (K1's backward, MLA's
+    at its qk head dim; the MoE layer and llava's projection under
+    autograd) and hymba (also the GLA backward). xLSTM serves but does not
+    train yet: its sLSTM recurrence has no backward kernel."""
+    if cfg.block == "xlstm":
+        raise NotImplementedError(
+            f"{cfg.name}: xLSTM serves but does not train yet (the sLSTM "
+            "recurrence has no backward kernel)")
     _check_supported(cfg)
 
 
 def plan_segments(cfg):
     _check_supported(cfg)
+    if cfg.block == "xlstm":
+        return [Segment("xlstm_pair", cfg.n_layers // 2, True, None)]
     if cfg.block == "hymba":
         segs, prev = [], 0
         for g in sorted(cfg.global_layers):
@@ -73,6 +86,11 @@ def plan_segments(cfg):
 
 def block_specs(cfg, kind):
     d = cfg.d_model
+    if kind == "xlstm_pair":
+        return {"m_norm": ParamSpec((d,), ("embed",), init="ones"),
+                "mlstm": X.mlstm_specs(cfg),
+                "s_norm": ParamSpec((d,), ("embed",), init="ones"),
+                "slstm": X.slstm_specs(cfg)}
     sp = {"ln1": ParamSpec((d,), ("embed",), init="ones"),
           "attn": L.mla_specs(cfg) if cfg.mla is not None else L.attn_specs(cfg)}
     if kind == "hymba":
@@ -89,6 +107,13 @@ def block_apply(cfg, kind, p, x, *, mode, window, cache, pos=None, force=None,
     (float32 0-d), None without experts or in decode. Block norms use
     rmsnorm's default eps, as the JAX package does; only the final norm
     takes ``cfg.norm_eps``. In train mode ``cache`` is None."""
+    if kind == "xlstm_pair":
+        h, _ = X.mlstm_apply(cfg, p["mlstm"], L.rmsnorm(x, p["m_norm"]), mode=mode,
+                             cache=cache["mlstm"])
+        x = x + h
+        h, _ = X.slstm_apply(cfg, p["slstm"], L.rmsnorm(x, p["s_norm"]), mode=mode,
+                             cache=cache["slstm"], force=force)
+        return x + h, cache, None
     xn = L.rmsnorm(x, p["ln1"])
     a_cache = None if cache is None else cache["attn"]
     if cfg.mla is not None:
@@ -175,6 +200,11 @@ def alloc_caches(cfg, batch_size, max_len, device, prompt_len=None):
     caches = []
     for seg in plan_segments(cfg):
         lead = (seg.n, batch_size) if seg.scanned else (batch_size,)
+        if seg.kind == "xlstm_pair":
+            caches.append({blk: {k: zeros((*lead, *shape), getattr(torch, dt))
+                                 for k, (shape, dt) in leaves.items()}
+                           for blk, leaves in X.cache_shapes(cfg).items()})
+            continue
         rows = max_len if seg.window is None else ring_width(seg.window, prompt_len, max_len)
         names = ("lat",) if cfg.mla is not None else ("k", "v")
         c = {"attn": {k: zeros((*lead, rows, cfg.kv_cache_width), kv_dtype)
@@ -184,6 +214,14 @@ def alloc_caches(cfg, batch_size, max_len, device, prompt_len=None):
                         for k, (shape, dt) in SSM.cache_shapes(cfg).items()}
         caches.append(c)
     return caches
+
+
+def cache_capacity(caches):
+    """Positions a cache tree holds: the rows of its widest attention leaf
+    (a full-attention layer's ``max_len``); None when no leaf grows with the
+    sequence (xLSTM), which has no capacity to run out of."""
+    rows = [next(iter(c["attn"].values())).shape[-2] for c in caches if "attn" in c]
+    return max(rows) if rows else None
 
 
 def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None, lane=None,

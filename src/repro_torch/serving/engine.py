@@ -86,11 +86,14 @@ class Server:
 
     # -- runtime provider hooks ---------------------------------------------
     def _set_caches(self, tree):
-        """Install a cache tree; its full-attention leaves' rows are the
-        capacity (``max_len``), so a restored server needs no prefill."""
+        """Install a cache tree, so a restored server needs no prefill. Its
+        capacity (``max_len``) is the rows of its full-attention leaves;
+        None for a tree with no leaf that grows with the sequence (xLSTM's
+        recurrent states), which decodes without a limit, as the
+        reference's does."""
         self.caches = tree
         if tree is not None:
-            self.max_len = max(next(iter(c["attn"].values())).shape[-2] for c in tree)
+            self.max_len = T.cache_capacity(tree)
 
     def _set_rng(self, key):
         self.rng_key = key
@@ -130,17 +133,18 @@ class Server:
         """tokens: [B,S]; ``patch_embeds`` [B, img_tokens, 1024] (llava's
         image, any float type). Caches are allocated at ``max(pad_to, S)``
         and hold the prompt's rows, each leaf by its kind (a window layer's
-        ring is ``T.ring_width`` rows, as the JAX ``Server`` leaves it).
+        ring is ``T.ring_width`` rows, as the JAX ``Server`` leaves it;
+        xLSTM's recurrent states do not depend on it).
         Returns the last position's logits [B, Vp]."""
         t = self._tokens(tokens)
         S = t.shape[-1]
-        self.max_len = max(pad_to or S, S)
         pe = patch_embeds
         if pe is not None and not isinstance(pe, torch.Tensor):
             pe = torch.from_numpy(np.asarray(pe, np.float32))
         pe = None if pe is None else pe.to(self.device)
-        logits, self.caches = self.prefill_fn(self.params, t, max_len=self.max_len,
-                                              patch_embeds=pe)
+        logits, caches = self.prefill_fn(self.params, t, max_len=max(pad_to or S, S),
+                                         patch_embeds=pe)
+        self._set_caches(caches)
         self.pos = S
         return logits
 
@@ -155,7 +159,7 @@ class Server:
 
     def step_once(self):
         """Decode ONE token from the internal seed; returns it as numpy [B]."""
-        if self.pos >= self.max_len:
+        if self.max_len is not None and self.pos >= self.max_len:
             raise RuntimeError(f"cache full at {self.pos} positions")
         logits, self.caches = self.decode_fn(self.params, self._tok, self.pos,
                                              self.caches)
@@ -324,6 +328,14 @@ class ServeEngine:
     kernel on the card). There is no dense working copy, so nothing is
     regathered after a swap-in or an import.
 
+    A model whose cache leaves have no sequence axis (xLSTM) keeps them as
+    the session's blocks, tensors on the pool's device: a lane decodes
+    ``Model.decode_step`` at B = 1 over them, in place, and they reach the
+    host only when the session is parked, exported or snapshotted. Such a
+    session's pages follow the reference's accounting: its admission
+    reserves the prompt's pages, its decode grows none (the reference
+    writes no token rows), and a swap-in takes none.
+
     Capacity comes before compute: the page for ``pos`` is reserved (with
     the reference's preempt / self-park policy on OOM) before the forward
     pass writes into it. The reference decides from pool state alone, never
@@ -346,10 +358,11 @@ class ServeEngine:
         if cfg.n_codebooks > 1:
             raise NotImplementedError("ServeEngine supports single-codebook "
                                       "models; use Server for codebook archs")
-        if cfg.block != "attn":
-            raise NotImplementedError(f"ServeEngine pages attention caches only; "
-                                      f"{cfg.name}'s {cfg.block} blocks need the "
-                                      "single-stream Server")
+        if cfg.block == "hymba":
+            # its window layers' rings vary with the prompt in a non-sequence
+            # way, which the reference's engine refuses too
+            raise NotImplementedError(f"ServeEngine cannot page {cfg.name}'s ring caches; "
+                                      f"its {cfg.block} blocks need the single-stream Server")
         self.cfg = cfg
         self.max_len = int(max_len)
         self.device = resolve_device(device)
@@ -359,6 +372,7 @@ class ServeEngine:
             else self.model.init(seed, self.device)
         self.prefill_fn = ST.make_prefill_step(self.model)
         self.decode_fn = ST.make_paged_decode_step(self.model)
+        self.block_decode_fn = ST.make_decode_step(self.model)
         self.pool = PagePool(n_pages, page_size, device=self.device)
         self.sched = ContinuousBatchScheduler(max_running=max_running)
         self.sessions: dict[str, FleetSession] = {}
@@ -507,7 +521,7 @@ class ServeEngine:
         toks, blocks = {}, {}
         for (key, axis), leaf in zip(self._seq_axes(S), tree_leaves(caches)):
             if axis is None:
-                blocks[key] = leaf.cpu().numpy()
+                blocks[key] = leaf      # the pool holds the tensor, on the device
             else:
                 toks[key] = leaf.movedim(axis, 0)[:S].reshape(S, -1)
         self.pool.write_tokens(sess.sid, 0, toks)
@@ -608,14 +622,30 @@ class ServeEngine:
                 raise PoolOOMError(self.pool.pages_for(sess.pos + 1),
                                    self.pool.free_pages)
 
+    def _lane_caches(self, alloc):
+        """A blocks-only session's cache tree: the pool's block tensors
+        (zeros for a leaf not written yet, as the reference decodes a
+        zero-length prompt from zero caches), which its decode updates in
+        place."""
+        for key, shape, dtype in self._leaf_specs:
+            if key not in alloc.blocks:
+                alloc.blocks[key] = torch.zeros(shape, dtype=dtype, device=self.device)
+        return tree_unflatten(self._keys, [alloc.blocks[key] for key, _, _ in self._leaf_specs])
+
     def _decode_one(self, sess: FleetSession) -> None:
-        if not self._reserve(sess):
-            return
-        alloc = self.pool.sessions[sess.sid]
         tok = torch.tensor([sess.last_tok], dtype=torch.int64, device=self.device)
-        logits = self.decode_fn(self.params, tok, sess.pos, self._pool_views(),
-                                alloc.pages)
-        alloc.length = max(alloc.length, sess.pos + 1)
+        if not self._pageable:
+            # no token rows: the reference's write-through writes none and
+            # reserves no page
+            logits, _ = self.block_decode_fn(self.params, tok, sess.pos,
+                                             self._lane_caches(self.pool.sessions[sess.sid]))
+        else:
+            if not self._reserve(sess):
+                return
+            alloc = self.pool.sessions[sess.sid]
+            logits = self.decode_fn(self.params, tok, sess.pos, self._pool_views(),
+                                    alloc.pages)
+            alloc.length = max(alloc.length, sess.pos + 1)
         nxt = int(torch.argmax(logits[0, : self.cfg.vocab_size]))
         sess.pos += 1
         sess.generated.append(nxt)
@@ -647,9 +677,9 @@ class ServeEngine:
         """Resume the whole fleet mid-flight: pool pages, page table,
         per-session cursors, scheduler state, RNG — possibly under another
         flavor or world size (``Cluster.restart``, whose phase timings land
-        in ``self.cluster.restart_timings``). A resident session's rows go
-        to the device through the writer's pinned arena; parked sessions
-        stay host arrays."""
+        in ``self.cluster.restart_timings``). A resident session's rows and
+        blocks go to the device through the writer's pinned arena; parked
+        sessions stay host arrays."""
         src = as_source(ckpt)
         manifest = src.manifest()
         rt_meta = src.rank_state(0).get("runtime")
@@ -657,8 +687,10 @@ class ServeEngine:
             raise ValueError("not a fleet snapshot: no runtime section")
         sh = {"runtime": self.runtime.shardings(rt_meta)}
         for sid, ent in (sh["runtime"].get("kv_pages") or {}).items():
-            if not sid.startswith("parked:") and "tokens" in ent:
-                ent["tokens"] = {k: self.device for k in ent["tokens"]}
+            if not sid.startswith("parked:"):
+                for section in ("tokens", "blocks"):
+                    if section in ent:
+                        ent[section] = {k: self.device for k in ent[section]}
         if new_backend is not None or new_world_size is not None or rebuild:
             self.cluster = self.cluster.restart(src,
                                                 new_backend=new_backend,

@@ -18,14 +18,20 @@ of a one-layer store, ``layer_view`` the per-layer strided view of a
 stacked one). ``write_tokens`` / ``read_tokens`` are one batched device
 index op per leaf.
 
+A session's *blocks* (the leaves with no sequence axis: xLSTM's
+recurrent states and conv rows) are tensors on the pool's device too, one
+per leaf, and the fleet's decode updates them in place: they stay on the
+card while the session runs, and go to the host only when it is parked,
+exported or snapshotted, where their bytes are the reference's.
+
 Host payloads are in the reference's format, ``{"table": {length,
 priority, seq}, "tokens": {key: [L, numel]}, "blocks": {...}}`` with numpy
 arrays. numpy has no bfloat16 without ``ml_dtypes``, so the pool holds a
 bfloat16 leaf on the host (a parked session) as its ``uint16`` bits under
 ``ckpt_io.BFLOAT16``, as the checkpoint container does. Only the migration
 boundary speaks another form: ``export_session`` gives plain ``uint16``
-bits and records ``"dtypes": {key: "bfloat16"}`` in the table (float32
-payloads carry no such entry), and ``import_session`` / ``park_payload``
+bits and records ``"dtypes": {key: "bfloat16"}`` in the table, for token
+rows and blocks alike (float32 payloads carry no such entry), and ``import_session`` / ``park_payload``
 read it, so a session moves between the two packages.
 
 The whole-pool snapshot (``export_state``, which a fleet checkpoint takes)
@@ -102,7 +108,7 @@ class SessionAlloc:
     length: int = 0                             # tokens written
     priority: int = 0
     seq: int = 0                                # admission order (fairness)
-    blocks: dict = field(default_factory=dict)  # key -> np.ndarray (copy)
+    blocks: dict = field(default_factory=dict)  # key -> tensor on the pool's device
 
 
 class PagePool:
@@ -228,11 +234,16 @@ class PagePool:
             st[pages, offs] = rows.to(st.dtype)
         alloc.length = max(alloc.length, start + L)
 
-    def write_blocks(self, sid: str, blocks: dict) -> None:
-        """Store the session's non-paged (recurrent/window) state blocks."""
+    def write_blocks(self, sid: str, blocks: dict, dtypes: dict | None = None) -> None:
+        """Store the session's non-paged (recurrent) state blocks as tensors
+        on the pool's device: a tensor there is held as it is (the prefill's
+        caches, which nothing else keeps), anything else is copied there
+        (host arrays read as :func:`to_device` reads them, ``dtypes`` naming
+        plain ``uint16`` bits)."""
         alloc = self.sessions[sid]
+        dtypes = dtypes or {}
         for key, arr in blocks.items():
-            alloc.blocks[key] = np.array(arr, copy=True)
+            alloc.blocks[key] = to_device(arr, self.device, dtypes.get(key))
 
     def read_tokens(self, sid: str) -> dict:
         """Gather every leaf back to dense ``[length, numel]`` tensors on the
@@ -242,8 +253,9 @@ class PagePool:
         return {key: st[pages, offs] for key, st in self.stores.items()}
 
     def read_blocks(self, sid: str) -> dict:
-        return {k: np.array(v, copy=True)
-                for k, v in self.sessions[sid].blocks.items()}
+        """The session's blocks: the live tensors on the pool's device,
+        which the fleet's decode updates in place (copy them to keep them)."""
+        return dict(self.sessions[sid].blocks)
 
     def truncate(self, sid: str, n_tokens: int) -> None:
         """Rewind a session: drop positions past ``n_tokens`` and free the
@@ -264,7 +276,7 @@ class PagePool:
         return {"table": {"length": alloc.length, "priority": alloc.priority,
                           "seq": alloc.seq},
                 "tokens": {k: to_host(t) for k, t in self.read_tokens(sid).items()},
-                "blocks": self.read_blocks(sid)}
+                "blocks": {k: to_host(t) for k, t in self.read_blocks(sid).items()}}
 
     def export_session(self, sid: str) -> dict:
         """Self-contained byte-exact host payload of a resident or parked
@@ -272,16 +284,21 @@ class PagePool:
         blocks, the unit of migration, in the JAX package's form (bfloat16
         rows as plain ``uint16`` bits, named in the table's ``"dtypes"``)."""
         payload = self.parked[sid] if sid in self.parked else self._gather(sid)
-        tokens, dtypes = {}, {}
-        for key, a in payload["tokens"].items():
-            if ckpt_io.dtype_name(a.dtype) in _BITS_DTYPES:
-                dtypes[key] = ckpt_io.dtype_name(a.dtype)
-                a = a.view(np.uint16)
-            tokens[key] = a
+        dtypes = {}
+
+        def plain(section):
+            out = {}
+            for key, a in payload[section].items():
+                if ckpt_io.dtype_name(a.dtype) in _BITS_DTYPES:
+                    dtypes[key] = ckpt_io.dtype_name(a.dtype)
+                    a = a.view(np.uint16)
+                out[key] = a
+            return out
+        tokens, blocks = plain("tokens"), plain("blocks")
         table = dict(payload["table"])
         if dtypes:
             table["dtypes"] = dtypes
-        return {"table": table, "tokens": tokens, "blocks": payload["blocks"]}
+        return {"table": table, "tokens": tokens, "blocks": blocks}
 
     def import_session(self, sid: str, payload: dict, *,
                        priority: int | None = None) -> SessionAlloc:
@@ -306,7 +323,7 @@ class PagePool:
                                    for k, v in payload["tokens"].items()
                                    if v.shape[0]})
         alloc.length = length
-        self.write_blocks(sid, payload["blocks"])
+        self.write_blocks(sid, payload["blocks"], dtypes)
         return alloc
 
     # -- parking (swap-preemption) ------------------------------------------
@@ -333,7 +350,8 @@ class PagePool:
             "table": table,
             "tokens": {k: host_bits(v, dtypes.get(k))
                        for k, v in payload["tokens"].items()},
-            "blocks": dict(payload["blocks"])}
+            "blocks": {k: host_bits(v, dtypes.get(k))
+                       for k, v in payload["blocks"].items()}}
 
     def unpark(self, sid: str) -> SessionAlloc:
         """Swap a parked session back in. Raises :class:`PoolOOMError` with
@@ -417,8 +435,10 @@ class PagePool:
         serialized) and ``table`` is the JSON page table. A resident
         session's token rows are gathered into fresh tensors on the pool's
         device (one index op per leaf, no copy to the host: the checkpoint
-        copies them off the card); blocks and parked sessions are host
-        arrays, parked ones as the pool holds them."""
+        copies them off the card), its blocks the live tensors (the
+        checkpoint copies them off inside its blocking window, before the
+        next decode); parked sessions are host arrays, as the pool holds
+        them."""
         arrays: dict = {}
         table = {"n_pages": self.n_pages, "page_size": self.page_size,
                  "seq": self._seq, "sessions": {}, "parked": {}}
@@ -481,7 +501,7 @@ class PagePool:
                 "table": dict(row),
                 "tokens": {k: host_bits(v)
                            for k, v in (ent.get("tokens") or {}).items()},
-                "blocks": {k: np.asarray(v)
+                "blocks": {k: host_bits(v)
                            for k, v in (ent.get("blocks") or {}).items()}}
         self._seq = max([self._seq] + [a.seq
                                        for a in self.sessions.values()])

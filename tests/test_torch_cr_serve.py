@@ -2,20 +2,28 @@
 and the port's, either way, under another MPI flavor, and the port's
 restored stream equals an uninterrupted run.
 
-Both ways, on granite's smoke config and hymba's (float32 on both sides, the
-port holding the JAX package's params through ``from_jax_params``):
+Both ways, on granite's smoke config, hymba's and xLSTM's (float32 on both
+sides, the port holding the JAX package's params through
+``from_jax_params``):
   * JAX snapshot -> a fresh port ``Server`` (no prefill) under another
     flavor -> the greedy tail equals the JAX ``Server``'s uninterrupted tail,
     and the RNG key equals its key;
-  * port snapshot -> a fresh JAX ``Server`` -> its tail equals the port's.
+  * port snapshot -> a fresh JAX ``Server`` -> its tail equals the port's;
+  * a JAX snapshot restored by a fresh port ``Server`` and snapshotted
+    again at once is the container a fresh JAX ``Server`` writes from it,
+    byte for byte (xLSTM's restore installs a cache tree with no attention
+    leaf, and its capacity is none: the restored server decodes on).
 Port to port over all 25 ordered flavor pairs: the restored stream and key
 equal an uninterrupted run byte for byte. And the CLI's ``--snapshot-at``,
 then ``--resume --restore-backend``, equals an uninterrupted CLI run.
 
 hymba's prompt lengths avoid 3 and 8, where the JAX ``Server``'s ``pad_to``
 heuristic would also grow the conv cache or the SSD state; the decode stops
-below ``pad_to``, where the JAX cache write would clamp.
+below ``pad_to``, where the JAX cache write would clamp. xLSTM's avoid 2, 3
+and 128 (its sLSTM state, conv rows and mLSTM C).
 """
+import json
+
 import itertools
 
 import numpy as np
@@ -27,14 +35,14 @@ import jax  # noqa: E402
 from repro.configs import smoke_config as jax_smoke_config  # noqa: E402
 from repro.serving.engine import Server as JaxServer  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
-from repro_torch.core import BACKENDS  # noqa: E402
+from repro_torch.core import BACKENDS, ckpt_io  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models.params import from_jax_params  # noqa: E402
 from repro_torch.serving.engine import Server  # noqa: E402
 
 torch.set_num_threads(1)
 #: arch -> (prompt length, pad_to); the snapshot comes after K decode steps
-CASES = {"granite-3-2b": (9, 17), "hymba-1.5b": (20, 28)}
+CASES = {"granite-3-2b": (9, 17), "hymba-1.5b": (20, 28), "xlstm-350m": (12, 20)}
 K = 3
 
 
@@ -71,7 +79,9 @@ def test_jax_snapshot_resumes_in_a_fresh_port_server(jax_run):
     srv = Server(cfg, device="cpu", params=jax_run["params"], backend="mpich")
     srv.restore(jax_run["step"], new_backend="openmpi", rebuild=True)
     assert srv.cluster.backend_name == "openmpi"
-    assert srv.pos == jax_run["prompt"].shape[1] + K and srv.max_len == jax_run["pad_to"]
+    # an xLSTM cache has no sequence axis, so no capacity
+    cap = None if jax_run["arch"] == "xlstm-350m" else jax_run["pad_to"]
+    assert srv.pos == jax_run["prompt"].shape[1] + K and srv.max_len == cap
     assert srv.last_runtime_restore["providers"] == 3
     tail, _ = srv.decode(jax_run["tail"].shape[1], srv.resume_tok)
     np.testing.assert_array_equal(_stack(tail), jax_run["tail"])
@@ -96,6 +106,28 @@ def test_port_snapshot_resumes_in_a_fresh_jax_server(jax_run):
     jtail, _ = js.decode(len(tail), js.resume_tok)
     np.testing.assert_array_equal(_stack(jtail), _stack(tail))
     np.testing.assert_array_equal(np.asarray(jax.random.key_data(js.rng_key)), srv.rng_key)
+
+
+def test_port_resnapshot_of_a_jax_snapshot_is_the_same_container(jax_run, tmp_path):
+    cfg = smoke_config(jax_run["arch"])
+    again = JaxServer(jax_smoke_config(jax_run["arch"]), seed=0, ckpt_dir=tmp_path / "jax")
+    again.params = jax_run["jax"].params
+    srv = Server(cfg, device="cpu", params=jax_run["params"], ckpt_dir=tmp_path / "port")
+    for s in (again, srv):
+        s.restore(jax_run["step"])
+        s.checkpoint().wait()
+    js, ts = again.cluster.writer.latest(), srv.cluster.writer.latest()
+    assert ts.name == js.name == jax_run["step"].name
+    for r in ("rank00000", "rank00001"):
+        assert json.loads((ts / r / ckpt_io.INDEX_NAME).read_text()) == \
+            json.loads((js / r / ckpt_io.INDEX_NAME).read_text())
+        assert (ts / r / ckpt_io.BIN_NAME).read_bytes() == (js / r / ckpt_io.BIN_NAME).read_bytes()
+    jst, tst = (json.loads((s / "rank00000" / "state.json").read_text()) for s in (js, ts))
+    assert tst["runtime"] == jst["runtime"] and tst["pos"] == jst["pos"]
+    jm, tm = (json.loads((s / "manifest.json").read_text()) for s in (js, ts))
+    assert tm["leaves"] == jm["leaves"]
+    tail, _ = srv.decode(jax_run["tail"].shape[1], srv.resume_tok)
+    np.testing.assert_array_equal(_stack(tail), jax_run["tail"])
 
 
 # -- port to port over every ordered flavor pair ---------------------------------

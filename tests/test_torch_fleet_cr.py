@@ -399,3 +399,112 @@ def test_supervised_fleet_kill_rank_rehomes_with_equal_streams(params, uninterru
     assert inc.ckpt == ("ram:step_00000003" if tier == "ram" else "step_00000003")
     assert _finish(eng) == uninterrupted
     eng.cluster.writer.close()
+
+
+# ---------------------------------------------------------------------------
+# xLSTM's fleet: its sessions' blocks (recurrent states on the card) through
+# the snapshot, across the packages, and through a migration across flavors
+# ---------------------------------------------------------------------------
+
+XCFG, XJCFG = smoke_config("xlstm-350m"), jax_smoke_config("xlstm-350m")
+#: two lanes, 4 pages of 4: two priority-5 arrivals take both lanes and
+#: park "a" (3 pages) from tick 4 until "b" retires
+XKW = dict(max_len=32, page_size=4, n_pages=4, max_running=2)
+
+
+@pytest.fixture(scope="module")
+def xparams():
+    return jax.tree.map(np.asarray, JaxEngine(XJCFG, seed=0, max_len=8, page_size=4,
+                                              n_pages=2).params)
+
+
+def _xtraffic(eng, until=None):
+    rng = np.random.default_rng(5)
+    a, d, b, e = (rng.integers(0, XCFG.vocab_size, n) for n in (12, 4, 8, 8))
+    eng.submit(a, sid="a", max_new_tokens=12)
+    eng.submit(d, sid="d", max_new_tokens=3)
+    while eng.sched.live() or eng.tick < 1:
+        if eng.tick == 1 and "b" not in eng.sessions:
+            eng.submit(b, sid="b", max_new_tokens=8, priority=5)
+            eng.submit(e, sid="e", max_new_tokens=8, priority=5)
+        eng.step_once()
+        if until is not None and eng.tick == until:
+            return None
+    return {s: eng.stream(s) for s in sorted(eng.sessions)}
+
+
+@pytest.fixture(scope="module")
+def x_uninterrupted(xparams):
+    streams = _xtraffic(_port(xparams, cfg=XCFG, **XKW))
+    assert streams == _xtraffic(JaxEngine(XJCFG, seed=0, **XKW))
+    return streams
+
+
+@pytest.mark.parametrize("snap_tick", [2, 6])      # tick 6: "a" is parked
+@pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])
+def test_xlstm_fleet_snapshot_moves_between_the_packages(xparams, x_uninterrupted, tmp_path,
+                                                         direction, snap_tick):
+    writer = JaxEngine(XJCFG, seed=0, ckpt_dir=tmp_path, **XKW) \
+        if direction == "jax_to_torch" else _port(xparams, cfg=XCFG, ckpt_dir=tmp_path, **XKW)
+    _xtraffic(writer, until=snap_tick)
+    assert sorted(writer.pool.parked) == (["a"] if snap_tick == 6 else [])
+    writer.checkpoint().wait()
+    reader = _port(xparams, cfg=XCFG, backend="fabric", ckpt_dir=tmp_path, **XKW) \
+        if direction == "jax_to_torch" \
+        else JaxEngine(XJCFG, backend="fabric", seed=0, ckpt_dir=tmp_path, **XKW)
+    assert reader.resume_latest(new_backend="openmpi") is not None
+    assert reader.tick == snap_tick and sorted(reader.pool.parked) == sorted(writer.pool.parked)
+    if direction == "jax_to_torch":
+        # the resident sessions' blocks came back onto the pool's device
+        assert all(isinstance(t, torch.Tensor) for a in reader.pool.sessions.values()
+                   for t in a.blocks.values())
+    assert _xfinish(reader) == x_uninterrupted
+
+
+def _xfinish(eng):
+    eng.run_until_drained()
+    return {s: eng.stream(s) for s in sorted(eng.sessions)}
+
+
+@pytest.mark.parametrize("snap_tick", [2, 6])
+def test_xlstm_port_resnapshot_of_a_jax_snapshot_is_the_same_container(xparams, tmp_path,
+                                                                       snap_tick):
+    jax_eng = JaxEngine(XJCFG, seed=0, ckpt_dir=tmp_path / "src", **XKW)
+    _xtraffic(jax_eng, until=snap_tick)
+    jax_eng.checkpoint().wait()
+    src = jax_eng.cluster.writer.latest()
+    again = JaxEngine(XJCFG, seed=0, ckpt_dir=tmp_path / "jax", **XKW)
+    eng = _port(xparams, cfg=XCFG, ckpt_dir=tmp_path / "port", **XKW)
+    for e in (again, eng):
+        e.restore(src)
+        e.checkpoint().wait()
+    js, ts = again.cluster.writer.latest(), eng.cluster.writer.latest()
+    for r in ("rank00000", "rank00001"):
+        ji = json.loads((js / r / ckpt_io.INDEX_NAME).read_text())
+        assert json.loads((ts / r / ckpt_io.INDEX_NAME).read_text()) == ji
+        assert (ts / r / ckpt_io.BIN_NAME).read_bytes() == \
+            (js / r / ckpt_io.BIN_NAME).read_bytes()
+    jst, tst = _rank0(js), _rank0(ts)
+    assert tst["runtime"] == jst["runtime"] and tst["tick"] == jst["tick"] == snap_tick
+    table = tst["runtime"]["providers"]["kv_pages"]["meta"]["table"]
+    assert bool(table["parked"]) == (snap_tick == 6)
+    jm, tm = (json.loads((s / "manifest.json").read_text()) for s in (js, ts))
+    assert tm["leaves"] == jm["leaves"] and '"blocks"' in json.dumps(tst["runtime"])
+
+
+def test_xlstm_live_migration_across_flavors(xparams, x_uninterrupted):
+    """The running and the parked session move mpich -> fabric (their blocks
+    in the reference's payload form) and finish there with the streams of
+    an uninterrupted run; the sessions left behind finish at the source."""
+    src = _port(xparams, cfg=XCFG, backend="mpich", **XKW)
+    _xtraffic(src, until=6)
+    assert sorted(src.pool.parked) == ["a"] and "b" in src.pool.sessions
+    dst = _port(xparams, cfg=XCFG, backend="fabric", **XKW)
+    rep = migrate_sessions(src, dst, ["a", "b"])
+    assert rep.sessions == ["a", "b"] and rep.chunks == 18 and rep.bytes > 0
+    assert (rep.src_flavor, rep.dst_flavor) == ("mpich", "fabric")
+    assert src.sched.state("a") == src.sched.state("b") == MIGRATED
+    dst.run_until_drained()
+    src.run_until_drained()
+    assert {s: dst.stream(s) for s in "ab"} == {s: x_uninterrupted[s] for s in "ab"}
+    assert {s: src.stream(s) for s in "de"} == {s: x_uninterrupted[s] for s in "de"}

@@ -10,7 +10,10 @@ Tolerances: bf16 2e-2 (8 significant bits; one rounding of an output near
 The GLA kernels take tests/test_kernels.py's GLA sweep tolerances, 5e-2 in
 bf16 and 5e-4 in float32 (absolute and relative): they are held against
 the step-by-step recurrence, whose float32 sums run in another order over
-hundreds of decayed terms, and their outputs are not bounded by 1.
+hundreds of decayed terms, and their outputs are not bounded by 1. So
+does the sLSTM scan, held to its plain version over up to 1024 recurrent
+steps (each product over dh in another order; in bf16 a one-ulp change of
+a rounded gate moves the exp gates by about 1%).
 """
 import json
 import re
@@ -30,6 +33,7 @@ from repro_torch.kernels import gla_chunk as GC  # noqa: E402
 from repro_torch.kernels import latent_decode_attention as LA  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as PA  # noqa: E402
+from repro_torch.kernels import slstm_scan as SL  # noqa: E402
 from repro_torch.kernels.timing import graph_kernels  # noqa: E402
 from repro_torch.models.params import tree_map  # noqa: E402
 from repro_torch.serving.engine import ServeEngine, Server  # noqa: E402
@@ -2438,3 +2442,136 @@ def test_mla_train_step_on_card_matches_plain_path(cuda, deterministic_restored)
     assert abs(total.item() - want_total.item()) <= 1e-5 * abs(want_total.item())
     for a, b in zip(tree_leaves(grads), tree_leaves(want)):
         assert _rel(a, b) <= 1e-4
+
+
+# -- the sLSTM recurrence (xLSTM) ------------------------------------------------
+
+def _slstm_inputs(cuda, B, S, H, dh, dtype, seed=0):
+    """wx ~ N(0, 1) (the hoisted projection's scale), r ~ N(0, 1/dh) (a
+    recurrence strong enough to matter; the model's init is 50 times
+    weaker), and a start state as a decode finds it (a prefill's)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    wx = torch.randn(B, S, 4 * H * dh, generator=g, device=cuda).to(dtype)
+    r = (torch.randn(H, dh, 4 * dh, generator=g, device=cuda) / dh ** 0.5).to(dtype)
+    return wx, r
+
+
+def _slstm_close(got, want, dtype):
+    """hs and the final h (|h| <= 1) absolutely; c, n and m relative to
+    their largest entries."""
+    (hs, st), (hs_w, st_w) = got, want
+    tol = GLA_TOL[dtype]
+    torch.testing.assert_close(hs.float(), hs_w.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(st[3], st_w[3], rtol=tol, atol=tol)
+    for a, b in zip(st[:3], st_w[:3]):
+        assert _rel(a, b) <= tol
+
+
+def _same_scan(a, b):
+    """Two scans' hs and final states equal bit for bit."""
+    (hs, st), (hs2, st2) = a, b
+    return torch.equal(hs, hs2) and all(torch.equal(x, y) for x, y in zip(st, st2))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,dh", [(4, 1024, 4, 256), (4, 1, 4, 256), (1, 1, 4, 256),
+                                      (3, 37, 2, 64), (9, 20, 1, 32)])
+def test_slstm_scan_matches_plain(cuda, B, S, H, dh, dtype):
+    """xlstm-350m's prefill (B4 S1024), decode step (B4 S1) and fleet lane
+    (B1 S1) from a prefill's state, the smoke width, and two row groups."""
+    wx, r = _slstm_inputs(cuda, B, S + 8, H, dh, dtype)
+    st0 = ref.slstm_state0(B, H, dh, cuda)
+    start = ref.slstm_scan(wx[:, :8].contiguous(), r, st0)[1]
+    x = wx[:, 8:].contiguous()
+    n0 = SL.launches
+    got = ops.slstm_scan(x, r, start)
+    assert SL.launches == n0 + 1
+    _slstm_close(got, ref.slstm_scan(x, r, start), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_slstm_scan_bit_equalities(cuda, dtype):
+    """Two runs agree; scan(S + 1) is scan(S) then scan(1) from its final
+    state; each row at B = 4 is that row alone at B = 1: bit for bit."""
+    B, S, H, dh = 4, 257, 4, 256
+    wx, r = _slstm_inputs(cuda, B, S + 1, H, dh, dtype, seed=1)
+    st0 = ref.slstm_state0(B, H, dh, cuda)
+    whole = SL.slstm_scan(wx, r, st0)
+    assert _same_scan(whole, SL.slstm_scan(wx, r, st0))
+    part = SL.slstm_scan(wx[:, :S].contiguous(), r, st0)
+    last = SL.slstm_scan(wx[:, S:].contiguous(), r, part[1])
+    assert torch.equal(torch.cat([part[0], last[0]], 1), whole[0])
+    assert all(torch.equal(a, b) for a, b in zip(last[1], whole[1]))
+    for b in range(B):
+        one = SL.slstm_scan(wx[b:b + 1].contiguous(), r,
+                            tuple(t[b:b + 1].contiguous() for t in st0))
+        assert torch.equal(one[0], whole[0][b:b + 1])
+        assert all(torch.equal(a, w[b:b + 1]) for a, w in zip(one[1], whole[1]))
+
+
+@pytest.mark.parametrize("S", [1, 1024])
+def test_slstm_scan_is_one_kernel_node(cuda, S):
+    wx, r = _slstm_inputs(cuda, 4, S, 4, 256, torch.bfloat16)
+    st0 = ref.slstm_state0(4, 4, 256, cuda)
+    nodes = graph_kernels(lambda: SL.slstm_scan(wx, r, st0))
+    assert len(nodes) == 1 and SL.kernel(torch.bfloat16) in nodes[0][0]
+    assert tuple(nodes[0][1]) == (SL.CLUSTER, 4, 1) and tuple(nodes[0][2]) == (256, 1, 1)
+
+
+def test_slstm_scan_refuses_what_it_does_not_take(cuda):
+    wx, r = _slstm_inputs(cuda, 2, 3, 2, 64, torch.float32)
+    st0 = ref.slstm_state0(2, 2, 64, cuda)
+    with pytest.raises(TypeError):
+        SL.slstm_scan(wx.half(), r.half(), st0)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        SL.slstm_scan(wx[..., :4 * 2 * 48].contiguous(), r[:, :48, :192].contiguous(),
+                      tuple(t[..., :48].contiguous() for t in st0))
+    with pytest.raises(ValueError, match="contiguous"):
+        SL.slstm_scan(wx.transpose(0, 1).contiguous().transpose(0, 1), r, st0)
+    with pytest.raises(ValueError, match="CUDA"):
+        SL.slstm_scan(wx.cpu(), r.cpu(), tuple(t.cpu() for t in st0))
+
+
+def test_xlstm_server_on_card_matches_cpu(cuda):
+    """A prefill launches the sLSTM scan once an sLSTM layer, a decode step
+    once more; the card's logits and greedy stream equal the CPU's plain
+    path's (float32 smoke config)."""
+    cfg = smoke_config("xlstm-350m")
+    gpu = Server(cfg, device=cuda, seed=0)
+    cpu = Server(cfg, device="cpu", params=tree_map(lambda t: t.cpu(), gpu.params))
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 40))
+    n0, L = SL.launches, cfg.n_layers // 2
+    lg = gpu.prefill(prompt)
+    assert SL.launches == n0 + L
+    lc = cpu.prefill(prompt)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    first = np.argmax(lc[:, : cfg.vocab_size].numpy(), -1)
+    tg, _ = gpu.decode(6, first)
+    assert SL.launches == n0 + 7 * L
+    tc, _ = cpu.decode(6, first)
+    np.testing.assert_array_equal(np.stack(tg), np.stack(tc))
+
+
+def test_xlstm_fleet_on_card_matches_server_streams(cuda):
+    """The fleet on the card (a pool small enough to force a swap, the
+    blocks kept on the card): every stream equals the Server's B = 1 greedy
+    stream, and every decoded token launched the scan once a layer."""
+    cfg = smoke_config("xlstm-350m")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 9, 14)]
+    eng = ServeEngine(cfg, device=cuda, seed=0, max_len=40, page_size=4, n_pages=7,
+                      max_running=3)
+    n0, L = SL.launches, cfg.n_layers // 2
+    sids = [eng.submit(p, max_new_tokens=8) for p in prompts[:2]]
+    for _ in range(2):
+        eng.step_once()
+    sids.append(eng.submit(prompts[2], max_new_tokens=8, priority=5))
+    eng.run_until_drained(max_ticks=200)
+    assert sum(eng.sched.tickets[s].preemptions for s in sids) >= 1
+    decoded = sum(len(eng.stream(s)) - 1 for s in sids)
+    assert SL.launches - n0 == (3 + decoded) * L
+    for p, sid in zip(prompts, sids):
+        srv = Server(cfg, device=cuda, params=eng.params)
+        first = torch.argmax(srv.prefill(p[None, :])[:, : cfg.vocab_size], -1).cpu().numpy()
+        toks, _ = srv.decode(7, first)
+        assert eng.stream(sid) == [int(first[0])] + [int(t[0]) for t in toks]

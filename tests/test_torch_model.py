@@ -46,10 +46,10 @@ def test_model_specs_match_jax():
 
 
 def test_unported_blocks_raise():
-    # hymba, sliding-window attention, MoE, llava's vision prefix and MLA
-    # are ported; xLSTM and the multi-codebook frontend are not yet
+    # hymba, sliding-window attention, MoE, llava's vision prefix, MLA and
+    # xLSTM are ported; the multi-codebook frontend is not yet
     cfg = configs.smoke_config(ARCH)
-    for change in ({"block": "xlstm"}, {"n_codebooks": 2}):
+    for change in ({"n_codebooks": 2},):
         with pytest.raises(NotImplementedError):
             T.plan_segments(dataclasses.replace(cfg, **change))
 

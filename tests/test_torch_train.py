@@ -374,8 +374,8 @@ def test_ten_hymba_steps_in_float64_match_the_jax_trainer_under_x64(jax_hymba_st
 
 
 def test_trainer_refuses_what_it_cannot_train():
-    # a block the port does not build yet (xLSTM's)
-    with pytest.raises(NotImplementedError, match="ported so far"):
+    # a block the port serves but does not train yet (xLSTM's)
+    with pytest.raises(NotImplementedError, match="does not train yet"):
         Trainer(replace(smoke_config(ARCH), block="xlstm"), device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         Trainer(smoke_config(ARCH), device="cpu", mesh=object())
