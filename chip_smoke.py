@@ -158,11 +158,21 @@ not 0:
      against the Server's B=1 ones; the float32 streams at
      XLSTM_F32_FLEET_LAYERS layers against the float32 Server's; a
      profiled tick's idle share);
+  train_xlstm: the train phase for full-width, full-depth xlstm-350m (4 x
+     1024, as granite's): every sLSTM layer runs the scan's training forward
+     twice a step under remat and its backward kernel once (24 + 12
+     launches a step, none of the serving forward), the mLSTM in plain
+     torch under autograd; step 1 held as train_hymba's, to a float64 copy
+     on the plain path, at XLSTM_HOLD_LAYERS layers (the plain path steps
+     every position of every sLSTM layer from Python); its ``mfu`` counts
+     r_gates among the matmul params and the mLSTM's chunk products forward
+     and backward; the profiled step's sLSTM kernels' share; the C/R part at
+     4 layers;
   7. cli: ``repro_torch.launch.serve`` at smoke size on the card, granite,
      hymba (both GLA schedules), minicpm, qwen, llava, granite-moe and
      xlstm (the Server and ``--fleet``), and
-     ``repro_torch.launch.train`` at smoke size, granite, hymba, minicpm and
-     qwen, with a rank killed and the restart under exampi.
+     ``repro_torch.launch.train`` at smoke size, granite, hymba, minicpm,
+     qwen and xlstm, with a rank killed and the restart under exampi.
 Phase 3 also holds K1's logsumexp output and its backward kernels (dQ,
 which also writes the row sums rowsum(dO o), then dK/dV) and those row
 sums to their plain versions at granite's training shape, at a ragged S,
@@ -208,7 +218,16 @@ and a fleet lane's B1 S1, in bf16 and float32 from a prefill's state,
 checks its bit-equalities (two runs; S + 1 positions against S then 1 from
 its final state; each row at B = 4 against it alone) and one kernel node a
 call, and times each bf16 row beside its plain version, its bytes bound and
-its latency floor (the launch's S + 1 cluster barriers alone).
+its latency floor (the launch's S + 1 cluster barriers alone). It holds
+the scan's training kernels (``slstm_bwd_rows``): the training forward's
+hs and final state bit-equal to the serving launch's, its saved gates and
+states and the backward kernel against ``ref.slstm_scan(..., states=True)``
+and ``ref.slstm_scan_bwd`` at the training shape B4 S1024, a ragged B2
+S300 and B1 S64 (the last two from a prefill's state, the start state's
+gradient too), in bf16 and float32, fed by the training forward's tensors
+and by the plain forward's; two backward runs bit-equal, each row at B = 4
+equal to that row alone; one kernel node a call of each; and times both
+at B4 S1024 beside their plain versions, bytes bound and latency floor.
 Phase 3 also holds the GLA kernels (K4; K5's phases apart and together)
 and the ring-window decode to their plain versions: the GLA at the
 serving shape with the mixer's head-broadcast q/k (in bf16 also under
@@ -425,9 +444,17 @@ GRANITE_F32_FLEET_LAYERS, MINICPM_TRAIN_LAYERS = 12, 10
 # change of a rounded gate moves the exp gates by about 1%)
 SLSTM_HEADS, SLSTM_DH = 4, 256
 SLSTM_ROWS = ((4, 1024), (4, 1), (1, 1))
+# its training kernels in phase 3 at these (B, S, from a prefill's state):
+# the training shape from state0, a ragged length and one short row from a
+# prefill's state (the start state's gradient too)
+SLSTM_BWD_ROWS = ((4, 1024, False), (2, 300, True), (1, 64, True))
 # xlstm-350m's float32 fleet streams at this many of its 24 layers (6 pairs),
 # as the other fleets' (a cut for the time limit)
 XLSTM_F32_FLEET_LAYERS = 12
+# train_xlstm's step 1 is held to a float64 copy on the plain path at this
+# many layers (2 pairs) at the full 4 x 1024: the plain path steps every
+# position of every sLSTM layer from Python, forward and backward
+XLSTM_HOLD_LAYERS = 4
 # K4's bf16 hold at hymba's serving shape over this many seeds, each within
 # the kernel's error bound (gla_error_bound)
 GLA_SWEEP = 16
@@ -952,6 +979,13 @@ def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms,
     bound, by = bound_ms(2 * B * H * pairs * (3 * D + 2 * Dv),
                          2 * (2 * n_q + 2 * n_qv + 2 * n_kv + 2 * n_kvv) + 4 * rows)
     us = kernel_us(lambda *a: FA.flash_attention_bwd(*a), bsets, iters=20, once=True)
+    if len(us) != 2:
+        # the tracer dropped every record of a kernel in its window (it drops
+        # more in a process whose card idled, as while the SDPA yardsticks'
+        # child processes ran): read a second window
+        print(f"[kernels] flash_attention_bwd B{B} H{H} K{K} S{S} D{D}: the profiler saw "
+              f"{list(us)}; reading a second window", flush=True)
+        us = kernel_us(lambda *a: FA.flash_attention_bwd(*a), bsets, iters=20, once=True)
     dq_name = "dq_d128_kernel" if D > 64 else "dq_bf16_kernel"
     graph_launches(f"flash_attention_bwd bf16 B{B} H{H} K{K} S{S} D{D} ({label})",
                    lambda: FA.flash_attention_bwd(*bsets[0]), (dq_name, "dkdv_bf16_kernel"))
@@ -994,34 +1028,29 @@ def bwd_times(fsets, B, H, K, S, D, randn, FA, ref, cuda_ms,
     return out
 
 
-def hymba_step1_hold(cfg, tr, batch, names_, rel_norm):
-    """The train_hymba phase's step 1, held as phase 6 holds hymba's
-    serving: a float64 copy of the model on the plain path is the
+def f64_step1_hold(tag, cfg, params, batch, names_, rel_norm, counts):
+    """The train_hymba and train_xlstm phases' step 1, held as phase 6 holds
+    hymba's serving: a float64 copy of the model on the plain path is the
     yardstick, and the float32 kernel path's distance from it (loss,
     grad_norm, each leaf's ||a - f64|| / ||f64||) must sit within
     F32_DIST_RATIO times the float32 plain path's, plus HYMBA_F32_FLOOR.
-    Returns (ok, the kernel run's launch counts)."""
+    ``counts()``: the phase's launch counters, as a dict. Returns (ok, the
+    kernel run's launch counts)."""
     import dataclasses
 
     import torch
 
     from repro_torch import steps as ST
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import gla_chunk as GC
     from repro_torch.models import Model
     from repro_torch.models.params import tree_leaves, tree_map
     from repro_torch.optim import global_norm
 
-    def counts():
-        return (FA.launches, FA.bwd_dq_launches, FA.bwd_dkdv_launches, GC.launches,
-                GC.bwd_launches)
-
     def run(dtype, force):
         c = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
-        p = tree_map(lambda t: t.to(getattr(torch, dtype)), tr.params)
+        p = tree_map(lambda t: t.to(getattr(torch, dtype)), params)
         n0 = counts()
         g, _, loss, _ = ST.loss_and_grads(Model(c, force=force), p, batch)
-        n = tuple(b - a for a, b in zip(n0, counts()))
+        n = {k: v - n0[k] for k, v in counts().items()}
         gn = global_norm(g).item()
         leaves = [t.float() for t in tree_leaves(g)]
         ok = all(torch.isfinite(t).all().item() for t in leaves)
@@ -1037,13 +1066,13 @@ def hymba_step1_hold(cfg, tr, batch, names_, rel_norm):
     del g_p, g_t
     d = {"loss": (abs(loss_k - loss_t) / abs(loss_t), abs(loss_p - loss_t) / abs(loss_t), lf),
          "grad_norm": (abs(gn_k - gn_t) / gn_t, abs(gn_p - gn_t) / gn_t, gf)}
-    ok = fin and not any(n_p) and all(
+    ok = fin and not any(n_p.values()) and all(
         k <= F32_DIST_RATIO * p + fl for k, p, fl in d.values()) and all(
         k <= F32_DIST_RATIO * p + ef for k, p in zip(dk, dp))
     ratio = sorted(k / max(p, 1e-30) for k, p in zip(dk, dp))
     w = max(range(len(dk)), key=lambda i: dk[i] - F32_DIST_RATIO * dp[i])
-    print(f"[train_hymba] step 1 in float32 (the float32 kernels; the bf16 ones are held in "
-          f"phase 3), distances from the float64 plain path (kernel path within "
+    print(f"[{tag}] step 1 in float32 at {cfg.n_layers} layers (the float32 kernels; the bf16 "
+          f"ones are held in phase 3), distances from the float64 plain path (kernel path within "
           f"{F32_DIST_RATIO:g} x the float32 plain path's + floor): loss {loss_k:.9f} / "
           f"plain {loss_p:.9f} / f64 {loss_t:.9f}: kernel {d['loss'][0]:.3e}, plain "
           f"{d['loss'][1]:.3e} (floor {lf:g}); grad_norm {gn_k:.6f} / {gn_p:.6f} / "
@@ -1060,16 +1089,17 @@ def hymba_step1_hold(cfg, tr, batch, names_, rel_norm):
 TRAIN_TAGS = {"granite-3-2b": "train", "hymba-1.5b": "train_hymba",
               "minicpm-2b": "train_minicpm", "qwen2.5-14b": "train_qwen",
               "llava-next-34b": "train_llava", "granite-moe-3b-a800m": "train_moe",
-              "minicpm3-4b": "train_minicpm3"}
+              "minicpm3-4b": "train_minicpm3", "xlstm-350m": "train_xlstm"}
 
 
 def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
     """Full-width granite-3-2b (phase ``train``), hymba-1.5b
     (``train_hymba``), minicpm-2b (``train_minicpm``), granite-moe-3b-a800m
-    (``train_moe``), or qwen2.5-14b or llava-next-34b at ``n_layers`` layers
-    (``train_qwen``, ``train_llava``) through the port's Trainer (see the
-    module docstring); ``cr=False`` leaves the C/R part out. Returns the
-    launch counts over the ten timed steps."""
+    (``train_moe``), xlstm-350m (``train_xlstm``), or qwen2.5-14b or
+    llava-next-34b at ``n_layers`` layers (``train_qwen``, ``train_llava``)
+    through the port's Trainer (see the module docstring); ``cr=False``
+    leaves the C/R part out. Returns the launch counts over the ten timed
+    steps."""
     import shutil
     import statistics
 
@@ -1083,12 +1113,14 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
     from repro_torch.data import synth_batch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gla_chunk as GC
+    from repro_torch.kernels import slstm_scan as SL
     from repro_torch.launch.train import Trainer
     from repro_torch.models import Model
     from repro_torch.models.params import tree_leaves
     from repro_torch.optim import global_norm
 
     hymba = arch == "hymba-1.5b"
+    xlstm = arch == "xlstm-350m"
     tag = TRAIN_TAGS[arch]
     B_, S_ = (HYMBA_B, HYMBA_S) if hymba else (TRAIN_B, TRAIN_S)
     cfg = get_config(arch)
@@ -1097,6 +1129,9 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
     L, hd = cfg.n_layers, cfg.resolved_head_dim
 
     def counts():
+        if xlstm:   # no attention; the serving forward (slstm_scan) must not run
+            return {"slstm_scan": SL.launches, "slstm_scan_train": SL.train_launches,
+                    "slstm_scan_bwd": SL.bwd_launches}
         c = {"flash_attention": FA.launches, "flash_attention_bwd_dq": FA.bwd_dq_launches,
              "flash_attention_bwd_dkdv": FA.bwd_dkdv_launches}
         if hymba:
@@ -1106,11 +1141,15 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
     def zero_counts():
         FA.launches = FA.bwd_dq_launches = FA.bwd_dkdv_launches = 0
         GC.launches = GC.bwd_launches = 0
+        SL.launches = SL.train_launches = SL.bwd_launches = 0
 
     def expect(label, got, n_steps, n_layers=L, k4b=GC.BWD_LAUNCHES):
         # remat runs each layer's forward twice a step, the backward once;
-        # a K4b call launches ``k4b`` kernels (four in bf16, one in float32)
-        per = {"flash_attention": 2, "gla_chunk": 2, "gla_chunk_bwd": k4b}
+        # a K4b call launches ``k4b`` kernels (four in bf16, one in float32);
+        # xLSTM's sLSTM layers are one a pair
+        per = {"flash_attention": 2, "gla_chunk": 2, "gla_chunk_bwd": k4b,
+               "slstm_scan": 0, "slstm_scan_train": 2}
+        n_layers = n_layers // 2 if xlstm else n_layers
         want = {k: per.get(k, 1) * n_layers * n_steps for k in got}
         if got != want:
             raise AssertionError(f"{tag}: {label} launch counts {got} != {want}")
@@ -1159,15 +1198,21 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fb_label = "forward and backward alone, step 1"
-    if hymba:
+    if hymba or xlstm:
         fb_label = "the float32 step-1 hold, its float64 copy included"
         tr.opt_state = None      # room for the float64 copy; init_state below restores it
-        ok, step1 = hymba_step1_hold(cfg, tr, batch, leaf, rel_norm)
+        # xLSTM's at XLSTM_HOLD_LAYERS (2 pairs): the plain path steps every
+        # position of every sLSTM layer from Python
+        n_hold = XLSTM_HOLD_LAYERS if xlstm else L
+        c_hold = dataclasses.replace(cfg, n_layers=n_hold)
+        p_hold = cut_layers(tr.params, n_hold // 2) if xlstm else tr.params
+        ok, step1 = f64_step1_hold(tag, c_hold, p_hold, batch, leaf, rel_norm, counts)
+        del p_hold
         fb_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         fresh_state()
-        expect("step 1 (float32 copy)", dict(zip(counts(), step1)), 1, k4b=1)
+        expect("step 1 (float32 copy)", step1, 1, n_layers=n_hold, k4b=1)
         if not ok:
-            raise AssertionError("train_hymba: step 1 on the kernel path disagrees with the "
+            raise AssertionError(f"{tag}: step 1 on the kernel path disagrees with the "
                                  "plain path")
     else:
         if n_layers is not None:
@@ -1275,7 +1320,15 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
         n_mm = tr.params["mm_proj"].numel()
         n_matmul -= n_mm
         mm_flops = 6 * n_mm * B_ * cfg.img_tokens
-    if hymba:
+    if xlstm:
+        # no attention; the mLSTM's chunk products as hymba's GLA: per (row,
+        # head, chunk) c(c+1)(N+P) + 4cNP forward and twice that backward
+        attn_flops = 0
+        xc = cfg.xlstm
+        c, N = xc.chunk, int(cfg.d_model * xc.m_proj_factor) // xc.n_heads
+        gla_flops = (3 * B_ * xc.n_heads * (S_ // c) * (L // 2)
+                     * (c * (c + 1) * 2 * N + 4 * c * N * N))
+    elif hymba:
         w = cfg.window
         pairs = sum(S_ * (S_ + 1) / 2 if i in cfg.global_layers
                     else w * (w + 1) / 2 + (S_ - w) * w for i in range(L))
@@ -1298,7 +1351,8 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
         gla_flops = 0
     mfu = ((6 * n_matmul * tokens + attn_flops + gla_flops + mm_flops) / (step_ms / 1e3)
            / PEAK_BF16_FLOPS)
-    extra = f" + {gla_flops / 1e12:.2f} TFLOP GLA" if hymba else ""
+    extra = (f" + {gla_flops / 1e12:.2f} TFLOP GLA" if hymba else
+             f" + {gla_flops / 1e12:.2f} TFLOP mLSTM chunk products" if xlstm else "")
     if mm_flops:
         extra += f" + {mm_flops / 1e12:.3f} TFLOP mm_proj over {cfg.img_tokens} positions a row"
     print(f"[{tag}] {arch} {n_params / 1e9:.3f}B params {cfg.param_dtype}, {L} layers"
@@ -1348,12 +1402,18 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
                f"(K4b) {sum(g4b.values()):.2f} ms ({sum(g4b.values()) / prof_ms:.1%}, {L} "
                "calls of four launches: " + ", ".join(f"{n} {t:.2f}" for n, t in g4b.items())
                + " ms)") if hymba else ""
+        if xlstm:
+            sl_f, sl_b = dev_ms("slstm_mma_kernel"), dev_ms("slstm_bwd_mma_kernel")
+            gla = (f"; sLSTM training forward {sl_f:.2f} ms ({sl_f / prof_ms:.1%}, {L} "
+                   f"launches), backward {sl_b:.2f} ms ({sl_b / prof_ms:.1%}, {L // 2} "
+                   f"launches), together {(sl_f + sl_b) / prof_ms:.1%} of the step")
         gla += f"; {sum(e.count for e in kern)} device kernels in the step"
+        k1 = "" if xlstm else (
+            f"; K1 forward {fwd:.2f} ms ({fwd / prof_ms:.1%} of the step, {2 * L} launches), "
+            f"backward {sum(bwd.values()):.2f} ms ({sum(bwd.values()) / prof_ms:.1%}: dQ "
+            f"{bwd['dq']:.2f}, dK/dV {bwd['dkdv']:.2f} ms)")
         print(f"[{tag}] one profiled step ({card}): {prof_ms:.1f} ms on the host clock, "
-              f"device busy {busy:.1f} ms ({1 - busy / prof_ms:.1%} idle); K1 forward "
-              f"{fwd:.2f} ms ({fwd / prof_ms:.1%} of the step, {2 * L} launches), backward "
-              f"{sum(bwd.values()):.2f} ms ({sum(bwd.values()) / prof_ms:.1%}: dQ "
-              f"{bwd['dq']:.2f}, dK/dV {bwd['dkdv']:.2f} ms){gla}; top: "
+              f"device busy {busy:.1f} ms ({1 - busy / prof_ms:.1%} idle){k1}{gla}; top: "
               + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
                           for e in top), flush=True)
     tr.pipeline.stop()
@@ -2204,6 +2264,153 @@ def slstm_rows(card, dev):
               flush=True)
         del sets
     return rows
+
+
+def slstm_bwd_rows(card, dev):
+    """Phase 3's sLSTM training kernels (xlstm-350m's SLSTM_HEADS heads of
+    SLSTM_DH): the training forward's hs and final state bit-equal to the
+    serving launch's and its saved gates and states held to the plain
+    ones; the backward kernel held to ``ref.slstm_scan_bwd`` (dwx, dR, and
+    from a prefill's state the start state's dc, dn, dm, dh) at each of
+    SLSTM_BWD_ROWS in bf16 and float32 (GLA_TOL, max |a - b| / max |b| a
+    gradient), fed by the training forward's saved tensors and, as a second
+    case, by the plain forward's; two runs bit-equal and each row at B = 4
+    equal to that row alone; one kernel node a call of each; and at the
+    training shape both timed in bf16 (CUDA-graph replay over inputs
+    rotated past the L2, the backward alone and with its dR product) beside
+    their plain versions, their bytes bound and their latency floor (the
+    S + 1 cluster barriers of the grid). Returns {"slt": row, "slb": row}
+    for the JSON record."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm_scan as SL
+    from repro_torch.kernels.timing import cuda_ms
+    H, dh = SLSTM_HEADS, SLSTM_DH
+    gen = torch.Generator(device=dev).manual_seed(351)
+
+    def inputs(B, S, dtype, warm):
+        """slstm_rows' inputs, from state0 (the training path's start) or
+        from a prefill's state of 8 positions (``warm``), and a gradient of
+        hs ~ N(0, 1)."""
+        wx = torch.randn(B, S + 8, 4 * H * dh, generator=gen, device=dev).to(dtype)
+        r = (torch.randn(H, dh, 4 * dh, generator=gen, device=dev) / dh ** 0.5).to(dtype)
+        st0 = ref.slstm_state0(B, H, dh, dev)
+        if warm:
+            st0 = ref.slstm_scan(wx[:, :8].contiguous(), r, st0)[1]
+        dhs = torch.randn(B, S, H, dh, generator=gen, device=dev).to(dtype)
+        return wx[:, 8:].contiguous(), r, st0, dhs
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        tol = GLA_TOL[name]
+        for B, S, warm in SLSTM_BWD_ROWS:
+            x, r, st0, dhs = inputs(B, S, dtype, warm)
+            hs, fin = SL.slstm_scan(x, r, st0)
+            hs_t, fin_t, saved = SL.slstm_scan(x, r, st0, states=True)
+            bits = torch.equal(hs, hs_t) and same(fin, fin_t)
+            hs_w, _, saved_w = ref.slstm_scan(x, r, st0, states=True)
+            e_saved = [rel(a, b) for a, b in zip(saved, saved_w)]
+            cases = {}
+            for case, (h_, sv) in (("kernel's", (hs_t, saved)), ("plain", (hs_w, saved_w))):
+                got = SL.slstm_scan_bwd(r, st0, h_, sv, dhs, dstate=warm)
+                want = ref.slstm_scan_bwd(r, st0, h_, sv, dhs, dstate=warm)
+                e = [rel(got[0], want[0]), rel(got[1], want[1])]
+                if warm:
+                    e += [rel(a, b) for a, b in zip(got[2], want[2])]
+                cases[case] = e
+            ok = bits and max(e_saved) <= tol and all(
+                math.isfinite(v) and v <= tol for e in cases.values() for v in e)
+            errs[(name, B, S)] = max(max(e) for e in cases.values())
+            print(f"[kernels] slstm_scan_bwd {name} B{B} S{S} H{H} dh{dh} from "
+                  f"{'a prefill' if warm else 'state0'}: training forward's hs and final state "
+                  f"equal the serving launch's bit for bit {bits}, its gates c n m vs plain "
+                  + ", ".join(f"{v:.2e}" for v in e_saved) + "; backward max|a-b|/max|b| "
+                  + "; ".join(f"on the {c} forward's tensors dwx dR"
+                              + (" dc dn dm dh" if warm else "") + " "
+                              + ", ".join(f"{v:.2e}" for v in e) for c, e in cases.items())
+                  + f" (tol {tol:g}) {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"slstm_scan_bwd {name} B{B} S{S} disagrees with its "
+                                     "plain version")
+        B, S, _ = SLSTM_BWD_ROWS[0]
+        x, r, st0, dhs = inputs(B, S, dtype, True)
+        hs, _, saved = SL.slstm_scan(x, r, st0, states=True)
+        a = SL.slstm_scan_bwd(r, st0, hs, saved, dhs, dstate=True)
+        two = same(a[:2], SL.slstm_scan_bwd(r, st0, hs, saved, dhs, dstate=True)[:2])
+        lane = True
+        for b in range(B):
+            sb = tuple(t[b:b + 1].contiguous() for t in st0)
+            hb, _, sv = SL.slstm_scan(x[b:b + 1].contiguous(), r, sb, states=True)
+            one = SL.slstm_scan_bwd(r, sb, hb, sv, dhs[b:b + 1].contiguous(), dstate=True)
+            lane &= torch.equal(one[0], a[0][b:b + 1]) and same(
+                one[2], tuple(t[b:b + 1] for t in a[2]))
+        print(f"[kernels] slstm_scan_bwd {name} B{B} S{S} bit for bit: two runs {two}, each "
+              f"row at B = {B} (dwx and the start state's gradient) against it alone {lane}",
+              flush=True)
+        if not (two and lane):
+            raise AssertionError(f"slstm_scan_bwd {name}: a bit-equality failed")
+        del x, r, st0, dhs, hs, saved, a
+    bf = torch.bfloat16
+    B, S, _ = SLSTM_BWD_ROWS[0]
+    # two sets of 128 MB each pass the L2
+    fsets, bsets = [], []
+    for _ in range(2):
+        x, r, st0, dhs = inputs(B, S, bf, False)
+        hs, _, saved = SL.slstm_scan(x, r, st0, states=True)
+        fsets.append((x, r, st0))
+        bsets.append((r, st0, hs, saved, dhs))
+    label = f"bf16 B{B} S{S} H{H} dh{dh}"
+    graph_launches(f"slstm_scan training forward {label}",
+                   lambda: SL.slstm_scan(*fsets[0], states=True), (SL.kernel(bf),))
+    graph_launches(f"slstm_scan_bwd {label}", lambda: SL._bwd(*bsets[0]),
+                   (SL.kernel(bf, bwd=True),))
+
+    def train_fwd(*a):
+        return SL.slstm_scan(*a, states=True)
+
+    def plain_fwd(*a):
+        return ref.slstm_scan(*a, states=True)
+    t_fwd = cuda_ms(train_fwd, fsets, iters=10)
+    t_serve = cuda_ms(SL.slstm_scan, fsets, iters=10)
+    t_bwd = cuda_ms(SL._bwd, bsets, iters=10)
+    t_bwd_dr = cuda_ms(SL.slstm_scan_bwd, bsets, iters=10)
+    p_fwd = cuda_ms(plain_fwd, fsets, iters=2)
+    p_bwd = cuda_ms(ref.slstm_scan_bwd, bsets, iters=2)
+    floor = cuda_ms(lambda *_: SL.barrier(B, S, H, dh, dev), fsets[:1], iters=10)
+    # bytes, each input read once and each output written once: the
+    # training forward reads wx (bf16) and R and the float32 start state,
+    # writes hs and the gates (bf16), c, n, m a position and the final state
+    # (float32); the backward reads R, the gates and dhs (bf16), c, n, m a
+    # position and c, n, m of the start (float32), writes dwx (bf16) and the
+    # start state's dc, dn, dh (float32). Operations: the product, 2 dh FLOP
+    # a (row, gate column, position), in each
+    pos, st = B * S * H * dh, B * H * dh
+    rb = 2 * H * dh * 4 * dh
+    f_bytes = 2 * 4 * pos + rb + 4 * 4 * st + 2 * pos + 2 * 4 * pos + 3 * 4 * pos + 4 * 4 * st
+    b_bytes = rb + 2 * 4 * pos + 2 * pos + 3 * 4 * pos + 3 * 4 * st + 2 * 4 * pos + 3 * 4 * st
+    flops = 2 * B * S * 4 * H * dh * dh
+    out = {}
+    for key, ms, plain, nbytes, what in (
+            ("slt", t_fwd, p_fwd, f_bytes, "training forward"),
+            ("slb", t_bwd, p_bwd, b_bytes, "backward")):
+        bound, by = bound_ms(flops, nbytes)
+        out[key] = {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                    "latency_floor_ms": floor, "max_abs_err": errs[("bfloat16", B, S)]}
+        extra = (f" (the serving launch {t_serve * 1e3:.1f} us)" if key == "slt" else
+                 f" (with its dR product {t_bwd_dr * 1e3:.1f} us)")
+        print(f"[kernels] slstm_scan {what} {label}: {ms * 1e3:.1f} us{extra}, plain "
+              f"{plain * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}; {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP), latency floor {floor * 1e3:.1f} us ({S + 1} cluster "
+              f"barriers on the kernel's grid); no PyTorch call computes the sLSTM recurrence "
+              f"or its gradient; {card}", flush=True)
+    out["slb"]["dr_ms"] = t_bwd_dr
+    out["slt"]["serving_ms"] = t_serve
+    return out
 
 
 def xlstm_phase(card, dev):
@@ -3209,8 +3416,10 @@ def main() -> int:
                  "no record (the tracer dropped them)"), flush=True)
     del fsets, dsets, psets, gsets, stores
 
-    # the sLSTM recurrence at xlstm-350m's shapes
+    # the sLSTM recurrence at xlstm-350m's shapes, then its training forward
+    # and backward
     sl_rows = slstm_rows(card, dev)
+    sl_train = slstm_bwd_rows(card, dev)
 
     t_mark = phase_time("kernels", t_mark)
 
@@ -3516,6 +3725,10 @@ def main() -> int:
     c_train = train_phase(card, dev, "minicpm3-4b", n_layers=MINICPM3_TRAIN_LAYERS, cr=False)
     t_mark = phase_time("train_minicpm3", t_mark)
 
+    # -- train_xlstm. full-width xlstm-350m through the port's Trainer -----------
+    x_train = train_phase(card, dev, "xlstm-350m")
+    t_mark = phase_time("train_xlstm", t_mark)
+
     # -- 7. the CLI: its smoke-size runs in parallel, six at a time (each its
     # own process on the card and its own checkpoint directory)
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -3535,7 +3748,8 @@ def main() -> int:
             "--device", "cuda", "--steps", "8", "--ckpt-every", "4", "--kill-rank-at", "6",
             "--restart-backend", "exampi", "--batch-size", "2", "--seq-len", "64",
             "--ckpt-dir", os.path.join(ck, arch)])
-            for arch in ("granite-3-2b", "hymba-1.5b", "minicpm-2b", "qwen2.5-14b")}
+            for arch in ("granite-3-2b", "hymba-1.5b", "minicpm-2b", "qwen2.5-14b",
+                         "xlstm-350m")}
         serves = [(extra, pool.submit(run_cli, [
             "repro_torch.launch.serve", "--device", "cuda", "--batch", "2", "--prompt-len",
             "16", "--gen", "8", *extra])) for extra in serve_extras]
@@ -3758,6 +3972,20 @@ def main() -> int:
                          "src/repro/models/xlstm.py:145 run_scan as a jax.lax.scan)",
              "launches": launches_, **sl_rows[(B, S)], "library_ms": None,
              "library_note": "no PyTorch call computes the sLSTM recurrence"})
+    # its training kernels at the training shape; launches from train_xlstm's
+    # ten timed steps
+    for name, key, file, launches_, replaces in (
+            ("slstm_scan_train", "slt", "slstm_scan.cu", x_train["slstm_scan_train"],
+             "none: the port's own kernel (the reference runs src/repro/models/xlstm.py:145 "
+             "run_scan as a jax.lax.scan)"),
+            ("slstm_scan_bwd", "slb", "slstm_scan_bwd.cu", x_train["slstm_scan_bwd"],
+             "none: the port's own kernel (the reference differentiates "
+             "src/repro/models/xlstm.py:145 run_scan's jax.lax.scan)")):
+        record["kernels"].append(
+            {"name": name, "shape": "xlstm-350m training B4 S1024 H4 dh256", "route": "cuda",
+             "source": src + file, "replaces": replaces, "launches": launches_,
+             **sl_train[key], "library_ms": None,
+             "library_note": "no PyTorch call computes the sLSTM recurrence or its gradient"})
     print(f"[time] chip_smoke.py total {time.perf_counter() - t_start:.1f} s ({card})",
           flush=True)
     print(json.dumps(record))

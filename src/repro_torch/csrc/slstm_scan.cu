@@ -74,6 +74,12 @@
 // cluster barriers in a launch of the same shape, a floor of the same
 // kind).
 //
+// The training forward (STATES, repro_slstm_scan_states) runs the same
+// code and also writes each position's gates, as the cell took them, and
+// its c, n, m: what the backward (slstm_scan_bwd.cu) reads. The stores are
+// off the chain (no fence waits for them); hs and the final state keep
+// the serving launch's bits.
+//
 // Diagnostic macros (tools/slstm_breakdown.py; the bf16 kernel's results
 // are wrong under any of them, they only time what is left): SLSTM_NO_MMA
 // (no product), SLSTM_NO_CELL (h is a gate's sum, no exponentials),
@@ -86,157 +92,11 @@
 
 #include <stdint.h>
 
+#include "slstm.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace slstm {
-
-constexpr int CLUSTER = 8;  // blocks a (head, row group)
-constexpr int ROWS = 8;     // rows a group at most
-constexpr int KS = 2;       // the product's dh split in KS ranges a column
-constexpr int MAX_DH = 256; // shared memory: R's slice is dh x dh / 2 elements
-
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and back: the value a T tensor holds
-template <typename T>
-__device__ __forceinline__ float round_t(float x) {
-  return to_f<T>(from_f<T>(x));
-}
-
-// log(sigmoid(x)) = min(x, 0) - log1p(exp(-|x|)), the reference's
-// jax.nn.log_sigmoid (= -softplus(-x))
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// d += a b: m16n8k16, bf16 in, float32 out
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// one (row, unit) cell: gates in T's rounding (rh = T(sum), gate = T(wx +
-// rh)), the state in float32; returns h. FAST (the bf16 kernel, whose gates
-// carry 8 bits): the exponentials, the logarithm and the divisions by the
-// SFU's approximations (ex2.approx, lg2.approx, rcp; a relative 1e-6 or so,
-// tanh as 1 - 2 / (1 + e^{2z})), which shorten the step's chain; else the
-// accurate library functions (the float32 kernel, exact to its sums).
-template <typename T, bool FAST>
-__device__ __forceinline__ float cell_step(const float (&wg)[4], const float (&sum)[4], float& c,
-                                           float& n, float& m) {
-  float gate[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) gate[g] = round_t<T>(wg[g] + round_t<T>(sum[g]));
-  const float li = gate[0];
-  float lf, fs, is, z, o;
-  if constexpr (FAST) {
-    lf = fminf(gate[1], 0.f) - __logf(1.f + __expf(-fabsf(gate[1])));
-    const float m_new = fmaxf(lf + m, li);
-    fs = __expf(lf + m - m_new);
-    is = __expf(li - m_new);
-    z = 1.f - __fdividef(2.f, 1.f + __expf(2.f * gate[2]));
-    o = __fdividef(1.f, 1.f + __expf(-gate[3]));
-    m = m_new;
-  } else {
-    lf = log_sigmoid(gate[1]);
-    const float m_new = fmaxf(lf + m, li);
-    fs = expf(lf + m - m_new);
-    is = expf(li - m_new);
-    z = tanhf(gate[2]);
-    o = 1.f / (1.f + expf(-gate[3]));
-    m = m_new;
-  }
-  c = fs * c + is * z;
-  n = fs * n + is;
-  return FAST ? __fdividef(o * c, fmaxf(n, 1e-6f)) : o * c / fmaxf(n, 1e-6f);
-}
-
-// ---- bf16: the tensor-core kernel ------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// a copy of BYTES (8 or 16) from global to shared memory by the copy engine
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-// the thread's arrival on `bar`, expecting `bytes` more of its phase
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// spin until the phase of parity `parity` has completed; acquire at cluster
-// scope, so that the peers' stores it counted are seen
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// the shared::cluster address of `local` (this block's shared memory) in
-// block `rank` of the cluster
-__device__ __forceinline__ uint32_t map_rank(const void* local, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(local)), "r"(rank));
-  return out;
-}
-
-// 4 bytes into a peer's shared memory, counted on its mbarrier `bar`
-__device__ __forceinline__ void st_async(uint32_t addr, uint32_t v, uint32_t bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(
-                   addr),
-               "r"(v), "r"(bar)
-               : "memory");
-}
 
 template <int DH>
 constexpr size_t mma_smem_bytes() {
@@ -245,14 +105,15 @@ constexpr size_t mma_smem_bytes() {
   return (size_t)DH * DH + (size_t)2 * ROWS * (DH + 8) * 2 + 2 * sizeof(uint64_t);
 }
 
-template <int DH>
+template <int DH, bool STATES>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DH)
     slstm_mma_kernel(const __nv_bfloat16* __restrict__ wx, const __nv_bfloat16* __restrict__ r,
                      const float* __restrict__ c0, const float* __restrict__ n0,
                      const float* __restrict__ m0, const float* __restrict__ h0,
                      __nv_bfloat16* __restrict__ hs, float* __restrict__ c1,
                      float* __restrict__ n1, float* __restrict__ m1, float* __restrict__ h1,
-                     int B, int S, int H) {
+                     __nv_bfloat16* __restrict__ gs, float* __restrict__ cs,
+                     float* __restrict__ ns, float* __restrict__ ms, int B, int S, int H) {
   constexpr int UPB = DH / CLUSTER;  // units a block; 4 a warp, so DH / 32 warps
   constexpr int KSTEPS = DH / 16;
   constexpr int CHAINS = 4;          // independent accumulators a tile (k step mod 4)
@@ -334,6 +195,9 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DH)
   const __nv_bfloat16* wx_row = wx + (size_t)crow * S * 4 * H * DH + (size_t)head * 4 * DH + u0 +
                                 unit;
   __nv_bfloat16* hs_row = hs + (size_t)crow * S * H * DH + (size_t)head * DH + u0 + unit;
+  // STATES: each position's gates (wx's layout) and state after it (hs's)
+  const size_t xoff = (size_t)crow * S * 4 * H * DH + (size_t)head * 4 * DH + u0 + unit;
+  const size_t soff = (size_t)crow * S * H * DH + (size_t)head * DH + u0 + unit;
   // where this lane's pair goes in each peer: buffer 0's slot, buffer 1's
   // a fixed offset on, and the peer's two mbarriers
   const int pair_slot = g * HSTR + u0 + 4 * warp + 2 * q;
@@ -403,11 +267,22 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DH)
       const float o0 = jt ? s[1][0] : s[0][0], o1 = jt ? s[1][1] : s[0][1];
       const float p0 = jt ? y[1][0] : y[0][0], p1 = jt ? y[1][1] : y[0][1];
       const float sum[4] = {jt ? p0 : o0, jt ? p1 : o1, jt ? o0 : p0, jt ? o1 : p1};
+      float gate[4];
 #ifndef SLSTM_NO_CELL
-      h = cell_step<__nv_bfloat16, true>(wg, sum, c, n, m);
+      h = cell_step<__nv_bfloat16, true>(wg, sum, c, n, m, gate);
 #else
       h = wg[0] + sum[0];
+#pragma unroll
+      for (int gt = 0; gt < 4; ++gt) gate[gt] = wg[gt];
 #endif
+      if constexpr (STATES) {
+#pragma unroll
+        for (int gt = 0; gt < 4; ++gt)
+          gs[xoff + (size_t)t * 4 * H * DH + gt * DH] = __float2bfloat16_rn(gate[gt]);
+        cs[soff + (size_t)t * H * DH] = c;
+        ns[soff + (size_t)t * H * DH] = n;
+        ms[soff + (size_t)t * H * DH] = m;
+      }
       const __nv_bfloat16 ht = __float2bfloat16_rn(h);
 #ifndef SLSTM_NO_HS
       hs_row[(size_t)t * H * DH] = ht;
@@ -449,14 +324,15 @@ __host__ __device__ constexpr size_t f32_smem_bytes(int dh, int nr) {
          (size_t)KS * nr * (dh / 2) * sizeof(float);
 }
 
-template <int NR>
+template <int NR, bool STATES>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_DH)
     slstm_f32_kernel(const float* __restrict__ wx, const float* __restrict__ r,
                      const float* __restrict__ c0, const float* __restrict__ n0,
                      const float* __restrict__ m0, const float* __restrict__ h0,
                      float* __restrict__ hs, float* __restrict__ c1, float* __restrict__ n1,
-                     float* __restrict__ m1, float* __restrict__ h1, int B, int S, int H,
-                     int dh) {
+                     float* __restrict__ m1, float* __restrict__ h1, float* __restrict__ gs,
+                     float* __restrict__ cs, float* __restrict__ ns, float* __restrict__ ms,
+                     int B, int S, int H, int dh) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int head = blockIdx.y;
@@ -511,6 +387,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_DH)
   }
   const float* wx_row = wx + (size_t)crow * S * 4 * H * dh + (size_t)head * 4 * dh + u0 + cu;
   float* hs_row = hs + (size_t)crow * S * H * dh + (size_t)head * dh + u0 + cu;
+  const size_t xoff = (size_t)crow * S * 4 * H * dh + (size_t)head * 4 * dh + u0 + cu;
+  const size_t soff = (size_t)crow * S * H * dh + (size_t)head * dh + u0 + cu;
   float* peer[CLUSTER];
 #pragma unroll
   for (int p = 0; p < CLUSTER; ++p) peer[p] = cluster.map_shared_rank(hb, p);
@@ -555,8 +433,16 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_DH)
         for (int p = 1; p < KS; ++p) s += red[(p * NR + cr) * ncol + g * upb + cu];
         sum[g] = s;
       }
-      h = cell_step<float, false>(wg, sum, c, n, m);
+      float gate[4];
+      h = cell_step<float, false>(wg, sum, c, n, m, gate);
       hs_row[(size_t)t * H * dh] = h;
+      if constexpr (STATES) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) gs[xoff + (size_t)t * 4 * H * dh + g * dh] = gate[g];
+        cs[soff + (size_t)t * H * dh] = c;
+        ns[soff + (size_t)t * H * dh] = n;
+        ms[soff + (size_t)t * H * dh] = m;
+      }
       const int slot = ((t + 1) & 1) * dh * NR + (u0 + cu) * NR + cr;
 #pragma unroll
       for (int p = 0; p < CLUSTER; ++p) peer[p][slot] = h;
@@ -580,62 +466,54 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) barrier_kernel(int S) {
   for (int t = 0; t <= S; ++t) cluster.sync();
 }
 
-// the group's rows of the float32 kernel: the fewest of 1, 2, 4, 8 that
-// hold min(B, ROWS)
-inline int group_rows(int B) {
-  const int rows = B < ROWS ? B : ROWS;
-  return rows <= 1 ? 1 : rows <= 2 ? 2 : rows <= 4 ? 4 : 8;
-}
+// the pointers of one launch: the inputs, the outputs, and (the training
+// forward's, else null) each position's gates and state
+struct Args {
+  const void *wx, *r;
+  const float *c0, *n0, *m0, *h0;
+  void* hs;
+  float *c1, *n1, *m1, *h1;
+  void* gs;
+  float *cs, *ns, *ms;
+};
 
-template <int DH>
-int launch_mma(const void* wx, const void* r, const float* c0, const float* n0, const float* m0,
-               const float* h0, void* hs, float* c1, float* n1, float* m1, float* h1, int B,
-               int S, int H, cudaStream_t stream) {
+template <int DH, bool STATES>
+int launch_mma(const Args& a, int B, int S, int H, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(slstm_mma_kernel<DH>,
+  cudaError_t err = cudaFuncSetAttribute(slstm_mma_kernel<DH, STATES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(CLUSTER, H, (B + ROWS - 1) / ROWS);
-  slstm_mma_kernel<DH><<<grid, DH, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(wx), static_cast<const __nv_bfloat16*>(r), c0, n0, m0, h0,
-      static_cast<__nv_bfloat16*>(hs), c1, n1, m1, h1, B, S, H);
+  slstm_mma_kernel<DH, STATES><<<grid, DH, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.wx), static_cast<const __nv_bfloat16*>(a.r), a.c0, a.n0,
+      a.m0, a.h0, static_cast<__nv_bfloat16*>(a.hs), a.c1, a.n1, a.m1, a.h1,
+      static_cast<__nv_bfloat16*>(a.gs), a.cs, a.ns, a.ms, B, S, H);
   return (int)cudaGetLastError();
 }
 
-template <int NR>
-int launch_f32(const void* wx, const void* r, const float* c0, const float* n0, const float* m0,
-               const float* h0, void* hs, float* c1, float* n1, float* m1, float* h1, int B,
-               int S, int H, int dh, cudaStream_t stream) {
+template <int NR, bool STATES>
+int launch_f32(const Args& a, int B, int S, int H, int dh, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(dh, NR);
-  cudaError_t err = cudaFuncSetAttribute(slstm_f32_kernel<NR>,
+  cudaError_t err = cudaFuncSetAttribute(slstm_f32_kernel<NR, STATES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(CLUSTER, H, (B + NR - 1) / NR);
-  slstm_f32_kernel<NR><<<grid, dh, smem, stream>>>(
-      static_cast<const float*>(wx), static_cast<const float*>(r), c0, n0, m0, h0,
-      static_cast<float*>(hs), c1, n1, m1, h1, B, S, H, dh);
+  slstm_f32_kernel<NR, STATES><<<grid, dh, smem, stream>>>(
+      static_cast<const float*>(a.wx), static_cast<const float*>(a.r), a.c0, a.n0, a.m0, a.h0,
+      static_cast<float*>(a.hs), a.c1, a.n1, a.m1, a.h1, static_cast<float*>(a.gs), a.cs, a.ns,
+      a.ms, B, S, H, dh);
   return (int)cudaGetLastError();
 }
 
-}  // namespace slstm
-
-// wx [B, S, H 4 dh], r [H, dh, 4 dh] (dtype 0: float32, 1: bfloat16), the
-// start state c0, n0, m0, h0 [B, H, dh] float32; writes hs [B, S, H, dh]
-// in wx's dtype and the final state c1, n1, m1, h1 [B, H, dh] float32 (all
-// contiguous; the outputs must not overlap the inputs). dh a multiple of 32
-// up to 256. Returns a cudaError_t.
-extern "C" int repro_slstm_scan(const void* wx, const void* r, const float* c0, const float* n0,
-                                const float* m0, const float* h0, void* hs, float* c1, float* n1,
-                                float* m1, float* h1, int B, int S, int H, int dh, int dtype,
-                                void* stream) {
-  if (B < 1 || S < 1 || H < 1 || dh % 32 || dh < 32 || dh > slstm::MAX_DH || H > 65535)
+template <bool STATES>
+int launch(const Args& a, int B, int S, int H, int dh, int dtype, cudaStream_t st) {
+  if (B < 1 || S < 1 || H < 1 || dh % 32 || dh < 32 || dh > MAX_DH || H > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (dh) {
 #define SLSTM_MMA(D) \
   case D:            \
-    return slstm::launch_mma<D>(wx, r, c0, n0, m0, h0, hs, c1, n1, m1, h1, B, S, H, st);
+    return launch_mma<D, STATES>(a, B, S, H, st);
       SLSTM_MMA(32)
       SLSTM_MMA(64)
       SLSTM_MMA(96)
@@ -649,16 +527,45 @@ extern "C" int repro_slstm_scan(const void* wx, const void* r, const float* c0, 
     return (int)cudaErrorInvalidValue;
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  switch (slstm::group_rows(B)) {
+  switch (group_rows(B)) {
     case 1:
-      return slstm::launch_f32<1>(wx, r, c0, n0, m0, h0, hs, c1, n1, m1, h1, B, S, H, dh, st);
+      return launch_f32<1, STATES>(a, B, S, H, dh, st);
     case 2:
-      return slstm::launch_f32<2>(wx, r, c0, n0, m0, h0, hs, c1, n1, m1, h1, B, S, H, dh, st);
+      return launch_f32<2, STATES>(a, B, S, H, dh, st);
     case 4:
-      return slstm::launch_f32<4>(wx, r, c0, n0, m0, h0, hs, c1, n1, m1, h1, B, S, H, dh, st);
+      return launch_f32<4, STATES>(a, B, S, H, dh, st);
     default:
-      return slstm::launch_f32<8>(wx, r, c0, n0, m0, h0, hs, c1, n1, m1, h1, B, S, H, dh, st);
+      return launch_f32<8, STATES>(a, B, S, H, dh, st);
   }
+}
+
+}  // namespace slstm
+
+// wx [B, S, H 4 dh], r [H, dh, 4 dh] (dtype 0: float32, 1: bfloat16), the
+// start state c0, n0, m0, h0 [B, H, dh] float32; writes hs [B, S, H, dh]
+// in wx's dtype and the final state c1, n1, m1, h1 [B, H, dh] float32 (all
+// contiguous; the outputs must not overlap the inputs). dh a multiple of 32
+// up to 256. Returns a cudaError_t.
+extern "C" int repro_slstm_scan(const void* wx, const void* r, const float* c0, const float* n0,
+                                const float* m0, const float* h0, void* hs, float* c1, float* n1,
+                                float* m1, float* h1, int B, int S, int H, int dh, int dtype,
+                                void* stream) {
+  const slstm::Args a{wx, r, c0, n0, m0, h0, hs, c1, n1, m1, h1, nullptr, nullptr, nullptr, nullptr};
+  return slstm::launch<false>(a, B, S, H, dh, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The training forward: repro_slstm_scan, and also each position's gates gs
+// [B, S, H 4 dh] in wx's dtype (as the cell took them: rounded to it) and
+// its state after it cs, ns, ms [B, S, H, dh] float32, what the backward
+// (slstm_scan_bwd.cu) reads. hs and the final state are the same bits as
+// repro_slstm_scan's. Returns a cudaError_t.
+extern "C" int repro_slstm_scan_states(const void* wx, const void* r, const float* c0,
+                                       const float* n0, const float* m0, const float* h0,
+                                       void* hs, float* c1, float* n1, float* m1, float* h1,
+                                       void* gs, float* cs, float* ns, float* ms, int B, int S,
+                                       int H, int dh, int dtype, void* stream) {
+  const slstm::Args a{wx, r, c0, n0, m0, h0, hs, c1, n1, m1, h1, gs, cs, ns, ms};
+  return slstm::launch<true>(a, B, S, H, dh, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // S + 1 cluster barriers (the scan's S and its first) on the bf16 kernel's

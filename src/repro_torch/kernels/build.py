@@ -26,7 +26,7 @@ CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
            "paged_decode_attention", "gla_chunk", "latent_decode_attention",
-           "slstm_scan")
+           "slstm_scan", "slstm_scan_bwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

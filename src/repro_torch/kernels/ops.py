@@ -107,8 +107,17 @@ def slstm_scan(wx, r, state, *, force=None):
     m, h), each [B,H,dh] float32. wx: [B,S,4d] the hoisted input gates
     (head-major [H,4,dh]); r: [H,dh,4dh] in wx's dtype. Returns (hs
     [B,S,H,dh] in wx's dtype, the final state). The prefill runs it from
-    ``ref.slstm_state0``, a decode step at S = 1 from the cached state."""
+    ``ref.slstm_state0``, a decode step at S = 1 from the cached state.
+    Differentiable on both routes: on the kernel route, when wx or r
+    requires a gradient, through
+    :class:`~repro_torch.kernels.slstm_scan.SLSTMScan` (the training
+    forward, then the backward kernel and the dR product; the final state
+    takes no gradient); on the plain route through autograd of the plain
+    version."""
     if _use_kernel(wx, force):
+        if torch.is_grad_enabled() and (wx.requires_grad or r.requires_grad):
+            hs, *final = _slstm.SLSTMScan.apply(wx, r, *state)
+            return hs, tuple(final)
         return _slstm.slstm_scan(wx, r, state)
     return ref.slstm_scan(wx, r, state)
 

@@ -434,18 +434,95 @@ def slstm_cell(gates, state, H, dh):
     return c_new, n_new, m_new, h_new
 
 
-def slstm_scan(wx, r, state):
+def slstm_scan(wx, r, state, *, states=False):
     """The plain version of the sLSTM scan kernel, the reference's
     ``run_scan`` body position by position with its rounding: h_{t-1} cast
     to wx's dtype, the product ``rh`` in that dtype, ``wx + rh`` added in
     it, the cell in float32. wx: [B,S,4d] (head-major [H,4,dh]); r:
     [H,dh,4dh]; state (c, n, m, h) [B,H,dh]. Returns (hs [B,S,H,dh] in wx's
-    dtype, the final state)."""
+    dtype, the final state); with ``states`` also what the backward reads,
+    ``(gates [B,S,4d] in wx's dtype, c, n, m [B,S,H,dh])``: each position's
+    gates as the cell took them and its state after it (float32, float64
+    for float64 inputs)."""
     B, S, _ = wx.shape
     H, dh = r.shape[:2]
-    hs = []
+    hs, saved = [], []
     for t in range(S):
         rh = torch.einsum("bhj,hjg->bhg", state[3].to(wx.dtype), r).reshape(B, 4 * H * dh)
-        state = slstm_cell(wx[:, t] + rh, state, H, dh)
+        gates = wx[:, t] + rh
+        state = slstm_cell(gates, state, H, dh)
         hs.append(state[3])
-    return torch.stack(hs, dim=1).to(wx.dtype), state
+        if states:
+            saved.append((gates, *state[:3]))
+    out = torch.stack(hs, dim=1).to(wx.dtype), state
+    if not states:
+        return out
+    return (*out, tuple(torch.stack(x, dim=1) for x in zip(*saved)))
+
+
+def slstm_dr(h0, hs, dwx):
+    """The recurrent weights' gradient, one product after the scan: dR_h =
+    sum over rows and positions of h_{t-1}^T dgates_t, h_{-1} the start
+    state's h, each h as the product took it (in hs's dtype). h0: [B,H,dh];
+    hs: [B,S,H,dh]; dwx: [B,S,4d] head-major. Returns [H,dh,4dh] in hs's
+    dtype."""
+    B, S, H, dh = hs.shape
+    prev = torch.cat([h0.to(hs.dtype)[:, None], hs[:, :-1]], dim=1)
+    return torch.einsum("bshj,bshg->hjg", prev, dwx.reshape(B, S, H, 4 * dh))
+
+
+def slstm_scan_bwd(r, state, hs, saved, dhs, *, dstate=False):
+    """The plain version of the sLSTM scan's backward kernel: the analytic
+    reverse recurrence, not autograd. ``state`` is the scan's start state,
+    ``hs`` its output and ``saved`` what :func:`slstm_scan` returned with
+    ``states=True``; dhs: [B,S,H,dh], the gradient of hs. Returns (dwx
+    [B,S,4d] in the gates' dtype, dR [H,dh,4dh] in r's dtype, and with
+    ``dstate`` the start state's gradient (dc, dn, dm, dh), else None).
+
+    The stabilizer m takes no gradient: c and n are the unstabilized values
+    times e^{-m_t}, so h = o c / max(n, 1e-6) does not depend on the m
+    trajectory (n >= 1 from the first step on, as m_t is i_t, then is = 1,
+    or lf + m_{t-1}, then fs = 1), and holding m constant gives the exact
+    gradient. Carried per (row, head, unit): dc, dn, and dh = dhs_t +
+    (dgates_{t+1} as T) @ R_h^T, rounded to T as the reference's product
+    is. Per step, with fs, is, z = tanh(z_raw), o = sigmoid(o_raw):
+    d o_raw = dh (c/n) o(1-o); dc += dh o/n; dn -= dh o c/n^2; d z_raw = dc
+    is (1-z^2); d i_raw = (dc z + dn) is; d f_raw = (dc c_{t-1} + dn
+    n_{t-1}) fs sigmoid(-f_raw); then dc fs and dn fs carry to t-1. The
+    start state's dm = dc c_0 + dn n_0 (it scales the unstabilized c and
+    n). dR is one product after the scan (:func:`slstm_dr`)."""
+    gates, cs, ns, ms = saved
+    B, S, _ = gates.shape
+    H, dh = r.shape[:2]
+    T = gates.dtype
+    g = _acc(gates).reshape(B, S, H, 4, dh)
+    f = g.dtype
+    c0, n0, m0, h0 = (_acc(x) for x in state)
+    dc = torch.zeros((B, H, dh), dtype=f, device=gates.device)
+    dn = torch.zeros_like(dc)
+    dh_rec = torch.zeros_like(dc)
+    dwx = torch.empty((B, S, H, 4, dh), dtype=T, device=gates.device)
+    for t in reversed(range(S)):
+        i_raw, f_raw, z_raw, o_raw = g[:, t].unbind(2)
+        c, n, m = cs[:, t], ns[:, t], ms[:, t]
+        cp, np_, mp = (cs[:, t - 1], ns[:, t - 1], ms[:, t - 1]) if t else (c0, n0, m0)
+        fs = torch.exp(torch.nn.functional.logsigmoid(f_raw) + mp - m)
+        is_ = torch.exp(i_raw - m)
+        z, o = torch.tanh(z_raw), torch.sigmoid(o_raw)
+        d_h = _acc(dhs[:, t]) + dh_rec
+        nn = torch.clamp_min(n, 1e-6)
+        do = d_h * (c / nn) * o * (1 - o)
+        dc = dc + d_h * o / nn
+        dn = dn - torch.where(n > 1e-6, d_h * o * c / nn ** 2, 0)
+        dz = dc * is_ * (1 - z * z)
+        di = (dc * z + dn) * is_
+        df = (dc * cp + dn * np_) * fs * torch.sigmoid(-f_raw)
+        dg = torch.stack([di, df, dz, do], dim=2).to(T)        # [B,H,4,dh]
+        dwx[:, t] = dg
+        dh_rec = _acc(torch.einsum("bhg,hjg->bhj", dg.reshape(B, H, 4 * dh), r))
+        dc, dn = dc * fs, dn * fs
+    dwx = dwx.reshape(B, S, 4 * H * dh)
+    dr = slstm_dr(state[3], hs, dwx).to(r.dtype)
+    if not dstate:
+        return dwx, dr, None
+    return dwx, dr, (dc, dn, dc * c0 + dn * n0, dh_rec)

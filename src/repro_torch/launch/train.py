@@ -4,8 +4,9 @@ port of the JAX package's ``launch/train.py``).
 Every run is a Cluster of logical ranks (threads in one process). The
 training step is one device's step in PyTorch (no mesh): every layer's
 attention runs the hand-written flash kernel forward and its backward
-kernels on the card, and hymba's SSD heads the GLA kernel (K4) and its
-backward kernel; the plain versions on the CPU. The MANA layer wraps
+kernels on the card, hymba's SSD heads the GLA kernel (K4) and its
+backward kernel, and xLSTM's sLSTM layers the recurrence's training
+forward and backward kernels; the plain versions on the CPU. The MANA layer wraps
 everything around it: virtual-id-tracked communicators, drained prefetch
 requests, per-rank checkpoint images, failure detection and elastic
 restart (another world size or MPI flavor on resume). A checkpoint holds

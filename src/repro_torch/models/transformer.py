@@ -9,13 +9,12 @@ families granite-3-2b, minicpm-2b, qwen2.5-14b and minicpm3-4b,
 llava-next-34b's backbone, granite-moe-3b-a800m and arctic-480b),
 ``hymba`` (attention and the SSD mixer in parallel on the same normed
 input, then the MLP) and ``xlstm_pair`` (xlstm-350m: an mLSTM block, then
-an sLSTM block, each a residual half; ``models/xlstm.py``; served, not
-trained yet). llava's vision prefix enters through :func:`embed_tokens`.
-The multi-codebook frontend comes with its own slice and raises until
-then. Params and caches keep the JAX package's layout: a list with one
-entry per segment; a stacked (scanned) segment's leaves carry a leading
-``[n_layers]`` axis, an unstacked one's (hymba's global-attention layers)
-do not. Cache leaves: attention ``{"k", "v"}`` ``[B, S_max, K*hd]`` (a
+an sLSTM block, each a residual half; ``models/xlstm.py``). llava's vision
+prefix enters through :func:`embed_tokens`. The multi-codebook frontend
+comes with its own slice and raises until then. Params and caches keep
+the JAX package's layout: a list with one entry per segment; a stacked
+(scanned) segment's leaves carry a leading ``[n_layers]`` axis, an
+unstacked one's (hymba's global-attention layers) do not. Cache leaves: attention ``{"k", "v"}`` ``[B, S_max, K*hd]`` (a
 window layer's ring ``[B, W_ring, K*hd]``), MLA's one latent leaf
 ``{"lat"}`` ``[B, S_max, kv_lora + rope]``, in ``cache_dtype``; hymba's
 ``"ssd"`` ``{"state", "conv"}`` (``models/ssm.py``); xLSTM's ``"mlstm"``
@@ -56,14 +55,11 @@ def _check_supported(cfg):
 
 
 def check_trainable(cfg):
-    """Training is ported for the attention decoders (K1's backward, MLA's
-    at its qk head dim; the MoE layer and llava's projection under
-    autograd) and hymba (also the GLA backward). xLSTM serves but does not
-    train yet: its sLSTM recurrence has no backward kernel."""
-    if cfg.block == "xlstm":
-        raise NotImplementedError(
-            f"{cfg.name}: xLSTM serves but does not train yet (the sLSTM "
-            "recurrence has no backward kernel)")
+    """Training is ported for every block the port serves: the attention
+    decoders (K1's backward, MLA's at its qk head dim; the MoE layer and
+    llava's projection under autograd), hymba (also the GLA backward) and
+    xLSTM (the sLSTM recurrence's backward kernel; the mLSTM under
+    autograd)."""
     _check_supported(cfg)
 
 
@@ -109,10 +105,10 @@ def block_apply(cfg, kind, p, x, *, mode, window, cache, pos=None, force=None,
     takes ``cfg.norm_eps``. In train mode ``cache`` is None."""
     if kind == "xlstm_pair":
         h, _ = X.mlstm_apply(cfg, p["mlstm"], L.rmsnorm(x, p["m_norm"]), mode=mode,
-                             cache=cache["mlstm"])
+                             cache=None if cache is None else cache["mlstm"])
         x = x + h
         h, _ = X.slstm_apply(cfg, p["slstm"], L.rmsnorm(x, p["s_norm"]), mode=mode,
-                             cache=cache["slstm"], force=force)
+                             cache=None if cache is None else cache["slstm"], force=force)
         return x + h, cache, None
     xn = L.rmsnorm(x, p["ln1"])
     a_cache = None if cache is None else cache["attn"]

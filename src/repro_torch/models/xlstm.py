@@ -12,16 +12,19 @@ the card (one launch a layer for the prefill's whole scan, and one a
 decode step at S = 1 from the cached state), its plain version on the
 CPU.
 
-Modes: ``prefill`` (x [B,S,d], writes the cache) and ``decode`` (x [B,d],
-updates it). The caches, written in place:
+Modes: ``train`` (x [B,S,d], from the prefill's start state, no cache;
+differentiable: the sLSTM through ``ops.slstm_scan``'s training forward and
+backward kernel on the card, the mLSTM by autograd through the plain
+``chunked_mlstm``, as the reference differentiates its plain XLA),
+``prefill`` (x [B,S,d], writes the cache) and ``decode`` (x [B,d], updates
+it). The caches, written in place:
 
 - mLSTM ``{"C": [B,H,N,P], "n": [B,H,N], "m": [B,H]}`` float32 and
   ``"conv": [B,W-1,di]`` (the last pre-conv rows) in the compute dtype;
 - sLSTM ``{"c", "n", "m", "h": [B,H,dh]}`` float32 and ``"conv":
   [B,W-1,d]`` in the compute dtype.
 
-None grows with the sequence. Training (the sLSTM recurrence's backward)
-is not ported yet.
+None grows with the sequence.
 """
 from __future__ import annotations
 
@@ -44,9 +47,9 @@ def _check_prefill(cfg, S):
 
 
 def _mode(mode):
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"xLSTM mode {mode!r}: the port serves xLSTM (prefill, "
-                                  "decode); it does not train yet")
+    if mode not in ("train", "prefill", "decode"):
+        raise NotImplementedError(f"xLSTM mode {mode!r}; the blocks take train, prefill "
+                                  "and decode")
 
 
 # ---------------------------------------------------------------------------
@@ -80,8 +83,8 @@ def mlstm_specs(cfg):
 
 
 def mlstm_apply(cfg, p, x, *, mode, cache):
-    """x: [B,S,d] (prefill) or [B,d] (decode); ``cache`` updated in place.
-    Returns (out, cache)."""
+    """x: [B,S,d] (train, prefill) or [B,d] (decode); ``cache`` updated in
+    place (train: None, and None is returned). Returns (out, cache)."""
     _mode(mode)
     xc = cfg.xlstm
     di, H, N = mlstm_dims(cfg)
@@ -89,7 +92,7 @@ def mlstm_apply(cfg, p, x, *, mode, cache):
     lead = x.shape[:-1]
     up = x @ p["w_up"]
     x_in, z = up[..., :di], up[..., di:]
-    if mode == "prefill":
+    if mode != "decode":
         _check_prefill(cfg, x.shape[1])
         x_conv = F.silu(causal_conv1d(x_in, p["conv"]))
     else:
@@ -100,16 +103,19 @@ def mlstm_apply(cfg, p, x, *, mode, cache):
     v = (x_in @ p["wv"]).reshape(*lead, H, N)
     ig = x_conv @ p["w_ig"] + p["b_ig"]
     fg = x_conv @ p["w_fg"] + p["b_fg"]
-    if mode == "prefill":
+    if mode != "decode":
         S = x.shape[1]
         h, (C, n, m) = chunked_mlstm(q, k, v, ig, fg, chunk=xc.chunk)
         conv_state = x_in[:, S - (W - 1):]
     else:
         h, (C, n, m) = mlstm_step(q, k, v, ig, fg, (cache["C"], cache["n"], cache["m"]))
     h = rms_groupnorm(h.reshape(*lead, di), p["norm"], H)
+    out = (h * F.silu(z)) @ p["w_down"]
+    if mode == "train":
+        return out, None
     for name, t in (("C", C), ("n", n), ("m", m), ("conv", conv_state)):
         cache[name].copy_(t)
-    return (h * F.silu(z)) @ p["w_down"], cache
+    return out, cache
 
 
 # ---------------------------------------------------------------------------
@@ -142,17 +148,18 @@ def slstm_specs(cfg):
 
 
 def slstm_apply(cfg, p, x, *, mode, cache, force=None):
-    """x: [B,S,d] (prefill) or [B,d] (decode); ``cache`` updated in place.
-    The gates' input projection is hoisted out of the recurrence (one
-    product over every position), then ``ops.slstm_scan`` runs it: from the
-    reference's ``state0`` in the prefill, from the cache at S = 1 in
-    decode. Returns (out, cache)."""
+    """x: [B,S,d] (train, prefill) or [B,d] (decode); ``cache`` updated in
+    place (train: None, and None is returned). The gates' input projection
+    is hoisted out of the recurrence (one product over every position),
+    then ``ops.slstm_scan`` runs it: from the reference's ``state0`` in
+    train and prefill, from the cache at S = 1 in decode. Returns (out,
+    cache)."""
     _mode(mode)
     xc = cfg.xlstm
     d = cfg.d_model
     H = xc.n_heads
     W = xc.d_conv
-    if mode == "prefill":
+    if mode != "decode":
         B, S, _ = x.shape
         _check_prefill(cfg, S)
         x_conv = F.silu(causal_conv1d(x, p["conv"]))
@@ -168,6 +175,8 @@ def slstm_apply(cfg, p, x, *, mode, cache, force=None):
     h = rms_groupnorm(hs.reshape(*x.shape), p["norm"], H)
     h = h + x  # the residual inside the block, after the recurrence
     y = (F.silu(h @ p["ff_wg"]) * (h @ p["ff_w1"])) @ p["ff_w2"]
+    if mode == "train":
+        return y, None
     for name, t in (("c", c), ("n", n), ("m", m), ("h", hh), ("conv", conv_state)):
         cache[name].copy_(t)
     return y, cache

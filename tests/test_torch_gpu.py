@@ -1051,14 +1051,15 @@ def _counts():
             GC.bwd_launches)
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "hymba-1.5b", "xlstm-350m"])
 def test_smoke_train_step_on_card_matches_plain_path(cuda, deterministic_restored, arch):
     """One float32 smoke-size step's loss and gradients on the card (K1's
     forward twice a layer under remat, the backward kernels once; hymba's
-    K4 twice a layer and its backward once) against the same step with the
-    plain versions under autograd on the card: max |a - b| / max |b| <=
-    1e-4 per leaf (float32, the kernels' sums in another order, as the CPU
-    parity tests)."""
+    K4 twice a layer and its backward once; xLSTM's sLSTM training forward
+    twice a pair and its backward once, no attention) against the same
+    step with the plain versions under autograd on the card: max |a - b| /
+    max |b| <= 1e-4 per leaf (float32, the kernels' sums in another order,
+    as the CPU parity tests)."""
     from repro_torch import steps as ST
     from repro_torch.data import synth_batch
     from repro_torch.launch.train import Trainer
@@ -1072,17 +1073,21 @@ def test_smoke_train_step_on_card_matches_plain_path(cuda, deterministic_restore
     batch = tr._device_batch(synth_batch(cfg, 2, 48, 1, 0))
     n0, L = _counts(), cfg.n_layers
     ssd = L if arch == "hymba-1.5b" else 0
-    step = (n0[0] + 2 * L, n0[1] + L, n0[2] + L, n0[3] + 2 * ssd, n0[4] + ssd)
+    attn = 0 if arch == "xlstm-350m" else L
+    pairs = L // 2 if arch == "xlstm-350m" else 0
+    step = (n0[0] + 2 * attn, n0[1] + attn, n0[2] + attn, n0[3] + 2 * ssd, n0[4] + ssd)
+    s0 = (SL.launches, SL.train_launches, SL.bwd_launches)
+    s1 = (s0[0], s0[1] + 2 * pairs, s0[2] + pairs)
     grads, total, _, _ = ST.loss_and_grads(tr.model, tr.params, batch)
-    assert _counts() == step
+    assert _counts() == step and (SL.launches, SL.train_launches, SL.bwd_launches) == s1
     want, want_total, _, _ = ST.loss_and_grads(Model(cfg, force="ref"), tr.params, batch)
-    assert _counts() == step
+    assert _counts() == step and (SL.launches, SL.train_launches, SL.bwd_launches) == s1
     assert abs(total.item() - want_total.item()) <= 1e-5 * abs(want_total.item())
     for a, b in zip(tree_leaves(grads), tree_leaves(want)):
         assert _rel(a, b) <= 1e-4
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "hymba-1.5b", "xlstm-350m"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_smoke_train_kill_and_recover_on_card_is_byte_identical(cuda, tmp_path, dtype,
                                                                 deterministic_restored, arch):
@@ -2530,6 +2535,114 @@ def test_slstm_scan_refuses_what_it_does_not_take(cuda):
         SL.slstm_scan(wx.transpose(0, 1).contiguous().transpose(0, 1), r, st0)
     with pytest.raises(ValueError, match="CUDA"):
         SL.slstm_scan(wx.cpu(), r.cpu(), tuple(t.cpu() for t in st0))
+
+
+# the backward against ref.slstm_scan_bwd, max |a - b| / max |b| per
+# gradient: the forward's tolerance (GLA_TOL), a reverse recurrence over up
+# to 1024 steps whose float32 sums run in another order, and in bf16 the
+# gates' gradients rounded to bf16 (5.8e-3 the largest read on the card)
+
+def _slstm_bwd_inputs(cuda, B, S, H, dh, dtype, warm, seed=2):
+    wx, r = _slstm_inputs(cuda, B, S + 8, H, dh, dtype, seed)
+    st0 = ref.slstm_state0(B, H, dh, cuda)
+    if warm:
+        st0 = ref.slstm_scan(wx[:, :8].contiguous(), r, st0)[1]
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    dhs = torch.randn(B, S, H, dh, generator=g, device=cuda).to(dtype)
+    return wx[:, 8:].contiguous(), r, st0, dhs
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,dh,warm", [(4, 1024, 4, 256, False), (2, 300, 4, 256, True),
+                                           (1, 64, 4, 256, False), (3, 37, 2, 64, True),
+                                           (9, 5, 1, 32, True)])
+def test_slstm_scan_bwd_matches_plain(cuda, B, S, H, dh, warm, dtype):
+    """The training forward's hs and final state equal the serving launch's
+    bit for bit and its saved gates and states hold to the plain ones; the
+    backward fed by them, and by the plain forward's, holds to
+    ``ref.slstm_scan_bwd`` (dwx, dR, and from a warm start the start
+    state's dc, dn, dm, dh); one launch each."""
+    x, r, st0, dhs = _slstm_bwd_inputs(cuda, B, S, H, dh, dtype, warm)
+    tol = GLA_TOL[dtype]
+    n0 = (SL.launches, SL.train_launches, SL.bwd_launches)
+    hs, fin = SL.slstm_scan(x, r, st0)
+    hs2, fin2, saved = SL.slstm_scan(x, r, st0, states=True)
+    assert _same_scan((hs, fin), (hs2, fin2))
+    hs_w, _, saved_w = ref.slstm_scan(x, r, st0, states=True)
+    assert saved[0].dtype == dtype and all(t.dtype == torch.float32 for t in saved[1:])
+    for a, b in zip(saved, saved_w):
+        assert _rel(a, b) <= tol
+    for h_, sv in ((hs2, saved), (hs_w, saved_w)):
+        got = SL.slstm_scan_bwd(r, st0, h_, sv, dhs, dstate=warm)
+        want = ref.slstm_scan_bwd(r, st0, h_, sv, dhs, dstate=warm)
+        assert got[0].dtype == dtype and got[1].dtype == dtype
+        assert _rel(got[0], want[0]) <= tol and _rel(got[1], want[1]) <= tol
+        if warm:
+            for a, b in zip(got[2], want[2]):
+                assert _rel(a, b) <= tol
+        else:
+            assert got[2] is None
+    assert (SL.launches, SL.train_launches, SL.bwd_launches) == \
+        (n0[0] + 1, n0[1] + 1, n0[2] + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_slstm_scan_bwd_bit_equalities(cuda, dtype):
+    """Two runs agree bit for bit, and each row at B = 4 is that row alone
+    at B = 1, the start state's gradient included."""
+    B, S, H, dh = 4, 129, 4, 256
+    x, r, st0, dhs = _slstm_bwd_inputs(cuda, B, S, H, dh, dtype, True, seed=3)
+    hs, _, saved = SL.slstm_scan(x, r, st0, states=True)
+    a = SL.slstm_scan_bwd(r, st0, hs, saved, dhs, dstate=True)
+    b = SL.slstm_scan_bwd(r, st0, hs, saved, dhs, dstate=True)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert all(torch.equal(u, v) for u, v in zip(a[2], b[2]))
+    for i in range(B):
+        sb = tuple(t[i:i + 1].contiguous() for t in st0)
+        hb, _, sv = SL.slstm_scan(x[i:i + 1].contiguous(), r, sb, states=True)
+        one = SL.slstm_scan_bwd(r, sb, hb, sv, dhs[i:i + 1].contiguous(), dstate=True)
+        assert torch.equal(one[0], a[0][i:i + 1])
+        assert all(torch.equal(u, v[i:i + 1]) for u, v in zip(one[2], a[2]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_slstm_scan_bwd_is_one_kernel_node(cuda, dtype):
+    x, r, st0, dhs = _slstm_bwd_inputs(cuda, 4, 64, 4, 256, dtype, False)
+    hs, _, saved = SL.slstm_scan(x, r, st0, states=True)
+    nodes = graph_kernels(lambda: SL._bwd(r, st0, hs, saved, dhs))
+    assert len(nodes) == 1 and SL.kernel(dtype, bwd=True) in nodes[0][0]
+    assert tuple(nodes[0][1]) == (SL.CLUSTER, 4, 1) and tuple(nodes[0][2]) == (256, 1, 1)
+    nodes = graph_kernels(lambda: SL.slstm_scan(x, r, st0, states=True))
+    assert len(nodes) == 1 and SL.kernel(dtype) in nodes[0][0]
+
+
+def test_ops_slstm_scan_trains_through_the_kernels(cuda):
+    """With a gradient asked for, ``ops.slstm_scan`` on the card runs the
+    training forward and, in the backward, the backward kernel: one launch
+    each and none of the serving forward; the gradients of wx and r equal
+    the plain route's autograd on the same inputs (float32, GLA_TOL)."""
+    x, r, st0, dhs = _slstm_bwd_inputs(cuda, 2, 40, 2, 64, torch.float32, False, seed=4)
+    leaves = [t.clone().requires_grad_(True) for t in (x, r)]
+    n0 = (SL.launches, SL.train_launches, SL.bwd_launches)
+    hs, fin = ops.slstm_scan(*leaves, st0)
+    assert not any(t.requires_grad for t in fin)
+    got = torch.autograd.grad(hs, leaves, dhs)
+    assert (SL.launches, SL.train_launches, SL.bwd_launches) == (n0[0], n0[1] + 1, n0[2] + 1)
+    plain = [t.clone().requires_grad_(True) for t in (x, r)]
+    want = torch.autograd.grad(ops.slstm_scan(*plain, st0, force="ref")[0], plain, dhs)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= GLA_TOL[torch.float32]
+
+
+def test_slstm_scan_bwd_refuses_what_it_does_not_take(cuda):
+    x, r, st0, dhs = _slstm_bwd_inputs(cuda, 2, 6, 2, 64, torch.float32, False)
+    hs, _, saved = SL.slstm_scan(x, r, st0, states=True)
+    with pytest.raises(ValueError, match="dhs"):
+        SL.slstm_scan_bwd(r, st0, hs, saved, dhs.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        SL.slstm_scan_bwd(r, st0, hs, saved, dhs.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="c "):
+        SL.slstm_scan_bwd(r, st0, hs, (saved[0], saved[1][:, :3], *saved[2:]), dhs)
 
 
 def test_xlstm_server_on_card_matches_cpu(cuda):

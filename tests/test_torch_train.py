@@ -1,11 +1,13 @@
 """The port's training path against the JAX package's, on the CPU at the
-granite and hymba smoke configs (float32): the key stream's fold_in, the
+granite, hymba and xlstm-350m smoke configs (float32): the key stream's fold_in, the
 loss, the train-mode logits, the attention backward's plain version against
 ``jax.vjp`` of the reference's ``chunked_attention``, one step's gradients
 against ``jax.grad``, and ten steps of the port's ``Trainer`` against the
 JAX ``Trainer`` from the same params and batches. hymba runs at S = 48, a
 length its smoke window of 32 bites, in 6 chunks of 8 (its SSD heads'
-gradient is the GLA backward's plain route, tests/test_torch_gla_bwd.py).
+gradient is the GLA backward's plain route, tests/test_torch_gla_bwd.py);
+xLSTM's ten steps and its sLSTM backward are in
+tests/test_torch_xlstm_train.py.
 
 Tolerances (max |a - b| / max |b|): the loss and the logits 1e-5, the
 attention backward 1e-5 (float32, another summation order); one step's
@@ -42,7 +44,7 @@ torch.set_num_threads(1)
 ARCH = "granite-3-2b"
 B, S, STEPS = 2, 32, 10
 #: the trained archs and their sequence lengths
-ARCHS = {"granite-3-2b": 32, "hymba-1.5b": 48}
+ARCHS = {"granite-3-2b": 32, "hymba-1.5b": 48, "xlstm-350m": 32}
 
 
 def _rel(a, b):
@@ -374,9 +376,9 @@ def test_ten_hymba_steps_in_float64_match_the_jax_trainer_under_x64(jax_hymba_st
 
 
 def test_trainer_refuses_what_it_cannot_train():
-    # a block the port serves but does not train yet (xLSTM's)
-    with pytest.raises(NotImplementedError, match="does not train yet"):
-        Trainer(replace(smoke_config(ARCH), block="xlstm"), device="cpu")
+    # a frontend the port does not have yet (musicgen's codebooks)
+    with pytest.raises(NotImplementedError, match="ported so far"):
+        Trainer(replace(smoke_config(ARCH), n_codebooks=4), device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         Trainer(smoke_config(ARCH), device="cpu", mesh=object())
     # hymba trains since its SSD heads have a GLA backward

@@ -1,12 +1,14 @@
 """The port's trainer under the checkpoint-restart plane, on the CPU.
 
-* Checkpoints move between the packages both ways, granite and hymba: a
+* Checkpoints move between the packages both ways, granite, hymba and
+  xlstm-350m: a
   JAX ``Trainer`` checkpoint resumed by the port's ``Trainer``, and the
   port's resumed by the JAX one (the module's one JAX trainer per arch),
   each continuing with the other's losses (max |a - b| / max |b| <= 1e-4:
   float32, as tests/test_torch_train.py) and the same key stream and data
   cursor.
-* The torch chaos gate, granite and hymba: the port's kill-rank failover
+* The torch chaos gate, granite, hymba and xlstm-350m: the port's
+  kill-rank failover
   (under another MPI flavor and world size), and supervised ``kill_rank``
   served from RAM and from disk, ``preempt_notice`` on the rescale rung and
   ``restore_error``: each run's params and optimizer state equal a
@@ -27,7 +29,7 @@ import jax  # noqa: E402
 
 from repro.configs import smoke_config as jax_smoke_config  # noqa: E402
 from repro.launch.train import Trainer as JaxTrainer  # noqa: E402
-from repro_torch.configs import CkptIOConfig, SSMConfig, smoke_config  # noqa: E402
+from repro_torch.configs import CkptIOConfig, SSMConfig, XLSTMConfig, smoke_config  # noqa: E402
 from repro_torch.core import faults  # noqa: E402
 from repro_torch.core.ckpt_tiers import ReplicaTier  # noqa: E402
 from repro_torch.core.faults import FaultInjector, FaultPlan, FaultSpec  # noqa: E402
@@ -43,7 +45,7 @@ B, S = 2, 32
 STEPS, EVERY = 9, 3
 #: the trained archs and their sequence lengths (hymba's at a length its
 #: smoke window of 32 bites)
-ARCHS = {"granite-3-2b": 32, "hymba-1.5b": 48}
+ARCHS = {"granite-3-2b": 32, "hymba-1.5b": 48, "xlstm-350m": 32}
 
 
 @pytest.fixture(autouse=True)
@@ -163,6 +165,8 @@ def _tiny_cfg(arch=ARCH):
     if arch == "hymba-1.5b":   # a window layer and a global one; SSD heads of 16
         cfg = replace(cfg, n_layers=2, global_layers=(1,),
                       ssm=SSMConfig(d_state=8, d_conv=4, n_ssm_heads=2, head_dim=16, chunk=8))
+    if arch == "xlstm-350m":   # one mLSTM + sLSTM pair; sLSTM heads of 16
+        cfg = replace(cfg, n_layers=2, xlstm=XLSTMConfig(n_heads=2, chunk=8))
     return cfg
 
 
@@ -320,6 +324,17 @@ def test_cli_hymba_kill_rank_restarts_under_another_flavor(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "!! recovered from step_00000004 at step 4 (world=2, backend=exampi)" in out
     assert "done: loss " in out and tr.step == 12 and tr.cfg.block == "hymba"
+
+
+def test_cli_xlstm_kill_rank_restarts_under_another_flavor(tmp_path, capsys):
+    """xlstm-350m at smoke size through the CLI: a rank dies at step 6 and
+    the job restarts from step 4 under exampi and finishes."""
+    tr = train_cli.main(CLI + ["--arch", "xlstm-350m", "--kill-rank-at", "6",
+                               "--restart-backend", "exampi",
+                               "--ckpt-dir", str(tmp_path / "ck")])
+    out = capsys.readouterr().out
+    assert "!! recovered from step_00000004 at step 4 (world=2, backend=exampi)" in out
+    assert "done: loss " in out and tr.step == 12 and tr.cfg.block == "xlstm"
 
 
 def test_cli_resume_under_another_flavor_continues_the_losses(tmp_path, capsys):

@@ -123,10 +123,15 @@ def test_full_width_plan_and_cache_geometry():
 
 
 def test_trainer_and_unported_modes_refuse_xlstm():
-    with pytest.raises(NotImplementedError, match="does not train yet"):
-        T.check_trainable(CFG)
-    with pytest.raises(NotImplementedError, match="does not train yet"):
-        X.slstm_apply(CFG, {}, torch.zeros(1, 4, CFG.d_model), mode="train", cache=None)
+    """What the port still refuses: a multi-codebook frontend (musicgen's)
+    in ``check_trainable``, a mode outside train/prefill/decode in both
+    xLSTM blocks, an odd number of layers (no whole mLSTM + sLSTM pairs)."""
+    T.check_trainable(CFG)
+    with pytest.raises(NotImplementedError, match="ported so far"):
+        T.check_trainable(dataclasses.replace(CFG, n_codebooks=4))
+    for apply in (X.mlstm_apply, X.slstm_apply):
+        with pytest.raises(NotImplementedError, match="mode 'paged_decode'"):
+            apply(CFG, {}, torch.zeros(1, 4, CFG.d_model), mode="paged_decode", cache=None)
     with pytest.raises(NotImplementedError):
         T.plan_segments(dataclasses.replace(CFG, n_layers=3))
 
