@@ -159,9 +159,9 @@ not 0:
      XLSTM_F32_FLEET_LAYERS layers against the float32 Server's; a
      profiled tick's idle share);
   train_xlstm: the train phase for full-width, full-depth xlstm-350m (4 x
-     1024, as granite's): every sLSTM layer runs the scan's training forward
-     twice a step under remat and its backward kernel once (24 + 12
-     launches a step, none of the serving forward), the mLSTM in plain
+     1024, as granite's): every sLSTM layer runs the scan's serving kernel
+     in the checkpoint's first pass, its training forward in the recompute
+     and its backward kernel once (12 + 12 + 12 launches a step), the mLSTM in plain
      torch under autograd; step 1 held as train_hymba's, to a float64 copy
      on the plain path, at XLSTM_HOLD_LAYERS layers (the plain path steps
      every position of every sLSTM layer from Python); its ``mfu`` counts
@@ -1129,7 +1129,7 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
     L, hd = cfg.n_layers, cfg.resolved_head_dim
 
     def counts():
-        if xlstm:   # no attention; the serving forward (slstm_scan) must not run
+        if xlstm:   # no attention
             return {"slstm_scan": SL.launches, "slstm_scan_train": SL.train_launches,
                     "slstm_scan_bwd": SL.bwd_launches}
         c = {"flash_attention": FA.launches, "flash_attention_bwd_dq": FA.bwd_dq_launches,
@@ -1146,9 +1146,10 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
     def expect(label, got, n_steps, n_layers=L, k4b=GC.BWD_LAUNCHES):
         # remat runs each layer's forward twice a step, the backward once;
         # a K4b call launches ``k4b`` kernels (four in bf16, one in float32);
-        # xLSTM's sLSTM layers are one a pair
+        # xLSTM's sLSTM layers are one a pair, their checkpoint's first pass
+        # on the serving kernel and the recompute on the training forward
         per = {"flash_attention": 2, "gla_chunk": 2, "gla_chunk_bwd": k4b,
-               "slstm_scan": 0, "slstm_scan_train": 2}
+               "slstm_scan": 1, "slstm_scan_train": 1}
         n_layers = n_layers // 2 if xlstm else n_layers
         want = {k: per.get(k, 1) * n_layers * n_steps for k in got}
         if got != want:
@@ -1403,10 +1404,20 @@ def train_phase(card, dev, arch="granite-3-2b", n_layers=None, cr=True):
                "calls of four launches: " + ", ".join(f"{n} {t:.2f}" for n, t in g4b.items())
                + " ms)") if hymba else ""
         if xlstm:
-            sl_f, sl_b = dev_ms("slstm_mma_kernel"), dev_ms("slstm_bwd_mma_kernel")
-            gla = (f"; sLSTM training forward {sl_f:.2f} ms ({sl_f / prof_ms:.1%}, {L} "
-                   f"launches), backward {sl_b:.2f} ms ({sl_b / prof_ms:.1%}, {L // 2} "
-                   f"launches), together {(sl_f + sl_b) / prof_ms:.1%} of the step")
+            # slstm_mma_kernel<256, STATES>: the serving launch (the first
+            # pass) is STATES false, the training forward true (demangled
+            # or mangled names)
+            def sl_ms(states):
+                tag_ = (", true>", "Lb1E") if states else (", false>", "Lb0E")
+                return sum(e.self_device_time_total for e in kern if "slstm_mma_kernel" in e.key
+                           and any(t in e.key for t in tag_)) / 1e3
+            sl_s, sl_f, sl_b = sl_ms(False), sl_ms(True), dev_ms("slstm_bwd_mma_kernel")
+            sl_all = sl_s + sl_f + sl_b
+            gla = (f"; sLSTM serving forward (the checkpoint's first pass) {sl_s:.2f} ms "
+                   f"({sl_s / prof_ms:.1%}, {L // 2} launches), training forward {sl_f:.2f} ms "
+                   f"({sl_f / prof_ms:.1%}, {L // 2} launches), backward {sl_b:.2f} ms "
+                   f"({sl_b / prof_ms:.1%}, {L // 2} launches), together {sl_all:.2f} ms, "
+                   f"{sl_all / prof_ms:.1%} of the step")
         gla += f"; {sum(e.count for e in kern)} device kernels in the step"
         k1 = "" if xlstm else (
             f"; K1 forward {fwd:.2f} ms ({fwd / prof_ms:.1%} of the step, {2 * L} launches), "
@@ -2401,11 +2412,13 @@ def slstm_bwd_rows(card, dev):
         bound, by = bound_ms(flops, nbytes)
         out[key] = {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                     "latency_floor_ms": floor, "max_abs_err": errs[("bfloat16", B, S)]}
-        extra = (f" (the serving launch {t_serve * 1e3:.1f} us)" if key == "slt" else
-                 f" (with its dR product {t_bwd_dr * 1e3:.1f} us)")
-        print(f"[kernels] slstm_scan {what} {label}: {ms * 1e3:.1f} us{extra}, plain "
-              f"{plain * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}; {nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP), latency floor {floor * 1e3:.1f} us ({S + 1} cluster "
+        extra = (f" (the serving launch {t_serve * 1e3:.1f} us, {t_serve * 1e3 / S:.3f} a step)"
+                 if key == "slt" else f" (with its dR product {t_bwd_dr * 1e3:.1f} us, "
+                 f"{t_bwd_dr * 1e3 / S:.3f} a step)")
+        print(f"[kernels] slstm_scan {what} {label}: {ms * 1e3:.1f} us, {ms * 1e3 / S:.3f} us a "
+              f"step{extra}, plain {plain * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}; "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), latency floor "
+              f"{floor * 1e3:.1f} us, {floor * 1e3 / (S + 1):.3f} a step ({S + 1} cluster "
               f"barriers on the kernel's grid); no PyTorch call computes the sLSTM recurrence "
               f"or its gradient; {card}", flush=True)
     out["slb"]["dr_ms"] = t_bwd_dr

@@ -180,28 +180,18 @@ __device__ __forceinline__ void st_async_v2(uint32_t addr, uint32_t v0, uint32_t
 // cell took them (i, f, z, o raw); cp, np_, mp: the state before it; c, n,
 // m: after it; dh: h's gradient at the position. dc and dn carry the
 // gradients of c and n after the position in, and before it out; dg gets
-// the gates' gradients. FAST as cell_step's (the bf16 kernel).
-template <bool FAST>
+// the gates' gradients. The float32 kernel's form, with the accurate
+// library functions.
 __device__ __forceinline__ void cell_bwd(const float (&gate)[4], float cp, float np_, float mp,
-                                         float c, float n, float m, float dh, float& dc, float& dn,
-                                         float (&dg)[4]) {
-  float fs, is, z, o, sf;  // sf = sigmoid(-f_raw) = d log_sigmoid(f_raw) / d f_raw
-  if constexpr (FAST) {
-    const float lf = fminf(gate[1], 0.f) - __logf(1.f + __expf(-fabsf(gate[1])));
-    fs = __expf(lf + mp - m);
-    is = __expf(gate[0] - m);
-    z = 1.f - __fdividef(2.f, 1.f + __expf(2.f * gate[2]));
-    o = __fdividef(1.f, 1.f + __expf(-gate[3]));
-    sf = __fdividef(1.f, 1.f + __expf(gate[1]));
-  } else {
-    fs = expf(log_sigmoid(gate[1]) + mp - m);
-    is = expf(gate[0] - m);
-    z = tanhf(gate[2]);
-    o = 1.f / (1.f + expf(-gate[3]));
-    sf = 1.f / (1.f + expf(gate[1]));
-  }
+                                         float c, float n, float m, float dh, float& dc,
+                                         float& dn, float (&dg)[4]) {
+  const float fs = expf(log_sigmoid(gate[1]) + mp - m);
+  const float is = expf(gate[0] - m);
+  const float z = tanhf(gate[2]);
+  const float o = 1.f / (1.f + expf(-gate[3]));
+  const float sf = 1.f / (1.f + expf(gate[1]));  // sigmoid(-f_raw) = d log_sigmoid / d f_raw
   const float nn = fmaxf(n, 1e-6f);
-  const float rn = FAST ? __fdividef(1.f, nn) : 1.f / nn;
+  const float rn = 1.f / nn;
   const float hc = c * rn;  // c / n
   dg[3] = dh * hc * o * (1.f - o);
   dc += dh * o * rn;
@@ -211,6 +201,58 @@ __device__ __forceinline__ void cell_bwd(const float (&gate)[4], float cp, float
   dg[1] = (dc * cp + dn * np_) * fs * sf;
   dc *= fs;
   dn *= fs;
+}
+
+// cell_bwd split in two for the bf16 kernel, whose chain then holds only
+// what needs dh: the position's backward is linear in (dh, dc, dn), and
+// its coefficients depend on the saved gates and states alone.
+// cell_bwd_coef computes them (on the SFU's approximations, as cell_step's
+// FAST path), off the chain; cell_bwd_apply is the map itself, a few FMAs.
+struct BwdCoef {
+  float o_dh;  // d o_raw / dh = (c / n) o (1 - o)
+  float c_dh;  // dc += dh o / n
+  float n_dh;  // dn -= dh o c / n^2 (0 where n <= 1e-6: the clamp passes no gradient)
+  float z_dc;  // d z_raw = dc is (1 - z^2)
+  float i_dc;  // d i_raw = dc z is + dn is
+  float i_dn;
+  float f_dc;  // d f_raw = dc c_prev fs sigmoid(-f_raw) + dn n_prev fs sigmoid(-f_raw)
+  float f_dn;
+  float fs;    // dc and dn carry to the position before times fs
+};
+
+__device__ __forceinline__ BwdCoef cell_bwd_coef(const float (&gate)[4], float cp, float np_,
+                                                 float mp, float c, float n, float m) {
+  const float lf = fminf(gate[1], 0.f) - __logf(1.f + __expf(-fabsf(gate[1])));
+  const float fs = __expf(lf + mp - m);
+  const float is = __expf(gate[0] - m);
+  const float z = 1.f - __fdividef(2.f, 1.f + __expf(2.f * gate[2]));
+  const float o = __fdividef(1.f, 1.f + __expf(-gate[3]));
+  const float fsf = __fdividef(fs, 1.f + __expf(gate[1]));  // fs sigmoid(-f_raw)
+  const float rn = __fdividef(1.f, fmaxf(n, 1e-6f));
+  const float hc = c * rn;
+  BwdCoef k;
+  k.o_dh = hc * o * (1.f - o);
+  k.c_dh = o * rn;
+  k.n_dh = n > 1e-6f ? o * hc * rn : 0.f;
+  k.z_dc = is * (1.f - z * z);
+  k.i_dc = z * is;
+  k.i_dn = is;
+  k.f_dc = cp * fsf;
+  k.f_dn = np_ * fsf;
+  k.fs = fs;
+  return k;
+}
+
+__device__ __forceinline__ void cell_bwd_apply(const BwdCoef& k, float dh, float& dc, float& dn,
+                                               float (&dg)[4]) {
+  const float c_ = fmaf(dh, k.c_dh, dc);
+  const float n_ = fmaf(-dh, k.n_dh, dn);
+  dg[0] = fmaf(c_, k.i_dc, n_ * k.i_dn);
+  dg[1] = fmaf(c_, k.f_dc, n_ * k.f_dn);
+  dg[2] = c_ * k.z_dc;
+  dg[3] = dh * k.o_dh;
+  dc = c_ * k.fs;
+  dn = n_ * k.fs;
 }
 
 }  // namespace slstm

@@ -75,16 +75,29 @@
 // kind).
 //
 // The training forward (STATES, repro_slstm_scan_states) runs the same
-// code and also writes each position's gates, as the cell took them, and
-// its c, n, m: what the backward (slstm_scan_bwd.cu) reads. The stores are
-// off the chain (no fence waits for them); hs and the final state keep
-// the serving launch's bits.
+// code and also saves each position's gates, as the cell took them, and
+// its c, n, m: what the backward (slstm_scan_bwd.cu) reads. hs and the
+// final state keep the serving launch's bits. Nothing is stored ahead of
+// the step's st.async to the peers (0.21 us a step when the saves went
+// first, tools/slstm_breakdown.py --states). Seven scattered stores a cell
+// a step after it still cost 0.10 us a step (the cells' 8-byte pieces of
+// four rows, an LSU transaction each), so where a block's slice of a gate
+// row is a multiple of 16 bytes (dh 64, 128, 192, 256) the cells write
+// them into shared memory instead, in chunks of KCH positions laid out as
+// TMA boxes, double-buffered; one more warp, the store warp, writes each
+// full chunk out by four TMA stores (gates, c, n, m, each a box of the
+// block's units, KCH positions and the group's rows) and hands the buffer
+// back once they have read it (an mbarrier each way, the cells' writes
+// ordered before the TMA's reads by fence.proxy.async). No fence on the
+// chain waits for them; they are all done before the block leaves.
 //
 // Diagnostic macros (tools/slstm_breakdown.py; the bf16 kernel's results
 // are wrong under any of them, they only time what is left): SLSTM_NO_MMA
 // (no product), SLSTM_NO_CELL (h is a gate's sum, no exponentials),
 // SLSTM_NO_HS (hs not written), SLSTM_LOCAL (each block's h pairs sent to
-// itself eight times, the bytes its mbarrier counts: no DSMEM traffic).
+// itself eight times, the bytes its mbarrier counts: no DSMEM traffic);
+// SLSTM_NO_SAVES (the training forward saves nothing: no stores, and staged
+// its chunks go out unwritten).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -92,33 +105,79 @@
 
 #include <stdint.h>
 
+#include "hopper.cuh"  // the host's tensor-map encoder, bulk-group waits
 #include "slstm.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace slstm {
 
+constexpr int KCH = 8;  // positions a staged chunk of the training forward's saves
+
+// the training forward's saves go through shared memory and TMA stores
+// where a block's slice of a gate row is a multiple of 16 bytes (dh 64,
+// 128, 192, 256); elsewhere each cell stores its own
+template <int DH, bool STATES>
+__host__ __device__ constexpr bool staged() {
+  return STATES && (DH / CLUSTER) % 8 == 0;
+}
+
+// one staged chunk: gates [ROWS][KCH][4][DH / 8] bf16, then c, n and m
+// each [ROWS][KCH][DH / 8] float32 (the TMA boxes' layouts)
 template <int DH>
-constexpr size_t mma_smem_bytes() {
-  // R's slice [DH][4 gates][DH / 8] bf16, then h [2][ROWS][DH + 8] bf16,
-  // then an mbarrier per h buffer
-  return (size_t)DH * DH + (size_t)2 * ROWS * (DH + 8) * 2 + 2 * sizeof(uint64_t);
+__host__ __device__ constexpr size_t stage_bytes() {
+  return (size_t)ROWS * KCH * (DH / CLUSTER) * (4 * 2 + 3 * 4);
 }
 
 template <int DH, bool STATES>
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DH)
+__host__ __device__ constexpr size_t mma_smem_bytes() {
+  // R's slice [DH][4 gates][DH / 8] bf16, then h [2][ROWS][DH + 8] bf16,
+  // then an mbarrier per h buffer; staged, from the next 128 bytes two
+  // chunks' saves, then the chunks' full and empty mbarriers
+  const size_t base = (size_t)DH * DH + (size_t)2 * ROWS * (DH + 8) * 2 + 2 * sizeof(uint64_t);
+  if constexpr (!staged<DH, STATES>()) return base;
+  return (base + 127) / 128 * 128 + 2 * stage_bytes<DH>() + 4 * sizeof(uint64_t);
+}
+
+// the training forward's saves as 4-D tensor maps: gates [B][S][4 H][dh]
+// and c, n, m [B][S][H][dh], boxes of a block's dh / 8 units, (4 gates,) KCH
+// positions and ROWS rows (positions and rows past the tensors are not
+// written)
+struct SaveMaps {
+  CUtensorMap g, c, n, m;
+};
+
+// one TMA box from shared memory to a 4-D tensor map at (c0, c1, c2, c3),
+// in this thread's bulk group
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(src))
+      : "memory");
+}
+
+template <int DH, bool STATES>
+__global__ void __cluster_dims__(CLUSTER, 1, 1)
+    __launch_bounds__(DH + (staged<DH, STATES>() ? 32 : 0))
     slstm_mma_kernel(const __nv_bfloat16* __restrict__ wx, const __nv_bfloat16* __restrict__ r,
                      const float* __restrict__ c0, const float* __restrict__ n0,
                      const float* __restrict__ m0, const float* __restrict__ h0,
                      __nv_bfloat16* __restrict__ hs, float* __restrict__ c1,
                      float* __restrict__ n1, float* __restrict__ m1, float* __restrict__ h1,
                      __nv_bfloat16* __restrict__ gs, float* __restrict__ cs,
-                     float* __restrict__ ns, float* __restrict__ ms, int B, int S, int H) {
+                     float* __restrict__ ns, float* __restrict__ ms,
+                     const __grid_constant__ SaveMaps maps, int B, int S, int H) {
   constexpr int UPB = DH / CLUSTER;  // units a block; 4 a warp, so DH / 32 warps
   constexpr int KSTEPS = DH / 16;
   constexpr int CHAINS = 4;          // independent accumulators a tile (k step mod 4)
   constexpr int HSTR = DH + 8;       // an h row in the buffer, 16 bytes of pad
-  constexpr int CHE = UPB >= 8 ? 8 : UPB;  // bf16 elements a staging copy
+  // bf16 elements a staging copy: 16 bytes, or 8 where UPB is not a
+  // multiple of 8 (dh 96, 160, 224), so that every copy stays aligned
+  constexpr int CHE = UPB % 8 == 0 ? 8 : 4;
+  constexpr bool STAGE = staged<DH, STATES>();
+  constexpr int NW = DH / 32;  // the warps with cells; staged, warp NW stores the chunks
   static_assert(DH % 32 == 0 && DH <= MAX_DH, "dh: a multiple of 32 up to 256");
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -133,6 +192,14 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DH)
   __nv_bfloat16* rs = reinterpret_cast<__nv_bfloat16*>(smem);           // [DH][4][UPB]
   __nv_bfloat16* hb = rs + DH * 4 * UPB;                                 // [2][ROWS][HSTR]
   uint64_t* bar = reinterpret_cast<uint64_t*>(hb + 2 * ROWS * HSTR);    // [2]
+  // staged: chunk buffer b's gates, c, n, m at stage + b * stage_bytes, and
+  // its mbarriers full[b] (every cell warp's thread has written it) and
+  // empty[b] (its TMA stores have read it)
+  unsigned char* stage =
+      smem + (STAGE ? mma_smem_bytes<DH, STATES>() - 2 * stage_bytes<DH>() - 4 * sizeof(uint64_t)
+                    : 0);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage + 2 * stage_bytes<DH>());
+  uint64_t* empty = full + 2;
 
   // R's columns of this block's units by the copy engine, 8 or 16 bytes a
   // copy, all in flight: rs[k][gate][u] = R[head][k][gate DH + u0 + u]
@@ -148,6 +215,12 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DH)
   if (threadIdx.x == 0) {
     mbar_init(&bar[0], 1);
     mbar_init(&bar[1], 1);
+    if constexpr (STAGE) {
+      for (int b = 0; b < 2; ++b) {
+        mbar_init(&full[b], DH);
+        mbar_init(&empty[b], 1);
+      }
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -182,7 +255,9 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DH)
   // sends as one bf16 pair
   const int jt = q & 1;
   const int unit = 4 * warp + 2 * jt + (q >> 1);
-  const bool cell = g < rows;
+  // (staged, the store warp holds none; the test stays out of the serving
+  // kernel, whose step it slows by 0.06 us)
+  const bool cell = g < rows && (!STAGE || warp < NW);
   const int crow = row0 + (cell ? g : 0);
   const size_t sidx = ((size_t)crow * H + head) * DH + u0 + unit;
   float c = 0.f, n = 0.f, m = 0.f, h = 0.f;
@@ -214,14 +289,43 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DH)
     if (S > 1) mbar_expect_tx(&bar[0], step_bytes);  // h_1
   }
 
-  float wn[4] = {0.f, 0.f, 0.f, 0.f};  // the next step's input gates
-  if (cell) {
+  // the next step's input gates, as loaded: converted only when the step
+  // uses them (converting them where they load would wait there for device
+  // memory)
+  __nv_bfloat16 wn[4];
 #pragma unroll
-    for (int gt = 0; gt < 4; ++gt) wn[gt] = __bfloat162float(wx_row[gt * DH]);
-  }
+  for (int gt = 0; gt < 4; ++gt) wn[gt] = cell ? wx_row[gt * DH] : __float2bfloat16_rn(0.f);
   // every block has started, staged h_{-1} and set its mbarriers up before
   // any block sends
   cluster.sync();
+
+  if constexpr (STAGE) {
+    if (warp == NW) {
+      // the store warp: each chunk, once every cell warp's thread has
+      // written it, goes out by four TMA stores, and its buffer is handed
+      // back once they have read it; all are done before the block leaves
+      const int nch = (S + KCH - 1) / KCH;
+      for (int ch = 0; ch < nch; ++ch) {
+        const int b = ch & 1;
+        unsigned char* sb = stage + b * stage_bytes<DH>();
+        constexpr size_t GB = (size_t)ROWS * KCH * 4 * UPB * 2, SB = (size_t)ROWS * KCH * UPB * 4;
+        mbar_wait(&full[b], (ch >> 1) & 1);
+        if (lane == 0) {
+          tma_store_4d(&maps.g, sb, u0, 4 * head, ch * KCH, row0);
+          tma_store_4d(&maps.c, sb + GB, u0, head, ch * KCH, row0);
+          tma_store_4d(&maps.n, sb + GB + SB, u0, head, ch * KCH, row0);
+          tma_store_4d(&maps.m, sb + GB + 2 * SB, u0, head, ch * KCH, row0);
+          bulk_commit();
+          bulk_wait_read<0>();
+          mbar_arrive(&empty[b]);
+        }
+        __syncwarp();
+      }
+      if (lane == 0) bulk_wait<0>();
+      cluster.sync();
+      return;
+    }
+  }
 
   for (int t = 0; t < S; ++t) {
     const int cur = t & 1;
@@ -233,11 +337,11 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DH)
     }
     float wg[4];
 #pragma unroll
-    for (int gt = 0; gt < 4; ++gt) wg[gt] = wn[gt];
+    for (int gt = 0; gt < 4; ++gt) wg[gt] = __bfloat162float(wn[gt]);
     if (cell && t + 1 < S) {
       const __nv_bfloat16* w = wx_row + (size_t)(t + 1) * 4 * H * DH;
 #pragma unroll
-      for (int gt = 0; gt < 4; ++gt) wn[gt] = __bfloat162float(w[gt * DH]);
+      for (int gt = 0; gt < 4; ++gt) wn[gt] = w[gt * DH];
     }
     const __nv_bfloat16* hrow = hb + cur * ROWS * HSTR + g * HSTR;
     float acc[2][CHAINS][4] = {};
@@ -263,11 +367,11 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DH)
       }
     }
     uint32_t hbits = 0;
+    float gate[4];
     if (cell) {
       const float o0 = jt ? s[1][0] : s[0][0], o1 = jt ? s[1][1] : s[0][1];
       const float p0 = jt ? y[1][0] : y[0][0], p1 = jt ? y[1][1] : y[0][1];
       const float sum[4] = {jt ? p0 : o0, jt ? p1 : o1, jt ? o0 : p0, jt ? o1 : p1};
-      float gate[4];
 #ifndef SLSTM_NO_CELL
       h = cell_step<__nv_bfloat16, true>(wg, sum, c, n, m, gate);
 #else
@@ -275,19 +379,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DH)
 #pragma unroll
       for (int gt = 0; gt < 4; ++gt) gate[gt] = wg[gt];
 #endif
-      if constexpr (STATES) {
-#pragma unroll
-        for (int gt = 0; gt < 4; ++gt)
-          gs[xoff + (size_t)t * 4 * H * DH + gt * DH] = __float2bfloat16_rn(gate[gt]);
-        cs[soff + (size_t)t * H * DH] = c;
-        ns[soff + (size_t)t * H * DH] = n;
-        ms[soff + (size_t)t * H * DH] = m;
-      }
-      const __nv_bfloat16 ht = __float2bfloat16_rn(h);
-#ifndef SLSTM_NO_HS
-      hs_row[(size_t)t * H * DH] = ht;
-#endif
-      hbits = __bfloat16_as_ushort(ht);
+      hbits = __bfloat16_as_ushort(__float2bfloat16_rn(h));
     }
     // lane q < 2 packs lane q + 2's h (the next unit) above its own
     const uint32_t up = __shfl_down_sync(0xffffffffu, hbits, 2);
@@ -301,6 +393,49 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(DH)
 #else
       for (int p = 0; p < CLUSTER; ++p) st_async(peer_h[rank] + off, v, peer_bar[rank] + 8 * nxt);
 #endif
+    }
+    // hs and the training forward's saves after the exchange: nothing on
+    // the memory path ahead of the st.async (each asm volatile keeps the
+    // order it is written in)
+    if (cell) {
+#ifndef SLSTM_NO_HS
+      hs_row[(size_t)t * H * DH] = __ushort_as_bfloat16((unsigned short)hbits);
+#endif
+#ifndef SLSTM_NO_SAVES
+      if constexpr (STATES && !STAGE) {
+#pragma unroll
+        for (int gt = 0; gt < 4; ++gt)
+          gs[xoff + (size_t)t * 4 * H * DH + gt * DH] = __float2bfloat16_rn(gate[gt]);
+        cs[soff + (size_t)t * H * DH] = c;
+        ns[soff + (size_t)t * H * DH] = n;
+        ms[soff + (size_t)t * H * DH] = m;
+      }
+#endif
+    }
+    if constexpr (STAGE) {
+      // into chunk t / KCH's buffer at slot t % KCH, once the TMA stores
+      // of the chunk two before have read it; the chunk's last position
+      // hands it to the store warp
+      const int ch = t / KCH, slot = t % KCH, b = ch & 1;
+      if (slot == 0 && ch >= 2) mbar_wait(&empty[b], ((ch - 2) >> 1) & 1);
+#ifndef SLSTM_NO_SAVES
+      if (cell) {
+        unsigned char* sb = stage + b * stage_bytes<DH>();
+        __nv_bfloat16* sg = reinterpret_cast<__nv_bfloat16*>(sb) + (g * KCH + slot) * 4 * UPB + unit;
+        float* sc = reinterpret_cast<float*>(sb + (size_t)ROWS * KCH * 4 * UPB * 2) +
+                    (g * KCH + slot) * UPB + unit;
+#pragma unroll
+        for (int gt = 0; gt < 4; ++gt) sg[gt * UPB] = __float2bfloat16_rn(gate[gt]);
+        sc[0] = c;
+        sc[ROWS * KCH * UPB] = n;
+        sc[2 * ROWS * KCH * UPB] = m;
+      }
+#endif
+      if (slot == KCH - 1 || t == S - 1) {
+        // the generic proxy's writes ordered before the TMA's reads
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(&full[b]);
+      }
     }
   }
   // h_{S-1} from every block has landed here before this block exits (no
@@ -477,17 +612,43 @@ struct Args {
   float *cs, *ns, *ms;
 };
 
+// a 4-D tensor map over one save (SaveMaps): inner dims dh, then `lanes`
+// (4 H gate rows or H heads), S positions and B rows; `esize`-byte elements
+int encode_save(CUtensorMap* map, CUtensorMapDataType type, int esize, void* base, int dh,
+                int lanes, int S, int B, int box_lanes) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)lanes, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * esize, (cuuint64_t)lanes * dh * esize,
+                                 (cuuint64_t)S * lanes * dh * esize};
+  const cuuint32_t box[4] = {(cuuint32_t)(dh / CLUSTER), (cuuint32_t)box_lanes, KCH, ROWS};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, type, 4, base, dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 template <int DH, bool STATES>
 int launch_mma(const Args& a, int B, int S, int H, cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes<DH>();
+  constexpr bool STAGE = staged<DH, STATES>();
+  SaveMaps maps{};  // unused unless staged
+  if constexpr (STAGE) {
+    int rc = encode_save(&maps.g, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.gs, DH, 4 * H, S, B, 4);
+    if (!rc) rc = encode_save(&maps.c, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.cs, DH, H, S, B, 1);
+    if (!rc) rc = encode_save(&maps.n, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.ns, DH, H, S, B, 1);
+    if (!rc) rc = encode_save(&maps.m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.ms, DH, H, S, B, 1);
+    if (rc) return rc;
+  }
+  const size_t smem = mma_smem_bytes<DH, STATES>();
   cudaError_t err = cudaFuncSetAttribute(slstm_mma_kernel<DH, STATES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(CLUSTER, H, (B + ROWS - 1) / ROWS);
-  slstm_mma_kernel<DH, STATES><<<grid, DH, smem, stream>>>(
+  slstm_mma_kernel<DH, STATES><<<grid, DH + (STAGE ? 32 : 0), smem, stream>>>(
       static_cast<const __nv_bfloat16*>(a.wx), static_cast<const __nv_bfloat16*>(a.r), a.c0, a.n0,
       a.m0, a.h0, static_cast<__nv_bfloat16*>(a.hs), a.c1, a.n1, a.m1, a.h1,
-      static_cast<__nv_bfloat16*>(a.gs), a.cs, a.ns, a.ms, B, S, H);
+      static_cast<__nv_bfloat16*>(a.gs), a.cs, a.ns, a.ms, maps, B, S, H);
   return (int)cudaGetLastError();
 }
 

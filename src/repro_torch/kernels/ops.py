@@ -9,6 +9,8 @@ or launch raises; the same holds for the backward kernels.
 """
 from __future__ import annotations
 
+import contextvars
+
 import torch
 
 from repro_torch.kernels import decode_attention as _decode
@@ -20,6 +22,10 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import slstm_scan as _slstm
 
 FORCES = (None, "kernel", "ref")
+#: which pass of a layer under ``torch.utils.checkpoint`` runs: None
+#: outside one, "forward" in its first pass (whose saved tensors the
+#: checkpoint discards), "recompute" in the backward's recompute
+_REMAT = contextvars.ContextVar("remat_pass", default=None)
 #: GLA schedules: 'chunk' (K4, the reference's ``ops.gla`` target) or
 #: 'parallel' (K5, the chunk-parallel phases)
 GLA_SCHEDULES = ("chunk", "parallel")
@@ -102,6 +108,33 @@ def gla(q, k, v, lg, *, chunk, schedule="chunk", force=None):
     return fn(q, k, v, lg, chunk=chunk)
 
 
+class _RematMark:
+    """Marks the pass it guards (a ``with`` block) as ``name``."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.token = _REMAT.set(self.name)
+
+    def __exit__(self, *exc):
+        _REMAT.reset(self.token)
+
+
+def remat_context():
+    """The ``context_fn`` of a layer's non-reentrant ``checkpoint``
+    (``models/transformer.run_segments``): marks its first pass "forward"
+    and its recompute "recompute", so that a differentiable kernel saves
+    for its backward only where the backward reads it
+    (:func:`slstm_scan`)."""
+    return _RematMark("forward"), _RematMark("recompute")
+
+
+def remat_pass():
+    """The pass :func:`remat_context` marked (None outside a checkpoint)."""
+    return _REMAT.get()
+
+
 def slstm_scan(wx, r, state, *, force=None):
     """The sLSTM recurrence over wx's S positions from ``state`` = (c, n,
     m, h), each [B,H,dh] float32. wx: [B,S,4d] the hoisted input gates
@@ -112,11 +145,13 @@ def slstm_scan(wx, r, state, *, force=None):
     requires a gradient, through
     :class:`~repro_torch.kernels.slstm_scan.SLSTMScan` (the training
     forward, then the backward kernel and the dR product; the final state
-    takes no gradient); on the plain route through autograd of the plain
-    version."""
+    takes no gradient), and in a checkpoint's first pass, whose saved
+    tensors the recompute replaces, through the serving forward; on the
+    plain route through autograd of the plain version."""
     if _use_kernel(wx, force):
         if torch.is_grad_enabled() and (wx.requires_grad or r.requires_grad):
-            hs, *final = _slstm.SLSTMScan.apply(wx, r, *state)
+            save = remat_pass() != "forward"
+            hs, *final = _slstm.SLSTMScan.apply(wx, r, *state, save)
             return hs, tuple(final)
         return _slstm.slstm_scan(wx, r, state)
     return ref.slstm_scan(wx, r, state)

@@ -43,8 +43,10 @@ launches = 0
 train_launches = 0
 bwd_launches = 0
 #: the shared library the forward wrapper launches: None for the one built
-#: from ``csrc/slstm_scan.cu``, or the path of another build of it
+#: from ``csrc/slstm_scan.cu``, or the path of another build of it; and the
+#: backward's (``csrc/slstm_scan_bwd.cu``)
 library = None
+bwd_library = None
 
 CLUSTER = 8     # blocks a (head, row group) (``CLUSTER`` in the source)
 ROWS = 8        # rows a group at most (``ROWS``)
@@ -78,7 +80,7 @@ def _bind(path, entry):
 def _launch(entry, ptrs, B, S, H, dh, dtype, device):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _bind(None if entry == "repro_slstm_scan_bwd" else library, entry)(
+        rc = _bind(bwd_library if entry == "repro_slstm_scan_bwd" else library, entry)(
             *ptrs, B, S, H, dh, _DTYPES[dtype], stream)
     build.check(rc, entry)
 
@@ -186,13 +188,23 @@ class SLSTMScan(torch.autograd.Function):
     """:func:`slstm_scan` with its gradient from :func:`slstm_scan_bwd`: the
     forward launches the training variant and saves what it wrote with r,
     the start state and hs; the backward launches the backward kernel, then
-    the dR product. The final state takes no gradient (training discards
-    it; it is marked non-differentiable); the start state takes one only
-    when it requires it (the prefill's ``slstm_state0`` does not)."""
+    the dR product. With ``save`` False (a checkpoint's first pass, whose
+    saved tensors the recompute replaces) the forward launches the serving
+    kernel and saves placeholders of the same shapes and dtypes, one
+    element each (the checkpoint compares their metadata with the
+    recompute's). The final state takes no gradient (training discards it;
+    it is marked non-differentiable); the start state takes one only when
+    it requires it (the prefill's ``slstm_state0`` does not)."""
 
     @staticmethod
-    def forward(ctx, wx, r, c, n, m, h):
-        hs, final, saved = slstm_scan(wx, r, (c, n, m, h), states=True)
+    def forward(ctx, wx, r, c, n, m, h, save=True):
+        if save:
+            hs, final, saved = slstm_scan(wx, r, (c, n, m, h), states=True)
+        else:
+            hs, final = slstm_scan(wx, r, (c, n, m, h))
+            B, S, _ = wx.shape
+            saved = (wx.new_empty(()).expand(wx.shape),
+                     *(c.new_empty(()).expand(B, S, *c.shape[1:]) for _ in range(3)))
         ctx.save_for_backward(r, c, n, m, h, hs, *saved)
         ctx.mark_non_differentiable(*final)
         ctx.set_materialize_grads(False)  # no zeros filled for the final state's gradient
@@ -201,11 +213,11 @@ class SLSTMScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dhs, *_dfinal):
         if dhs is None:  # hs took no gradient
-            return (None,) * 6
+            return (None,) * 7
         r, c, n, m, h, hs, *saved = ctx.saved_tensors
         dwx, dr, dst = slstm_scan_bwd(r, (c, n, m, h), hs, tuple(saved), dhs.contiguous(),
-                                      dstate=any(ctx.needs_input_grad[2:]))
-        return (dwx, dr, *(dst or (None,) * 4))
+                                      dstate=any(ctx.needs_input_grad[2:6]))
+        return (dwx, dr, *(dst or (None,) * 4), None)
 
 
 def barrier(B: int, S: int, H: int, dh: int, device=None) -> None:

@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as X
@@ -240,7 +241,9 @@ def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None, lane=Non
     each layer runs under ``torch.utils.checkpoint`` (non-reentrant), which
     keeps only the layer's input and recomputes the layer in the backward,
     as the reference wraps each scanned layer in ``jax.checkpoint`` with
-    ``nothing_saveable``."""
+    ``nothing_saveable``; ``ops.remat_context`` marks the two passes, so
+    that the first, whose saved tensors are discarded, runs the sLSTM's
+    serving kernel and only the recompute its training forward."""
     aux = None
     if mode == "train":
         check_trainable(cfg)
@@ -254,7 +257,8 @@ def run_segments(cfg, params, h, *, mode, caches, pos=None, force=None, lane=Non
             fn = _train_layer(cfg, seg, force)
             for i in range(seg.n):
                 pi = tree_map(lambda t: t[i], layers) if seg.scanned else p
-                h, a = checkpoint(fn, pi, h, use_reentrant=False) if cfg.remat else fn(pi, h)
+                h, a = (checkpoint(fn, pi, h, use_reentrant=False, context_fn=ops.remat_context)
+                        if cfg.remat else fn(pi, h))
                 aux = _add(aux, a)
         return h, caches, aux
     for si, seg in enumerate(plan_segments(cfg)):

@@ -1055,8 +1055,9 @@ def _counts():
 def test_smoke_train_step_on_card_matches_plain_path(cuda, deterministic_restored, arch):
     """One float32 smoke-size step's loss and gradients on the card (K1's
     forward twice a layer under remat, the backward kernels once; hymba's
-    K4 twice a layer and its backward once; xLSTM's sLSTM training forward
-    twice a pair and its backward once, no attention) against the same
+    K4 twice a layer and its backward once; xLSTM's sLSTM serving kernel
+    in the checkpoint's first pass, its training forward in the recompute
+    and its backward once a pair, no attention) against the same
     step with the plain versions under autograd on the card: max |a - b| /
     max |b| <= 1e-4 per leaf (float32, the kernels' sums in another order,
     as the CPU parity tests)."""
@@ -1077,7 +1078,7 @@ def test_smoke_train_step_on_card_matches_plain_path(cuda, deterministic_restore
     pairs = L // 2 if arch == "xlstm-350m" else 0
     step = (n0[0] + 2 * attn, n0[1] + attn, n0[2] + attn, n0[3] + 2 * ssd, n0[4] + ssd)
     s0 = (SL.launches, SL.train_launches, SL.bwd_launches)
-    s1 = (s0[0], s0[1] + 2 * pairs, s0[2] + pairs)
+    s1 = (s0[0] + pairs, s0[1] + pairs, s0[2] + pairs)
     grads, total, _, _ = ST.loss_and_grads(tr.model, tr.params, batch)
     assert _counts() == step and (SL.launches, SL.train_launches, SL.bwd_launches) == s1
     want, want_total, _, _ = ST.loss_and_grads(Model(cfg, force="ref"), tr.params, batch)
@@ -1085,6 +1086,41 @@ def test_smoke_train_step_on_card_matches_plain_path(cuda, deterministic_restore
     assert abs(total.item() - want_total.item()) <= 1e-5 * abs(want_total.item())
     for a, b in zip(tree_leaves(grads), tree_leaves(want)):
         assert _rel(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xlstm_remat_step_on_card_equals_the_step_without(cuda, deterministic_restored, dtype):
+    """A two-pair xLSTM step under remat launches the sLSTM's serving kernel
+    in each checkpoint's first pass, its training forward in the recompute
+    and its backward once (2 + 2 + 2), and gives the loss and gradients of
+    the same step with remat off (one training forward and one backward a
+    pair) bit for bit, under the trainer's deterministic mode."""
+    import dataclasses
+
+    from repro_torch import steps as ST
+    from repro_torch.data import synth_batch
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import Model
+    from repro_torch.models.params import tree_leaves
+    cfg = dataclasses.replace(smoke_config("xlstm-350m"), param_dtype=dtype,
+                              compute_dtype=dtype)
+    assert cfg.n_layers == 4 and cfg.remat
+    tr = Trainer(cfg, batch_size=2, seq_len=48, device=cuda)
+    tr.pipeline.stop()
+    assert torch.are_deterministic_algorithms_enabled()
+    tr.init_state()
+    batch = tr._device_batch(synth_batch(cfg, 2, 48, 1, 0))
+    got = {}
+    for remat in (True, False):
+        s0 = (SL.launches, SL.train_launches, SL.bwd_launches)
+        got[remat] = ST.loss_and_grads(Model(dataclasses.replace(cfg, remat=remat)),
+                                       tr.params, batch)
+        n = (SL.launches - s0[0], SL.train_launches - s0[1], SL.bwd_launches - s0[2])
+        assert n == ((2, 2, 2) if remat else (0, 2, 2))
+    (g_on, total_on, _, _), (g_off, total_off, _, _) = got[True], got[False]
+    assert torch.equal(total_on, total_off)
+    for a, b in zip(tree_leaves(g_on), tree_leaves(g_off)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "hymba-1.5b", "xlstm-350m"])
@@ -2480,10 +2516,13 @@ def _same_scan(a, b):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,S,H,dh", [(4, 1024, 4, 256), (4, 1, 4, 256), (1, 1, 4, 256),
-                                      (3, 37, 2, 64), (9, 20, 1, 32)])
+                                      (3, 37, 2, 64), (9, 20, 1, 32), (2, 17, 2, 96),
+                                      (3, 5, 1, 160)])
 def test_slstm_scan_matches_plain(cuda, B, S, H, dh, dtype):
     """xlstm-350m's prefill (B4 S1024), decode step (B4 S1) and fleet lane
-    (B1 S1) from a prefill's state, the smoke width, and two row groups."""
+    (B1 S1) from a prefill's state, the smoke width, two row groups, and
+    head widths whose block slice of R is staged in 8-byte copies (96,
+    160)."""
     wx, r = _slstm_inputs(cuda, B, S + 8, H, dh, dtype)
     st0 = ref.slstm_state0(B, H, dh, cuda)
     start = ref.slstm_scan(wx[:, :8].contiguous(), r, st0)[1]
@@ -2555,13 +2594,22 @@ def _slstm_bwd_inputs(cuda, B, S, H, dh, dtype, warm, seed=2):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,S,H,dh,warm", [(4, 1024, 4, 256, False), (2, 300, 4, 256, True),
                                            (1, 64, 4, 256, False), (3, 37, 2, 64, True),
-                                           (9, 5, 1, 32, True)])
+                                           (9, 5, 1, 32, True), (2, 1, 4, 256, True),
+                                           (4, 2, 4, 256, False), (9, 45, 2, 96, True),
+                                           (5, 33, 3, 32, False), (1, 2, 1, 96, True),
+                                           (3, 19, 2, 128, True), (6, 9, 1, 192, False)])
 def test_slstm_scan_bwd_matches_plain(cuda, B, S, H, dh, warm, dtype):
     """The training forward's hs and final state equal the serving launch's
     bit for bit and its saved gates and states hold to the plain ones; the
     backward fed by them, and by the plain forward's, holds to
     ``ref.slstm_scan_bwd`` (dwx, dR, and from a warm start the start
-    state's dc, dn, dm, dh); one launch each."""
+    state's dc, dn, dm, dh); one launch each. Beside xlstm-350m's shapes
+    the edges: S = 1 and 2 (the backward's two-step-ahead loads and
+    coefficients past the start, the training forward's first staged
+    chunk), S not a multiple of the forward's staged chunks, odd and
+    single rows (a row pair half empty), two row groups (B = 9), head
+    widths 32 and 96 (one and three k steps a product; the forward's saves
+    stored by each cell) and 64, 128, 192 (staged)."""
     x, r, st0, dhs = _slstm_bwd_inputs(cuda, B, S, H, dh, dtype, warm)
     tol = GLA_TOL[dtype]
     n0 = (SL.launches, SL.train_launches, SL.bwd_launches)
@@ -2587,10 +2635,10 @@ def test_slstm_scan_bwd_matches_plain(cuda, B, S, H, dh, warm, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_slstm_scan_bwd_bit_equalities(cuda, dtype):
-    """Two runs agree bit for bit, and each row at B = 4 is that row alone
-    at B = 1, the start state's gradient included."""
-    B, S, H, dh = 4, 129, 4, 256
+@pytest.mark.parametrize("B,S,H,dh", [(4, 129, 4, 256), (9, 37, 2, 96), (3, 1, 1, 32)])
+def test_slstm_scan_bwd_bit_equalities(cuda, B, S, H, dh, dtype):
+    """Two runs agree bit for bit, and each row at B is that row alone at
+    B = 1, the start state's gradient included."""
     x, r, st0, dhs = _slstm_bwd_inputs(cuda, B, S, H, dh, dtype, True, seed=3)
     hs, _, saved = SL.slstm_scan(x, r, st0, states=True)
     a = SL.slstm_scan_bwd(r, st0, hs, saved, dhs, dstate=True)

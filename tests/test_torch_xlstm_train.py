@@ -291,6 +291,33 @@ def test_block_train_mode_matches_jax_vjp(jparams, blk):
         assert _rel(g, want) <= 1e-4, k
 
 
+@pytest.mark.parametrize("remat", [True, False])
+def test_remat_marks_the_recompute_alone(monkeypatch, remat):
+    """A train step under remat runs each sLSTM layer's scan twice, in the
+    checkpoint's first pass marked "forward" and in the backward's
+    recompute marked "recompute" (``ops.remat_context``), where the kernel
+    route launches the serving kernel and the training forward; without
+    remat once, unmarked. Outside a step nothing is marked."""
+    from repro_torch import steps as ST
+    from repro_torch.data import synth_batch
+    from repro_torch.models import Model
+    seen = []
+    plain = ref.slstm_scan
+
+    def spy(*a, **k):
+        seen.append(ops.remat_pass())
+        return plain(*a, **k)
+    monkeypatch.setattr(ref, "slstm_scan", spy)
+    cfg = dataclasses.replace(CFG, remat=remat)
+    model = Model(cfg)
+    params = model.init(0, "cpu")
+    batch = {k: torch.from_numpy(v).long() for k, v in synth_batch(cfg, B, 16, 1, 0).items()}
+    ST.loss_and_grads(model, params, batch)
+    pairs = cfg.n_layers // 2
+    assert seen == (["forward"] * pairs + ["recompute"] * pairs if remat else [None] * pairs)
+    assert ops.remat_pass() is None
+
+
 def test_blocks_refuse_a_mode_they_do_not_take():
     for apply in (X.mlstm_apply, X.slstm_apply):
         with pytest.raises(NotImplementedError, match="train"):
